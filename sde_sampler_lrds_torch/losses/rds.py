@@ -1,0 +1,198 @@
+"""Reference-based diffusion sampler (RDS) losses: EM / EI / DDPM integrators
+(counterpart of sde_sampler_lrds_tpu/losses/rds.py; ``kl_fused_call`` and
+``compute_eubo`` are not ported yet).
+
+RND accumulation per step, with terminal cost log p_ref(x_T) − log ρ(x_T):
+
+  EM  :  rnd += cost·dt + u·dB,  x += (−f + g²·s_ref + g·ū)dt + g·dB
+  EI  :  rnd += ω(s,t)·cost + √ω·u·z,  x = ei_step(x, s_ref+ū, z)
+  DDPM:  same with ω_ddpm and the DDPM-like kernel
+
+KL cost = ½‖u‖²; LV cost = u·(ū−½u) with ū detached. The JAX package's
+``lax.scan`` over steps is a Python loop here; all per-step schedule values
+are precomputed as grid tensors.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .base import BaseOCLoss, compute_results, flat_ctrl_eval
+
+
+def _step_noise(noise, k, generator, x):
+    return noise[k] if noise is not None else torch.randn(
+        x.shape, generator=generator, device=x.device)
+
+
+class EMReferenceSDELoss(BaseOCLoss):
+    """RDS loss with the Euler-Maruyama integrator."""
+
+    def __init__(self, *args, reference_ctrl: Callable | None = None,
+                 use_rescaling: bool = True, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.reference_ctrl = reference_ctrl
+        self.use_rescaling = use_rescaling
+
+    def simulate(self, generator, ts, x, ctrl, terminal_unnorm_log_prob,
+                 reference_log_prob, change_sde_ctrl: bool = False,
+                 return_traj: bool = False, noise: torch.Tensor | None = None):
+        """(x_T, rnd, xs or None). ``noise`` (K, B, D), when given, replaces
+        the draws from ``generator``; xs holds all K+1 states."""
+        if not hasattr(self.sde, "drift_coeff_t"):
+            raise NotImplementedError("only linear SDEs are ported")
+        T = ts[-1]
+        s_arr, t_arr = ts[:-1], ts[1:]
+        t_ctrl = T - s_arr
+        dt_arr = t_arr - s_arr
+        sqdt_arr = torch.sqrt(dt_arr)
+        diff_arr = self.sde.diff_coeff_t(t_ctrl)
+        drift_arr = self.sde.drift_coeff_t(t_ctrl)
+        tabulated = hasattr(self.reference_ctrl, "precompute")
+        tab = self.reference_ctrl.precompute(t_ctrl) if tabulated else None
+        rnd = torch.zeros((x.shape[0],), dtype=x.dtype, device=x.device)
+        traj = [x]
+        for k in range(t_ctrl.shape[0]):
+            tc, dt, diff = t_ctrl[k], dt_arr[k], diff_arr[k]
+            u = ctrl(tc, x)
+            sde_ctrl = u.detach() if change_sde_ctrl else u
+            if not self.use_rescaling:
+                u = u * diff
+                sde_ctrl = sde_ctrl * diff
+            rnd = rnd + self.running_cost(u, sde_ctrl, change_sde_ctrl) * dt
+            db = sqdt_arr[k] * _step_noise(noise, k, generator, x)
+            drift = -(drift_arr[k] * x)
+            if self.reference_ctrl is not None:
+                ref_score = (self.reference_ctrl.apply(tuple(a[k] for a in tab), x)
+                             if tabulated else self.reference_ctrl(tc, x))
+                drift = drift + torch.square(diff) * ref_score
+            x = x + (drift + diff * sde_ctrl) * dt + diff * db
+            rnd = rnd + torch.sum(u * db, dim=-1)
+            if return_traj:
+                traj.append(x)
+        rnd = rnd + reference_log_prob(x) - terminal_unnorm_log_prob(x)
+        return x, rnd, (torch.stack(traj) if return_traj else None)
+
+    def __call__(self, generator, ts, x, ctrl, terminal_unnorm_log_prob,
+                 reference_log_prob, noise=None):
+        x = self.repeat_traj(x)
+        samples, rnd, _ = self.simulate(
+            generator, ts, x, ctrl, terminal_unnorm_log_prob, reference_log_prob,
+            change_sde_ctrl=self.is_lv, return_traj=False, noise=noise)
+        return self.reduce(rnd, samples=samples)
+
+    # -- flat LV training path ---------------------------------------------
+    def supports_flat_lv(self, ts, call_args: frozenset) -> bool:
+        return (call_args == frozenset({"terminal_unnorm_log_prob",
+                                        "reference_log_prob"})
+                and self._flat_grids(ts) is not None)
+
+    def _flat_grids(self, ts):
+        """(c_cost, c_dot, u_scale) per step for ``lv_flat_call``: the RND is
+        Σ_k c_cost·cost(u_scale·u_k) + c_dot·(u_scale·u_k)·z_k."""
+        if not hasattr(self.sde, "drift_coeff_t"):
+            return None
+        t_ctrl = ts[-1] - ts[:-1]
+        dt = ts[1:] - ts[:-1]
+        scale = (torch.ones_like(dt) if self.use_rescaling
+                 else torch.broadcast_to(self.sde.diff_coeff_t(t_ctrl), dt.shape))
+        return dt, torch.sqrt(dt), scale
+
+    def lv_flat_call(self, generator, ts, x, ctrl, terminal_unnorm_log_prob,
+                     reference_log_prob, traj_fn=None, noise=None):
+        """LV training as gradient-free simulation + flat batched cost.
+
+        The log-variance loss detaches the simulation control, so the
+        trajectory carries no parameter gradient — only the per-step cost
+        c_cost·u·(ū−½u) + c_dot·u·z does, evaluated at the frozen (x_k, z_k).
+        The simulation runs without autograd (through the fused trajectory
+        kernel when ``traj_fn(x0, zs) -> (xs, x_T)`` is given) and ONE batched
+        control evaluation over all K·B states carries the gradient."""
+        grids = self._flat_grids(ts)
+        if grids is None:
+            raise ValueError("the flat LV path needs a linear SDE")
+        c_cost, c_dot, u_scale = grids
+        x, zs = self._flat_lv_setup(generator, ts, x, noise=noise)
+        with torch.no_grad():
+            if traj_fn is not None:
+                xs, x_t = traj_fn(x, zs)
+            else:
+                x_t, _, xs_all = self.simulate(
+                    None, ts, x, ctrl, terminal_unnorm_log_prob,
+                    reference_log_prob, change_sde_ctrl=True, return_traj=True,
+                    noise=zs)
+                xs = xs_all[:-1]
+        u = flat_ctrl_eval(ctrl, ts[-1] - ts[:-1], xs) * u_scale[:, None, None]
+        u_bar = u.detach()
+        cost = torch.sum(u * (u_bar - 0.5 * u), dim=-1)               # (K, B)
+        ito = torch.sum(u * zs, dim=-1)                               # (K, B)
+        rnd = torch.sum(c_cost[:, None] * cost + c_dot[:, None] * ito, dim=0)
+        rnd = rnd + reference_log_prob(x_t) - terminal_unnorm_log_prob(x_t)
+        return self.reduce(rnd, samples=x_t)
+
+    @torch.no_grad()
+    def eval(self, generator, ts, x, ctrl, terminal_unnorm_log_prob,
+             reference_log_prob, compute_weights: bool = True,
+             return_traj: bool = True, noise=None):
+        samples, rnd, xs = self.simulate(
+            generator, ts, x, ctrl, terminal_unnorm_log_prob, reference_log_prob,
+            change_sde_ctrl=False, return_traj=return_traj, noise=noise)
+        return compute_results(rnd, compute_weights=compute_weights, ts=ts,
+                               max_rnd=self.max_rnd, samples=samples, xs=xs)
+
+
+class EIReferenceSDELoss(EMReferenceSDELoss):
+    """RDS loss with the exponential integrator (no rescaling: the control
+    output lives directly in score units)."""
+
+    def __init__(self, *args, reference_ctrl: Callable | None = None, **kwargs):
+        kwargs["use_rescaling"] = False
+        super().__init__(*args, reference_ctrl=reference_ctrl, **kwargs)
+
+    def _omega(self, s, t):
+        return self.sde.omega(s, t)
+
+    def _step_coeffs(self, s, t):
+        return self.sde.ei_step_coeffs(s, t)
+
+    def _flat_grids(self, ts):
+        omega = self._omega(ts[:-1], ts[1:])
+        return omega, torch.sqrt(omega), torch.ones_like(omega)
+
+    def simulate(self, generator, ts, x, ctrl, terminal_unnorm_log_prob,
+                 reference_log_prob, change_sde_ctrl: bool = False,
+                 return_traj: bool = False, noise: torch.Tensor | None = None):
+        s_arr, t_arr = ts[:-1], ts[1:]
+        t_ctrl = ts[-1] - s_arr
+        omega = self._omega(s_arr, t_arr)
+        sq_omega = torch.sqrt(omega)
+        a_x, a_s, a_z = self._step_coeffs(s_arr, t_arr)
+        tabulated = hasattr(self.reference_ctrl, "precompute")
+        tab = self.reference_ctrl.precompute(t_ctrl) if tabulated else None
+        rnd = torch.zeros((x.shape[0],), dtype=x.dtype, device=x.device)
+        traj = [x]
+        for k in range(t_ctrl.shape[0]):
+            tc = t_ctrl[k]
+            ref_score = (self.reference_ctrl.apply(tuple(a[k] for a in tab), x)
+                         if tabulated else self.reference_ctrl(tc, x))
+            u = ctrl(tc, x)
+            sde_ctrl = u.detach() if change_sde_ctrl else u
+            rnd = rnd + omega[k] * self.running_cost(u, sde_ctrl, change_sde_ctrl)
+            z = _step_noise(noise, k, generator, x)
+            x = a_x[k] * x + a_s[k] * (ref_score + sde_ctrl) + a_z[k] * z
+            rnd = rnd + sq_omega[k] * torch.sum(u * z, dim=-1)
+            if return_traj:
+                traj.append(x)
+        rnd = rnd + reference_log_prob(x) - terminal_unnorm_log_prob(x)
+        return x, rnd, (torch.stack(traj) if return_traj else None)
+
+
+class DDPMLikeReferenceSDELoss(EIReferenceSDELoss):
+    """RDS loss with the DDPM-like kernel."""
+
+    def _omega(self, s, t):
+        return self.sde.omega_ddpm(s, t)
+
+    def _step_coeffs(self, s, t):
+        return self.sde.ddpm_step_coeffs(s, t)

@@ -1,0 +1,85 @@
+"""Batched MALA (counterpart of sde_sampler_lrds_tpu/mcmc/kernels.py; the
+preconditioned, ULA and RWMH kernels are not ported yet). The state caches
+log-probs and scores so each step costs one log_prob_and_grad evaluation;
+per-chain step sizes adapt by the log-space acceptance heuristic."""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+
+class MCMCState(NamedTuple):
+    """Chain state: positions (B, D), cached log-probs (B,), cached scores
+    (B, D), per-chain step sizes (B, 1)."""
+
+    x: torch.Tensor
+    log_prob: torch.Tensor
+    grad: torch.Tensor
+    step_size: torch.Tensor
+
+    @classmethod
+    def init(cls, x, log_prob_and_grad: Callable, step_size):
+        lp, g = log_prob_and_grad(x)
+        step_size = torch.full((x.shape[0],) + (1,) * (x.ndim - 1), float(step_size),
+                               dtype=x.dtype, device=x.device)
+        return cls(x=x, log_prob=lp, grad=g, step_size=step_size)
+
+
+def heuristics_step_size(step_size, log_acc, target_acceptance: float = 0.75,
+                         factor: float = 1.01, tol: float = 0.05):
+    """Per-chain multiplicative step-size adaptation in log space: grow when
+    acceptance is above target, shrink when below."""
+    la = log_acc.reshape((-1,) + (1,) * (step_size.ndim - 1))
+    log_t = math.log(target_acceptance)
+    up = (la - log_t) > math.log1p(tol)
+    down = (log_t - la) > -math.log1p(-tol)
+    return torch.where(up, step_size * factor,
+                       torch.where(down, step_size / factor, step_size))
+
+
+def mala_step(generator, state: MCMCState, log_prob_and_grad: Callable,
+              noise: torch.Tensor | None = None, uniforms: torch.Tensor | None = None):
+    """Metropolis-adjusted Langevin step; returns (new_state, log_acc (B,)).
+    ``noise`` (B, D) and ``uniforms`` (B,) replace the proposal and
+    acceptance draws when fed."""
+    x, ss = state.x, state.step_size
+    if noise is None:
+        noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    y = x + ss * state.grad + torch.sqrt(2.0 * ss) * noise
+    lp_y, g_y = log_prob_and_grad(y)
+    axes = tuple(range(1, x.ndim))
+    # q(y|x) = N(x + ss·grad, 2·ss·I)  ->  log q = -‖.‖² / (4·ss)
+    fwd = -torch.sum((y - x - ss * state.grad) ** 2, dim=axes) / (4 * ss[:, 0])
+    bwd = -torch.sum((x - y - ss * g_y) ** 2, dim=axes) / (4 * ss[:, 0])
+    log_acc = (lp_y + bwd) - (state.log_prob + fwd)
+    if uniforms is None:
+        uniforms = torch.rand(log_acc.shape, generator=generator, device=x.device,
+                              dtype=x.dtype)
+    accept = torch.log(uniforms) < log_acc
+    acc_col = accept.reshape((-1,) + (1,) * (x.ndim - 1))
+    new = state._replace(x=torch.where(acc_col, y, x),
+                         log_prob=torch.where(accept, lp_y, state.log_prob),
+                         grad=torch.where(acc_col, g_y, state.grad))
+    return new, log_acc
+
+
+@torch.no_grad()
+def run_chain(generator, state: MCMCState, log_prob_and_grad: Callable, n_steps: int,
+              kernel: str = "mala", target_acceptance: float = 0.75,
+              collect: bool = True):
+    """n_steps of MALA with step-size adaptation; returns (final_state,
+    samples (n_steps, B, D) or None)."""
+    if kernel != "mala":
+        raise NotImplementedError(f"MCMC kernel {kernel!r} is not ported")
+    samples = (torch.empty((n_steps, *state.x.shape), dtype=state.x.dtype,
+                           device=state.x.device) if collect else None)
+    for i in range(n_steps):
+        state, log_acc = mala_step(generator, state, log_prob_and_grad)
+        if target_acceptance > 0.0:
+            state = state._replace(step_size=heuristics_step_size(
+                state.step_size, log_acc, target_acceptance=target_acceptance))
+        if collect:
+            samples[i] = state.x
+    return state, samples

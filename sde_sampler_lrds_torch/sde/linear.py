@@ -1,0 +1,185 @@
+"""Linear (Ornstein-Uhlenbeck-type) SDE algebra in closed form (counterpart
+of sde_sampler_lrds_tpu/sde/linear.py: the OU base and VP).
+
+dX_t = k(t) X dt + g(t) dW_t with scale s(t) = exp(∫k) and
+sigma_sq(t) = ∫ g²/s². "Noising time" t runs 0 → T; the generative losses use
+T - t. Times may be Python floats or float32 tensors; schedules evaluate in
+float32 as the JAX package does. Noised Gaussian / GMM marginals cover scalar
+and diagonal variances; the eigen-factored and full-covariance branches are
+not ported yet and raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..targets.gauss import (log_prob_gaussian, mog_log_prob, score_gauss,
+                             score_mog)
+
+
+def _f32(t) -> torch.Tensor:
+    return torch.as_tensor(t, dtype=torch.float32)
+
+
+def _diag_only(var_init, full_ndim: int):
+    if isinstance(var_init, tuple) or (
+            var_init is not None and var_init.ndim == full_ndim):
+        raise NotImplementedError(
+            "full-covariance (or eigen-factored) noised marginals are not "
+            "ported yet; pass diagonal variances")
+
+
+class OU:
+    """Generic linear SDE dX = drift_coeff_t(t)·X dt + diff_coeff_t(t) dW."""
+
+    def __init__(self, terminal_t: float = 1.0):
+        self.terminal_t = float(terminal_t)
+
+    # -- schedule (subclass responsibility) --------------------------------
+    def drift_coeff_t(self, t):
+        raise NotImplementedError
+
+    def diff_coeff_t(self, t):
+        raise NotImplementedError
+
+    def s(self, t):
+        """exp(∫₀ᵗ drift_coeff_t(u) du)."""
+        raise NotImplementedError
+
+    def sigma_sq(self, t):
+        """∫₀ᵗ diff_coeff_t(u)²/s(u)² du."""
+        raise NotImplementedError
+
+    def ei_step_coeffs(self, s, t):
+        """(a_x, a_s, a_z) of the exponential-integrator step
+        x' = a_x·x + a_s·score + a_z·z."""
+        raise NotImplementedError
+
+    def ddpm_step_coeffs(self, s, t):
+        """(a_x, a_s, a_z) of the DDPM-like step."""
+        raise NotImplementedError
+
+    # -- noised marginals of Gaussian / GMM references ---------------------
+    def marginal_params(self, t, x_init, var_init=None, is_mixture: bool = False):
+        """Noised marginal of N(x_init, var_init): loc = s·x_init,
+        var = s²(σ² + var_init). var_init may be None (scalar variance
+        s²σ²) or diagonal (…, D)."""
+        _diag_only(var_init, 3 if is_mixture else 2)
+        s_t = self.s(t)
+        loc = s_t * x_init
+        var = s_t**2 * self.sigma_sq(t)
+        if var_init is None:
+            return loc, var
+        return loc, var + s_t**2 * var_init
+
+    def marginal_log_prob(self, t, x, x_init, var_init=None):
+        """log N(x; marginal_params) for a Gaussian reference, x (B, D) -> (B,)."""
+        _diag_only(var_init, 2)
+        loc, var = self.marginal_params(
+            t, torch.atleast_2d(x_init), var_init=_lift(var_init), is_mixture=True)
+        var = torch.broadcast_to(var, loc.shape)
+        return log_prob_gaussian(x, loc, var)[:, 0]
+
+    def marginal_score(self, t, x, x_init, var_init=None):
+        """Score of the noised Gaussian reference at (t, x)."""
+        loc, var = self.marginal_params(t, x_init, var_init=var_init)
+        return score_gauss(x, loc, var)
+
+    def marginal_gmm_params(self, t, means_init, variances_init, weights_init=None):
+        means, variances = self.marginal_params(
+            t, x_init=means_init, var_init=variances_init, is_mixture=True)
+        if weights_init is None:
+            weights = torch.ones((means.shape[0],), device=means.device) / means.shape[0]
+        else:
+            weights = weights_init
+        return weights, means, variances
+
+    def marginal_gmm_log_prob(self, t, x, means_init, variances_init, weights_init=None):
+        w, m, v = self.marginal_gmm_params(t, means_init, variances_init, weights_init)
+        return mog_log_prob(x, w, m, torch.broadcast_to(v, m.shape))
+
+    def marginal_gmm_score(self, t, x, means_init, variances_init, weights_init=None):
+        w, m, v = self.marginal_gmm_params(t, means_init, variances_init, weights_init)
+        return score_mog(x, w, m, torch.broadcast_to(v, m.shape))
+
+
+def _lift(var_init):
+    """Broadcast a single-Gaussian var_init to the (1, ...) mixture layout."""
+    if var_init is None:
+        return None
+    return var_init[None] if var_init.ndim in (1, 2) else var_init
+
+
+class VP(OU):
+    """Variance-preserving SDE with a linear β schedule:
+    α(t) = β_min t + t²(β_max-β_min)/(2T);  s(t) = e^{-α/2};
+    σ²(t) = c²(1/s² - 1) with c = scale_diff_coeff; stationary N(0, c²)."""
+
+    def __init__(self, diff_coeff_sq_min: float = 0.1, diff_coeff_sq_max: float = 20.0,
+                 scale_diff_coeff: float = 1.0, **kwargs):
+        super().__init__(**kwargs)
+        self.diff_coeff_sq_min = float(diff_coeff_sq_min)
+        self.diff_coeff_sq_max = float(diff_coeff_sq_max)
+        self.scale_diff_coeff = float(scale_diff_coeff)
+
+    def _diff_coeff_sq_t(self, t):
+        u = _f32(t) / self.terminal_t
+        return self.diff_coeff_sq_min + u * (self.diff_coeff_sq_max - self.diff_coeff_sq_min)
+
+    def drift_coeff_t(self, t):
+        return -0.5 * self._diff_coeff_sq_t(t)
+
+    def diff_coeff_t(self, t):
+        return self.scale_diff_coeff * torch.sqrt(self._diff_coeff_sq_t(t))
+
+    def alpha_(self, t):
+        """∫₀ᵗ β(u) du for the linear schedule."""
+        t = _f32(t)
+        return self.diff_coeff_sq_min * t + (0.5 * t**2 / self.terminal_t) * (
+            self.diff_coeff_sq_max - self.diff_coeff_sq_min)
+
+    def transition_params(self, s, t):
+        lam = -torch.expm1(self.alpha_(s) - self.alpha_(t))
+        return torch.sqrt(1.0 - lam), self.scale_diff_coeff**2 * lam
+
+    def s(self, t):
+        return torch.exp(-0.5 * self.alpha_(t))
+
+    def sigma_sq(self, t):
+        return self.scale_diff_coeff**2 * torch.expm1(self.alpha_(t))
+
+    # -- numerically stable EI/DDPM pieces ---------------------------------
+    def lambda_(self, t_k, t_k_p_1):
+        T = self.terminal_t
+        return torch.expm1(self.alpha_(T - _f32(t_k)) - self.alpha_(T - _f32(t_k_p_1)))
+
+    def omega(self, t_k, t_k_p_1):
+        """EI loss weight 4c²·tanh(Δα/4)."""
+        T = self.terminal_t
+        d_alpha = self.alpha_(T - _f32(t_k)) - self.alpha_(T - _f32(t_k_p_1))
+        return 4.0 * self.scale_diff_coeff**2 * torch.tanh(d_alpha / 4.0)
+
+    def omega_ddpm(self, t_k, t_k_p_1):
+        T = self.terminal_t
+        lam_k = -torch.expm1(-self.alpha_(T - _f32(t_k)))
+        lam_k1 = -torch.expm1(-self.alpha_(T - _f32(t_k_p_1)))
+        return self.scale_diff_coeff**2 * (lam_k / lam_k1) * self.lambda_(t_k, t_k_p_1)
+
+    def ei_step_coeffs(self, s, t):
+        lam = self.lambda_(s, t)
+        root = torch.sqrt(1.0 + lam)
+        return (root, 2.0 * self.scale_diff_coeff**2 * (root - 1.0),
+                self.scale_diff_coeff * torch.sqrt(lam))
+
+    def ddpm_step_coeffs(self, s, t):
+        """Numerically stable DDPM coefficients."""
+        T = self.terminal_t
+        s, t = _f32(s), _f32(t)
+        lam = self.lambda_(s, t)
+        lam_rev = -torch.expm1(self.alpha_(T - t) - self.alpha_(T - s))
+        lam_k = -torch.expm1(-self.alpha_(T - s))
+        lam_k1 = -torch.expm1(-self.alpha_(T - t))
+        d_alpha = (self.alpha_(T - s) - self.alpha_(T - t)) / 2.0
+        var = self.scale_diff_coeff**2 * lam_rev * (lam_k1 / lam_k)
+        return (torch.sqrt(1.0 + lam),
+                2.0 * self.scale_diff_coeff**2 * torch.sinh(d_alpha),
+                torch.sqrt(var))

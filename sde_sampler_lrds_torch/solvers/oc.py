@@ -1,0 +1,262 @@
+"""Diffusion-based samplers (counterpart of sde_sampler_lrds_tpu/solvers/oc.py;
+only TrainableDiff, the tabulated Gaussian / GMM reference controls and RDS
+are ported yet, with reference types 'default', 'gaussian' and 'gmm').
+
+Routing, as in the JAX package: plain-LV training takes the flat path
+(``lv_flat_call``), whose gradient-free simulation runs through
+``ops/fused_traj`` when the (loss, control, reference) triple is in the
+kernel's scope; an evaluation without trajectories runs through the same
+operation with its noise drawn in the kernel. ``fused_traj`` launches the
+CUDA kernel for tensors on the card and runs its plain version for tensors
+on the CPU, so the paths are named after the device: 'flat_lv_fused' /
+'fused' on CUDA, 'flat_lv_plain' / 'plain' on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..losses.base import compute_results
+from ..ops.fused_traj import build_plan, fused_simulate, fused_traj_states
+from ..targets.base import Target
+from ..targets.gauss import score_gauss, score_mog
+from ..utils.common import Results, clip_norm
+from .base import Trainable, TrainConfig
+
+_CALL_ARGS = {"terminal_unnorm_log_prob", "reference_log_prob", "initial_log_prob"}
+
+
+class TrainableDiff(Trainable):
+    """Shared machinery for diffusion samplers."""
+
+    def __init__(self, target: Target, prior, sde, generative_ctrl,
+                 loss_cls, loss_kwargs: dict | None = None,
+                 train_ts=None, eval_ts=None, clip_target: float | None = None,
+                 cfg: TrainConfig | None = None, device=None):
+        super().__init__(target, cfg=cfg, device=device)
+        self.prior = prior
+        self.sde = sde
+        self.generative_ctrl = generative_ctrl.to(self.device)
+        self.loss_cls = loss_cls
+        self.loss_kwargs = dict(loss_kwargs or {})
+        self.train_ts = train_ts
+        self.eval_ts = eval_ts if eval_ts is not None else train_ts
+        self.clip_target = clip_target
+        self.loss = None
+        self.setup_models()
+
+    @property
+    def module(self) -> torch.nn.Module:
+        return self.generative_ctrl
+
+    # -- model / loss wiring ----------------------------------------------
+    def setup_models(self):
+        self.loss_kwargs.setdefault("filter_samples", getattr(self.target, "filter", None))
+        self.loss = self.loss_cls(sde=self.sde, **self.loss_kwargs)
+
+    def clipped_target_unnorm_log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        return clip_norm(self.target.unnorm_log_prob(x), self.clip_target)
+
+    def loss_call_args(self, use_ema: bool = False) -> dict:
+        """Terminal/initial/reference log-prob wiring per algorithm."""
+        raise NotImplementedError
+
+    # -- training ------------------------------------------------------------
+    def loss_fn(self, generator, x0=None, noise=None):
+        """(loss, metrics) for one batch of ``train_batch_size`` prior draws
+        (or the fed ``x0``, with the fed per-step ``noise``)."""
+        x = x0 if x0 is not None else self.prior.sample(
+            generator, (self.cfg.train_batch_size,))
+        if self._flat_lv_ok():
+            return self.loss.lv_flat_call(
+                generator, self.train_ts, x, self.generative_ctrl,
+                traj_fn=self._flat_traj_fn(), noise=noise, **self.loss_call_args())
+        return self.loss(generator, self.train_ts, x, self.generative_ctrl,
+                         noise=noise, **self.loss_call_args())
+
+    def _flat_lv_ok(self) -> bool:
+        """Flat LV training path eligibility (``TrainConfig.flat_lv``)."""
+        mode = self.cfg.flat_lv
+        if mode not in ("auto", "off"):
+            raise ValueError(f"train.flat_lv must be 'auto' or 'off', got {mode!r}")
+        return (mode == "auto" and self.loss.is_lv
+                and hasattr(self.loss, "lv_flat_call")
+                and self.loss.supports_flat_lv(self.train_ts,
+                                               frozenset(self.loss_call_args())))
+
+    def _flat_traj_fn(self):
+        """The fused trajectory for the flat LV path, ``(x0, zs) -> (xs,
+        x_T)``, or None (lv_flat_call then simulates with the loss's loop)
+        when the triple is outside the kernel's scope."""
+        plan = build_plan(self.loss, self.generative_ctrl, self.train_ts)
+        if plan is None:
+            return None
+        cfg, arrays = plan
+        return lambda x0, zs: fused_traj_states(cfg, arrays, x0, zs)
+
+    def _fused_name(self, name: str) -> str:
+        return name + ("fused" if self.device.type == "cuda" else "plain")
+
+    def train_path(self) -> str:
+        """Which training path ``loss_fn`` takes for the current config:
+        'flat_lv_fused' (CUDA kernel) / 'flat_lv_plain' (its plain version on
+        the CPU), 'flat_lv_scan' (the loss's own loop), or 'scan'."""
+        if self._flat_lv_ok():
+            return (self._fused_name("flat_lv_") if self._flat_traj_fn() is not None
+                    else "flat_lv_scan")
+        return "scan"
+
+    # -- evaluation --------------------------------------------------------
+    def _fused_eval_plan(self, use_ema: bool = True):
+        """build_plan for the eval grid, or None when the fused eval is
+        switched off or out of scope."""
+        mode = self.cfg.fused_eval
+        if mode not in ("auto", "off"):
+            raise ValueError(f"train.fused_eval must be 'auto' or 'off', got {mode!r}")
+        args = set(self.loss_call_args())
+        if mode == "off" or "terminal_unnorm_log_prob" not in args or not args <= _CALL_ARGS:
+            return None
+        return build_plan(self.loss, self.eval_module(use_ema), self.eval_ts)
+
+    def eval_path(self) -> str:
+        """'fused' / 'plain' when evaluate() runs the fused trajectory, else 'scan'."""
+        return self._fused_name("") if self._fused_eval_plan() is not None else "scan"
+
+    @torch.no_grad()
+    def evaluate(self, generator: torch.Generator, use_ema: bool = True,
+                 compute_weights: bool = True, return_traj: bool = False) -> Results:
+        """Evaluation pass over ``eval_batch_size`` prior draws. Without
+        trajectories and in the kernel's scope it runs the fused trajectory
+        (kernel noise on the card); otherwise the loss's own loop."""
+        plan = None if return_traj else self._fused_eval_plan(use_ema)
+        x = self.prior.sample(generator, (self.cfg.eval_batch_size,))
+        if plan is not None:
+            cfg, arrays = plan
+            samples, rnd = fused_simulate(cfg, arrays, generator, x,
+                                          **self.loss_call_args(use_ema))
+            return compute_results(rnd, compute_weights=compute_weights,
+                                   ts=self.eval_ts, max_rnd=self.loss.max_rnd,
+                                   samples=samples)
+        return self.loss.eval(generator, self.eval_ts, x, self.eval_module(use_ema),
+                              compute_weights=compute_weights, return_traj=return_traj,
+                              **self.loss_call_args(use_ema))
+
+    def fused_eval_sampler(self, use_ema: bool = True):
+        """``generator -> (x_T, rnd)`` drawing ``eval_batch_size``
+        trajectories through the fused trajectory, or None when out of
+        scope. The plan is built here, so it sees the current parameters."""
+        plan = self._fused_eval_plan(use_ema)
+        if plan is None:
+            return None
+        cfg, arrays = plan
+        args = self.loss_call_args(use_ema)
+
+        @torch.no_grad()
+        def sample(generator: torch.Generator):
+            x0 = self.prior.sample(generator, (self.cfg.eval_batch_size,))
+            return fused_simulate(cfg, arrays, generator, x0, **args)
+
+        return sample
+
+
+class GaussianReferenceCtrl:
+    """Time-t score of a noised Gaussian reference with a precompute
+    protocol: ``precompute(t_grid)`` evaluates the noised marginal's
+    parameters for every grid time at once, ``apply`` takes one step's."""
+
+    def __init__(self, sde, x_init, var_init):
+        self.sde = sde
+        self.x_init = x_init
+        self.var_init = var_init
+
+    def __call__(self, t, x):
+        return self.sde.marginal_score(t, x, self.x_init, var_init=self.var_init)
+
+    def precompute(self, t_grid):
+        return self.sde.marginal_params(t_grid[:, None], self.x_init,
+                                        var_init=self.var_init)
+
+    @staticmethod
+    def apply(step_params, x):
+        loc, var = step_params
+        return score_gauss(x, loc, var)
+
+
+class GMMReferenceCtrl:
+    """Time-t score of a noised diagonal GMM reference with a precompute
+    protocol."""
+
+    def __init__(self, sde, means, variances, weights):
+        self.sde = sde
+        self.means = means
+        self.variances = variances
+        self.weights = weights
+
+    def __call__(self, t, x):
+        return self.sde.marginal_gmm_score(t, x, self.means, self.variances,
+                                           self.weights)
+
+    def precompute(self, t_grid):
+        w, m, v = self.sde.marginal_gmm_params(
+            t_grid[:, None, None], self.means, self.variances, self.weights)
+        return torch.broadcast_to(w, m.shape[:2]), m, torch.broadcast_to(v, m.shape)
+
+    @staticmethod
+    def apply(step_params, x):
+        w, m, v = step_params
+        return score_mog(x, w, m, v)
+
+
+class RDS(TrainableDiff):
+    """Learned reference-based diffusion sampler."""
+
+    def setup_models(self):
+        self.change_reference_type(ref_type="default")
+        self.loss_kwargs.setdefault("filter_samples", getattr(self.target, "filter", None))
+        self._rebuild_loss()
+
+    def _rebuild_loss(self):
+        kwargs = dict(self.loss_kwargs)
+        kwargs["reference_ctrl"] = self.reference_score_t
+        self.loss = self.loss_cls(sde=self.sde, **kwargs)
+
+    def change_reference_type(self, ref_type: str = "default", mean=None, var=None,
+                              means=None, variances=None, weights=None):
+        """Install the reference process: 'default' (prior-derived),
+        'gaussian' or 'gmm' (diagonal). The 'nn' reference is not ported."""
+        from ..sde.linear import VP
+
+        sde = self.sde
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        zero = torch.zeros((), device=self.device)
+        if ref_type == "default":
+            if not isinstance(sde, VP):
+                raise ValueError(f"Default reference for SDE type {type(sde)} unsupported.")
+            loc = torch.reshape(self.prior.loc, (-1,))
+            var0 = torch.reshape(torch.square(self.prior.scale), (-1,))
+            self.reference_distr_utils = {"x_init": loc, "var_init": var0}
+            self.reference_log_prob = lambda x: sde.marginal_log_prob(
+                zero, x, loc, var_init=var0)
+            self.reference_score_t = GaussianReferenceCtrl(sde, loc, var0)
+        elif ref_type == "gaussian":
+            mean, var = as_t(mean), as_t(var)
+            self.reference_distr_utils = {"x_init": mean, "var_init": var}
+            self.reference_log_prob = lambda x: sde.marginal_log_prob(
+                zero, x, mean, var_init=var)
+            self.reference_score_t = GaussianReferenceCtrl(sde, mean, var)
+        elif ref_type == "gmm":
+            means, variances, weights = as_t(means), as_t(variances), as_t(weights)
+            self.reference_distr_utils = {"means_init": means,
+                                          "variances_init": variances,
+                                          "weights_init": weights}
+            self.reference_log_prob = lambda x: sde.marginal_gmm_log_prob(
+                zero, x, means, variances, weights)
+            self.reference_score_t = GMMReferenceCtrl(sde, means, variances, weights)
+        else:
+            raise NotImplementedError(f"Reference type {ref_type!r} is not ported.")
+        self.ref_type = ref_type
+        if self.loss is not None:
+            self._rebuild_loss()
+
+    def loss_call_args(self, use_ema: bool = False) -> dict:
+        return {"terminal_unnorm_log_prob": self.clipped_target_unnorm_log_prob,
+                "reference_log_prob": self.reference_log_prob}

@@ -1,0 +1,11 @@
+from .base import Target
+from .gauss import (
+    GMM,
+    Gauss,
+    IsotropicGauss,
+    ManyModes,
+    log_prob_gaussian,
+    mog_log_prob,
+    score_gauss,
+    score_mog,
+)

@@ -1,0 +1,83 @@
+"""Target distribution protocol (counterpart of
+sde_sampler_lrds_tpu/targets/base.py). Log-probabilities have shape (batch,);
+sampling takes an explicit ``torch.Generator`` where JAX takes a key."""
+from __future__ import annotations
+
+import logging
+from typing import Callable
+
+import torch
+
+from ..utils.common import resolve_device
+
+EXPECTATION_FNS: dict[str, Callable] = {
+    "square": lambda x: (x**2).sum(dim=-1),
+    "abs": lambda x: torch.abs(x).sum(dim=-1),
+    "sum": lambda x: x.sum(dim=-1),
+    "square_minus_sum": lambda x: (x**2 - x).sum(dim=-1),
+}
+
+
+class Target:
+    """Base class for probability targets and priors. Subclasses implement
+    ``unnorm_log_prob`` (and usually an analytic ``score``; the default
+    differentiates the log-density with autograd)."""
+
+    def __init__(self, dim: int, log_norm_const: float | None = None,
+                 n_reference_samples: int | None = None, device=None):
+        self.dim = dim
+        self.device = resolve_device(device)
+        self.log_norm_const = log_norm_const
+        self.n_reference_samples = n_reference_samples
+        self.stddevs: torch.Tensor | None = None
+        self.expectations: dict[str, float] = {}
+
+    # -- densities ---------------------------------------------------------
+    def unnorm_log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        if self.log_norm_const is None:
+            raise NotImplementedError
+        return self.unnorm_log_prob(x) - self.log_norm_const
+
+    def score(self, x: torch.Tensor) -> torch.Tensor:
+        """∇ log ρ(x) by autograd of the summed log-density."""
+        with torch.enable_grad():
+            y = x.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self.unnorm_log_prob(y).sum(), y)
+        return g
+
+    def log_prob_and_score(self, x: torch.Tensor):
+        """(unnorm_log_prob, score) in one call (shared by the MCMC kernels)."""
+        return self.unnorm_log_prob(x), self.score(x)
+
+    def has_entropy(self) -> bool:
+        return False
+
+    # -- sampling / stats --------------------------------------------------
+    def sample(self, generator: torch.Generator, shape: tuple = ()) -> torch.Tensor:
+        raise NotImplementedError
+
+    def compute_stats_sampling(self, generator: torch.Generator,
+                               return_samples: bool = False):
+        """Reference expectations by Monte Carlo."""
+        samples = self.sample(generator, (self.n_reference_samples,))
+        for name, fn in EXPECTATION_FNS.items():
+            if name not in self.expectations:
+                self.expectations[name] = float(fn(samples).mean())
+        if self.stddevs is None:
+            self.stddevs = samples.std(dim=0, correction=0)
+        if return_samples:
+            return samples
+
+    def compute_stats(self, generator: torch.Generator | None = None):
+        if self.n_reference_samples is not None:
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(0)
+            try:
+                self.compute_stats_sampling(generator)
+                return
+            except NotImplementedError:
+                pass
+        logging.warning("Cannot compute statistics for %s", type(self).__name__)

@@ -1,0 +1,213 @@
+"""Gaussian / Gaussian-mixture targets with closed-form log-probs and scores
+(counterpart of sde_sampler_lrds_tpu/targets/gauss.py, diagonal covariances
+only; the full-covariance classes are not ported yet). Mixture scores are
+computed in log-space with softmax responsibilities."""
+from __future__ import annotations
+
+import math
+from numbers import Number
+
+import numpy as np
+import torch
+
+from .base import Target
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+# ---------------------------------------------------------------------------
+# functional log-probs / scores (vectorized over mixture components)
+# ---------------------------------------------------------------------------
+
+def log_prob_gaussian(x: torch.Tensor, means: torch.Tensor,
+                      variances: torch.Tensor) -> torch.Tensor:
+    """Per-component diagonal-Gaussian log-density.
+    x: (B, D), means/variances: (K, D)  ->  (B, K)."""
+    diff = x[:, None, :] - means[None, :, :]
+    lp = -0.5 * torch.sum(diff**2 / variances[None, :, :], dim=-1)
+    lp = lp - 0.5 * means.shape[-1] * _LOG_2PI
+    return lp - 0.5 * torch.sum(torch.log(variances), dim=-1)[None, :]
+
+
+def score_mog(x, weights, means, variances):
+    """Score of a diagonal-covariance MoG at x (B, D)."""
+    w = weights / weights.sum()
+    resp = torch.softmax(torch.log(w)[None, :]
+                         + log_prob_gaussian(x, means, variances), dim=-1)
+    grad_comp = (x[:, None, :] - means[None, :, :]) / variances[None, :, :]
+    return -torch.sum(resp[..., None] * grad_comp, dim=1)
+
+
+def score_gauss(x, means, variances):
+    return -(x - means) / variances
+
+
+def mog_log_prob(x, weights, means, variances):
+    """Normalized log-density of a diagonal MoG; x (B, D) -> (B,)."""
+    logw = torch.log(weights / weights.sum())
+    return torch.logsumexp(logw[None, :] + log_prob_gaussian(x, means, variances),
+                           dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# distribution classes
+# ---------------------------------------------------------------------------
+
+class GMM(Target):
+    """Mixture of Gaussians with diagonal component covariances."""
+
+    def __init__(self, dim: int = 2, loc=None, scale=None, mixture_weights=None,
+                 n_reference_samples: int = int(1e6), device=None):
+        super().__init__(dim=dim, log_norm_const=0.0,
+                         n_reference_samples=n_reference_samples, device=device)
+        loc = torch.as_tensor(loc, dtype=torch.float32, device=self.device)
+        scale = torch.as_tensor(scale, dtype=torch.float32, device=self.device)
+        self.n_mixtures = loc.shape[0]
+        if loc.shape != scale.shape or loc.shape != (self.n_mixtures, self.dim):
+            raise ValueError("Shape mismatch between loc and scale.")
+        if mixture_weights is None:
+            if self.n_mixtures > 1:
+                raise ValueError("Require mixture weights.")
+            mixture_weights = torch.ones((1,))
+        self.loc = loc
+        self.scale = scale
+        self.mixture_weights = torch.as_tensor(
+            mixture_weights, dtype=torch.float32, device=self.device)
+        self._probs = self.mixture_weights / self.mixture_weights.sum()
+        self.stddevs = self._mixture_mean_std()[1]
+
+    def _mixture_mean_std(self):
+        p = self._probs[:, None]
+        mean = torch.sum(p * self.loc, dim=0)
+        second = torch.sum(p * (self.scale**2 + self.loc**2), dim=0)
+        return mean, torch.sqrt(second - mean**2)
+
+    def unnorm_log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        flat = x.reshape(-1, self.dim)
+        lp = mog_log_prob(flat, self.mixture_weights, self.loc, self.scale**2)
+        return lp.reshape(x.shape[:-1])
+
+    def score(self, x: torch.Tensor) -> torch.Tensor:
+        return score_mog(x, self.mixture_weights, self.loc, self.scale**2)
+
+    def sample(self, generator: torch.Generator, shape: tuple = ()) -> torch.Tensor:
+        n = math.prod(shape)
+        idx = torch.multinomial(self._probs, n, replacement=True,
+                                generator=generator).reshape(shape)
+        eps = torch.randn((*shape, self.dim), generator=generator,
+                          device=self.device)
+        return self.loc[idx] + self.scale[idx] * eps
+
+    # -- mode-coverage metrics ---------------------------------------------
+    def has_entropy(self) -> bool:
+        return self.n_mixtures > 1
+
+    def compute_mode_count(self, samples: torch.Tensor) -> torch.Tensor:
+        lp = log_prob_gaussian(samples, self.loc, self.scale**2)
+        idx = torch.argmax(lp, dim=-1)
+        return torch.bincount(idx, minlength=self.n_mixtures).to(torch.float32)
+
+    def entropy(self, samples, counts=None):
+        if counts is None:
+            counts = self.compute_mode_count(samples)
+        hist = counts / counts.sum()
+        # xlogy: a mode with zero samples contributes 0, not NaN
+        return -torch.sum(torch.special.xlogy(hist, hist)) / math.log(self.n_mixtures)
+
+    def kl_weights(self, samples, counts=None):
+        if counts is None:
+            counts = self.compute_mode_count(samples)
+        hist = counts / counts.sum()
+        return torch.sum(self._probs * torch.log(self._probs / hist))
+
+    def tv_weights(self, samples, counts=None):
+        if counts is None:
+            counts = self.compute_mode_count(samples)
+        hist = counts / counts.sum()
+        return torch.sum(torch.abs(hist - self._probs))
+
+    def compute_forgotten_modes(self, samples, tol: float = 0.05, counts=None):
+        if counts is None:
+            counts = self.compute_mode_count(samples)
+        hist = counts / counts.sum()
+        return torch.sum(hist < tol * self._probs.min()) / self.n_mixtures
+
+    def compute_stats_sampling(self, generator, return_samples: bool = False):
+        samples = super().compute_stats_sampling(generator, return_samples=True)
+        if self.has_entropy():
+            counts = self.compute_mode_count(samples)
+            self.expectations["emc"] = float(self.entropy(samples, counts=counts))
+            self.expectations["kl_weights"] = float(self.kl_weights(samples, counts=counts))
+            self.expectations["tv_weights"] = float(self.tv_weights(samples, counts=counts))
+            self.expectations["num_forgotten_modes"] = float(
+                self.compute_forgotten_modes(samples, counts=counts))
+        if return_samples:
+            return samples
+
+
+def many_modes_loc(n_modes: int, dim: int, seed_loc: int = 42) -> np.ndarray:
+    """ManyModes' seeded mode centres, drawn exactly as the JAX package
+    draws them (numpy ``default_rng(seed_loc)``)."""
+    rng = np.random.default_rng(seed_loc)
+    return 2 * n_modes * rng.random((n_modes, dim)) - n_modes
+
+
+class ManyModes(GMM):
+    """n_modes isotropic Gaussians at seeded random means."""
+
+    def __init__(self, n_modes: int = 3, dim: int = 2, seed_loc: int = 42,
+                 mixture_weight_factor: float = 3.0, var: float = 0.1, **kwargs):
+        weights = np.logspace(0.0, 1.0, n_modes, base=mixture_weight_factor)
+        loc = many_modes_loc(n_modes, dim, seed_loc)
+        scale = math.sqrt(var) * np.ones((n_modes, dim))
+        super().__init__(dim=dim, loc=loc.astype(np.float32),
+                         scale=scale.astype(np.float32),
+                         mixture_weights=weights.astype(np.float32), **kwargs)
+
+
+class Gauss(GMM):
+    """Single diagonal-covariance Gaussian."""
+
+    def __init__(self, dim: int = 1, loc=0.0, scale=1.0, **kwargs):
+        super().__init__(dim=dim, loc=_prepare_param(loc, dim),
+                         scale=_prepare_param(scale, dim), **kwargs)
+        self.stddevs = self.scale[0]
+
+    def score(self, x: torch.Tensor) -> torch.Tensor:
+        return score_gauss(x, self.loc[0], self.scale[0] ** 2)
+
+
+class IsotropicGauss(Gauss):
+    """Isotropic Gaussian prior (the truncated variant is not ported yet)."""
+
+    def __init__(self, dim: int = 1, loc: float = 0.0, scale: float = 1.0,
+                 truncate_quartile: float | None = None, **kwargs):
+        if truncate_quartile is not None:
+            raise NotImplementedError("truncated IsotropicGauss is not ported")
+        super().__init__(dim=dim, loc=loc, scale=scale, **kwargs)
+        self._loc0 = float(self.loc[0, 0])
+        self._scale0 = float(self.scale[0, 0])
+
+    def unnorm_log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        var = self._scale0**2
+        norm_const = -0.5 * self.dim * math.log(2.0 * math.pi * var)
+        sq = torch.sum((x - self._loc0) ** 2, dim=-1)
+        return norm_const - 0.5 * sq / var
+
+    def score(self, x: torch.Tensor) -> torch.Tensor:
+        return (self._loc0 - x) / self._scale0**2
+
+    def sample(self, generator: torch.Generator, shape: tuple = ()) -> torch.Tensor:
+        z = torch.randn((*shape, self.dim), generator=generator, device=self.device)
+        return self._loc0 + self._scale0 * z
+
+
+def _prepare_param(param, dim: int) -> np.ndarray:
+    if isinstance(param, Number):
+        return np.full((1, dim), float(param), np.float32)
+    if isinstance(param, torch.Tensor):
+        param = param.detach().cpu().numpy()
+    param = np.atleast_2d(np.asarray(param, np.float32))
+    if param.size == 1:
+        param = np.tile(param, (1, dim))
+    return param

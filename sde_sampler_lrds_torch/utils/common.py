@@ -1,0 +1,74 @@
+"""Common utilities: device resolution, results container, time grids,
+masked statistics (counterpart of sde_sampler_lrds_tpu/utils/common.py)."""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else
+    ``cuda``. With no device given and no GPU present this raises — the port
+    never carries on silently on the CPU; pass ``device="cpu"`` for that."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' explicitly "
+                "to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+@dataclasses.dataclass
+class Results:
+    """Container for one evaluation pass of a sampler."""
+
+    samples: torch.Tensor | None = None          # (batch, dim)
+    weights: torch.Tensor | None = None          # (batch,) normalized IS weights
+    rnd: torch.Tensor | None = None              # (batch,) density log-ratio
+    log_norm_const_preds: dict = dataclasses.field(default_factory=dict)
+    expectation_preds: dict = dataclasses.field(default_factory=dict)
+    ts: torch.Tensor | None = None               # (n_steps+1,)
+    xs: torch.Tensor | None = None               # (n_steps+1, batch, dim)
+    metrics: dict = dataclasses.field(default_factory=dict)
+    plots: dict = dataclasses.field(default_factory=dict)
+
+
+def get_timesteps(start: float, end: float, dt: float | None = None,
+                  steps: int | None = None, rescale_t: str | None = None,
+                  device=None) -> torch.Tensor:
+    """A uniform (steps+1,) float32 time grid on [start, end]. The rescaled
+    and log-SNR grids of the JAX package are not ported yet."""
+    if (steps is None) == (dt is None):
+        raise ValueError("Exactly one of `dt` and `steps` should be defined.")
+    if rescale_t is not None:
+        raise NotImplementedError(f"timestep rescaling {rescale_t!r} is not ported")
+    if steps is None:
+        steps = int(math.ceil((end - start) / dt))
+    return torch.linspace(start, end, steps + 1, dtype=torch.float32,
+                          device=resolve_device(device))
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over entries where mask is True."""
+    count = torch.clamp(mask.sum(), min=1)
+    return torch.where(mask, x, torch.zeros_like(x)).sum() / count
+
+
+def masked_var(x: torch.Tensor, mask: torch.Tensor, ddof: int = 1) -> torch.Tensor:
+    """Unbiased variance over masked entries. The masking happens before the
+    mean, so a masked-out inf or NaN never reaches the sum."""
+    count = torch.clamp(mask.sum(), min=1)
+    zero = torch.zeros_like(x)
+    mean = torch.where(mask, x, zero).sum() / count
+    sq = torch.where(mask, (x - mean) ** 2, zero).sum()
+    return sq / torch.clamp(count - ddof, min=1)
+
+
+def clip_norm(x: torch.Tensor, max_norm: float | None) -> torch.Tensor:
+    """Elementwise clip to [-max_norm, max_norm]."""
+    if max_norm is None:
+        return x
+    return torch.clamp(x, -max_norm, max_norm)
