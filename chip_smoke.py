@@ -1,29 +1,46 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels
 from this checkout, holds each against its plain PyTorch version, drives the
 LRDS demo pipeline (the configuration bench.py runs) end to end through the
-port's entry points, and checks its quality.
+port's entry points, evaluates the trained sampler with the sample-based
+metrics, runs the SMC baseline at the experiments' defaults, and checks the
+quality of each.
 
     python3 chip_smoke.py
 
 Phases:
   1. card, versions, kernel build (one nvcc per source, all started together)
   2. fused_traj kernel vs its plain version at the main path's shapes
-     (fed noise, pre-step states; batches 1024, 8192 and a ragged 1000)
-  3. the kernel's own noise: Philox bits against a numpy re-implementation,
-     moments, seeds that differ
+     (fed noise, pre-step states; batches 1024, 8192 and a ragged 1000);
+     the Sinkhorn lse and transport-cost kernels vs theirs (8192 x 8192,
+     d = 8, eps 1e-3 and 1, p 2 and 1, -inf duals; a ragged 1000 x 3000
+     with p 2 and 3); the resampling lookup vs its own (N 1024, 8192, 1000,
+     100 000, zero weights and exact ties), indices equal
+  3. the fused_traj kernel's own noise: Philox bits against a numpy
+     re-implementation, moments, seeds that differ
   4. the main path: MALA dataset -> diagonal GMM fit -> GMM reference ->
      256 flat-LV Adam steps at batch 1024 -> eval of 8192 x 100 steps,
      with the launch counts read around it; then the kernel eval against the
      plain eval with torch noise under bench.py's parity gate
-  5. one JSON line per kernel: launches, error, time, bound
+  5. the RDS evaluation path: ``solver.eval_metrics`` with the Sinkhorn, MMD
+     and sliced-KS losses (8192 samples against 8192 target draws), the
+     same Sinkhorn through the plain versions on the card, and the sampler's
+     Sinkhorn against the noise floor of two independent target draws
+  6. the SMC baseline (experiments/common.py defaults: 128 levels, 1024
+     particles, 1024 warm-up and 32 MALA steps per level, systematic
+     resampling) from a full-covariance Gaussian fitted to phase 4's MALA
+     dataset, with its metrics on the first 8192 pooled samples
+  7. one JSON line per kernel: launches, error, time, bound
 
-Prints the card as nvidia-smi reports it, then a ``{"kernels": [...]}`` line,
-and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
-no result line, when there is no CUDA device or any phase fails.
+Every path (phases 4, 5 and 6) is run with all launch counts set to 0 just
+before it and read just after. Prints the card as nvidia-smi reports it, then
+a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
+"device": {...}}``. Exits non-zero, with no result line, when there is no
+CUDA device or any phase fails.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -34,10 +51,31 @@ import torch
 DIM, N_MODES, K_STEPS, CHANNELS, N_LAYERS = 8, 4, 100, 64, 4
 TRAIN_BATCH, EVAL_BATCH, TRAIN_STEPS, LR = 1024, 8192, 256, 3e-3
 DATASET_LENGTH, MALA_STEP = 40_000, 1e-2
+KERNEL_SOURCES = ("fused_traj", "sinkhorn_lse", "resample")
 # kernel vs plain version, float32 on the card: the two sum the MLP and the
 # mixture score in other orders (cuBLAS vs the kernel's FMA chains) and use
 # tanhf vs torch's tanh, over K = 100 dependent steps
 KERNEL_TOL = dict(rtol=1e-3, atol=1e-3)
+# lse kernel vs plain version, compared in the dual units eps * lse that
+# Sinkhorn consumes: both expand |x|^2 + |y|^2 - 2 x.y with |x|^2 ~ 30 and
+# sum the dot product in other orders, so the nearest pair's cost (which
+# sets the lse at eps = 1e-3) carries a float32 cancellation error of about
+# 2e-5 (measured against float64 at 2048 x 2048 on these targets); 10x that
+# is allowed, plus a float32 relative rounding of the log-sum itself
+LSE_TOL_ABS, LSE_TOL_REL = 2e-4, 1e-5
+# transport cost and the whole Sinkhorn distance, kernels vs plain versions:
+# the cost's rounding enters every exponent divided by eps; the float32
+# cost at eps = 1e-3 differs from float64 by 5e-5 relative on these inputs
+COST_TOL_REL = 1e-3
+# sample-based evaluation (the sampler's 8192 samples against 8192 target
+# draws, Sinkhorn(p = 2, eps = 1e-3, 100 iterations) as experiments/common.py
+# builds it) and the gates on its Sinkhorn distance: within 1.25x of the
+# noise floor of two independent target draws, while the prior's is at
+# least GATE_PRIOR_FLOOR x that floor
+SAMPLE_N, GATE_SINKHORN_FLOOR, GATE_PRIOR_FLOOR = 8192, 1.25, 2.0
+# the SMC baseline at experiments/common.py:147-148 defaults
+SMC_KWARGS = dict(n_steps=128, step_size=1e-4, n_particles=1024, n_mcmc_steps=32,
+                  n_warmup_mcmc_steps=1024)
 # bench.py's gate between two evals that differ only in their noise stream
 PARITY_LOGZ, PARITY_ESS = 0.05, 0.1
 # quality gates of the trained sampler against the target
@@ -45,6 +83,12 @@ GATE_LOGZ, GATE_ESS, GATE_MODE_W = 0.05, 0.9, 0.06
 # float32 non-tensor-core peak and memory rate of the H100 variants
 # (NVIDIA data sheets), for the kernel's bound
 PEAKS = {"PCIe": (51.2e12, 2.0e12), "NVL": (60.0e12, 3.9e12), "SXM": (67.0e12, 3.35e12)}
+# the keys every kernel's entry of the {"kernels": [...]} line has, in order
+KERNEL_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms")
+# special-function unit results (expf, sqrtf, logf) per clock per SM on
+# Hopper; times the SM count and the SM clock gives the transcendental rate
+SFU_PER_CLOCK_PER_SM = 16
 
 
 class SmokeFailure(AssertionError):
@@ -81,6 +125,32 @@ def time_cuda(fn, n: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
+def graph_ms(fn, n: int = 50, reps: int = 5) -> float:
+    """Mean device milliseconds of one fn() call: n calls captured in one
+    CUDA graph and replayed reps times between CUDA events. For a kernel of
+    a few microseconds the CUDA-event time of time_cuda is the host's cost
+    of a call; a graph replay issues the launches without the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * reps)
+
+
 def max_err(got, want) -> float:
     return max(float((g - w).abs().max()) for g, w in zip(got, want) if g is not None)
 
@@ -93,6 +163,70 @@ def assert_close(got, want, what: str) -> float:
         check(ok, f"{what}: kernel and plain version disagree "
                   f"(max |diff| {float((g - w).abs().max()):.3e}, tolerance {KERNEL_TOL})")
     return max_err(got, want)
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper of the port, by kernel name; each counts its
+    launches in ``.launches``."""
+    from sde_sampler_lrds_torch.ops.fused_traj import fused_traj
+    from sde_sampler_lrds_torch.ops.resample import systematic_lookup
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import lse, transport_cost
+
+    return {"fused_traj": fused_traj, "sinkhorn_lse": lse, "transport_cost": transport_cost,
+            "resample": systematic_lookup}
+
+
+def reset_counts() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def bound(flops: float, transcendentals: float, nbytes: float, peaks, sfu_rate: float):
+    """(bound_ms, bound_by, detail): the larger of the operations time (flops
+    over the float32 peak, or transcendentals over the SFU rate, whichever
+    is longer) and the bytes time."""
+    t_flops, t_sfu, t_bytes = flops / peaks[0], transcendentals / sfu_rate, nbytes / peaks[1]
+    t_ops = max(t_flops, t_sfu)
+    detail = {"flops": flops, "transcendentals": transcendentals, "bytes": nbytes,
+              "flops_ms": t_flops * 1e3, "transcendentals_ms": t_sfu * 1e3,
+              "bytes_ms": t_bytes * 1e3}
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), detail
+
+
+def target_draws(dev, n: int, seed: int) -> torch.Tensor:
+    """n draws of the main path's ManyModes target from a seed."""
+    from sde_sampler_lrds_torch.targets import ManyModes
+
+    target = ManyModes(n_modes=N_MODES, dim=DIM, var=0.5, device=dev)
+    return target.sample(torch.Generator(dev).manual_seed(seed), (n,))
+
+
+def finite_metrics(metrics: dict) -> bool:
+    """Every metric is finite, save the KL of the mode weights, which is +inf
+    by definition when a mode holds no sample (then counted as forgotten)."""
+    forgot = metrics.get("eval/num_forgotten_modes", 0.0) > 0
+    return all(math.isfinite(v) or (forgot and "kl_weights" in k)
+               for k, v in metrics.items())
+
+
+class TimedLoss:
+    """A sample loss that keeps its last inputs and its synchronised wall
+    time."""
+
+    def __init__(self, fn):
+        self.fn, self.args, self.seconds = fn, None, 0.0
+
+    def __call__(self, a, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(a, b)
+        torch.cuda.synchronize()
+        self.seconds, self.args = time.perf_counter() - t0, (a, b)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +299,118 @@ def phase_kernel_vs_plain(dev, cfg, arrays, rec):
     rec["max_abs_err"] = max(errs)
 
 
+def lse_error(got, want, eps: float, what: str):
+    """Checks the lse kernel against its plain version: the same -inf
+    entries, and elsewhere eps·|diff| within LSE_TOL. Returns (max |diff|,
+    max eps·|diff|) over the finite entries."""
+    check(not bool(torch.isnan(got).any() or torch.isposinf(got).any()),
+          f"{what}: NaN or +inf in the kernel's lse")
+    check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+          f"{what}: kernel and plain version disagree on which rows are -inf")
+    fin = ~torch.isneginf(want)
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    diff = (got[fin] - want[fin]).abs()
+    ok = bool((eps * diff <= LSE_TOL_ABS + LSE_TOL_REL * eps * want[fin].abs()).all())
+    check(ok, f"{what}: lse kernel and plain version disagree (max eps*|diff| "
+              f"{eps * float(diff.max()):.3e}, tolerance {LSE_TOL_ABS} + {LSE_TOL_REL} "
+              "eps*|lse|)")
+    return float(diff.max()), eps * float(diff.max())
+
+
+def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
+    """B2 (lse) and B3 (transport cost) against their plain versions on the
+    card, at the eval path's 8192 x 8192 x 8 and on a ragged 1000 x 3000."""
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
+                                                         transport_cost_plain)
+
+    x, y = target_draws(dev, SAMPLE_N, 11), target_draws(dev, SAMPLE_N, 12)
+    cases = [(x, y, eps, p) for eps in (1e-3, 1.0) for p in (2, 1)]
+    cases += [(x[:1000], y[:3000], 1e-2, p) for p in (2, 3)]
+    g = torch.Generator(dev).manual_seed(13)
+    lse_errs, cost_errs = [], []
+    for xs, ys, eps, p in cases:
+        n, m = xs.shape[0], ys.shape[0]
+        what = f"n={n} m={m} eps={eps:g} p={p}"
+        log_a = torch.full((n,), -math.log(n), device=dev)
+        log_b = torch.full((m,), -math.log(m), device=dev)
+        dual = eps * (log_b + 0.1 * torch.randn(m, generator=g, device=dev))
+        dual[::9] = float("-inf")
+        dual[128:256] = float("-inf")            # one whole column tile
+        got = lse(xs, ys, dual, eps, p)
+        want = lse_plain(xs, ys, dual, eps, p)
+        torch.cuda.synchronize()
+        err_row = lse_error(got, want, eps, f"lse rows {what}")
+        # the first Sinkhorn half-steps give duals at the plan's real scale;
+        # the column direction is the same kernel with x and y swapped
+        u = eps * (log_a - want)
+        got_col = lse(ys, xs, u, eps, p)
+        want_col = lse_plain(ys, xs, u, eps, p)
+        err_col = lse_error(got_col, want_col, eps, f"lse columns {what}")
+        v = eps * (log_b - want_col)
+        u[::13], v[::7] = float("-inf"), float("-inf")
+        got_c = transport_cost(xs, ys, u, v, eps, p)
+        want_c = transport_cost_plain(xs, ys, u, v, eps, p)
+        rel = float((got_c - want_c).abs() / want_c.abs())
+        check(bool(torch.isfinite(got_c)) and rel <= COST_TOL_REL,
+              f"transport cost {what}: kernel {float(got_c):.6g} vs plain "
+              f"{float(want_c):.6g} (relative {rel:.3e}, tolerance {COST_TOL_REL})")
+        lse_errs += [err_row, err_col]
+        cost_errs.append((float((got_c - want_c).abs()), rel))
+        say(f"[phase 2] sinkhorn_lse vs plain, {what}: max |diff| rows {err_row[0]:.3e} "
+            f"columns {err_col[0]:.3e} (eps*|diff| {max(err_row[1], err_col[1]):.3e}, "
+            f"tolerance {LSE_TOL_ABS} + {LSE_TOL_REL} eps*|lse|); transport_cost "
+            f"{float(got_c):.6g} vs {float(want_c):.6g}, relative {rel:.3e} "
+            f"(tolerance {COST_TOL_REL})")
+    xr, yr = x[:1000], y[:3000]
+    all_inf = lse(xr, yr, torch.full((yr.shape[0],), float("-inf"), device=dev), 1.0, 2)
+    check(bool((all_inf == float("-inf")).all()), "an all -inf dual must give -inf rows")
+    rec_lse["max_abs_err"] = max(e[0] for e in lse_errs)
+    rec_lse["max_abs_err_eps_units"] = max(e[1] for e in lse_errs)
+    rec_cost["max_abs_err"] = max(e[0] for e in cost_errs)
+    rec_cost["max_rel_err"] = max(e[1] for e in cost_errs)
+
+
+def phase_resample_kernel(dev, rec):
+    """B4 against its plain version and torch.searchsorted: equal indices."""
+    from sde_sampler_lrds_torch.ops.resample import (systematic_lookup, systematic_lookup_plain,
+                                                     weights_cdf)
+
+    g = torch.Generator(dev).manual_seed(21)
+    cases = []
+    for n in (1024, 8192, 1000, 100_000):
+        lw = 2.0 * torch.randn(n, generator=g, device=dev)
+        lw[torch.rand(n, generator=g, device=dev) < 0.3] = float("-inf")
+        lw[: n // 10] = float("-inf")             # zero weights: runs of tied cdf values
+        w = torch.softmax(lw, dim=0)
+        cdf = weights_cdf(w)
+        u0 = torch.rand((), generator=g, device=dev)
+        cases.append((f"N={n}", w, cdf, (torch.arange(n, device=dev) + u0) / n))
+    # dyadic weights on every 4th particle and u0 = 0: positions equal cdf
+    # values exactly, so the strict count must take the first of each tie
+    n = 8192
+    w = torch.zeros(n, device=dev)
+    w[::4] = 4.0 / n
+    cases.append(("N=8192 exact ties", w, weights_cdf(w),
+                  torch.arange(n, device=dev, dtype=torch.float32) / n))
+    for what, w, cdf, pos in cases:
+        got = systematic_lookup(cdf, pos)
+        want = systematic_lookup_plain(cdf, pos)
+        lib = torch.clamp(torch.searchsorted(cdf, pos), max=cdf.shape[0] - 1).to(torch.int32)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"resample lookup {what}: kernel and plain version differ "
+                                      f"at {int((got != want).sum())} positions")
+        check(torch.equal(got, lib), f"resample lookup {what}: differs from searchsorted-left")
+        # a position past the float32 total (cdf[-1] may round below 1) is
+        # clipped to N - 1 whatever its weight, as on the TPU
+        inside = pos <= cdf[-1]
+        check(bool((w[got.long()][inside] > 0).all()),
+              f"resample lookup {what}: a zero weight was drawn")
+        say(f"[phase 2] resample lookup vs plain, {what}: indices equal "
+            f"({int(torch.unique(got).numel())} distinct)")
+    rec["max_abs_err"] = 0
+
+
 def phase_noise(dev, cfg, arrays):
     from sde_sampler_lrds_torch.ops.fused_traj import launch
 
@@ -201,11 +447,10 @@ def is_stats(rnd):
     return res.log_norm_const_preds["log_norm_const_is"], ess, res
 
 
-def phase_main_path(dev, rec):
+def phase_main_path(dev, path_counts):
     from sde_sampler_lrds_torch.api import fit_gmm, mcmc_sample
     from sde_sampler_lrds_torch.losses import EIReferenceSDELoss
     from sde_sampler_lrds_torch.models import ClippedCtrl, FourierMLP
-    from sde_sampler_lrds_torch.ops.fused_traj import fused_traj
     from sde_sampler_lrds_torch.sde import VP, get_timesteps
     from sde_sampler_lrds_torch.solvers import RDS, TrainConfig
     from sde_sampler_lrds_torch.targets import IsotropicGauss, ManyModes
@@ -223,7 +468,7 @@ def phase_main_path(dev, rec):
                  {"method": "lv", "max_rnd": 1e8}, train_ts=ts, cfg=cfg, device=dev)
     gen = torch.Generator(dev).manual_seed(99)
 
-    fused_traj.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     dataset = mcmc_sample(gen, target, target.loc, step_size=MALA_STEP,
                           dataset_length=DATASET_LENGTH, device=dev)
@@ -246,7 +491,8 @@ def phase_main_path(dev, rec):
     x_t, rnd = sample(gen)
     torch.cuda.synchronize()
     t4 = time.perf_counter()
-    launches = fused_traj.launches
+    path_counts["lrds_main"] = read_counts()
+    launches = path_counts["lrds_main"]["fused_traj"]
 
     check(x_t.shape == (EVAL_BATCH, DIM) and rnd.shape == (EVAL_BATCH,),
           "eval output shapes")
@@ -280,8 +526,7 @@ def phase_main_path(dev, rec):
     check(ess >= GATE_ESS, f"normalized ESS {ess:.4f} < {GATE_ESS}")
     check(all(abs(a - b) <= GATE_MODE_W for a, b in zip(mode_w, true_w)),
           f"mode weights {mode_w} not within {GATE_MODE_W} of {true_w}")
-    rec["launches"] = launches
-    return solver
+    return solver, target, dataset
 
 
 def phase_eval_parity(dev, solver):
@@ -333,12 +578,180 @@ def phase_timing(dev, cfg, arrays, rec, peaks):
                      "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "flops": flops, "bytes": nbytes}
-        say(f"[phase 5] fused_traj {name} shape B={b}: kernel {ms:.4f} ms, plain "
+        say(f"[phase 7] fused_traj {name} shape B={b}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.4f} ms "
             f"({out[name]['bound_by']}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
-    rec.update({k_: out["eval"][k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by")})
-    rec["train_shape"] = {k_: out["train"][k_] for k_ in ("ms", "plain_ms", "bound_ms",
-                                                          "bound_by")}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    rec.update({k_: out["eval"][k_] for k_ in keys})
+    rec["train_shape"] = {k_: out["train"][k_] for k_ in keys}
+
+
+def phase_eval_path(dev, solver, target, path_counts) -> dict:
+    """The RDS evaluation path: eval_metrics with the three sample losses,
+    the same Sinkhorn through the plain versions on the card, and the gate
+    against the noise floor."""
+    from sde_sampler_lrds_torch.eval import Sinkhorn, compute_sliced_ks, mmd_median
+    from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
+
+    sinkhorn = Sinkhorn()
+    losses = {"sinkhorn": TimedLoss(sinkhorn), "mmd": TimedLoss(mmd_median),
+              "ks": TimedLoss(compute_sliced_ks)}
+    solver.sample_losses = losses
+    gen = torch.Generator(dev).manual_seed(77)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = solver.eval_metrics(gen)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = path_counts["rds_eval"] = read_counts()
+    say("[phase 5] eval_metrics " + json.dumps(metrics))
+    samples, gt = losses["sinkhorn"].args
+    timing = {"eval_metrics_s": eval_s, "sinkhorn_s": losses["sinkhorn"].seconds,
+              "mmd_s": losses["mmd"].seconds, "ks_s": losses["ks"].seconds,
+              "sinkhorn_iterations": sinkhorn.n_iters}
+    say(f"[phase 5] launches {json.dumps(counts)}; Sinkhorn ran {sinkhorn.n_iters} "
+        f"iterations on {sinkhorn.config['backend']}; times {json.dumps(timing)}")
+    check(samples.shape == (EVAL_BATCH, DIM) and gt.shape == (EVAL_BATCH, DIM),
+          "the sample losses see 8192 samples and 8192 target draws")
+    check(finite_metrics(metrics), "eval_metrics has a non-finite value")
+    check(sinkhorn.config["backend"] == "cuda", "the Sinkhorn did not run its kernels")
+    check(counts["sinkhorn_lse"] == 2 * sinkhorn.n_iters and counts["transport_cost"] == 1,
+          f"Sinkhorn launched lse {counts['sinkhorn_lse']} and transport_cost "
+          f"{counts['transport_cost']} times in {sinkhorn.n_iters} iterations")
+
+    plain = Sinkhorn()
+    t1 = time.perf_counter()
+    plain_val = float(plain.compute(samples, gt, ops=PLAIN_OPS))
+    torch.cuda.synchronize()
+    timing["sinkhorn_plain_s"] = time.perf_counter() - t1
+    kernel_val = metrics["error/sinkhorn"]
+    rel = abs(kernel_val - plain_val) / abs(plain_val)
+    g = torch.Generator(dev).manual_seed(78)
+    floor = float(Sinkhorn()(target.sample(g, (SAMPLE_N,)), gt))
+    prior_val = float(Sinkhorn()(solver.prior.sample(g, (SAMPLE_N,)), gt))
+    say(f"[phase 5] Sinkhorn to the target: sampler {kernel_val:.6f} (kernels) vs "
+        f"{plain_val:.6f} (plain versions, {plain.n_iters} iterations, relative "
+        f"{rel:.3e}, tolerance {COST_TOL_REL}); noise floor (two target draws) "
+        f"{floor:.6f}; prior {prior_val:.6f}")
+    check(rel <= COST_TOL_REL, "the Sinkhorn distance differs between kernels and plain versions")
+    check(math.isfinite(kernel_val) and kernel_val <= GATE_SINKHORN_FLOOR * floor,
+          f"sampler's Sinkhorn {kernel_val:.4f} > {GATE_SINKHORN_FLOOR} x floor {floor:.4f}")
+    check(prior_val >= GATE_PRIOR_FLOOR * floor,
+          f"prior's Sinkhorn {prior_val:.4f} < {GATE_PRIOR_FLOOR} x floor {floor:.4f}")
+    timing.update(sinkhorn_sampler=kernel_val, sinkhorn_plain=plain_val,
+                  sinkhorn_floor=floor, sinkhorn_prior=prior_val)
+    return timing
+
+
+def phase_smc(dev, target, dataset, path_counts) -> dict:
+    """The SMC baseline at the experiments' defaults, from the Gaussian of
+    the MALA dataset's mean and full covariance, and its metrics on the first
+    8192 pooled samples (experiments/common.py run_sampling_baseline)."""
+    from sde_sampler_lrds_torch.api import run_smc_sampler
+    from sde_sampler_lrds_torch.eval import Sinkhorn, compute_sliced_ks, get_metrics, mmd_median
+
+    mean, cov = dataset.mean(dim=0), torch.cov(dataset.T)
+    gen = torch.Generator(dev).manual_seed(31)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, diags = run_smc_sampler(gen, mean, cov, **SMC_KWARGS,
+                                     target_log_prob=target.unnorm_log_prob,
+                                     target_score=target.score, return_diagnostics=True,
+                                     device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    chunk = samples.reshape(-1, DIM)[:SAMPLE_N]
+    sinkhorn = Sinkhorn()
+    metrics = get_metrics(target, chunk, marginal_dims=[0, 1],
+                          sample_losses={"sinkhorn": sinkhorn, "mmd": mmd_median,
+                                         "ks": compute_sliced_ks},
+                          sample_generator=torch.Generator(dev).manual_seed(32))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = path_counts["smc"] = read_counts()
+    ess, acc = diags["ess"].cpu(), diags["local_acc"].cpu()
+    # level L - 1 (the prior) is processed first and never resampled
+    events = int((ess[:-1] < 1.0).sum())
+    mode_counts = target.compute_mode_count(chunk)
+    out = {"sampling_s": t1 - t0, "metrics_s": t2 - t1,
+           "ms_per_mcmc_step": (t1 - t0) * 1e3 / (SMC_KWARGS["n_steps"] * (
+               SMC_KWARGS["n_warmup_mcmc_steps"] + SMC_KWARGS["n_mcmc_steps"])),
+           "resampling_events": events, "launches": counts,
+           "mean_acceptance": float(acc.mean()), "min_ess": float(ess.min()),
+           "mode_weights": [round(float(w), 4) for w in mode_counts / mode_counts.sum()],
+           "true_mode_weights": [round(float(w), 4) for w in target._probs],
+           "sinkhorn_iterations": sinkhorn.n_iters}
+    say(f"[phase 6] SMC {json.dumps(SMC_KWARGS)} -> samples {tuple(samples.shape)}: "
+        + json.dumps(out))
+    say("[phase 6] ESS per level (level 0 = target first): "
+        + json.dumps([round(float(e), 4) for e in ess]))
+    say("[phase 6] SMC metrics " + json.dumps(metrics))
+    check(samples.shape == (SMC_KWARGS["n_mcmc_steps"], SMC_KWARGS["n_particles"], DIM),
+          "SMC returns the level-0 block")
+    check(bool(torch.isfinite(samples).all()), "SMC samples are not finite")
+    check(finite_metrics(metrics), "SMC metrics have a non-finite value")
+    check(counts["resample"] > 0, "the SMC run never launched the resampling kernel")
+    check(counts["resample"] == events,
+          f"resampling kernel launched {counts['resample']} times for {events} events")
+    check(bool(((acc > 0) & (acc < 1)).all()), "SMC acceptance outside (0, 1)")
+    return out
+
+
+def phase_timing_sample_kernels(dev, recs, peaks, sfu_rate) -> None:
+    """B2, B3 at the eval path's 8192 x 8192 x 8 (eps = 1e-3, p = 2, duals
+    from the first Sinkhorn half-steps) and B4 at the SMC path's N = 1024
+    (and 8192 beside it), against their bounds, plain versions and, for B4,
+    torch.searchsorted."""
+    from sde_sampler_lrds_torch.ops.resample import systematic_lookup, systematic_lookup_plain
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
+                                                         transport_cost_plain)
+
+    n = m = SAMPLE_N
+    d, eps = DIM, 1e-3
+    x, y = target_draws(dev, n, 41), target_draws(dev, m, 42)
+    v = torch.full((m,), eps * -math.log(m), device=dev)
+    u = eps * (-math.log(n) - lse_plain(x, y, v, eps))
+    v = eps * (-math.log(m) - lse_plain(y, x, u, eps))
+    pairs = n * m
+    io = 4 * (n * d + m * d)
+    # per pair: 2d flops for x.y and 8 more (|x|^2 + |y|^2 - 2 x.y, the
+    # clamp, dual - cost, / eps, the running max and sum); one sqrtf, one expf
+    timed = {
+        "sinkhorn_lse": (lambda: lse(x, y, v, eps), lambda: lse_plain(x, y, v, eps),
+                         None, bound(pairs * (2 * d + 8), 2 * pairs, io + 4 * (m + n),
+                                     peaks, sfu_rate)),
+        # per pair: 2d + 7 for the cost, 4 more (u + v - cost, / eps, * cost,
+        # the sum); one sqrtf, one expf; out: one scalar
+        "transport_cost": (lambda: transport_cost(x, y, u, v, eps),
+                           lambda: transport_cost_plain(x, y, u, v, eps), None,
+                           bound(pairs * (2 * d + 11), 2 * pairs, io + 4 * (n + m) + 4,
+                                 peaks, sfu_rate)),
+    }
+    g = torch.Generator(dev).manual_seed(43)
+    for size in (SMC_KWARGS["n_particles"], 8192):
+        cdf = torch.cumsum(torch.softmax(torch.randn(size, generator=g, device=dev), 0), 0)
+        pos = (torch.arange(size, device=dev) + 0.5) / size
+        # per position ceil(log2 N) compares; cdf, positions and indices
+        # moved once
+        timed[f"resample_N{size}"] = (
+            lambda c=cdf, q=pos: systematic_lookup(c, q),
+            lambda c=cdf, q=pos: systematic_lookup_plain(c, q),
+            lambda c=cdf, q=pos: torch.searchsorted(c, q),
+            bound(size * math.ceil(math.log2(size)), 0, 12 * size, peaks, sfu_rate))
+    for key, (kern, plain, library, (bound_ms, bound_by, detail)) in timed.items():
+        # ms, plain_ms and library_ms by graph replay; host_loop_ms is a
+        # Python loop of calls, what an eager caller pays per call
+        row = {"ms": graph_ms(kern), "host_loop_ms": time_cuda(kern),
+               "plain_ms": graph_ms(plain, n=5, reps=3), "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "library_ms": None if library is None else graph_ms(library)}
+        say(f"[phase 7] {key}: " + json.dumps({**row, **detail}))
+        if key == "resample_N8192":
+            recs["resample"]["reference_shape_N8192"] = row
+        else:
+            recs["resample" if key.startswith("resample") else key].update(row)
 
 
 def main() -> int:
@@ -353,33 +766,60 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
     name = torch.cuda.get_device_name(0)
     variant, peaks = card_peaks(name)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_rate = SFU_PER_CLOCK_PER_SM * n_sm * clock_mhz * 1e6
     say(smi)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, device {name}; peaks used for bounds: H100 "
-        f"{variant} {peaks[0] / 1e12:.1f} TFLOP/s f32, {peaks[1] / 1e12:.2f} TB/s")
+        f"{variant} {peaks[0] / 1e12:.1f} TFLOP/s f32, {peaks[1] / 1e12:.2f} TB/s, "
+        f"{sfu_rate / 1e12:.3f} T transcendentals/s ({n_sm} SMs at {clock_mhz:.0f} MHz)")
 
     t0 = time.perf_counter()
-    built = build_libraries(("fused_traj",))
+    built = build_libraries(KERNEL_SOURCES)
     say(f"[phase 1] kernels built in {time.perf_counter() - t0:.2f} s: " + ", ".join(
         f"{n} {b['seconds']:.2f} s" for n, b in built.items()))
     for n, b in built.items():
         say(f"[phase 1] {n} compiler report:\n{b['log'].strip()}")
 
-    rec = {"name": "fused_traj", "route": "cuda",
-           "source": "sde_sampler_lrds_torch/csrc/fused_traj.cu",
-           "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:331", "library_ms": None}
+    recs = {
+        "fused_traj": {"route": "cuda", "source": "sde_sampler_lrds_torch/csrc/fused_traj.cu",
+                       "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:331",
+                       "library_ms": None},
+        "sinkhorn_lse": {"route": "cuda", "source": "sde_sampler_lrds_torch/csrc/sinkhorn_lse.cu",
+                         "replaces": "sde_sampler_lrds_tpu/ops/sinkhorn_lse.py:49"},
+        "transport_cost": {"route": "cuda",
+                           "source": "sde_sampler_lrds_torch/csrc/sinkhorn_lse.cu",
+                           "replaces": "sde_sampler_lrds_tpu/ops/sinkhorn_lse.py:85"},
+        "resample": {"route": "cuda", "source": "sde_sampler_lrds_torch/csrc/resample.cu",
+                     "replaces": "sde_sampler_lrds_tpu/ops/resample.py:60"},
+    }
+    path_counts: dict[str, dict] = {}
     cfg, arrays = comparison_plan(dev)
-    phase_kernel_vs_plain(dev, cfg, arrays, rec)
+    phase_kernel_vs_plain(dev, cfg, arrays, recs["fused_traj"])
+    phase_sinkhorn_kernels(dev, recs["sinkhorn_lse"], recs["transport_cost"])
+    phase_resample_kernel(dev, recs["resample"])
     phase_noise(dev, cfg, arrays)
-    solver = phase_main_path(dev, rec)
+    solver, target, dataset = phase_main_path(dev, path_counts)
     phase_eval_parity(dev, solver)
-    phase_timing(dev, cfg, arrays, rec, peaks)
+    eval_times = phase_eval_path(dev, solver, target, path_counts)
+    smc = phase_smc(dev, target, dataset, path_counts)
+    phase_timing(dev, cfg, arrays, recs["fused_traj"], peaks)
+    phase_timing_sample_kernels(dev, recs, peaks, sfu_rate)
 
-    say(json.dumps({"kernels": [{k: rec[k] for k in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-        "plain_ms", "bound_ms", "bound_by", "library_ms", "train_shape")}]}))
+    for kname, rec in recs.items():
+        rec["launches_by_path"] = {p: c[kname] for p, c in path_counts.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        check(rec["launches"] > 0, f"{kname} was never launched on a path")
+    say("[phase 7] paths: " + json.dumps({"rds_eval": eval_times, "smc": smc}))
+    say(json.dumps({"kernels": [
+        {"name": kname, **{k: rec[k] for k in KERNEL_KEYS},
+         **{k: v for k, v in rec.items() if k not in KERNEL_KEYS}}
+        for kname, rec in recs.items()]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0

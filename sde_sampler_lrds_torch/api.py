@@ -1,6 +1,7 @@
-"""Dataset and reference-fitting pipeline (counterpart of the
-``mcmc_sample`` and ``fit_gmm`` entry points of sde_sampler_lrds_tpu/api.py;
-the model factory is not ported yet)."""
+"""Dataset and reference-fitting pipeline and the SMC baseline (counterpart
+of the ``mcmc_sample``, ``fit_gmm``, ``define_tempering_utils`` and
+``run_smc_sampler`` entry points of sde_sampler_lrds_tpu/api.py; the model
+factory and the replica-exchange baseline are not ported yet)."""
 from __future__ import annotations
 
 from typing import Callable
@@ -8,6 +9,8 @@ from typing import Callable
 import torch
 
 from .mcmc.kernels import MCMCState, run_chain
+from .mcmc.smc import smc_sampler
+from .targets.gauss import Gauss, GaussFull
 from .utils.common import resolve_device
 from .utils.gmm_fit import fit_gmm_em
 
@@ -65,3 +68,59 @@ def fit_gmm(n_components: int, dataset, means_init=None, em_type: str = "diag",
         else:
             return w, m, v
     raise ValueError(f"Couldn't fit a GMM on this dataset ({last_err}).")
+
+
+def define_tempering_utils(mean, var, target_log_prob: Callable,
+                           target_score: Callable | None = None, device=None):
+    """The geometric path t·log p₀ + (1 − t)·log ρ between a Gaussian p₀
+    (``GaussFull`` when ``var`` is a (D, D) covariance, else the diagonal
+    ``Gauss``) and the target. Returns (p₀, log_prob_and_grads(t, x)); t is
+    a scalar or one time per row of x. Without ``target_score`` the target's
+    score is taken by autograd."""
+    device = resolve_device(device)
+    mean = torch.as_tensor(mean, dtype=torch.float32, device=device)
+    var = torch.as_tensor(var, dtype=torch.float32, device=device)
+    dim = mean.shape[0]
+    if var.ndim == 2:
+        prior = GaussFull(dim=dim, loc=mean, cov=var, device=device)
+    else:
+        prior = Gauss(dim=dim, loc=mean, scale=torch.sqrt(var), device=device)
+    if target_score is None:
+        def target_score(x):
+            with torch.enable_grad():
+                y = x.detach().requires_grad_(True)
+                (g,) = torch.autograd.grad(torch.sum(target_log_prob(y)), y)
+            return g
+
+    def log_prob_and_grads(t, x):
+        t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
+        t_flat = t.reshape(-1) if t.ndim > 0 else t
+        t_col = t_flat[:, None] if t.ndim > 0 else t
+        lp = t_flat * prior.log_prob(x) + (1.0 - t_flat) * target_log_prob(x).reshape(-1)
+        g = t_col * prior.score(x) + (1.0 - t_col) * target_score(x)
+        return lp, g
+
+    return prior, log_prob_and_grads
+
+
+def run_smc_sampler(generator: torch.Generator, mean, var, n_steps: int, step_size: float,
+                    n_particles: int, n_mcmc_steps: int, n_warmup_mcmc_steps: int,
+                    target_log_prob: Callable, target_score: Callable | None = None,
+                    reweight_threshold: float = 1.0, target_acceptance: float = 0.75,
+                    return_diagnostics: bool = False, device=None):
+    """SMC baseline on the tempering path from the Gaussian (mean, var) to
+    the target, with systematic resampling. Returns the whole level-0 (the
+    target's) block of shape (n_mcmc_steps, n_particles, dim), and with
+    ``return_diagnostics`` also ``smc_sampler``'s per-level ESS and
+    acceptance."""
+    device = resolve_device(device)
+    prior, lpg = define_tempering_utils(mean, var, target_log_prob, target_score,
+                                        device=device)
+    times = torch.linspace(0.0, 1.0, n_steps, device=device)
+    x0 = prior.sample(generator, (n_particles,))
+    samples, _, diags = smc_sampler(
+        generator, x0, times, lpg, n_warmup_mcmc_steps=n_warmup_mcmc_steps,
+        n_mcmc_steps=n_mcmc_steps,
+        step_sizes_per_noise=torch.full((n_steps, n_particles, 1), step_size, device=device),
+        reweight_threshold=reweight_threshold, target_acceptance=target_acceptance)
+    return (samples[0], diags) if return_diagnostics else samples[0]

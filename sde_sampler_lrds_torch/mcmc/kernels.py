@@ -1,5 +1,5 @@
-"""Batched MALA (counterpart of sde_sampler_lrds_tpu/mcmc/kernels.py; the
-preconditioned, ULA and RWMH kernels are not ported yet). The state caches
+"""Batched MALA and ULA (counterpart of sde_sampler_lrds_tpu/mcmc/kernels.py;
+the preconditioned and RWMH kernels are not ported yet). The state caches
 log-probs and scores so each step costs one log_prob_and_grad evaluation;
 per-chain step sizes adapt by the log-space acceptance heuristic."""
 from __future__ import annotations
@@ -65,21 +65,50 @@ def mala_step(generator, state: MCMCState, log_prob_and_grad: Callable,
     return new, log_acc
 
 
+def ula_step(generator, state: MCMCState, log_prob_and_grad: Callable,
+             noise: torch.Tensor | None = None) -> MCMCState:
+    """Unadjusted Langevin step: the MALA proposal, always taken. ``noise``
+    (B, D) replaces the proposal draw when fed."""
+    x, ss = state.x, state.step_size
+    if noise is None:
+        noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    y = x + ss * state.grad + torch.sqrt(2.0 * ss) * noise
+    lp_y, g_y = log_prob_and_grad(y)
+    return state._replace(x=y, log_prob=lp_y, grad=g_y)
+
+
+def mcmc_loop(generator, state: MCMCState, log_prob_and_grad: Callable, n_steps: int,
+              kernel: str = "mala", target_acceptance: float = 0.75,
+              out: torch.Tensor | None = None):
+    """n_steps of MALA (with step-size adaptation) or ULA, writing each
+    step's positions into ``out[i]`` where given. Returns (final_state, mean
+    acceptance over the steps as a 0-d tensor; 0 for ULA, as in the JAX
+    package)."""
+    if kernel not in ("mala", "ula"):
+        raise NotImplementedError(f"MCMC kernel {kernel!r} is not ported")
+    acc_sum = torch.zeros((), device=state.x.device)
+    for i in range(n_steps):
+        if kernel == "ula":
+            state = ula_step(generator, state, log_prob_and_grad)
+        else:
+            state, log_acc = mala_step(generator, state, log_prob_and_grad)
+            if target_acceptance > 0.0:
+                state = state._replace(step_size=heuristics_step_size(
+                    state.step_size, log_acc, target_acceptance=target_acceptance))
+            acc_sum = acc_sum + torch.exp(torch.clamp(log_acc, max=0.0)).mean()
+        if out is not None:
+            out[i] = state.x
+    return state, acc_sum / max(n_steps, 1)
+
+
 @torch.no_grad()
 def run_chain(generator, state: MCMCState, log_prob_and_grad: Callable, n_steps: int,
               kernel: str = "mala", target_acceptance: float = 0.75,
               collect: bool = True):
-    """n_steps of MALA with step-size adaptation; returns (final_state,
-    samples (n_steps, B, D) or None)."""
-    if kernel != "mala":
-        raise NotImplementedError(f"MCMC kernel {kernel!r} is not ported")
+    """n_steps of MALA (with step-size adaptation) or ULA; returns
+    (final_state, samples (n_steps, B, D) or None)."""
     samples = (torch.empty((n_steps, *state.x.shape), dtype=state.x.dtype,
                            device=state.x.device) if collect else None)
-    for i in range(n_steps):
-        state, log_acc = mala_step(generator, state, log_prob_and_grad)
-        if target_acceptance > 0.0:
-            state = state._replace(step_size=heuristics_step_size(
-                state.step_size, log_acc, target_acceptance=target_acceptance))
-        if collect:
-            samples[i] = state.x
+    state, _ = mcmc_loop(generator, state, log_prob_and_grad, n_steps, kernel,
+                         target_acceptance, out=samples)
     return state, samples

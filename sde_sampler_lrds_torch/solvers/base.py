@@ -4,18 +4,20 @@ update, and EMA (counterpart of sde_sampler_lrds_tpu/solvers/base.py).
 The JAX package fuses value_and_grad, the finite/magnitude guards, the
 optax update and the EMA into one jitted step; here the same sequence runs
 eagerly: backward, guard, then either the optimizer step or a skip counted
-in ``n_skipped``. Checkpointing, the host run loop and the hyperparameter
-schedules are not ported yet.
+in ``n_skipped``. ``eval_metrics`` runs an evaluation pass and reduces it
+with ``eval/metrics.get_metrics``, sample losses included. Checkpointing,
+the host run loop and the hyperparameter schedules are not ported yet.
 """
 from __future__ import annotations
 
 import copy
+import time
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
-from ..utils.common import Results, resolve_device
+from ..utils.common import Results, derive_generator, resolve_device
 
 
 @dataclass
@@ -54,10 +56,15 @@ class TrainConfig:
 
 class Trainable:
     """Gradient-trained solver: owns the target, the device, the trainable
-    module, its optimizer and EMA copy."""
+    module, its optimizer and EMA copy. ``sample_losses`` maps a name to a
+    ``(samples, target_draws) -> scalar`` distance that ``eval_metrics``
+    reports as ``error/<name>``."""
 
-    def __init__(self, target, cfg: TrainConfig | None = None, device=None):
+    def __init__(self, target, cfg: TrainConfig | None = None, device=None,
+                 eval_marginal_dims: tuple[int, ...] = (0,), sample_losses=None):
         self.target = target
+        self.eval_marginal_dims = list(eval_marginal_dims)
+        self.sample_losses = sample_losses or {}
         self.cfg = cfg or TrainConfig()
         self.device = resolve_device(device)
         if self.cfg.param_schedule:
@@ -165,4 +172,30 @@ class Trainable:
         metrics = {}
         for _ in range(max(self.cfg.steps_per_call, 1)):
             metrics = self._one_step(generator, **fed)
+        return metrics
+
+    # -- evaluation metrics ------------------------------------------------
+    def metrics_from_results(self, results: Results, generator: torch.Generator) -> dict:
+        """``results.metrics`` plus every metric of its samples. The target
+        draws of the sample losses come from a generator derived from
+        ``generator`` (the counterpart of ``fold_in(key, 7)``)."""
+        from ..eval.metrics import get_metrics
+
+        metrics = dict(results.metrics)
+        if results.samples is not None:
+            metrics.update(get_metrics(
+                self.target, results.samples, weights=results.weights,
+                log_norm_const_preds=results.log_norm_const_preds,
+                expectation_preds=results.expectation_preds,
+                marginal_dims=self.eval_marginal_dims,
+                sample_losses=self.sample_losses,
+                sample_generator=derive_generator(generator, 7)))
+        return metrics
+
+    def eval_metrics(self, generator: torch.Generator) -> dict:
+        """One evaluation pass and its metrics, with the wall time it took."""
+        t0 = time.time()
+        results = self.evaluate(generator)
+        metrics = self.metrics_from_results(results, generator)
+        metrics["eval/sample_time"] = time.time() - t0
         return metrics

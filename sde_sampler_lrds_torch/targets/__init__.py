@@ -2,6 +2,7 @@ from .base import Target
 from .gauss import (
     GMM,
     Gauss,
+    GaussFull,
     IsotropicGauss,
     ManyModes,
     log_prob_gaussian,

@@ -24,13 +24,33 @@ class Target:
     differentiates the log-density with autograd)."""
 
     def __init__(self, dim: int, log_norm_const: float | None = None,
-                 n_reference_samples: int | None = None, device=None):
+                 n_reference_samples: int | None = None, domain=None, device=None):
         self.dim = dim
         self.device = resolve_device(device)
         self.log_norm_const = log_norm_const
         self.n_reference_samples = n_reference_samples
+        self.domain: torch.Tensor | None = None
+        self.set_domain(domain)
         self.stddevs: torch.Tensor | None = None
         self.expectations: dict[str, float] = {}
+
+    # -- domain ------------------------------------------------------------
+    def set_domain(self, d) -> None:
+        """A box (dim, 2) of [low, high] per coordinate, from a scalar a
+        (the box [-a, a]^dim), one [low, high] pair, or the full table."""
+        if d is None:
+            self.domain = None
+            return
+        d = torch.as_tensor(d, dtype=torch.float32, device=self.device)
+        if d.ndim == 0:
+            d = torch.stack([-d, d], dim=-1)
+        if d.ndim == 1:
+            d = d[None, :]
+        if d.shape == (1, 2):
+            d = d.repeat(self.dim, 1)
+        if d.shape != (self.dim, 2):
+            raise ValueError(f"domain must be ({self.dim}, 2), got {tuple(d.shape)}")
+        self.domain = d
 
     # -- densities ---------------------------------------------------------
     def unnorm_log_prob(self, x: torch.Tensor) -> torch.Tensor:

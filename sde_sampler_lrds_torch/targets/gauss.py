@@ -1,7 +1,8 @@
 """Gaussian / Gaussian-mixture targets with closed-form log-probs and scores
-(counterpart of sde_sampler_lrds_tpu/targets/gauss.py, diagonal covariances
-only; the full-covariance classes are not ported yet). Mixture scores are
-computed in log-space with softmax responsibilities."""
+(counterpart of sde_sampler_lrds_tpu/targets/gauss.py: the diagonal
+classes and the single full-covariance Gaussian; the full-covariance
+mixtures are not ported yet). Mixture scores are computed in log-space with
+softmax responsibilities."""
 from __future__ import annotations
 
 import math
@@ -57,9 +58,11 @@ class GMM(Target):
     """Mixture of Gaussians with diagonal component covariances."""
 
     def __init__(self, dim: int = 2, loc=None, scale=None, mixture_weights=None,
-                 n_reference_samples: int = int(1e6), device=None):
+                 n_reference_samples: int = int(1e6), domain_scale: float = 5.0,
+                 domain=None, device=None):
         super().__init__(dim=dim, log_norm_const=0.0,
-                         n_reference_samples=n_reference_samples, device=device)
+                         n_reference_samples=n_reference_samples, domain=domain,
+                         device=device)
         loc = torch.as_tensor(loc, dtype=torch.float32, device=self.device)
         scale = torch.as_tensor(scale, dtype=torch.float32, device=self.device)
         self.n_mixtures = loc.shape[0]
@@ -74,7 +77,11 @@ class GMM(Target):
         self.mixture_weights = torch.as_tensor(
             mixture_weights, dtype=torch.float32, device=self.device)
         self._probs = self.mixture_weights / self.mixture_weights.sum()
-        self.stddevs = self._mixture_mean_std()[1]
+        mean, std = self._mixture_mean_std()
+        if self.domain is None:
+            self.set_domain(torch.stack([mean - domain_scale * std,
+                                         mean + domain_scale * std], dim=1))
+        self.stddevs = std
 
     def _mixture_mean_std(self):
         p = self._probs[:, None]
@@ -175,6 +182,46 @@ class Gauss(GMM):
 
     def score(self, x: torch.Tensor) -> torch.Tensor:
         return score_gauss(x, self.loc[0], self.scale[0] ** 2)
+
+
+class GaussFull(Target):
+    """Single full-covariance Gaussian, given its covariance or precision."""
+
+    def __init__(self, dim: int = 1, loc=None, cov=None, prec=None,
+                 n_reference_samples: int = int(1e6), domain_scale: float = 5.0,
+                 domain=None, device=None):
+        super().__init__(dim=dim, log_norm_const=0.0,
+                         n_reference_samples=n_reference_samples, domain=domain,
+                         device=device)
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        if cov is None and prec is None:
+            raise ValueError("Either cov or prec must be set.")
+        if cov is not None:
+            cov = as_t(cov)
+            prec = torch.linalg.inv(cov) if prec is None else as_t(prec)
+        else:
+            prec = as_t(prec)
+            cov = torch.linalg.inv(prec)
+        self.loc, self.cov, self.prec = as_t(loc), cov, prec
+        self.cov_log_det = torch.linalg.slogdet(cov)[1]
+        self.chol = torch.linalg.cholesky(cov)
+        self.stddevs = torch.sqrt(torch.diagonal(cov))
+        if self.domain is None:
+            self.set_domain(torch.stack([self.loc - domain_scale * self.stddevs,
+                                         self.loc + domain_scale * self.stddevs], dim=1))
+
+    def unnorm_log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        diff = x.reshape(-1, self.dim) - self.loc
+        lp = -0.5 * torch.sum(diff * (diff @ self.prec.T), dim=-1)
+        lp = lp - 0.5 * self.dim * _LOG_2PI - 0.5 * self.cov_log_det
+        return lp.reshape(x.shape[:-1])
+
+    def score(self, x: torch.Tensor) -> torch.Tensor:
+        return -(x - self.loc) @ self.prec.T
+
+    def sample(self, generator: torch.Generator, shape: tuple = ()) -> torch.Tensor:
+        eps = torch.randn((*shape, self.dim), generator=generator, device=self.device)
+        return self.loc + eps @ self.chol.T
 
 
 class IsotropicGauss(Gauss):

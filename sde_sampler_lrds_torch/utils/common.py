@@ -3,6 +3,7 @@ masked statistics (counterpart of sde_sampler_lrds_tpu/utils/common.py)."""
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 
 import torch
@@ -19,6 +20,16 @@ def resolve_device(device=None) -> torch.device:
                 "to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def derive_generator(generator: torch.Generator, data: int) -> torch.Generator:
+    """A new generator on ``generator``'s device seeded from its current
+    state and ``data``, leaving ``generator`` untouched: the counterpart of
+    ``jax.random.fold_in(key, data)``."""
+    state = generator.get_state().cpu().numpy().tobytes()
+    digest = hashlib.sha256(state + int(data).to_bytes(8, "little", signed=True)).digest()
+    seed = int.from_bytes(digest[:8], "little") & (2**63 - 1)
+    return torch.Generator(generator.device).manual_seed(seed)
 
 
 @dataclasses.dataclass
