@@ -49,8 +49,9 @@ def mcmc_sample(generator: torch.Generator, target, x_init, mcmc_type: str = "ma
 def fit_gmm(n_components: int, dataset, means_init=None, em_type: str = "diag",
             max_iter: int = 1000, device=None):
     """EM with an ascending reg_covar sweep; returns (weights, means,
-    variances) on ``device``. Each attempt seeds its own generator; after
-    the strongest regularization fails, this raises."""
+    variances) on ``device``, the variances (K, D) for ``em_type`` 'diag' or
+    full (K, D, D) covariances for 'full'. Each attempt seeds its own
+    generator; after the strongest regularization fails, this raises."""
     device = resolve_device(device)
     data = torch.as_tensor(dataset, dtype=torch.float32, device=device)
     data = data.reshape(-1, data.shape[-1])

@@ -2,39 +2,65 @@
 //
 // Replaces: the Pallas TPU kernel `_traj_kernel` in
 // sde_sampler_lrds_tpu/ops/fused_traj.py (launched by `_fused_traj`), in its
-// f32 / diagonal-or-single-Gaussian-reference modes, with fed noise
-// (optionally writing the pre-step states) or noise drawn in the kernel.
-// The eigen-factored full-covariance reference, the bf16 control and the KL
-// backward are not ported here.
+// f32 modes: a diagonal / single-Gaussian reference, or an eigen-factored
+// full-covariance reference; with fed noise (optionally writing the pre-step
+// states) or noise drawn in the kernel. The bf16 control mode is not ported
+// here.
 //
 // What it computes, for every trajectory b and step k = 0..K-1:
 //   u   = clip(FourierMLP(t_k, x))          tanh-GELU MLP, time embedding
 //                                            precomputed as embed[k]
-//   r   = score of the noised diagonal MoG reference at step k
-//         (softmax responsibilities over C components)
+//   r   = score of the noised MoG reference at step k (softmax
+//         responsibilities over C components): per component c
+//           y = x - m_kc                                 (diagonal mode)
+//           y = (x - m_kc)·P_c                           (full-covariance)
+//           logit_c = const_kc - ½ Σ_d y_d²·iv_kcd
+//           g_c = y·iv_kc           or   g_c = (y·iv_kc)·P_cᵀ
+//         r = -Σ_c softmax(logit)_c·g_c; iv holds inverse variances, or in
+//         the full-covariance mode inverse eigen-variances of the noised
+//         covariance P_c diag(s²(eig + σ²)) P_cᵀ, whose rotation P_c does
+//         not depend on the step
 //   z   = fed noise[k, b] or Philox4x32-10 + Box–Muller
 //   rnd += c_cost·½‖u‖² + c_dot·u·z
 //   x    = a_x·x + a_ref·r + a_u·u + a_z·z
 // with the per-step (a_x, a_ref, a_u, a_z, c_cost, c_dot) in coefs[k].
 //
 // What bounds it on this card: arithmetic on the CUDA cores. Per
-// trajectory-step the control MLP costs 2·(D·H + n_h·H² + H·D) flops
-// (18.4 kflop at D = 8, H = 64, n_h = 2) against 2·D·4 bytes of state
-// traffic at most, and the K steps form a dependent chain, so the batch tile
-// must stay on chip for the whole trajectory.
+// trajectory-step the control MLP costs 2·(D·H + n_h·H² + H·D) flops and the
+// full-covariance score 4·C·D² more (18.4 kflop and 0 at the LRDS demo's
+// D = 8; 51.2 k and 80 k at the φ⁴ experiment's D = 100, H = 64, C = 2)
+// against 2·D·4 bytes of state traffic at most, and the K steps form a
+// dependent chain, so the batch tile must stay on chip for the whole
+// trajectory.
 //
 // What the design does about it: one block owns a tile of TB = 32
 // trajectories for all K steps. The MLP weights, the state, the hidden
-// activations and the per-step scratch stay in shared memory (about 58 KB at
-// the main-path shapes, so dynamic shared memory above 48 KB); nothing goes
+// activations and the per-step scratch stay in shared memory; nothing goes
 // to device memory between steps except the optional pre-step states. The
 // per-step table rows (coefs, embed, reference constants) are read from
 // global memory, where they stay L2-resident. In each dense layer a thread
-// owns one output unit for R = 4 trajectories, so one weight read from
-// shared memory feeds R fused multiply-adds and the input rows are read as
-// broadcast float4s. Everything is f32 on the CUDA cores (no tensor cores:
-// the products are (32 × 64)·(64 × 64) per step, too small to feed wgmma
-// well in a first version).
+// owns one output unit for R = 4 trajectories, so one weight read feeds R
+// fused multiply-adds and the input rows are read as broadcast float4s.
+// The reference score uses every thread: the two rotations are the same
+// (TB × D)·(D × D) products as a dense layer, with P_c and P_cᵀ read
+// through the read-only path (row-major, so neighbouring threads read
+// neighbouring columns), and each warp reduces the quadratic form of 4
+// trajectories with shuffles and keeps their online softmax over
+// components. The rotation stacks are not staged in shared memory: at
+// D = 100, C = 2 they are 2·80 KB, shared by every block and L2-resident,
+// while the block's shared memory already holds 153.5 KB (below). The
+// rotations' scratch reuses the control and noise rows, which are free
+// between the RND update of one step and the MLP of the next.
+// Shared memory per block, in floats, each region padded to 16 bytes:
+//   D·H + H + n_h·H² + n_h·H + H·D + D   weights and biases
+//   + 2·TB·H                             hidden activations
+//   + 4·TB·D                             state, control, noise, score
+//   + 3·TB                               per-trajectory softmax factors
+// = 38 276 floats = 153 104 bytes at D = 100, H = 64, n_h = 2 (14 632
+// floats at D = 8); the card's per-block limit of 232 448 bytes caps D at 177 for
+// H = 64, n_h = 2. Everything is f32 on the CUDA cores (no tensor cores:
+// the products are (32 × 64)·(64 × 64) and (32 × 100)·(100 × 100) per step,
+// too small to feed wgmma well in a first version).
 //
 // The ragged last tile is masked, not padded. Random draws are keyed by
 // (seed, step, global trajectory index, dimension), so they do not depend on
@@ -46,9 +72,11 @@
 
 namespace {
 
-constexpr int TB = 32;   // trajectories per block
-constexpr int NT = 256;  // threads per block
-constexpr int R = 4;     // trajectories per thread in a dense layer
+constexpr int TB = 32;         // trajectories per block
+constexpr int NT = 256;        // threads per block
+constexpr int R = 4;           // trajectories per thread in a dense layer
+constexpr int NW = NT / 32;    // warps per block
+constexpr int TPW = TB / NW;   // trajectories per warp in the reductions
 
 struct Params {
   const float* x0;         // (B, D)
@@ -63,6 +91,8 @@ struct Params {
   const float* ref_const;  // (K, C)
   const float* ref_m;      // (K, C*D)
   const float* ref_iv;     // (K, C*D)
+  const float* ref_p;      // (C*D, D) rotations P_c, or null: diagonal mode
+  const float* ref_pt;     // (C*D, D) their transposes P_cᵀ
   const float* noise;      // (K, B, D) or null: draw in the kernel
   float* x_out;            // (B, D)
   float* rnd_out;          // (B)
@@ -77,12 +107,18 @@ __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 // Shared-memory floats for one block, each region padded to 16 bytes.
 __host__ __device__ inline int smem_floats(int D, int H, int nh) {
   return round4(D * H) + round4(H) + round4(nh * H * H) + round4(nh * H) +
-         round4(H * D) + round4(D) + 2 * TB * H + 4 * round4(TB * D);
+         round4(H * D) + round4(D) + 2 * TB * H + 4 * round4(TB * D) + 3 * TB;
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float k0 = 0.7978845608028654f;  // sqrt(2/pi)
   return x * (0.5f * (1.0f + tanhf(k0 * (x + 0.044715f * (x * x * x)))));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
 }
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -111,9 +147,21 @@ __device__ __forceinline__ float philox_normal(unsigned long long seed, int k,
   return sqrtf(-2.0f * logf(1.0f - f1)) * cosf(6.2831855f * f2);
 }
 
+// A weight from shared memory, or from global memory through the read-only
+// path.
+template <bool GLOBAL>
+__device__ __forceinline__ float load_w(const float* p) {
+  if constexpr (GLOBAL) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
 // out[b][j] = act(Σ_i in[b][i]·W[i][j] + bias[j] + extra[j]) for the TB
-// rows of a tile; in/out/W/bias in shared memory, extra (or null) global.
-template <bool GELU>
+// rows of a tile; in/out in shared memory, W in shared (W_GLOBAL false) or
+// global memory, bias (or null) shared, extra (or null) global.
+template <bool GELU, bool W_GLOBAL>
 __device__ void dense(const float* __restrict__ in, int n_in,
                       const float* __restrict__ W,
                       const float* __restrict__ bias,
@@ -122,7 +170,7 @@ __device__ void dense(const float* __restrict__ in, int n_in,
   const int items = (TB / R) * n_out;
   for (int o = threadIdx.x; o < items; o += NT) {
     const int j = o % n_out, g = o / n_out;
-    float bj = bias[j];
+    float bj = bias != nullptr ? bias[j] : 0.0f;
     if (extra != nullptr) bj += __ldg(extra + j);
     float acc[R];
 #pragma unroll
@@ -130,8 +178,10 @@ __device__ void dense(const float* __restrict__ in, int n_in,
     const float* rows = in + g * R * n_in;
     if ((n_in & 3) == 0) {
       for (int i = 0; i < n_in; i += 4) {
-        const float w0 = W[(i + 0) * n_out + j], w1 = W[(i + 1) * n_out + j];
-        const float w2 = W[(i + 2) * n_out + j], w3 = W[(i + 3) * n_out + j];
+        const float w0 = load_w<W_GLOBAL>(W + (i + 0) * n_out + j);
+        const float w1 = load_w<W_GLOBAL>(W + (i + 1) * n_out + j);
+        const float w2 = load_w<W_GLOBAL>(W + (i + 2) * n_out + j);
+        const float w3 = load_w<W_GLOBAL>(W + (i + 3) * n_out + j);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 v = *reinterpret_cast<const float4*>(rows + r * n_in + i);
@@ -143,7 +193,7 @@ __device__ void dense(const float* __restrict__ in, int n_in,
       }
     } else {
       for (int i = 0; i < n_in; ++i) {
-        const float w = W[i * n_out + j];
+        const float w = load_w<W_GLOBAL>(W + i * n_out + j);
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = fmaf(rows[r * n_in + i], w, acc[r]);
       }
@@ -164,6 +214,8 @@ __global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
   const int D = p.D, H = p.H, nh = p.n_hidden, C = p.C, B = p.B;
+  const int TD = TB * D;
+  const bool full = p.ref_p != nullptr;
   float* w0 = s;                  s += round4(D * H);
   float* b0 = s;                  s += round4(H);
   float* wh = s;                  s += round4(nh * H * H);
@@ -172,12 +224,19 @@ __global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
   float* bo = s;                  s += round4(D);
   float* hA = s;                  s += TB * H;
   float* hB = s;                  s += TB * H;
-  float* xt = s;                  s += round4(TB * D);  // state   [b][d]
-  float* ut = s;                  s += round4(TB * D);  // control [b][d]
-  float* zt = s;                  s += round4(TB * D);  // noise   [b][d]
-  float* rt = s;                                        // ref score [d][b]
+  float* xt = s;                  s += round4(TD);  // state     [b][d]
+  float* ut = s;                  s += round4(TD);  // control   [b][d]
+  float* zt = s;                  s += round4(TD);  // noise     [b][d]
+  float* rt = s;                  s += round4(TD);  // ref score [b][d]
+  float* f_scale = s;             s += TB;          // per trajectory: old-sum
+  float* f_wgt = s;               s += TB;          //   rescale, component
+  float* f_norm = s;                                //   weight, -1/Σweights
+  // the reference score's scratch: the control and noise rows are free
+  // from the end of one step's RND update to the next step's MLP
+  float* dt = ut;
+  float* yt = zt;
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int base = blockIdx.x * TB;
   copy_to_smem(w0, p.w0, D * H);
   copy_to_smem(b0, p.b0, H);
@@ -185,78 +244,99 @@ __global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
   copy_to_smem(bh, p.bh, nh * H);
   copy_to_smem(wo, p.w_out, H * D);
   copy_to_smem(bo, p.b_out, D);
-  for (int o = tid; o < TB * D; o += NT) {
+  for (int o = tid; o < TD; o += NT) {
     const int gb = base + o / D;
     xt[o] = gb < B ? p.x0[(size_t)gb * D + o % D] : 0.0f;
   }
-  float rnd = 0.0f;  // owned by thread tid < TB for trajectory base + tid
+  // trajectories warp·TPW .. warp·TPW + TPW − 1 belong to this warp's
+  // reductions; every lane keeps the same copy of their running values
+  float rnd[TPW], mx[TPW], sw[TPW];
+#pragma unroll
+  for (int i = 0; i < TPW; ++i) rnd[i] = mx[i] = sw[i] = 0.0f;
   __syncthreads();
 
   for (int k = 0; k < p.K; ++k) {
     const float* cf = p.coefs + 6 * k;
-    if (tid < TB) {
-      const int b = tid;
-      if (k > 0) {  // the previous step's RND increment
-        float uu = 0.0f, uz = 0.0f;
-        for (int d = 0; d < D; ++d) {
-          const float u = ut[b * D + d];
-          uu = fmaf(u, u, uu);
-          uz = fmaf(u, zt[b * D + d], uz);
-        }
-        rnd = rnd + __ldg(cf - 6 + 4) * 0.5f * uu + __ldg(cf - 6 + 5) * uz;
-      }
-      // score of the noised MoG: online softmax over components
-      const float* cst = p.ref_const + (size_t)k * C;
-      const float* m = p.ref_m + (size_t)k * C * D;
-      const float* iv = p.ref_iv + (size_t)k * C * D;
-      for (int d = 0; d < D; ++d) rt[d * TB + b] = 0.0f;
-      float mx = -INFINITY, sw = 0.0f;
-      for (int c = 0; c < C; ++c) {
-        float q = 0.0f;
-        for (int d = 0; d < D; ++d) {
-          const float diff = xt[b * D + d] - __ldg(m + c * D + d);
-          q = fmaf(diff, diff * __ldg(iv + c * D + d), q);
-        }
-        const float logit = __ldg(cst + c) - 0.5f * q;
-        if (logit > mx) {
-          const float sc = expf(mx - logit);
-          sw *= sc;
-          for (int d = 0; d < D; ++d) rt[d * TB + b] *= sc;
-          mx = logit;
-        }
-        const float w = expf(logit - mx);
-        sw += w;
-        for (int d = 0; d < D; ++d) {
-          const float g = (xt[b * D + d] - __ldg(m + c * D + d)) * __ldg(iv + c * D + d);
-          rt[d * TB + b] = fmaf(w, g, rt[d * TB + b]);
-        }
-      }
-      for (int d = 0; d < D; ++d) rt[d * TB + b] = -rt[d * TB + b] / sw;
-    }
     if (p.xs_out != nullptr) {
-      for (int o = tid; o < TB * D; o += NT) {
+      for (int o = tid; o < TD; o += NT) {
         const int gb = base + o / D;
         if (gb < B) p.xs_out[((size_t)k * B + gb) * D + o % D] = xt[o];
       }
     }
+    // ---- reference score of the noised MoG: online softmax over C ------
+    const float* cst = p.ref_const + (size_t)k * C;
+    const float* m = p.ref_m + (size_t)k * C * D;
+    const float* iv = p.ref_iv + (size_t)k * C * D;
+    for (int c = 0; c < C; ++c) {
+      for (int o = tid; o < TD; o += NT) dt[o] = xt[o] - __ldg(m + c * D + o % D);
+      __syncthreads();
+      float* y = dt;
+      if (full) {  // y = (x − m)·P_c
+        dense<false, true>(dt, D, p.ref_p + (size_t)c * D * D, nullptr, nullptr, D, yt);
+        __syncthreads();
+        y = yt;
+      }
+      // y ← y·iv in place; logit = const − ½ Σ y²·iv, one warp per trajectory
+#pragma unroll
+      for (int i = 0; i < TPW; ++i) {
+        const int b = warp * TPW + i;
+        float q = 0.0f;
+        for (int d = lane; d < D; d += 32) {
+          const float v = y[b * D + d], sv = v * __ldg(iv + c * D + d);
+          y[b * D + d] = sv;
+          q = fmaf(v, sv, q);
+        }
+        const float logit = __ldg(cst + c) - 0.5f * warp_sum(q);
+        float scale = 0.0f, wgt = 1.0f;
+        if (c == 0) {
+          mx[i] = logit;
+          sw[i] = 1.0f;
+        } else {
+          const float nmx = fmaxf(mx[i], logit);
+          scale = expf(mx[i] - nmx);
+          wgt = expf(logit - nmx);
+          sw[i] = sw[i] * scale + wgt;
+          mx[i] = nmx;
+        }
+        if (lane == 0) {
+          f_scale[b] = scale;
+          f_wgt[b] = wgt;
+          if (c == C - 1) f_norm[b] = -1.0f / sw[i];
+        }
+      }
+      __syncthreads();
+      float* g = y;
+      if (full) {  // g = (y·iv)·P_cᵀ
+        dense<false, true>(yt, D, p.ref_pt + (size_t)c * D * D, nullptr, nullptr, D, dt);
+        __syncthreads();
+        g = dt;
+      }
+      for (int o = tid; o < TD; o += NT) {
+        const int b = o / D;
+        float v = c == 0 ? f_wgt[b] * g[o] : fmaf(f_wgt[b], g[o], rt[o] * f_scale[b]);
+        if (c == C - 1) v *= f_norm[b];
+        rt[o] = v;
+      }
+      __syncthreads();
+    }
     // ---- control u = clip(FourierMLP(t_k, x)) -------------------------
-    dense<true>(xt, D, w0, b0, p.embed + (size_t)k * H, H, hA);
+    dense<true, false>(xt, D, w0, b0, p.embed + (size_t)k * H, H, hA);
     __syncthreads();
     float* hin = hA;
     float* hout = hB;
     for (int l = 0; l < nh; ++l) {
-      dense<true>(hin, H, wh + (size_t)l * H * H, bh + l * H, nullptr, H, hout);
+      dense<true, false>(hin, H, wh + (size_t)l * H * H, bh + l * H, nullptr, H, hout);
       __syncthreads();
       float* tmp = hin;
       hin = hout;
       hout = tmp;
     }
-    dense<false>(hin, H, wo, bo, nullptr, D, ut);
+    dense<false, false>(hin, H, wo, bo, nullptr, D, ut);
     __syncthreads();
     // ---- noise + state update ------------------------------------------
     const float a_x = __ldg(cf + 0), a_ref = __ldg(cf + 1), a_u = __ldg(cf + 2);
     const float a_z = __ldg(cf + 3);
-    for (int o = tid; o < TB * D; o += NT) {
+    for (int o = tid; o < TD; o += NT) {
       const int b = o / D, d = o % D, gb = base + b;
       float u = ut[o];
       if (p.has_clip) {
@@ -270,26 +350,33 @@ __global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
         z = philox_normal(p.seed, k, gb, d);
       }
       zt[o] = z;
-      xt[o] = a_x * xt[o] + a_ref * rt[d * TB + b] + a_u * u + a_z * z;
+      xt[o] = a_x * xt[o] + a_ref * rt[o] + a_u * u + a_z * z;
     }
     __syncthreads();
-  }
-
-  if (tid < TB) {
-    const int b = tid, gb = base + b;
-    if (p.K > 0) {
-      const float* cf = p.coefs + 6 * (p.K - 1);
+    // ---- RND increment, one warp per trajectory -------------------------
+    const float c_cost = __ldg(cf + 4), c_dot = __ldg(cf + 5);
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      const int b = warp * TPW + i;
       float uu = 0.0f, uz = 0.0f;
-      for (int d = 0; d < D; ++d) {
+      for (int d = lane; d < D; d += 32) {
         const float u = ut[b * D + d];
         uu = fmaf(u, u, uu);
         uz = fmaf(u, zt[b * D + d], uz);
       }
-      rnd = rnd + __ldg(cf + 4) * 0.5f * uu + __ldg(cf + 5) * uz;
+      rnd[i] = rnd[i] + c_cost * 0.5f * warp_sum(uu) + c_dot * warp_sum(uz);
     }
-    if (gb < B) p.rnd_out[gb] = rnd;
+    __syncthreads();  // the next step's reference score overwrites ut, zt
   }
-  for (int o = tid; o < TB * D; o += NT) {
+
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      const int gb = base + warp * TPW + i;
+      if (gb < B) p.rnd_out[gb] = rnd[i];
+    }
+  }
+  for (int o = tid; o < TD; o += NT) {
     const int gb = base + o / D;
     if (gb < B) p.x_out[(size_t)gb * D + o % D] = xt[o];
   }
@@ -308,19 +395,22 @@ const char* fused_traj_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream`; returns cudaGetLastError() (0 on success). ref_p and
+// ref_pt are both null (diagonal mode) or both set (full-covariance mode).
 int fused_traj_launch(const float* x0, const float* coefs, const float* embed,
                       const float* w0, const float* b0, const float* wh,
                       const float* bh, const float* w_out, const float* b_out,
                       const float* ref_const, const float* ref_m,
-                      const float* ref_iv, const float* noise,
+                      const float* ref_iv, const float* ref_p,
+                      const float* ref_pt, const float* noise,
                       unsigned long long seed, float* x_out, float* rnd_out,
                       float* xs_out, int B, int K, int D, int H, int n_hidden,
                       int C, int has_clip, float clip, void* stream) {
-  Params p{x0,    coefs,   embed,  w0,   b0,     wh,     bh,   w_out,
-           b_out, ref_const, ref_m, ref_iv, noise, x_out, rnd_out, xs_out,
-           seed,  B,       K,      D,    H,      n_hidden, C,  has_clip,
-           clip};
+  if ((ref_p == nullptr) != (ref_pt == nullptr)) return (int)cudaErrorInvalidValue;
+  Params p{x0,     coefs,  embed,   w0,     b0,       wh,    bh,
+           w_out,  b_out,  ref_const, ref_m, ref_iv,  ref_p, ref_pt,
+           noise,  x_out,  rnd_out, xs_out, seed,     B,     K,
+           D,      H,      n_hidden, C,     has_clip, clip};
   const int smem = fused_traj_smem_bytes(D, H, n_hidden);
   cudaError_t err = cudaFuncSetAttribute(
       traj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

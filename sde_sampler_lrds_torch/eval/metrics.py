@@ -2,8 +2,8 @@
 and sample-based distances (counterpart of
 sde_sampler_lrds_tpu/eval/metrics.py; same metric names and namespaces
 eval/*, error/*, rel_error/*). Reductions are torch; the returned dict
-holds host floats. The hooks of targets not ported yet (phi-four weights,
-predictive log-prob, objectives) come with those targets."""
+holds host floats. The hooks of targets not ported yet (predictive
+log-prob, objectives) come with those targets."""
 from __future__ import annotations
 
 import logging
@@ -65,6 +65,10 @@ def get_metrics(distr: Target, samples: torch.Tensor, weights: torch.Tensor | No
         name: (lambda s, fn=fn: fn(s).reshape(-1, 1)) for name, fn in EXPECTATION_FNS.items()}
     if hasattr(distr, "compute_mode_weight"):
         fns["mode_weight"] = lambda s: float(distr.compute_mode_weight(s))
+    if hasattr(distr, "compute_phi_four_weight"):
+        fns["weight"] = lambda s: float(distr.compute_phi_four_weight(s))
+    if hasattr(distr, "compute_phi_four_weight_rb"):
+        fns["weight_rb"] = lambda s: float(distr.compute_phi_four_weight_rb(s))
     if distr.has_entropy():
         fns["emc"] = lambda s: float(distr.entropy(s))
         fns["kl_weights"] = lambda s: float(distr.kl_weights(s))

@@ -10,15 +10,30 @@ import math
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.common import Results, masked_mean, masked_var
 
 
-def flat_ctrl_eval(ctrl: Callable, t_grid: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+def flat_ctrl_eval(ctrl: Callable, t_grid: torch.Tensor, xs: torch.Tensor,
+                   max_flat: int = 4_000_000) -> torch.Tensor:
     """Batched control evaluation over per-step states for the flat LV
-    path: u[k] = ctrl(t_grid[k], xs[k]) for xs (K, B, D), as ONE call with
-    per-step times (K, 1) broadcast against the (K, B) batch."""
-    return ctrl(t_grid[:, None], xs)
+    path: u[k] = ctrl(t_grid[k], xs[k]) for xs (K, B, ...), as one call with
+    per-step times (K, 1) broadcast against the (K, B) batch. Past
+    ``max_flat`` state elements the time axis goes in chunks of 16 steps,
+    each checkpointed when autograd records it, so the backward pass stores
+    only the chunks' outputs and recomputes their activations."""
+    if xs.numel() <= max_flat:
+        return ctrl(t_grid[:, None], xs)
+
+    def chunk(t, x):
+        return ctrl(t[:, None], x)
+
+    out = []
+    for t, x in zip(torch.split(t_grid, 16), torch.split(xs, 16)):
+        out.append(checkpoint(chunk, t, x, use_reentrant=False)
+                   if torch.is_grad_enabled() else chunk(t, x))
+    return torch.cat(out)
 
 
 def compute_results(rnd: torch.Tensor, compute_weights: bool = False,

@@ -21,6 +21,11 @@ import torch
 from .base import BaseOCLoss, compute_results, flat_ctrl_eval
 
 
+def _at(tab, k):
+    """Step k of a (possibly nested) tuple of per-step tables."""
+    return tuple(_at(a, k) if isinstance(a, tuple) else a[k] for a in tab)
+
+
 def _step_noise(noise, k, generator, x):
     return noise[k] if noise is not None else torch.randn(
         x.shape, generator=generator, device=x.device)
@@ -64,7 +69,7 @@ class EMReferenceSDELoss(BaseOCLoss):
             db = sqdt_arr[k] * _step_noise(noise, k, generator, x)
             drift = -(drift_arr[k] * x)
             if self.reference_ctrl is not None:
-                ref_score = (self.reference_ctrl.apply(tuple(a[k] for a in tab), x)
+                ref_score = (self.reference_ctrl.apply(_at(tab, k), x)
                              if tabulated else self.reference_ctrl(tc, x))
                 drift = drift + torch.square(diff) * ref_score
             x = x + (drift + diff * sde_ctrl) * dt + diff * db
@@ -174,7 +179,7 @@ class EIReferenceSDELoss(EMReferenceSDELoss):
         traj = [x]
         for k in range(t_ctrl.shape[0]):
             tc = t_ctrl[k]
-            ref_score = (self.reference_ctrl.apply(tuple(a[k] for a in tab), x)
+            ref_score = (self.reference_ctrl.apply(_at(tab, k), x)
                          if tabulated else self.reference_ctrl(tc, x))
             u = ctrl(tc, x)
             sde_ctrl = u.detach() if change_sde_ctrl else u

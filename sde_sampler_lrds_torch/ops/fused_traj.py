@@ -9,8 +9,15 @@ One generalized per-step update covers the EM, EI and DDPM integrators:
 with (a_x, a_ref, a_u, a_z, c_cost, c_dot) precomputed per step. The control
 is a FourierMLP (optionally inside ClippedCtrl's clip) whose time embedding
 depends only on the time grid, so it is tabulated as a (K, H) table; the
-reference score is that of a noised diagonal Gaussian / GMM, tabulated as
-per-step (log-weight constants, means, inverse variances).
+reference score is that of a noised Gaussian / GMM, tabulated as per-step
+(log-weight constants, means, inverse variances). A full-covariance
+reference rides its eigendecomposition cov_c = P_c diag(eig_c) P_cᵀ: the
+noised covariance keeps the eigenbasis, so the tables add the static
+rotations ``ref_p`` (P_c) and ``ref_pt`` (P_cᵀ), ``ref_iv`` holds the
+per-step inverse eigen-variances, and the score per component is
+y = (x − m)·P_c, logit = const − ½Σ y²·iv, g = (y·iv)·P_cᵀ
+(``cfg.full_cov``). Raw (C, D, D) covariances are eigendecomposed once, by
+``torch.linalg.eigh``, at the first plan built for the reference.
 
 ``build_plan`` turns a (loss, control, time grid) triple into those tables.
 ``fused_traj`` runs all K steps: on a CUDA tensor it launches the
@@ -20,9 +27,9 @@ The public layout is row-major: x0 (B, D), noise (K, B, D); returns
 x_T (B, D), rnd (B,) and, with ``return_traj``, the pre-step states
 xs (K, B, D).
 
-Not ported yet (``build_plan`` raises NotImplementedError): the
-eigen-factored full-covariance reference. The bf16 control and the KL
-custom-VJP backward have no counterpart here yet either.
+Not ported yet: the bf16 control mode, and fused KL training
+(``fused_kl_traj``, whose backward in the JAX package is a ``lax.scan``
+adjoint, not a Pallas kernel).
 """
 from __future__ import annotations
 
@@ -37,12 +44,29 @@ from ._build import load_library
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
-# the kernel's design limits (csrc/fused_traj.cu): state width, hidden width,
-# hidden layers; shared memory is checked against the card's per-block limit.
-# Steps K and components C have no upper limit (their per-step tables are
-# read from global memory, the softmax over C is online); both must be ≥ 1.
-MAX_DIM, MAX_CHANNELS, MAX_HIDDEN = 32, 256, 8
+# the kernel's design limits (csrc/fused_traj.cu): hidden width and hidden
+# layers; the state width D is bounded by the block's shared memory, checked
+# against the card's per-block limit (D ≤ 177 at H = 64 with 2 hidden
+# layers). Steps K and components C have no upper limit (their per-step
+# tables and the rotations are read from global memory, the softmax over C
+# is online); both must be ≥ 1.
+MAX_CHANNELS, MAX_HIDDEN = 256, 8
 MAX_SMEM_BYTES = 232_448
+_TB = 32  # trajectories per block
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def smem_bytes(dim: int, channels: int, n_hidden: int) -> int:
+    """Dynamic shared memory of one block of the kernel, in bytes: the
+    host-side mirror of ``fused_traj_smem_bytes`` in csrc/fused_traj.cu."""
+    d, h, nh = dim, channels, n_hidden
+    floats = (_round4(d * h) + _round4(h) + _round4(nh * h * h) + _round4(nh * h)
+              + _round4(h * d) + _round4(d) + 2 * _TB * h + 4 * _round4(_TB * d)
+              + 3 * _TB)
+    return 4 * floats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +78,9 @@ class FusedTrajCfg:
     n_hidden: int
     n_comp: int
     clip: float | None
+    # eigen-factored full-covariance reference: ref_iv holds inverse
+    # eigen-variances and the kernel rotates through ref_p / ref_pt
+    full_cov: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -95,19 +122,72 @@ def _fourier_mlp_tables(ctrl_module, t_grid):
     return fields, {k: v.detach() for k, v in arrays.items()}
 
 
+def _eigen_factors(reference_ctrl, var):
+    """(eig, P) of a raw full covariance stack, by torch.linalg.eigh once
+    per reference: the result is kept on the reference object for the plans
+    built after it (the training path builds one per step)."""
+    cached = getattr(reference_ctrl, "_fused_eigh", None)
+    if cached is None or cached[0] is not var:
+        cached = (var, torch.linalg.eigh(var))
+        reference_ctrl._fused_eigh = cached
+    return cached[1]
+
+
+@torch.no_grad()
+def _factored_reference_tables(reference_ctrl, t_grid, dim):
+    """Per-step tables for a full-covariance Gaussian / GMM reference
+    (cov_c = P_c diag(eig_c) P_cᵀ, or raw matrices eigendecomposed here):
+    the noised covariance P_c diag(s²(eig + σ²)) P_cᵀ keeps the eigenbasis,
+    so the kernel needs the static rotations plus per-step inverse
+    eigen-variances. None for a diagonal reference."""
+    if hasattr(reference_ctrl, "var_init"):           # GaussianReferenceCtrl
+        var = reference_ctrl.var_init
+        if not isinstance(var, tuple):
+            if var is None or var.ndim != 2:
+                return None
+            var = _eigen_factors(reference_ctrl, var)
+        eig, p = var
+        eig, p = torch.atleast_2d(eig), (p[None] if p.ndim == 2 else p)
+        means = torch.atleast_2d(reference_ctrl.x_init)
+        w = torch.ones((means.shape[0],), device=means.device)
+    else:                                             # GMMReferenceCtrl
+        var = reference_ctrl.variances
+        if not isinstance(var, tuple):
+            if var is None or var.ndim != 3:
+                return None
+            var = _eigen_factors(reference_ctrl, var)
+        eig, p = var
+        means, w = reference_ctrl.means, reference_ctrl.weights
+    c, d = means.shape
+    if d != dim or eig.shape != (c, d) or p.shape != (c, d, d):
+        raise ValueError(f"reference of shape means {tuple(means.shape)}, eig "
+                         f"{tuple(eig.shape)}, P {tuple(p.shape)} for dim {dim}")
+    sde = reference_ctrl.sde
+    s_t = sde.s(t_grid).reshape(-1, 1, 1).float()                # (K, 1, 1)
+    sig2 = sde.sigma_sq(t_grid).reshape(-1, 1, 1).float()
+    denom = s_t**2 * (eig.float()[None] + sig2)                  # (K, C, D)
+    k = t_grid.shape[0]
+    w = (w / w.sum()).reshape(1, c).float()
+    const = torch.log(w) - 0.5 * d * _LOG_2PI - 0.5 * torch.sum(torch.log(denom), dim=-1)
+    m = s_t * means.float()[None]                                # (K, C, D)
+    p = p.float()
+    return dict(ref_const=const.contiguous(), ref_m=m.reshape(k, c * d).contiguous(),
+                ref_iv=(1.0 / denom).reshape(k, c * d).contiguous(),
+                ref_p=p.reshape(c * d, d).contiguous(),
+                ref_pt=p.transpose(-1, -2).reshape(c * d, d).contiguous())
+
+
 @torch.no_grad()
 def _reference_tables(reference_ctrl, t_grid, dim):
-    """Fold a tabulated diagonal Gaussian/GMM reference into per-step
-    (softmax constants, means, inverse variances); None when the reference
-    has no precompute protocol."""
+    """Fold a tabulated Gaussian/GMM reference into per-step (softmax
+    constants, means, inverse variances), with the rotations of a
+    full-covariance one; None when the reference has no precompute
+    protocol."""
     if not hasattr(reference_ctrl, "precompute"):
         return None
-    var = getattr(reference_ctrl, "var_init", getattr(reference_ctrl, "variances", None))
-    full_ndim = 2 if hasattr(reference_ctrl, "var_init") else 3
-    if isinstance(var, tuple) or (var is not None and var.ndim == full_ndim):
-        raise NotImplementedError(
-            "the fused trajectory's eigen-factored full-covariance reference "
-            "is not ported yet")
+    factored = _factored_reference_tables(reference_ctrl, t_grid, dim)
+    if factored is not None:
+        return factored
     tab = reference_ctrl.precompute(t_grid)
     k = t_grid.shape[0]
     if len(tab) == 2:                       # GaussianReferenceCtrl: (loc, var)
@@ -164,9 +244,10 @@ def _step_coeffs(loss, ts):
 
 
 def build_plan(loss, ctrl_module, ts):
-    """(cfg, arrays) for ``fused_traj``, or None when the (loss, control)
-    pair is outside the kernel's scope. A loss without a reference runs on
-    a one-component dummy table with zero inverse variances."""
+    """(cfg, arrays) for ``fused_traj``, or None when the (loss, control,
+    reference) triple is outside the kernel's scope. A loss without a
+    reference runs on a one-component dummy table with zero inverse
+    variances; a full-covariance reference gives a ``full_cov`` plan."""
     coefs, t_ctrl = _step_coeffs(loss, ts)
     if coefs is None:
         return None
@@ -183,7 +264,8 @@ def build_plan(loss, ctrl_module, ts):
     else:
         zeros = lambda *shape: torch.zeros(shape, device=ts.device)
         ref = dict(ref_const=zeros(k, 1), ref_m=zeros(k, d), ref_iv=zeros(k, d))
-    cfg = FusedTrajCfg(k_steps=k, n_comp=ref["ref_const"].shape[1], **fields)
+    cfg = FusedTrajCfg(k_steps=k, n_comp=ref["ref_const"].shape[1],
+                       full_cov="ref_p" in ref, **fields)
     return cfg, dict(coefs=coefs, **arrays, **ref)
 
 
@@ -214,9 +296,17 @@ def fused_traj_plain(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
         u = gelu_tanh(h) @ a["w_out"] + a["b_out"]
         if cfg.clip is not None:
             u = torch.clamp(u, -cfg.clip, cfg.clip)
-        m = a["ref_m"][k].reshape(c, d)
-        g = (x[:, None, :] - m) * a["ref_iv"][k].reshape(c, d)         # (B, C, D)
-        logits = a["ref_const"][k] - 0.5 * torch.sum((x[:, None, :] - m) * g, dim=-1)
+        diff = x[:, None, :] - a["ref_m"][k].reshape(c, d)             # (B, C, D)
+        iv = a["ref_iv"][k].reshape(c, d)
+        if cfg.full_cov:   # rotate into each component's eigenbasis and back
+            p = a["ref_p"].reshape(c, d, d)
+            y = torch.einsum("bcd,cde->bce", diff, p)
+            ys = y * iv
+            logits = a["ref_const"][k] - 0.5 * torch.sum(y * ys, dim=-1)
+            g = torch.einsum("bce,cfe->bcf", ys, p)
+        else:
+            g = diff * iv
+            logits = a["ref_const"][k] - 0.5 * torch.sum(diff * g, dim=-1)
         ref_score = -torch.sum(torch.softmax(logits, dim=-1)[..., None] * g, dim=1)
         z = noise[k] if noise is not None else torch.randn(
             x.shape, generator=generator, device=x.device)
@@ -237,7 +327,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fused_traj")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_traj_launch.argtypes = (
-        [ptr] * 13 + [ctypes.c_ulonglong] + [ptr] * 3 + [i32] * 7
+        [ptr] * 15 + [ctypes.c_ulonglong] + [ptr] * 3 + [i32] * 7
         + [ctypes.c_float, ptr])
     lib.fused_traj_launch.restype = i32
     lib.fused_traj_smem_bytes.argtypes = [i32, i32, i32]
@@ -247,10 +337,10 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def check_limits(cfg: FusedTrajCfg, smem_bytes: int) -> None:
+def check_limits(cfg: FusedTrajCfg) -> None:
     """Raise when cfg lies beyond the kernel's design limits."""
-    if not 1 <= cfg.dim <= MAX_DIM:
-        raise ValueError(f"fused_traj kernel: dim {cfg.dim} outside [1, {MAX_DIM}]")
+    if cfg.dim < 1:
+        raise ValueError(f"fused_traj kernel: dim {cfg.dim} must be at least 1")
     if not 1 <= cfg.channels <= MAX_CHANNELS:
         raise ValueError(f"fused_traj kernel: channels {cfg.channels} outside "
                          f"[1, {MAX_CHANNELS}]")
@@ -259,9 +349,12 @@ def check_limits(cfg: FusedTrajCfg, smem_bytes: int) -> None:
                          f"at most {MAX_HIDDEN}")
     if cfg.n_comp < 1 or cfg.k_steps < 1:
         raise ValueError("fused_traj kernel: needs a component and a step")
-    if smem_bytes > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_traj kernel: {smem_bytes} bytes of shared "
-                         f"memory per block exceed {MAX_SMEM_BYTES}")
+    need = smem_bytes(cfg.dim, cfg.channels, cfg.n_hidden)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"fused_traj kernel: dim {cfg.dim}, channels {cfg.channels} "
+                         f"and {cfg.n_hidden} hidden layers need {need} bytes of "
+                         f"shared memory per block, more than the card's "
+                         f"{MAX_SMEM_BYTES}")
 
 
 def fused_traj(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
@@ -291,25 +384,30 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
            noise: torch.Tensor | None, seed: int, return_traj: bool):
     """Check the inputs and launch the CUDA kernel on the current stream;
     with ``noise`` None the kernel draws its normals from ``seed``. Counts
-    each launch in ``fused_traj.launches``."""
+    each launch in ``fused_traj.launches``, and each full-covariance one
+    in ``fused_traj.full_cov_launches`` as well."""
     if x0.device.type != "cuda":
         raise ValueError(f"the fused_traj kernel runs on cuda, got {x0.device}")
     lib = _library()
     b, d, k, h, c = x0.shape[0], cfg.dim, cfg.k_steps, cfg.channels, cfg.n_comp
-    check_limits(cfg, lib.fused_traj_smem_bytes(d, h, cfg.n_hidden))
+    check_limits(cfg)
     if x0.dtype != torch.float32 or x0.shape != (b, d):
         raise ValueError(f"x0 must be float32 of shape (B, {d})")
     nh = max(cfg.n_hidden, 1)
     shapes = dict(coefs=(k, 6), embed=(k, h), w0=(d, h), b0=(1, h), wh=(nh, h, h),
                   bh=(nh, 1, h), w_out=(h, d), b_out=(1, d), ref_const=(k, c),
-                  ref_m=(k, c * d), ref_iv=(k, c * d))
+                  ref_m=(k, c * d), ref_iv=(k, c * d), ref_p=(c * d, d),
+                  ref_pt=(c * d, d))
+    names = _ARRAY_ORDER + (("ref_p", "ref_pt") if cfg.full_cov else ())
     tables = []
-    for name in _ARRAY_ORDER:
+    for name in names:
         t = arrays[name]
         if t.device != x0.device or t.dtype != torch.float32 or t.shape != shapes[name]:
             raise ValueError(f"table {name!r} must be float32 of shape "
                              f"{shapes[name]} on {x0.device}")
         tables.append(t.contiguous())
+    if not cfg.full_cov:
+        tables += [None, None]            # no rotations: the diagonal mode
     x0 = x0.contiguous()
     if noise is not None:
         if noise.shape != (k, b, d) or noise.dtype != torch.float32 \
@@ -334,10 +432,12 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
         raise RuntimeError("fused_traj kernel launch failed: "
                            + lib.fused_traj_error_string(err).decode())
     fused_traj.launches += 1
+    fused_traj.full_cov_launches += int(cfg.full_cov)
     return x_out, rnd, xs
 
 
 fused_traj.launches = 0
+fused_traj.full_cov_launches = 0
 
 
 def fused_simulate(cfg: FusedTrajCfg, arrays: dict, generator, x0,

@@ -4,28 +4,25 @@ of sde_sampler_lrds_tpu/sde/linear.py: the OU base and VP).
 dX_t = k(t) X dt + g(t) dW_t with scale s(t) = exp(∫k) and
 sigma_sq(t) = ∫ g²/s². "Noising time" t runs 0 → T; the generative losses use
 T - t. Times may be Python floats or float32 tensors; schedules evaluate in
-float32 as the JAX package does. Noised Gaussian / GMM marginals cover scalar
-and diagonal variances; the eigen-factored and full-covariance branches are
-not ported yet and raise NotImplementedError.
+float32 as the JAX package does. Noised Gaussian / GMM marginals cover scalar,
+diagonal, full and eigen-factored (eig, P) variances; ``log_snr`` drives the
+log-SNR time grid.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from ..targets.gauss import (log_prob_gaussian, mog_log_prob, score_gauss,
-                             score_mog)
+from ..targets.gauss import (log_prob_gaussian, log_prob_gaussian_full,
+                             mog_full_log_prob, mog_log_prob, score_gauss,
+                             score_gauss_full, score_mog, score_mog_full)
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 def _f32(t) -> torch.Tensor:
     return torch.as_tensor(t, dtype=torch.float32)
-
-
-def _diag_only(var_init, full_ndim: int):
-    if isinstance(var_init, tuple) or (
-            var_init is not None and var_init.ndim == full_ndim):
-        raise NotImplementedError(
-            "full-covariance (or eigen-factored) noised marginals are not "
-            "ported yet; pass diagonal variances")
 
 
 class OU:
@@ -58,30 +55,63 @@ class OU:
         """(a_x, a_s, a_z) of the DDPM-like step."""
         raise NotImplementedError
 
+    def log_snr(self, t):
+        """log(s(t)² / (s(t)² σ²(t))) = -log σ²(t)."""
+        a = self.s(t)
+        return torch.log(a**2 / (a**2 * self.sigma_sq(t)))
+
     # -- noised marginals of Gaussian / GMM references ---------------------
     def marginal_params(self, t, x_init, var_init=None, is_mixture: bool = False):
         """Noised marginal of N(x_init, var_init): loc = s·x_init,
-        var = s²(σ² + var_init). var_init may be None (scalar variance
-        s²σ²) or diagonal (…, D)."""
-        _diag_only(var_init, 3 if is_mixture else 2)
+        var = s²(σ² + var_init). ``t`` is one time, or times shaped to
+        broadcast against x_init with a trailing axis of 1 for the dimension
+        (the reference controls' precompute passes (K, 1) or (K, 1, 1)).
+
+        var_init may be:
+          * None        -> scalar variance s²σ²
+          * (…, D)      -> diagonal
+          * (…, D, D)   -> full covariance
+          * (eig, P)    -> eigendecomposition cov = P·diag(eig)·Pᵀ; the noised
+                           covariance is returned as (precision, log_det).
+        """
         s_t = self.s(t)
         loc = s_t * x_init
         var = s_t**2 * self.sigma_sq(t)
         if var_init is None:
             return loc, var
+        s_m = s_t[..., None]                     # t's shape for a (D, D) matrix
+        if isinstance(var_init, tuple):
+            eig, p = var_init
+            diag = eig + self.sigma_sq(t)
+            prec = torch.einsum("...ik,...k,...jk->...ij", p, 1.0 / diag, p) / s_m**2
+            log_s = torch.log(s_t) if s_t.ndim == 0 else torch.log(s_t)[..., 0]
+            log_det = torch.sum(torch.log(diag), dim=-1) + 2.0 * diag.shape[-1] * log_s
+            return loc, (prec, log_det)
+        if var_init.ndim == (3 if is_mixture else 2):
+            eye = torch.eye(var_init.shape[-1], device=var_init.device)
+            return loc, s_m**2 * (self.sigma_sq(t)[..., None] * eye + var_init)
         return loc, var + s_t**2 * var_init
 
     def marginal_log_prob(self, t, x, x_init, var_init=None):
         """log N(x; marginal_params) for a Gaussian reference, x (B, D) -> (B,)."""
-        _diag_only(var_init, 2)
+        if isinstance(var_init, tuple):
+            return self._factored_noised_mog(
+                t, x, torch.atleast_2d(x_init), _lift(var_init), None)[0]
         loc, var = self.marginal_params(
             t, torch.atleast_2d(x_init), var_init=_lift(var_init), is_mixture=True)
+        if var.ndim == 3:
+            return log_prob_gaussian_full(x, loc, var)[:, 0]
         var = torch.broadcast_to(var, loc.shape)
         return log_prob_gaussian(x, loc, var)[:, 0]
 
     def marginal_score(self, t, x, x_init, var_init=None):
         """Score of the noised Gaussian reference at (t, x)."""
+        if isinstance(var_init, tuple):
+            return self._factored_noised_mog(
+                t, x, torch.atleast_2d(x_init), _lift(var_init), None)[1]
         loc, var = self.marginal_params(t, x_init, var_init=var_init)
+        if var.ndim == 2:
+            return score_gauss_full(x, loc, var)
         return score_gauss(x, loc, var)
 
     def marginal_gmm_params(self, t, means_init, variances_init, weights_init=None):
@@ -93,12 +123,52 @@ class OU:
             weights = weights_init
         return weights, means, variances
 
+    def _factored_noised_mog(self, t, x, means_init, var_tuple, weights_init):
+        """Noised-MoG (log_prob, score) for eigendecomposed covariances:
+        cov_k = P_k diag(eig_k) P_kᵀ noises to P_k diag(s²(eig_k + σ²)) P_kᵀ,
+        so the residual is rotated into the time-invariant eigenbasis, scaled
+        elementwise and rotated back; no per-time matrix is formed. Takes one
+        time only."""
+        eig, p = var_tuple
+        if eig.ndim == 1:
+            eig, p = eig[None], p[None]
+        if torch.as_tensor(t).ndim != 0:
+            raise ValueError("_factored_noised_mog takes one time; loop over a "
+                             f"batch of times (got t with shape {tuple(t.shape)}).")
+        s_t = self.s(t)
+        denom = s_t**2 * (eig + self.sigma_sq(t))                    # (K, D)
+        loc = s_t * torch.atleast_2d(means_init)                     # (K, D)
+        if weights_init is None:
+            w = torch.ones((loc.shape[0],), device=loc.device) / loc.shape[0]
+        else:
+            w = weights_init / weights_init.sum()
+        diff = x[:, None, :] - loc[None]                             # (B, K, D)
+        y = torch.einsum("bkd,kde->bke", diff, p)                    # eigenbasis coords
+        y_scaled = y / denom[None]
+        quad = torch.sum(y * y_scaled, dim=-1)                       # (B, K)
+        log_det = torch.sum(torch.log(denom), dim=-1)                # (K,)
+        lp_k = -0.5 * (quad + log_det[None] + loc.shape[-1] * _LOG_2PI)
+        logits = torch.log(w)[None] + lp_k
+        ptd = torch.einsum("kde,bke->bkd", p, y_scaled)              # precision @ diff
+        score = -torch.sum(torch.softmax(logits, dim=-1)[..., None] * ptd, dim=1)
+        return torch.logsumexp(logits, dim=-1), score
+
     def marginal_gmm_log_prob(self, t, x, means_init, variances_init, weights_init=None):
+        if isinstance(variances_init, tuple):
+            return self._factored_noised_mog(
+                t, x, means_init, variances_init, weights_init)[0]
         w, m, v = self.marginal_gmm_params(t, means_init, variances_init, weights_init)
+        if v.ndim == 3:
+            return mog_full_log_prob(x, w, m, v)
         return mog_log_prob(x, w, m, torch.broadcast_to(v, m.shape))
 
     def marginal_gmm_score(self, t, x, means_init, variances_init, weights_init=None):
+        if isinstance(variances_init, tuple):
+            return self._factored_noised_mog(
+                t, x, means_init, variances_init, weights_init)[1]
         w, m, v = self.marginal_gmm_params(t, means_init, variances_init, weights_init)
+        if v.ndim == 3:
+            return score_mog_full(x, w, m, v)
         return score_mog(x, w, m, torch.broadcast_to(v, m.shape))
 
 
@@ -106,6 +176,9 @@ def _lift(var_init):
     """Broadcast a single-Gaussian var_init to the (1, ...) mixture layout."""
     if var_init is None:
         return None
+    if isinstance(var_init, tuple):
+        eig, p = var_init
+        return (eig[None], p[None]) if eig.ndim == 1 else var_init
     return var_init[None] if var_init.ndim in (1, 2) else var_init
 
 

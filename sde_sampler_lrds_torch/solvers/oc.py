@@ -18,7 +18,7 @@ import torch
 from ..losses.base import compute_results
 from ..ops.fused_traj import build_plan, fused_simulate, fused_traj_states
 from ..targets.base import Target
-from ..targets.gauss import score_gauss, score_mog
+from ..targets.gauss import score_gauss, score_gauss_full, score_mog, score_mog_full
 from ..utils.common import Results, clip_norm
 from .base import Trainable, TrainConfig
 
@@ -158,10 +158,18 @@ class TrainableDiff(Trainable):
         return sample
 
 
+def _per_step(ctrl, t, x):
+    """A reference score at per-step times over flat states (t (K, 1), x
+    (K, B, D), as flat_ctrl_eval calls a control): one step at a time, so a
+    full-covariance reference never forms a (K, B, C, D, D) tensor."""
+    return torch.stack([ctrl(t_k, x_k) for t_k, x_k in zip(t.reshape(-1), x)])
+
+
 class GaussianReferenceCtrl:
-    """Time-t score of a noised Gaussian reference with a precompute
-    protocol: ``precompute(t_grid)`` evaluates the noised marginal's
-    parameters for every grid time at once, ``apply`` takes one step's."""
+    """Time-t score of a noised Gaussian reference (diagonal, full or
+    eigen-factored (eig, P) covariance) with a precompute protocol:
+    ``precompute(t_grid)`` evaluates the noised marginal's parameters for
+    every grid time at once, ``apply`` takes one step's."""
 
     def __init__(self, sde, x_init, var_init):
         self.sde = sde
@@ -169,7 +177,10 @@ class GaussianReferenceCtrl:
         self.var_init = var_init
 
     def __call__(self, t, x):
-        return self.sde.marginal_score(t, x, self.x_init, var_init=self.var_init)
+        if torch.as_tensor(t).numel() > 1:
+            return _per_step(self, t, x)
+        return self.sde.marginal_score(torch.as_tensor(t).reshape(()), x, self.x_init,
+                                       var_init=self.var_init)
 
     def precompute(self, t_grid):
         return self.sde.marginal_params(t_grid[:, None], self.x_init,
@@ -178,12 +189,16 @@ class GaussianReferenceCtrl:
     @staticmethod
     def apply(step_params, x):
         loc, var = step_params
+        if isinstance(var, tuple):
+            return score_gauss_full(x, loc, None, precisions=var[0])
+        if var.ndim == 2:
+            return score_gauss_full(x, loc, var)
         return score_gauss(x, loc, var)
 
 
 class GMMReferenceCtrl:
-    """Time-t score of a noised diagonal GMM reference with a precompute
-    protocol."""
+    """Time-t score of a noised GMM reference (diagonal, full or
+    eigen-factored (eig, P) covariances) with a precompute protocol."""
 
     def __init__(self, sde, means, variances, weights):
         self.sde = sde
@@ -192,17 +207,25 @@ class GMMReferenceCtrl:
         self.weights = weights
 
     def __call__(self, t, x):
-        return self.sde.marginal_gmm_score(t, x, self.means, self.variances,
-                                           self.weights)
+        if torch.as_tensor(t).numel() > 1:
+            return _per_step(self, t, x)
+        return self.sde.marginal_gmm_score(torch.as_tensor(t).reshape(()), x, self.means,
+                                           self.variances, self.weights)
 
     def precompute(self, t_grid):
         w, m, v = self.sde.marginal_gmm_params(
             t_grid[:, None, None], self.means, self.variances, self.weights)
-        return torch.broadcast_to(w, m.shape[:2]), m, torch.broadcast_to(v, m.shape)
+        if not isinstance(v, tuple) and v.ndim < 4:        # scalar or diagonal
+            v = torch.broadcast_to(v, m.shape)
+        return torch.broadcast_to(w, m.shape[:2]), m, v
 
     @staticmethod
     def apply(step_params, x):
         w, m, v = step_params
+        if isinstance(v, tuple):
+            return score_mog_full(x, w, m, None, precisions=v[0], covariances_log_det=v[1])
+        if v.ndim == 3:
+            return score_mog_full(x, w, m, v)
         return score_mog(x, w, m, v)
 
 
@@ -222,11 +245,18 @@ class RDS(TrainableDiff):
     def change_reference_type(self, ref_type: str = "default", mean=None, var=None,
                               means=None, variances=None, weights=None):
         """Install the reference process: 'default' (prior-derived),
-        'gaussian' or 'gmm' (diagonal). The 'nn' reference is not ported."""
+        'gaussian' or 'gmm'. Variances are diagonal, full ((D, D) or
+        (C, D, D)) or an eigendecomposition (eig, P), given as tensors or
+        numpy arrays. The 'nn' reference is not ported."""
         from ..sde.linear import VP
 
         sde = self.sde
-        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=self.device)
+
+        def as_t(a):
+            if isinstance(a, tuple):
+                return tuple(as_t(v) for v in a)
+            return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+
         zero = torch.zeros((), device=self.device)
         if ref_type == "default":
             if not isinstance(sde, VP):

@@ -6,7 +6,12 @@ from .gauss import (
     IsotropicGauss,
     ManyModes,
     log_prob_gaussian,
+    log_prob_gaussian_full,
+    mog_full_log_prob,
     mog_log_prob,
     score_gauss,
+    score_gauss_full,
     score_mog,
+    score_mog_full,
 )
+from .phi_four import PhiFour

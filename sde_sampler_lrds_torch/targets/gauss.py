@@ -1,8 +1,9 @@
 """Gaussian / Gaussian-mixture targets with closed-form log-probs and scores
-(counterpart of sde_sampler_lrds_tpu/targets/gauss.py: the diagonal
-classes and the single full-covariance Gaussian; the full-covariance
-mixtures are not ported yet). Mixture scores are computed in log-space with
-softmax responsibilities."""
+(counterpart of sde_sampler_lrds_tpu/targets/gauss.py: the diagonal and
+full-covariance functional densities, the diagonal classes and the single
+full-covariance Gaussian; the full-covariance mixture classes GMMFull and
+TwoModesFull are not ported yet). Mixture scores are computed in log-space
+with softmax responsibilities."""
 from __future__ import annotations
 
 import math
@@ -30,6 +31,26 @@ def log_prob_gaussian(x: torch.Tensor, means: torch.Tensor,
     return lp - 0.5 * torch.sum(torch.log(variances), dim=-1)[None, :]
 
 
+def log_prob_gaussian_full(x: torch.Tensor, means: torch.Tensor, covariances,
+                           precisions=None, covariances_log_det=None,
+                           return_precision_times_diff: bool = False):
+    """Per-component full-covariance Gaussian log-density, from the
+    covariances (one solve per component, never a (B, K, D, D) tensor) or
+    from precomputed precisions and log-determinants.
+    x: (B, D), means: (K, D), covariances/precisions: (K, D, D) -> (B, K)."""
+    diff = x[:, None, :] - means[None, :, :]                       # (B, K, D)
+    if precisions is None:
+        ptd = torch.stack([torch.linalg.solve(covariances[k], diff[:, k].T).T
+                           for k in range(means.shape[0])], dim=1)
+    else:
+        ptd = torch.einsum("kij,bkj->bki", precisions, diff)
+    lp = -0.5 * torch.sum(diff * ptd, dim=-1) - 0.5 * means.shape[-1] * _LOG_2PI
+    if covariances_log_det is None:
+        covariances_log_det = torch.linalg.slogdet(covariances)[1]
+    lp = lp - 0.5 * covariances_log_det[None, :]
+    return (lp, ptd) if return_precision_times_diff else lp
+
+
 def score_mog(x, weights, means, variances):
     """Score of a diagonal-covariance MoG at x (B, D)."""
     w = weights / weights.sum()
@@ -39,8 +60,26 @@ def score_mog(x, weights, means, variances):
     return -torch.sum(resp[..., None] * grad_comp, dim=1)
 
 
+def score_mog_full(x, weights, means, covariances, precisions=None,
+                   covariances_log_det=None):
+    """Score of a full-covariance MoG at x (B, D)."""
+    w = weights / weights.sum()
+    lp, ptd = log_prob_gaussian_full(x, means, covariances, precisions=precisions,
+                                     covariances_log_det=covariances_log_det,
+                                     return_precision_times_diff=True)
+    resp = torch.softmax(torch.log(w)[None, :] + lp, dim=-1)
+    return -torch.sum(resp[..., None] * ptd, dim=1)
+
+
 def score_gauss(x, means, variances):
     return -(x - means) / variances
+
+
+def score_gauss_full(x, means, covariances, precisions=None):
+    diff = x - means[None, :]
+    if precisions is None:
+        return -torch.linalg.solve(covariances, diff.T).T
+    return -diff @ precisions.T
 
 
 def mog_log_prob(x, weights, means, variances):
@@ -48,6 +87,15 @@ def mog_log_prob(x, weights, means, variances):
     logw = torch.log(weights / weights.sum())
     return torch.logsumexp(logw[None, :] + log_prob_gaussian(x, means, variances),
                            dim=-1)
+
+
+def mog_full_log_prob(x, weights, means, covariances, precisions=None,
+                      covariances_log_det=None):
+    """Normalized log-density of a full-covariance MoG; x (B, D) -> (B,)."""
+    logw = torch.log(weights / weights.sum())
+    lp = log_prob_gaussian_full(x, means, covariances, precisions=precisions,
+                                covariances_log_det=covariances_log_det)
+    return torch.logsumexp(logw[None, :] + lp, dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Common utilities: device resolution, results container, time grids,
-masked statistics (counterpart of sde_sampler_lrds_tpu/utils/common.py)."""
+"""Common utilities: device resolution, results container, time grids
+(uniform and log-SNR), masked statistics (counterpart of
+sde_sampler_lrds_tpu/utils/common.py)."""
 from __future__ import annotations
 
 import dataclasses
@@ -47,19 +48,44 @@ class Results:
     plots: dict = dataclasses.field(default_factory=dict)
 
 
+def binary_search_v(f, low, high, target: torch.Tensor, n_attempts: int = 1024) -> torch.Tensor:
+    """Vectorized bisection for x in [low, high] with f(x) ≈ target, f
+    decreasing: ``low`` moves up while f(mid) > target."""
+    low = torch.full_like(target, float(low))
+    high = torch.full_like(target, float(high))
+    for _ in range(n_attempts):
+        mid = 0.5 * (low + high)
+        ret = f(mid)
+        low = torch.where(ret > target, mid, low)
+        high = torch.where(ret <= target, mid, high)
+    return 0.5 * (low + high)
+
+
 def get_timesteps(start: float, end: float, dt: float | None = None,
                   steps: int | None = None, rescale_t: str | None = None,
-                  device=None) -> torch.Tensor:
-    """A uniform (steps+1,) float32 time grid on [start, end]. The rescaled
-    and log-SNR grids of the JAX package are not ported yet."""
+                  n_attempts: int = 256, sde=None, device=None) -> torch.Tensor:
+    """A (steps+1,) float32 time grid on [start, end]: uniform, or with
+    ``sde`` equispaced in ``sde.log_snr`` (decreasing in t) by vectorized
+    float32 bisection on the host. The rescaled grids ('quad', 'cosine')
+    are not ported yet."""
     if (steps is None) == (dt is None):
         raise ValueError("Exactly one of `dt` and `steps` should be defined.")
     if rescale_t is not None:
         raise NotImplementedError(f"timestep rescaling {rescale_t!r} is not ported")
     if steps is None:
         steps = int(math.ceil((end - start) / dt))
-    return torch.linspace(start, end, steps + 1, dtype=torch.float32,
-                          device=resolve_device(device))
+    device = resolve_device(device)
+    if sde is None:
+        return torch.linspace(start, end, steps + 1, dtype=torch.float32, device=device)
+    ends = sde.log_snr(torch.tensor([start, end], dtype=torch.float32))
+    if not bool(torch.isfinite(ends).all()):
+        raise ValueError("Non-finite log-SNR at the grid endpoints.")
+    targets = torch.linspace(float(ends[0]), float(ends[1]), steps + 1,
+                             dtype=torch.float32)[1:-1]
+    inner = binary_search_v(sde.log_snr, start, end, targets, n_attempts=n_attempts)
+    ts = torch.cat([torch.tensor([start], dtype=torch.float32), inner,
+                    torch.tensor([end], dtype=torch.float32)])
+    return torch.sort(ts).values.to(device)
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -104,10 +104,14 @@ def test_build_plan_out_of_scope():
     (_, _, _, _), (t_loss, t_ctrl, t_ts) = _setup()
     # another network: outside the kernel's scope, as in the JAX package
     assert t_ft.build_plan(t_loss, torch.nn.Linear(DIM, DIM), t_ts) is None
-    # a full-covariance reference: a mode of the TPU kernel not ported yet
+    # a raw full-covariance reference is in scope: eigendecomposed at plan
+    # time into the kernel's full-covariance mode, as in the JAX package
     t_loss.reference_ctrl = TGaussRef(TVP(0.1, 10.0), torch.zeros(DIM), torch.eye(DIM))
-    with pytest.raises(NotImplementedError):
-        t_ft.build_plan(t_loss, t_ctrl, t_ts)
+    cfg, arrays = t_ft.build_plan(t_loss, t_ctrl, t_ts)
+    assert cfg.full_cov and arrays["ref_p"].shape == (DIM, DIM)
+    # a non-tabulated callable reference is not
+    t_loss.reference_ctrl = lambda t, x: -x
+    assert t_ft.build_plan(t_loss, t_ctrl, t_ts) is None
 
 
 # a batch that is not a multiple of the JAX kernel's 128-lane tile, so the
