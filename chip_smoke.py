@@ -15,7 +15,10 @@ Phases:
      at the φ⁴ shapes (D = 100, H = 64, K = 100): the diagonal mode, and the
      full-covariance mode with a random eigen-factored 2-component reference
      (fed noise + states at 1024 and a ragged 1000, the kernel's own noise
-     at 8192, fed to the plain version as the Philox draws it makes);
+     at 8192, fed to the plain version as the Philox draws it makes); the
+     bf16 control mode against its bf16 plain version (D = 8: fed noise +
+     states at 1024 and a ragged 1000, own noise at 8192; D = 100
+     full-covariance at 1024);
      the Sinkhorn lse and transport-cost kernels vs theirs (8192 x 8192,
      d = 8, eps 1e-3 and 1, p 2 and 1, -inf duals; a ragged 1000 x 3000
      with p 2 and 3); the resampling lookup vs its own (N 1024, 8192, 1000,
@@ -40,8 +43,18 @@ Phases:
      reference -> 4096 flat-LV Adam steps at batch 1024 (the kernel's
      full-covariance mode) -> fused eval of 8192 x 100 -> compute_results and
      the φ⁴ weights, gated against the exact transfer-matrix oracle
+  9. the bf16 demo (bench.py --bf16): phase 4's configuration with
+     FourierMLP(compute_dtype=bfloat16) on phase 4's MALA dataset and GMM fit:
+     256 flat-LV steps and the 8192 x 100 eval through the kernel's bf16 mode,
+     the demo's quality gates and bench.py's parity gate
+ 10. fused KL training: on phase 4's trained control, kl_fused_call (kernel
+     forward + the PyTorch adjoint) against autograd through loss.simulate,
+     value and every parameter gradient at batch 1024 x 100 steps with fed
+     noise; then the demo trained with method "kl" (256 steps through the
+     fused KL path, the 8192 x 100 eval) under the demo's quality gates, and
+     the KL step timed in its forward kernel and its backward loop
 
-Every path (phases 4, 5, 6 and 8) is run with all launch counts set to 0 just
+Every path (phases 4, 5, 6, 8, 9 and 10) is run with all launch counts set to 0 just
 before it and read just after. Prints the card as nvidia-smi reports it, then
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, with no result line, when there is no
@@ -111,9 +124,38 @@ GATE_PHI_W_REL, GATE_PHI_ELBO_SLACK, GATE_PHI_LOGZ = 0.03, 0.05, 1.0
 D100_TOL = dict(rtol=2e-3, atol=5e-3)
 # quality gates of the trained sampler against the target
 GATE_LOGZ, GATE_ESS, GATE_MODE_W = 0.05, 0.9, 0.06
-# float32 non-tensor-core peak and memory rate of the H100 variants
-# (NVIDIA data sheets), for the kernel's bound
-PEAKS = {"PCIe": (51.2e12, 2.0e12), "NVL": (60.0e12, 3.9e12), "SXM": (67.0e12, 3.35e12)}
+# the KL-trained demo's own gates (PERF.md §2): 256 reverse-KL steps hardly
+# move mass between the modes, so the sampler stays near its equal-weight
+# reference (ESS 0.863 by itself) in both packages; |log Z| as above, ESS at
+# least GATE_KL_ESS, and every mode holding at least GATE_KL_MODE_SHARE of
+# its true weight
+GATE_KL_ESS, GATE_KL_MODE_SHARE = 0.75, 0.4
+# bf16 kernel vs its bf16 plain version, (x_T and states, rnd). The two
+# round at the same points but sum each product in another order, so a bf16
+# rounding can fall the other way, and the dynamics carry it over K = 100
+# steps. The JAX package holds its bf16 kernel to its scan within rtol = atol
+# = 2e-2 on x and atol 5e-2 on rnd at K = 12 (tests/test_fused_traj.py:
+# 141-142). Measured on an H100 at K = 100 with a random control: fed noise,
+# max |diff| x_T 1.7e-3 (B 1024) and 2.6e-2 (B 8192), rnd 1.5e-2 / 2.5e-2;
+# the kernel's own noise at B 8192, one trajectory of 8192 at 5.5e-2 and
+# 9.5e-2 on x_T (|x| ~ 2, two draws of x0), the rest within 2e-2; the D = 100
+# full-covariance mode rnd 0.12 on values up to 84. Hence rtol = atol = 5e-2
+# on x_T (0.15 at |x| = 2, 1.6x the worst trajectory) and the JAX tolerance
+# widened alike on rnd
+BF16_TOL = (dict(rtol=5e-2, atol=5e-2), dict(rtol=5e-2, atol=1e-1))
+# fused KL (the kernel forward and the adjoint loop) against autograd through
+# loss.simulate, float32 on the card: the value relative, each parameter's
+# gradient relative to its largest entry. The adjoint is exact (on the CPU,
+# with the plain forward, the two agree to 1e-6); on the card the kernel's
+# states differ from the loop's by its float32 summation order, and on the
+# trained control, near the optimum, the gradient is a small difference of
+# per-trajectory terms: measured on an H100, value 2.8e-6 relative,
+# gradients 1.3e-3 of a leaf's largest entry (x_embed.bias)
+KL_VALUE_TOL, KL_GRAD_TOL = 1e-4, 5e-3
+# float32 non-tensor-core peak, memory rate and dense bf16 tensor-core peak
+# of the H100 variants (NVIDIA data sheets), for the kernels' bounds
+PEAKS = {"PCIe": (51.2e12, 2.0e12, 756e12), "NVL": (60.0e12, 3.9e12, 835e12),
+         "SXM": (67.0e12, 3.35e12, 989e12)}
 # the keys every kernel's entry of the {"kernels": [...]} line has, in order
 KERNEL_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
@@ -187,7 +229,10 @@ def max_err(got, want) -> float:
 
 
 def assert_close(got, want, what: str, tol=KERNEL_TOL) -> float:
-    for g, w in zip(got, want):
+    """Each output within its tolerance: ``tol`` is one for all, or a pair
+    (x_T and states, rnd) for fused_traj's outputs (x_T, rnd, xs)."""
+    tols = (tol, tol, tol) if isinstance(tol, dict) else (tol[0], tol[1], tol[0])
+    for g, w, tol in zip(got, want, tols):
         if g is None:
             continue
         # the worst entry's |diff| over what the tolerance allows there
@@ -201,14 +246,16 @@ def assert_close(got, want, what: str, tol=KERNEL_TOL) -> float:
 
 def launch_counters() -> list:
     """Every kernel wrapper of the port with the attribute it counts its
-    launches in: fused_traj counts every launch in ``.launches`` and its
-    full-covariance ones in ``.full_cov_launches`` as well."""
+    launches in: fused_traj counts every launch in ``.launches``, its
+    full-covariance ones in ``.full_cov_launches`` and its bf16 ones in
+    ``.bf16_launches`` as well."""
     from sde_sampler_lrds_torch.ops.fused_traj import fused_traj
     from sde_sampler_lrds_torch.ops.resample import systematic_lookup
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import lse, transport_cost
 
-    return [(fused_traj, "launches"), (fused_traj, "full_cov_launches"), (lse, "launches"),
-            (transport_cost, "launches"), (systematic_lookup, "launches")]
+    return [(fused_traj, "launches"), (fused_traj, "full_cov_launches"),
+            (fused_traj, "bf16_launches"), (lse, "launches"), (transport_cost, "launches"),
+            (systematic_lookup, "launches")]
 
 
 def reset_counts() -> None:
@@ -217,12 +264,17 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Launches by kernel and mode: fused_traj (the diagonal / single-Gaussian
-    mode) and fused_traj_full_cov apart."""
-    (ft, _), (_, _), (lse, _), (cost, _), (res, _) = launch_counters()
-    return {"fused_traj": ft.launches - ft.full_cov_launches,
-            "fused_traj_full_cov": ft.full_cov_launches, "sinkhorn_lse": lse.launches,
-            "transport_cost": cost.launches, "resample": res.launches}
+    """Launches by kernel and mode: fused_traj (f32, diagonal /
+    single-Gaussian reference), fused_traj_full_cov (f32, full covariance)
+    and fused_traj_bf16 (the bf16 control) apart. No path runs both a bf16
+    and a full-covariance launch, so the three are exact."""
+    (ft, _), _, _, (lse, _), (cost, _), (res, _) = launch_counters()
+    check(ft.bf16_launches == 0 or ft.full_cov_launches == 0,
+          "a path ran both the bf16 and the full-covariance mode")
+    return {"fused_traj": ft.launches - ft.full_cov_launches - ft.bf16_launches,
+            "fused_traj_full_cov": ft.full_cov_launches, "fused_traj_bf16": ft.bf16_launches,
+            "sinkhorn_lse": lse.launches, "transport_cost": cost.launches,
+            "resample": res.launches}
 
 
 def bound(flops: float, transcendentals: float, nbytes: float, peaks, sfu_rate: float):
@@ -311,9 +363,10 @@ def philox_noise(seed: int, k_steps: int, batch: int, dim: int, dev) -> torch.Te
 # phases
 # ---------------------------------------------------------------------------
 
-def comparison_plan(dev):
-    """Main-path shapes with a random (not near-zero) control and a random
-    4-component GMM reference, so every term of the step is exercised."""
+def comparison_plan(dev, compute_dtype=None):
+    """Main-path shapes with a random (not near-zero) control, in float32
+    or ``compute_dtype``, and a random 4-component GMM reference, so every
+    term of the step is exercised."""
     from sde_sampler_lrds_torch.losses import EIReferenceSDELoss
     from sde_sampler_lrds_torch.models import ClippedCtrl, FourierMLP
     from sde_sampler_lrds_torch.ops.fused_traj import build_plan
@@ -321,8 +374,8 @@ def comparison_plan(dev):
     from sde_sampler_lrds_torch.solvers import GMMReferenceCtrl
 
     g = torch.Generator().manual_seed(5)
-    ctrl = ClippedCtrl(FourierMLP(dim=DIM, channels=CHANNELS, num_layers=N_LAYERS),
-                       clip_model=1e4)
+    ctrl = ClippedCtrl(FourierMLP(dim=DIM, channels=CHANNELS, num_layers=N_LAYERS,
+                                  compute_dtype=compute_dtype), clip_model=1e4)
     ctrl.reset_parameters(g)
     ctrl.to(dev)
     means = (2.0 * torch.randn(N_MODES, DIM, generator=g)).to(dev)
@@ -334,11 +387,12 @@ def comparison_plan(dev):
     return build_plan(loss, ctrl, get_timesteps(0.0, 1.0, steps=K_STEPS, device=dev))
 
 
-def phi_four_plan(dev, full_cov: bool):
+def phi_four_plan(dev, full_cov: bool, compute_dtype=None):
     """φ⁴-path shapes (D = 100, H = 64, 2 hidden layers, K = 100 on the
-    log-SNR grid) with a random control and a random 2-component reference
-    with eigenvalues 0.025..5 (the range of a φ⁴ well's covariance):
-    eigen-factored with random rotations (full_cov), or diagonal."""
+    log-SNR grid) with a random control (float32 or ``compute_dtype``) and
+    a random 2-component reference with eigenvalues 0.025..5 (the range of a
+    φ⁴ well's covariance): eigen-factored with random rotations (full_cov),
+    or diagonal."""
     from sde_sampler_lrds_torch.losses import EIReferenceSDELoss
     from sde_sampler_lrds_torch.models import ClippedCtrl, FourierMLP
     from sde_sampler_lrds_torch.ops.fused_traj import build_plan
@@ -346,8 +400,8 @@ def phi_four_plan(dev, full_cov: bool):
     from sde_sampler_lrds_torch.solvers import GMMReferenceCtrl
 
     g = torch.Generator().manual_seed(15)
-    ctrl = ClippedCtrl(FourierMLP(dim=PHI_DIM, channels=CHANNELS, num_layers=N_LAYERS),
-                       clip_model=1e4)
+    ctrl = ClippedCtrl(FourierMLP(dim=PHI_DIM, channels=CHANNELS, num_layers=N_LAYERS,
+                                  compute_dtype=compute_dtype), clip_model=1e4)
     ctrl.reset_parameters(g)
     ctrl.to(dev)
     wells = torch.stack([torch.ones(PHI_DIM), -torch.ones(PHI_DIM)])
@@ -363,7 +417,8 @@ def phi_four_plan(dev, full_cov: bool):
     loss = EIReferenceSDELoss(sde=sde, method="lv", reference_ctrl=ref)
     ts = get_timesteps(1e-4, sde.terminal_t - 1e-4, steps=K_STEPS, sde=sde, device=dev)
     cfg, arrays = build_plan(loss, ctrl, ts)
-    check(cfg.full_cov == full_cov and cfg.dim == PHI_DIM, "φ⁴-shape plan")
+    check(cfg.full_cov == full_cov and cfg.dim == PHI_DIM
+          and cfg.bf16 == (compute_dtype == torch.bfloat16), "φ⁴-shape plan")
     return cfg, arrays
 
 
@@ -388,13 +443,16 @@ def compare_kernel(dev, cfg, arrays, label: str, cases, tol) -> float:
         want = fused_traj_plain(cfg, arrays, x0, noise=noise, return_traj=mode == "fed")
         torch.cuda.synchronize()
         what = f"{label} B={b} ({'fed noise + states' if mode == 'fed' else 'kernel noise'})"
-        err = assert_close(got, want, what, tol)
+        scale = max(float(w.abs().max()) for w in want if w is not None)
+        x_tol = tol if isinstance(tol, dict) else tol[0]
+        beyond = float(((got[0] - want[0]).abs() > x_tol["atol"] + x_tol["rtol"] * want[0].abs())
+                       .any(dim=-1).float().mean())
+        say(f"[phase 2] {what}: max |diff| x_T {max_err(got[:1], want[:1]):.3e}, rnd "
+            f"{max_err(got[1:2], want[1:2]):.3e} (max |value| {scale:.3e}; share of "
+            f"trajectories with an x_T entry beyond the tolerance {beyond:.2e}; tolerance {tol})")
+        errs.append(assert_close(got, want, what, tol))
         if mode == "fed":
             check(torch.equal(got[2][0], x0), "xs[0] must be the initial state")
-        scale = max(float(w.abs().max()) for w in want if w is not None)
-        errs.append(err)
-        say(f"[phase 2] {what}: max |diff| {err:.3e} (max |value| {scale:.3e}; tolerance "
-            f"rtol={tol['rtol']}, atol={tol['atol']})")
     return max(errs)
 
 
@@ -424,6 +482,22 @@ def phase_kernel_vs_plain_d100(dev, rec_diag, rec_full):
     rec_full["max_abs_err"] = compare_kernel(
         dev, cfg, arrays, "fused_traj_full_cov D=100",
         [(TRAIN_BATCH, "fed"), (EVAL_BATCH, "kernel"), (1000, "fed")], D100_TOL)
+
+
+def phase_kernel_vs_plain_bf16(dev, rec):
+    """The bf16 control mode against its bf16 plain version: at the demo's
+    shapes (fed noise + states at the train batch and a ragged batch, its
+    own noise at the eval batch) and in the full-covariance mode at the φ⁴
+    shapes."""
+    cfg, arrays = comparison_plan(dev, torch.bfloat16)
+    check(cfg.bf16 and arrays["w0"].dtype == torch.bfloat16, "bf16 plan")
+    err = compare_kernel(dev, cfg, arrays, "fused_traj_bf16",
+                         [(TRAIN_BATCH, "fed"), (1000, "fed"), (EVAL_BATCH, "kernel")], BF16_TOL)
+    cfg100, arrays100 = phi_four_plan(dev, full_cov=True, compute_dtype=torch.bfloat16)
+    rec["max_abs_err"] = max(err, compare_kernel(
+        dev, cfg100, arrays100, "fused_traj_bf16 full-cov D=100", [(TRAIN_BATCH, "fed")],
+        BF16_TOL))
+    return cfg, arrays
 
 
 def lse_error(got, want, eps: float, what: str):
@@ -574,25 +648,89 @@ def is_stats(rnd):
     return res.log_norm_const_preds["log_norm_const_is"], ess, res
 
 
-def phase_main_path(dev, path_counts):
-    from sde_sampler_lrds_torch.api import fit_gmm, mcmc_sample
+def demo_solver(dev, target, method: str = "lv", compute_dtype=None):
+    """The RDS solver of the LRDS demo (bench.py's configuration): EI + LV
+    (or ``method``), ClippedCtrl(FourierMLP) in float32 or ``compute_dtype``."""
     from sde_sampler_lrds_torch.losses import EIReferenceSDELoss
     from sde_sampler_lrds_torch.models import ClippedCtrl, FourierMLP
     from sde_sampler_lrds_torch.sde import VP, get_timesteps
     from sde_sampler_lrds_torch.solvers import RDS, TrainConfig
-    from sde_sampler_lrds_torch.targets import IsotropicGauss, ManyModes
+    from sde_sampler_lrds_torch.targets import IsotropicGauss
 
-    target = ManyModes(n_modes=N_MODES, dim=DIM, var=0.5, n_reference_samples=10_000,
-                       device=dev)
     prior = IsotropicGauss(dim=DIM, loc=0.0, scale=1.0, device=dev)
     sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
     ctrl = ClippedCtrl(FourierMLP(dim=DIM, channels=CHANNELS, num_layers=N_LAYERS,
-                                  zero_init=True), clip_model=1e4)
+                                  zero_init=True, compute_dtype=compute_dtype), clip_model=1e4)
     ts = get_timesteps(0.0, 1.0, steps=K_STEPS, device=dev)
     cfg = TrainConfig(train_steps=TRAIN_STEPS, train_batch_size=TRAIN_BATCH,
                       eval_batch_size=EVAL_BATCH, lr=LR, steps_per_call=32)
-    solver = RDS(target, prior, sde, ctrl, EIReferenceSDELoss,
-                 {"method": "lv", "max_rnd": 1e8}, train_ts=ts, cfg=cfg, device=dev)
+    return RDS(target, prior, sde, ctrl, EIReferenceSDELoss,
+               {"method": method, "max_rnd": 1e8}, train_ts=ts, cfg=cfg, device=dev)
+
+
+def train_and_eval(solver, gen):
+    """The demo's TRAIN_STEPS training steps (the first 32 timed apart) and
+    its fused 8192 x 100 eval: (last metrics, x_T, rnd, times)."""
+    steps = solver.cfg.steps_per_call
+    t1 = time.perf_counter()
+    metrics = solver.step(gen)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(TRAIN_STEPS // steps - 1):
+        metrics = solver.step(gen)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    sample = solver.fused_eval_sampler()
+    check(sample is not None, "the eval is outside the fused kernel's scope")
+    x_t, rnd = sample(gen)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    return metrics, x_t, rnd, {
+        "train_first_32_steps_ms_per_step": (t2 - t1) * 1e3 / steps,
+        "train_ms_per_step": (t3 - t2) * 1e3 / (TRAIN_STEPS - steps),
+        "eval_ms": (t4 - t3) * 1e3}
+
+
+def demo_quality(solver, target, metrics, x_t, rnd) -> dict:
+    """The demo's quality numbers of a trained solver's eval."""
+    check(x_t.shape == (EVAL_BATCH, DIM) and rnd.shape == (EVAL_BATCH,), "eval output shapes")
+    check(bool(torch.isfinite(x_t).all() and torch.isfinite(rnd).all()),
+          "eval output is not finite")
+    log_z, ess, res = is_stats(rnd)
+    counts = target.compute_mode_count(x_t)
+    return {"steps_trained": solver.step_count, "n_skipped": solver.n_skipped,
+            "train/final_loss": float(metrics["train/loss"]),
+            "eval/log_norm_const_is": log_z, "eval/norm_ess": ess,
+            "eval/elbo": res.metrics["eval/elbo"], "eval/lv_loss": res.metrics["eval/lv_loss"],
+            "eval/mode_weights": [round(float(w), 4) for w in counts / counts.sum()],
+            "true_mode_weights": [round(float(w), 4) for w in target._probs]}
+
+
+def check_demo_gates(what: str, out: dict, kl: bool = False) -> None:
+    """The demo's limits: |log Z|, normalized ESS, mode weights, and every
+    step trained; ``kl``: the KL-trained demo's ESS and mode-share limits."""
+    log_z, ess = out["eval/log_norm_const_is"], out["eval/norm_ess"]
+    check(out["steps_trained"] == TRAIN_STEPS, f"{what}: steps trained")
+    check(abs(log_z) <= GATE_LOGZ, f"{what}: |log Z| {abs(log_z):.4f} > {GATE_LOGZ}")
+    ess_gate = GATE_KL_ESS if kl else GATE_ESS
+    check(ess >= ess_gate, f"{what}: normalized ESS {ess:.4f} < {ess_gate}")
+    mode_w, true_w = out["eval/mode_weights"], out["true_mode_weights"]
+    if kl:
+        check(all(a >= GATE_KL_MODE_SHARE * b for a, b in zip(mode_w, true_w)),
+              f"{what}: a mode holds less than {GATE_KL_MODE_SHARE} of its true weight "
+              f"({mode_w} against {true_w})")
+    else:
+        check(all(abs(a - b) <= GATE_MODE_W for a, b in zip(mode_w, true_w)),
+              f"{what}: mode weights {mode_w} not within {GATE_MODE_W} of {true_w}")
+
+
+def phase_main_path(dev, path_counts):
+    from sde_sampler_lrds_torch.api import fit_gmm, mcmc_sample
+    from sde_sampler_lrds_torch.targets import ManyModes
+
+    target = ManyModes(n_modes=N_MODES, dim=DIM, var=0.5, n_reference_samples=10_000,
+                       device=dev)
+    solver = demo_solver(dev, target)
     gen = torch.Generator(dev).manual_seed(99)
 
     reset_counts()
@@ -605,58 +743,23 @@ def phase_main_path(dev, path_counts):
     solver.change_reference_type("gmm", means=m_fit, variances=v_fit, weights=w_fit)
     solver.setup()
     train_path, eval_path = solver.train_path(), solver.eval_path()
-    t1 = time.perf_counter()
-    metrics = solver.step(gen)                  # the first 32 steps, timed apart
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    for _ in range(TRAIN_STEPS // cfg.steps_per_call - 1):
-        metrics = solver.step(gen)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    sample = solver.fused_eval_sampler()
-    check(sample is not None, "the eval is outside the fused kernel's scope")
-    x_t, rnd = sample(gen)
-    torch.cuda.synchronize()
-    t4 = time.perf_counter()
+    metrics, x_t, rnd, times = train_and_eval(solver, gen)
     path_counts["lrds_main"] = read_counts()
     launches = path_counts["lrds_main"]["fused_traj"]
 
-    check(x_t.shape == (EVAL_BATCH, DIM) and rnd.shape == (EVAL_BATCH,),
-          "eval output shapes")
-    check(bool(torch.isfinite(x_t).all() and torch.isfinite(rnd).all()),
-          "eval output is not finite")
-    log_z, ess, res = is_stats(rnd)
-    counts = target.compute_mode_count(x_t)
-    mode_w = (counts / counts.sum()).tolist()
-    true_w = target._probs.tolist()
-    out = {
-        "train_path": train_path, "eval_path": eval_path,
-        "fused_traj_launches": launches,
-        "steps_trained": solver.step_count, "n_skipped": solver.n_skipped,
-        "train/final_loss": float(metrics["train/loss"]),
-        "eval/log_norm_const_is": log_z, "eval/norm_ess": ess,
-        "eval/elbo": res.metrics["eval/elbo"], "eval/lv_loss": res.metrics["eval/lv_loss"],
-        "eval/mode_weights": [round(w, 4) for w in mode_w],
-        "true_mode_weights": [round(w, 4) for w in true_w],
-        "gmm_fit_weights": [round(float(w), 4) for w in w_fit],
-        "ref_pipeline_s": ref_s,
-        "train_first_32_steps_ms_per_step": (t2 - t1) * 1e3 / cfg.steps_per_call,
-        "train_ms_per_step": (t3 - t2) * 1e3 / (TRAIN_STEPS - cfg.steps_per_call),
-        "eval_ms": (t4 - t3) * 1e3,
-    }
+    out = {"train_path": train_path, "eval_path": eval_path, "fused_traj_launches": launches,
+           **demo_quality(solver, target, metrics, x_t, rnd),
+           "gmm_fit_weights": [round(float(w), 4) for w in w_fit], "ref_pipeline_s": ref_s,
+           **times}
     say("[phase 4] main path " + json.dumps(out))
     check(train_path == "flat_lv_fused", f"train path {train_path}")
     check(eval_path == "fused", f"eval path {eval_path}")
     check(launches >= TRAIN_STEPS + 1, f"fused_traj launched {launches} times on the path")
-    check(solver.step_count == TRAIN_STEPS, "steps trained")
-    check(abs(log_z) <= GATE_LOGZ, f"|log Z| {abs(log_z):.4f} > {GATE_LOGZ}")
-    check(ess >= GATE_ESS, f"normalized ESS {ess:.4f} < {GATE_ESS}")
-    check(all(abs(a - b) <= GATE_MODE_W for a, b in zip(mode_w, true_w)),
-          f"mode weights {mode_w} not within {GATE_MODE_W} of {true_w}")
+    check_demo_gates("demo", out)
     return solver, target, dataset
 
 
-def phase_eval_parity(dev, solver):
+def phase_eval_parity(dev, solver, phase: int = 4):
     """The trained sampler's kernel eval (kernel noise) against its plain
     version with torch noise, under bench.py's parity gate."""
     from sde_sampler_lrds_torch.ops.fused_traj import (build_plan, fused_simulate,
@@ -671,26 +774,167 @@ def phase_eval_parity(dev, solver):
     rnd_p = rnd_p + args["reference_log_prob"](x_p) - args["terminal_unnorm_log_prob"](x_p)
     lz_k, ess_k, _ = is_stats(rnd_k)
     lz_p, ess_p, _ = is_stats(rnd_p)
-    say(f"[phase 4] eval parity: kernel log Z {lz_k:.5f} ESS {ess_k:.4f}; "
-        f"plain (torch noise) log Z {lz_p:.5f} ESS {ess_p:.4f}")
+    say(f"[phase {phase}] eval parity{' (bf16)' if cfg.bf16 else ''}: kernel log Z "
+        f"{lz_k:.5f} ESS {ess_k:.4f}; plain (torch noise) log Z {lz_p:.5f} ESS {ess_p:.4f}")
     check(abs(lz_k - lz_p) < PARITY_LOGZ and abs(ess_k - ess_p) < PARITY_ESS,
           "kernel eval and plain eval disagree beyond bench.py's gate")
 
 
-def phase_timing(dev, cfg, arrays, rec, peaks, label="fused_traj"):
-    """Kernel and plain times at the train and eval shapes, beside the bound."""
+def fitted_reference(solver) -> dict:
+    """The GMM reference a solver was given, as change_reference_type's
+    keyword arguments."""
+    ref = solver.reference_distr_utils
+    return {"means": ref["means_init"], "variances": ref["variances_init"],
+            "weights": ref["weights_init"]}
+
+
+def phase_bf16_demo(dev, target, ref: dict, path_counts) -> tuple:
+    """bench.py --bf16: the demo with FourierMLP(compute_dtype=bfloat16) on
+    phase 4's dataset and GMM fit, trained and evaluated through the
+    kernel's bf16 mode."""
+    solver = demo_solver(dev, target, compute_dtype=torch.bfloat16)
+    solver.change_reference_type("gmm", **ref)
+    solver.setup()
+    gen = torch.Generator(dev).manual_seed(199)
+    train_path, eval_path = solver.train_path(), solver.eval_path()
+    reset_counts()
+    metrics, x_t, rnd, times = train_and_eval(solver, gen)
+    counts = path_counts["lrds_bf16"] = read_counts()
+    out = {"train_path": train_path, "eval_path": eval_path, "launches": counts,
+           **demo_quality(solver, target, metrics, x_t, rnd), **times}
+    say("[phase 9] bf16 demo " + json.dumps(out))
+    check(train_path == "flat_lv_fused", f"bf16 train path {train_path}")
+    check(eval_path == "fused", f"bf16 eval path {eval_path}")
+    check(counts["fused_traj_bf16"] == TRAIN_STEPS + 1 and counts["fused_traj"] == 0
+          and counts["fused_traj_full_cov"] == 0,
+          f"the bf16 demo launched the bf16 mode {counts['fused_traj_bf16']} times and the "
+          f"f32 modes {counts['fused_traj']} + {counts['fused_traj_full_cov']} times")
+    check_demo_gates("bf16 demo", out)
+    phase_eval_parity(dev, solver, phase=9)
+    return solver, out
+
+
+def phase_kl_parity(dev, lv_solver) -> dict:
+    """kl_fused_call (kernel forward + the adjoint loop) against autograd
+    through loss.simulate at the train shape with fed noise, the value and
+    every parameter gradient: on phase 4's trained control, and on a random
+    control of the same shape (far from any optimum, so its gradient is no
+    small difference of per-trajectory terms)."""
+    import copy
+
+    from sde_sampler_lrds_torch.losses import EIReferenceSDELoss
+    from sde_sampler_lrds_torch.ops.fused_traj import build_plan, fused_kl_traj
+
+    loss = EIReferenceSDELoss(sde=lv_solver.sde, method="kl", max_rnd=1e8,
+                              reference_ctrl=lv_solver.reference_score_t)
+    args, ts = lv_solver.loss_call_args(), lv_solver.train_ts
+    g = torch.Generator(dev).manual_seed(211)
+    x0 = lv_solver.prior.sample(g, (TRAIN_BATCH,))
+    zs = torch.randn(K_STEPS, TRAIN_BATCH, DIM, generator=g, device=dev)
+    random_ctrl = copy.deepcopy(lv_solver.generative_ctrl).cpu()
+    random_ctrl.base_model.zero_init = False
+    random_ctrl.reset_parameters(torch.Generator().manual_seed(212))
+    out = {}
+    for label, ctrl in (("trained", lv_solver.generative_ctrl), ("random", random_ctrl.to(dev))):
+        def value_and_grads(fn):
+            ctrl.zero_grad(set_to_none=True)
+            value, _ = fn()
+            value.backward()
+            torch.cuda.synchronize()
+            return float(value.detach()), [p.grad.detach().clone() for p in ctrl.parameters()]
+
+        cfg, arrays = build_plan(loss, ctrl, ts, differentiable=True)
+        v_f, g_f = value_and_grads(lambda: loss.kl_fused_call(
+            None, ts, x0, ctrl, traj_rnd_fn=lambda a, b: fused_kl_traj(cfg, arrays, a, b),
+            noise=zs, **args))
+        v_s, g_s = value_and_grads(lambda: loss(None, ts, x0, ctrl, noise=zs, **args))
+        ctrl.zero_grad(set_to_none=True)
+        names = [n for n, _ in ctrl.named_parameters()]
+        rel = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for n, a, b in zip(names, g_f, g_s)}
+        out[label] = {"value_fused": v_f, "value_autograd": v_s,
+                      "value_rel_diff": abs(v_f - v_s) / abs(v_s),
+                      "grad_rel_diff_max": max(rel.values()), "grad_rel_diff": rel}
+        say(f"[phase 10] fused KL vs autograd through loss.simulate, {label} control "
+            f"(B 1024, K 100, fed noise): " + json.dumps(out[label]))
+    for label, res in out.items():
+        check(all(math.isfinite(v) for v in res["grad_rel_diff"].values()),
+              "non-finite KL gradient")
+        check(res["value_rel_diff"] <= KL_VALUE_TOL,
+              f"{label} control: fused KL value differs from autograd by "
+              f"{res['value_rel_diff']:.3e} relative (tolerance {KL_VALUE_TOL})")
+        check(res["grad_rel_diff_max"] <= KL_GRAD_TOL,
+              f"{label} control: fused KL gradients differ from autograd by "
+              f"{res['grad_rel_diff_max']:.3e} of the largest entry (tolerance {KL_GRAD_TOL})")
+    return out
+
+
+def phase_kl_demo(dev, target, ref: dict, path_counts) -> dict:
+    """The demo trained with method 'kl' through the fused KL path, its
+    fused eval, and the KL step timed by CUDA events in its forward (the
+    kernel on its own, and all of loss_fn) and its backward."""
+    from sde_sampler_lrds_torch.ops.fused_traj import build_plan, launch
+
+    solver = demo_solver(dev, target, method="kl")
+    solver.change_reference_type("gmm", **ref)
+    solver.setup()
+    gen = torch.Generator(dev).manual_seed(299)
+    train_path, eval_path = solver.train_path(), solver.eval_path()
+    reset_counts()
+    metrics, x_t, rnd, times = train_and_eval(solver, gen)
+    counts = path_counts["lrds_kl"] = read_counts()
+    out = {"train_path": train_path, "eval_path": eval_path, "launches": counts,
+           **demo_quality(solver, target, metrics, x_t, rnd), **times}
+    say("[phase 10] KL demo " + json.dumps(out))
+    check(train_path == "kl_fused", f"KL train path {train_path}")
+    check(eval_path == "fused", f"KL eval path {eval_path}")
+    check(counts["fused_traj"] == TRAIN_STEPS + 1 and counts["fused_traj_bf16"] == 0
+          and counts["fused_traj_full_cov"] == 0,
+          f"the KL demo launched fused_traj {counts['fused_traj']} times")
+    check(math.isfinite(out["train/final_loss"]) and out["n_skipped"] == 0,
+          "KL training: a non-finite loss or a skipped step")
+    check_demo_gates("KL demo", out, kl=True)
+
+    n = 10
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(n)]
+    for e in events:
+        solver.optimizer.zero_grad(set_to_none=True)
+        e[0].record()
+        value, _ = solver.loss_fn(gen)
+        e[1].record()
+        value.backward()
+        e[2].record()
+    torch.cuda.synchronize()
+    cfg, arrays = build_plan(solver.loss, solver.generative_ctrl, solver.train_ts)
+    x0 = solver.prior.sample(gen, (TRAIN_BATCH,))
+    zs = torch.randn(K_STEPS, TRAIN_BATCH, DIM, generator=gen, device=dev)
+    step = {"forward_ms": sum(e[0].elapsed_time(e[1]) for e in events) / n,
+            "backward_ms": sum(e[1].elapsed_time(e[2]) for e in events) / n,
+            "forward_kernel_ms": time_cuda(lambda: launch(cfg, arrays, x0, zs, 0, True))}
+    say("[phase 10] KL step by CUDA events (B 1024, K 100): " + json.dumps(step))
+    return {**out, "step": step}
+
+
+def phase_timing(dev, cfg, arrays, rec, peaks, sfu_rate, label="fused_traj"):
+    """Kernel and plain times at the train and eval shapes, beside the
+    bound: the largest of the flops time, the transcendentals over the SFU
+    rate and the bytes over the memory rate. The flops time is all flops
+    over the float32 peak, or in the bf16 mode the larger of the MLP's over
+    the bf16 tensor-core peak and the rest over the float32 peak."""
     from sde_sampler_lrds_torch.ops.fused_traj import fused_traj_plain, launch
 
-    flop_rate, byte_rate = peaks
+    f32_rate, byte_rate, bf16_rate = peaks
     d, h, nh, c, k = cfg.dim, cfg.channels, cfg.n_hidden, cfg.n_comp, cfg.k_steps
-    # per trajectory-step: the MLP's multiply-adds (2 flops each), the
+    # per trajectory-step: the MLP's multiply-adds (2 flops each); the
     # reference score (6 flops per component and dimension, and in the
     # full-covariance mode two D x D rotations per component, 4·C·D²), the
-    # update and RND (8 per dimension); transcendentals and the Philox
-    # integer work are not counted
-    flops_per_step = (2 * (d * h + nh * h * h + h * d) + 6 * c * d + 8 * d
-                      + (4 * c * d * d if cfg.full_cov else 0))
-    table_bytes = 4 * sum(t.numel() for t in arrays.values())
+    # update and RND (8 per dimension); transcendentals: a tanh per unit of
+    # the n_h + 1 gelu layers, two expf per component past the first, and
+    # with the kernel's own noise a log, a sqrt and a cos per dimension. The
+    # Philox integer work is not counted
+    mlp_flops = 2 * (d * h + nh * h * h + h * d)
+    rest_flops = 6 * c * d + 8 * d + (4 * c * d * d if cfg.full_cov else 0)
+    table_bytes = sum(t.numel() * t.element_size() for t in arrays.values())
     g = torch.Generator(dev).manual_seed(7)
     out = {}
     for name, b, fed in (("eval", EVAL_BATCH, False), ("train", TRAIN_BATCH, True)):
@@ -700,16 +944,24 @@ def phase_timing(dev, cfg, arrays, rec, peaks, label="fused_traj"):
         plain_ms = time_cuda(lambda: fused_traj_plain(cfg, arrays, x0, noise=noise,
                                                       generator=g, return_traj=fed),
                              n=3, warmup=1)
-        flops = b * k * flops_per_step
+        n = b * k
+        t_flops = (max(n * mlp_flops / bf16_rate, n * rest_flops / f32_rate) if cfg.bf16
+                   else n * (mlp_flops + rest_flops) / f32_rate)
+        trans = n * ((nh + 1) * h + 2 * (c - 1) + (0 if fed else 3 * d))
         nbytes = table_bytes + 4 * (2 * b * d + b) + (2 * 4 * k * b * d if fed else 0)
-        t_ops, t_bytes = flops / flop_rate * 1e3, nbytes / byte_rate * 1e3
+        t_ops = max(t_flops, trans / sfu_rate) * 1e3
+        t_bytes = nbytes / byte_rate * 1e3
         out[name] = {"batch": b, "fed_noise_and_states": fed, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "flops": flops, "bytes": nbytes}
+                     "flops": n * (mlp_flops + rest_flops), "flops_ms": t_flops * 1e3,
+                     "transcendentals": trans, "transcendentals_ms": trans / sfu_rate * 1e3,
+                     "bytes": nbytes, "bytes_ms": t_bytes}
         say(f"[phase 7] {label} {name} shape B={b}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-            f"({out[name]['bound_by']}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+            f"({out[name]['bound_by']}; {out[name]['flops'] / 1e9:.3f} GFLOP in "
+            f"{t_flops * 1e3:.4f} ms, {trans / 1e6:.2f} M transcendentals in "
+            f"{trans / sfu_rate * 1e3:.4f} ms, {nbytes / 1e6:.3f} MB in {t_bytes:.4f} ms)")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     rec.update({k_: out["eval"][k_] for k_ in keys})
     rec["train_shape"] = {k_: out["train"][k_] for k_ in keys}
@@ -988,6 +1240,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products reduced in float32 in the plain versions (cuBLAS may
+    # otherwise reduce split sums at reduced precision)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1002,8 +1257,9 @@ def main() -> int:
     say(smi)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, device {name}; peaks used for bounds: H100 "
-        f"{variant} {peaks[0] / 1e12:.1f} TFLOP/s f32, {peaks[1] / 1e12:.2f} TB/s, "
-        f"{sfu_rate / 1e12:.3f} T transcendentals/s ({n_sm} SMs at {clock_mhz:.0f} MHz)")
+        f"{variant} {peaks[0] / 1e12:.1f} TFLOP/s f32, {peaks[2] / 1e12:.0f} TFLOP/s bf16 "
+        f"tensor cores, {peaks[1] / 1e12:.2f} TB/s, {sfu_rate / 1e12:.3f} T "
+        f"transcendentals/s ({n_sm} SMs at {clock_mhz:.0f} MHz)")
 
     t0 = time.perf_counter()
     built = build_libraries(KERNEL_SOURCES)
@@ -1022,6 +1278,10 @@ def main() -> int:
                                 "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:396",
                                 "mode": "f32, eigen-factored full-covariance reference",
                                 "library_ms": None},
+        "fused_traj_bf16": {"route": "cuda", "source": "sde_sampler_lrds_torch/csrc/fused_traj.cu",
+                            "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:380",
+                            "mode": "bf16 control MLP, diagonal or full-covariance reference",
+                            "library_ms": None},
         "sinkhorn_lse": {"route": "cuda", "source": "sde_sampler_lrds_torch/csrc/sinkhorn_lse.cu",
                          "replaces": "sde_sampler_lrds_tpu/ops/sinkhorn_lse.py:49"},
         "transport_cost": {"route": "cuda",
@@ -1034,26 +1294,34 @@ def main() -> int:
     cfg, arrays = comparison_plan(dev)
     phase_kernel_vs_plain(dev, cfg, arrays, recs["fused_traj"])
     phase_kernel_vs_plain_d100(dev, recs["fused_traj"], recs["fused_traj_full_cov"])
+    bf16_cfg, bf16_arrays = phase_kernel_vs_plain_bf16(dev, recs["fused_traj_bf16"])
     phase_sinkhorn_kernels(dev, recs["sinkhorn_lse"], recs["transport_cost"])
     phase_resample_kernel(dev, recs["resample"])
     phase_noise(dev, cfg, arrays)
     solver, target, dataset = phase_main_path(dev, path_counts)
     phase_eval_parity(dev, solver)
+    ref = fitted_reference(solver)
+    _, bf16_demo = phase_bf16_demo(dev, target, ref, path_counts)
+    kl = {"parity": phase_kl_parity(dev, solver),
+          "demo": phase_kl_demo(dev, target, ref, path_counts)}
     eval_times = phase_eval_path(dev, solver, target, path_counts)
     smc = phase_smc(dev, target, dataset, path_counts)
     phi_solver, phi = phase_phi_four(dev, path_counts)
-    phase_timing(dev, cfg, arrays, recs["fused_traj"], peaks)
+    phase_timing(dev, cfg, arrays, recs["fused_traj"], peaks, sfu_rate)
     phi_cfg, phi_arrays = build_plan(phi_solver.loss, phi_solver.generative_ctrl,
                                      phi_solver.eval_ts)
-    phase_timing(dev, phi_cfg, phi_arrays, recs["fused_traj_full_cov"], peaks,
+    phase_timing(dev, phi_cfg, phi_arrays, recs["fused_traj_full_cov"], peaks, sfu_rate,
                  label="fused_traj_full_cov")
+    phase_timing(dev, bf16_cfg, bf16_arrays, recs["fused_traj_bf16"], peaks, sfu_rate,
+                 label="fused_traj_bf16")
     phase_timing_sample_kernels(dev, recs, peaks, sfu_rate)
 
     for kname, rec in recs.items():
         rec["launches_by_path"] = {p: c[kname] for p, c in path_counts.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"{kname} was never launched on a path")
-    say("[phase 7] paths: " + json.dumps({"rds_eval": eval_times, "smc": smc, "phi_four": phi}))
+    say("[phase 7] paths: " + json.dumps({"rds_eval": eval_times, "smc": smc, "phi_four": phi,
+                                          "bf16_demo": bf16_demo, "kl": kl}))
     say(json.dumps({"kernels": [
         {"name": kname, **{k: rec[k] for k in KERNEL_KEYS},
          **{k: v for k, v in rec.items() if k not in KERNEL_KEYS}}

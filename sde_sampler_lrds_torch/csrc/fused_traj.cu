@@ -1,11 +1,11 @@
 // Whole-trajectory fused RDS integrator for Hopper (sm_90a).
 //
 // Replaces: the Pallas TPU kernel `_traj_kernel` in
-// sde_sampler_lrds_tpu/ops/fused_traj.py (launched by `_fused_traj`), in its
-// f32 modes: a diagonal / single-Gaussian reference, or an eigen-factored
-// full-covariance reference; with fed noise (optionally writing the pre-step
-// states) or noise drawn in the kernel. The bf16 control mode is not ported
-// here.
+// sde_sampler_lrds_tpu/ops/fused_traj.py (launched by `_fused_traj`), in all
+// its modes: a diagonal / single-Gaussian reference, or an eigen-factored
+// full-covariance reference; an f32 or a bf16 control MLP (`cfg.bf16`); with
+// fed noise (optionally writing the pre-step states) or noise drawn in the
+// kernel.
 //
 // What it computes, for every trajectory b and step k = 0..K-1:
 //   u   = clip(FourierMLP(t_k, x))          tanh-GELU MLP, time embedding
@@ -62,10 +62,26 @@
 // the products are (32 × 64)·(64 × 64) and (32 × 100)·(100 × 100) per step,
 // too small to feed wgmma well in a first version).
 //
+// The bf16 control mode (FourierMLP with compute_dtype = bfloat16, Flax
+// Dense semantics) takes the seven MLP tables (embed, w0, b0, wh, bh, w_out,
+// b_out) as __nv_bfloat16 and widens them exactly into the same f32 shared
+// memory layout, so the FMA chains are the f32 mode's: a bf16·bf16 product
+// is exact in f32 and the sums accumulate in f32. What changes are the
+// rounding points, those of the TPU kernel's bf16 dots: the layer input x is
+// rounded to bf16; each layer's dot is rounded to bf16, then + bias, then
+// (first layer) + embed, each sum rounded again; gelu is computed in f32 from
+// the bf16 value and rounded once; the output layer's bf16 u is the f32
+// value the clip, the RND and the update read. The reference score, the
+// noise, the RND and the state stay f32 in both modes. It is bound as the
+// f32 mode is, by the dependent chain of each block's steps: the conversions
+// add a few instructions per output unit and nothing per FMA (no tensor
+// cores yet: mma.sync / wgmma on bf16 are later work).
+//
 // The ragged last tile is masked, not padded. Random draws are keyed by
 // (seed, step, global trajectory index, dimension), so they do not depend on
 // the tile size or the number of blocks.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -78,16 +94,17 @@ constexpr int R = 4;           // trajectories per thread in a dense layer
 constexpr int NW = NT / 32;    // warps per block
 constexpr int TPW = TB / NW;   // trajectories per warp in the reductions
 
+// The MLP tables are f32, or __nv_bfloat16 in the bf16 mode.
 struct Params {
   const float* x0;         // (B, D)
   const float* coefs;      // (K, 6)
-  const float* embed;      // (K, H)
-  const float* w0;         // (D, H)
-  const float* b0;         // (H)
-  const float* wh;         // (n_hidden, H, H)
-  const float* bh;         // (n_hidden, H)
-  const float* w_out;      // (H, D)
-  const float* b_out;      // (D)
+  const void* embed;       // (K, H)
+  const void* w0;          // (D, H)
+  const void* b0;          // (H)
+  const void* wh;          // (n_hidden, H, H)
+  const void* bh;          // (n_hidden, H)
+  const void* w_out;       // (H, D)
+  const void* b_out;       // (D)
   const float* ref_const;  // (K, C)
   const float* ref_m;      // (K, C*D)
   const float* ref_iv;     // (K, C*D)
@@ -113,6 +130,22 @@ __host__ __device__ inline int smem_floats(int D, int H, int nh) {
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float k0 = 0.7978845608028654f;  // sqrt(2/pi)
   return x * (0.5f * (1.0f + tanhf(k0 * (x + 0.044715f * (x * x * x)))));
+}
+
+// x rounded to the nearest bf16, as an f32
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Entry i of an MLP table, f32 or bf16 (widened exactly), through the
+// read-only path.
+template <bool BF16>
+__device__ __forceinline__ float load_table(const void* p, size_t i) {
+  if constexpr (BF16) {
+    return __bfloat162float(__ldg(reinterpret_cast<const __nv_bfloat16*>(p) + i));
+  } else {
+    return __ldg(reinterpret_cast<const float*>(p) + i);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -160,18 +193,22 @@ __device__ __forceinline__ float load_w(const float* p) {
 
 // out[b][j] = act(Σ_i in[b][i]·W[i][j] + bias[j] + extra[j]) for the TB
 // rows of a tile; in/out in shared memory, W in shared (W_GLOBAL false) or
-// global memory, bias (or null) shared, extra (or null) global.
-template <bool GELU, bool W_GLOBAL>
+// global memory, bias (or null) shared, extra (or null) a global MLP table
+// row. BF16: the bf16 mode's rounding points, act(r(r(r(Σ) + bias) + extra))
+// with r the rounding to bf16 and act rounded too; the inputs and weights
+// must hold bf16 values already.
+template <bool GELU, bool W_GLOBAL, bool BF16 = false>
 __device__ void dense(const float* __restrict__ in, int n_in,
                       const float* __restrict__ W,
                       const float* __restrict__ bias,
-                      const float* __restrict__ extra, int n_out,
+                      const void* __restrict__ extra, int n_out,
                       float* __restrict__ out) {
   const int items = (TB / R) * n_out;
   for (int o = threadIdx.x; o < items; o += NT) {
     const int j = o % n_out, g = o / n_out;
     float bj = bias != nullptr ? bias[j] : 0.0f;
-    if (extra != nullptr) bj += __ldg(extra + j);
+    const float ej = extra != nullptr ? load_table<BF16>(extra, j) : 0.0f;
+    if constexpr (!BF16) bj += ej;
     float acc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] = 0.0f;
@@ -200,16 +237,27 @@ __device__ void dense(const float* __restrict__ in, int n_in,
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float v = acc[r] + bj;
-      out[(g * R + r) * n_out + j] = GELU ? gelu_tanh(v) : v;
+      float v;
+      if constexpr (BF16) {
+        v = round_bf16(round_bf16(acc[r]) + bj);
+        if (extra != nullptr) v = round_bf16(v + ej);
+        if (GELU) v = round_bf16(gelu_tanh(v));
+      } else {
+        v = acc[r] + bj;
+        if (GELU) v = gelu_tanh(v);
+      }
+      out[(g * R + r) * n_out + j] = v;
     }
   }
 }
 
-__device__ inline void copy_to_smem(float* dst, const float* src, int n) {
-  for (int i = threadIdx.x; i < n; i += NT) dst[i] = __ldg(src + i);
+// An MLP table into shared memory as f32 (bf16 entries widened exactly).
+template <bool BF16>
+__device__ inline void table_to_smem(float* dst, const void* src, int n) {
+  for (int i = threadIdx.x; i < n; i += NT) dst[i] = load_table<BF16>(src, i);
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
@@ -238,12 +286,12 @@ __global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int base = blockIdx.x * TB;
-  copy_to_smem(w0, p.w0, D * H);
-  copy_to_smem(b0, p.b0, H);
-  copy_to_smem(wh, p.wh, nh * H * H);
-  copy_to_smem(bh, p.bh, nh * H);
-  copy_to_smem(wo, p.w_out, H * D);
-  copy_to_smem(bo, p.b_out, D);
+  table_to_smem<BF16>(w0, p.w0, D * H);
+  table_to_smem<BF16>(b0, p.b0, H);
+  table_to_smem<BF16>(wh, p.wh, nh * H * H);
+  table_to_smem<BF16>(bh, p.bh, nh * H);
+  table_to_smem<BF16>(wo, p.w_out, H * D);
+  table_to_smem<BF16>(bo, p.b_out, D);
   for (int o = tid; o < TD; o += NT) {
     const int gb = base + o / D;
     xt[o] = gb < B ? p.x0[(size_t)gb * D + o % D] : 0.0f;
@@ -320,18 +368,28 @@ __global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
       __syncthreads();
     }
     // ---- control u = clip(FourierMLP(t_k, x)) -------------------------
-    dense<true, false>(xt, D, w0, b0, p.embed + (size_t)k * H, H, hA);
+    // bf16 mode: the first layer reads x rounded to bf16, staged in the
+    // control row, which is free until the output layer writes it
+    const float* xin = xt;
+    if constexpr (BF16) {
+      for (int o = tid; o < TD; o += NT) ut[o] = round_bf16(xt[o]);
+      __syncthreads();
+      xin = ut;
+    }
+    const void* erow = BF16 ? (const void*)((const __nv_bfloat16*)p.embed + (size_t)k * H)
+                            : (const void*)((const float*)p.embed + (size_t)k * H);
+    dense<true, false, BF16>(xin, D, w0, b0, erow, H, hA);
     __syncthreads();
     float* hin = hA;
     float* hout = hB;
     for (int l = 0; l < nh; ++l) {
-      dense<true, false>(hin, H, wh + (size_t)l * H * H, bh + l * H, nullptr, H, hout);
+      dense<true, false, BF16>(hin, H, wh + (size_t)l * H * H, bh + l * H, nullptr, H, hout);
       __syncthreads();
       float* tmp = hin;
       hin = hout;
       hout = tmp;
     }
-    dense<false, false>(hin, H, wo, bo, nullptr, D, ut);
+    dense<false, false, BF16>(hin, H, wo, bo, nullptr, D, ut);
     __syncthreads();
     // ---- noise + state update ------------------------------------------
     const float a_x = __ldg(cf + 0), a_ref = __ldg(cf + 1), a_u = __ldg(cf + 2);
@@ -396,27 +454,34 @@ const char* fused_traj_error_string(int err) {
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). ref_p and
-// ref_pt are both null (diagonal mode) or both set (full-covariance mode).
-int fused_traj_launch(const float* x0, const float* coefs, const float* embed,
-                      const float* w0, const float* b0, const float* wh,
-                      const float* bh, const float* w_out, const float* b_out,
+// ref_pt are both null (diagonal mode) or both set (full-covariance mode);
+// the seven MLP tables (embed .. b_out) are f32, or __nv_bfloat16 when bf16
+// is non-zero.
+int fused_traj_launch(const float* x0, const float* coefs, const void* embed,
+                      const void* w0, const void* b0, const void* wh,
+                      const void* bh, const void* w_out, const void* b_out,
                       const float* ref_const, const float* ref_m,
                       const float* ref_iv, const float* ref_p,
                       const float* ref_pt, const float* noise,
                       unsigned long long seed, float* x_out, float* rnd_out,
                       float* xs_out, int B, int K, int D, int H, int n_hidden,
-                      int C, int has_clip, float clip, void* stream) {
+                      int C, int bf16, int has_clip, float clip, void* stream) {
   if ((ref_p == nullptr) != (ref_pt == nullptr)) return (int)cudaErrorInvalidValue;
   Params p{x0,     coefs,  embed,   w0,     b0,       wh,    bh,
            w_out,  b_out,  ref_const, ref_m, ref_iv,  ref_p, ref_pt,
            noise,  x_out,  rnd_out, xs_out, seed,     B,     K,
            D,      H,      n_hidden, C,     has_clip, clip};
   const int smem = fused_traj_smem_bytes(D, H, n_hidden);
+  const void* kernel = bf16 ? (const void*)traj_kernel<true> : (const void*)traj_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      traj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (B + TB - 1) / TB;
-  traj_kernel<<<blocks, NT, smem, (cudaStream_t)stream>>>(p);
+  if (bf16) {
+    traj_kernel<true><<<blocks, NT, smem, (cudaStream_t)stream>>>(p);
+  } else {
+    traj_kernel<false><<<blocks, NT, smem, (cudaStream_t)stream>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 

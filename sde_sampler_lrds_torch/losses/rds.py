@@ -1,6 +1,6 @@
 """Reference-based diffusion sampler (RDS) losses: EM / EI / DDPM integrators
-(counterpart of sde_sampler_lrds_tpu/losses/rds.py; ``kl_fused_call`` and
-``compute_eubo`` are not ported yet).
+(counterpart of sde_sampler_lrds_tpu/losses/rds.py, with the flat LV and the
+fused KL training paths; ``compute_eubo`` is not ported yet).
 
 RND accumulation per step, with terminal cost log p_ref(x_T) − log ρ(x_T):
 
@@ -133,6 +133,31 @@ class EMReferenceSDELoss(BaseOCLoss):
         cost = torch.sum(u * (u_bar - 0.5 * u), dim=-1)               # (K, B)
         ito = torch.sum(u * zs, dim=-1)                               # (K, B)
         rnd = torch.sum(c_cost[:, None] * cost + c_dot[:, None] * ito, dim=0)
+        rnd = rnd + reference_log_prob(x_t) - terminal_unnorm_log_prob(x_t)
+        return self.reduce(rnd, samples=x_t)
+
+    # -- fused KL training path ---------------------------------------------
+    def supports_fused_kl(self, ts, call_args: frozenset) -> bool:
+        """Whether ``kl_fused_call`` covers this loss: a KL method and the
+        flat LV path's structural scope (linear SDE, the solver's two
+        terminal log-probs)."""
+        return (self.method in ("kl", "kl_ito")
+                and call_args == frozenset({"terminal_unnorm_log_prob",
+                                            "reference_log_prob"})
+                and self._flat_grids(ts) is not None)
+
+    def kl_fused_call(self, generator, ts, x, ctrl, terminal_unnorm_log_prob,
+                      reference_log_prob, traj_rnd_fn, noise=None):
+        """KL training through the differentiable fused trajectory
+        ``traj_rnd_fn(x0, zs) -> (x_T, rnd)`` (ops/fused_traj.fused_kl_traj:
+        the kernel forward, the adjoint loop backward). The same estimator
+        and gradient as ``__call__`` under common noise; the per-step noise
+        is drawn as ``_flat_lv_setup`` draws it, or fed as ``noise``."""
+        del ctrl  # the control rides inside traj_rnd_fn's tables
+        x = self.repeat_traj(x)
+        zs = noise if noise is not None else torch.randn(
+            (ts.shape[0] - 1, *x.shape), generator=generator, device=x.device)
+        x_t, rnd = traj_rnd_fn(x, zs)
         rnd = rnd + reference_log_prob(x_t) - terminal_unnorm_log_prob(x_t)
         return self.reduce(rnd, samples=x_t)
 

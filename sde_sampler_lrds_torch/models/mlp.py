@@ -6,6 +6,14 @@ Two numeric details follow the Flax modules exactly: the activation is the
 tanh form of GELU (Flax ``nn.gelu`` defaults to it), and the time features
 are [sin ‖ cos] of ``linspace(0.1, 100, H)·t + phase``.
 
+``compute_dtype=torch.bfloat16`` follows Flax ``nn.Dense(dtype=bfloat16)``:
+the parameters stay float32, each layer casts its input, kernel and bias to
+bf16 and rounds the product and then the bias add to bf16 (``dense`` below,
+not ``F.linear``, which would fuse the bias into the product and round once);
+the activations and the sum with the time embedding run on bf16 values, and
+FourierMLP casts its output back to float32. Autograd flows through the
+casts, so the parameters' gradients are float32.
+
 The near-zero last-layer init is load-bearing: the control must start ≈ 0 so
 early trajectories follow the reference process.
 """
@@ -25,6 +33,14 @@ INIT_WEIGHT_SCALE = 1e-6
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """GELU, tanh form (Flax ``nn.gelu``'s default)."""
     return F.gelu(x, approximate="tanh")
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """``layer(x)``, or with a compute dtype Flax Dense's (x·W + b) with x,
+    W and b cast to it and the product and the sum each rounded to it."""
+    if dtype is None:
+        return layer(x)
+    return (x.to(dtype) @ layer.weight.to(dtype).t()) + layer.bias.to(dtype)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> None:
@@ -56,10 +72,12 @@ class TimeEmbed(nn.Module):
     learned phase) followed by a small MLP."""
 
     def __init__(self, dim_out: int, channels: int = 64, num_layers: int = 2,
-                 activation: Callable = gelu_tanh):
+                 activation: Callable = gelu_tanh,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.channels = channels
         self.activation = activation
+        self.compute_dtype = compute_dtype
         self.register_buffer(
             "coeff", torch.linspace(0.1, 100.0, channels, dtype=torch.float32)[None, :])
         self.timestep_phase = nn.Parameter(torch.zeros(1, channels))
@@ -76,24 +94,26 @@ class TimeEmbed(nn.Module):
             _init_dense(layer, generator)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        """t of any shape -> (*t.shape, dim_out)."""
+        """t of any shape -> (*t.shape, dim_out), in the compute dtype."""
         t = torch.as_tensor(t, dtype=torch.float32, device=self.coeff.device)
         ang = self.coeff * t.reshape(-1, 1) + self.timestep_phase
         embed = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+        dt = self.compute_dtype
         for layer in self.dense:
-            embed = self.activation(layer(embed))
-        return self.out(embed).reshape(*t.shape, -1)
+            embed = self.activation(dense(layer, embed, dt))
+        return dense(self.out, embed, dt).reshape(*t.shape, -1)
 
 
 class FourierMLP(nn.Module):
     """x-embedding + t-embedding summed into a residual-free MLP;
     ``zero_init`` turns on the near-zero output init. ``num_layers`` counts
     the x-embedding and output layers, so there are num_layers - 2 hidden
-    layers."""
+    layers. ``compute_dtype`` (None or torch.bfloat16) is the layers'
+    compute dtype; the output is float32 either way."""
 
     def __init__(self, dim: int, dim_out: int | None = None, channels: int = 64,
                  num_layers: int = 4, activation: Callable = gelu_tanh,
-                 zero_init: bool = False):
+                 zero_init: bool = False, compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.dim = dim
         self.dim_out = dim_out
@@ -101,9 +121,10 @@ class FourierMLP(nn.Module):
         self.num_layers = num_layers
         self.activation = activation
         self.zero_init = zero_init
+        self.compute_dtype = compute_dtype
         self.x_embed = nn.Linear(dim, channels)
         self.time_embed = TimeEmbed(dim_out=channels, channels=channels,
-                                    activation=activation)
+                                    activation=activation, compute_dtype=compute_dtype)
         self.hidden = nn.ModuleList(
             [nn.Linear(channels, channels) for _ in range(num_layers - 2)])
         self.out = nn.Linear(channels, dim_out or dim)
@@ -128,10 +149,11 @@ class FourierMLP(nn.Module):
         elif not _broadcasts_to(t.shape, x.shape[:-1]):
             raise ValueError(f"time shape {tuple(t.shape)} does not broadcast "
                              f"against x batch shape {tuple(x.shape[:-1])}")
-        h = self.x_embed(x) + self.time_embed(t)
+        dt = self.compute_dtype
+        h = dense(self.x_embed, x, dt) + self.time_embed(t)
         for layer in self.hidden:
-            h = layer(self.activation(h))
-        return self.out(self.activation(h))
+            h = dense(layer, self.activation(h), dt)
+        return dense(self.out, self.activation(h), dt).float()
 
 
 def _broadcasts_to(shape, target) -> bool:

@@ -27,9 +27,18 @@ The public layout is row-major: x0 (B, D), noise (K, B, D); returns
 x_T (B, D), rnd (B,) and, with ``return_traj``, the pre-step states
 xs (K, B, D).
 
-Not ported yet: the bf16 control mode, and fused KL training
-(``fused_kl_traj``, whose backward in the JAX package is a ``lax.scan``
-adjoint, not a Pallas kernel).
+A control with ``compute_dtype=torch.bfloat16`` gives a ``bf16`` plan: the
+seven MLP tables are bf16 (the time-embed table is TimeEmbed's bf16 output)
+and the control follows Flax Dense's rounding points (x → bf16, the product,
++ bias and + embed each rounded to bf16, gelu on bf16 values rounded once,
+u cast back to float32 before the clip); the reference score, the noise, the
+RND and the state update stay float32.
+
+``fused_kl_traj`` is the differentiable trajectory of fused KL training, a
+``torch.autograd.Function``: its forward is ``fused_traj`` with fed noise and
+saved pre-step states; its backward is the adjoint of the generalized step
+as a PyTorch reverse loop over the saved states (the JAX package's
+``_fused_kl_bwd`` is a ``lax.scan``, not a Pallas kernel).
 """
 from __future__ import annotations
 
@@ -81,17 +90,25 @@ class FusedTrajCfg:
     # eigen-factored full-covariance reference: ref_iv holds inverse
     # eigen-variances and the kernel rotates through ref_p / ref_pt
     full_cov: bool = False
+    # control MLP in bfloat16 (FourierMLP.compute_dtype): bf16 MLP tables,
+    # Flax Dense rounding points, u cast back to float32
+    bf16: bool = False
 
 
 # ---------------------------------------------------------------------------
 # plan construction (host side, cheap)
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
+_MLP_KEYS = ("embed", "w0", "b0", "wh", "bh", "w_out", "b_out")
+
+
 def _fourier_mlp_tables(ctrl_module, t_grid):
     """(cfg fields, weight tensors, time-embed table) of a FourierMLP
-    control, optionally wrapped in ClippedCtrl; None for other controls.
-    Weights keep the JAX package's (in, out) layout."""
+    control, optionally wrapped in ClippedCtrl; None for other controls and
+    for a compute dtype other than None and bfloat16. Weights keep the JAX
+    package's (in, out) layout, in the compute dtype. The tables keep their
+    graph to the parameters where autograd records it (``build_plan``
+    detaches them unless asked for a differentiable plan)."""
     from ..models.mlp import FourierMLP, gelu_tanh
     from ..models.reparam import ClippedCtrl
 
@@ -102,24 +119,28 @@ def _fourier_mlp_tables(ctrl_module, t_grid):
         base = base.base_model
     if type(base) is not FourierMLP or base.activation is not gelu_tanh:
         return None
+    if base.compute_dtype not in (None, torch.bfloat16):
+        return None
     if base.dim_out is not None and base.dim_out != base.dim:
         return None
-    embed = base.time_embed(t_grid).float().contiguous()                  # (K, H)
-    w0 = base.x_embed.weight.t().contiguous()                             # (D, H)
-    b0 = base.x_embed.bias[None, :].contiguous()                          # (1, H)
+    bf16 = base.compute_dtype == torch.bfloat16
+    mm_dt = torch.bfloat16 if bf16 else torch.float32
+    embed = base.time_embed(t_grid).to(mm_dt).contiguous()                # (K, H)
+    w0 = base.x_embed.weight.t().to(mm_dt).contiguous()                   # (D, H)
+    b0 = base.x_embed.bias[None, :].to(mm_dt).contiguous()                # (1, H)
     h = base.channels
     dev = w0.device
     hidden = list(base.hidden)
     # no hidden layer: one zero dummy layer the kernel never reads
     wh = (torch.stack([l.weight.t() for l in hidden]) if hidden
-          else torch.zeros((1, h, h), device=dev)).contiguous()
+          else torch.zeros((1, h, h), device=dev)).to(mm_dt).contiguous()
     bh = (torch.stack([l.bias[None, :] for l in hidden]) if hidden
-          else torch.zeros((1, 1, h), device=dev)).contiguous()
-    w_out = base.out.weight.t().contiguous()                              # (H, D)
-    b_out = base.out.bias[None, :].contiguous()                           # (1, D)
-    fields = dict(dim=base.dim, channels=h, n_hidden=len(hidden), clip=clip)
+          else torch.zeros((1, 1, h), device=dev)).to(mm_dt).contiguous()
+    w_out = base.out.weight.t().to(mm_dt).contiguous()                    # (H, D)
+    b_out = base.out.bias[None, :].to(mm_dt).contiguous()                 # (1, D)
+    fields = dict(dim=base.dim, channels=h, n_hidden=len(hidden), clip=clip, bf16=bf16)
     arrays = dict(embed=embed, w0=w0, b0=b0, wh=wh, bh=bh, w_out=w_out, b_out=b_out)
-    return fields, {k: v.detach() for k, v in arrays.items()}
+    return fields, arrays
 
 
 def _eigen_factors(reference_ctrl, var):
@@ -243,18 +264,25 @@ def _step_coeffs(loss, ts):
     return coefs.contiguous(), t_ctrl
 
 
-def build_plan(loss, ctrl_module, ts):
+def build_plan(loss, ctrl_module, ts, differentiable: bool = False):
     """(cfg, arrays) for ``fused_traj``, or None when the (loss, control,
     reference) triple is outside the kernel's scope. A loss without a
     reference runs on a one-component dummy table with zero inverse
-    variances; a full-covariance reference gives a ``full_cov`` plan."""
+    variances; a full-covariance reference gives a ``full_cov`` plan, a
+    bf16 control a ``bf16`` one. With ``differentiable`` the MLP tables keep
+    their graph to the control's parameters (the fused KL path, whose table
+    cotangents reach every parameter, TimeEmbed's included); the step
+    coefficients and the reference tables never carry one."""
     coefs, t_ctrl = _step_coeffs(loss, ts)
     if coefs is None:
         return None
-    mlp = _fourier_mlp_tables(ctrl_module, t_ctrl)
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        mlp = _fourier_mlp_tables(ctrl_module, t_ctrl)
     if mlp is None:
         return None
     fields, arrays = mlp
+    if not differentiable:  # views of the parameters keep requires_grad
+        arrays = {name: v.detach() for name, v in arrays.items()}
     k, d = int(ts.shape[0] - 1), fields["dim"]
     ref = None
     if getattr(loss, "reference_ctrl", None) is not None:
@@ -273,40 +301,65 @@ def build_plan(loss, ctrl_module, ts):
 # the kernel's plain version and its wrapper
 # ---------------------------------------------------------------------------
 
+def _control(cfg: FusedTrajCfg, a: dict, x: torch.Tensor, e: torch.Tensor,
+             pre: list | None = None) -> torch.Tensor:
+    """The control MLP before the clip, in the tables' dtype (each product
+    and sum rounds to it): x (..., D) in that dtype, e the embed row(s)
+    broadcasting against the first layer's output. Appends the gelu layers'
+    pre-activations to ``pre`` when given."""
+    from ..models.mlp import gelu_tanh
+
+    h = ((x @ a["w0"]) + a["b0"]) + e
+    for i in range(cfg.n_hidden):
+        if pre is not None:
+            pre.append(h)
+        h = (gelu_tanh(h) @ a["wh"][i]) + a["bh"][i]
+    if pre is not None:
+        pre.append(h)
+    return (gelu_tanh(h) @ a["w_out"]) + a["b_out"]
+
+
+def _ref_terms(cfg: FusedTrajCfg, a: dict, k: int, x: torch.Tensor):
+    """Per component c of the step-k noised-MoG reference at x (B, D): the
+    gradient terms g_c = Λ_c (x − m_c) (B, C, D), the logits (B, C) and the
+    inverse (eigen-)variances iv (C, D); Λ_c is diag(iv_c), or
+    P_c diag(iv_c) P_cᵀ in the full-covariance mode."""
+    d, c = cfg.dim, cfg.n_comp
+    diff = x[:, None, :] - a["ref_m"][k].reshape(c, d)               # (B, C, D)
+    iv = a["ref_iv"][k].reshape(c, d)
+    if cfg.full_cov:   # rotate into each component's eigenbasis and back
+        p = a["ref_p"].reshape(c, d, d)
+        y = torch.einsum("bcd,cde->bce", diff, p)
+        ys = y * iv
+        logits = a["ref_const"][k] - 0.5 * torch.sum(y * ys, dim=-1)
+        g = torch.einsum("bce,cfe->bcf", ys, p)
+    else:
+        g = diff * iv
+        logits = a["ref_const"][k] - 0.5 * torch.sum(diff * g, dim=-1)
+    return g, logits, iv
+
+
 @torch.no_grad()
 def fused_traj_plain(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
                      noise: torch.Tensor | None = None,
                      generator: torch.Generator | None = None,
                      return_traj: bool = False):
     """The kernel's arithmetic as a Python loop over K of torch ops; draws
-    the noise with ``torch.randn(generator=...)`` when none is fed."""
-    from ..models.mlp import gelu_tanh
-
+    the noise with ``torch.randn(generator=...)`` when none is fed. In bf16
+    mode each product and each sum of the control rounds to bf16 (the
+    kernel's rounding points), and u is cast back to float32."""
     a = arrays
-    d, c = cfg.dim, cfg.n_comp
+    mm_dt = torch.bfloat16 if cfg.bf16 else torch.float32
     x = x0.float()
     rnd = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
     xs = []
     for k in range(cfg.k_steps):
         if return_traj:
             xs.append(x)
-        h = x @ a["w0"] + a["b0"] + a["embed"][k]
-        for i in range(cfg.n_hidden):
-            h = gelu_tanh(h) @ a["wh"][i] + a["bh"][i]
-        u = gelu_tanh(h) @ a["w_out"] + a["b_out"]
+        u = _control(cfg, a, x.to(mm_dt), a["embed"][k]).float()
         if cfg.clip is not None:
             u = torch.clamp(u, -cfg.clip, cfg.clip)
-        diff = x[:, None, :] - a["ref_m"][k].reshape(c, d)             # (B, C, D)
-        iv = a["ref_iv"][k].reshape(c, d)
-        if cfg.full_cov:   # rotate into each component's eigenbasis and back
-            p = a["ref_p"].reshape(c, d, d)
-            y = torch.einsum("bcd,cde->bce", diff, p)
-            ys = y * iv
-            logits = a["ref_const"][k] - 0.5 * torch.sum(y * ys, dim=-1)
-            g = torch.einsum("bce,cfe->bcf", ys, p)
-        else:
-            g = diff * iv
-            logits = a["ref_const"][k] - 0.5 * torch.sum(diff * g, dim=-1)
+        g, logits, _ = _ref_terms(cfg, a, k, x)
         ref_score = -torch.sum(torch.softmax(logits, dim=-1)[..., None] * g, dim=1)
         z = noise[k] if noise is not None else torch.randn(
             x.shape, generator=generator, device=x.device)
@@ -316,8 +369,7 @@ def fused_traj_plain(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
     return x, rnd, (torch.stack(xs) if return_traj else None)
 
 
-_ARRAY_ORDER = ("coefs", "embed", "w0", "b0", "wh", "bh", "w_out", "b_out",
-                "ref_const", "ref_m", "ref_iv")
+_ARRAY_ORDER = ("coefs",) + _MLP_KEYS + ("ref_const", "ref_m", "ref_iv")
 
 
 @functools.cache
@@ -327,7 +379,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fused_traj")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_traj_launch.argtypes = (
-        [ptr] * 15 + [ctypes.c_ulonglong] + [ptr] * 3 + [i32] * 7
+        [ptr] * 15 + [ctypes.c_ulonglong] + [ptr] * 3 + [i32] * 8
         + [ctypes.c_float, ptr])
     lib.fused_traj_launch.restype = i32
     lib.fused_traj_smem_bytes.argtypes = [i32, i32, i32]
@@ -384,8 +436,9 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
            noise: torch.Tensor | None, seed: int, return_traj: bool):
     """Check the inputs and launch the CUDA kernel on the current stream;
     with ``noise`` None the kernel draws its normals from ``seed``. Counts
-    each launch in ``fused_traj.launches``, and each full-covariance one
-    in ``fused_traj.full_cov_launches`` as well."""
+    each launch in ``fused_traj.launches``, each full-covariance one in
+    ``fused_traj.full_cov_launches`` and each bf16 one in
+    ``fused_traj.bf16_launches`` as well."""
     if x0.device.type != "cuda":
         raise ValueError(f"the fused_traj kernel runs on cuda, got {x0.device}")
     lib = _library()
@@ -402,8 +455,9 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
     tables = []
     for name in names:
         t = arrays[name]
-        if t.device != x0.device or t.dtype != torch.float32 or t.shape != shapes[name]:
-            raise ValueError(f"table {name!r} must be float32 of shape "
+        dtype = torch.bfloat16 if cfg.bf16 and name in _MLP_KEYS else torch.float32
+        if t.device != x0.device or t.dtype != dtype or t.shape != shapes[name]:
+            raise ValueError(f"table {name!r} must be {dtype} of shape "
                              f"{shapes[name]} on {x0.device}")
         tables.append(t.contiguous())
     if not cfg.full_cov:
@@ -426,18 +480,20 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
         err = lib.fused_traj_launch(
             ptr(x0), *[ptr(t) for t in tables], ptr(noise), seed,
             ptr(x_out), ptr(rnd), ptr(xs), b, k, d, h, cfg.n_hidden, c,
-            int(cfg.clip is not None),
+            int(cfg.bf16), int(cfg.clip is not None),
             float(cfg.clip if cfg.clip is not None else 0.0), stream)
     if err != 0:
         raise RuntimeError("fused_traj kernel launch failed: "
                            + lib.fused_traj_error_string(err).decode())
     fused_traj.launches += 1
     fused_traj.full_cov_launches += int(cfg.full_cov)
+    fused_traj.bf16_launches += int(cfg.bf16)
     return x_out, rnd, xs
 
 
 fused_traj.launches = 0
 fused_traj.full_cov_launches = 0
+fused_traj.bf16_launches = 0
 
 
 def fused_simulate(cfg: FusedTrajCfg, arrays: dict, generator, x0,
@@ -461,3 +517,109 @@ def fused_traj_states(cfg: FusedTrajCfg, arrays: dict, x0, noise: torch.Tensor):
     x_t, _, xs = fused_traj(cfg, arrays, x0.detach().float(), noise=noise.detach(),
                             return_traj=True)
     return xs, x_t
+
+
+# ---------------------------------------------------------------------------
+# differentiable fused trajectory (KL training)
+# ---------------------------------------------------------------------------
+# The KL loss keeps the simulated control attached, so the trajectory carries
+# parameter gradient. fused_kl_traj runs the forward through fused_traj with
+# fed noise and the pre-step states saved, and its backward is the adjoint of
+# the generalized step
+#
+#   x_{k+1} = a_x·x_k + a_ref·r(x_k) + a_u·u_k + a_z·z_k,  u_k = U(t_k, x_k)
+#   rnd    += c_cost·½‖u_k‖² + c_dot·u_k·z_k
+#
+#   g_u = r̄·(c_cost·u_k + c_dot·z_k) + a_u·λ_{k+1}
+#   λ_k = a_x·λ_{k+1} + a_ref·(∂r/∂x)ᵀλ_{k+1} + (∂u/∂x)ᵀ g_u
+#
+# as the JAX package's _fused_kl_bwd computes it. Only λ is sequential: the
+# loop runs the x-VJPs of the control and of the reference score by hand, one
+# step at a time, and the table cotangents Σ_k (∂u_k/∂tables)ᵀ g_u,k are one
+# autograd VJP of the control evaluated over all K·B saved states at once.
+# The reference tables are frozen in RDS and get no cotangent; the noise
+# gets none either.
+
+def _gelu_tanh_grad(h: torch.Tensor) -> torch.Tensor:
+    """d gelu_tanh(h) / dh."""
+    k0, k1 = math.sqrt(2.0 / math.pi), 0.044715
+    th = torch.tanh(k0 * (h + k1 * h**3))
+    return 0.5 * (1.0 + th) + 0.5 * h * (1.0 - th * th) * k0 * (1.0 + 3.0 * k1 * h * h)
+
+
+def _ref_score_vjp(cfg: FusedTrajCfg, aux: dict, k: int, x: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """(∂r/∂x)ᵀ v at step k for the noised-MoG score r = −Σ_c p_c g_c,
+    g_c = Λ_c (x − m_c): Σ_c p_c [(g_c·v)(g_c + r) − Λ_c v]."""
+    g, logits, iv = _ref_terms(cfg, aux, k, x)
+    if cfg.full_cov:
+        d, c = cfg.dim, cfg.n_comp
+        p = aux["ref_p"].reshape(c, d, d)
+        lam_v = torch.einsum("bce,cfe->bcf", torch.einsum("bd,cde->bce", v, p) * iv, p)
+    else:
+        lam_v = v[:, None, :] * iv
+    resp = torch.softmax(logits, dim=-1)[..., None]                   # (B, C, 1)
+    r = -torch.sum(resp * g, dim=1, keepdim=True)                     # (B, 1, D)
+    gv = torch.sum(g * v[:, None, :], dim=-1, keepdim=True)           # (B, C, 1)
+    return torch.sum(resp * (gv * (g + r) - lam_v), dim=1)
+
+
+class _FusedKLTraj(torch.autograd.Function):
+    """(x_T, rnd) of the fused trajectory under fed noise, differentiable in
+    x0 and the MLP tables (given positionally, in ``_MLP_KEYS`` order)."""
+
+    @staticmethod
+    def forward(ctx, cfg, aux, x0, noise, *mlp):
+        arrays = dict(aux, **dict(zip(_MLP_KEYS, mlp)))
+        x_t, rnd, xs = fused_traj(cfg, arrays, x0, noise=noise, return_traj=True)
+        ctx.cfg, ctx.aux, ctx.xs = cfg, aux, xs
+        ctx.save_for_backward(noise, *mlp)
+        return x_t, rnd
+
+    @staticmethod
+    def backward(ctx, x_bar, rnd_bar):
+        cfg, aux, xs = ctx.cfg, ctx.aux, ctx.xs
+        zs, *mlp = ctx.saved_tensors
+        pre = []
+        with torch.enable_grad():
+            tab = {k: t.detach().float().requires_grad_() for k, t in zip(_MLP_KEYS, mlp)}
+            u_raw = _control(cfg, tab, xs, tab["embed"][:, None, :], pre)
+            u = u_raw if cfg.clip is None else torch.clamp(u_raw, -cfg.clip, cfg.clip)
+        u_d = u.detach()
+        keep = (None if cfg.clip is None
+                else ((u_raw >= -cfg.clip) & (u_raw <= cfg.clip)).float())
+        gelu_grads = [_gelu_tanh_grad(h.detach()) for h in pre]
+        w0, wh, w_out = (tab[k].detach() for k in ("w0", "wh", "w_out"))
+        rb = rnd_bar[:, None]
+        lam = x_bar
+        g_us = [None] * cfg.k_steps
+        for k in reversed(range(cfg.k_steps)):
+            a_x, a_ref, a_u, a_z, c_cost, c_dot = aux["coefs"][k]
+            g_u = rb * (c_cost * u_d[k] + c_dot * zs[k]) + a_u * lam
+            g_us[k] = g_u
+            # (∂u/∂x)ᵀ g_u: back through the clip and the layers
+            dh = (g_u if keep is None else g_u * keep[k]) @ w_out.t() * gelu_grads[-1][k]
+            for i in reversed(range(cfg.n_hidden)):
+                dh = dh @ wh[i].t() * gelu_grads[i][k]
+            lam = (a_x * lam + _ref_score_vjp(cfg, aux, k, xs[k], a_ref * lam)
+                   + dh @ w0.t())
+        wanted = [k for k, need in zip(_MLP_KEYS, ctx.needs_input_grad[4:]) if need]
+        grads = dict(zip(wanted, torch.autograd.grad(
+            u, [tab[k] for k in wanted], torch.stack(g_us), allow_unused=True)))
+        table_grads = [None if grads.get(k) is None else grads[k].to(t.dtype)
+                       for k, t in zip(_MLP_KEYS, mlp)]
+        return (None, None, lam, None, *table_grads)
+
+
+def fused_kl_traj(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor, noise: torch.Tensor):
+    """Differentiable fused trajectory for KL training: (x_T, running rnd)
+    under the fed per-step normals ``noise`` (K, B, D), with gradients to x0
+    and to the MLP tables of a ``build_plan(..., differentiable=True)`` plan
+    (and through them to the control's parameters). The forward launches the
+    kernel on a CUDA tensor and runs the plain version on a CPU one."""
+    if cfg.bf16:
+        raise ValueError("fused_kl_traj takes a float32 plan: the adjoint mirrors "
+                         "the float32 control")
+    aux = {k: v for k, v in arrays.items() if k not in _MLP_KEYS}
+    return _FusedKLTraj.apply(cfg, aux, x0.float(), noise.detach().float(),
+                              *(arrays[k] for k in _MLP_KEYS))

@@ -49,8 +49,9 @@ class TrainConfig:
     flat_lv: str = "auto"
     # fused whole-trajectory eval (ops/fused_traj): 'auto' | 'off'
     fused_eval: str = "auto"
-    # fused KL training: not ported yet; only 'auto' / 'off' are accepted
-    # and both resolve to the loss's own (autograd-through-loop) path
+    # fused KL training (losses/rds.py kl_fused_call through
+    # ops/fused_traj.fused_kl_traj): 'auto' | 'off' | 'force'; 'auto' and
+    # 'force' take it on either device (solvers/oc.py _fused_kl_fn)
     fused_kl: str = "auto"
 
 
@@ -69,8 +70,6 @@ class Trainable:
         self.device = resolve_device(device)
         if self.cfg.param_schedule:
             raise NotImplementedError("param_schedule is not ported yet")
-        if self.cfg.fused_kl not in ("auto", "off"):
-            raise NotImplementedError("the fused KL training path is not ported yet")
         self.optimizer: torch.optim.Optimizer | None = None
         self.ema_module: torch.nn.Module | None = None
         self.step_count = 0

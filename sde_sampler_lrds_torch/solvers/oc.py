@@ -5,18 +5,21 @@ are ported yet, with reference types 'default', 'gaussian' and 'gmm').
 Routing, as in the JAX package: plain-LV training takes the flat path
 (``lv_flat_call``), whose gradient-free simulation runs through
 ``ops/fused_traj`` when the (loss, control, reference) triple is in the
-kernel's scope; an evaluation without trajectories runs through the same
-operation with its noise drawn in the kernel. ``fused_traj`` launches the
+kernel's scope; KL training takes the fused KL path (``kl_fused_call``
+through ``fused_kl_traj``) when the triple is in scope with a float32
+control; an evaluation without trajectories runs through the fused
+trajectory with its noise drawn in the kernel. ``fused_traj`` launches the
 CUDA kernel for tensors on the card and runs its plain version for tensors
 on the CPU, so the paths are named after the device: 'flat_lv_fused' /
-'fused' on CUDA, 'flat_lv_plain' / 'plain' on the CPU.
+'kl_fused' / 'fused' on CUDA, 'flat_lv_plain' / 'kl_plain' / 'plain' on the
+CPU.
 """
 from __future__ import annotations
 
 import torch
 
 from ..losses.base import compute_results
-from ..ops.fused_traj import build_plan, fused_simulate, fused_traj_states
+from ..ops.fused_traj import build_plan, fused_kl_traj, fused_simulate, fused_traj_states
 from ..targets.base import Target
 from ..targets.gauss import score_gauss, score_gauss_full, score_mog, score_mog_full
 from ..utils.common import Results, clip_norm
@@ -70,6 +73,11 @@ class TrainableDiff(Trainable):
             return self.loss.lv_flat_call(
                 generator, self.train_ts, x, self.generative_ctrl,
                 traj_fn=self._flat_traj_fn(), noise=noise, **self.loss_call_args())
+        kl_fn = self._fused_kl_fn()
+        if kl_fn is not None:
+            return self.loss.kl_fused_call(
+                generator, self.train_ts, x, self.generative_ctrl,
+                traj_rnd_fn=kl_fn, noise=noise, **self.loss_call_args())
         return self.loss(generator, self.train_ts, x, self.generative_ctrl,
                          noise=noise, **self.loss_call_args())
 
@@ -93,16 +101,44 @@ class TrainableDiff(Trainable):
         cfg, arrays = plan
         return lambda x0, zs: fused_traj_states(cfg, arrays, x0, zs)
 
+    def _fused_kl_fn(self):
+        """The differentiable fused trajectory for KL training, ``(x0, zs)
+        -> (x_T, rnd)``, or None (``TrainConfig.fused_kl``). Its plan is
+        built from the live parameters with the MLP tables' graph kept, so
+        the adjoint's table cotangents reach every parameter. Scope: a KL
+        loss that ``supports_fused_kl``, the kernel's scope, a float32
+        control (a bf16 plan returns None, as in the JAX package). The JAX
+        package's 'auto' keeps this path off on a non-TPU backend and 'force'
+        lifts that; here 'auto' and 'force' take it on either device, as the
+        flat LV path does: on the CPU its forward is the plain version."""
+        mode = self.cfg.fused_kl
+        if mode not in ("auto", "off", "force"):
+            raise ValueError(f"train.fused_kl must be 'auto', 'off' or 'force', got {mode!r}")
+        loss = self.loss
+        if (mode == "off" or not hasattr(loss, "kl_fused_call")
+                or not loss.supports_fused_kl(self.train_ts, frozenset(self.loss_call_args()))):
+            return None
+        plan = build_plan(loss, self.generative_ctrl, self.train_ts, differentiable=True)
+        if plan is None or plan[0].bf16:
+            return None
+        cfg, arrays = plan
+        return lambda x0, zs: fused_kl_traj(cfg, arrays, x0, zs)
+
     def _fused_name(self, name: str) -> str:
         return name + ("fused" if self.device.type == "cuda" else "plain")
 
+    @torch.no_grad()
     def train_path(self) -> str:
         """Which training path ``loss_fn`` takes for the current config:
         'flat_lv_fused' (CUDA kernel) / 'flat_lv_plain' (its plain version on
-        the CPU), 'flat_lv_scan' (the loss's own loop), or 'scan'."""
+        the CPU), 'flat_lv_scan' (the loss's own loop), 'kl_fused' /
+        'kl_plain' (the fused KL path, its forward the kernel / the plain
+        version), or 'scan'."""
         if self._flat_lv_ok():
             return (self._fused_name("flat_lv_") if self._flat_traj_fn() is not None
                     else "flat_lv_scan")
+        if self._fused_kl_fn() is not None:
+            return self._fused_name("kl_")
         return "scan"
 
     # -- evaluation --------------------------------------------------------
