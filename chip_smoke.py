@@ -9,13 +9,17 @@ the quality of each.
     python3 chip_smoke.py
 
 Phases:
-  1. card, versions, kernel build (one nvcc per source, all started together)
+  1. card, versions, kernel build (one nvcc per source, all started
+     together) and each kernel instantiation's registers, stack and spills
   2. fused_traj kernel vs its plain version at the main path's shapes
      (fed noise, pre-step states; batches 1024, 8192 and a ragged 1000), and
      at the φ⁴ shapes (D = 100, H = 64, K = 100): the diagonal mode, and the
      full-covariance mode with a random eigen-factored 2-component reference
      (fed noise + states at 1024 and a ragged 1000, the kernel's own noise
-     at 8192, fed to the plain version as the Philox draws it makes); the
+     at 8192, fed to the plain version as the Philox draws it makes; also at
+     D = 37 and the largest D check_limits admits), its shared memory in
+     both modes against the host's mirror, and two of its launches against
+     each other, bitwise; the
      bf16 control mode against its bf16 plain version (D = 8: fed noise +
      states at 1024 and a ragged 1000, own noise at 8192; D = 100
      full-covariance at 1024);
@@ -64,6 +68,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -222,6 +227,31 @@ def graph_ms(fn, n: int = 50, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (n * reps)
+
+
+def ptxas_report(log: str) -> list:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: its name (the
+    trajectory kernels' instantiations as traj_kernel<BF16> and
+    traj_kernel_full<BF16>), its registers, stack frame and spill bytes."""
+    entries, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            t = re.search(r"(traj_kernel(?:_full)?)ILb([01])E", m.group(1))
+            name = (f"{t.group(1)}<{'true' if t.group(2) == '1' else 'false'}>" if t
+                    else m.group(1))
+            current = {"entry": name}
+            entries.append(current)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current is not None and "stack" not in current:
+            current.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None and "registers" not in current:
+            current["registers"] = int(m.group(1))
+    return entries
 
 
 def max_err(got, want) -> float:
@@ -387,12 +417,12 @@ def comparison_plan(dev, compute_dtype=None):
     return build_plan(loss, ctrl, get_timesteps(0.0, 1.0, steps=K_STEPS, device=dev))
 
 
-def phi_four_plan(dev, full_cov: bool, compute_dtype=None):
-    """φ⁴-path shapes (D = 100, H = 64, 2 hidden layers, K = 100 on the
-    log-SNR grid) with a random control (float32 or ``compute_dtype``) and
-    a random 2-component reference with eigenvalues 0.025..5 (the range of a
-    φ⁴ well's covariance): eigen-factored with random rotations (full_cov),
-    or diagonal."""
+def phi_four_plan(dev, full_cov: bool, compute_dtype=None, dim: int = PHI_DIM):
+    """φ⁴-path shapes (D = 100 or ``dim``, H = 64, 2 hidden layers, K = 100
+    on the log-SNR grid) with a random control (float32 or
+    ``compute_dtype``) and a random 2-component reference with eigenvalues
+    0.025..5 (the range of a φ⁴ well's covariance): eigen-factored with
+    random rotations (full_cov), or diagonal."""
     from sde_sampler_lrds_torch.losses import EIReferenceSDELoss
     from sde_sampler_lrds_torch.models import ClippedCtrl, FourierMLP
     from sde_sampler_lrds_torch.ops.fused_traj import build_plan
@@ -400,24 +430,24 @@ def phi_four_plan(dev, full_cov: bool, compute_dtype=None):
     from sde_sampler_lrds_torch.solvers import GMMReferenceCtrl
 
     g = torch.Generator().manual_seed(15)
-    ctrl = ClippedCtrl(FourierMLP(dim=PHI_DIM, channels=CHANNELS, num_layers=N_LAYERS,
+    ctrl = ClippedCtrl(FourierMLP(dim=dim, channels=CHANNELS, num_layers=N_LAYERS,
                                   compute_dtype=compute_dtype), clip_model=1e4)
     ctrl.reset_parameters(g)
     ctrl.to(dev)
-    wells = torch.stack([torch.ones(PHI_DIM), -torch.ones(PHI_DIM)])
-    means = wells + 0.1 * torch.randn(PHI_COMP, PHI_DIM, generator=g)
-    eig = torch.logspace(math.log10(0.025), math.log10(5.0), PHI_DIM) * (
-        0.8 + 0.4 * torch.rand(PHI_COMP, PHI_DIM, generator=g))
+    wells = torch.stack([torch.ones(dim), -torch.ones(dim)])
+    means = wells + 0.1 * torch.randn(PHI_COMP, dim, generator=g)
+    eig = torch.logspace(math.log10(0.025), math.log10(5.0), dim) * (
+        0.8 + 0.4 * torch.rand(PHI_COMP, dim, generator=g))
     variances = eig.to(dev)
     if full_cov:
-        rot = torch.linalg.qr(torch.randn(PHI_COMP, PHI_DIM, PHI_DIM, generator=g)).Q
+        rot = torch.linalg.qr(torch.randn(PHI_COMP, dim, dim, generator=g)).Q
         variances = (variances, rot.to(dev))
     sde = VP(0.1, 10.0)
     ref = GMMReferenceCtrl(sde, means.to(dev), variances, torch.tensor([0.45, 0.55], device=dev))
     loss = EIReferenceSDELoss(sde=sde, method="lv", reference_ctrl=ref)
     ts = get_timesteps(1e-4, sde.terminal_t - 1e-4, steps=K_STEPS, sde=sde, device=dev)
     cfg, arrays = build_plan(loss, ctrl, ts)
-    check(cfg.full_cov == full_cov and cfg.dim == PHI_DIM
+    check(cfg.full_cov == full_cov and cfg.dim == dim
           and cfg.bf16 == (compute_dtype == torch.bfloat16), "φ⁴-shape plan")
     return cfg, arrays
 
@@ -462,19 +492,63 @@ def phase_kernel_vs_plain(dev, cfg, arrays, rec):
         KERNEL_TOL)
 
 
+def largest_full_cov_dim() -> int:
+    """The largest D that check_limits admits in the full-covariance mode at
+    the φ⁴ control's H = 64 with 2 hidden layers."""
+    from sde_sampler_lrds_torch.ops.fused_traj import FusedTrajCfg, check_limits
+
+    def admitted(d):
+        try:
+            check_limits(FusedTrajCfg(k_steps=K_STEPS, dim=d, channels=CHANNELS,
+                                      n_hidden=N_LAYERS - 2, n_comp=PHI_COMP, clip=1e4,
+                                      full_cov=True))
+            return True
+        except ValueError:
+            return False
+
+    return max(d for d in range(PHI_DIM, 4 * PHI_DIM) if admitted(d))
+
+
+def check_repeatable(dev, cfg, arrays, label: str) -> None:
+    """Two launches with the same inputs give bitwise equal outputs, at the
+    train shape (fed noise + states) and the eval shape (own noise)."""
+    from sde_sampler_lrds_torch.ops.fused_traj import launch
+
+    g = torch.Generator(dev).manual_seed(8)
+    for b, fed in ((TRAIN_BATCH, True), (EVAL_BATCH, False)):
+        x0 = torch.randn(b, cfg.dim, generator=g, device=dev)
+        noise = torch.randn(cfg.k_steps, b, cfg.dim, generator=g, device=dev) if fed else None
+        first = launch(cfg, arrays, x0, noise, 29, fed)
+        second = launch(cfg, arrays, x0, noise, 29, fed)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b_) for a, b_ in zip(first, second) if a is not None)
+        say(f"[phase 2] {label} B={b} ({'fed noise + states' if fed else 'kernel noise'}): "
+            f"two launches bitwise equal: {same}")
+        check(same, f"{label} B={b}: two launches with the same inputs differ")
+
+
 def phase_kernel_vs_plain_d100(dev, rec_diag, rec_full):
     """Both modes at the φ⁴ shapes: the diagonal mode at D = 100 (beyond the
     first port's 32-dimension limit) and the full-covariance mode with fed
     noise at the train batch, its own noise at the eval batch, and a ragged
-    batch. First, the host's shared-memory arithmetic (check_limits) against
-    the kernel's own."""
+    batch; the full-covariance mode also at D = 37 (no multiple of 4: 4-byte
+    panel copies, scalar input reads) and at the largest D check_limits
+    admits, and two of its launches against each other, bitwise. First, the
+    host's shared-memory arithmetic (check_limits) against the kernel's own,
+    in both modes."""
     from sde_sampler_lrds_torch.ops.fused_traj import _library, smem_bytes
 
-    for d in (DIM, PHI_DIM):
-        c_bytes = _library().fused_traj_smem_bytes(d, CHANNELS, N_LAYERS - 2)
-        check(c_bytes == smem_bytes(d, CHANNELS, N_LAYERS - 2),
-              f"shared memory at D={d}: kernel {c_bytes} bytes, host mirror "
-              f"{smem_bytes(d, CHANNELS, N_LAYERS - 2)}")
+    largest = largest_full_cov_dim()
+    for d in (DIM, 37, PHI_DIM, largest):
+        for full in (False, True):
+            c_bytes = _library().fused_traj_smem_bytes(d, CHANNELS, N_LAYERS - 2, int(full))
+            host = smem_bytes(d, CHANNELS, N_LAYERS - 2, full)
+            check(c_bytes == host, f"shared memory at D={d}, full_cov={full}: kernel "
+                                   f"{c_bytes} bytes, host mirror {host}")
+    say(f"[phase 2] shared memory per block, kernel = host mirror: D={PHI_DIM} "
+        f"{smem_bytes(PHI_DIM, CHANNELS, N_LAYERS - 2, False)} bytes diagonal, "
+        f"{smem_bytes(PHI_DIM, CHANNELS, N_LAYERS - 2, True)} full-covariance; largest "
+        f"full-covariance D {largest}")
     cfg, arrays = phi_four_plan(dev, full_cov=False)
     rec_diag["max_abs_err_d100"] = compare_kernel(
         dev, cfg, arrays, "fused_traj D=100", [(TRAIN_BATCH, "fed"), (1000, "fed")], D100_TOL)
@@ -482,6 +556,13 @@ def phase_kernel_vs_plain_d100(dev, rec_diag, rec_full):
     rec_full["max_abs_err"] = compare_kernel(
         dev, cfg, arrays, "fused_traj_full_cov D=100",
         [(TRAIN_BATCH, "fed"), (EVAL_BATCH, "kernel"), (1000, "fed")], D100_TOL)
+    check_repeatable(dev, cfg, arrays, "fused_traj_full_cov D=100")
+    rec_full["max_abs_err_other_dims"] = {}
+    for d in (37, largest):
+        cfg_d, arrays_d = phi_four_plan(dev, full_cov=True, dim=d)
+        rec_full["max_abs_err_other_dims"][d] = compare_kernel(
+            dev, cfg_d, arrays_d, f"fused_traj_full_cov D={d}",
+            [(TRAIN_BATCH, "fed"), (1000, "fed")], D100_TOL)
 
 
 def phase_kernel_vs_plain_bf16(dev, rec):
@@ -1267,6 +1348,8 @@ def main() -> int:
         f"{n} {b['seconds']:.2f} s" for n, b in built.items()))
     for n, b in built.items():
         say(f"[phase 1] {n} compiler report:\n{b['log'].strip()}")
+        for entry in ptxas_report(b["log"]):
+            say(f"[phase 1] {n} ptxas: " + json.dumps(entry))
 
     recs = {
         "fused_traj": {"route": "cuda", "source": "sde_sampler_lrds_torch/csrc/fused_traj.cu",

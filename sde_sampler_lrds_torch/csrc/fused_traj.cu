@@ -36,31 +36,62 @@
 // What the design does about it: one block owns a tile of TB = 32
 // trajectories for all K steps. The MLP weights, the state, the hidden
 // activations and the per-step scratch stay in shared memory; nothing goes
-// to device memory between steps except the optional pre-step states. The
-// per-step table rows (coefs, embed, reference constants) are read from
-// global memory, where they stay L2-resident. In each dense layer a thread
-// owns one output unit for R = 4 trajectories, so one weight read feeds R
-// fused multiply-adds and the input rows are read as broadcast float4s.
-// The reference score uses every thread: the two rotations are the same
-// (TB × D)·(D × D) products as a dense layer, with P_c and P_cᵀ read
-// through the read-only path (row-major, so neighbouring threads read
-// neighbouring columns), and each warp reduces the quadratic form of 4
-// trajectories with shuffles and keeps their online softmax over
-// components. The rotation stacks are not staged in shared memory: at
-// D = 100, C = 2 they are 2·80 KB, shared by every block and L2-resident,
-// while the block's shared memory already holds 153.5 KB (below). The
-// rotations' scratch reuses the control and noise rows, which are free
-// between the RND update of one step and the MLP of the next.
+// to device memory between steps except the optional pre-step states. In
+// the diagonal mode (traj_kernel) the per-step table rows (coefs, embed,
+// reference constants) are read from global memory, where they stay
+// L2-resident, and in each dense layer a thread owns one output unit for
+// R = 4 trajectories, so one weight read feeds R fused multiply-adds and the
+// input rows are read as broadcast float4s; each warp reduces the quadratic
+// form of 4 trajectories with shuffles and keeps their online softmax over
+// components.
+//
+// The full-covariance mode is its own kernel (traj_kernel_full), built
+// around the two rotations per component and step, y = (x − m)·P_c and
+// g = (y·iv)·P_cᵀ, (TB × D)·(D × D) products, 4·C·D²·TB flops per
+// block-step. They once read P_c and P_cᵀ through the read-only path
+// inside the FMA loop; the latency of those L2 reads was thought to be most
+// of the 72 µs block-step at D = 100, C = 2, but staging P alone did not
+// move it (7.93 against 7.06 ms at B 1024 on an NVIDIA H100 80GB HBM3 at
+// 700 W): at 8 warps per SM (the shared memory allows one block) every
+// segment of the step issued at about a quarter of the FMA rate. So:
+//  - P_c and P_cᵀ stream through a ring of NSTAGE = 2 panels of
+//    ring_rows(D) rows (36 at D = 100, 28.8 KB) in shared memory, copied by
+//    cp.async one panel ahead across product, component and step
+//    boundaries (Ring); the FMA loop reads them only from shared memory,
+//    and each element of P crosses L2 once per product per block-step. Any
+//    C works: the panels are streamed, never the whole stack. A panel is a
+//    contiguous span, copied in 16 bytes where D % 4 == 0 and the stacks are
+//    aligned, else in 4.
+//  - Every product (rotations and MLP layers) runs on register tiles of
+//    R = 4 trajectories × 4 (or 2) columns: one float4 of weights and R
+//    broadcast float4s of inputs feed 64 FMAs, and where the column tiles
+//    fit a warp, warp w takes trajectory group w and lane l column group l.
+//    Each sum runs over i in one fixed order, so launches are bitwise
+//    repeatable.
+//  - The rows m_kc, iv_kc and const_kc are loaded into registers one
+//    component ahead and stored to shared memory at the component's start;
+//    fed noise is copied by cp.async into the noise row during the MLP; the
+//    quadratic forms and RND sums of a warp's 4 trajectories interleave.
+// What bounds it now: instruction issue at 2 warps per scheduler (IPC
+// ≈ 0.5, about 190 registers and no spill): a block-step at D = 100 takes
+// ≈ 72 k cycles, 49 % of it the rotations, 27 % the MLP, 13 % the update
+// with its Philox draws at the eval shape. Measured (chip_smoke.py phase 7,
+// NVIDIA H100 80GB HBM3, 700 W): 3.65 ms at B 1024 with fed noise and
+// states, 7.73 ms at B 8192 with its own noise, against 7.06 / 13.23 ms
+// before.
 // Shared memory per block, in floats, each region padded to 16 bytes:
 //   D·H + H + n_h·H² + n_h·H + H·D + D   weights and biases
 //   + 2·TB·H                             hidden activations
 //   + 4·TB·D                             state, control, noise, score
 //   + 3·TB                               per-trajectory softmax factors
+//   [+ 2·ring_rows(D)·D + 2·D + 1]       full covariance: ring, rows
 // = 38 276 floats = 153 104 bytes at D = 100, H = 64, n_h = 2 (14 632
-// floats at D = 8); the card's per-block limit of 232 448 bytes caps D at 177 for
-// H = 64, n_h = 2. Everything is f32 on the CUDA cores (no tensor cores:
-// the products are (32 × 64)·(64 × 64) and (32 × 100)·(100 × 100) per step,
-// too small to feed wgmma well in a first version).
+// floats at D = 8), and 182 720 bytes in the full-covariance mode; the
+// card's per-block limit of 232 448 bytes caps D at 177 for H = 64,
+// n_h = 2 (131 in the full-covariance mode, whose rotations' one register
+// tile per thread caps it at 128 first). Everything is f32 on the CUDA
+// cores (no tensor cores: TF32 keeps about three digits, too few for the
+// φ⁴ logits' 100-term sums).
 //
 // The bf16 control mode (FourierMLP with compute_dtype = bfloat16, Flax
 // Dense semantics) takes the seven MLP tables (embed, w0, b0, wh, bh, w_out,
@@ -93,6 +124,15 @@ constexpr int NT = 256;        // threads per block
 constexpr int R = 4;           // trajectories per thread in a dense layer
 constexpr int NW = NT / 32;    // warps per block
 constexpr int TPW = TB / NW;   // trajectories per warp in the reductions
+// full-covariance mode: the products run on register tiles of R trajectories
+// × J columns, and the rotations stream through a ring of NSTAGE panels of
+// ring_rows(D) rows of P; a rotation gives warp w trajectory group w and
+// lane l columns J·l .. J·l + J − 1, so D ≤ MAX_FULL_D
+constexpr int J = 4;           // columns per register tile
+constexpr int NSTAGE = 2;      // panels in the ring
+constexpr int MAX_RP = 48;     // most rows of P per panel
+constexpr int MAX_FULL_D = J * 32;
+static_assert(TB / R == NW, "a rotation's trajectory groups are the warps");
 
 // The MLP tables are f32, or __nv_bfloat16 in the bf16 mode.
 struct Params {
@@ -121,10 +161,19 @@ struct Params {
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-// Shared-memory floats for one block, each region padded to 16 bytes.
-__host__ __device__ inline int smem_floats(int D, int H, int nh) {
+// Rows per panel of the ring: a D × D matrix in ⌈D / MAX_RP⌉ panels of even
+// height, rounded up to a multiple of 4 (36, 36, 28 at D = 100).
+__host__ __device__ inline int ring_rows(int D) {
+  const int np = (D + MAX_RP - 1) / MAX_RP;
+  return round4((D + np - 1) / np);
+}
+
+// Shared-memory floats for one block, each region padded to 16 bytes; the
+// full-covariance mode adds the ring of P panels.
+__host__ __device__ inline int smem_floats(int D, int H, int nh, bool full) {
   return round4(D * H) + round4(H) + round4(nh * H * H) + round4(nh * H) +
-         round4(H * D) + round4(D) + 2 * TB * H + 4 * round4(TB * D) + 3 * TB;
+         round4(H * D) + round4(D) + 2 * TB * H + 4 * round4(TB * D) + 3 * TB +
+         (full ? NSTAGE * ring_rows(D) * D + round4(2 * D + 1) : 0);
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -154,6 +203,48 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The (trajectory b, dimension d) of element o = threadIdx.x + n·NT of a
+// tile's TB × D rows, stepped by NT without a division per element.
+struct TileIter {
+  int b, d, db, dd, D;
+  __device__ explicit TileIter(int D_)
+      : b(threadIdx.x / D_), d(threadIdx.x % D_), db(NT / D_), dd(NT % D_), D(D_) {}
+  __device__ void advance() {
+    b += db;
+    d += dd;
+    if (d >= D) {
+      d -= D;
+      ++b;
+    }
+  }
+};
+
+// One trajectory's online softmax over components, at component c of C with
+// its logit: the running max mx and sum sw stay in the warp's registers;
+// lane 0 writes the factors that rescale the score's running sum (f_scale)
+// and weight this component's term (f_wgt), and at the last component
+// −1/Σ weights (f_norm).
+__device__ __forceinline__ void softmax_step(int c, int C, float logit, float& mx, float& sw,
+                                             int lane, int b, float* f_scale, float* f_wgt,
+                                             float* f_norm) {
+  float scale = 0.0f, wgt = 1.0f;
+  if (c == 0) {
+    mx = logit;
+    sw = 1.0f;
+  } else {
+    const float nmx = fmaxf(mx, logit);
+    scale = expf(mx - nmx);
+    wgt = expf(logit - nmx);
+    sw = sw * scale + wgt;
+    mx = nmx;
+  }
+  if (lane == 0) {
+    f_scale[b] = scale;
+    f_wgt[b] = wgt;
+    if (c == C - 1) f_norm[b] = -1.0f / sw;
+  }
+}
+
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
   const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
@@ -180,24 +271,12 @@ __device__ __forceinline__ float philox_normal(unsigned long long seed, int k,
   return sqrtf(-2.0f * logf(1.0f - f1)) * cosf(6.2831855f * f2);
 }
 
-// A weight from shared memory, or from global memory through the read-only
-// path.
-template <bool GLOBAL>
-__device__ __forceinline__ float load_w(const float* p) {
-  if constexpr (GLOBAL) {
-    return __ldg(p);
-  } else {
-    return *p;
-  }
-}
-
 // out[b][j] = act(Σ_i in[b][i]·W[i][j] + bias[j] + extra[j]) for the TB
-// rows of a tile; in/out in shared memory, W in shared (W_GLOBAL false) or
-// global memory, bias (or null) shared, extra (or null) a global MLP table
-// row. BF16: the bf16 mode's rounding points, act(r(r(r(Σ) + bias) + extra))
-// with r the rounding to bf16 and act rounded too; the inputs and weights
-// must hold bf16 values already.
-template <bool GELU, bool W_GLOBAL, bool BF16 = false>
+// rows of a tile; in/out/W in shared memory, bias (or null) shared, extra
+// (or null) a global MLP table row. BF16: the bf16 mode's rounding points,
+// act(r(r(r(Σ) + bias) + extra)) with r the rounding to bf16 and act rounded
+// too; the inputs and weights must hold bf16 values already.
+template <bool GELU, bool BF16>
 __device__ void dense(const float* __restrict__ in, int n_in,
                       const float* __restrict__ W,
                       const float* __restrict__ bias,
@@ -215,10 +294,10 @@ __device__ void dense(const float* __restrict__ in, int n_in,
     const float* rows = in + g * R * n_in;
     if ((n_in & 3) == 0) {
       for (int i = 0; i < n_in; i += 4) {
-        const float w0 = load_w<W_GLOBAL>(W + (i + 0) * n_out + j);
-        const float w1 = load_w<W_GLOBAL>(W + (i + 1) * n_out + j);
-        const float w2 = load_w<W_GLOBAL>(W + (i + 2) * n_out + j);
-        const float w3 = load_w<W_GLOBAL>(W + (i + 3) * n_out + j);
+        const float w0 = W[(i + 0) * n_out + j];
+        const float w1 = W[(i + 1) * n_out + j];
+        const float w2 = W[(i + 2) * n_out + j];
+        const float w3 = W[(i + 3) * n_out + j];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 v = *reinterpret_cast<const float4*>(rows + r * n_in + i);
@@ -230,7 +309,7 @@ __device__ void dense(const float* __restrict__ in, int n_in,
       }
     } else {
       for (int i = 0; i < n_in; ++i) {
-        const float w = load_w<W_GLOBAL>(W + i * n_out + j);
+        const float w = W[i * n_out + j];
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = fmaf(rows[r * n_in + i], w, acc[r]);
       }
@@ -257,13 +336,270 @@ __device__ inline void table_to_smem(float* dst, const void* src, int n) {
   for (int i = threadIdx.x; i < n; i += NT) dst[i] = load_table<BF16>(src, i);
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
+// Asynchronous global -> shared copies of 16 or 4 bytes, their groups, and
+// the wait for all but the newest N groups of this thread.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The full-covariance mode's ring of P panels in shared memory. Every step
+// rotates by P_0, P_0ᵀ, P_1, P_1ᵀ, ..., P_{C−1}ᵀ in that order, and neither
+// depends on the step, so the panels form one cyclic sequence of period
+// 2·C·np (np panels of rp = ring_rows(D) rows per D × D matrix, the last
+// one ragged), and panel n lives in slot n mod NSTAGE. The ring
+// keeps NSTAGE − 1 panels in flight, across product, component and step
+// boundaries, so the first panels of a product are copied while the block
+// still works on what precedes it (the x − m pass, the quadratic form and
+// softmax, the MLP of the step before). Every thread copies its share of
+// each panel by cp.async and commits one group per panel.
+struct Ring {
+  float* buf;             // NSTAGE slots of rp·D floats
+  const float* p;         // (C·D, D) P_c stacked, row-major
+  const float* pt;        // (C·D, D) P_cᵀ stacked
+  int D, C, rp, np;       // rows per panel, panels per matrix
+  int c, t, panel;        // the next panel to copy: P_c (t 0) or P_cᵀ (t 1)
+  int slot_in, slot_out;  // the slots it goes to and the next handed out
+  bool vec;               // 16-byte copies: D % 4 == 0 and both stacks aligned
+
+  __device__ void issue() {
+    const int n = min(rp, D - panel * rp) * D;
+    const float* src = (t ? pt : p) + ((size_t)c * D + panel * rp) * D;
+    float* dst = buf + slot_in * rp * D;
+    if (vec) {
+      for (int e = threadIdx.x * 4; e < n; e += NT * 4) cp_async16(dst + e, src + e);
+    } else {
+      for (int e = threadIdx.x; e < n; e += NT) cp_async4(dst + e, src + e);
+    }
+    cp_async_commit();
+    if (++panel == np) {
+      panel = 0;
+      if (++t == 2) {
+        t = 0;
+        if (++c == C) c = 0;
+      }
+    }
+    if (++slot_in == NSTAGE) slot_in = 0;
+  }
+
+  // The next panel in the sequence, once every thread's copies of it have
+  // landed; the slot handed out before it (now read by every thread) is
+  // refilled, NSTAGE − 1 panels ahead. Every thread of the block calls it.
+  __device__ const float* next() {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();
+    const float* slot = buf + slot_out * rp * D;
+    if (++slot_out == NSTAGE) slot_out = 0;
+    issue();
+    return slot;
+  }
+};
+
+// acc[r][q] += Σ_{i < rows} x[r·ldx + i]·w[i·ldw + q] for a register tile of
+// R trajectories × JT columns (JT 4 or 2), x and w in shared memory; each sum
+// runs over i in order. VEC: ldx, ldw, x and w 4-aligned and rows % 4 == 0
+// (x read as float4s along i, a row of the tile as one float4 or float2);
+// else scalar reads, the columns past `cols` reading column cols − 1, whose
+// sums are discarded.
+template <bool VEC, int JT>
+__device__ __forceinline__ void tile_fma(float (&acc)[R][JT], const float* __restrict__ x,
+                                         int ldx, const float* __restrict__ w, int ldw,
+                                         int rows, int cols) {
+  auto wrow = [&](int i, float (&wv)[JT]) {
+    const float* wi = w + i * ldw;
+    if constexpr (VEC && JT == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(wi);
+      wv[0] = t.x, wv[1] = t.y, wv[2] = t.z, wv[3] = t.w;
+    } else if constexpr (VEC && JT == 2) {
+      const float2 t = *reinterpret_cast<const float2*>(wi);
+      wv[0] = t.x, wv[1] = t.y;
+    } else {
+#pragma unroll
+      for (int q = 0; q < JT; ++q) wv[q] = wi[min(q, cols - 1)];
+    }
+  };
+  auto fma_row = [&](int r, float xv, const float (&wv)[JT]) {
+#pragma unroll
+    for (int q = 0; q < JT; ++q) acc[r][q] = fmaf(xv, wv[q], acc[r][q]);
+  };
+  if constexpr (VEC) {
+#pragma unroll 2
+    for (int i = 0; i < rows; i += 4) {
+      float4 xv[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) xv[r] = *reinterpret_cast<const float4*>(x + r * ldx + i);
+      float w0[JT], w1[JT], w2[JT], w3[JT];
+      wrow(i, w0), wrow(i + 1, w1), wrow(i + 2, w2), wrow(i + 3, w3);
+#pragma unroll
+      for (int r = 0; r < R; ++r) fma_row(r, xv[r].x, w0);
+#pragma unroll
+      for (int r = 0; r < R; ++r) fma_row(r, xv[r].y, w1);
+#pragma unroll
+      for (int r = 0; r < R; ++r) fma_row(r, xv[r].z, w2);
+#pragma unroll
+      for (int r = 0; r < R; ++r) fma_row(r, xv[r].w, w3);
+    }
+  } else {
+    for (int i = 0; i < rows; ++i) {
+      float wv[JT];
+      wrow(i, wv);
+#pragma unroll
+      for (int r = 0; r < R; ++r) fma_row(r, x[r * ldx + i], wv);
+    }
+  }
+}
+
+// A thread's m-th register tile of a product with nq column groups: its
+// trajectory group g and column group jq, false past the last tile. BY_WARP
+// (nq ≤ 32, one tile per thread): warp w takes group w and lane l column
+// group l, so a warp's input reads are one broadcast and its weight reads
+// one contiguous row; else work item o = threadIdx.x + m·NT is (o / nq,
+// o % nq).
+template <bool BY_WARP>
+__device__ __forceinline__ bool tile_at(int m, int nq, int& g, int& jq) {
+  if constexpr (BY_WARP) {
+    g = threadIdx.x >> 5;
+    jq = threadIdx.x & 31;
+    return jq < nq;
+  } else {
+    const int o = threadIdx.x + m * NT;
+    g = o / nq;
+    jq = o % nq;
+    return o < (TB / R) * nq;
+  }
+}
+
+// out[b][j] = Σ_i in[b][i]·M[i][j] for the TB rows of a tile, M the ring's
+// next D × D matrix (P_c or P_cᵀ), read one panel of rp rows at a time from
+// shared memory only. Each thread owns one register tile of R trajectories
+// × J neighbouring columns (tile_at's warp mapping, D ≤ MAX_FULL_D) and
+// keeps its sums across the panels, so every sum runs over i = 0..D−1 in
+// one fixed order. VEC: D % 4 == 0 (float4 reads of the inputs and of the
+// panel rows).
+template <bool VEC>
+__device__ void rotate(const float* __restrict__ in, Ring& ring, float* __restrict__ out) {
+  const int D = ring.D;
+  int g, jq;
+  const bool own = tile_at<true>(0, (D + J - 1) / J, g, jq);
+  const int xoff = g * R * D, j0 = jq * J;
+  float acc[R][J];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int q = 0; q < J; ++q) acc[r][q] = 0.0f;
+  }
+  for (int panel = 0; panel < ring.np; ++panel) {
+    const float* w = ring.next();
+    const int i0 = panel * ring.rp;
+    if (own) {
+      tile_fma<VEC, J>(acc, in + xoff + i0, D, w + j0, D, min(ring.rp, D - i0),
+                            min(J, D - j0));
+    }
+  }
+  if (!own) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int q = 0; q < J; ++q) {
+      if (j0 + q < D) out[xoff + r * D + j0 + q] = acc[r][q];
+    }
+  }
+}
+
+// dense's product as register tiles of R trajectories × JT columns (the
+// full-covariance mode's MLP layers), same epilogue: R·JT independent sums
+// per thread, one float4 (float2) of W and R float4s of the inputs per
+// 4·R·JT FMAs.
+template <bool GELU, bool BF16, bool VEC, int JT>
+__device__ void dense_tiled(const float* __restrict__ in, int n_in,
+                            const float* __restrict__ W, const float* __restrict__ bias,
+                            const void* __restrict__ extra, int n_out,
+                            float* __restrict__ out) {
+  const int nq = (n_out + JT - 1) / JT;
+  const int passes = nq <= 32 ? 1 : ((TB / R) * nq + NT - 1) / NT;
+  for (int m = 0; m < passes; ++m) {
+    int g, jq;
+    if (!(nq <= 32 ? tile_at<true>(m, nq, g, jq) : tile_at<false>(m, nq, g, jq))) continue;
+    const int j0 = jq * JT, cols = min(JT, n_out - j0);
+    float acc[R][JT];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int q = 0; q < JT; ++q) acc[r][q] = 0.0f;
+    }
+    tile_fma<VEC, JT>(acc, in + g * R * n_in, n_in, W + j0, n_out, n_in, cols);
+#pragma unroll
+    for (int q = 0; q < JT; ++q) {
+      if (q >= cols) break;
+      const int j = j0 + q;
+      float bj = bias != nullptr ? bias[j] : 0.0f;
+      const float ej = extra != nullptr ? load_table<BF16>(extra, j) : 0.0f;
+      if constexpr (!BF16) bj += ej;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float v;
+        if constexpr (BF16) {
+          v = round_bf16(round_bf16(acc[r][q]) + bj);
+          if (extra != nullptr) v = round_bf16(v + ej);
+          if (GELU) v = round_bf16(gelu_tanh(v));
+        } else {
+          v = acc[r][q] + bj;
+          if (GELU) v = gelu_tanh(v);
+        }
+        out[(g * R + r) * n_out + j] = v;
+      }
+    }
+  }
+}
+
+// dense_tiled with its variant picked by the widths: 2-column tiles where
+// they fit one warp (n_out ≤ 64), else 4-column ones.
+template <bool GELU, bool BF16, bool VEC>
+__device__ void dense_tiled_by_width(const float* in, int n_in, const float* W,
+                                     const float* bias, const void* extra, int n_out,
+                                     float* out) {
+  if (n_out <= 64) {
+    dense_tiled<GELU, BF16, VEC, 2>(in, n_in, W, bias, extra, n_out, out);
+  } else {
+    dense_tiled<GELU, BF16, VEC, 4>(in, n_in, W, bias, extra, n_out, out);
+  }
+}
+
+// An MLP layer: dense in the diagonal mode, dense_tiled in the
+// full-covariance mode (float4 reads where both widths are multiples of 4).
+template <bool GELU, bool BF16, bool FULL>
+__device__ void layer(const float* in, int n_in, const float* W, const float* bias,
+                      const void* extra, int n_out, float* out) {
+  if constexpr (FULL) {
+    if (((n_in | n_out) & 3) == 0) {
+      dense_tiled_by_width<GELU, BF16, true>(in, n_in, W, bias, extra, n_out, out);
+    } else {
+      dense_tiled_by_width<GELU, BF16, false>(in, n_in, W, bias, extra, n_out, out);
+    }
+  } else {
+    dense<GELU, BF16>(in, n_in, W, bias, extra, n_out, out);
+  }
+}
+
+// The whole trajectory of one block's tile. FULL: the eigen-factored
+// full-covariance reference (ref_p, ref_pt set); otherwise the diagonal one.
+template <bool BF16, bool FULL>
+__device__ __forceinline__ void traj_body(const Params& p) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
   const int D = p.D, H = p.H, nh = p.n_hidden, C = p.C, B = p.B;
   const int TD = TB * D;
-  const bool full = p.ref_p != nullptr;
   float* w0 = s;                  s += round4(D * H);
   float* b0 = s;                  s += round4(H);
   float* wh = s;                  s += round4(nh * H * H);
@@ -278,11 +614,38 @@ __global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
   float* rt = s;                  s += round4(TD);  // ref score [b][d]
   float* f_scale = s;             s += TB;          // per trajectory: old-sum
   float* f_wgt = s;               s += TB;          //   rescale, component
-  float* f_norm = s;                                //   weight, -1/Σweights
+  float* f_norm = s;              s += TB;          //   weight, -1/Σweights
   // the reference score's scratch: the control and noise rows are free
   // from the end of one step's RND update to the next step's MLP
   float* dt = ut;
   float* yt = zt;
+  // full-covariance mode: after the ring, the current component's rows
+  // m_kc (D), iv_kc (D) and const_kc (1), stored from registers loaded one
+  // component ahead (pre), so the x − m pass and the quadratic form read
+  // no global memory
+  float* rows = s + NSTAGE * ring_rows(D) * D;
+  float pre[2];
+  auto load_rows = [&](int k_, int c_) {
+    const size_t row = ((size_t)k_ * C + c_) * D;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int e = threadIdx.x + t * NT;
+      pre[t] = e < D       ? __ldg(p.ref_m + row + e)
+               : e < 2 * D ? __ldg(p.ref_iv + row + e - D)
+               : e == 2 * D ? __ldg(p.ref_const + (size_t)k_ * C + c_)
+                            : 0.0f;
+    }
+  };
+  Ring ring;
+  if constexpr (FULL) {
+    load_rows(0, 0);
+    const int rp = ring_rows(D);
+    const bool aligned = ((reinterpret_cast<uintptr_t>(p.ref_p) |
+                           reinterpret_cast<uintptr_t>(p.ref_pt)) & 15) == 0;
+    ring = Ring{s, p.ref_p, p.ref_pt, D, C, rp, (D + rp - 1) / rp, 0, 0, 0, 0, 0,
+                (D & 3) == 0 && aligned};
+    for (int n = 0; n < NSTAGE - 1; ++n) ring.issue();
+  }
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int base = blockIdx.x * TB;
@@ -306,9 +669,14 @@ __global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
   for (int k = 0; k < p.K; ++k) {
     const float* cf = p.coefs + 6 * k;
     if (p.xs_out != nullptr) {
-      for (int o = tid; o < TD; o += NT) {
-        const int gb = base + o / D;
-        if (gb < B) p.xs_out[((size_t)k * B + gb) * D + o % D] = xt[o];
+      if constexpr (FULL) {  // the tile's valid rows are one contiguous range
+        float* xs = p.xs_out + ((size_t)k * B + base) * D;
+        for (int o = tid; o < min(TB, B - base) * D; o += NT) xs[o] = xt[o];
+      } else {
+        for (int o = tid; o < TD; o += NT) {
+          const int gb = base + o / D;
+          if (gb < B) p.xs_out[((size_t)k * B + gb) * D + o % D] = xt[o];
+        }
       }
     }
     // ---- reference score of the noised MoG: online softmax over C ------
@@ -316,56 +684,116 @@ __global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
     const float* m = p.ref_m + (size_t)k * C * D;
     const float* iv = p.ref_iv + (size_t)k * C * D;
     for (int c = 0; c < C; ++c) {
-      for (int o = tid; o < TD; o += NT) dt[o] = xt[o] - __ldg(m + c * D + o % D);
+      if constexpr (FULL) {
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          if (tid + t * NT <= 2 * D) rows[tid + t * NT] = pre[t];
+        }
+        __syncthreads();
+        if (c + 1 < C) {
+          load_rows(k, c + 1);
+        } else if (k + 1 < p.K) {
+          load_rows(k + 1, 0);
+        }
+        TileIter it(D);
+        for (int o = tid; o < TD; o += NT, it.advance()) dt[o] = xt[o] - rows[it.d];
+      } else {
+        for (int o = tid; o < TD; o += NT) dt[o] = xt[o] - __ldg(m + c * D + o % D);
+      }
       __syncthreads();
       float* y = dt;
-      if (full) {  // y = (x − m)·P_c
-        dense<false, true>(dt, D, p.ref_p + (size_t)c * D * D, nullptr, nullptr, D, yt);
+      if constexpr (FULL) {  // y = (x − m)·P_c, the ring's next matrix
+        if ((D & 3) == 0) {
+          rotate<true>(dt, ring, yt);
+        } else {
+          rotate<false>(dt, ring, yt);
+        }
         __syncthreads();
         y = yt;
       }
       // y ← y·iv in place; logit = const − ½ Σ y²·iv, one warp per trajectory
+      if constexpr (FULL) {  // the warp's TPW trajectories side by side
+        float q[TPW];
 #pragma unroll
-      for (int i = 0; i < TPW; ++i) {
-        const int b = warp * TPW + i;
-        float q = 0.0f;
+        for (int i = 0; i < TPW; ++i) q[i] = 0.0f;
         for (int d = lane; d < D; d += 32) {
-          const float v = y[b * D + d], sv = v * __ldg(iv + c * D + d);
-          y[b * D + d] = sv;
-          q = fmaf(v, sv, q);
+          const float ivd = rows[D + d];
+#pragma unroll
+          for (int i = 0; i < TPW; ++i) {
+            const int b = warp * TPW + i;
+            const float v = y[b * D + d], sv = v * ivd;
+            y[b * D + d] = sv;
+            q[i] = fmaf(v, sv, q[i]);
+          }
         }
-        const float logit = __ldg(cst + c) - 0.5f * warp_sum(q);
-        float scale = 0.0f, wgt = 1.0f;
-        if (c == 0) {
-          mx[i] = logit;
-          sw[i] = 1.0f;
-        } else {
-          const float nmx = fmaxf(mx[i], logit);
-          scale = expf(mx[i] - nmx);
-          wgt = expf(logit - nmx);
-          sw[i] = sw[i] * scale + wgt;
-          mx[i] = nmx;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+          for (int i = 0; i < TPW; ++i) q[i] += __shfl_xor_sync(0xffffffffu, q[i], off);
         }
-        if (lane == 0) {
-          f_scale[b] = scale;
-          f_wgt[b] = wgt;
-          if (c == C - 1) f_norm[b] = -1.0f / sw[i];
+        const float cst_c = rows[2 * D];
+#pragma unroll
+        for (int i = 0; i < TPW; ++i) {
+          softmax_step(c, C, cst_c - 0.5f * q[i], mx[i], sw[i], lane, warp * TPW + i, f_scale,
+                       f_wgt, f_norm);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TPW; ++i) {
+          const int b = warp * TPW + i;
+          float q = 0.0f;
+          for (int d = lane; d < D; d += 32) {
+            const float v = y[b * D + d], sv = v * __ldg(iv + c * D + d);
+            y[b * D + d] = sv;
+            q = fmaf(v, sv, q);
+          }
+          softmax_step(c, C, __ldg(cst + c) - 0.5f * warp_sum(q), mx[i], sw[i], lane, b,
+                       f_scale, f_wgt, f_norm);
         }
       }
       __syncthreads();
       float* g = y;
-      if (full) {  // g = (y·iv)·P_cᵀ
-        dense<false, true>(yt, D, p.ref_pt + (size_t)c * D * D, nullptr, nullptr, D, dt);
+      if constexpr (FULL) {  // g = (y·iv)·P_cᵀ, the ring's next matrix
+        if ((D & 3) == 0) {
+          rotate<true>(yt, ring, dt);
+        } else {
+          rotate<false>(yt, ring, dt);
+        }
         __syncthreads();
         g = dt;
       }
-      for (int o = tid; o < TD; o += NT) {
-        const int b = o / D;
-        float v = c == 0 ? f_wgt[b] * g[o] : fmaf(f_wgt[b], g[o], rt[o] * f_scale[b]);
-        if (c == C - 1) v *= f_norm[b];
-        rt[o] = v;
+      if constexpr (FULL) {
+        TileIter it(D);
+        for (int o = tid; o < TD; o += NT, it.advance()) {
+          const int b = it.b;
+          float v = c == 0 ? f_wgt[b] * g[o] : fmaf(f_wgt[b], g[o], rt[o] * f_scale[b]);
+          if (c == C - 1) v *= f_norm[b];
+          rt[o] = v;
+        }
+      } else {
+        for (int o = tid; o < TD; o += NT) {
+          const int b = o / D;
+          float v = c == 0 ? f_wgt[b] * g[o] : fmaf(f_wgt[b], g[o], rt[o] * f_scale[b]);
+          if (c == C - 1) v *= f_norm[b];
+          rt[o] = v;
+        }
       }
       __syncthreads();
+    }
+    // full-covariance mode: the fed noise of the step is copied into the
+    // noise row, free until the update, while the MLP runs
+    if constexpr (FULL) {
+      if (p.noise != nullptr) {
+        const int n = min(TB, B - base) * D;
+        const float* src = p.noise + ((size_t)k * B + base) * D;
+        if ((D & 3) == 0 && (reinterpret_cast<uintptr_t>(p.noise) & 15) == 0) {
+          for (int e = tid * 4; e < n; e += NT * 4) cp_async16(zt + e, src + e);
+        } else {
+          for (int e = tid; e < n; e += NT) cp_async4(zt + e, src + e);
+        }
+        cp_async_commit();
+        for (int o = n + tid; o < TD; o += NT) zt[o] = 0.0f;
+      }
     }
     // ---- control u = clip(FourierMLP(t_k, x)) -------------------------
     // bf16 mode: the first layer reads x rounded to bf16, staged in the
@@ -378,54 +806,96 @@ __global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
     }
     const void* erow = BF16 ? (const void*)((const __nv_bfloat16*)p.embed + (size_t)k * H)
                             : (const void*)((const float*)p.embed + (size_t)k * H);
-    dense<true, false, BF16>(xin, D, w0, b0, erow, H, hA);
+    layer<true, BF16, FULL>(xin, D, w0, b0, erow, H, hA);
     __syncthreads();
     float* hin = hA;
     float* hout = hB;
     for (int l = 0; l < nh; ++l) {
-      dense<true, false, BF16>(hin, H, wh + (size_t)l * H * H, bh + l * H, nullptr, H, hout);
+      layer<true, BF16, FULL>(hin, H, wh + (size_t)l * H * H, bh + l * H, nullptr, H, hout);
       __syncthreads();
       float* tmp = hin;
       hin = hout;
       hout = tmp;
     }
-    dense<false, false, BF16>(hin, H, wo, bo, nullptr, D, ut);
+    layer<false, BF16, FULL>(hin, H, wo, bo, nullptr, D, ut);
+    if constexpr (FULL) cp_async_wait<0>();  // the noise row
     __syncthreads();
     // ---- noise + state update ------------------------------------------
     const float a_x = __ldg(cf + 0), a_ref = __ldg(cf + 1), a_u = __ldg(cf + 2);
     const float a_z = __ldg(cf + 3);
-    for (int o = tid; o < TD; o += NT) {
-      const int b = o / D, d = o % D, gb = base + b;
-      float u = ut[o];
-      if (p.has_clip) {
-        u = fminf(fmaxf(u, -p.clip), p.clip);
-        ut[o] = u;
+    if constexpr (FULL) {  // fed noise: already in the noise row
+      TileIter it(D);
+      for (int o = tid; o < TD; o += NT, it.advance()) {
+        float u = ut[o];
+        if (p.has_clip) {
+          u = fminf(fmaxf(u, -p.clip), p.clip);
+          ut[o] = u;
+        }
+        const float z =
+            p.noise != nullptr ? zt[o] : philox_normal(p.seed, k, base + it.b, it.d);
+        zt[o] = z;
+        xt[o] = a_x * xt[o] + a_ref * rt[o] + a_u * u + a_z * z;
       }
-      float z;
-      if (p.noise != nullptr) {
-        z = gb < B ? p.noise[((size_t)k * B + gb) * D + d] : 0.0f;
-      } else {
-        z = philox_normal(p.seed, k, gb, d);
+    } else {
+      for (int o = tid; o < TD; o += NT) {
+        const int b = o / D, d = o % D, gb = base + b;
+        float u = ut[o];
+        if (p.has_clip) {
+          u = fminf(fmaxf(u, -p.clip), p.clip);
+          ut[o] = u;
+        }
+        float z;
+        if (p.noise != nullptr) {
+          z = gb < B ? p.noise[((size_t)k * B + gb) * D + d] : 0.0f;
+        } else {
+          z = philox_normal(p.seed, k, gb, d);
+        }
+        zt[o] = z;
+        xt[o] = a_x * xt[o] + a_ref * rt[o] + a_u * u + a_z * z;
       }
-      zt[o] = z;
-      xt[o] = a_x * xt[o] + a_ref * rt[o] + a_u * u + a_z * z;
     }
     __syncthreads();
     // ---- RND increment, one warp per trajectory -------------------------
     const float c_cost = __ldg(cf + 4), c_dot = __ldg(cf + 5);
+    if constexpr (FULL) {  // the warp's TPW trajectories side by side
+      float uu[TPW], uz[TPW];
 #pragma unroll
-    for (int i = 0; i < TPW; ++i) {
-      const int b = warp * TPW + i;
-      float uu = 0.0f, uz = 0.0f;
+      for (int i = 0; i < TPW; ++i) uu[i] = uz[i] = 0.0f;
       for (int d = lane; d < D; d += 32) {
-        const float u = ut[b * D + d];
-        uu = fmaf(u, u, uu);
-        uz = fmaf(u, zt[b * D + d], uz);
+#pragma unroll
+        for (int i = 0; i < TPW; ++i) {
+          const int b = warp * TPW + i;
+          const float u = ut[b * D + d];
+          uu[i] = fmaf(u, u, uu[i]);
+          uz[i] = fmaf(u, zt[b * D + d], uz[i]);
+        }
       }
-      rnd[i] = rnd[i] + c_cost * 0.5f * warp_sum(uu) + c_dot * warp_sum(uz);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int i = 0; i < TPW; ++i) {
+          uu[i] += __shfl_xor_sync(0xffffffffu, uu[i], off);
+          uz[i] += __shfl_xor_sync(0xffffffffu, uz[i], off);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < TPW; ++i) rnd[i] = rnd[i] + c_cost * 0.5f * uu[i] + c_dot * uz[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < TPW; ++i) {
+        const int b = warp * TPW + i;
+        float uu = 0.0f, uz = 0.0f;
+        for (int d = lane; d < D; d += 32) {
+          const float u = ut[b * D + d];
+          uu = fmaf(u, u, uu);
+          uz = fmaf(u, zt[b * D + d], uz);
+        }
+        rnd[i] = rnd[i] + c_cost * 0.5f * warp_sum(uu) + c_dot * warp_sum(uz);
+      }
     }
     __syncthreads();  // the next step's reference score overwrites ut, zt
   }
+  if constexpr (FULL) cp_async_wait<0>();  // the copies ahead, for a step not taken
 
   if (lane == 0) {
 #pragma unroll
@@ -440,13 +910,27 @@ __global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
   }
 }
 
+// The diagonal mode's kernel and the full-covariance mode's. The latter's
+// register tiles (16 sums per tile) need more than the 128 registers ptxas gives the former, so it
+// says that one block per SM is all it asks for: its shared memory allows
+// no second one anyway.
+template <bool BF16>
+__global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
+  traj_body<BF16, false>(p);
+}
+template <bool BF16>
+__global__ void __launch_bounds__(NT, 1) traj_kernel_full(const Params p) {
+  traj_body<BF16, true>(p);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs, in bytes.
-int fused_traj_smem_bytes(int D, int H, int n_hidden) {
-  return (int)(sizeof(float) * (size_t)smem_floats(D, H, n_hidden));
+// Dynamic shared memory one block needs, in bytes; full is non-zero for the
+// full-covariance mode.
+int fused_traj_smem_bytes(int D, int H, int n_hidden, int full) {
+  return (int)(sizeof(float) * (size_t)smem_floats(D, H, n_hidden, full != 0));
 }
 
 const char* fused_traj_error_string(int err) {
@@ -467,21 +951,20 @@ int fused_traj_launch(const float* x0, const float* coefs, const void* embed,
                       float* xs_out, int B, int K, int D, int H, int n_hidden,
                       int C, int bf16, int has_clip, float clip, void* stream) {
   if ((ref_p == nullptr) != (ref_pt == nullptr)) return (int)cudaErrorInvalidValue;
+  const bool full = ref_p != nullptr;
+  if (full && D > MAX_FULL_D) return (int)cudaErrorInvalidValue;
   Params p{x0,     coefs,  embed,   w0,     b0,       wh,    bh,
            w_out,  b_out,  ref_const, ref_m, ref_iv,  ref_p, ref_pt,
            noise,  x_out,  rnd_out, xs_out, seed,     B,     K,
            D,      H,      n_hidden, C,     has_clip, clip};
-  const int smem = fused_traj_smem_bytes(D, H, n_hidden);
-  const void* kernel = bf16 ? (const void*)traj_kernel<true> : (const void*)traj_kernel<false>;
+  const int smem = fused_traj_smem_bytes(D, H, n_hidden, full);
+  void (*kernel)(Params) = bf16 ? (full ? traj_kernel_full<true> : traj_kernel<true>)
+                                : (full ? traj_kernel_full<false> : traj_kernel<false>);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (B + TB - 1) / TB;
-  if (bf16) {
-    traj_kernel<true><<<blocks, NT, smem, (cudaStream_t)stream>>>(p);
-  } else {
-    traj_kernel<false><<<blocks, NT, smem, (cudaStream_t)stream>>>(p);
-  }
+  kernel<<<blocks, NT, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

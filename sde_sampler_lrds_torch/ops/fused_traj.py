@@ -55,26 +55,42 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 # the kernel's design limits (csrc/fused_traj.cu): hidden width and hidden
 # layers; the state width D is bounded by the block's shared memory, checked
-# against the card's per-block limit (D ≤ 177 at H = 64 with 2 hidden
-# layers). Steps K and components C have no upper limit (their per-step
-# tables and the rotations are read from global memory, the softmax over C
-# is online); both must be ≥ 1.
+# against the card's per-block limit: D ≤ 177 at H = 64 with 2 hidden layers
+# in the diagonal mode. The full-covariance mode's ring of _RING_STAGES
+# panels of _ring_rows(D) rows of P and the step's m, iv and const rows add
+# about 4·(2·_ring_rows(D)·D + 2·D) bytes (D ≤ 131 by shared memory), and
+# its rotations give each thread one register tile of 4 columns, each warp
+# 32 of them: D ≤ MAX_FULL_COV_DIM = 128. Steps K
+# and components C have no upper limit (their per-step tables are read from
+# global memory, the rotations stream through the ring one panel at a time,
+# the softmax over C is online); both must be ≥ 1.
 MAX_CHANNELS, MAX_HIDDEN = 256, 8
+MAX_FULL_COV_DIM = 128
 MAX_SMEM_BYTES = 232_448
 _TB = 32  # trajectories per block
+_RING_STAGES, _RING_MAX_ROWS = 2, 48
 
 
 def _round4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def smem_bytes(dim: int, channels: int, n_hidden: int) -> int:
-    """Dynamic shared memory of one block of the kernel, in bytes: the
-    host-side mirror of ``fused_traj_smem_bytes`` in csrc/fused_traj.cu."""
+def _ring_rows(d: int) -> int:
+    """Rows of P per panel of the kernel's ring (``ring_rows``): a D × D
+    matrix in ⌈D / 48⌉ panels of even height, rounded up to a multiple of 4."""
+    n_panels = -(-d // _RING_MAX_ROWS)
+    return _round4(-(-d // n_panels))
+
+
+def smem_bytes(dim: int, channels: int, n_hidden: int, full_cov: bool) -> int:
+    """Dynamic shared memory of one block of the kernel in the diagonal or
+    the full-covariance mode, in bytes: the host-side mirror of
+    ``fused_traj_smem_bytes`` in csrc/fused_traj.cu."""
     d, h, nh = dim, channels, n_hidden
     floats = (_round4(d * h) + _round4(h) + _round4(nh * h * h) + _round4(nh * h)
               + _round4(h * d) + _round4(d) + 2 * _TB * h + 4 * _round4(_TB * d)
-              + 3 * _TB)
+              + 3 * _TB
+              + (_RING_STAGES * _ring_rows(d) * d + _round4(2 * d + 1) if full_cov else 0))
     return 4 * floats
 
 
@@ -382,7 +398,7 @@ def _library() -> ctypes.CDLL:
         [ptr] * 15 + [ctypes.c_ulonglong] + [ptr] * 3 + [i32] * 8
         + [ctypes.c_float, ptr])
     lib.fused_traj_launch.restype = i32
-    lib.fused_traj_smem_bytes.argtypes = [i32, i32, i32]
+    lib.fused_traj_smem_bytes.argtypes = [i32, i32, i32, i32]
     lib.fused_traj_smem_bytes.restype = i32
     lib.fused_traj_error_string.argtypes = [i32]
     lib.fused_traj_error_string.restype = ctypes.c_char_p
@@ -401,12 +417,17 @@ def check_limits(cfg: FusedTrajCfg) -> None:
                          f"at most {MAX_HIDDEN}")
     if cfg.n_comp < 1 or cfg.k_steps < 1:
         raise ValueError("fused_traj kernel: needs a component and a step")
-    need = smem_bytes(cfg.dim, cfg.channels, cfg.n_hidden)
+    if cfg.full_cov and cfg.dim > MAX_FULL_COV_DIM:
+        raise ValueError(f"fused_traj kernel: dim {cfg.dim} in the full-covariance mode, "
+                         f"at most {MAX_FULL_COV_DIM} (one register tile of 4 columns "
+                         f"per thread of a rotation)")
+    need = smem_bytes(cfg.dim, cfg.channels, cfg.n_hidden, cfg.full_cov)
     if need > MAX_SMEM_BYTES:
+        mode = "full-covariance" if cfg.full_cov else "diagonal"
         raise ValueError(f"fused_traj kernel: dim {cfg.dim}, channels {cfg.channels} "
                          f"and {cfg.n_hidden} hidden layers need {need} bytes of "
-                         f"shared memory per block, more than the card's "
-                         f"{MAX_SMEM_BYTES}")
+                         f"shared memory per block in the {mode} mode, more than "
+                         f"the card's {MAX_SMEM_BYTES}")
 
 
 def fused_traj(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,

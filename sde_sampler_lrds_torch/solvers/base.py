@@ -39,7 +39,7 @@ class TrainConfig:
     log_interval: int = 50
     ckpt_interval: int | None = None
     seed: int = 0
-    # optimizer-step count -> learning rate, applied before each step
+    # accepted-step count -> learning rate, applied before each step
     lr_schedule: Callable | None = None
     # the JAX package fuses this many optimizer steps into one jitted call;
     # here each ``step`` call runs that many steps one after another
@@ -152,8 +152,11 @@ class Trainable:
                 for p in params:
                     p.grad.mul_(scale)
             if cfg.lr_schedule is not None:
+                # indexed by the accepted steps, as optax's schedule count,
+                # which a skipped step leaves where it was
+                accepted = self.step_count - self.n_skipped
                 for group in opt.param_groups:
-                    group["lr"] = float(cfg.lr_schedule(self.step_count))
+                    group["lr"] = float(cfg.lr_schedule(accepted))
             opt.step()
         else:
             self.n_skipped += 1
