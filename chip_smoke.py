@@ -12,16 +12,19 @@ Phases:
   1. card, versions, kernel build (one nvcc per source, all started
      together) and each kernel instantiation's registers, stack and spills
   2. fused_traj kernel vs its plain version at the main path's shapes
-     (fed noise, pre-step states; batches 1024, 8192 and a ragged 1000), and
-     at the φ⁴ shapes (D = 100, H = 64, K = 100): the diagonal mode, and the
-     full-covariance mode with a random eigen-factored 2-component reference
+     (fed noise, pre-step states; the diagonal kernel at batches 1, 33, 1000,
+     1024, 4001, 8192 and 8193, which give every trajectories-per-warp the
+     host picks, ragged warps and blocks, and its own noise at 8192; two
+     launches bitwise equal at each), and at the φ⁴ shapes (D = 100, H = 64,
+     K = 100): the diagonal mode (also at the largest D check_limits admits,
+     256), and the full-covariance mode with a random eigen-factored 2-component reference
      (fed noise + states at 1024 and a ragged 1000, the kernel's own noise
      at 8192, fed to the plain version as the Philox draws it makes; also at
      D = 37 and the largest D check_limits admits), its shared memory in
      both modes against the host's mirror, and two of its launches against
      each other, bitwise; the
-     bf16 control mode against its bf16 plain version (D = 8: fed noise +
-     states at 1024 and a ragged 1000, own noise at 8192; D = 100
+     bf16 control mode against its bf16 plain version (D = 8 at the
+     diagonal kernel's batches, two launches bitwise equal at each; D = 100
      full-covariance at 1024);
      the Sinkhorn lse and transport-cost kernels vs theirs (8192 x 8192,
      d = 8, eps 1e-3 and 1, p 2 and 1, -inf duals; a ragged 1000 x 3000
@@ -41,7 +44,8 @@ Phases:
      particles, 1024 warm-up and 32 MALA steps per level, systematic
      resampling) from a full-covariance Gaussian fitted to phase 4's MALA
      dataset, with its metrics on the first 8192 pooled samples
-  7. one JSON line per kernel and mode: launches, error, time, bound
+  7. one JSON line per kernel and mode: launches, error, time, bound; the
+     diagonal kernel's times beside the geometry the host picked
   8. the φ⁴ path: PhiFour(a 0.1, b 0.02, d 100) -> 40 000 MALA points from
      chains seeded at ±1 -> 2-component full-covariance GMM fit -> GMM
      reference -> 4096 flat-LV Adam steps at batch 1024 (the kernel's
@@ -66,6 +70,7 @@ CUDA device or any phase fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -231,15 +236,15 @@ def graph_ms(fn, n: int = 50, reps: int = 5) -> float:
 
 def ptxas_report(log: str) -> list:
     """Per kernel entry of an ``nvcc -Xptxas -v`` log: its name (the
-    trajectory kernels' instantiations as traj_kernel<BF16> and
+    trajectory kernels' instantiations as traj_kernel_diag<BF16, TW> and
     traj_kernel_full<BF16>), its registers, stack frame and spill bytes."""
     entries, current = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"(traj_kernel(?:_full)?)ILb([01])E", m.group(1))
-            name = (f"{t.group(1)}<{'true' if t.group(2) == '1' else 'false'}>" if t
-                    else m.group(1))
+            t = re.search(r"(traj_kernel(?:_full|_diag)?)ILb([01])E(?:Li(\d+)E)?", m.group(1))
+            name = (f"{t.group(1)}<{'true' if t.group(2) == '1' else 'false'}"
+                    f"{', ' + t.group(3) if t.group(3) else ''}>" if t else m.group(1))
             current = {"entry": name}
             entries.append(current)
             continue
@@ -473,6 +478,13 @@ def compare_kernel(dev, cfg, arrays, label: str, cases, tol) -> float:
         want = fused_traj_plain(cfg, arrays, x0, noise=noise, return_traj=mode == "fed")
         torch.cuda.synchronize()
         what = f"{label} B={b} ({'fed noise + states' if mode == 'fed' else 'kernel noise'})"
+        if not cfg.bf16:
+            # both float32 versions against the same steps in float64
+            exact = fused_traj_plain(cfg, {k: v.double() for k, v in arrays.items()},
+                                     x0.double(), noise=noise.double(),
+                                     return_traj=mode == "fed", dtype=torch.float64)
+            say(f"[phase 2] {what}: max |diff| to float64 steps, kernel "
+                f"{max_err(got, exact):.3e}, plain {max_err(want, exact):.3e}")
         scale = max(float(w.abs().max()) for w in want if w is not None)
         x_tol = tol if isinstance(tol, dict) else tol[0]
         beyond = float(((got[0] - want[0]).abs() > x_tol["atol"] + x_tol["rtol"] * want[0].abs())
@@ -486,22 +498,47 @@ def compare_kernel(dev, cfg, arrays, label: str, cases, tol) -> float:
     return max(errs)
 
 
+# the diagonal kernel's batches: first the cases of the first design's
+# checks (f32: 1024, 8192, 1000 with fed noise; bf16: 1024, 1000 fed and
+# 8192 with its own noise), on the same draws, then 1 and 33 (one warp a
+# block), 4001 and 8193 (2 and 4 trajectories a warp on 132 SMs, a ragged
+# last warp and block) and, in f32, the eval shape with the kernel's own
+# noise. 1000 and 1024 run one trajectory a warp, 8192 four
+_DIAG_MORE = [(1, "fed"), (33, "fed"), (4001, "fed"), (8193, "fed")]
+DIAG_CASES = ([(TRAIN_BATCH, "fed"), (EVAL_BATCH, "fed"), (1000, "fed")] + _DIAG_MORE
+              + [(EVAL_BATCH, "kernel")])
+BF16_CASES = [(TRAIN_BATCH, "fed"), (1000, "fed"), (EVAL_BATCH, "kernel")] + _DIAG_MORE
+
+
+def diag_geometry_for(cfg, batch: int):
+    from sde_sampler_lrds_torch.ops.fused_traj import diag_geometry
+
+    return diag_geometry(batch, cfg.dim, cfg.channels, cfg.n_hidden,
+                         torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def check_geometries(cfg, cases) -> None:
+    """The diagonal cases give every trajectories-per-warp the host picks."""
+    picked = {diag_geometry_for(cfg, b).traj_per_warp for b, _ in cases}
+    check(picked == {1, 2, 4}, f"the diagonal cases pick trajectories per warp {picked}")
+
+
 def phase_kernel_vs_plain(dev, cfg, arrays, rec):
-    rec["max_abs_err"] = compare_kernel(
-        dev, cfg, arrays, "fused_traj", [(TRAIN_BATCH, "fed"), (EVAL_BATCH, "fed"), (1000, "fed")],
-        KERNEL_TOL)
+    check_geometries(cfg, DIAG_CASES)
+    rec["max_abs_err"] = compare_kernel(dev, cfg, arrays, "fused_traj", DIAG_CASES, KERNEL_TOL)
+    check_repeatable(dev, cfg, arrays, "fused_traj", DIAG_CASES)
 
 
-def largest_full_cov_dim() -> int:
-    """The largest D that check_limits admits in the full-covariance mode at
-    the φ⁴ control's H = 64 with 2 hidden layers."""
+def largest_dim(full_cov: bool) -> int:
+    """The largest D that check_limits admits in the full-covariance or the
+    diagonal mode at the φ⁴ control's H = 64 with 2 hidden layers."""
     from sde_sampler_lrds_torch.ops.fused_traj import FusedTrajCfg, check_limits
 
     def admitted(d):
         try:
             check_limits(FusedTrajCfg(k_steps=K_STEPS, dim=d, channels=CHANNELS,
                                       n_hidden=N_LAYERS - 2, n_comp=PHI_COMP, clip=1e4,
-                                      full_cov=True))
+                                      full_cov=full_cov))
             return True
         except ValueError:
             return False
@@ -509,13 +546,16 @@ def largest_full_cov_dim() -> int:
     return max(d for d in range(PHI_DIM, 4 * PHI_DIM) if admitted(d))
 
 
-def check_repeatable(dev, cfg, arrays, label: str) -> None:
-    """Two launches with the same inputs give bitwise equal outputs, at the
-    train shape (fed noise + states) and the eval shape (own noise)."""
+def check_repeatable(dev, cfg, arrays, label: str,
+                     cases=((TRAIN_BATCH, "fed"), (EVAL_BATCH, "kernel"))) -> None:
+    """Two launches with the same inputs give bitwise equal outputs, by
+    default at the train shape (fed noise + states) and the eval shape (own
+    noise)."""
     from sde_sampler_lrds_torch.ops.fused_traj import launch
 
     g = torch.Generator(dev).manual_seed(8)
-    for b, fed in ((TRAIN_BATCH, True), (EVAL_BATCH, False)):
+    for b, mode in cases:
+        fed = mode == "fed"
         x0 = torch.randn(b, cfg.dim, generator=g, device=dev)
         noise = torch.randn(cfg.k_steps, b, cfg.dim, generator=g, device=dev) if fed else None
         first = launch(cfg, arrays, x0, noise, 29, fed)
@@ -538,20 +578,33 @@ def phase_kernel_vs_plain_d100(dev, rec_diag, rec_full):
     in both modes."""
     from sde_sampler_lrds_torch.ops.fused_traj import _library, smem_bytes
 
-    largest = largest_full_cov_dim()
-    for d in (DIM, 37, PHI_DIM, largest):
-        for full in (False, True):
-            c_bytes = _library().fused_traj_smem_bytes(d, CHANNELS, N_LAYERS - 2, int(full))
-            host = smem_bytes(d, CHANNELS, N_LAYERS - 2, full)
-            check(c_bytes == host, f"shared memory at D={d}, full_cov={full}: kernel "
-                                   f"{c_bytes} bytes, host mirror {host}")
+    largest, largest_diag = largest_dim(True), largest_dim(False)
+    for d in (DIM, 37, PHI_DIM, largest, largest_diag):
+        for full, warps, tw in ((True, 0, 0), (False, 1, 1), (False, 8, 1), (False, 8, 2),
+                                (False, 8, 4)):
+            if full and d > largest:
+                continue
+            c_bytes = _library().fused_traj_smem_bytes(d, CHANNELS, N_LAYERS - 2, int(full),
+                                                       warps, tw)
+            host = (smem_bytes(d, CHANNELS, N_LAYERS - 2, True) if full
+                    else smem_bytes(d, CHANNELS, N_LAYERS - 2, False, warps, tw))
+            check(c_bytes == host, f"shared memory at D={d}, full_cov={full}, {warps} warps of "
+                                   f"{tw}: kernel {c_bytes} bytes, host mirror {host}")
     say(f"[phase 2] shared memory per block, kernel = host mirror: D={PHI_DIM} "
-        f"{smem_bytes(PHI_DIM, CHANNELS, N_LAYERS - 2, False)} bytes diagonal, "
-        f"{smem_bytes(PHI_DIM, CHANNELS, N_LAYERS - 2, True)} full-covariance; largest "
-        f"full-covariance D {largest}")
+        f"{smem_bytes(PHI_DIM, CHANNELS, N_LAYERS - 2, False, 8, 2)} bytes diagonal (8 warps "
+        f"of 2), {smem_bytes(PHI_DIM, CHANNELS, N_LAYERS - 2, True)} full-covariance; "
+        f"largest D {largest_diag} diagonal, {largest} full-covariance")
     cfg, arrays = phi_four_plan(dev, full_cov=False)
-    rec_diag["max_abs_err_d100"] = compare_kernel(
-        dev, cfg, arrays, "fused_traj D=100", [(TRAIN_BATCH, "fed"), (1000, "fed")], D100_TOL)
+    d100_cases = [(TRAIN_BATCH, "fed"), (1000, "fed"), (EVAL_BATCH, "kernel")]
+    rec_diag["max_abs_err_d100"] = compare_kernel(dev, cfg, arrays, "fused_traj D=100",
+                                                  d100_cases, D100_TOL)
+    check_repeatable(dev, cfg, arrays, "fused_traj D=100", d100_cases)
+    cfg_l, arrays_l = phi_four_plan(dev, full_cov=False, dim=largest_diag)
+    rec_diag[f"max_abs_err_d{largest_diag}"] = compare_kernel(
+        dev, cfg_l, arrays_l, f"fused_traj D={largest_diag}",
+        [(TRAIN_BATCH, "fed"), (1000, "fed")], D100_TOL)
+    check_repeatable(dev, cfg_l, arrays_l, f"fused_traj D={largest_diag}",
+                     [(TRAIN_BATCH, "fed")])
     cfg, arrays = phi_four_plan(dev, full_cov=True)
     rec_full["max_abs_err"] = compare_kernel(
         dev, cfg, arrays, "fused_traj_full_cov D=100",
@@ -572,8 +625,9 @@ def phase_kernel_vs_plain_bf16(dev, rec):
     shapes."""
     cfg, arrays = comparison_plan(dev, torch.bfloat16)
     check(cfg.bf16 and arrays["w0"].dtype == torch.bfloat16, "bf16 plan")
-    err = compare_kernel(dev, cfg, arrays, "fused_traj_bf16",
-                         [(TRAIN_BATCH, "fed"), (1000, "fed"), (EVAL_BATCH, "kernel")], BF16_TOL)
+    check_geometries(cfg, BF16_CASES)
+    err = compare_kernel(dev, cfg, arrays, "fused_traj_bf16", BF16_CASES, BF16_TOL)
+    check_repeatable(dev, cfg, arrays, "fused_traj_bf16", BF16_CASES)
     cfg100, arrays100 = phi_four_plan(dev, full_cov=True, compute_dtype=torch.bfloat16)
     rec["max_abs_err"] = max(err, compare_kernel(
         dev, cfg100, arrays100, "fused_traj_bf16 full-cov D=100", [(TRAIN_BATCH, "fed")],
@@ -1032,7 +1086,9 @@ def phase_timing(dev, cfg, arrays, rec, peaks, sfu_rate, label="fused_traj"):
         nbytes = table_bytes + 4 * (2 * b * d + b) + (2 * 4 * k * b * d if fed else 0)
         t_ops = max(t_flops, trans / sfu_rate) * 1e3
         t_bytes = nbytes / byte_rate * 1e3
-        out[name] = {"batch": b, "fed_noise_and_states": fed, "ms": ms,
+        geom = (None if cfg.full_cov
+                else dataclasses.asdict(diag_geometry_for(cfg, b)))
+        out[name] = {"batch": b, "fed_noise_and_states": fed, "geometry": geom, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "flops": n * (mlp_flops + rest_flops), "flops_ms": t_flops * 1e3,
@@ -1042,8 +1098,9 @@ def phase_timing(dev, cfg, arrays, rec, peaks, sfu_rate, label="fused_traj"):
             f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.4f} ms "
             f"({out[name]['bound_by']}; {out[name]['flops'] / 1e9:.3f} GFLOP in "
             f"{t_flops * 1e3:.4f} ms, {trans / 1e6:.2f} M transcendentals in "
-            f"{trans / sfu_rate * 1e3:.4f} ms, {nbytes / 1e6:.3f} MB in {t_bytes:.4f} ms)")
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+            f"{trans / sfu_rate * 1e3:.4f} ms, {nbytes / 1e6:.3f} MB in {t_bytes:.4f} ms)"
+            + ("" if geom is None else f"; geometry {json.dumps(geom)}"))
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "geometry")
     rec.update({k_: out["eval"][k_] for k_ in keys})
     rec["train_shape"] = {k_: out["train"][k_] for k_ in keys}
 

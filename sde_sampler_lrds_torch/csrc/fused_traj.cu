@@ -133,6 +133,12 @@ constexpr int NSTAGE = 2;      // panels in the ring
 constexpr int MAX_RP = 48;     // most rows of P per panel
 constexpr int MAX_FULL_D = J * 32;
 static_assert(TB / R == NW, "a rotation's trajectory groups are the warps");
+// diagonal mode (traj_kernel_diag): a block of at most DIAG_MAX_WARPS warps,
+// each lane holding at most DIAG_ELEMS dimensions of its trajectory and
+// DIAG_UNITS units of a hidden layer
+constexpr int DIAG_MAX_WARPS = 8;
+constexpr int DIAG_ELEMS = 8;
+constexpr int DIAG_UNITS = 8;
 
 // The MLP tables are f32, or __nv_bfloat16 in the bf16 mode.
 struct Params {
@@ -168,12 +174,29 @@ __host__ __device__ inline int ring_rows(int D) {
   return round4((D + np - 1) / np);
 }
 
-// Shared-memory floats for one block, each region padded to 16 bytes; the
-// full-covariance mode adds the ring of P panels.
-__host__ __device__ inline int smem_floats(int D, int H, int nh, bool full) {
+// Shared-memory floats of the MLP weights and biases, each region padded
+// to 16 bytes.
+__host__ __device__ inline int weight_floats(int D, int H, int nh) {
   return round4(D * H) + round4(H) + round4(nh * H * H) + round4(nh * H) +
-         round4(H * D) + round4(D) + 2 * TB * H + 4 * round4(TB * D) + 3 * TB +
+         round4(H * D) + round4(D);
+}
+
+// Shared-memory floats for one block of the tile kernel, each region padded
+// to 16 bytes; the full-covariance mode adds the ring of P panels.
+__host__ __device__ inline int smem_floats(int D, int H, int nh, bool full) {
+  return weight_floats(D, H, nh) + 2 * TB * H + 4 * round4(TB * D) + 3 * TB +
          (full ? NSTAGE * ring_rows(D) * D + round4(2 * D + 1) : 0);
+}
+
+// The diagonal kernel's hidden rows: H floats padded to 16 bytes and 4 more,
+// so the rows of a warp's trajectories start on different banks.
+__host__ __device__ inline int diag_hidden_stride(int H) { return round4(H) + 4; }
+
+// Shared-memory floats for one block of the diagonal kernel: the weights and
+// each warp's slice of two hidden rows and an input row for each of its tw
+// trajectories.
+__host__ __device__ inline int diag_smem_floats(int D, int H, int nh, int warps, int tw) {
+  return weight_floats(D, H, nh) + warps * tw * (2 * diag_hidden_stride(H) + round4(D));
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -195,12 +218,6 @@ __device__ __forceinline__ float load_table(const void* p, size_t i) {
   } else {
     return __ldg(reinterpret_cast<const float*>(p) + i);
   }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // The (trajectory b, dimension d) of element o = threadIdx.x + n·NT of a
@@ -271,69 +288,10 @@ __device__ __forceinline__ float philox_normal(unsigned long long seed, int k,
   return sqrtf(-2.0f * logf(1.0f - f1)) * cosf(6.2831855f * f2);
 }
 
-// out[b][j] = act(Σ_i in[b][i]·W[i][j] + bias[j] + extra[j]) for the TB
-// rows of a tile; in/out/W in shared memory, bias (or null) shared, extra
-// (or null) a global MLP table row. BF16: the bf16 mode's rounding points,
-// act(r(r(r(Σ) + bias) + extra)) with r the rounding to bf16 and act rounded
-// too; the inputs and weights must hold bf16 values already.
-template <bool GELU, bool BF16>
-__device__ void dense(const float* __restrict__ in, int n_in,
-                      const float* __restrict__ W,
-                      const float* __restrict__ bias,
-                      const void* __restrict__ extra, int n_out,
-                      float* __restrict__ out) {
-  const int items = (TB / R) * n_out;
-  for (int o = threadIdx.x; o < items; o += NT) {
-    const int j = o % n_out, g = o / n_out;
-    float bj = bias != nullptr ? bias[j] : 0.0f;
-    const float ej = extra != nullptr ? load_table<BF16>(extra, j) : 0.0f;
-    if constexpr (!BF16) bj += ej;
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-    const float* rows = in + g * R * n_in;
-    if ((n_in & 3) == 0) {
-      for (int i = 0; i < n_in; i += 4) {
-        const float w0 = W[(i + 0) * n_out + j];
-        const float w1 = W[(i + 1) * n_out + j];
-        const float w2 = W[(i + 2) * n_out + j];
-        const float w3 = W[(i + 3) * n_out + j];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float4 v = *reinterpret_cast<const float4*>(rows + r * n_in + i);
-          acc[r] = fmaf(v.x, w0, acc[r]);
-          acc[r] = fmaf(v.y, w1, acc[r]);
-          acc[r] = fmaf(v.z, w2, acc[r]);
-          acc[r] = fmaf(v.w, w3, acc[r]);
-        }
-      }
-    } else {
-      for (int i = 0; i < n_in; ++i) {
-        const float w = W[i * n_out + j];
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(rows[r * n_in + i], w, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float v;
-      if constexpr (BF16) {
-        v = round_bf16(round_bf16(acc[r]) + bj);
-        if (extra != nullptr) v = round_bf16(v + ej);
-        if (GELU) v = round_bf16(gelu_tanh(v));
-      } else {
-        v = acc[r] + bj;
-        if (GELU) v = gelu_tanh(v);
-      }
-      out[(g * R + r) * n_out + j] = v;
-    }
-  }
-}
-
 // An MLP table into shared memory as f32 (bf16 entries widened exactly).
 template <bool BF16>
 __device__ inline void table_to_smem(float* dst, const void* src, int n) {
-  for (int i = threadIdx.x; i < n; i += NT) dst[i] = load_table<BF16>(src, i);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = load_table<BF16>(src, i);
 }
 
 // Asynchronous global -> shared copies of 16 or 4 bytes, their groups, and
@@ -517,10 +475,14 @@ __device__ void rotate(const float* __restrict__ in, Ring& ring, float* __restri
   }
 }
 
-// dense's product as register tiles of R trajectories × JT columns (the
-// full-covariance mode's MLP layers), same epilogue: R·JT independent sums
-// per thread, one float4 (float2) of W and R float4s of the inputs per
-// 4·R·JT FMAs.
+// out[b][j] = act(Σ_i in[b][i]·W[i][j] + bias[j] + extra[j]) for the TB
+// rows of a tile (the full-covariance mode's MLP layers), as register tiles
+// of R trajectories × JT columns: R·JT independent sums per thread, one
+// float4 (float2) of W and R float4s of the inputs per 4·R·JT FMAs. in, out,
+// W and bias (or null) in shared memory, extra (or null) a global MLP table
+// row. BF16: the bf16 mode's rounding points, act(r(r(r(Σ) + bias) + extra))
+// with r the rounding to bf16 and act rounded too; the inputs and weights
+// must hold bf16 values already.
 template <bool GELU, bool BF16, bool VEC, int JT>
 __device__ void dense_tiled(const float* __restrict__ in, int n_in,
                             const float* __restrict__ W, const float* __restrict__ bias,
@@ -576,25 +538,21 @@ __device__ void dense_tiled_by_width(const float* in, int n_in, const float* W,
   }
 }
 
-// An MLP layer: dense in the diagonal mode, dense_tiled in the
-// full-covariance mode (float4 reads where both widths are multiples of 4).
-template <bool GELU, bool BF16, bool FULL>
+// An MLP layer of the full-covariance mode: dense_tiled, with float4 reads
+// where both widths are multiples of 4.
+template <bool GELU, bool BF16>
 __device__ void layer(const float* in, int n_in, const float* W, const float* bias,
                       const void* extra, int n_out, float* out) {
-  if constexpr (FULL) {
-    if (((n_in | n_out) & 3) == 0) {
-      dense_tiled_by_width<GELU, BF16, true>(in, n_in, W, bias, extra, n_out, out);
-    } else {
-      dense_tiled_by_width<GELU, BF16, false>(in, n_in, W, bias, extra, n_out, out);
-    }
+  if (((n_in | n_out) & 3) == 0) {
+    dense_tiled_by_width<GELU, BF16, true>(in, n_in, W, bias, extra, n_out, out);
   } else {
-    dense<GELU, BF16>(in, n_in, W, bias, extra, n_out, out);
+    dense_tiled_by_width<GELU, BF16, false>(in, n_in, W, bias, extra, n_out, out);
   }
 }
 
-// The whole trajectory of one block's tile. FULL: the eigen-factored
-// full-covariance reference (ref_p, ref_pt set); otherwise the diagonal one.
-template <bool BF16, bool FULL>
+// The whole trajectory of one block's tile in the full-covariance mode
+// (ref_p, ref_pt set).
+template <bool BF16>
 __device__ __forceinline__ void traj_body(const Params& p) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
@@ -619,10 +577,9 @@ __device__ __forceinline__ void traj_body(const Params& p) {
   // from the end of one step's RND update to the next step's MLP
   float* dt = ut;
   float* yt = zt;
-  // full-covariance mode: after the ring, the current component's rows
-  // m_kc (D), iv_kc (D) and const_kc (1), stored from registers loaded one
-  // component ahead (pre), so the x − m pass and the quadratic form read
-  // no global memory
+  // after the ring, the current component's rows m_kc (D), iv_kc (D) and
+  // const_kc (1), stored from registers loaded one component ahead (pre),
+  // so the x − m pass and the quadratic form read no global memory
   float* rows = s + NSTAGE * ring_rows(D) * D;
   float pre[2];
   auto load_rows = [&](int k_, int c_) {
@@ -636,16 +593,13 @@ __device__ __forceinline__ void traj_body(const Params& p) {
                             : 0.0f;
     }
   };
-  Ring ring;
-  if constexpr (FULL) {
-    load_rows(0, 0);
-    const int rp = ring_rows(D);
-    const bool aligned = ((reinterpret_cast<uintptr_t>(p.ref_p) |
-                           reinterpret_cast<uintptr_t>(p.ref_pt)) & 15) == 0;
-    ring = Ring{s, p.ref_p, p.ref_pt, D, C, rp, (D + rp - 1) / rp, 0, 0, 0, 0, 0,
-                (D & 3) == 0 && aligned};
-    for (int n = 0; n < NSTAGE - 1; ++n) ring.issue();
-  }
+  load_rows(0, 0);
+  const int rp = ring_rows(D);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(p.ref_p) |
+                         reinterpret_cast<uintptr_t>(p.ref_pt)) & 15) == 0;
+  Ring ring{s, p.ref_p, p.ref_pt, D, C, rp, (D + rp - 1) / rp, 0, 0, 0, 0, 0,
+            (D & 3) == 0 && aligned};
+  for (int n = 0; n < NSTAGE - 1; ++n) ring.issue();
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int base = blockIdx.x * TB;
@@ -668,132 +622,91 @@ __device__ __forceinline__ void traj_body(const Params& p) {
 
   for (int k = 0; k < p.K; ++k) {
     const float* cf = p.coefs + 6 * k;
-    if (p.xs_out != nullptr) {
-      if constexpr (FULL) {  // the tile's valid rows are one contiguous range
-        float* xs = p.xs_out + ((size_t)k * B + base) * D;
-        for (int o = tid; o < min(TB, B - base) * D; o += NT) xs[o] = xt[o];
-      } else {
-        for (int o = tid; o < TD; o += NT) {
-          const int gb = base + o / D;
-          if (gb < B) p.xs_out[((size_t)k * B + gb) * D + o % D] = xt[o];
-        }
-      }
+    if (p.xs_out != nullptr) {  // the tile's valid rows are one contiguous range
+      float* xs = p.xs_out + ((size_t)k * B + base) * D;
+      for (int o = tid; o < min(TB, B - base) * D; o += NT) xs[o] = xt[o];
     }
     // ---- reference score of the noised MoG: online softmax over C ------
-    const float* cst = p.ref_const + (size_t)k * C;
-    const float* m = p.ref_m + (size_t)k * C * D;
-    const float* iv = p.ref_iv + (size_t)k * C * D;
     for (int c = 0; c < C; ++c) {
-      if constexpr (FULL) {
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          if (tid + t * NT <= 2 * D) rows[tid + t * NT] = pre[t];
-        }
-        __syncthreads();
-        if (c + 1 < C) {
-          load_rows(k, c + 1);
-        } else if (k + 1 < p.K) {
-          load_rows(k + 1, 0);
-        }
-        TileIter it(D);
-        for (int o = tid; o < TD; o += NT, it.advance()) dt[o] = xt[o] - rows[it.d];
-      } else {
-        for (int o = tid; o < TD; o += NT) dt[o] = xt[o] - __ldg(m + c * D + o % D);
+      for (int t = 0; t < 2; ++t) {
+        if (tid + t * NT <= 2 * D) rows[tid + t * NT] = pre[t];
       }
       __syncthreads();
-      float* y = dt;
-      if constexpr (FULL) {  // y = (x − m)·P_c, the ring's next matrix
-        if ((D & 3) == 0) {
-          rotate<true>(dt, ring, yt);
-        } else {
-          rotate<false>(dt, ring, yt);
-        }
-        __syncthreads();
-        y = yt;
+      if (c + 1 < C) {
+        load_rows(k, c + 1);
+      } else if (k + 1 < p.K) {
+        load_rows(k + 1, 0);
       }
-      // y ← y·iv in place; logit = const − ½ Σ y²·iv, one warp per trajectory
-      if constexpr (FULL) {  // the warp's TPW trajectories side by side
-        float q[TPW];
-#pragma unroll
-        for (int i = 0; i < TPW; ++i) q[i] = 0.0f;
-        for (int d = lane; d < D; d += 32) {
-          const float ivd = rows[D + d];
-#pragma unroll
-          for (int i = 0; i < TPW; ++i) {
-            const int b = warp * TPW + i;
-            const float v = y[b * D + d], sv = v * ivd;
-            y[b * D + d] = sv;
-            q[i] = fmaf(v, sv, q[i]);
-          }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-          for (int i = 0; i < TPW; ++i) q[i] += __shfl_xor_sync(0xffffffffu, q[i], off);
-        }
-        const float cst_c = rows[2 * D];
-#pragma unroll
-        for (int i = 0; i < TPW; ++i) {
-          softmax_step(c, C, cst_c - 0.5f * q[i], mx[i], sw[i], lane, warp * TPW + i, f_scale,
-                       f_wgt, f_norm);
-        }
+      {
+        TileIter it(D);
+        for (int o = tid; o < TD; o += NT, it.advance()) dt[o] = xt[o] - rows[it.d];
+      }
+      __syncthreads();
+      // y = (x − m)·P_c, the ring's next matrix
+      if ((D & 3) == 0) {
+        rotate<true>(dt, ring, yt);
       } else {
+        rotate<false>(dt, ring, yt);
+      }
+      __syncthreads();
+      // y ← y·iv in place; logit = const − ½ Σ y²·iv, the warp's TPW
+      // trajectories side by side
+      float q[TPW];
+#pragma unroll
+      for (int i = 0; i < TPW; ++i) q[i] = 0.0f;
+      for (int d = lane; d < D; d += 32) {
+        const float ivd = rows[D + d];
 #pragma unroll
         for (int i = 0; i < TPW; ++i) {
           const int b = warp * TPW + i;
-          float q = 0.0f;
-          for (int d = lane; d < D; d += 32) {
-            const float v = y[b * D + d], sv = v * __ldg(iv + c * D + d);
-            y[b * D + d] = sv;
-            q = fmaf(v, sv, q);
-          }
-          softmax_step(c, C, __ldg(cst + c) - 0.5f * warp_sum(q), mx[i], sw[i], lane, b,
-                       f_scale, f_wgt, f_norm);
+          const float v = yt[b * D + d], sv = v * ivd;
+          yt[b * D + d] = sv;
+          q[i] = fmaf(v, sv, q[i]);
         }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int i = 0; i < TPW; ++i) q[i] += __shfl_xor_sync(0xffffffffu, q[i], off);
+      }
+      const float cst_c = rows[2 * D];
+#pragma unroll
+      for (int i = 0; i < TPW; ++i) {
+        softmax_step(c, C, cst_c - 0.5f * q[i], mx[i], sw[i], lane, warp * TPW + i, f_scale,
+                     f_wgt, f_norm);
       }
       __syncthreads();
-      float* g = y;
-      if constexpr (FULL) {  // g = (y·iv)·P_cᵀ, the ring's next matrix
-        if ((D & 3) == 0) {
-          rotate<true>(yt, ring, dt);
-        } else {
-          rotate<false>(yt, ring, dt);
-        }
-        __syncthreads();
-        g = dt;
+      // g = (y·iv)·P_cᵀ, the ring's next matrix
+      if ((D & 3) == 0) {
+        rotate<true>(yt, ring, dt);
+      } else {
+        rotate<false>(yt, ring, dt);
       }
-      if constexpr (FULL) {
+      __syncthreads();
+      {
         TileIter it(D);
         for (int o = tid; o < TD; o += NT, it.advance()) {
           const int b = it.b;
-          float v = c == 0 ? f_wgt[b] * g[o] : fmaf(f_wgt[b], g[o], rt[o] * f_scale[b]);
-          if (c == C - 1) v *= f_norm[b];
-          rt[o] = v;
-        }
-      } else {
-        for (int o = tid; o < TD; o += NT) {
-          const int b = o / D;
-          float v = c == 0 ? f_wgt[b] * g[o] : fmaf(f_wgt[b], g[o], rt[o] * f_scale[b]);
+          float v = c == 0 ? f_wgt[b] * dt[o] : fmaf(f_wgt[b], dt[o], rt[o] * f_scale[b]);
           if (c == C - 1) v *= f_norm[b];
           rt[o] = v;
         }
       }
       __syncthreads();
     }
-    // full-covariance mode: the fed noise of the step is copied into the
-    // noise row, free until the update, while the MLP runs
-    if constexpr (FULL) {
-      if (p.noise != nullptr) {
-        const int n = min(TB, B - base) * D;
-        const float* src = p.noise + ((size_t)k * B + base) * D;
-        if ((D & 3) == 0 && (reinterpret_cast<uintptr_t>(p.noise) & 15) == 0) {
-          for (int e = tid * 4; e < n; e += NT * 4) cp_async16(zt + e, src + e);
-        } else {
-          for (int e = tid; e < n; e += NT) cp_async4(zt + e, src + e);
-        }
-        cp_async_commit();
-        for (int o = n + tid; o < TD; o += NT) zt[o] = 0.0f;
+    // the fed noise of the step is copied into the noise row, free until
+    // the update, while the MLP runs
+    if (p.noise != nullptr) {
+      const int n = min(TB, B - base) * D;
+      const float* src = p.noise + ((size_t)k * B + base) * D;
+      if ((D & 3) == 0 && (reinterpret_cast<uintptr_t>(p.noise) & 15) == 0) {
+        for (int e = tid * 4; e < n; e += NT * 4) cp_async16(zt + e, src + e);
+      } else {
+        for (int e = tid; e < n; e += NT) cp_async4(zt + e, src + e);
       }
+      cp_async_commit();
+      for (int o = n + tid; o < TD; o += NT) zt[o] = 0.0f;
     }
     // ---- control u = clip(FourierMLP(t_k, x)) -------------------------
     // bf16 mode: the first layer reads x rounded to bf16, staged in the
@@ -806,24 +719,24 @@ __device__ __forceinline__ void traj_body(const Params& p) {
     }
     const void* erow = BF16 ? (const void*)((const __nv_bfloat16*)p.embed + (size_t)k * H)
                             : (const void*)((const float*)p.embed + (size_t)k * H);
-    layer<true, BF16, FULL>(xin, D, w0, b0, erow, H, hA);
+    layer<true, BF16>(xin, D, w0, b0, erow, H, hA);
     __syncthreads();
     float* hin = hA;
     float* hout = hB;
     for (int l = 0; l < nh; ++l) {
-      layer<true, BF16, FULL>(hin, H, wh + (size_t)l * H * H, bh + l * H, nullptr, H, hout);
+      layer<true, BF16>(hin, H, wh + (size_t)l * H * H, bh + l * H, nullptr, H, hout);
       __syncthreads();
       float* tmp = hin;
       hin = hout;
       hout = tmp;
     }
-    layer<false, BF16, FULL>(hin, H, wo, bo, nullptr, D, ut);
-    if constexpr (FULL) cp_async_wait<0>();  // the noise row
+    layer<false, BF16>(hin, H, wo, bo, nullptr, D, ut);
+    cp_async_wait<0>();  // the noise row
     __syncthreads();
     // ---- noise + state update ------------------------------------------
     const float a_x = __ldg(cf + 0), a_ref = __ldg(cf + 1), a_u = __ldg(cf + 2);
     const float a_z = __ldg(cf + 3);
-    if constexpr (FULL) {  // fed noise: already in the noise row
+    {  // fed noise: already in the noise row
       TileIter it(D);
       for (int o = tid; o < TD; o += NT, it.advance()) {
         float u = ut[o];
@@ -836,66 +749,35 @@ __device__ __forceinline__ void traj_body(const Params& p) {
         zt[o] = z;
         xt[o] = a_x * xt[o] + a_ref * rt[o] + a_u * u + a_z * z;
       }
-    } else {
-      for (int o = tid; o < TD; o += NT) {
-        const int b = o / D, d = o % D, gb = base + b;
-        float u = ut[o];
-        if (p.has_clip) {
-          u = fminf(fmaxf(u, -p.clip), p.clip);
-          ut[o] = u;
-        }
-        float z;
-        if (p.noise != nullptr) {
-          z = gb < B ? p.noise[((size_t)k * B + gb) * D + d] : 0.0f;
-        } else {
-          z = philox_normal(p.seed, k, gb, d);
-        }
-        zt[o] = z;
-        xt[o] = a_x * xt[o] + a_ref * rt[o] + a_u * u + a_z * z;
-      }
     }
     __syncthreads();
-    // ---- RND increment, one warp per trajectory -------------------------
+    // ---- RND increment, the warp's TPW trajectories side by side --------
     const float c_cost = __ldg(cf + 4), c_dot = __ldg(cf + 5);
-    if constexpr (FULL) {  // the warp's TPW trajectories side by side
-      float uu[TPW], uz[TPW];
+    float uu[TPW], uz[TPW];
 #pragma unroll
-      for (int i = 0; i < TPW; ++i) uu[i] = uz[i] = 0.0f;
-      for (int d = lane; d < D; d += 32) {
-#pragma unroll
-        for (int i = 0; i < TPW; ++i) {
-          const int b = warp * TPW + i;
-          const float u = ut[b * D + d];
-          uu[i] = fmaf(u, u, uu[i]);
-          uz[i] = fmaf(u, zt[b * D + d], uz[i]);
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int i = 0; i < TPW; ++i) {
-          uu[i] += __shfl_xor_sync(0xffffffffu, uu[i], off);
-          uz[i] += __shfl_xor_sync(0xffffffffu, uz[i], off);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < TPW; ++i) rnd[i] = rnd[i] + c_cost * 0.5f * uu[i] + c_dot * uz[i];
-    } else {
+    for (int i = 0; i < TPW; ++i) uu[i] = uz[i] = 0.0f;
+    for (int d = lane; d < D; d += 32) {
 #pragma unroll
       for (int i = 0; i < TPW; ++i) {
         const int b = warp * TPW + i;
-        float uu = 0.0f, uz = 0.0f;
-        for (int d = lane; d < D; d += 32) {
-          const float u = ut[b * D + d];
-          uu = fmaf(u, u, uu);
-          uz = fmaf(u, zt[b * D + d], uz);
-        }
-        rnd[i] = rnd[i] + c_cost * 0.5f * warp_sum(uu) + c_dot * warp_sum(uz);
+        const float u = ut[b * D + d];
+        uu[i] = fmaf(u, u, uu[i]);
+        uz[i] = fmaf(u, zt[b * D + d], uz[i]);
       }
     }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int i = 0; i < TPW; ++i) {
+        uu[i] += __shfl_xor_sync(0xffffffffu, uu[i], off);
+        uz[i] += __shfl_xor_sync(0xffffffffu, uz[i], off);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) rnd[i] = rnd[i] + c_cost * 0.5f * uu[i] + c_dot * uz[i];
     __syncthreads();  // the next step's reference score overwrites ut, zt
   }
-  if constexpr (FULL) cp_async_wait<0>();  // the copies ahead, for a step not taken
+  cp_async_wait<0>();  // the copies ahead, for a step not taken
 
   if (lane == 0) {
 #pragma unroll
@@ -910,37 +792,363 @@ __device__ __forceinline__ void traj_body(const Params& p) {
   }
 }
 
-// The diagonal mode's kernel and the full-covariance mode's. The latter's
-// register tiles (16 sums per tile) need more than the 128 registers ptxas gives the former, so it
-// says that one block per SM is all it asks for: its shared memory allows
-// no second one anyway.
-template <bool BF16>
-__global__ void __launch_bounds__(NT) traj_kernel(const Params p) {
-  traj_body<BF16, false>(p);
+// ---------------------------------------------------------------------------
+// The diagonal mode: a warp owns TW trajectories for all K steps
+// ---------------------------------------------------------------------------
+
+// Sum of v over the first `width` lanes of each aligned group of lanes
+// (width a power of two ≤ the group's size), in the butterfly order of the
+// first design's warp sums: the lanes past the width hold zeros there, and
+// adding them changed nothing. The lanes below the width get the sum, each
+// the same bits (a + b == b + a).
+__device__ __forceinline__ float group_sum(float v, int width) {
+  for (int off = width >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
 }
+
+// A gelu layer for a warp's TW trajectories: out[t][j] = gelu(Σ_i
+// in[t][i]·W[i][j] + bias[j] (+ e_j)), lane l owning units j = l + 32·m, two
+// at a time. Each sum runs over i in ascending order by fmaf, with the
+// epilogue of the kernel's first design (bias and embed added together in
+// the f32 mode; in the bf16 mode r(r(r(Σ) + bias) + embed), gelu rounded).
+// One weight read feeds TW FMAs; the input rows (stride ldi, 16-byte
+// aligned) are read as broadcast float4s where n_in % 4 == 0. EMBED: e
+// holds the lane's entries of the step's embed row.
+template <int TW, bool BF16, bool EMBED>
+__device__ __forceinline__ void warp_layer(const float* __restrict__ in, int ldi, int n_in,
+                                           const float* __restrict__ W,
+                                           const float* __restrict__ bias,
+                                           const float (&e)[DIAG_UNITS], int n_out, int ldo,
+                                           float* __restrict__ out, int lane) {
+#pragma unroll
+  for (int m = 0; m < DIAG_UNITS; m += 2) {
+    if (32 * m >= n_out) break;
+    const int j0 = lane + 32 * m, j1 = j0 + 32;
+    const int c0 = min(j0, n_out - 1), c1 = min(j1, n_out - 1);
+    float acc[TW][2];
+#pragma unroll
+    for (int t = 0; t < TW; ++t) acc[t][0] = acc[t][1] = 0.0f;
+    if ((n_in & 3) == 0) {
+      for (int i = 0; i < n_in; i += 4) {
+        float wa[4], wb[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          wa[q] = W[(i + q) * n_out + c0];
+          wb[q] = W[(i + q) * n_out + c1];
+        }
+#pragma unroll
+        for (int t = 0; t < TW; ++t) {
+          const float4 v = *reinterpret_cast<const float4*>(in + t * ldi + i);
+          acc[t][0] = fmaf(v.x, wa[0], acc[t][0]);
+          acc[t][1] = fmaf(v.x, wb[0], acc[t][1]);
+          acc[t][0] = fmaf(v.y, wa[1], acc[t][0]);
+          acc[t][1] = fmaf(v.y, wb[1], acc[t][1]);
+          acc[t][0] = fmaf(v.z, wa[2], acc[t][0]);
+          acc[t][1] = fmaf(v.z, wb[2], acc[t][1]);
+          acc[t][0] = fmaf(v.w, wa[3], acc[t][0]);
+          acc[t][1] = fmaf(v.w, wb[3], acc[t][1]);
+        }
+      }
+    } else {
+      for (int i = 0; i < n_in; ++i) {
+        const float wa = W[i * n_out + c0], wb = W[i * n_out + c1];
+#pragma unroll
+        for (int t = 0; t < TW; ++t) {
+          const float v = in[t * ldi + i];
+          acc[t][0] = fmaf(v, wa, acc[t][0]);
+          acc[t][1] = fmaf(v, wb, acc[t][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = u ? j1 : j0;
+      if (j >= n_out) continue;
+      float bj = bias[j];
+      const float ej = EMBED ? e[m + u] : 0.0f;
+      if constexpr (!BF16) bj += ej;
+#pragma unroll
+      for (int t = 0; t < TW; ++t) {
+        float v;
+        if constexpr (BF16) {
+          v = round_bf16(round_bf16(acc[t][u]) + bj);
+          if (EMBED) v = round_bf16(v + ej);
+          v = round_bf16(gelu_tanh(v));
+        } else {
+          v = gelu_tanh(acc[t][u] + bj);
+        }
+        out[t * ldo + j] = v;
+      }
+    }
+  }
+}
+
+// The diagonal mode's kernel. Warp w of block b owns trajectories
+// (b·warps + w)·TW + slot, slot < TW, for all K steps; the lanes of slot
+// are lanes slot·L .. slot·L + L − 1 (L = 32 / TW), and lane sub of them
+// holds dimensions d = sub + e·L (e < DIAG_ELEMS) of the state, the score,
+// the fed noise, the reference rows and the control in registers: it
+// computes u_d itself, Σ_i h_i·W_out[i][d] over i in ascending order by fmaf
+// as the hidden layers do, so every sum of the MLP keeps the order of the
+// kernel's first design. The block's warps share only the MLP weights,
+// staged once behind the kernel's one barrier; inside a step only __syncwarp
+// orders the warp's input and hidden rows.
+// At most DIAG_MAX_WARPS warps and 128 registers a thread: two blocks fit
+// an SM.
+template <bool BF16, int TW>
+__global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const Params p) {
+  constexpr int L = 32 / TW;
+  extern __shared__ float4 smem4[];
+  float* s = reinterpret_cast<float*>(smem4);
+  const int D = p.D, H = p.H, nh = p.n_hidden, C = p.C, B = p.B, K = p.K;
+  const int DS = round4(D), HS = diag_hidden_stride(H);
+  float* w0 = s;                  s += round4(D * H);
+  float* b0 = s;                  s += round4(H);
+  float* wh = s;                  s += round4(nh * H * H);
+  float* bh = s;                  s += round4(nh * H);
+  float* wo = s;                  s += round4(H * D);
+  float* bo = s;                  s += round4(D);
+  table_to_smem<BF16>(w0, p.w0, D * H);
+  table_to_smem<BF16>(b0, p.b0, H);
+  table_to_smem<BF16>(wh, p.wh, nh * H * H);
+  table_to_smem<BF16>(bh, p.bh, nh * H);
+  table_to_smem<BF16>(wo, p.w_out, H * D);
+  table_to_smem<BF16>(bo, p.b_out, D);
+  __syncthreads();  // the only block-wide barrier
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = (blockIdx.x * (blockDim.x >> 5) + warp) * TW;
+  if (first >= B) return;
+  // the warp's slice: two hidden rows and the MLP's input row (x, or x
+  // rounded to bf16) for each of its TW trajectories
+  float* hA = s + warp * TW * (2 * HS + DS);
+  float* hB = hA + TW * HS;
+  float* xin = hB + TW * HS;
+  const int slot = lane / L, sub = lane % L, traj = first + slot;
+  const bool valid = traj < B;
+  float* xrow = xin + slot * DS;
+  // the lanes of a trajectory that hold dimensions, rounded up to a power
+  // of two: the width of its sums
+  int width = 1;
+  while (width < L && width < D) width <<= 1;
+
+  float x[DIAG_ELEMS], r[DIAG_ELEMS], z[DIAG_ELEMS];
+#pragma unroll
+  for (int e = 0; e < DIAG_ELEMS; ++e) {
+    const int d = sub + e * L;
+    if (d >= D) break;
+    x[e] = valid ? p.x0[(size_t)traj * D + d] : 0.0f;
+    xrow[d] = BF16 ? round_bf16(x[e]) : x[e];
+  }
+  // the reference rows m_kc, iv_kc and const_kc, loaded one component ahead
+  float mn[DIAG_ELEMS], ivn[DIAG_ELEMS], cn;
+  auto load_ref = [&](int k_, int c_) {
+    const size_t row = ((size_t)k_ * C + c_) * D;
+    cn = __ldg(p.ref_const + (size_t)k_ * C + c_);
+#pragma unroll
+    for (int e = 0; e < DIAG_ELEMS; ++e) {
+      const int d = sub + e * L;
+      if (d >= D) break;
+      mn[e] = __ldg(p.ref_m + row + d);
+      ivn[e] = __ldg(p.ref_iv + row + d);
+    }
+  };
+  load_ref(0, 0);
+  float rnd = 0.0f, mx = 0.0f, sw = 0.0f;
+  __syncwarp();
+
+  for (int k = 0; k < K; ++k) {
+    // the step's coefficients, embed entries and fed noise, loaded before
+    // they are needed
+    const float* cf = p.coefs + 6 * k;
+    const float a_x = __ldg(cf + 0), a_ref = __ldg(cf + 1), a_u = __ldg(cf + 2);
+    const float a_z = __ldg(cf + 3), c_cost = __ldg(cf + 4), c_dot = __ldg(cf + 5);
+    float emb[DIAG_UNITS];
+#pragma unroll
+    for (int m = 0; m < DIAG_UNITS; ++m) {
+      if (lane + 32 * m >= H) break;
+      emb[m] = load_table<BF16>(p.embed, (size_t)k * H + lane + 32 * m);
+    }
+    if (p.noise != nullptr) {
+      const float* zr = p.noise + ((size_t)k * B + traj) * D;
+#pragma unroll
+      for (int e = 0; e < DIAG_ELEMS; ++e) {
+        const int d = sub + e * L;
+        if (d >= D) break;
+        z[e] = valid ? __ldg(zr + d) : 0.0f;
+      }
+    }
+    if (p.xs_out != nullptr && valid) {
+      float* xs = p.xs_out + ((size_t)k * B + traj) * D;
+#pragma unroll
+      for (int e = 0; e < DIAG_ELEMS; ++e) {
+        const int d = sub + e * L;
+        if (d >= D) break;
+        xs[d] = x[e];
+      }
+    }
+    // -- the noised MoG's score in registers, online softmax over C --------
+    for (int c = 0; c < C; ++c) {
+      float mc[DIAG_ELEMS], ivc[DIAG_ELEMS];
+      const float cc = cn;
+#pragma unroll
+      for (int e = 0; e < DIAG_ELEMS; ++e) {
+        if (sub + e * L >= D) break;
+        mc[e] = mn[e];
+        ivc[e] = ivn[e];
+      }
+      if (c + 1 < C) {
+        load_ref(k, c + 1);
+      } else if (k + 1 < K) {
+        load_ref(k + 1, 0);
+      }
+      float q = 0.0f;
+#pragma unroll
+      for (int e = 0; e < DIAG_ELEMS; ++e) {
+        if (sub + e * L >= D) break;
+        const float y = x[e] - mc[e], sv = y * ivc[e];
+        q = fmaf(y, sv, q);
+      }
+      const float logit = cc - 0.5f * group_sum(q, width);
+      float scale = 0.0f, wgt = 1.0f;
+      if (c == 0) {
+        mx = logit;
+        sw = 1.0f;
+      } else {
+        const float nmx = fmaxf(mx, logit);
+        scale = expf(mx - nmx);
+        wgt = expf(logit - nmx);
+        sw = sw * scale + wgt;
+        mx = nmx;
+      }
+      const float norm = c == C - 1 ? -1.0f / sw : 1.0f;
+#pragma unroll
+      for (int e = 0; e < DIAG_ELEMS; ++e) {
+        if (sub + e * L >= D) break;
+        const float sv = (x[e] - mc[e]) * ivc[e];
+        float v = c == 0 ? wgt * sv : fmaf(wgt, sv, r[e] * scale);
+        if (c == C - 1) v *= norm;
+        r[e] = v;
+      }
+    }
+    // -- control u = clip(FourierMLP(t_k, x)) ------------------------------
+    warp_layer<TW, BF16, true>(xin, DS, D, w0, b0, emb, H, HS, hA, lane);
+    __syncwarp();
+    float* hin = hA;
+    float* hout = hB;
+    for (int l = 0; l < nh; ++l) {
+      warp_layer<TW, BF16, false>(hin, HS, H, wh + (size_t)l * H * H, bh + l * H, emb, H, HS,
+                                  hout, lane);
+      __syncwarp();
+      float* tmp = hin;
+      hin = hout;
+      hout = tmp;
+    }
+    // the output layer, each lane its own dimensions of its trajectory
+    const float* hrow = hin + slot * HS;
+    float u[DIAG_ELEMS];
+#pragma unroll
+    for (int e = 0; e < DIAG_ELEMS; ++e) u[e] = 0.0f;
+    if ((H & 3) == 0) {
+      for (int i = 0; i < H; i += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(hrow + i);
+        const float* wi = wo + i * D;
+#pragma unroll
+        for (int e = 0; e < DIAG_ELEMS; ++e) {
+          const int d = sub + e * L;
+          if (d >= D) break;
+          u[e] = fmaf(v.x, wi[d], u[e]);
+          u[e] = fmaf(v.y, wi[D + d], u[e]);
+          u[e] = fmaf(v.z, wi[2 * D + d], u[e]);
+          u[e] = fmaf(v.w, wi[3 * D + d], u[e]);
+        }
+      }
+    } else {
+      for (int i = 0; i < H; ++i) {
+        const float v = hrow[i];
+#pragma unroll
+        for (int e = 0; e < DIAG_ELEMS; ++e) {
+          const int d = sub + e * L;
+          if (d >= D) break;
+          u[e] = fmaf(v, wo[i * D + d], u[e]);
+        }
+      }
+    }
+    // -- update and RND increment ------------------------------------------
+    float uu = 0.0f, uz = 0.0f;
+#pragma unroll
+    for (int e = 0; e < DIAG_ELEMS; ++e) {
+      const int d = sub + e * L;
+      if (d >= D) break;
+      float ue = BF16 ? round_bf16(round_bf16(u[e]) + bo[d]) : u[e] + bo[d];
+      if (p.has_clip) ue = fminf(fmaxf(ue, -p.clip), p.clip);
+      const float zz = p.noise != nullptr ? z[e] : philox_normal(p.seed, k, traj, d);
+      uu = fmaf(ue, ue, uu);
+      uz = fmaf(ue, zz, uz);
+      x[e] = a_x * x[e] + a_ref * r[e] + a_u * ue + a_z * zz;
+      xrow[d] = BF16 ? round_bf16(x[e]) : x[e];
+    }
+    rnd = rnd + c_cost * 0.5f * group_sum(uu, width) + c_dot * group_sum(uz, width);
+    __syncwarp();  // the next step's first layer reads the new input rows, and
+                   // its hidden rows overwrite this step's last
+  }
+
+  if (!valid) return;
+#pragma unroll
+  for (int e = 0; e < DIAG_ELEMS; ++e) {
+    const int d = sub + e * L;
+    if (d >= D) break;
+    p.x_out[(size_t)traj * D + d] = x[e];
+  }
+  if (sub == 0) p.rnd_out[traj] = rnd;
+}
+
+// Whether (TW, warps, blocks) is a geometry the diagonal kernel takes for
+// B trajectories of width D and a control of width H: TW ∈ {1, 2, 4}, 1 to
+// DIAG_MAX_WARPS warps a block, at most DIAG_ELEMS dimensions a lane, at
+// most DIAG_UNITS units of a hidden layer a lane, and exactly the blocks
+// that cover B.
+__host__ __device__ inline bool diag_geometry_ok(int B, int D, int H, int tw, int warps,
+                                                 int blocks) {
+  if (tw != 1 && tw != 2 && tw != 4) return false;
+  if (warps < 1 || warps > DIAG_MAX_WARPS || B < 1 || D < 1 || H < 1) return false;
+  if (D > DIAG_ELEMS * (32 / tw) || H > 32 * DIAG_UNITS) return false;
+  const long long per_block = (long long)warps * tw;
+  return blocks == (B + per_block - 1) / per_block;
+}
+
+// The full-covariance mode's kernel: its register tiles (16 sums per tile)
+// need more than 128 registers, so it says that one block per SM is all it
+// asks for; its shared memory allows no second one anyway.
 template <bool BF16>
 __global__ void __launch_bounds__(NT, 1) traj_kernel_full(const Params p) {
-  traj_body<BF16, true>(p);
+  traj_body<BF16>(p);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs, in bytes; full is non-zero for the
-// full-covariance mode.
-int fused_traj_smem_bytes(int D, int H, int n_hidden, int full) {
-  return (int)(sizeof(float) * (size_t)smem_floats(D, H, n_hidden, full != 0));
+// Dynamic shared memory one block needs, in bytes: full non-zero for the
+// full-covariance mode (warps and tw ignored), else the diagonal mode with
+// `warps` warps of `tw` trajectories.
+int fused_traj_smem_bytes(int D, int H, int n_hidden, int full, int warps, int tw) {
+  const int floats = full ? smem_floats(D, H, n_hidden, true)
+                          : diag_smem_floats(D, H, n_hidden, warps, tw);
+  return (int)(sizeof(float) * (size_t)floats);
 }
 
 const char* fused_traj_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success). ref_p and
-// ref_pt are both null (diagonal mode) or both set (full-covariance mode);
-// the seven MLP tables (embed .. b_out) are f32, or __nv_bfloat16 when bf16
-// is non-zero.
+// Launch on `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for inputs the kernels do not take. ref_p and ref_pt
+// are both null (diagonal mode) or both set (full-covariance mode); the
+// seven MLP tables (embed .. b_out) are f32, or __nv_bfloat16 when bf16 is
+// non-zero. The diagonal mode runs on the geometry (tw trajectories a warp,
+// warps a block, blocks) the caller picked, checked by diag_geometry_ok;
+// the full-covariance mode has its own fixed tile and takes zeros there.
 int fused_traj_launch(const float* x0, const float* coefs, const void* embed,
                       const void* w0, const void* b0, const void* wh,
                       const void* bh, const void* w_out, const void* b_out,
@@ -949,22 +1157,34 @@ int fused_traj_launch(const float* x0, const float* coefs, const void* embed,
                       const float* ref_pt, const float* noise,
                       unsigned long long seed, float* x_out, float* rnd_out,
                       float* xs_out, int B, int K, int D, int H, int n_hidden,
-                      int C, int bf16, int has_clip, float clip, void* stream) {
+                      int C, int bf16, int has_clip, float clip, int tw, int warps,
+                      int blocks, void* stream) {
   if ((ref_p == nullptr) != (ref_pt == nullptr)) return (int)cudaErrorInvalidValue;
   const bool full = ref_p != nullptr;
-  if (full && D > MAX_FULL_D) return (int)cudaErrorInvalidValue;
+  if (full && (D > MAX_FULL_D || tw != 0 || warps != 0 || blocks != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!full && !diag_geometry_ok(B, D, H, tw, warps, blocks)) return (int)cudaErrorInvalidValue;
   Params p{x0,     coefs,  embed,   w0,     b0,       wh,    bh,
            w_out,  b_out,  ref_const, ref_m, ref_iv,  ref_p, ref_pt,
            noise,  x_out,  rnd_out, xs_out, seed,     B,     K,
            D,      H,      n_hidden, C,     has_clip, clip};
-  const int smem = fused_traj_smem_bytes(D, H, n_hidden, full);
-  void (*kernel)(Params) = bf16 ? (full ? traj_kernel_full<true> : traj_kernel<true>)
-                                : (full ? traj_kernel_full<false> : traj_kernel<false>);
+  const int smem = fused_traj_smem_bytes(D, H, n_hidden, full, warps, tw);
+  void (*kernel)(Params);
+  if (full) {
+    kernel = bf16 ? traj_kernel_full<true> : traj_kernel_full<false>;
+    blocks = (B + TB - 1) / TB;
+  } else if (tw == 1) {
+    kernel = bf16 ? traj_kernel_diag<true, 1> : traj_kernel_diag<false, 1>;
+  } else if (tw == 2) {
+    kernel = bf16 ? traj_kernel_diag<true, 2> : traj_kernel_diag<false, 2>;
+  } else {
+    kernel = bf16 ? traj_kernel_diag<true, 4> : traj_kernel_diag<false, 4>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + TB - 1) / TB;
-  kernel<<<blocks, NT, smem, (cudaStream_t)stream>>>(p);
+  kernel<<<blocks, full ? NT : 32 * warps, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -23,6 +23,9 @@ y = (x − m)·P_c, logit = const − ½Σ y²·iv, g = (y·iv)·P_cᵀ
 ``fused_traj`` runs all K steps: on a CUDA tensor it launches the
 hand-written kernel ``csrc/fused_traj.cu``, on a CPU tensor it runs
 ``fused_traj_plain``, the same arithmetic as a Python loop of torch ops.
+The diagonal mode's kernel gives each warp a few trajectories for all K
+steps; ``diag_geometry`` picks how many, and how many warps a block has, so
+that the grid covers the card's SMs.
 The public layout is row-major: x0 (B, D), noise (K, B, D); returns
 x_T (B, D), rnd (B,) and, with ``return_traj``, the pre-step states
 xs (K, B, D).
@@ -55,8 +58,10 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 # the kernel's design limits (csrc/fused_traj.cu): hidden width and hidden
 # layers; the state width D is bounded by the block's shared memory, checked
-# against the card's per-block limit: D ≤ 177 at H = 64 with 2 hidden layers
-# in the diagonal mode. The full-covariance mode's ring of _RING_STAGES
+# against the card's per-block limit, and in the diagonal mode by the
+# _DIAG_ELEMS dimensions a lane holds in registers: D ≤ MAX_DIAG_DIM = 256
+# (one trajectory a warp; shared memory allows more at H = 64 with 2 hidden
+# layers, fewer at wider controls). The full-covariance mode's ring of _RING_STAGES
 # panels of _ring_rows(D) rows of P and the step's m, iv and const rows add
 # about 4·(2·_ring_rows(D)·D + 2·D) bytes (D ≤ 131 by shared memory), and
 # its rotations give each thread one register tile of 4 columns, each warp
@@ -67,8 +72,16 @@ _LOG_2PI = math.log(2.0 * math.pi)
 MAX_CHANNELS, MAX_HIDDEN = 256, 8
 MAX_FULL_COV_DIM = 128
 MAX_SMEM_BYTES = 232_448
-_TB = 32  # trajectories per block
+_TB = 32  # trajectories per block of the full-covariance mode
 _RING_STAGES, _RING_MAX_ROWS = 2, 48
+# the diagonal mode's kernel (traj_kernel_diag): at most _DIAG_MAX_WARPS warps
+# a block and two blocks an SM (128 registers a thread), so up to
+# _DIAG_RESIDENT_WARPS warps resident on an SM; a lane holds at most
+# _DIAG_ELEMS dimensions of its trajectory (and 8 units of a hidden layer,
+# MAX_CHANNELS = 256); a warp owns 1, 2 or 4 trajectories
+_DIAG_MAX_WARPS, _DIAG_RESIDENT_WARPS, _DIAG_ELEMS = 8, 16, 8
+_DIAG_TRAJ_PER_WARP = (1, 2, 4)
+MAX_DIAG_DIM = _DIAG_ELEMS * 32
 
 
 def _round4(n: int) -> int:
@@ -82,16 +95,83 @@ def _ring_rows(d: int) -> int:
     return _round4(-(-d // n_panels))
 
 
-def smem_bytes(dim: int, channels: int, n_hidden: int, full_cov: bool) -> int:
-    """Dynamic shared memory of one block of the kernel in the diagonal or
-    the full-covariance mode, in bytes: the host-side mirror of
-    ``fused_traj_smem_bytes`` in csrc/fused_traj.cu."""
+def smem_bytes(dim: int, channels: int, n_hidden: int, full_cov: bool,
+               warps: int = 1, traj_per_warp: int = 1) -> int:
+    """Dynamic shared memory of one block of the kernel, in bytes: the
+    host-side mirror of ``fused_traj_smem_bytes`` in csrc/fused_traj.cu. The
+    full-covariance mode has a fixed tile; the diagonal mode's block holds
+    the weights and, per warp, two hidden rows (padded by 4 floats) and an
+    input row for each of its trajectories (``warps`` warps of
+    ``traj_per_warp``; the default, one warp of one, is the least a launch
+    needs)."""
     d, h, nh = dim, channels, n_hidden
-    floats = (_round4(d * h) + _round4(h) + _round4(nh * h * h) + _round4(nh * h)
-              + _round4(h * d) + _round4(d) + 2 * _TB * h + 4 * _round4(_TB * d)
-              + 3 * _TB
-              + (_RING_STAGES * _ring_rows(d) * d + _round4(2 * d + 1) if full_cov else 0))
+    weights = (_round4(d * h) + _round4(h) + _round4(nh * h * h) + _round4(nh * h)
+               + _round4(h * d) + _round4(d))
+    if not full_cov:
+        return 4 * (weights + warps * traj_per_warp * (2 * (_round4(h) + 4) + _round4(d)))
+    floats = (weights + 2 * _TB * h + 4 * _round4(_TB * d) + 3 * _TB
+              + _RING_STAGES * _ring_rows(d) * d + _round4(2 * d + 1))
     return 4 * floats
+
+
+@dataclasses.dataclass(frozen=True)
+class DiagGeometry:
+    """The diagonal kernel's launch: warp w of block b owns trajectories
+    (b·warps_per_block + w)·traj_per_warp + slot, slot < traj_per_warp."""
+    traj_per_warp: int
+    warps_per_block: int
+    blocks: int
+
+
+def diag_geometry(batch: int, dim: int, channels: int, n_hidden: int,
+                  n_sms: int) -> DiagGeometry:
+    """The diagonal kernel's geometry for ``batch`` trajectories on a card
+    of ``n_sms`` SMs: the fewest trajectories per warp (1, 2 or 4; at most
+    8 dimensions a lane) whose warps fit the card's resident warps in one
+    wave, else the most; as many warps a block (a power of two up to 8) as
+    spread those warps over all SMs, halved while the block's shared memory
+    exceeds the card's limit. At B 1024 on 132 SMs: one trajectory a warp,
+    8 warps a block, 128 blocks; at B 8192 and D 8: 4, 8, 256."""
+    if batch < 1 or n_sms < 1:
+        raise ValueError(f"diag_geometry: batch {batch} and n_sms {n_sms} must be positive")
+    allowed = [tw for tw in _DIAG_TRAJ_PER_WARP if dim <= _DIAG_ELEMS * (32 // tw)]
+    if not allowed:
+        raise ValueError(f"fused_traj kernel: dim {dim} in the diagonal mode, at most "
+                         f"{MAX_DIAG_DIM}")
+    tw = next((t for t in allowed if -(-batch // t) <= n_sms * _DIAG_RESIDENT_WARPS),
+              allowed[-1])
+    n_warps = -(-batch // tw)
+    warps_per_sm = -(-n_warps // n_sms)
+    warps = min(_DIAG_MAX_WARPS, 1 << (warps_per_sm - 1).bit_length())
+    while smem_bytes(dim, channels, n_hidden, False, warps, tw) > MAX_SMEM_BYTES:
+        if warps > 1:
+            warps //= 2
+        elif tw > 1:
+            tw //= 2
+        else:
+            raise ValueError(f"fused_traj kernel: dim {dim}, channels {channels} and "
+                             f"{n_hidden} hidden layers exceed the shared memory of a block")
+    return DiagGeometry(tw, warps, -(-batch // (warps * tw)))
+
+
+def check_geometry(cfg: FusedTrajCfg, batch: int, geom: DiagGeometry) -> None:
+    """Raise on a diagonal-mode geometry the kernel refuses (the C side's
+    diag_geometry_ok and the card's shared memory per block)."""
+    tw, warps, blocks = geom.traj_per_warp, geom.warps_per_block, geom.blocks
+    why = None
+    if tw not in _DIAG_TRAJ_PER_WARP:
+        why = f"{tw} trajectories a warp, not one of {_DIAG_TRAJ_PER_WARP}"
+    elif not 1 <= warps <= _DIAG_MAX_WARPS:
+        why = f"{warps} warps a block, not in [1, {_DIAG_MAX_WARPS}]"
+    elif cfg.dim > _DIAG_ELEMS * (32 // tw):
+        why = (f"dim {cfg.dim} at {tw} trajectories a warp: more than {_DIAG_ELEMS} "
+               f"dimensions a lane")
+    elif batch < 1 or blocks != -(-batch // (warps * tw)):
+        why = f"{blocks} blocks for {batch} trajectories"
+    elif smem_bytes(cfg.dim, cfg.channels, cfg.n_hidden, False, warps, tw) > MAX_SMEM_BYTES:
+        why = "more shared memory a block than the card has"
+    if why is not None:
+        raise ValueError(f"fused_traj kernel: diagonal geometry {geom}: {why}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -359,26 +439,29 @@ def _ref_terms(cfg: FusedTrajCfg, a: dict, k: int, x: torch.Tensor):
 def fused_traj_plain(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
                      noise: torch.Tensor | None = None,
                      generator: torch.Generator | None = None,
-                     return_traj: bool = False):
+                     return_traj: bool = False, dtype: torch.dtype = torch.float32):
     """The kernel's arithmetic as a Python loop over K of torch ops; draws
     the noise with ``torch.randn(generator=...)`` when none is fed. In bf16
     mode each product and each sum of the control rounds to bf16 (the
-    kernel's rounding points), and u is cast back to float32."""
+    kernel's rounding points), and u is cast back to float32. ``dtype`` is
+    the state's type (and the control's outside the bf16 mode): float64,
+    with float64 tables and noise, gives the same steps in near-exact
+    arithmetic, a yardstick for the float32 kernel and plain version alike."""
     a = arrays
-    mm_dt = torch.bfloat16 if cfg.bf16 else torch.float32
-    x = x0.float()
-    rnd = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+    mm_dt = torch.bfloat16 if cfg.bf16 else dtype
+    x = x0.to(dtype)
+    rnd = torch.zeros((x.shape[0],), dtype=dtype, device=x.device)
     xs = []
     for k in range(cfg.k_steps):
         if return_traj:
             xs.append(x)
-        u = _control(cfg, a, x.to(mm_dt), a["embed"][k]).float()
+        u = _control(cfg, a, x.to(mm_dt), a["embed"][k]).to(dtype)
         if cfg.clip is not None:
             u = torch.clamp(u, -cfg.clip, cfg.clip)
         g, logits, _ = _ref_terms(cfg, a, k, x)
         ref_score = -torch.sum(torch.softmax(logits, dim=-1)[..., None] * g, dim=1)
         z = noise[k] if noise is not None else torch.randn(
-            x.shape, generator=generator, device=x.device)
+            x.shape, generator=generator, device=x.device, dtype=dtype)
         a_x, a_ref, a_u, a_z, c_cost, c_dot = a["coefs"][k]
         rnd = rnd + c_cost * 0.5 * torch.sum(u * u, dim=-1) + c_dot * torch.sum(u * z, dim=-1)
         x = a_x * x + a_ref * ref_score + a_u * u + a_z * z
@@ -389,6 +472,11 @@ _ARRAY_ORDER = ("coefs",) + _MLP_KEYS + ("ref_const", "ref_m", "ref_iv")
 
 
 @functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared: every
     pointer and the stream as c_void_p, so none is cut to 32 bits."""
@@ -396,9 +484,9 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_traj_launch.argtypes = (
         [ptr] * 15 + [ctypes.c_ulonglong] + [ptr] * 3 + [i32] * 8
-        + [ctypes.c_float, ptr])
+        + [ctypes.c_float] + [i32] * 3 + [ptr])
     lib.fused_traj_launch.restype = i32
-    lib.fused_traj_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.fused_traj_smem_bytes.argtypes = [i32] * 6
     lib.fused_traj_smem_bytes.restype = i32
     lib.fused_traj_error_string.argtypes = [i32]
     lib.fused_traj_error_string.restype = ctypes.c_char_p
@@ -421,6 +509,9 @@ def check_limits(cfg: FusedTrajCfg) -> None:
         raise ValueError(f"fused_traj kernel: dim {cfg.dim} in the full-covariance mode, "
                          f"at most {MAX_FULL_COV_DIM} (one register tile of 4 columns "
                          f"per thread of a rotation)")
+    if not cfg.full_cov and cfg.dim > MAX_DIAG_DIM:
+        raise ValueError(f"fused_traj kernel: dim {cfg.dim} in the diagonal mode, at most "
+                         f"{MAX_DIAG_DIM} ({_DIAG_ELEMS} register elements a lane of a warp)")
     need = smem_bytes(cfg.dim, cfg.channels, cfg.n_hidden, cfg.full_cov)
     if need > MAX_SMEM_BYTES:
         mode = "full-covariance" if cfg.full_cov else "diagonal"
@@ -495,6 +586,11 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
           if return_traj else None)
     if b == 0:
         return x_out, rnd, xs
+    geometry = (0, 0, 0)
+    if not cfg.full_cov:
+        geom = diag_geometry(b, d, h, cfg.n_hidden, _sm_count(x0.device))
+        check_geometry(cfg, b, geom)
+        geometry = (geom.traj_per_warp, geom.warps_per_block, geom.blocks)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     with torch.cuda.device(x0.device):
@@ -502,7 +598,7 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
             ptr(x0), *[ptr(t) for t in tables], ptr(noise), seed,
             ptr(x_out), ptr(rnd), ptr(xs), b, k, d, h, cfg.n_hidden, c,
             int(cfg.bf16), int(cfg.clip is not None),
-            float(cfg.clip if cfg.clip is not None else 0.0), stream)
+            float(cfg.clip if cfg.clip is not None else 0.0), *geometry, stream)
     if err != 0:
         raise RuntimeError("fused_traj kernel launch failed: "
                            + lib.fused_traj_error_string(err).decode())

@@ -302,24 +302,26 @@ def test_full_cov_plain_matches_jax_kernel(kind, form):
 
 
 def test_check_limits_covers_experiment_dims():
-    """The kernel's width limit is its shared memory: every dim the
-    experiments run (16, 32, 64, and φ⁴'s 100) fits at H = 64 with 2 hidden
-    layers, in both modes. The diagonal mode takes up to 177; the
-    full-covariance mode adds a ring of 2 panels of rows of P (36 rows at
-    D = 100, 28 800 bytes) and the step's m, iv and const rows (816 bytes),
-    which would take it to 131, and its rotations' one register tile per
-    thread caps it at 128."""
+    """Every dim the experiments run (16, 32, 64, and φ⁴'s 100) fits at
+    H = 64 with 2 hidden layers, in both modes. The diagonal mode's block
+    holds the weights and a slice per warp (one warp of one trajectory at
+    least: 86 080 bytes at D = 100); its lanes hold 8 dimensions each, so it
+    takes up to 256. The full-covariance mode's tile of 32 trajectories adds
+    a ring of 2 panels of rows of P (36 rows at D = 100, 28 800 bytes) and
+    the step's m, iv and const rows (816 bytes), which would take it to 131,
+    and its rotations' one register tile per thread caps it at 128."""
     def cfg(d, full_cov):
         return t_ft.FusedTrajCfg(k_steps=100, dim=d, channels=64, n_hidden=2, n_comp=2,
                                  clip=1e4, full_cov=full_cov)
 
-    assert t_ft.smem_bytes(100, 64, 2, full_cov=False) == 153_104
-    assert t_ft.smem_bytes(8, 64, 2, full_cov=False) == 58_528
+    assert t_ft.smem_bytes(100, 64, 2, full_cov=False) == 86_080
+    assert t_ft.smem_bytes(8, 64, 2, full_cov=False) == 38_240
     assert t_ft.smem_bytes(100, 64, 2, full_cov=True) == 153_104 + 28_800 + 816
     assert t_ft.smem_bytes(8, 64, 2, full_cov=True) == 58_528 + 512 + 80
     assert t_ft.smem_bytes(131, 64, 2, full_cov=True) <= t_ft.MAX_SMEM_BYTES
     assert t_ft.smem_bytes(132, 64, 2, full_cov=True) > t_ft.MAX_SMEM_BYTES
-    for full_cov, largest, why in ((False, 177, "shared memory"), (True, 128, "register tile")):
+    for full_cov, largest, why in ((False, 256, "register elements"),
+                                   (True, 128, "register tile")):
         for d in (8, 16, 32, 64, 100, largest):
             t_ft.check_limits(cfg(d, full_cov))
         with pytest.raises(ValueError, match=why):
