@@ -236,15 +236,16 @@ def graph_ms(fn, n: int = 50, reps: int = 5) -> float:
 
 def ptxas_report(log: str) -> list:
     """Per kernel entry of an ``nvcc -Xptxas -v`` log: its name (the
-    trajectory kernels' instantiations as traj_kernel_diag<BF16, TW> and
+    trajectory kernels' instantiations as traj_kernel_diag<BF16, TW, E> and
     traj_kernel_full<BF16>), its registers, stack frame and spill bytes."""
     entries, current = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"(traj_kernel(?:_full|_diag)?)ILb([01])E(?:Li(\d+)E)?", m.group(1))
-            name = (f"{t.group(1)}<{'true' if t.group(2) == '1' else 'false'}"
-                    f"{', ' + t.group(3) if t.group(3) else ''}>" if t else m.group(1))
+            t = re.search(r"(traj_kernel(?:_full|_diag)?)ILb([01])E((?:Li\d+E)*)", m.group(1))
+            ints = re.findall(r"Li(\d+)E", t.group(3)) if t else []
+            name = (f"{t.group(1)}<{', '.join(['true' if t.group(2) == '1' else 'false'] + ints)}>"
+                    if t else m.group(1))
             current = {"entry": name}
             entries.append(current)
             continue

@@ -30,30 +30,48 @@
 // full-covariance score 4·C·D² more (18.4 kflop and 0 at the LRDS demo's
 // D = 8; 51.2 k and 80 k at the φ⁴ experiment's D = 100, H = 64, C = 2)
 // against 2·D·4 bytes of state traffic at most, and the K steps form a
-// dependent chain, so the batch tile must stay on chip for the whole
-// trajectory.
+// dependent chain, so each trajectory's state must stay on chip for the
+// whole run. Everything is f32 on the CUDA cores (no tensor cores: TF32
+// keeps about three digits, too few for the φ⁴ logits' 100-term sums).
 //
-// What the design does about it: one block owns a tile of TB = 32
-// trajectories for all K steps. The MLP weights, the state, the hidden
-// activations and the per-step scratch stay in shared memory; nothing goes
-// to device memory between steps except the optional pre-step states. In
-// the diagonal mode (traj_kernel) the per-step table rows (coefs, embed,
-// reference constants) are read from global memory, where they stay
-// L2-resident, and in each dense layer a thread owns one output unit for
-// R = 4 trajectories, so one weight read feeds R fused multiply-adds and the
-// input rows are read as broadcast float4s; each warp reduces the quadratic
-// form of 4 trajectories with shuffles and keeps their online softmax over
-// components.
+// The diagonal mode (traj_kernel_diag): a warp owns TW ∈ {1, 2, 4}
+// trajectories for all K steps, and the host (ops/fused_traj.py
+// diag_geometry) picks TW and the warps of a block (≤ 8) so that the grid
+// covers the SMs: 128 blocks of 8 warps of one trajectory at B = 1024, 256
+// blocks of 8 warps of four at B = 8192. A lane holds up to E dimensions of
+// its trajectory (E = 1 where D ≤ 32 / TW, else 8, so D ≤ 256) in registers:
+// state, reference score, fed noise, the reference rows (loaded a component
+// ahead) and its own outputs of the control, whose sums Σ_i h_i·W_out[i][d]
+// it runs itself. The quadratic forms, the online softmax over C, ‖u‖² and
+// u·z are shuffle reductions over the trajectory's lanes. The hidden layers
+// give lane l units l + 32·m for all TW trajectories: one float4 of the
+// lane's own row of the transposed weights (rows padded to land on distinct
+// banks) and one broadcast float4 of each input row feed 4·TW FMAs. Every
+// sum runs in the order of the first design (one block of 32 trajectories,
+// 20 barriers a step), which this kernel replaced. The block's warps share
+// only the weights, staged once behind the kernel's one __syncthreads;
+// inside a step only __syncwarp orders a warp's input and hidden rows.
+// What bounds it now: the latency of each warp's chain of dependent steps
+// at 2 warps per scheduler (B 1024; 8.3 k cycles a step, 39 % of it the
+// hidden layers, 23 % the score), and the shared-memory bandwidth of the
+// weight reads at the eval batch (16 warps per SM, each reading all 9 216
+// weights of the D = 8 control every step). Measured
+// (sde_sampler_lrds_torch/tools/fused_traj_bench.py, NVIDIA H100 80GB HBM3,
+// 700 W): f32 D = 8 0.430 ms at B 1024 with fed noise and states, 0.955 ms
+// at B 8192 with its own noise (the first design: 1.63 / 1.91 ms); bf16
+// 0.527 / 1.009 ms (1.68 / 1.95); f32 D = 100 0.981 / 3.41 ms (3.24 / 5.60).
 //
-// The full-covariance mode is its own kernel (traj_kernel_full), built
-// around the two rotations per component and step, y = (x − m)·P_c and
+// The full-covariance mode is its own kernel (traj_kernel_full), the first
+// design's block of TB = 32 trajectories for all K steps (weights, state,
+// hidden activations and per-step scratch in shared memory), built around
+// the two rotations per component and step, y = (x − m)·P_c and
 // g = (y·iv)·P_cᵀ, (TB × D)·(D × D) products, 4·C·D²·TB flops per
-// block-step. They once read P_c and P_cᵀ through the read-only path
-// inside the FMA loop; the latency of those L2 reads was thought to be most
-// of the 72 µs block-step at D = 100, C = 2, but staging P alone did not
-// move it (7.93 against 7.06 ms at B 1024 on an NVIDIA H100 80GB HBM3 at
-// 700 W): at 8 warps per SM (the shared memory allows one block) every
-// segment of the step issued at about a quarter of the FMA rate. So:
+// block-step. They once read P_c and P_cᵀ through the read-only path inside
+// the FMA loop; the latency of those L2 reads was thought to be most of the
+// 72 µs block-step at D = 100, C = 2, but staging P alone did not move it
+// (7.93 against 7.06 ms at B 1024 on an NVIDIA H100 80GB HBM3 at 700 W): at
+// 8 warps per SM (the shared memory allows one block) every segment of the
+// step issued at about a quarter of the FMA rate. So:
 //  - P_c and P_cᵀ stream through a ring of NSTAGE = 2 panels of
 //    ring_rows(D) rows (36 at D = 100, 28.8 KB) in shared memory, copied by
 //    cp.async one panel ahead across product, component and step
@@ -80,18 +98,21 @@
 // states, 7.73 ms at B 8192 with its own noise, against 7.06 / 13.23 ms
 // before.
 // Shared memory per block, in floats, each region padded to 16 bytes:
-//   D·H + H + n_h·H² + n_h·H + H·D + D   weights and biases
-//   + 2·TB·H                             hidden activations
-//   + 4·TB·D                             state, control, noise, score
-//   + 3·TB                               per-trajectory softmax factors
-//   [+ 2·ring_rows(D)·D + 2·D + 1]       full covariance: ring, rows
-// = 38 276 floats = 153 104 bytes at D = 100, H = 64, n_h = 2 (14 632
-// floats at D = 8), and 182 720 bytes in the full-covariance mode; the
-// card's per-block limit of 232 448 bytes caps D at 177 for H = 64,
-// n_h = 2 (131 in the full-covariance mode, whose rotations' one register
-// tile per thread caps it at 128 first). Everything is f32 on the CUDA
-// cores (no tensor cores: TF32 keeps about three digits, too few for the
-// φ⁴ logits' 100-term sums).
+//   full-covariance mode (traj_kernel_full):
+//     D·H + H + n_h·H² + n_h·H + H·D + D   weights and biases
+//     + 2·TB·H                             hidden activations
+//     + 4·TB·D                             state, control, noise, score
+//     + 3·TB                               per-trajectory softmax factors
+//     + 2·ring_rows(D)·D + 2·D + 1         ring of P panels, the step's rows
+//   = 182 720 bytes at D = 100, H = 64, n_h = 2: the card's per-block
+//   limit of 232 448 bytes caps D at 131, the rotations' one register tile
+//   per thread at 128;
+//   diagonal mode (traj_kernel_diag), r(n) = round4(n) + 4:
+//     H·r(D) + H + n_h·H·r(H) + n_h·H + D·r(H) + D   transposed weights, biases
+//     + warps·TW·(2·r(H) + D)              per trajectory two hidden rows
+//                                          and the MLP's input row
+//   = 41 440 bytes at D = 8 with one warp of one trajectory (59 296 with 8
+//   warps of 4), 90 752 at D = 100; the lanes' registers cap D at 256.
 //
 // The bf16 control mode (FourierMLP with compute_dtype = bfloat16, Flax
 // Dense semantics) takes the seven MLP tables (embed, w0, b0, wh, bh, w_out,
@@ -104,13 +125,13 @@
 // the bf16 value and rounded once; the output layer's bf16 u is the f32
 // value the clip, the RND and the update read. The reference score, the
 // noise, the RND and the state stay f32 in both modes. It is bound as the
-// f32 mode is, by the dependent chain of each block's steps: the conversions
-// add a few instructions per output unit and nothing per FMA (no tensor
-// cores yet: mma.sync / wgmma on bf16 are later work).
+// f32 mode is: the conversions add a few instructions per output unit and
+// nothing per FMA (no tensor cores yet: mma.sync / wgmma on bf16 are later
+// work).
 //
-// The ragged last tile is masked, not padded. Random draws are keyed by
-// (seed, step, global trajectory index, dimension), so they do not depend on
-// the tile size or the number of blocks.
+// The ragged last tile, warp or block is masked, not padded. Random draws
+// are keyed by (seed, step, global trajectory index, dimension), so they do
+// not depend on the tile, the geometry or the number of blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -188,15 +209,19 @@ __host__ __device__ inline int smem_floats(int D, int H, int nh, bool full) {
          (full ? NSTAGE * ring_rows(D) * D + round4(2 * D + 1) : 0);
 }
 
-// The diagonal kernel's hidden rows: H floats padded to 16 bytes and 4 more,
-// so the rows of a warp's trajectories start on different banks.
-__host__ __device__ inline int diag_hidden_stride(int H) { return round4(H) + 4; }
+// A row of n floats in the diagonal kernel's shared memory: padded to 16
+// bytes and 4 floats more, so that rows read side by side by a warp's lanes
+// (as float4s) start on different banks.
+__host__ __device__ inline int diag_row(int n) { return round4(n) + 4; }
 
-// Shared-memory floats for one block of the diagonal kernel: the weights and
-// each warp's slice of two hidden rows and an input row for each of its tw
+// Shared-memory floats for one block of the diagonal kernel: the weight
+// matrices transposed (W0ᵀ: H rows of D, each Whᵀ: H rows of H, W_outᵀ: D
+// rows of H, in diag_row strides), the biases, and each warp's slice of two
+// hidden rows (diag_row(H)) and an input row (round4(D)) for each of its tw
 // trajectories.
 __host__ __device__ inline int diag_smem_floats(int D, int H, int nh, int warps, int tw) {
-  return weight_floats(D, H, nh) + warps * tw * (2 * diag_hidden_stride(H) + round4(D));
+  return H * diag_row(D) + round4(H) + nh * H * diag_row(H) + round4(nh * H) +
+         D * diag_row(H) + round4(D) + warps * tw * (2 * diag_row(H) + round4(D));
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -292,6 +317,17 @@ __device__ __forceinline__ float philox_normal(unsigned long long seed, int k,
 template <bool BF16>
 __device__ inline void table_to_smem(float* dst, const void* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = load_table<BF16>(src, i);
+}
+
+// n tables of n_in × n_out (row-major) into shared memory transposed: entry
+// (i, j) of table l at dst[(l·n_out + j)·ld + i].
+template <bool BF16>
+__device__ inline void tables_to_smem_t(float* dst, const void* src, int n, int n_in, int n_out,
+                                        int ld) {
+  for (int e = threadIdx.x; e < n * n_in * n_out; e += blockDim.x) {
+    const int l = e / (n_in * n_out), ij = e % (n_in * n_out);
+    dst[(l * n_out + ij % n_out) * ld + ij / n_out] = load_table<BF16>(src, e);
+  }
 }
 
 // Asynchronous global -> shared copies of 16 or 4 bytes, their groups, and
@@ -811,12 +847,14 @@ __device__ __forceinline__ float group_sum(float v, int width) {
 // at a time. Each sum runs over i in ascending order by fmaf, with the
 // epilogue of the kernel's first design (bias and embed added together in
 // the f32 mode; in the bf16 mode r(r(r(Σ) + bias) + embed), gelu rounded).
-// One weight read feeds TW FMAs; the input rows (stride ldi, 16-byte
-// aligned) are read as broadcast float4s where n_in % 4 == 0. EMBED: e
-// holds the lane's entries of the step's embed row.
+// W is held transposed, Wᵀ[j] a row of stride ldw; where n_in % 4 == 0
+// (rows 16-byte aligned) a float4 of a lane's own row gives the weights of
+// four inputs, and a broadcast float4 of each input row (stride ldi) their
+// values; one weight read feeds TW FMAs. EMBED: e holds the lane's entries
+// of the step's embed row.
 template <int TW, bool BF16, bool EMBED>
 __device__ __forceinline__ void warp_layer(const float* __restrict__ in, int ldi, int n_in,
-                                           const float* __restrict__ W,
+                                           const float* __restrict__ Wt, int ldw,
                                            const float* __restrict__ bias,
                                            const float (&e)[DIAG_UNITS], int n_out, int ldo,
                                            float* __restrict__ out, int lane) {
@@ -824,39 +862,36 @@ __device__ __forceinline__ void warp_layer(const float* __restrict__ in, int ldi
   for (int m = 0; m < DIAG_UNITS; m += 2) {
     if (32 * m >= n_out) break;
     const int j0 = lane + 32 * m, j1 = j0 + 32;
-    const int c0 = min(j0, n_out - 1), c1 = min(j1, n_out - 1);
+    const float* __restrict__ wa = Wt + min(j0, n_out - 1) * ldw;
+    const float* __restrict__ wb = Wt + min(j1, n_out - 1) * ldw;
     float acc[TW][2];
 #pragma unroll
     for (int t = 0; t < TW; ++t) acc[t][0] = acc[t][1] = 0.0f;
     if ((n_in & 3) == 0) {
       for (int i = 0; i < n_in; i += 4) {
-        float wa[4], wb[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          wa[q] = W[(i + q) * n_out + c0];
-          wb[q] = W[(i + q) * n_out + c1];
-        }
+        const float4 a = *reinterpret_cast<const float4*>(wa + i);
+        const float4 b = *reinterpret_cast<const float4*>(wb + i);
 #pragma unroll
         for (int t = 0; t < TW; ++t) {
           const float4 v = *reinterpret_cast<const float4*>(in + t * ldi + i);
-          acc[t][0] = fmaf(v.x, wa[0], acc[t][0]);
-          acc[t][1] = fmaf(v.x, wb[0], acc[t][1]);
-          acc[t][0] = fmaf(v.y, wa[1], acc[t][0]);
-          acc[t][1] = fmaf(v.y, wb[1], acc[t][1]);
-          acc[t][0] = fmaf(v.z, wa[2], acc[t][0]);
-          acc[t][1] = fmaf(v.z, wb[2], acc[t][1]);
-          acc[t][0] = fmaf(v.w, wa[3], acc[t][0]);
-          acc[t][1] = fmaf(v.w, wb[3], acc[t][1]);
+          acc[t][0] = fmaf(v.x, a.x, acc[t][0]);
+          acc[t][1] = fmaf(v.x, b.x, acc[t][1]);
+          acc[t][0] = fmaf(v.y, a.y, acc[t][0]);
+          acc[t][1] = fmaf(v.y, b.y, acc[t][1]);
+          acc[t][0] = fmaf(v.z, a.z, acc[t][0]);
+          acc[t][1] = fmaf(v.z, b.z, acc[t][1]);
+          acc[t][0] = fmaf(v.w, a.w, acc[t][0]);
+          acc[t][1] = fmaf(v.w, b.w, acc[t][1]);
         }
       }
     } else {
       for (int i = 0; i < n_in; ++i) {
-        const float wa = W[i * n_out + c0], wb = W[i * n_out + c1];
+        const float a = wa[i], b = wb[i];
 #pragma unroll
         for (int t = 0; t < TW; ++t) {
           const float v = in[t * ldi + i];
-          acc[t][0] = fmaf(v, wa, acc[t][0]);
-          acc[t][1] = fmaf(v, wb, acc[t][1]);
+          acc[t][0] = fmaf(v, a, acc[t][0]);
+          acc[t][1] = fmaf(v, b, acc[t][1]);
         }
       }
     }
@@ -886,33 +921,34 @@ __device__ __forceinline__ void warp_layer(const float* __restrict__ in, int ldi
 // The diagonal mode's kernel. Warp w of block b owns trajectories
 // (b·warps + w)·TW + slot, slot < TW, for all K steps; the lanes of slot
 // are lanes slot·L .. slot·L + L − 1 (L = 32 / TW), and lane sub of them
-// holds dimensions d = sub + e·L (e < DIAG_ELEMS) of the state, the score,
-// the fed noise, the reference rows and the control in registers: it
-// computes u_d itself, Σ_i h_i·W_out[i][d] over i in ascending order by fmaf
-// as the hidden layers do, so every sum of the MLP keeps the order of the
-// kernel's first design. The block's warps share only the MLP weights,
-// staged once behind the kernel's one barrier; inside a step only __syncwarp
-// orders the warp's input and hidden rows.
+// holds dimensions d = sub + e·L, e < E, of the state, the score, the fed
+// noise, the reference rows and the control in registers (E = 1 where
+// D ≤ L, else DIAG_ELEMS: the main path's kernels carry no code or
+// registers for more). It computes u_d itself, Σ_i h_i·W_out[i][d] over i
+// in ascending order by fmaf as the hidden layers do, so every sum of the
+// MLP keeps the order of the kernel's first design. The block's warps share
+// only the MLP weights, staged once behind the kernel's one barrier; inside
+// a step only __syncwarp orders the warp's input and hidden rows.
 // At most DIAG_MAX_WARPS warps and 128 registers a thread: two blocks fit
 // an SM.
-template <bool BF16, int TW>
+template <bool BF16, int TW, int E>
 __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const Params p) {
   constexpr int L = 32 / TW;
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
   const int D = p.D, H = p.H, nh = p.n_hidden, C = p.C, B = p.B, K = p.K;
-  const int DS = round4(D), HS = diag_hidden_stride(H);
-  float* w0 = s;                  s += round4(D * H);
+  const int DS = round4(D), HS = diag_row(H), LD0 = diag_row(D);
+  float* w0 = s;                  s += H * LD0;       // W0ᵀ
   float* b0 = s;                  s += round4(H);
-  float* wh = s;                  s += round4(nh * H * H);
+  float* wh = s;                  s += nh * H * HS;   // Whᵀ per layer
   float* bh = s;                  s += round4(nh * H);
-  float* wo = s;                  s += round4(H * D);
+  float* wo = s;                  s += D * HS;        // W_outᵀ
   float* bo = s;                  s += round4(D);
-  table_to_smem<BF16>(w0, p.w0, D * H);
+  tables_to_smem_t<BF16>(w0, p.w0, 1, D, H, LD0);
   table_to_smem<BF16>(b0, p.b0, H);
-  table_to_smem<BF16>(wh, p.wh, nh * H * H);
+  tables_to_smem_t<BF16>(wh, p.wh, nh, H, H, HS);
   table_to_smem<BF16>(bh, p.bh, nh * H);
-  table_to_smem<BF16>(wo, p.w_out, H * D);
+  tables_to_smem_t<BF16>(wo, p.w_out, 1, H, D, HS);
   table_to_smem<BF16>(bo, p.b_out, D);
   __syncthreads();  // the only block-wide barrier
 
@@ -932,21 +968,21 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
   int width = 1;
   while (width < L && width < D) width <<= 1;
 
-  float x[DIAG_ELEMS], r[DIAG_ELEMS], z[DIAG_ELEMS];
+  float x[E], r[E], z[E];
 #pragma unroll
-  for (int e = 0; e < DIAG_ELEMS; ++e) {
+  for (int e = 0; e < E; ++e) {
     const int d = sub + e * L;
     if (d >= D) break;
     x[e] = valid ? p.x0[(size_t)traj * D + d] : 0.0f;
     xrow[d] = BF16 ? round_bf16(x[e]) : x[e];
   }
   // the reference rows m_kc, iv_kc and const_kc, loaded one component ahead
-  float mn[DIAG_ELEMS], ivn[DIAG_ELEMS], cn;
+  float mn[E], ivn[E], cn;
   auto load_ref = [&](int k_, int c_) {
     const size_t row = ((size_t)k_ * C + c_) * D;
     cn = __ldg(p.ref_const + (size_t)k_ * C + c_);
 #pragma unroll
-    for (int e = 0; e < DIAG_ELEMS; ++e) {
+    for (int e = 0; e < E; ++e) {
       const int d = sub + e * L;
       if (d >= D) break;
       mn[e] = __ldg(p.ref_m + row + d);
@@ -972,7 +1008,7 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
     if (p.noise != nullptr) {
       const float* zr = p.noise + ((size_t)k * B + traj) * D;
 #pragma unroll
-      for (int e = 0; e < DIAG_ELEMS; ++e) {
+      for (int e = 0; e < E; ++e) {
         const int d = sub + e * L;
         if (d >= D) break;
         z[e] = valid ? __ldg(zr + d) : 0.0f;
@@ -981,7 +1017,7 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
     if (p.xs_out != nullptr && valid) {
       float* xs = p.xs_out + ((size_t)k * B + traj) * D;
 #pragma unroll
-      for (int e = 0; e < DIAG_ELEMS; ++e) {
+      for (int e = 0; e < E; ++e) {
         const int d = sub + e * L;
         if (d >= D) break;
         xs[d] = x[e];
@@ -989,10 +1025,10 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
     }
     // -- the noised MoG's score in registers, online softmax over C --------
     for (int c = 0; c < C; ++c) {
-      float mc[DIAG_ELEMS], ivc[DIAG_ELEMS];
+      float mc[E], ivc[E];
       const float cc = cn;
 #pragma unroll
-      for (int e = 0; e < DIAG_ELEMS; ++e) {
+      for (int e = 0; e < E; ++e) {
         if (sub + e * L >= D) break;
         mc[e] = mn[e];
         ivc[e] = ivn[e];
@@ -1004,7 +1040,7 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
       }
       float q = 0.0f;
 #pragma unroll
-      for (int e = 0; e < DIAG_ELEMS; ++e) {
+      for (int e = 0; e < E; ++e) {
         if (sub + e * L >= D) break;
         const float y = x[e] - mc[e], sv = y * ivc[e];
         q = fmaf(y, sv, q);
@@ -1023,7 +1059,7 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
       }
       const float norm = c == C - 1 ? -1.0f / sw : 1.0f;
 #pragma unroll
-      for (int e = 0; e < DIAG_ELEMS; ++e) {
+      for (int e = 0; e < E; ++e) {
         if (sub + e * L >= D) break;
         const float sv = (x[e] - mc[e]) * ivc[e];
         float v = c == 0 ? wgt * sv : fmaf(wgt, sv, r[e] * scale);
@@ -1032,13 +1068,13 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
       }
     }
     // -- control u = clip(FourierMLP(t_k, x)) ------------------------------
-    warp_layer<TW, BF16, true>(xin, DS, D, w0, b0, emb, H, HS, hA, lane);
+    warp_layer<TW, BF16, true>(xin, DS, D, w0, LD0, b0, emb, H, HS, hA, lane);
     __syncwarp();
     float* hin = hA;
     float* hout = hB;
     for (int l = 0; l < nh; ++l) {
-      warp_layer<TW, BF16, false>(hin, HS, H, wh + (size_t)l * H * H, bh + l * H, emb, H, HS,
-                                  hout, lane);
+      warp_layer<TW, BF16, false>(hin, HS, H, wh + (size_t)l * H * HS, HS, bh + l * H, emb, H,
+                                  HS, hout, lane);
       __syncwarp();
       float* tmp = hin;
       hin = hout;
@@ -1046,38 +1082,38 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
     }
     // the output layer, each lane its own dimensions of its trajectory
     const float* hrow = hin + slot * HS;
-    float u[DIAG_ELEMS];
+    float u[E];
 #pragma unroll
-    for (int e = 0; e < DIAG_ELEMS; ++e) u[e] = 0.0f;
+    for (int e = 0; e < E; ++e) u[e] = 0.0f;
     if ((H & 3) == 0) {
       for (int i = 0; i < H; i += 4) {
         const float4 v = *reinterpret_cast<const float4*>(hrow + i);
-        const float* wi = wo + i * D;
 #pragma unroll
-        for (int e = 0; e < DIAG_ELEMS; ++e) {
+        for (int e = 0; e < E; ++e) {
           const int d = sub + e * L;
           if (d >= D) break;
-          u[e] = fmaf(v.x, wi[d], u[e]);
-          u[e] = fmaf(v.y, wi[D + d], u[e]);
-          u[e] = fmaf(v.z, wi[2 * D + d], u[e]);
-          u[e] = fmaf(v.w, wi[3 * D + d], u[e]);
+          const float4 w = *reinterpret_cast<const float4*>(wo + d * HS + i);
+          u[e] = fmaf(v.x, w.x, u[e]);
+          u[e] = fmaf(v.y, w.y, u[e]);
+          u[e] = fmaf(v.z, w.z, u[e]);
+          u[e] = fmaf(v.w, w.w, u[e]);
         }
       }
     } else {
       for (int i = 0; i < H; ++i) {
         const float v = hrow[i];
 #pragma unroll
-        for (int e = 0; e < DIAG_ELEMS; ++e) {
+        for (int e = 0; e < E; ++e) {
           const int d = sub + e * L;
           if (d >= D) break;
-          u[e] = fmaf(v, wo[i * D + d], u[e]);
+          u[e] = fmaf(v, wo[d * HS + i], u[e]);
         }
       }
     }
     // -- update and RND increment ------------------------------------------
     float uu = 0.0f, uz = 0.0f;
 #pragma unroll
-    for (int e = 0; e < DIAG_ELEMS; ++e) {
+    for (int e = 0; e < E; ++e) {
       const int d = sub + e * L;
       if (d >= D) break;
       float ue = BF16 ? round_bf16(round_bf16(u[e]) + bo[d]) : u[e] + bo[d];
@@ -1095,7 +1131,7 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
 
   if (!valid) return;
 #pragma unroll
-  for (int e = 0; e < DIAG_ELEMS; ++e) {
+  for (int e = 0; e < E; ++e) {
     const int d = sub + e * L;
     if (d >= D) break;
     p.x_out[(size_t)traj * D + d] = x[e];
@@ -1115,6 +1151,19 @@ __host__ __device__ inline bool diag_geometry_ok(int B, int D, int H, int tw, in
   if (D > DIAG_ELEMS * (32 / tw) || H > 32 * DIAG_UNITS) return false;
   const long long per_block = (long long)warps * tw;
   return blocks == (B + per_block - 1) / per_block;
+}
+
+// The diagonal kernel for TW trajectories a warp, with one element a lane
+// (one_elem: D ≤ 32 / TW) or up to DIAG_ELEMS.
+template <bool BF16, int TW>
+void (*diag_kernel_e(bool one_elem))(Params) {
+  return one_elem ? traj_kernel_diag<BF16, TW, 1> : traj_kernel_diag<BF16, TW, DIAG_ELEMS>;
+}
+template <bool BF16>
+void (*diag_kernel(int tw, bool one_elem))(Params) {
+  return tw == 1   ? diag_kernel_e<BF16, 1>(one_elem)
+         : tw == 2 ? diag_kernel_e<BF16, 2>(one_elem)
+                   : diag_kernel_e<BF16, 4>(one_elem);
 }
 
 // The full-covariance mode's kernel: its register tiles (16 sums per tile)
@@ -1174,12 +1223,8 @@ int fused_traj_launch(const float* x0, const float* coefs, const void* embed,
   if (full) {
     kernel = bf16 ? traj_kernel_full<true> : traj_kernel_full<false>;
     blocks = (B + TB - 1) / TB;
-  } else if (tw == 1) {
-    kernel = bf16 ? traj_kernel_diag<true, 1> : traj_kernel_diag<false, 1>;
-  } else if (tw == 2) {
-    kernel = bf16 ? traj_kernel_diag<true, 2> : traj_kernel_diag<false, 2>;
   } else {
-    kernel = bf16 ? traj_kernel_diag<true, 4> : traj_kernel_diag<false, 4>;
+    kernel = bf16 ? diag_kernel<true>(tw, D <= 32 / tw) : diag_kernel<false>(tw, D <= 32 / tw);
   }
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -60,12 +60,12 @@ _LOG_2PI = math.log(2.0 * math.pi)
 # layers; the state width D is bounded by the block's shared memory, checked
 # against the card's per-block limit, and in the diagonal mode by the
 # _DIAG_ELEMS dimensions a lane holds in registers: D ≤ MAX_DIAG_DIM = 256
-# (one trajectory a warp; shared memory allows more at H = 64 with 2 hidden
-# layers, fewer at wider controls). The full-covariance mode's ring of _RING_STAGES
-# panels of _ring_rows(D) rows of P and the step's m, iv and const rows add
-# about 4·(2·_ring_rows(D)·D + 2·D) bytes (D ≤ 131 by shared memory), and
-# its rotations give each thread one register tile of 4 columns, each warp
-# 32 of them: D ≤ MAX_FULL_COV_DIM = 128. Steps K
+# (one trajectory a warp; shared memory allows more at H = 64 with 2
+# hidden layers, fewer at wider controls). The full-covariance mode's ring
+# of _RING_STAGES panels of _ring_rows(D) rows of P and the step's m, iv
+# and const rows add about 4·(2·_ring_rows(D)·D + 2·D) bytes (D ≤ 131 by
+# shared memory), and its rotations give each thread one register tile of
+# 4 columns, each warp 32 of them: D ≤ MAX_FULL_COV_DIM = 128. Steps K
 # and components C have no upper limit (their per-step tables are read from
 # global memory, the rotations stream through the ring one panel at a time,
 # the softmax over C is online); both must be ≥ 1.
@@ -100,15 +100,18 @@ def smem_bytes(dim: int, channels: int, n_hidden: int, full_cov: bool,
     """Dynamic shared memory of one block of the kernel, in bytes: the
     host-side mirror of ``fused_traj_smem_bytes`` in csrc/fused_traj.cu. The
     full-covariance mode has a fixed tile; the diagonal mode's block holds
-    the weights and, per warp, two hidden rows (padded by 4 floats) and an
-    input row for each of its trajectories (``warps`` warps of
-    ``traj_per_warp``; the default, one warp of one, is the least a launch
-    needs)."""
+    the weight matrices transposed, in rows padded to 16 bytes and 4 floats
+    more, the biases, and per warp two hidden rows (padded so) and an input
+    row for each of its trajectories (``warps`` warps of ``traj_per_warp``;
+    the default, one warp of one, is the least a launch needs)."""
     d, h, nh = dim, channels, n_hidden
+    if not full_cov:
+        row = lambda n: _round4(n) + 4
+        weights = (h * row(d) + _round4(h) + nh * h * row(h) + _round4(nh * h) + d * row(h)
+                   + _round4(d))
+        return 4 * (weights + warps * traj_per_warp * (2 * row(h) + _round4(d)))
     weights = (_round4(d * h) + _round4(h) + _round4(nh * h * h) + _round4(nh * h)
                + _round4(h * d) + _round4(d))
-    if not full_cov:
-        return 4 * (weights + warps * traj_per_warp * (2 * (_round4(h) + 4) + _round4(d)))
     floats = (weights + 2 * _TB * h + 4 * _round4(_TB * d) + 3 * _TB
               + _RING_STAGES * _ring_rows(d) * d + _round4(2 * d + 1))
     return 4 * floats

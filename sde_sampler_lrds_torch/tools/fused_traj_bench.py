@@ -7,10 +7,11 @@ whole chip_smoke.py: about a minute on one card instead of 5-10.
 Builds csrc/fused_traj.cu of the checkout at --root (default: this one),
 prints each kernel instantiation's registers, stack and spills, runs
 chip_smoke.py's phase-2 comparisons of the fused_traj kernel (f32 and bf16
-at D = 8, both modes at the φ⁴ shapes; skipped with --time-only) and its phase-7 timings at the train shape (B 1024, fed noise
-and states) and the eval shape (B 8192, its own noise): the full-covariance
-mode at D = 100, the diagonal kernel in f32 and bf16 at D = 8 and in f32 at
-D = 100, each beside the geometry the host picked. To compare two commits
+at D = 8, both modes at the φ⁴ shapes; skipped with --time-only) and its
+phase-7 timings at the train shape (B 1024, fed noise and states) and the
+eval shape (B 8192, its own noise): the full-covariance mode at D = 100,
+the diagonal kernel in f32 and bf16 at D = 8 and in f32 at D = 100, each
+beside the geometry the host picked. To compare two commits
 in one call, unpack the other with ``git archive`` into a gitignored
 directory and pass it as --root, in turns with this one.
 
@@ -70,8 +71,8 @@ DIAG_SEGMENTS = ("step loads + pre-step states", "reference score (C components)
 DIAG_MARKS = (
     ("    // -- the noised MoG's score in registers", 16, "before"),
     ("    // -- control u = clip(FourierMLP(t_k, x))", 17, "before"),
-    ("warp_layer<TW, BF16, true>(xin, DS, D, w0, b0, emb, H, HS, hA, lane);\n    __syncwarp();\n",
-     18, "after"),
+    ("warp_layer<TW, BF16, true>(xin, DS, D, w0, LD0, b0, emb, H, HS, hA, lane);\n"
+     "    __syncwarp();\n", 18, "after"),
     ("    // the output layer, each lane its own dimensions", 19, "before"),
     ("    // -- update and RND increment", 20, "before"),
     ("    __syncwarp();  // the next step's first layer reads the new input rows", 21, "before"),
@@ -191,6 +192,24 @@ def outputs(cs, torch, dev, path: str) -> None:
                                 float((rnd - rnd_o).abs().max()))}), flush=True)
 
 
+def sweep(cs, dev, peaks, sfu_rate) -> None:
+    """The diagonal kernel (f32, D = 8) at both shapes on every geometry it
+    takes: diag_geometry replaced, for each timing, by a fixed choice."""
+    import sde_sampler_lrds_torch.ops.fused_traj as ft
+
+    picked = ft.diag_geometry
+    cfg, arrays = cs.comparison_plan(dev)
+    try:
+        for tw in (1, 2, 4):
+            for warps in (1, 2, 4, 8):
+                ft.diag_geometry = lambda b, *_, tw=tw, w=warps: ft.DiagGeometry(
+                    tw, w, -(-b // (tw * w)))
+                cs.phase_timing(dev, cfg, arrays, {}, peaks, sfu_rate,
+                                label=f"sweep tw={tw} warps={warps}")
+    finally:
+        ft.diag_geometry = picked
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -220,7 +239,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.split()[0])
     print(f"{root}: {smi}", flush=True)
-    log = build_libraries(("fused_traj",))["fused_traj"]["log"]
+    built = build_libraries(("fused_traj",))["fused_traj"]
+    print(f"[build] fused_traj.cu in {built['seconds']:.1f} s", flush=True)
+    log = built["log"]
     for entry in cs.ptxas_report(log) if hasattr(cs, "ptxas_report") else ():
         print("[ptxas] " + json.dumps(entry), flush=True)
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))

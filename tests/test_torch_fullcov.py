@@ -305,7 +305,7 @@ def test_check_limits_covers_experiment_dims():
     """Every dim the experiments run (16, 32, 64, and φ⁴'s 100) fits at
     H = 64 with 2 hidden layers, in both modes. The diagonal mode's block
     holds the weights and a slice per warp (one warp of one trajectory at
-    least: 86 080 bytes at D = 100); its lanes hold 8 dimensions each, so it
+    least: 90 752 bytes at D = 100); its lanes hold 8 dimensions each, so it
     takes up to 256. The full-covariance mode's tile of 32 trajectories adds
     a ring of 2 panels of rows of P (36 rows at D = 100, 28 800 bytes) and
     the step's m, iv and const rows (816 bytes), which would take it to 131,
@@ -314,8 +314,8 @@ def test_check_limits_covers_experiment_dims():
         return t_ft.FusedTrajCfg(k_steps=100, dim=d, channels=64, n_hidden=2, n_comp=2,
                                  clip=1e4, full_cov=full_cov)
 
-    assert t_ft.smem_bytes(100, 64, 2, full_cov=False) == 86_080
-    assert t_ft.smem_bytes(8, 64, 2, full_cov=False) == 38_240
+    assert t_ft.smem_bytes(100, 64, 2, full_cov=False) == 90_752
+    assert t_ft.smem_bytes(8, 64, 2, full_cov=False) == 41_440
     assert t_ft.smem_bytes(100, 64, 2, full_cov=True) == 153_104 + 28_800 + 816
     assert t_ft.smem_bytes(8, 64, 2, full_cov=True) == 58_528 + 512 + 80
     assert t_ft.smem_bytes(131, 64, 2, full_cov=True) <= t_ft.MAX_SMEM_BYTES

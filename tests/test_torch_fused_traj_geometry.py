@@ -92,15 +92,17 @@ def test_smem_limit_is_the_largest_admitted_dim(channels, n_hidden):
 
 
 def test_smem_formula():
-    """Weights (D·H + H + n_h·H² + n_h·H + H·D + D floats, each region
-    padded to 16 bytes) plus, per warp and trajectory, two hidden rows
-    (padded, and 4 floats more so that a warp's rows start on different
-    banks) and an input row (padded)."""
-    weights = 512 + 64 + 8192 + 128 + 512 + 8
+    """The weight matrices transposed in rows padded to 16 bytes and 4 floats
+    more (W0ᵀ: H rows of D, each Whᵀ: H rows of H, W_outᵀ: D rows of H), the
+    biases padded to 16 bytes, and per warp and trajectory two hidden rows
+    (padded so) and an input row (padded to 16 bytes)."""
+    row = lambda n: (n + 3) // 4 * 4 + 4
+    weights = 64 * row(8) + 64 + 2 * 64 * row(64) + 128 + 8 * row(64) + 8
+    assert weights == 768 + 64 + 8704 + 128 + 544 + 8
     assert ft.smem_bytes(8, 64, 2, False) == 4 * (weights + 2 * 68 + 8)
     assert ft.smem_bytes(8, 64, 2, False, 8, 4) == 4 * (weights + 32 * (2 * 68 + 8))
     assert ft.smem_bytes(37, 64, 2, False, 2, 1) == 4 * (
-        2368 + 64 + 8192 + 128 + 2368 + 40 + 2 * (2 * 68 + 40))
+        64 * 44 + 64 + 2 * 64 * 68 + 128 + 37 * 68 + 40 + 2 * (2 * 68 + 40))
 
 
 @pytest.mark.parametrize("geom, why", [
