@@ -17,7 +17,8 @@ Phases:
      host picks, ragged warps and blocks, and its own noise at 8192; two
      launches bitwise equal at each), and at the φ⁴ shapes (D = 100, H = 64,
      K = 100): the diagonal mode (also at the largest D check_limits admits,
-     256), and the full-covariance mode with a random eigen-factored 2-component reference
+     364), and the full-covariance mode with a random eigen-factored
+     2-component reference
      (fed noise + states at 1024 and a ragged 1000, the kernel's own noise
      at 8192, fed to the plain version as the Philox draws it makes; also at
      D = 37 and the largest D check_limits admits), its shared memory in

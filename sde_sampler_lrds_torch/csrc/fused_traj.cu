@@ -39,7 +39,7 @@
 // diag_geometry) picks TW and the warps of a block (≤ 8) so that the grid
 // covers the SMs: 128 blocks of 8 warps of one trajectory at B = 1024, 256
 // blocks of 8 warps of four at B = 8192. A lane holds up to E dimensions of
-// its trajectory (E = 1 where D ≤ 32 / TW, else 8, so D ≤ 256) in registers:
+// its trajectory (E = 1 where D ≤ 32 / TW, else 8 or 16: D ≤ 512) in registers:
 // state, reference score, fed noise, the reference rows (loaded a component
 // ahead) and its own outputs of the control, whose sums Σ_i h_i·W_out[i][d]
 // it runs itself. The quadratic forms, the online softmax over C, ‖u‖² and
@@ -112,7 +112,8 @@
 //     + warps·TW·(2·r(H) + D)              per trajectory two hidden rows
 //                                          and the MLP's input row
 //   = 41 440 bytes at D = 8 with one warp of one trajectory (59 296 with 8
-//   warps of 4), 90 752 at D = 100; the lanes' registers cap D at 256.
+//   warps of 4), 90 752 at D = 100, and shared memory caps D at 364 for
+//   H = 64, n_h = 2; the lanes' registers cap it at 512.
 //
 // The bf16 control mode (FourierMLP with compute_dtype = bfloat16, Flax
 // Dense semantics) takes the seven MLP tables (embed, w0, b0, wh, bh, w_out,
@@ -155,10 +156,11 @@ constexpr int MAX_RP = 48;     // most rows of P per panel
 constexpr int MAX_FULL_D = J * 32;
 static_assert(TB / R == NW, "a rotation's trajectory groups are the warps");
 // diagonal mode (traj_kernel_diag): a block of at most DIAG_MAX_WARPS warps,
-// each lane holding at most DIAG_ELEMS dimensions of its trajectory and
-// DIAG_UNITS units of a hidden layer
+// each lane holding at most DIAG_ELEMS dimensions of its trajectory (its
+// kernels are built for 1, DIAG_ELEMS / 2 and DIAG_ELEMS) and DIAG_UNITS
+// units of a hidden layer
 constexpr int DIAG_MAX_WARPS = 8;
-constexpr int DIAG_ELEMS = 8;
+constexpr int DIAG_ELEMS = 16;
 constexpr int DIAG_UNITS = 8;
 
 // The MLP tables are f32, or __nv_bfloat16 in the bf16 mode.
@@ -923,8 +925,8 @@ __device__ __forceinline__ void warp_layer(const float* __restrict__ in, int ldi
 // are lanes slot·L .. slot·L + L − 1 (L = 32 / TW), and lane sub of them
 // holds dimensions d = sub + e·L, e < E, of the state, the score, the fed
 // noise, the reference rows and the control in registers (E = 1 where
-// D ≤ L, else DIAG_ELEMS: the main path's kernels carry no code or
-// registers for more). It computes u_d itself, Σ_i h_i·W_out[i][d] over i
+// D ≤ L, else 8 or 16: the main path's kernels carry no code or registers
+// for more). It computes u_d itself, Σ_i h_i·W_out[i][d] over i
 // in ascending order by fmaf as the hidden layers do, so every sum of the
 // MLP keeps the order of the kernel's first design. The block's warps share
 // only the MLP weights, staged once behind the kernel's one barrier; inside
@@ -1153,17 +1155,21 @@ __host__ __device__ inline bool diag_geometry_ok(int B, int D, int H, int tw, in
   return blocks == (B + per_block - 1) / per_block;
 }
 
-// The diagonal kernel for TW trajectories a warp, with one element a lane
-// (one_elem: D ≤ 32 / TW) or up to DIAG_ELEMS.
+// The diagonal kernel for TW trajectories a warp and elems = ⌈D·TW / 32⌉
+// dimensions a lane: built for one, up to DIAG_ELEMS / 2 (D ≤ 256 at one
+// trajectory a warp, the widths in use) and up to DIAG_ELEMS (which the
+// first design's shared memory admitted at narrow controls, D ≤ 442).
 template <bool BF16, int TW>
-void (*diag_kernel_e(bool one_elem))(Params) {
-  return one_elem ? traj_kernel_diag<BF16, TW, 1> : traj_kernel_diag<BF16, TW, DIAG_ELEMS>;
+void (*diag_kernel_e(int elems))(Params) {
+  return elems == 1                ? traj_kernel_diag<BF16, TW, 1>
+         : elems <= DIAG_ELEMS / 2 ? traj_kernel_diag<BF16, TW, DIAG_ELEMS / 2>
+                                   : traj_kernel_diag<BF16, TW, DIAG_ELEMS>;
 }
 template <bool BF16>
-void (*diag_kernel(int tw, bool one_elem))(Params) {
-  return tw == 1   ? diag_kernel_e<BF16, 1>(one_elem)
-         : tw == 2 ? diag_kernel_e<BF16, 2>(one_elem)
-                   : diag_kernel_e<BF16, 4>(one_elem);
+void (*diag_kernel(int tw, int elems))(Params) {
+  return tw == 1   ? diag_kernel_e<BF16, 1>(elems)
+         : tw == 2 ? diag_kernel_e<BF16, 2>(elems)
+                   : diag_kernel_e<BF16, 4>(elems);
 }
 
 // The full-covariance mode's kernel: its register tiles (16 sums per tile)
@@ -1224,7 +1230,8 @@ int fused_traj_launch(const float* x0, const float* coefs, const void* embed,
     kernel = bf16 ? traj_kernel_full<true> : traj_kernel_full<false>;
     blocks = (B + TB - 1) / TB;
   } else {
-    kernel = bf16 ? diag_kernel<true>(tw, D <= 32 / tw) : diag_kernel<false>(tw, D <= 32 / tw);
+    const int elems = (D + 32 / tw - 1) / (32 / tw);
+    kernel = bf16 ? diag_kernel<true>(tw, elems) : diag_kernel<false>(tw, elems);
   }
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

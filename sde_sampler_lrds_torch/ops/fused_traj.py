@@ -58,10 +58,10 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 # the kernel's design limits (csrc/fused_traj.cu): hidden width and hidden
 # layers; the state width D is bounded by the block's shared memory, checked
-# against the card's per-block limit, and in the diagonal mode by the
-# _DIAG_ELEMS dimensions a lane holds in registers: D ≤ MAX_DIAG_DIM = 256
-# (one trajectory a warp; shared memory allows more at H = 64 with 2
-# hidden layers, fewer at wider controls). The full-covariance mode's ring
+# against the card's per-block limit (D ≤ 364 at H = 64 with 2 hidden
+# layers in the diagonal mode), and in the diagonal mode by the _DIAG_ELEMS
+# dimensions a lane holds in registers: D ≤ MAX_DIAG_DIM = 512 at one
+# trajectory a warp. The full-covariance mode's ring
 # of _RING_STAGES panels of _ring_rows(D) rows of P and the step's m, iv
 # and const rows add about 4·(2·_ring_rows(D)·D + 2·D) bytes (D ≤ 131 by
 # shared memory), and its rotations give each thread one register tile of
@@ -78,8 +78,10 @@ _RING_STAGES, _RING_MAX_ROWS = 2, 48
 # a block and two blocks an SM (128 registers a thread), so up to
 # _DIAG_RESIDENT_WARPS warps resident on an SM; a lane holds at most
 # _DIAG_ELEMS dimensions of its trajectory (and 8 units of a hidden layer,
-# MAX_CHANNELS = 256); a warp owns 1, 2 or 4 trajectories
-_DIAG_MAX_WARPS, _DIAG_RESIDENT_WARPS, _DIAG_ELEMS = 8, 16, 8
+# MAX_CHANNELS = 256), and the geometry keeps it to half that up to D = 256,
+# whose kernels keep them in registers without spilling; a warp owns 1, 2
+# or 4 trajectories
+_DIAG_MAX_WARPS, _DIAG_RESIDENT_WARPS, _DIAG_ELEMS = 8, 16, 16
 _DIAG_TRAJ_PER_WARP = (1, 2, 4)
 MAX_DIAG_DIM = _DIAG_ELEMS * 32
 
@@ -130,14 +132,15 @@ def diag_geometry(batch: int, dim: int, channels: int, n_hidden: int,
                   n_sms: int) -> DiagGeometry:
     """The diagonal kernel's geometry for ``batch`` trajectories on a card
     of ``n_sms`` SMs: the fewest trajectories per warp (1, 2 or 4; at most
-    8 dimensions a lane) whose warps fit the card's resident warps in one
-    wave, else the most; as many warps a block (a power of two up to 8) as
+    8 dimensions a lane, or one trajectory a warp past D = 256) whose warps
+    fit the card's resident warps in one wave, else the most; as many warps a block (a power of two up to 8) as
     spread those warps over all SMs, halved while the block's shared memory
     exceeds the card's limit. At B 1024 on 132 SMs: one trajectory a warp,
     8 warps a block, 128 blocks; at B 8192 and D 8: 4, 8, 256."""
     if batch < 1 or n_sms < 1:
         raise ValueError(f"diag_geometry: batch {batch} and n_sms {n_sms} must be positive")
-    allowed = [tw for tw in _DIAG_TRAJ_PER_WARP if dim <= _DIAG_ELEMS * (32 // tw)]
+    allowed = ([tw for tw in _DIAG_TRAJ_PER_WARP if dim <= _DIAG_ELEMS // 2 * (32 // tw)]
+               or ([1] if dim <= MAX_DIAG_DIM else []))
     if not allowed:
         raise ValueError(f"fused_traj kernel: dim {dim} in the diagonal mode, at most "
                          f"{MAX_DIAG_DIM}")

@@ -305,11 +305,11 @@ def test_check_limits_covers_experiment_dims():
     """Every dim the experiments run (16, 32, 64, and φ⁴'s 100) fits at
     H = 64 with 2 hidden layers, in both modes. The diagonal mode's block
     holds the weights and a slice per warp (one warp of one trajectory at
-    least: 90 752 bytes at D = 100); its lanes hold 8 dimensions each, so it
-    takes up to 256. The full-covariance mode's tile of 32 trajectories adds
-    a ring of 2 panels of rows of P (36 rows at D = 100, 28 800 bytes) and
-    the step's m, iv and const rows (816 bytes), which would take it to 131,
-    and its rotations' one register tile per thread caps it at 128."""
+    least: 90 752 bytes at D = 100), which takes it up to 364. The
+    full-covariance mode's tile of 32 trajectories adds a ring of 2 panels
+    of rows of P (36 rows at D = 100, 28 800 bytes) and the step's m, iv and
+    const rows (816 bytes), which would take it to 131, and its rotations'
+    one register tile per thread caps it at 128."""
     def cfg(d, full_cov):
         return t_ft.FusedTrajCfg(k_steps=100, dim=d, channels=64, n_hidden=2, n_comp=2,
                                  clip=1e4, full_cov=full_cov)
@@ -320,8 +320,7 @@ def test_check_limits_covers_experiment_dims():
     assert t_ft.smem_bytes(8, 64, 2, full_cov=True) == 58_528 + 512 + 80
     assert t_ft.smem_bytes(131, 64, 2, full_cov=True) <= t_ft.MAX_SMEM_BYTES
     assert t_ft.smem_bytes(132, 64, 2, full_cov=True) > t_ft.MAX_SMEM_BYTES
-    for full_cov, largest, why in ((False, 256, "register elements"),
-                                   (True, 128, "register tile")):
+    for full_cov, largest, why in ((False, 364, "shared memory"), (True, 128, "register tile")):
         for d in (8, 16, 32, 64, 100, largest):
             t_ft.check_limits(cfg(d, full_cov))
         with pytest.raises(ValueError, match=why):

@@ -12,13 +12,26 @@ from sde_sampler_lrds_torch.ops import fused_traj as ft
 H, NH = 64, 2
 LARGEST = ft.MAX_DIAG_DIM
 BATCHES = (1, 31, 33, 1000, 1024, 8192, 100_000)
-DIMS = (1, 8, 37, 100, LARGEST)
 SMS = (132, 114)
 
 
 def _cfg(dim, channels=H, n_hidden=NH):
     return ft.FusedTrajCfg(k_steps=100, dim=dim, channels=channels, n_hidden=n_hidden,
                            n_comp=4, clip=1e4)
+
+
+def _admitted(dim, channels=H, n_hidden=NH):
+    try:
+        ft.check_limits(_cfg(dim, channels, n_hidden))
+        return True
+    except ValueError:
+        return False
+
+
+# the largest D check_limits admits at H = 64 with 2 hidden layers (shared
+# memory binds there before the lanes' registers)
+LARGEST_H64 = max(d for d in range(1, LARGEST + 1) if _admitted(d))
+DIMS = (1, 8, 37, 100, 256, LARGEST_H64)
 
 
 def _owners(geom, batch):
@@ -42,8 +55,10 @@ def test_every_trajectory_owned_once(batch, dim, n_sms):
     np.testing.assert_array_equal(owners, np.arange(batch))
     per_block = geom.warps_per_block * geom.traj_per_warp
     assert (geom.blocks - 1) * per_block < batch <= geom.blocks * per_block
-    # a lane holds at most 8 dimensions of its trajectory
-    assert dim <= 8 * (32 // geom.traj_per_warp)
+    # a lane holds at most 8 dimensions of its trajectory, or at one
+    # trajectory a warp 16 past D = 256
+    lanes = 32 // geom.traj_per_warp
+    assert dim <= 8 * lanes or (geom.traj_per_warp == 1 and dim <= 16 * lanes)
     assert ft.smem_bytes(dim, H, NH, False, geom.warps_per_block,
                          geom.traj_per_warp) <= ft.MAX_SMEM_BYTES
 
@@ -66,22 +81,16 @@ def test_every_trajectories_per_warp_is_picked():
     assert picked == {1, 2, 4}
     # wide states keep to fewer trajectories a warp
     assert ft.diag_geometry(100_000, 100, H, NH, 132).traj_per_warp == 2
-    assert ft.diag_geometry(100_000, LARGEST, H, NH, 132).traj_per_warp == 1
+    assert ft.diag_geometry(100_000, 256, H, NH, 132).traj_per_warp == 1
+    assert ft.diag_geometry(100_000, LARGEST_H64, H, NH, 132).traj_per_warp == 1
 
 
 @pytest.mark.parametrize("channels, n_hidden", [(64, 2), (128, 2), (128, 1), (32, 4)])
 def test_smem_limit_is_the_largest_admitted_dim(channels, n_hidden):
     """check_limits admits D while one warp of one trajectory fits the
     block's shared memory and D ≤ MAX_DIAG_DIM; one past, it raises."""
-    def admitted(d):
-        try:
-            ft.check_limits(_cfg(d, channels, n_hidden))
-            return True
-        except ValueError:
-            return False
-
-    largest = max(d for d in range(1, 2 * LARGEST) if admitted(d))
-    assert not admitted(largest + 1)
+    largest = max(d for d in range(1, 2 * LARGEST) if _admitted(d, channels, n_hidden))
+    assert not _admitted(largest + 1, channels, n_hidden)
     assert ft.smem_bytes(largest, channels, n_hidden, False) <= ft.MAX_SMEM_BYTES
     if largest < LARGEST:   # shared memory binds before the lanes' registers
         assert ft.smem_bytes(largest + 1, channels, n_hidden, False) > ft.MAX_SMEM_BYTES
@@ -114,7 +123,7 @@ def test_smem_formula():
     (ft.DiagGeometry(4, 8, 32), "dimensions a lane"),
 ])
 def test_check_geometry_refuses(geom, why):
-    dim = 100 if why == "dimensions a lane" else 8
+    dim = 200 if why == "dimensions a lane" else 8
     with pytest.raises(ValueError, match=why):
         ft.check_geometry(_cfg(dim), 1024, geom)
 
@@ -130,8 +139,24 @@ def test_check_geometry_refuses_too_much_shared_memory():
     ft.check_geometry(cfg, 1024, picked)
 
 
-def test_check_limits_still_takes_every_old_diagonal_dim():
-    """Every D the first design's shared memory admitted (≤ 177 at H 64,
-    2 hidden layers) is still taken."""
-    for d in range(1, 178):
-        ft.check_limits(_cfg(d))
+def _first_design_smem_bytes(d, h, nh):
+    """Shared memory of the diagonal mode's first design (a block of 32
+    trajectories): the weights, 2·32·H hidden, 4·32·D state, control, noise
+    and score, 3·32 softmax factors, each region padded to 16 bytes."""
+    r4 = lambda n: (n + 3) // 4 * 4
+    return 4 * (r4(d * h) + r4(h) + r4(nh * h * h) + r4(nh * h) + r4(h * d) + r4(d)
+                + 2 * 32 * h + 4 * r4(32 * d) + 3 * 32)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 16, 64, 100, 256])
+def test_check_limits_still_takes_every_old_diagonal_dim(channels):
+    """Every (D, H, n_hidden) the first design's shared memory admitted
+    (D ≤ 177 at H 64 with 2 hidden layers, up to 442 at H 1) is still
+    taken, and gets a geometry."""
+    for n_hidden in (0, 1, 2, 8):
+        old = [d for d in range(1, 460)
+               if _first_design_smem_bytes(d, channels, n_hidden) <= ft.MAX_SMEM_BYTES]
+        for d in old:
+            assert _admitted(d, channels, n_hidden), (d, channels, n_hidden)
+        if old:
+            ft.diag_geometry(8192, old[-1], channels, n_hidden, 132)
