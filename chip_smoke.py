@@ -238,15 +238,17 @@ def graph_ms(fn, n: int = 50, reps: int = 5) -> float:
 def ptxas_report(log: str) -> list:
     """Per kernel entry of an ``nvcc -Xptxas -v`` log: its name (the
     trajectory kernels' instantiations as traj_kernel_diag<BF16, TW, E> and
-    traj_kernel_full<BF16>), its registers, stack frame and spill bytes."""
+    traj_kernel_full<BF16>, the Sinkhorn ones as tile_kernel<MODE, PK, ...>
+    and merge_kernel<MODE>), its registers, stack frame and spill bytes."""
     entries, current = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"(traj_kernel(?:_full|_diag)?)ILb([01])E((?:Li\d+E)*)", m.group(1))
-            ints = re.findall(r"Li(\d+)E", t.group(3)) if t else []
-            name = (f"{t.group(1)}<{', '.join(['true' if t.group(2) == '1' else 'false'] + ints)}>"
-                    if t else m.group(1))
+            t = re.search(r"(traj_kernel(?:_full|_diag)?|tile_kernel|merge_kernel)I((?:L[ib]\d+E)+)E",
+                          m.group(1))
+            targs = [("true" if v == "1" else "false") if k == "b" else v
+                     for k, v in re.findall(r"L([ib])(\d+)E", t.group(2))] if t else []
+            name = f"{t.group(1)}<{', '.join(targs)}>" if t else m.group(1)
             current = {"entry": name}
             entries.append(current)
             continue
@@ -658,18 +660,26 @@ def lse_error(got, want, eps: float, what: str):
 
 def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
     """B2 (lse) and B3 (transport cost) against their plain versions on the
-    card, at the eval path's 8192 x 8192 x 8 and on a ragged 1000 x 3000."""
-    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
-                                                         transport_cost_plain)
+    card, at the eval path's 8192 x 8192 x 8 and on a ragged 1000 x 3000 at
+    d 8, 37, 100 and MAX_DIM; two launches of each bitwise equal."""
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (MAX_DIM, lse, lse_plain,
+                                                         transport_cost, transport_cost_plain)
 
     x, y = target_draws(dev, SAMPLE_N, 11), target_draws(dev, SAMPLE_N, 12)
     cases = [(x, y, eps, p) for eps in (1e-3, 1.0) for p in (2, 1)]
     cases += [(x[:1000], y[:3000], 1e-2, p) for p in (2, 3)]
+    # other widths on the ragged shape: a ragged d, d 100 and the largest
+    # d the kernel takes, normal draws
+    gw = torch.Generator(dev).manual_seed(14)
+    for d in (37, 100, MAX_DIM):
+        xw = torch.randn(1000, d, generator=gw, device=dev)
+        yw = 0.5 + torch.randn(3000, d, generator=gw, device=dev)
+        cases += [(xw, yw, 1e-2, p) for p in (2, 1)]
     g = torch.Generator(dev).manual_seed(13)
     lse_errs, cost_errs = [], []
     for xs, ys, eps, p in cases:
         n, m = xs.shape[0], ys.shape[0]
-        what = f"n={n} m={m} eps={eps:g} p={p}"
+        what = f"n={n} m={m} d={xs.shape[1]} eps={eps:g} p={p}"
         log_a = torch.full((n,), -math.log(n), device=dev)
         log_b = torch.full((m,), -math.log(m), device=dev)
         dual = eps * (log_b + 0.1 * torch.randn(m, generator=g, device=dev))
@@ -679,6 +689,8 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
         want = lse_plain(xs, ys, dual, eps, p)
         torch.cuda.synchronize()
         err_row = lse_error(got, want, eps, f"lse rows {what}")
+        check(torch.equal(got, lse(xs, ys, dual, eps, p)),
+              f"lse {what}: two launches differ")
         # the first Sinkhorn half-steps give duals at the plan's real scale;
         # the column direction is the same kernel with x and y swapped
         u = eps * (log_a - want)
@@ -689,6 +701,8 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
         u[::13], v[::7] = float("-inf"), float("-inf")
         got_c = transport_cost(xs, ys, u, v, eps, p)
         want_c = transport_cost_plain(xs, ys, u, v, eps, p)
+        check(torch.equal(got_c, transport_cost(xs, ys, u, v, eps, p)),
+              f"transport cost {what}: two launches differ")
         rel = float((got_c - want_c).abs() / want_c.abs())
         check(bool(torch.isfinite(got_c)) and rel <= COST_TOL_REL,
               f"transport cost {what}: kernel {float(got_c):.6g} vs plain "

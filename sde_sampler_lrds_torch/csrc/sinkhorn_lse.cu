@@ -13,22 +13,22 @@
 // contributes 0, and a row whose every logit is -inf gives -inf (lse).
 //
 // What bounds it on this card: per pair (i, j) about 2d + 8 flops, one
-// sqrtf (p = 2) and one expf, against 4d bytes per row or column read once,
+// sqrt (p = 2) and one exp, against 4d bytes per row or column read once,
 // so at n = m = 8192, d = 8 it is bound by the special-function units and
 // the CUDA cores, never by memory: the cost matrix is never stored.
 //
-// What the design does about it: one thread owns one row of x and keeps a
-// running (max, sum of exp) for it in registers, the flash-attention
-// online log-sum-exp, so each pair costs one expf. A block of 128 rows
-// keeps its rows of x in shared memory (transposed, so the threads of a
-// warp read consecutive words) and walks its column range in tiles of 128
-// columns of y, staged with |y|^2 and the duals in shared memory and read
-// by every thread as broadcasts. 64 row blocks cannot fill 132 SMs, so the
-// columns are split across blocks as well (flash-decoding): each (row
-// block, column split) writes a partial (max, sum) or partial sum per row,
-// and a second pass merges the splits of each row in a fixed order, so the
-// result does not depend on scheduling. Ragged rows and columns are masked
-// in the kernel.
+// What the design does about it: a thread owns R rows of x, held in
+// registers at a padded width D (4, 8 or 16), and keeps a running
+// (max, sum of exp) per row, the flash-attention online log-sum-exp. A
+// block walks its column range in tiles of y staged in shared memory with
+// each column's |y|^2 and dual beside it; every thread reads a column once
+// as float4 broadcasts and uses it for its R rows, a chunk of CH columns at
+// a time. Wider rows (d > 16) keep x in shared memory and sum the pair cost
+// over chunks of 16 dimensions. The columns are split across blocks as well
+// (flash-decoding): each (row block, column split) writes a partial (max,
+// sum) or partial sum per row, and a second pass merges the splits of each
+// row in a fixed order, so the result does not depend on scheduling.
+// Ragged rows and columns are masked in the kernel.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -36,10 +36,12 @@
 
 namespace {
 
-constexpr int ROWS = 128;  // rows per block, one per thread
-constexpr int TILE = 128;  // columns of y staged in shared memory per step
-// blocks the grid aims for: 132 SMs, 16 resident blocks of 128 threads each
-constexpr int TARGET_BLOCKS = 132 * 16;
+constexpr int THREADS = 128;  // threads a block
+constexpr int RR = 4;         // rows a thread at D <= 16
+constexpr int TILE = 128;     // columns of y staged in shared memory per step
+constexpr int WIDE_CHUNK = 16;  // dimensions summed per pass at d > 16
+// blocks the grid aims for: 132 SMs, 4 resident blocks of 128 threads each
+constexpr int TARGET_BLOCKS = 132 * 4;
 
 enum Mode { LSE = 0, COST = 1 };
 enum PKind { P_GENERAL = 0, P_ONE = 1, P_TWO = 2 };
@@ -54,6 +56,7 @@ struct Args {
   float eps;
   int p;
   int n, m, d;
+  int dp;           // padded width: D, or d rounded up to WIDE_CHUNK
   int cols_per_split;
 };
 
@@ -63,90 +66,196 @@ __device__ __forceinline__ float int_pow(float a, int p) {
   return r;
 }
 
+// one dimension's term of the pair cost: x.y (p = 2), |x - y| (p = 1) or
+// |x - y|^p
 template <int PK>
-__device__ __forceinline__ float pair_cost(const float* xs, int tid, const float* yj,
-                                           int d, float xx, float yy, int p) {
-  if (PK == P_TWO) {
-    float dot = 0.0f;
-    for (int k = 0; k < d; ++k) dot = fmaf(xs[k * ROWS + tid], yj[k], dot);
-    return sqrtf(fmaxf(xx + yy - 2.0f * dot, 0.0f));
-  }
-  float s = 0.0f;
-  for (int k = 0; k < d; ++k) {
-    float a = fabsf(xs[k * ROWS + tid] - yj[k]);
-    s += (PK == P_ONE) ? a : int_pow(a, p);
-  }
-  return (PK == P_ONE) ? s : powf(s, 1.0f / (float)p);
+__device__ __forceinline__ float cost_term(float acc, float xk, float yk, int p) {
+  if (PK == P_TWO) return fmaf(xk, yk, acc);
+  const float a = fabsf(xk - yk);
+  return acc + ((PK == P_ONE) ? a : int_pow(a, p));
 }
 
-template <int MODE, int PK>
-__global__ void __launch_bounds__(ROWS) tile_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int d = a.d;
-  float* xs = smem;                 // (d, ROWS), transposed rows of x
-  float* ys = xs + d * ROWS;        // (TILE, d)
-  float* yy_s = ys + TILE * d;      // (TILE,) |y_j|^2 for p = 2
-  float* w_s = yy_s + TILE;         // (TILE,) column duals
+template <int PK>
+__device__ __forceinline__ float cost_finish(float acc, float xx, float yy, int p) {
+  if (PK == P_TWO) return sqrtf(fmaxf(xx + yy - 2.0f * acc, 0.0f));
+  return (PK == P_ONE) ? acc : powf(acc, 1.0f / (float)p);
+}
+
+// Rows this thread owns: row0 + r * THREADS + threadIdx.x, r < R.
+// D: padded width held in registers (WIDE: the chunk width, x in shared
+// memory). CH: columns a chunk.
+template <int MODE, int PK, int D, int R, bool WIDE>
+__global__ void __launch_bounds__(THREADS) tile_kernel(Args a) {
+  constexpr int CH = (D <= 8 && !WIDE) ? 8 : 4;
+  extern __shared__ float4 smem4[];
+  const int dp = WIDE ? a.dp : D;
+  const int dp4 = dp / 4;
+  float4* ys4 = smem4;                                   // (TILE, dp)
+  float2* cw = reinterpret_cast<float2*>(ys4 + TILE * dp4);  // (TILE,) |y|^2, dual
+  float4* xs4 = reinterpret_cast<float4*>(cw + TILE);    // WIDE: (dp / 4, R * THREADS)
+  float* ysf = reinterpret_cast<float*>(ys4);
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * ROWS;
-  const int row = row0 + tid;
-  const bool live = row < a.n;
+  const int row0 = blockIdx.x * (R * THREADS);
   const int c_begin = blockIdx.y * a.cols_per_split;
   const int c_end = min(a.m, c_begin + a.cols_per_split);
 
-  for (int idx = tid; idx < ROWS * d; idx += ROWS) {
-    const int r = idx / d, k = idx - r * d;
-    xs[k * ROWS + r] = (row0 + r < a.n) ? a.x[(size_t)(row0 + r) * d + k] : 0.0f;
-  }
-  __syncthreads();
-  float xx = 0.0f;
-  if (PK == P_TWO)
-    for (int k = 0; k < d; ++k) xx = fmaf(xs[k * ROWS + tid], xs[k * ROWS + tid], xx);
-  const float u_i = (MODE == COST && live) ? a.u[row] : 0.0f;
+  // padded dimensions and never-copied columns read as zeros
+  for (int i = tid; i < TILE * dp4; i += THREADS) ys4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  float run_m = -INFINITY, run_s = 0.0f;  // LSE: running max and sum of exp
-  float acc = 0.0f;                       // COST: running sum
+  float xr[R][WIDE ? 1 : D];
+  float xx[R];
+  if constexpr (WIDE) {
+    float* xsf = reinterpret_cast<float*>(xs4);
+    for (int idx = tid; idx < R * THREADS * dp; idx += THREADS) {
+      const int r = idx / dp, k = idx - r * dp;
+      xsf[((k >> 2) * (R * THREADS) + r) * 4 + (k & 3)] =
+          (row0 + r < a.n && k < a.d) ? a.x[(size_t)(row0 + r) * a.d + k] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float s = 0.0f;
+      for (int k4 = 0; k4 < dp4; ++k4) {
+        const float4 v = xs4[k4 * (R * THREADS) + r * THREADS + tid];
+        s = fmaf(v.x, v.x, s); s = fmaf(v.y, v.y, s);
+        s = fmaf(v.z, v.z, s); s = fmaf(v.w, v.w, s);
+      }
+      xx[r] = s;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = row0 + r * THREADS + tid;
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        xr[r][k] = (row < a.n && k < a.d) ? a.x[(size_t)row * a.d + k] : 0.0f;
+        s = fmaf(xr[r][k], xr[r][k], s);
+      }
+      xx[r] = s;
+    }
+  }
+  float u_r[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * THREADS + tid;
+    u_r[r] = (MODE == COST && row < a.n) ? a.u[row] : 0.0f;
+  }
+
+  float run_m[R], run_s[R];  // LSE: running max and sum of exp; COST: sum in run_s
+#pragma unroll
+  for (int r = 0; r < R; ++r) { run_m[r] = -INFINITY; run_s[r] = 0.0f; }
+
   for (int t0 = c_begin; t0 < c_end; t0 += TILE) {
     const int cnt = min(TILE, c_end - t0);
     __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < cnt * d; idx += ROWS) ys[idx] = a.y[(size_t)t0 * d + idx];
-    for (int j = tid; j < cnt; j += ROWS) {
-      w_s[j] = a.w[t0 + j];
-      if (PK == P_TWO) {
-        float yy = 0.0f;
-        for (int k = 0; k < d; ++k) {
-          const float v = a.y[(size_t)(t0 + j) * d + k];
-          yy = fmaf(v, v, yy);
-        }
-        yy_s[j] = yy;
-      }
+    for (int idx = tid; idx < cnt * a.d; idx += THREADS) {
+      const int j = idx / a.d, k = idx - j * a.d;
+      ysf[j * dp + k] = a.y[(size_t)t0 * a.d + idx];
     }
     __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < cnt; ++j) {
-      const float c = pair_cost<PK>(xs, tid, ys + j * d, d, xx, yy_s[j], a.p);
-      if (MODE == LSE) {
-        const float l = (w_s[j] - c) / a.eps;
-        if (l > run_m) {
-          // run_m = -inf on the first finite logit: run_s is 0 and stays 0
-          run_s = run_s * expf(run_m - l) + 1.0f;
-          run_m = l;
-        } else if (l > -INFINITY) {
-          run_s += expf(l - run_m);
+    for (int j = tid; j < TILE; j += THREADS) {
+      float yy = 0.0f;
+      if (PK == P_TWO)
+        for (int k4 = 0; k4 < dp4; ++k4) {
+          const float4 v = ys4[j * dp4 + k4];
+          yy = fmaf(v.x, v.x, yy); yy = fmaf(v.y, v.y, yy);
+          yy = fmaf(v.z, v.z, yy); yy = fmaf(v.w, v.w, yy);
+        }
+      cw[j] = make_float2(yy, j < cnt ? a.w[t0 + j] : -INFINITY);
+    }
+    __syncthreads();
+    const int jn = (cnt + CH - 1) / CH * CH;
+    for (int j0 = 0; j0 < jn; j0 += CH) {
+      float c[R][CH], wq[CH];
+      if constexpr (WIDE) {
+        float acc[R][CH];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int q = 0; q < CH; ++q) acc[r][q] = 0.0f;
+        for (int kc = 0; kc < dp4; kc += D / 4) {
+          float xv[R][D];
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int i = 0; i < D / 4; ++i) {
+              const float4 v = xs4[(kc + i) * (R * THREADS) + r * THREADS + tid];
+              xv[r][4 * i] = v.x; xv[r][4 * i + 1] = v.y;
+              xv[r][4 * i + 2] = v.z; xv[r][4 * i + 3] = v.w;
+            }
+#pragma unroll
+          for (int q = 0; q < CH; ++q) {
+            float yv[D];
+#pragma unroll
+            for (int i = 0; i < D / 4; ++i) {
+              const float4 v = ys4[(j0 + q) * dp4 + kc + i];
+              yv[4 * i] = v.x; yv[4 * i + 1] = v.y; yv[4 * i + 2] = v.z; yv[4 * i + 3] = v.w;
+            }
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+#pragma unroll
+              for (int k = 0; k < D; ++k) acc[r][q] = cost_term<PK>(acc[r][q], xv[r][k], yv[k], a.p);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < CH; ++q) {
+          const float2 cq = cw[j0 + q];
+          wq[q] = cq.y;
+#pragma unroll
+          for (int r = 0; r < R; ++r) c[r][q] = cost_finish<PK>(acc[r][q], xx[r], cq.x, a.p);
         }
       } else {
-        const float l = (u_i + w_s[j] - c) / a.eps;
-        acc += expf(l) * c;  // a -inf dual gives exp = 0, never 0 * inf
+#pragma unroll
+        for (int q = 0; q < CH; ++q) {
+          float yv[D];
+#pragma unroll
+          for (int i = 0; i < D / 4; ++i) {
+            const float4 v = ys4[(j0 + q) * (D / 4) + i];
+            yv[4 * i] = v.x; yv[4 * i + 1] = v.y; yv[4 * i + 2] = v.z; yv[4 * i + 3] = v.w;
+          }
+          const float2 cq = cw[j0 + q];
+          wq[q] = cq.y;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float acc = 0.0f;
+#pragma unroll
+            for (int k = 0; k < D; ++k) acc = cost_term<PK>(acc, xr[r][k], yv[k], a.p);
+            c[r][q] = cost_finish<PK>(acc, xx[r], cq.x, a.p);
+          }
+        }
       }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int q = 0; q < CH; ++q) {
+          if (MODE == LSE) {
+            const float l = (wq[q] - c[r][q]) / a.eps;
+            if (l > run_m[r]) {
+              // run_m = -inf on the first finite logit: run_s is 0 and stays 0
+              run_s[r] = run_s[r] * expf(run_m[r] - l) + 1.0f;
+              run_m[r] = l;
+            } else if (l > -INFINITY) {
+              run_s[r] += expf(l - run_m[r]);
+            }
+          } else {
+            const float l = (u_r[r] + wq[q] - c[r][q]) / a.eps;
+            run_s[r] += expf(l) * c[r][q];  // a -inf dual gives exp = 0, never 0 * inf
+          }
+        }
     }
   }
-  if (!live) return;
-  const size_t at = (size_t)blockIdx.y * a.n + row;
-  if (MODE == LSE) {
-    a.part_a[at] = run_m;
-    a.part_b[at] = run_s;
-  } else {
-    a.part_a[at] = acc;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * THREADS + tid;
+    if (row >= a.n) continue;
+    const size_t at = (size_t)blockIdx.y * a.n + row;
+    if (MODE == LSE) {
+      a.part_a[at] = run_m[r];
+      a.part_b[at] = run_s[r];
+    } else {
+      a.part_a[at] = run_s[r];
+    }
   }
 }
 
@@ -175,10 +284,19 @@ __global__ void merge_kernel(const float* part_a, const float* part_b, float* ou
   out[i] = mx + logf(s);
 }
 
-int smem_bytes(int d) { return (int)sizeof(float) * (d * ROWS + TILE * d + 2 * TILE); }
+bool wide(int d) { return d > 16; }
+int padded_width(int d) {
+  return d <= 4 ? 4 : d <= 8 ? 8 : d <= 16 ? 16 : (d + WIDE_CHUNK - 1) / WIDE_CHUNK * WIDE_CHUNK;
+}
+int rows_per_block(int d) { return (wide(d) ? 1 : RR) * THREADS; }
 
-int cols_per_split(int n, int m) {
-  const int row_blocks = (n + ROWS - 1) / ROWS;
+int smem_bytes(int d) {
+  const int dp = padded_width(d);
+  return (int)sizeof(float) * (TILE * dp + 2 * TILE + (wide(d) ? THREADS * dp : 0));
+}
+
+int cols_per_split(int n, int m, int d) {
+  const int row_blocks = (n + rows_per_block(d) - 1) / rows_per_block(d);
   const int max_splits = (m + TILE - 1) / TILE;
   int splits = (TARGET_BLOCKS + row_blocks - 1) / row_blocks;
   splits = std::max(1, std::min(splits, max_splits));
@@ -186,25 +304,34 @@ int cols_per_split(int n, int m) {
   return ((per + TILE - 1) / TILE) * TILE;
 }
 
-template <int MODE, int PK>
+template <int MODE, int PK, int D, int R, bool WIDE>
 cudaError_t launch_tiles(const Args& a, int n_split, cudaStream_t stream) {
   const int smem = smem_bytes(a.d);
   cudaError_t err = cudaFuncSetAttribute(
-      tile_kernel<MODE, PK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tile_kernel<MODE, PK, D, R, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.n + ROWS - 1) / ROWS, n_split);
-  tile_kernel<MODE, PK><<<grid, ROWS, smem, stream>>>(a);
+  dim3 grid((a.n + R * THREADS - 1) / (R * THREADS), n_split);
+  tile_kernel<MODE, PK, D, R, WIDE><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int MODE, int PK>
+cudaError_t launch_width(const Args& a, int n_split, cudaStream_t stream) {
+  if (a.d <= 4) return launch_tiles<MODE, PK, 4, RR, false>(a, n_split, stream);
+  if (a.d <= 8) return launch_tiles<MODE, PK, 8, RR, false>(a, n_split, stream);
+  if (a.d <= 16) return launch_tiles<MODE, PK, 16, RR, false>(a, n_split, stream);
+  return launch_tiles<MODE, PK, WIDE_CHUNK, 1, true>(a, n_split, stream);
 }
 
 template <int MODE>
 int launch(Args a, float* out, cudaStream_t stream) {
-  a.cols_per_split = cols_per_split(a.n, a.m);
+  a.cols_per_split = cols_per_split(a.n, a.m, a.d);
+  a.dp = padded_width(a.d);
   const int n_split = (a.m + a.cols_per_split - 1) / a.cols_per_split;
   cudaError_t err;
-  if (a.p == 2) err = launch_tiles<MODE, P_TWO>(a, n_split, stream);
-  else if (a.p == 1) err = launch_tiles<MODE, P_ONE>(a, n_split, stream);
-  else err = launch_tiles<MODE, P_GENERAL>(a, n_split, stream);
+  if (a.p == 2) err = launch_width<MODE, P_TWO>(a, n_split, stream);
+  else if (a.p == 1) err = launch_width<MODE, P_ONE>(a, n_split, stream);
+  else err = launch_width<MODE, P_GENERAL>(a, n_split, stream);
   if (err != cudaSuccess) return (int)err;
   merge_kernel<MODE><<<(a.n + 255) / 256, 256, 0, stream>>>(a.part_a, a.part_b, out,
                                                             a.n, n_split);
@@ -216,28 +343,28 @@ int launch(Args a, float* out, cudaStream_t stream) {
 extern "C" {
 
 // Number of column splits, i.e. rows of the (n_split, n) scratch arrays.
-int sinkhorn_num_splits(int n, int m) {
-  const int per = cols_per_split(n, m);
+int sinkhorn_num_splits(int n, int m, int d) {
+  const int per = cols_per_split(n, m, d);
   return (m + per - 1) / per;
 }
 
 const char* sinkhorn_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // out (n,) = logsumexp_j[(dual_j - M_ij) / eps]; scratch part_m, part_s hold
-// sinkhorn_num_splits(n, m) * n floats each. Returns cudaGetLastError().
+// sinkhorn_num_splits(n, m, d) * n floats each. Returns cudaGetLastError().
 int sinkhorn_lse_launch(const float* x, const float* y, const float* dual, float eps,
                         int p, int n, int m, int d, float* part_m, float* part_s,
                         float* out, void* stream) {
-  Args a{x, y, nullptr, dual, part_m, part_s, eps, p, n, m, d, 0};
+  Args a{x, y, nullptr, dual, part_m, part_s, eps, p, n, m, d, 0, 0};
   return launch<LSE>(a, out, (cudaStream_t)stream);
 }
 
 // out (n,) = per-row sum_j exp((u_i + v_j - M_ij) / eps) * M_ij; scratch
-// part holds sinkhorn_num_splits(n, m) * n floats. Returns cudaGetLastError().
+// part holds sinkhorn_num_splits(n, m, d) * n floats. Returns cudaGetLastError().
 int sinkhorn_cost_launch(const float* x, const float* y, const float* u, const float* v,
                          float eps, int p, int n, int m, int d, float* part, float* out,
                          void* stream) {
-  Args a{x, y, u, v, part, nullptr, eps, p, n, m, d, 0};
+  Args a{x, y, u, v, part, nullptr, eps, p, n, m, d, 0, 0};
   return launch<COST>(a, out, (cudaStream_t)stream);
 }
 

@@ -22,8 +22,8 @@ import torch
 
 from ._build import load_library
 
-# the kernel keeps 128 rows of x and 128 columns of y in shared memory;
-# beyond this width a block would exceed the card's 227 KB
+# past d = 16 the kernel keeps 128 rows of x and 128 columns of y in shared
+# memory; beyond this width a block would exceed the card's 227 KB
 MAX_DIM = 224
 _BLOCK_ELEMS = 1 << 24      # plain version: pair-cost elements per block
 
@@ -73,7 +73,7 @@ def _library() -> ctypes.CDLL:
     lib.sinkhorn_lse_launch.restype = i32
     lib.sinkhorn_cost_launch.argtypes = [ptr] * 4 + [f32] + [i32] * 4 + [ptr] * 3
     lib.sinkhorn_cost_launch.restype = i32
-    lib.sinkhorn_num_splits.argtypes = [i32, i32]
+    lib.sinkhorn_num_splits.argtypes = [i32, i32, i32]
     lib.sinkhorn_num_splits.restype = i32
     lib.sinkhorn_error_string.argtypes = [i32]
     lib.sinkhorn_error_string.restype = ctypes.c_char_p
@@ -121,7 +121,7 @@ def lse(x: torch.Tensor, y: torch.Tensor, dual: torch.Tensor, eps: float,
     if m == 0:
         return out.fill_(float("-inf"))
     x, y, dual = x.contiguous(), y.contiguous(), dual.contiguous()
-    splits = lib.sinkhorn_num_splits(n, m)
+    splits = lib.sinkhorn_num_splits(n, m, x.shape[1])
     part = torch.empty((2, splits, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.sinkhorn_lse_launch(x.data_ptr(), y.data_ptr(), dual.data_ptr(),
@@ -154,7 +154,7 @@ def transport_cost(x: torch.Tensor, y: torch.Tensor, u: torch.Tensor, v: torch.T
     if n == 0 or m == 0:
         return torch.sum(rows)
     x, y, u, v = x.contiguous(), y.contiguous(), u.contiguous(), v.contiguous()
-    part = torch.empty((lib.sinkhorn_num_splits(n, m), n), dtype=torch.float32,
+    part = torch.empty((lib.sinkhorn_num_splits(n, m, x.shape[1]), n), dtype=torch.float32,
                        device=x.device)
     with torch.cuda.device(x.device):
         err = lib.sinkhorn_cost_launch(x.data_ptr(), y.data_ptr(), u.data_ptr(),
