@@ -53,12 +53,25 @@ struct Args {
   const float* w;   // (m,) column duals: dual (LSE) or v (COST)
   float* part_a;    // (n_split, n): running max (LSE) or partial sum (COST)
   float* part_b;    // (n_split, n): running sum of exp (LSE only)
-  float eps;
+  float scale;      // log2(e) / eps: logits in base 2
   int p;
   int n, m, d;
   int dp;           // padded width: D, or d rounded up to WIDE_CHUNK
   int cols_per_split;
 };
+
+// 2^v and sqrt(v) on the special-function unit, one instruction each;
+// 2^-inf = +0
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float sqrt_approx(float v) {
+  float r;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
 
 __device__ __forceinline__ float int_pow(float a, int p) {
   float r = 1.0f;
@@ -77,7 +90,7 @@ __device__ __forceinline__ float cost_term(float acc, float xk, float yk, int p)
 
 template <int PK>
 __device__ __forceinline__ float cost_finish(float acc, float xx, float yy, int p) {
-  if (PK == P_TWO) return sqrtf(fmaxf(xx + yy - 2.0f * acc, 0.0f));
+  if (PK == P_TWO) return sqrt_approx(fmaxf(fmaf(-2.0f, acc, xx + yy), 0.0f));
   return (PK == P_ONE) ? acc : powf(acc, 1.0f / (float)p);
 }
 
@@ -139,7 +152,7 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(Args a) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r * THREADS + tid;
-    u_r[r] = (MODE == COST && row < a.n) ? a.u[row] : 0.0f;
+    u_r[r] = (MODE == COST && row < a.n) ? a.u[row] * a.scale : 0.0f;
   }
 
   float run_m[R], run_s[R];  // LSE: running max and sum of exp; COST: sum in run_s
@@ -162,7 +175,7 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(Args a) {
           yy = fmaf(v.x, v.x, yy); yy = fmaf(v.y, v.y, yy);
           yy = fmaf(v.z, v.z, yy); yy = fmaf(v.w, v.w, yy);
         }
-      cw[j] = make_float2(yy, j < cnt ? a.w[t0 + j] : -INFINITY);
+      cw[j] = make_float2(yy, j < cnt ? a.w[t0 + j] * a.scale : -INFINITY);
     }
     __syncthreads();
     const int jn = (cnt + CH - 1) / CH * CH;
@@ -230,17 +243,17 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(Args a) {
 #pragma unroll
         for (int q = 0; q < CH; ++q) {
           if (MODE == LSE) {
-            const float l = (wq[q] - c[r][q]) / a.eps;
+            const float l = fmaf(-c[r][q], a.scale, wq[q]);
             if (l > run_m[r]) {
               // run_m = -inf on the first finite logit: run_s is 0 and stays 0
-              run_s[r] = run_s[r] * expf(run_m[r] - l) + 1.0f;
+              run_s[r] = fmaf(run_s[r], ex2(run_m[r] - l), 1.0f);
               run_m[r] = l;
             } else if (l > -INFINITY) {
-              run_s[r] += expf(l - run_m[r]);
+              run_s[r] += ex2(l - run_m[r]);
             }
           } else {
-            const float l = (u_r[r] + wq[q] - c[r][q]) / a.eps;
-            run_s[r] += expf(l) * c[r][q];  // a -inf dual gives exp = 0, never 0 * inf
+            // a -inf dual gives 2^-inf = 0, never 0 * inf
+            run_s[r] = fmaf(ex2(fmaf(-c[r][q], a.scale, u_r[r] + wq[q])), c[r][q], run_s[r]);
           }
         }
     }
@@ -276,12 +289,11 @@ __global__ void merge_kernel(const float* part_a, const float* part_b, float* ou
     out[i] = -INFINITY;
     return;
   }
+  // partials in base 2; a split whose logits are all -inf has sum 0
   float s = 0.0f;
-  for (int k = 0; k < n_split; ++k) {
-    const float mk = part_a[(size_t)k * n + i];
-    if (mk > -INFINITY) s += part_b[(size_t)k * n + i] * expf(mk - mx);
-  }
-  out[i] = mx + logf(s);
+  for (int k = 0; k < n_split; ++k)
+    s = fmaf(part_b[(size_t)k * n + i], exp2f(part_a[(size_t)k * n + i] - mx), s);
+  out[i] = (mx + log2f(s)) * 0.69314718055994531f;
 }
 
 bool wide(int d) { return d > 16; }
@@ -350,21 +362,23 @@ int sinkhorn_num_splits(int n, int m, int d) {
 
 const char* sinkhorn_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// out (n,) = logsumexp_j[(dual_j - M_ij) / eps]; scratch part_m, part_s hold
+// out (n,) = logsumexp_j[(dual_j - M_ij) / eps], scale = log2(e) / eps;
+// scratch part_m, part_s hold
 // sinkhorn_num_splits(n, m, d) * n floats each. Returns cudaGetLastError().
-int sinkhorn_lse_launch(const float* x, const float* y, const float* dual, float eps,
+int sinkhorn_lse_launch(const float* x, const float* y, const float* dual, float scale,
                         int p, int n, int m, int d, float* part_m, float* part_s,
                         float* out, void* stream) {
-  Args a{x, y, nullptr, dual, part_m, part_s, eps, p, n, m, d, 0, 0};
+  Args a{x, y, nullptr, dual, part_m, part_s, scale, p, n, m, d, 0, 0};
   return launch<LSE>(a, out, (cudaStream_t)stream);
 }
 
-// out (n,) = per-row sum_j exp((u_i + v_j - M_ij) / eps) * M_ij; scratch
+// out (n,) = per-row sum_j exp((u_i + v_j - M_ij) / eps) * M_ij, scale =
+// log2(e) / eps; scratch
 // part holds sinkhorn_num_splits(n, m, d) * n floats. Returns cudaGetLastError().
 int sinkhorn_cost_launch(const float* x, const float* y, const float* u, const float* v,
-                         float eps, int p, int n, int m, int d, float* part, float* out,
+                         float scale, int p, int n, int m, int d, float* part, float* out,
                          void* stream) {
-  Args a{x, y, u, v, part, nullptr, eps, p, n, m, d, 0, 0};
+  Args a{x, y, u, v, part, nullptr, scale, p, n, m, d, 0, 0};
   return launch<COST>(a, out, (cudaStream_t)stream);
 }
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -26,6 +27,8 @@ from ._build import load_library
 # memory; beyond this width a block would exceed the card's 227 KB
 MAX_DIM = 224
 _BLOCK_ELEMS = 1 << 24      # plain version: pair-cost elements per block
+# the kernels take logits in base 2: the scale log2(e)/eps, folded once
+_LOG2E = 1.0 / math.log(2.0)
 
 
 def pairwise_cost(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
@@ -125,7 +128,7 @@ def lse(x: torch.Tensor, y: torch.Tensor, dual: torch.Tensor, eps: float,
     part = torch.empty((2, splits, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.sinkhorn_lse_launch(x.data_ptr(), y.data_ptr(), dual.data_ptr(),
-                                      float(eps), p, n, m, x.shape[1],
+                                      _LOG2E / eps, p, n, m, x.shape[1],
                                       part[0].data_ptr(), part[1].data_ptr(),
                                       out.data_ptr(), stream)
     if err != 0:
@@ -158,7 +161,7 @@ def transport_cost(x: torch.Tensor, y: torch.Tensor, u: torch.Tensor, v: torch.T
                        device=x.device)
     with torch.cuda.device(x.device):
         err = lib.sinkhorn_cost_launch(x.data_ptr(), y.data_ptr(), u.data_ptr(),
-                                       v.data_ptr(), float(eps), p, n, m, x.shape[1],
+                                       v.data_ptr(), _LOG2E / eps, p, n, m, x.shape[1],
                                        part.data_ptr(), rows.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("sinkhorn transport-cost kernel launch failed: "
