@@ -239,23 +239,33 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(Args a) {
         }
       }
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+      for (int r = 0; r < R; ++r) {
+        if (MODE == LSE) {
+          // the chunk's base-2 logits and their max, one rescale of the
+          // running sum, then one 2^x a pair, with no branch
+          float l[CH];
+          float cmax = -INFINITY;
 #pragma unroll
-        for (int q = 0; q < CH; ++q) {
-          if (MODE == LSE) {
-            const float l = fmaf(-c[r][q], a.scale, wq[q]);
-            if (l > run_m[r]) {
-              // run_m = -inf on the first finite logit: run_s is 0 and stays 0
-              run_s[r] = fmaf(run_s[r], ex2(run_m[r] - l), 1.0f);
-              run_m[r] = l;
-            } else if (l > -INFINITY) {
-              run_s[r] += ex2(l - run_m[r]);
-            }
-          } else {
-            // a -inf dual gives 2^-inf = 0, never 0 * inf
-            run_s[r] = fmaf(ex2(fmaf(-c[r][q], a.scale, u_r[r] + wq[q])), c[r][q], run_s[r]);
+          for (int q = 0; q < CH; ++q) {
+            l[q] = fmaf(-c[r][q], a.scale, wq[q]);
+            cmax = fmaxf(cmax, l[q]);
           }
+          const float m_new = fmaxf(run_m[r], cmax);
+          // the TPU kernel's isfinite shift: while every logit so far is
+          // -inf, subtract 0, so 2^(-inf - 0) = 0 and never NaN
+          const float shift = m_new == -INFINITY ? 0.0f : m_new;
+          float sum = run_s[r] * ex2(run_m[r] - shift);
+#pragma unroll
+          for (int q = 0; q < CH; ++q) sum += ex2(l[q] - shift);
+          run_s[r] = sum;
+          run_m[r] = m_new;
+        } else {
+          // a -inf dual gives 2^-inf = 0, never 0 * inf
+#pragma unroll
+          for (int q = 0; q < CH; ++q)
+            run_s[r] = fmaf(ex2(fmaf(-c[r][q], a.scale, u_r[r] + wq[q])), c[r][q], run_s[r]);
         }
+      }
     }
   }
 #pragma unroll
