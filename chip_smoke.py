@@ -663,7 +663,9 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
     card, at the eval path's 8192 x 8192 x 8 and on a ragged 1000 x 3000 at
     d 8, 37, 100 and MAX_DIM; two launches of each bitwise equal."""
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import (MAX_DIM, lse, lse_plain,
-                                                         transport_cost, transport_cost_plain)
+                                                         sinkhorn_geometry, transport_cost,
+                                                         transport_cost_plain)
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import _library as sinkhorn_library
 
     x, y = target_draws(dev, SAMPLE_N, 11), target_draws(dev, SAMPLE_N, 12)
     cases = [(x, y, eps, p) for eps in (1e-3, 1.0) for p in (2, 1)]
@@ -717,6 +719,37 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
     xr, yr = x[:1000], y[:3000]
     all_inf = lse(xr, yr, torch.full((yr.shape[0],), float("-inf"), device=dev), 1.0, 2)
     check(bool((all_inf == float("-inf")).all()), "an all -inf dual must give -inf rows")
+    # a whole column split (the host's geometry) of -inf duals: the split's
+    # partials are (-inf, 0) and the merge must pass over them
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for xs, ys, eps, p in (cases[0], (xr, yr, 1e-2, 2), cases[-2]):
+        n, m = xs.shape[0], ys.shape[0]
+        geom = sinkhorn_geometry(n, m, xs.shape[1], p, n_sms)
+        cols = geom.cols_per_split
+        what = f"n={n} m={m} d={xs.shape[1]} eps={eps:g} p={p}, split 1 of {geom.splits} -inf"
+        dual = torch.full((m,), eps * -math.log(m), device=dev)
+        dual[cols:2 * cols] = float("-inf")
+        err = lse_error(lse(xs, ys, dual, eps, p), lse_plain(xs, ys, dual, eps, p), eps,
+                        f"lse rows {what}")
+        u = torch.full((n,), eps * -math.log(n), device=dev)
+        got_c = transport_cost(xs, ys, u, dual, eps, p)
+        want_c = transport_cost_plain(xs, ys, u, dual, eps, p)
+        rel = float((got_c - want_c).abs() / want_c.abs())
+        check(bool(torch.isfinite(got_c)) and rel <= COST_TOL_REL,
+              f"transport cost {what}: relative {rel:.3e}")
+        lse_errs.append(err)
+        say(f"[phase 2] sinkhorn_lse vs plain, {what}: max |diff| {err[0]:.3e}; "
+            f"transport_cost relative {rel:.3e}")
+    # the host's shared-memory mirror against the kernel's at every width
+    lib = sinkhorn_library()
+    for d in range(1, MAX_DIM + 1):
+        geom = sinkhorn_geometry(SAMPLE_N, SAMPLE_N, d, 2, n_sms)
+        check(lib.sinkhorn_smem_bytes(d, geom.tile_cols) == geom.smem_bytes,
+              f"sinkhorn shared memory at d {d}: kernel {lib.sinkhorn_smem_bytes(d, geom.tile_cols)}"
+              f" vs host {geom.smem_bytes}")
+    say(f"[phase 2] sinkhorn shared memory per block, kernel = host mirror at d 1..{MAX_DIM}: "
+        f"d 8 {sinkhorn_geometry(SAMPLE_N, SAMPLE_N, 8, 2, n_sms).smem_bytes} bytes, d {MAX_DIM} "
+        f"{sinkhorn_geometry(SAMPLE_N, SAMPLE_N, MAX_DIM, 2, n_sms).smem_bytes} bytes")
     rec_lse["max_abs_err"] = max(e[0] for e in lse_errs)
     rec_lse["max_abs_err_eps_units"] = max(e[1] for e in lse_errs)
     rec_cost["max_abs_err"] = max(e[0] for e in cost_errs)
@@ -1176,7 +1209,51 @@ def phase_eval_path(dev, solver, target, path_counts) -> dict:
           f"prior's Sinkhorn {prior_val:.4f} < {GATE_PRIOR_FLOOR} x floor {floor:.4f}")
     timing.update(sinkhorn_sampler=kernel_val, sinkhorn_plain=plain_val,
                   sinkhorn_floor=floor, sinkhorn_prior=prior_val)
+    timing["sinkhorn_split"] = sinkhorn_device_host_split(samples, gt)
+    say("[phase 5] Sinkhorn device / host split: " + json.dumps(timing["sinkhorn_split"]))
     return timing
+
+
+def sinkhorn_device_host_split(x, y) -> dict:
+    """Phase 5's Sinkhorn once more, each kernel call between two CUDA
+    events: the kernels' device milliseconds beside the host clock, for the
+    annealing iterations (nothing read back) and the polishing ones (one
+    read of the dual change each). The events and the host clock stamps add
+    a few microseconds of host time a call."""
+    from sde_sampler_lrds_torch.eval import Sinkhorn
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import lse, transport_cost
+
+    sinkhorn = Sinkhorn()
+    sched = sinkhorn.eps_schedule()
+    n_anneal = int((sched > sched.dtype.type(sinkhorn.eps)).sum())  # float32, as the loop
+    calls = []
+
+    def timed(fn):
+        def call(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            out = fn(*args)
+            end.record()
+            calls.append((t, start, end))
+            return out
+        return call
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sinkhorn.compute(x, y, ops=(timed(lse), timed(transport_cost)))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dev_ms = [start.elapsed_time(end) for _, start, end in calls]
+    first_polish = min(2 * n_anneal, len(calls) - 1)  # the cost call ends the list
+    t_polish = calls[first_polish][0]
+    return {"host_ms": (t1 - t0) * 1e3, "kernel_ms": sum(dev_ms),
+            "iterations": sinkhorn.n_iters, "annealing_iterations": n_anneal,
+            "annealing_host_ms": (t_polish - t0) * 1e3,
+            "annealing_kernel_ms": sum(dev_ms[:first_polish]),
+            "polishing_host_ms": (t1 - t_polish) * 1e3,
+            "polishing_kernel_ms": sum(dev_ms[first_polish:-1]),
+            "transport_cost_kernel_ms": dev_ms[-1]}
 
 
 def phase_smc(dev, target, dataset, path_counts) -> dict:
@@ -1332,12 +1409,14 @@ def phase_phi_four(dev, path_counts) -> tuple:
 
 def phase_timing_sample_kernels(dev, recs, peaks, sfu_rate) -> None:
     """B2, B3 at the eval path's 8192 x 8192 x 8 (eps = 1e-3, p = 2, duals
-    from the first Sinkhorn half-steps) and B4 at the SMC path's N = 1024
-    (and 8192 beside it), against their bounds, plain versions and, for B4,
-    torch.searchsorted."""
-    from sde_sampler_lrds_torch.ops.resample import systematic_lookup, systematic_lookup_plain
-    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
-                                                         transport_cost_plain)
+    from the first Sinkhorn half-steps), beside the geometry the host picked,
+    and B4 at the SMC path's N = 1024 (and 8192 beside it), against their
+    bounds, plain versions and, for B4, torch.searchsorted and the graph
+    replay of a kernel that does nothing (the card's launch floor)."""
+    from sde_sampler_lrds_torch.ops.resample import (empty_launch, systematic_lookup,
+                                                     systematic_lookup_plain)
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, sinkhorn_geometry,
+                                                         transport_cost, transport_cost_plain)
 
     n = m = SAMPLE_N
     d, eps = DIM, 1e-3
@@ -1378,6 +1457,11 @@ def phase_timing_sample_kernels(dev, recs, peaks, sfu_rate) -> None:
                "plain_ms": graph_ms(plain, n=5, reps=3), "bound_ms": bound_ms,
                "bound_by": bound_by,
                "library_ms": None if library is None else graph_ms(library)}
+        if key in ("sinkhorn_lse", "transport_cost"):
+            row["geometry"] = dataclasses.asdict(sinkhorn_geometry(
+                n, m, d, 2, torch.cuda.get_device_properties(dev).multi_processor_count))
+        if key == "resample_N1024":
+            row["empty_kernel_ms"] = graph_ms(lambda: empty_launch(dev))
         say(f"[phase 7] {key}: " + json.dumps({**row, **detail}))
         if key == "resample_N8192":
             recs["resample"]["reference_shape_N8192"] = row

@@ -50,6 +50,10 @@ __global__ void __launch_bounds__(NT) lookup_kernel(const float* __restrict__ cd
   out[i] = min(lo, n - 1);
 }
 
+// A kernel that does nothing: its graph replay is the card's launch floor,
+// the yardstick for a kernel of a few microseconds.
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
@@ -66,6 +70,13 @@ int resample_lookup_launch(const float* cdf, const float* pos, int* out, int n,
                                                                                  out, n);
   else
     lookup_kernel<false><<<blocks, NT, 0, (cudaStream_t)stream>>>(cdf, pos, out, n);
+  return (int)cudaGetLastError();
+}
+
+// One launch of the empty kernel (one block of 32 threads). Returns
+// cudaGetLastError().
+int resample_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -12,36 +12,47 @@
 // (sum |x_k - y_k|^p)^(1/p). A dual (or u, v) of -inf is legal: its term
 // contributes 0, and a row whose every logit is -inf gives -inf (lse).
 //
-// What bounds it on this card: per pair (i, j) about 2d + 8 flops, one
-// sqrt (p = 2) and one exp, against 4d bytes per row or column read once,
-// so at n = m = 8192, d = 8 it is bound by the special-function units and
-// the CUDA cores, never by memory: the cost matrix is never stored.
+// What bounds it on this card: per pair (i, j) 2d + 8 flops, one square
+// root (p = 2) and one exponential, against 4d bytes per row or column read
+// once, so at n = m = 8192, d = 8 it is bound by the special-function units
+// (two results a pair) and the FP32 pipe (about 16 instructions a pair fit
+// under that bound), never by memory: the cost matrix is never stored.
 //
-// What the design does about it: a thread owns R rows of x, held in
-// registers at a padded width D (4, 8 or 16), and keeps a running
-// (max, sum of exp) per row, the flash-attention online log-sum-exp. A
-// block walks its column range in tiles of y staged in shared memory with
-// each column's |y|^2 and dual beside it; every thread reads a column once
-// as float4 broadcasts and uses it for its R rows, a chunk of CH columns at
-// a time. Wider rows (d > 16) keep x in shared memory and sum the pair cost
-// over chunks of 16 dimensions. The columns are split across blocks as well
-// (flash-decoding): each (row block, column split) writes a partial (max,
-// sum) or partial sum per row, and a second pass merges the splits of each
-// row in a fixed order, so the result does not depend on scheduling.
-// Ragged rows and columns are masked in the kernel.
+// What the design does about it:
+// - A thread owns R rows of x, held in registers at a padded width D (4, 8
+//   or 16). Wider rows (d > 16) keep x in shared memory and sum the pair
+//   cost over chunks of 16 dimensions, one row a thread.
+// - A block walks one long column range in tiles of y staged in shared
+//   memory by cp.async, the next tile into a second buffer while the
+//   current one is used. Beside each column sit its |y|^2 and its dual
+//   times s = log2(e) / eps, read together as one 8-byte load; every thread
+//   reads a column once, as float4 broadcasts, and uses it for its R rows.
+// - Logits are in base 2, one FMA each: (dual_j - M_ij) * s. The square
+//   root and 2^x are one MUFU instruction each (sqrt.approx, ex2.approx).
+// - The running (max, sum) per row is updated once per chunk of CH
+//   columns: the chunk's max, one rescale, then one 2^x a pair, with no
+//   branch. -inf logits use the TPU kernel's isfinite shift, so an all -inf
+//   chunk, split or row contributes 0 and never NaN.
+// - The host picks the geometry (column splits of a row block, tile width)
+//   so the grid fills the card in whole waves; each (row block, column
+//   split) writes a partial (max, sum) or partial sum per row, and a second
+//   pass merges the splits of each row in a fixed order, in base 2, so two
+//   launches give the same bits. Ragged columns carry a dual of -inf.
+// The cost mode shares the body: a per-row sum of 2^((u_i + v_j) s - M_ij s)
+// * M_ij, with no max.
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include <algorithm>
-
 namespace {
 
-constexpr int THREADS = 128;  // threads a block
-constexpr int RR = 4;         // rows a thread at D <= 16
-constexpr int TILE = 128;     // columns of y staged in shared memory per step
-constexpr int WIDE_CHUNK = 16;  // dimensions summed per pass at d > 16
-// blocks the grid aims for: 132 SMs, 4 resident blocks of 128 threads each
-constexpr int TARGET_BLOCKS = 132 * 4;
+constexpr int THREADS = 128;     // threads a block
+constexpr int RR = 4;            // rows a thread at d <= 16
+constexpr int TILE = 128;        // columns a stage at d <= 16
+constexpr int WIDE_TILE = 32;    // columns a stage at d > 16
+constexpr int WIDE_CHUNK = 16;   // dimensions summed per pass at d > 16
+constexpr int COL_ALIGN = 8;     // a split's columns are a multiple of this
+constexpr int MAX_SMEM = 232448;  // shared memory a block may take
+constexpr float LN2 = 0.69314718055994531f;
 
 enum Mode { LSE = 0, COST = 1 };
 enum PKind { P_GENERAL = 0, P_ONE = 1, P_TWO = 2 };
@@ -51,13 +62,15 @@ struct Args {
   const float* y;   // (m, d)
   const float* u;   // (n,) row duals (COST only)
   const float* w;   // (m,) column duals: dual (LSE) or v (COST)
-  float* part_a;    // (n_split, n): running max (LSE) or partial sum (COST)
-  float* part_b;    // (n_split, n): running sum of exp (LSE only)
+  float* part_a;    // (splits, n): running max (LSE) or partial sum (COST)
+  float* part_b;    // (splits, n): running sum of 2^x (LSE only)
   float scale;      // log2(e) / eps: logits in base 2
   int p;
   int n, m, d;
   int dp;           // padded width: D, or d rounded up to WIDE_CHUNK
+  int tile;         // columns a stage
   int cols_per_split;
+  bool y_vec4;      // y rows 16-byte aligned: 16-byte copies
 };
 
 // 2^v and sqrt(v) on the special-function unit, one instruction each;
@@ -71,6 +84,23 @@ __device__ __forceinline__ float sqrt_approx(float v) {
   float r;
   asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
   return r;
+}
+
+// Asynchronous global -> shared copies of 16 or 4 bytes, their groups, and
+// the wait for all of this thread's groups.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float int_pow(float a, int p) {
@@ -94,26 +124,36 @@ __device__ __forceinline__ float cost_finish(float acc, float xx, float yy, int 
   return (PK == P_ONE) ? acc : powf(acc, 1.0f / (float)p);
 }
 
-// Rows this thread owns: row0 + r * THREADS + threadIdx.x, r < R.
-// D: padded width held in registers (WIDE: the chunk width, x in shared
-// memory). CH: columns a chunk.
+__device__ __forceinline__ void unpack(float* v, const float4 q) {
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+// Resident blocks an SM the launch bounds ask for (the register budget);
+// mirrored by the host's sinkhorn_geometry.
+template <int PK, bool WIDE>
+constexpr int min_blocks() { return WIDE ? 2 : (PK == P_GENERAL ? 2 : 4); }
+
+// D registers a row (WIDE: the chunk width, x in shared memory), R rows a
+// thread: this thread's rows are row0 + r * THREADS + threadIdx.x, r < R.
 template <int MODE, int PK, int D, int R, bool WIDE>
-__global__ void __launch_bounds__(THREADS) tile_kernel(Args a) {
-  constexpr int CH = (D <= 8 && !WIDE) ? 8 : 4;
+__global__ void __launch_bounds__(THREADS, min_blocks<PK, WIDE>())
+tile_kernel(Args a) {
+  constexpr int CH = (D <= 8 && !WIDE) ? 8 : 4;  // columns a chunk
   extern __shared__ float4 smem4[];
   const int dp = WIDE ? a.dp : D;
   const int dp4 = dp / 4;
-  float4* ys4 = smem4;                                   // (TILE, dp)
-  float2* cw = reinterpret_cast<float2*>(ys4 + TILE * dp4);  // (TILE,) |y|^2, dual
-  float4* xs4 = reinterpret_cast<float4*>(cw + TILE);    // WIDE: (dp / 4, R * THREADS)
-  float* ysf = reinterpret_cast<float*>(ys4);
+  const int T = a.tile;
+  float4* ys4 = smem4;                                           // (2, T, dp)
+  float2* cw = reinterpret_cast<float2*>(ys4 + 2 * T * dp4);     // (T,) |y|^2, dual * s
+  float* wraw = reinterpret_cast<float*>(cw + T);                // (2, T) duals as copied
+  float4* xs4 = reinterpret_cast<float4*>(wraw + 2 * T);         // WIDE: (dp / 4, R * THREADS)
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * (R * THREADS);
   const int c_begin = blockIdx.y * a.cols_per_split;
   const int c_end = min(a.m, c_begin + a.cols_per_split);
 
   // padded dimensions and never-copied columns read as zeros
-  for (int i = tid; i < TILE * dp4; i += THREADS) ys4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < 2 * T * dp4; i += THREADS) ys4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   float xr[R][WIDE ? 1 : D];
   float xx[R];
@@ -123,17 +163,6 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(Args a) {
       const int r = idx / dp, k = idx - r * dp;
       xsf[((k >> 2) * (R * THREADS) + r) * 4 + (k & 3)] =
           (row0 + r < a.n && k < a.d) ? a.x[(size_t)(row0 + r) * a.d + k] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float s = 0.0f;
-      for (int k4 = 0; k4 < dp4; ++k4) {
-        const float4 v = xs4[k4 * (R * THREADS) + r * THREADS + tid];
-        s = fmaf(v.x, v.x, s); s = fmaf(v.y, v.y, s);
-        s = fmaf(v.z, v.z, s); s = fmaf(v.w, v.w, s);
-      }
-      xx[r] = s;
     }
   } else {
 #pragma unroll
@@ -154,28 +183,62 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(Args a) {
     const int row = row0 + r * THREADS + tid;
     u_r[r] = (MODE == COST && row < a.n) ? a.u[row] * a.scale : 0.0f;
   }
+  __syncthreads();  // the zeros (and WIDE's x) are in place before any copy lands
+  if constexpr (WIDE) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float s = 0.0f;
+      for (int k4 = 0; k4 < dp4; ++k4) {
+        const float4 v = xs4[k4 * (R * THREADS) + r * THREADS + tid];
+        s = fmaf(v.x, v.x, s); s = fmaf(v.y, v.y, s);
+        s = fmaf(v.z, v.z, s); s = fmaf(v.w, v.w, s);
+      }
+      xx[r] = s;
+    }
+  }
 
-  float run_m[R], run_s[R];  // LSE: running max and sum of exp; COST: sum in run_s
+  // copies of the tile at column t0 into buffer b: y's d words a column
+  // (16 bytes at a time where rows are aligned), and the raw duals
+  auto issue = [&](int b, int t0) {
+    const int cnt = min(T, c_end - t0);
+    float* ysb = reinterpret_cast<float*>(ys4 + b * T * dp4);
+    if (a.y_vec4) {
+      const int d4 = a.d / 4;
+      for (int idx = tid; idx < cnt * d4; idx += THREADS) {
+        const int j = idx / d4, k4 = idx - j * d4;
+        cp_async16(ysb + j * dp + 4 * k4, a.y + (size_t)(t0 + j) * a.d + 4 * k4);
+      }
+    } else {
+      for (int idx = tid; idx < cnt * a.d; idx += THREADS) {
+        const int j = idx / a.d, k = idx - j * a.d;
+        cp_async4(ysb + j * dp + k, a.y + (size_t)t0 * a.d + idx);
+      }
+    }
+    for (int j = tid; j < cnt; j += THREADS) cp_async4(wraw + b * T + j, a.w + t0 + j);
+    cp_async_commit();
+  };
+
+  float run_m[R], run_s[R];  // LSE: running max and sum of 2^x; COST: sum in run_s
 #pragma unroll
   for (int r = 0; r < R; ++r) { run_m[r] = -INFINITY; run_s[r] = 0.0f; }
 
-  for (int t0 = c_begin; t0 < c_end; t0 += TILE) {
-    const int cnt = min(TILE, c_end - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < cnt * a.d; idx += THREADS) {
-      const int j = idx / a.d, k = idx - j * a.d;
-      ysf[j * dp + k] = a.y[(size_t)t0 * a.d + idx];
-    }
-    __syncthreads();
-    for (int j = tid; j < TILE; j += THREADS) {
+  issue(0, c_begin);
+  for (int t0 = c_begin, b = 0; t0 < c_end; t0 += T, b ^= 1) {
+    const int cnt = min(T, c_end - t0);
+    cp_async_wait_all();
+    __syncthreads();  // tile t0 landed; every thread is done with the other buffer and cw
+    if (t0 + T < c_end) issue(b ^ 1, t0 + T);
+    const float4* yb = ys4 + b * T * dp4;
+    for (int j = tid; j < T; j += THREADS) {
       float yy = 0.0f;
       if (PK == P_TWO)
         for (int k4 = 0; k4 < dp4; ++k4) {
-          const float4 v = ys4[j * dp4 + k4];
+          const float4 v = yb[j * dp4 + k4];
           yy = fmaf(v.x, v.x, yy); yy = fmaf(v.y, v.y, yy);
           yy = fmaf(v.z, v.z, yy); yy = fmaf(v.w, v.w, yy);
         }
-      cw[j] = make_float2(yy, j < cnt ? a.w[t0 + j] * a.scale : -INFINITY);
+      // columns past the range hold stale finite values and a dual of -inf
+      cw[j] = make_float2(yy, j < cnt ? wraw[b * T + j] * a.scale : -INFINITY);
     }
     __syncthreads();
     const int jn = (cnt + CH - 1) / CH * CH;
@@ -192,23 +255,18 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(Args a) {
 #pragma unroll
           for (int r = 0; r < R; ++r)
 #pragma unroll
-            for (int i = 0; i < D / 4; ++i) {
-              const float4 v = xs4[(kc + i) * (R * THREADS) + r * THREADS + tid];
-              xv[r][4 * i] = v.x; xv[r][4 * i + 1] = v.y;
-              xv[r][4 * i + 2] = v.z; xv[r][4 * i + 3] = v.w;
-            }
+            for (int i = 0; i < D / 4; ++i)
+              unpack(&xv[r][4 * i], xs4[(kc + i) * (R * THREADS) + r * THREADS + tid]);
 #pragma unroll
           for (int q = 0; q < CH; ++q) {
             float yv[D];
 #pragma unroll
-            for (int i = 0; i < D / 4; ++i) {
-              const float4 v = ys4[(j0 + q) * dp4 + kc + i];
-              yv[4 * i] = v.x; yv[4 * i + 1] = v.y; yv[4 * i + 2] = v.z; yv[4 * i + 3] = v.w;
-            }
+            for (int i = 0; i < D / 4; ++i) unpack(&yv[4 * i], yb[(j0 + q) * dp4 + kc + i]);
 #pragma unroll
             for (int r = 0; r < R; ++r)
 #pragma unroll
-              for (int k = 0; k < D; ++k) acc[r][q] = cost_term<PK>(acc[r][q], xv[r][k], yv[k], a.p);
+              for (int k = 0; k < D; ++k)
+                acc[r][q] = cost_term<PK>(acc[r][q], xv[r][k], yv[k], a.p);
           }
         }
 #pragma unroll
@@ -223,10 +281,7 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(Args a) {
         for (int q = 0; q < CH; ++q) {
           float yv[D];
 #pragma unroll
-          for (int i = 0; i < D / 4; ++i) {
-            const float4 v = ys4[(j0 + q) * (D / 4) + i];
-            yv[4 * i] = v.x; yv[4 * i + 1] = v.y; yv[4 * i + 2] = v.z; yv[4 * i + 3] = v.w;
-          }
+          for (int i = 0; i < D / 4; ++i) unpack(&yv[4 * i], yb[(j0 + q) * (D / 4) + i]);
           const float2 cq = cw[j0 + q];
           wq[q] = cq.y;
 #pragma unroll
@@ -282,6 +337,7 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(Args a) {
   }
 }
 
+// Each row's partials, merged over the splits in split order.
 template <int MODE>
 __global__ void merge_kernel(const float* part_a, const float* part_b, float* out,
                              int n, int n_split) {
@@ -303,60 +359,65 @@ __global__ void merge_kernel(const float* part_a, const float* part_b, float* ou
   float s = 0.0f;
   for (int k = 0; k < n_split; ++k)
     s = fmaf(part_b[(size_t)k * n + i], exp2f(part_a[(size_t)k * n + i] - mx), s);
-  out[i] = (mx + log2f(s)) * 0.69314718055994531f;
+  out[i] = (mx + log2f(s)) * LN2;
 }
 
 bool wide(int d) { return d > 16; }
 int padded_width(int d) {
   return d <= 4 ? 4 : d <= 8 ? 8 : d <= 16 ? 16 : (d + WIDE_CHUNK - 1) / WIDE_CHUNK * WIDE_CHUNK;
 }
-int rows_per_block(int d) { return (wide(d) ? 1 : RR) * THREADS; }
 
-int smem_bytes(int d) {
+// Shared memory of a block: two tiles of y, the tile's (|y|^2, dual) pairs,
+// two tiles of raw duals and, past d = 16, the block's rows of x.
+int smem_bytes(int d, int tile) {
   const int dp = padded_width(d);
-  return (int)sizeof(float) * (TILE * dp + 2 * TILE + (wide(d) ? THREADS * dp : 0));
+  return (int)sizeof(float) * (2 * tile * dp + 2 * tile + 2 * tile +
+                               (wide(d) ? THREADS * dp : 0));
 }
 
-int cols_per_split(int n, int m, int d) {
-  const int row_blocks = (n + rows_per_block(d) - 1) / rows_per_block(d);
-  const int max_splits = (m + TILE - 1) / TILE;
-  int splits = (TARGET_BLOCKS + row_blocks - 1) / row_blocks;
-  splits = std::max(1, std::min(splits, max_splits));
-  const int per = (m + splits - 1) / splits;
-  return ((per + TILE - 1) / TILE) * TILE;
+// The host's geometry is one these kernels take.
+bool geometry_ok(const Args& a, int splits, int smem) {
+  const int tile = wide(a.d) ? WIDE_TILE : TILE;
+  return a.n > 0 && a.m > 0 && a.d >= 1 && a.tile == tile &&
+         smem == smem_bytes(a.d, tile) && smem <= MAX_SMEM &&
+         a.cols_per_split > 0 && a.cols_per_split % COL_ALIGN == 0 && splits >= 1 &&
+         (long long)(splits - 1) * a.cols_per_split < a.m &&
+         (long long)splits * a.cols_per_split >= a.m;
 }
 
 template <int MODE, int PK, int D, int R, bool WIDE>
-cudaError_t launch_tiles(const Args& a, int n_split, cudaStream_t stream) {
-  const int smem = smem_bytes(a.d);
+cudaError_t launch_tiles(const Args& a, int splits, int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       tile_kernel<MODE, PK, D, R, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.n + R * THREADS - 1) / (R * THREADS), n_split);
+  dim3 grid((a.n + R * THREADS - 1) / (R * THREADS), splits);
   tile_kernel<MODE, PK, D, R, WIDE><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int MODE, int PK>
-cudaError_t launch_width(const Args& a, int n_split, cudaStream_t stream) {
-  if (a.d <= 4) return launch_tiles<MODE, PK, 4, RR, false>(a, n_split, stream);
-  if (a.d <= 8) return launch_tiles<MODE, PK, 8, RR, false>(a, n_split, stream);
-  if (a.d <= 16) return launch_tiles<MODE, PK, 16, RR, false>(a, n_split, stream);
-  return launch_tiles<MODE, PK, WIDE_CHUNK, 1, true>(a, n_split, stream);
+cudaError_t launch_width(const Args& a, int splits, int smem, cudaStream_t stream) {
+  if (a.d <= 4) return launch_tiles<MODE, PK, 4, RR, false>(a, splits, smem, stream);
+  if (a.d <= 8) return launch_tiles<MODE, PK, 8, RR, false>(a, splits, smem, stream);
+  if (a.d <= 16) return launch_tiles<MODE, PK, 16, RR, false>(a, splits, smem, stream);
+  return launch_tiles<MODE, PK, WIDE_CHUNK, 1, true>(a, splits, smem, stream);
 }
 
 template <int MODE>
-int launch(Args a, float* out, cudaStream_t stream) {
-  a.cols_per_split = cols_per_split(a.n, a.m, a.d);
+int launch(Args a, int tile, int cols_per_split, int splits, int smem, float* out,
+           cudaStream_t stream) {
   a.dp = padded_width(a.d);
-  const int n_split = (a.m + a.cols_per_split - 1) / a.cols_per_split;
+  a.tile = tile;
+  a.cols_per_split = cols_per_split;
+  a.y_vec4 = a.d % 4 == 0 && reinterpret_cast<size_t>(a.y) % 16 == 0;
+  if (!geometry_ok(a, splits, smem)) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  if (a.p == 2) err = launch_width<MODE, P_TWO>(a, n_split, stream);
-  else if (a.p == 1) err = launch_width<MODE, P_ONE>(a, n_split, stream);
-  else err = launch_width<MODE, P_GENERAL>(a, n_split, stream);
+  if (a.p == 2) err = launch_width<MODE, P_TWO>(a, splits, smem, stream);
+  else if (a.p == 1) err = launch_width<MODE, P_ONE>(a, splits, smem, stream);
+  else err = launch_width<MODE, P_GENERAL>(a, splits, smem, stream);
   if (err != cudaSuccess) return (int)err;
   merge_kernel<MODE><<<(a.n + 255) / 256, 256, 0, stream>>>(a.part_a, a.part_b, out,
-                                                            a.n, n_split);
+                                                            a.n, splits);
   return (int)cudaGetLastError();
 }
 
@@ -364,32 +425,33 @@ int launch(Args a, float* out, cudaStream_t stream) {
 
 extern "C" {
 
-// Number of column splits, i.e. rows of the (n_split, n) scratch arrays.
-int sinkhorn_num_splits(int n, int m, int d) {
-  const int per = cols_per_split(n, m, d);
-  return (m + per - 1) / per;
-}
-
 const char* sinkhorn_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// out (n,) = logsumexp_j[(dual_j - M_ij) / eps], scale = log2(e) / eps;
-// scratch part_m, part_s hold
-// sinkhorn_num_splits(n, m, d) * n floats each. Returns cudaGetLastError().
+// Shared memory a block takes at width d with `tile` columns a stage (the
+// host's mirror is sinkhorn_geometry's smem_bytes).
+int sinkhorn_smem_bytes(int d, int tile) { return smem_bytes(d, tile); }
+
+// out (n,) = logsumexp_j[(dual_j - M_ij) / eps], scale = log2(e) / eps, on
+// the host's geometry: `splits` ranges of `cols_per_split` columns staged
+// `tile` at a time in `smem` bytes; scratch part_m, part_s hold splits * n
+// floats each. Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// geometry these kernels do not take.
 int sinkhorn_lse_launch(const float* x, const float* y, const float* dual, float scale,
-                        int p, int n, int m, int d, float* part_m, float* part_s,
-                        float* out, void* stream) {
-  Args a{x, y, nullptr, dual, part_m, part_s, scale, p, n, m, d, 0, 0};
-  return launch<LSE>(a, out, (cudaStream_t)stream);
+                        int p, int n, int m, int d, int tile, int cols_per_split, int splits,
+                        int smem, float* part_m, float* part_s, float* out, void* stream) {
+  Args a{x, y, nullptr, dual, part_m, part_s, scale, p, n, m, d, 0, 0, 0, false};
+  return launch<LSE>(a, tile, cols_per_split, splits, smem, out, (cudaStream_t)stream);
 }
 
 // out (n,) = per-row sum_j exp((u_i + v_j - M_ij) / eps) * M_ij, scale =
-// log2(e) / eps; scratch
-// part holds sinkhorn_num_splits(n, m, d) * n floats. Returns cudaGetLastError().
+// log2(e) / eps, on the host's geometry as above; scratch part holds
+// splits * n floats.
 int sinkhorn_cost_launch(const float* x, const float* y, const float* u, const float* v,
-                         float scale, int p, int n, int m, int d, float* part, float* out,
+                         float scale, int p, int n, int m, int d, int tile,
+                         int cols_per_split, int splits, int smem, float* part, float* out,
                          void* stream) {
-  Args a{x, y, u, v, part, nullptr, scale, p, n, m, d, 0, 0};
-  return launch<COST>(a, out, (cudaStream_t)stream);
+  Args a{x, y, u, v, part, nullptr, scale, p, n, m, d, 0, 0, 0, false};
+  return launch<COST>(a, tile, cols_per_split, splits, smem, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

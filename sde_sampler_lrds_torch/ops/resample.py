@@ -37,6 +37,8 @@ def _library() -> ctypes.CDLL:
     ptr = ctypes.c_void_p
     lib.resample_lookup_launch.argtypes = [ptr, ptr, ptr, ctypes.c_int, ptr]
     lib.resample_lookup_launch.restype = ctypes.c_int
+    lib.resample_empty_launch.argtypes = [ptr]
+    lib.resample_empty_launch.restype = ctypes.c_int
     lib.resample_error_string.argtypes = [ctypes.c_int]
     lib.resample_error_string.restype = ctypes.c_char_p
     return lib
@@ -73,6 +75,18 @@ def systematic_lookup(cdf: torch.Tensor, positions: torch.Tensor) -> torch.Tenso
 
 
 systematic_lookup.launches = 0
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launches a kernel that does nothing, on the current stream of
+    ``device``: the card's launch floor, timed beside the lookup. No path
+    runs it, and it is not counted."""
+    lib = _library()
+    with torch.cuda.device(device):
+        err = lib.resample_empty_launch(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("empty kernel launch failed: "
+                           + lib.resample_error_string(err).decode())
 
 
 def weights_cdf(w: torch.Tensor) -> torch.Tensor:

@@ -7,15 +7,17 @@ With M_ij = ‖x_i − y_j‖_p:
     transport_cost(x, y, u, v, eps)  = Σ_ij exp((u_i + v_j − M_ij)/eps)·M_ij
 
 On a CUDA tensor each wrapper launches the hand-written kernel
-``csrc/sinkhorn_lse.cu`` (the cost matrix never reaches device memory); on
-a CPU tensor it runs its plain version, which builds the cost matrix a
-block of rows at a time. p = 2 uses the |x|² + |y|² − 2x·y expansion in
+``csrc/sinkhorn_lse.cu`` (the cost matrix never reaches device memory) on
+the geometry ``sinkhorn_geometry`` picks, and merges its per-split partials
+in a second pass; on a CPU tensor it runs its plain version, which builds
+the cost matrix a block of rows at a time. p = 2 uses the |x|² + |y|² − 2x·y expansion in
 both, as the JAX package does. A dual of −inf is legal: its term drops
 out, and a row whose every logit is −inf gives −inf.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -23,12 +25,99 @@ import torch
 
 from ._build import load_library
 
-# past d = 16 the kernel keeps 128 rows of x and 128 columns of y in shared
-# memory; beyond this width a block would exceed the card's 227 KB
+# the widths the kernels take (past d = 16 a block keeps 128 rows of x in
+# shared memory; the first design's limit, kept)
 MAX_DIM = 224
+# the kernels' geometry (csrc/sinkhorn_lse.cu): 128 threads a block; at
+# d ≤ 16 four rows a thread in registers at a padded width of 4, 8 or 16 and
+# tiles of 128 columns, past d = 16 one row a thread with x in shared memory
+# at d rounded up to 16 and tiles of 32 columns; a split's columns a
+# multiple of 8 (the largest chunk)
+_THREADS, _ROWS_PER_THREAD, _TILE, _WIDE_TILE, _WIDE_CHUNK, _COL_ALIGN = 128, 4, 128, 32, 16, 8
+MAX_SMEM_BYTES = 232_448        # shared memory a block may take
+_SM_SMEM_BYTES = 233_472        # an SM's, of which 1 KB is reserved a block
+# a block's fixed cost (its rows of x, the first tile's copy, the partial
+# stores), in columns of work, when the splits are chosen
+_BLOCK_OVERHEAD_COLS = 32
 _BLOCK_ELEMS = 1 << 24      # plain version: pair-cost elements per block
 # the kernels take logits in base 2: the scale log2(e)/eps, folded once
 _LOG2E = 1.0 / math.log(2.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class SinkhornGeometry:
+    """A launch of the Sinkhorn kernels: ``row_blocks`` × ``splits`` blocks
+    of ``threads`` threads; block (i, k) owns rows [i·rows, (i + 1)·rows),
+    rows = rows_per_thread·threads, and columns [k·cols_per_split,
+    (k + 1)·cols_per_split) ∩ [0, m), staged ``tile_cols`` at a time."""
+    width: int              # padded width of a row: 4, 8, 16, or d rounded up to 16
+    wide: bool              # x in shared memory, the cost summed 16 dimensions at a time
+    rows_per_thread: int
+    threads: int
+    row_blocks: int
+    tile_cols: int
+    cols_per_split: int
+    splits: int
+    smem_bytes: int
+    blocks_per_sm: int      # resident blocks an SM the launch can count on
+
+
+def smem_bytes(d: int, tile_cols: int) -> int:
+    """Shared memory of a block (mirror of ``smem_bytes`` in the source):
+    two tiles of y at the padded width, the tile's (|y|², dual) pairs, two
+    tiles of raw duals and, past d = 16, the block's rows of x."""
+    width = _padded_width(d)
+    return 4 * (2 * tile_cols * width + 4 * tile_cols + (_THREADS * width if d > 16 else 0))
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _padded_width(d: int) -> int:
+    return next((w for w in (4, 8, 16) if d <= w), _ceil_div(d, _WIDE_CHUNK) * _WIDE_CHUNK)
+
+
+@functools.lru_cache(maxsize=None)
+def sinkhorn_geometry(n: int, m: int, d: int, p: int, n_sms: int,
+                      blocks_per_sm: int | None = None) -> SinkhornGeometry:
+    """The kernels' geometry for an (n, d) × (m, d) reduction on a card of
+    ``n_sms`` SMs. A wave is the blocks the card holds at once
+    (``blocks_per_sm`` an SM: 4 at d ≤ 16, 2 for a general p, 2 past d = 16,
+    fewer where shared memory binds; or the number given). Among the column
+    splits that fill w whole waves, w = 1, 2, ..., it takes the one with the
+    least waves × (columns a split + a block's fixed cost), so each block
+    walks one long range; a grid that reaches every SM comes first. At
+    8192 × 8192 × 8 on 132 SMs: 16 row blocks × 32 splits of 256 columns."""
+    if n < 1 or m < 1 or n_sms < 1 or not 1 <= d <= MAX_DIM or p < 1:
+        raise ValueError(f"sinkhorn_geometry: n {n}, m {m}, d {d} (at most {MAX_DIM}), "
+                         f"p {p} and n_sms {n_sms} out of range")
+    wide = d > 16
+    rows = 1 if wide else _ROWS_PER_THREAD
+    tile = _WIDE_TILE if wide else _TILE
+    smem = smem_bytes(d, tile)
+    if blocks_per_sm is None:
+        # the launch bounds' register budget, then shared memory
+        regs = 2 if wide or p not in (1, 2) else 4
+        blocks_per_sm = max(1, min(regs, _SM_SMEM_BYTES // (smem + 1024)))
+    row_blocks = _ceil_div(n, rows * _THREADS)
+    slots = n_sms * blocks_per_sm
+    fill = min(n_sms, row_blocks * _ceil_div(m, _COL_ALIGN))
+    best, waves, cols = None, 0, None
+    while cols != _COL_ALIGN:
+        waves += 1
+        max_splits = waves * slots // row_blocks
+        if max_splits < 1:
+            continue
+        cols = _ceil_div(_ceil_div(m, max_splits), _COL_ALIGN) * _COL_ALIGN
+        splits = _ceil_div(m, cols)
+        blocks = row_blocks * splits
+        key = (blocks < fill, _ceil_div(blocks, slots) * (cols + _BLOCK_OVERHEAD_COLS))
+        if best is None or key < best[0]:
+            best = (key, splits, cols)
+    _, splits, cols = best
+    return SinkhornGeometry(_padded_width(d), wide, rows, _THREADS, row_blocks, tile, cols,
+                            splits, smem, blocks_per_sm)
 
 
 def pairwise_cost(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
@@ -72,12 +161,12 @@ def transport_cost_plain(x, y, u, v, eps: float, p: int = 2) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     lib = load_library("sinkhorn_lse")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sinkhorn_lse_launch.argtypes = [ptr, ptr, ptr, f32] + [i32] * 4 + [ptr] * 4
+    lib.sinkhorn_lse_launch.argtypes = [ptr, ptr, ptr, f32] + [i32] * 8 + [ptr] * 4
     lib.sinkhorn_lse_launch.restype = i32
-    lib.sinkhorn_cost_launch.argtypes = [ptr] * 4 + [f32] + [i32] * 4 + [ptr] * 3
+    lib.sinkhorn_cost_launch.argtypes = [ptr] * 4 + [f32] + [i32] * 8 + [ptr] * 3
     lib.sinkhorn_cost_launch.restype = i32
-    lib.sinkhorn_num_splits.argtypes = [i32, i32, i32]
-    lib.sinkhorn_num_splits.restype = i32
+    lib.sinkhorn_smem_bytes.argtypes = [i32, i32]
+    lib.sinkhorn_smem_bytes.restype = i32
     lib.sinkhorn_error_string.argtypes = [i32]
     lib.sinkhorn_error_string.restype = ctypes.c_char_p
     return lib
@@ -100,12 +189,24 @@ def _check(x, y, vectors: dict, p: int, name: str) -> None:
             raise ValueError(f"{name}: the kernel takes float32 inputs, got {t.dtype}")
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_prep(x, name: str):
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, got {x.device}")
     if not 1 <= x.shape[1] <= MAX_DIM:
         raise ValueError(f"{name} kernel: d = {x.shape[1]} outside [1, {MAX_DIM}]")
     return _library(), torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _geometry_args(x, m: int, p: int):
+    """The launch's geometry and its launch arguments (tile, columns a
+    split, splits, shared memory)."""
+    geom = sinkhorn_geometry(x.shape[0], m, x.shape[1], p, _sm_count(x.device))
+    return geom, (geom.tile_cols, geom.cols_per_split, geom.splits, geom.smem_bytes)
 
 
 def lse(x: torch.Tensor, y: torch.Tensor, dual: torch.Tensor, eps: float,
@@ -123,12 +224,12 @@ def lse(x: torch.Tensor, y: torch.Tensor, dual: torch.Tensor, eps: float,
         return out
     if m == 0:
         return out.fill_(float("-inf"))
+    geom, geom_args = _geometry_args(x, m, p)
     x, y, dual = x.contiguous(), y.contiguous(), dual.contiguous()
-    splits = lib.sinkhorn_num_splits(n, m, x.shape[1])
-    part = torch.empty((2, splits, n), dtype=torch.float32, device=x.device)
+    part = torch.empty((2, geom.splits, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.sinkhorn_lse_launch(x.data_ptr(), y.data_ptr(), dual.data_ptr(),
-                                      _LOG2E / eps, p, n, m, x.shape[1],
+                                      _LOG2E / eps, p, n, m, x.shape[1], *geom_args,
                                       part[0].data_ptr(), part[1].data_ptr(),
                                       out.data_ptr(), stream)
     if err != 0:
@@ -156,13 +257,13 @@ def transport_cost(x: torch.Tensor, y: torch.Tensor, u: torch.Tensor, v: torch.T
     rows = torch.zeros((n,), dtype=torch.float32, device=x.device)
     if n == 0 or m == 0:
         return torch.sum(rows)
+    geom, geom_args = _geometry_args(x, m, p)
     x, y, u, v = x.contiguous(), y.contiguous(), u.contiguous(), v.contiguous()
-    part = torch.empty((lib.sinkhorn_num_splits(n, m, x.shape[1]), n), dtype=torch.float32,
-                       device=x.device)
+    part = torch.empty((geom.splits, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.sinkhorn_cost_launch(x.data_ptr(), y.data_ptr(), u.data_ptr(),
                                        v.data_ptr(), _LOG2E / eps, p, n, m, x.shape[1],
-                                       part.data_ptr(), rows.data_ptr(), stream)
+                                       *geom_args, part.data_ptr(), rows.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("sinkhorn transport-cost kernel launch failed: "
                            + lib.sinkhorn_error_string(err).decode())

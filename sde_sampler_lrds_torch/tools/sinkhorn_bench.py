@@ -2,7 +2,7 @@
 transport cost) without the whole chip_smoke.py: about a minute on one card.
 
     python3 sde_sampler_lrds_torch/tools/sinkhorn_bench.py [--root DIR] [--time-only]
-        [--outputs FILE]
+        [--outputs FILE] [--sweep]
 
 Builds csrc/sinkhorn_lse.cu of the checkout at --root (default: this one),
 prints each kernel instantiation's registers, stack and spills, runs
@@ -16,12 +16,16 @@ and pass it as --root, in turns with this one.
 
 --outputs FILE launches both kernels of --root on fixed inputs and saves
 what they return to FILE; when FILE exists already, it compares instead and
-prints the max |diff| and whether the two agree bit for bit. Needs a CUDA
-card; imports no JAX.
+prints the max |diff| and whether the two agree bit for bit.
+
+--sweep times both kernels at phase 7's shape on the geometries that
+``sinkhorn_geometry`` picks for 1, 2, 4 and 8 resident blocks an SM (longer
+column ranges with fewer blocks). Needs a CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -57,19 +61,17 @@ def geometry(n, m, d, p):
 
     if not hasattr(ops, "sinkhorn_geometry"):
         return None
-    import dataclasses
-
     import torch
     geom = ops.sinkhorn_geometry(n, m, d, p, torch.cuda.get_device_properties(0)
                                  .multi_processor_count)
     return dataclasses.asdict(geom)
 
 
-def timing(torch, cs, dev, peaks, sfu_rate) -> None:
+def timing(torch, cs, dev, peaks, sfu_rate, shapes=SHAPES, label="") -> None:
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import lse, transport_cost
 
     eps = 1e-3
-    for n, m, d in SHAPES:
+    for n, m, d in shapes:
         x, y, u, v = inputs(torch, cs, dev, n, m, d, eps, 41)
         pairs, io = n * m, 4 * (n * d + m * d)
         for name, fn, b in (
@@ -79,9 +81,23 @@ def timing(torch, cs, dev, peaks, sfu_rate) -> None:
                  cs.bound(pairs * (2 * d + 11), 2 * pairs, io + 4 * (n + m) + 4, peaks,
                           sfu_rate))):
             ms = cs.graph_ms(fn)
-            print(f"[time] {name} n={n} m={m} d={d}: " + json.dumps({
+            print(f"[time] {name}{label} n={n} m={m} d={d}: " + json.dumps({
                 "ms": ms, "host_loop_ms": cs.time_cuda(fn), "bound_ms": b[0],
                 "share_of_bound": b[0] / ms, "geometry": geometry(n, m, d, 2)}), flush=True)
+
+
+def sweep(torch, cs, dev, peaks, sfu_rate) -> None:
+    """Phase 7's shape on the geometry picked for each number of resident
+    blocks an SM."""
+    import sde_sampler_lrds_torch.ops.sinkhorn_lse as ops
+
+    picked = ops.sinkhorn_geometry
+    try:
+        for blocks in (1, 2, 4, 8):
+            ops.sinkhorn_geometry = lambda n, m, d, p, n_sms, b=blocks: picked(n, m, d, p, n_sms, b)
+            timing(torch, cs, dev, peaks, sfu_rate, SHAPES[:1], f" sweep blocks_per_sm={blocks}")
+    finally:
+        ops.sinkhorn_geometry = picked
 
 
 def outputs(torch, cs, dev, path: str) -> None:
@@ -117,6 +133,7 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.join(os.path.dirname(__file__), "..", ".."))
     ap.add_argument("--time-only", action="store_true")
     ap.add_argument("--outputs", metavar="FILE")
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     outputs_path = os.path.abspath(args.outputs) if args.outputs else None
@@ -153,6 +170,8 @@ def main() -> int:
         print("[compare] " + json.dumps({"sinkhorn_lse": rec_lse, "transport_cost": rec_cost}),
               flush=True)
     timing(torch, cs, dev, peaks, sfu_rate)
+    if args.sweep:
+        sweep(torch, cs, dev, peaks, sfu_rate)
     return 0
 
 
