@@ -727,11 +727,13 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
         geom = sinkhorn_geometry(n, m, xs.shape[1], p, n_sms)
         cols = geom.cols_per_split
         what = f"n={n} m={m} d={xs.shape[1]} eps={eps:g} p={p}, split 1 of {geom.splits} -inf"
-        dual = torch.full((m,), eps * -math.log(m), device=dev)
+        # duals from the first half-steps, so the plan's entries are not all 0
+        u = eps * (-math.log(n) - lse_plain(xs, ys, torch.full((m,), eps * -math.log(m),
+                                                                device=dev), eps, p))
+        dual = eps * (-math.log(m) - lse_plain(ys, xs, u, eps, p))
         dual[cols:2 * cols] = float("-inf")
         err = lse_error(lse(xs, ys, dual, eps, p), lse_plain(xs, ys, dual, eps, p), eps,
                         f"lse rows {what}")
-        u = torch.full((n,), eps * -math.log(n), device=dev)
         got_c = transport_cost(xs, ys, u, dual, eps, p)
         want_c = transport_cost_plain(xs, ys, u, dual, eps, p)
         rel = float((got_c - want_c).abs() / want_c.abs())
