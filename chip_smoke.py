@@ -745,11 +745,13 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
     # the host's shared-memory mirror against the kernel's at every width
     lib = sinkhorn_library()
     for d in range(1, MAX_DIM + 1):
-        geom = sinkhorn_geometry(SAMPLE_N, SAMPLE_N, d, 2, n_sms)
-        check(lib.sinkhorn_smem_bytes(d, geom.tile_cols) == geom.smem_bytes,
-              f"sinkhorn shared memory at d {d}: kernel {lib.sinkhorn_smem_bytes(d, geom.tile_cols)}"
-              f" vs host {geom.smem_bytes}")
-    say(f"[phase 2] sinkhorn shared memory per block, kernel = host mirror at d 1..{MAX_DIM}: "
+        for p in (1, 2, 3):
+            geom = sinkhorn_geometry(SAMPLE_N, SAMPLE_N, d, p, n_sms)
+            kernel_smem = lib.sinkhorn_smem_bytes(d, p, geom.tile_cols)
+            check(kernel_smem == geom.smem_bytes, f"sinkhorn shared memory at d {d}, p {p}: "
+                  f"kernel {kernel_smem} vs host {geom.smem_bytes}")
+    say(f"[phase 2] sinkhorn shared memory per block, kernel = host mirror at d 1..{MAX_DIM}, "
+        "p 1, 2, 3: "
         f"d 8 {sinkhorn_geometry(SAMPLE_N, SAMPLE_N, 8, 2, n_sms).smem_bytes} bytes, d {MAX_DIM} "
         f"{sinkhorn_geometry(SAMPLE_N, SAMPLE_N, MAX_DIM, 2, n_sms).smem_bytes} bytes")
     rec_lse["max_abs_err"] = max(e[0] for e in lse_errs)

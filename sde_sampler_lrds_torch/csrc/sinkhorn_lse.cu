@@ -20,8 +20,9 @@
 //
 // What the design does about it:
 // - A thread owns R rows of x, held in registers at a padded width D (4, 8
-//   or 16). Wider rows (d > 16) keep x in shared memory and sum the pair
-//   cost over chunks of 16 dimensions, one row a thread.
+//   or 16). Wider rows (d > 16), and any p other than 1 and 2, keep x in
+//   shared memory and sum the pair cost over chunks of 16 dimensions, one
+//   row a thread.
 // - A block walks one long column range in tiles of y staged in shared
 //   memory by cp.async, the next tile into a second buffer while the
 //   current one is used. Beside each column sit its |y|^2 and its dual
@@ -130,13 +131,13 @@ __device__ __forceinline__ void unpack(float* v, const float4 q) {
 
 // Resident blocks an SM the launch bounds ask for (the register budget);
 // mirrored by the host's sinkhorn_geometry.
-template <int PK, bool WIDE>
-constexpr int min_blocks() { return WIDE ? 2 : (PK == P_GENERAL ? 2 : 4); }
+template <bool WIDE>
+constexpr int min_blocks() { return WIDE ? 2 : 4; }
 
 // D registers a row (WIDE: the chunk width, x in shared memory), R rows a
 // thread: this thread's rows are row0 + r * THREADS + threadIdx.x, r < R.
 template <int MODE, int PK, int D, int R, bool WIDE>
-__global__ void __launch_bounds__(THREADS, min_blocks<PK, WIDE>())
+__global__ void __launch_bounds__(THREADS, min_blocks<WIDE>())
 tile_kernel(Args a) {
   constexpr int CH = (D <= 8 && !WIDE) ? 8 : 4;  // columns a chunk
   extern __shared__ float4 smem4[];
@@ -362,24 +363,27 @@ __global__ void merge_kernel(const float* part_a, const float* part_b, float* ou
   out[i] = (mx + log2f(s)) * LN2;
 }
 
-bool wide(int d) { return d > 16; }
-int padded_width(int d) {
-  return d <= 4 ? 4 : d <= 8 ? 8 : d <= 16 ? 16 : (d + WIDE_CHUNK - 1) / WIDE_CHUNK * WIDE_CHUNK;
+// x in shared memory, one row a thread: past d = 16, and for a general p
+// (whose |x - y|^p loop would not fit R rows in registers)
+bool wide(int d, int p) { return d > 16 || (p != 1 && p != 2); }
+int padded_width(int d, int p) {
+  if (wide(d, p)) return (d + WIDE_CHUNK - 1) / WIDE_CHUNK * WIDE_CHUNK;
+  return d <= 4 ? 4 : d <= 8 ? 8 : 16;
 }
 
 // Shared memory of a block: two tiles of y, the tile's (|y|^2, dual) pairs,
-// two tiles of raw duals and, past d = 16, the block's rows of x.
-int smem_bytes(int d, int tile) {
-  const int dp = padded_width(d);
+// two tiles of raw duals and, in the wide kernel, the block's rows of x.
+int smem_bytes(int d, int p, int tile) {
+  const int dp = padded_width(d, p);
   return (int)sizeof(float) * (2 * tile * dp + 2 * tile + 2 * tile +
-                               (wide(d) ? THREADS * dp : 0));
+                               (wide(d, p) ? THREADS * dp : 0));
 }
 
 // The host's geometry is one these kernels take.
 bool geometry_ok(const Args& a, int splits, int smem) {
-  const int tile = wide(a.d) ? WIDE_TILE : TILE;
+  const int tile = wide(a.d, a.p) ? WIDE_TILE : TILE;
   return a.n > 0 && a.m > 0 && a.d >= 1 && a.tile == tile &&
-         smem == smem_bytes(a.d, tile) && smem <= MAX_SMEM &&
+         smem == smem_bytes(a.d, a.p, tile) && smem <= MAX_SMEM &&
          a.cols_per_split > 0 && a.cols_per_split % COL_ALIGN == 0 && splits >= 1 &&
          (long long)(splits - 1) * a.cols_per_split < a.m &&
          (long long)splits * a.cols_per_split >= a.m;
@@ -397,16 +401,18 @@ cudaError_t launch_tiles(const Args& a, int splits, int smem, cudaStream_t strea
 
 template <int MODE, int PK>
 cudaError_t launch_width(const Args& a, int splits, int smem, cudaStream_t stream) {
-  if (a.d <= 4) return launch_tiles<MODE, PK, 4, RR, false>(a, splits, smem, stream);
-  if (a.d <= 8) return launch_tiles<MODE, PK, 8, RR, false>(a, splits, smem, stream);
-  if (a.d <= 16) return launch_tiles<MODE, PK, 16, RR, false>(a, splits, smem, stream);
+  if constexpr (PK != P_GENERAL) {
+    if (a.d <= 4) return launch_tiles<MODE, PK, 4, RR, false>(a, splits, smem, stream);
+    if (a.d <= 8) return launch_tiles<MODE, PK, 8, RR, false>(a, splits, smem, stream);
+    if (a.d <= 16) return launch_tiles<MODE, PK, 16, RR, false>(a, splits, smem, stream);
+  }
   return launch_tiles<MODE, PK, WIDE_CHUNK, 1, true>(a, splits, smem, stream);
 }
 
 template <int MODE>
 int launch(Args a, int tile, int cols_per_split, int splits, int smem, float* out,
            cudaStream_t stream) {
-  a.dp = padded_width(a.d);
+  a.dp = padded_width(a.d, a.p);
   a.tile = tile;
   a.cols_per_split = cols_per_split;
   a.y_vec4 = a.d % 4 == 0 && reinterpret_cast<size_t>(a.y) % 16 == 0;
@@ -427,9 +433,9 @@ extern "C" {
 
 const char* sinkhorn_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Shared memory a block takes at width d with `tile` columns a stage (the
-// host's mirror is sinkhorn_geometry's smem_bytes).
-int sinkhorn_smem_bytes(int d, int tile) { return smem_bytes(d, tile); }
+// Shared memory a block takes at width d and power p with `tile` columns a
+// stage (the host's mirror is sinkhorn_geometry's smem_bytes).
+int sinkhorn_smem_bytes(int d, int p, int tile) { return smem_bytes(d, p, tile); }
 
 // out (n,) = logsumexp_j[(dual_j - M_ij) / eps], scale = log2(e) / eps, on
 // the host's geometry: `splits` ranges of `cols_per_split` columns staged

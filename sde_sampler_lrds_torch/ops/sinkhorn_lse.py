@@ -29,10 +29,10 @@ from ._build import load_library
 # shared memory; the first design's limit, kept)
 MAX_DIM = 224
 # the kernels' geometry (csrc/sinkhorn_lse.cu): 128 threads a block; at
-# d ≤ 16 four rows a thread in registers at a padded width of 4, 8 or 16 and
-# tiles of 128 columns, past d = 16 one row a thread with x in shared memory
-# at d rounded up to 16 and tiles of 32 columns; a split's columns a
-# multiple of 8 (the largest chunk)
+# d ≤ 16 and p 1 or 2 four rows a thread in registers at a padded width of
+# 4, 8 or 16 and tiles of 128 columns, else (the wide kernel) one row a
+# thread with x in shared memory at d rounded up to 16 and tiles of 32
+# columns; a split's columns a multiple of 8 (the largest chunk)
 _THREADS, _ROWS_PER_THREAD, _TILE, _WIDE_TILE, _WIDE_CHUNK, _COL_ALIGN = 128, 4, 128, 32, 16, 8
 MAX_SMEM_BYTES = 232_448        # shared memory a block may take
 _SM_SMEM_BYTES = 233_472        # an SM's, of which 1 KB is reserved a block
@@ -51,7 +51,8 @@ class SinkhornGeometry:
     rows = rows_per_thread·threads, and columns [k·cols_per_split,
     (k + 1)·cols_per_split) ∩ [0, m), staged ``tile_cols`` at a time."""
     width: int              # padded width of a row: 4, 8, 16, or d rounded up to 16
-    wide: bool              # x in shared memory, the cost summed 16 dimensions at a time
+    wide: bool              # x in shared memory, the cost summed 16 dimensions at a
+                            # time: past d = 16, and for p other than 1 and 2
     rows_per_thread: int
     threads: int
     row_blocks: int
@@ -62,20 +63,26 @@ class SinkhornGeometry:
     blocks_per_sm: int      # resident blocks an SM the launch can count on
 
 
-def smem_bytes(d: int, tile_cols: int) -> int:
+def smem_bytes(d: int, p: int, tile_cols: int) -> int:
     """Shared memory of a block (mirror of ``smem_bytes`` in the source):
     two tiles of y at the padded width, the tile's (|y|², dual) pairs, two
-    tiles of raw duals and, past d = 16, the block's rows of x."""
-    width = _padded_width(d)
-    return 4 * (2 * tile_cols * width + 4 * tile_cols + (_THREADS * width if d > 16 else 0))
+    tiles of raw duals and, in the wide kernel, the block's rows of x."""
+    width = _padded_width(d, p)
+    return 4 * (2 * tile_cols * width + 4 * tile_cols + (_THREADS * width if _wide(d, p) else 0))
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _padded_width(d: int) -> int:
-    return next((w for w in (4, 8, 16) if d <= w), _ceil_div(d, _WIDE_CHUNK) * _WIDE_CHUNK)
+def _wide(d: int, p: int) -> bool:
+    return d > 16 or p not in (1, 2)
+
+
+def _padded_width(d: int, p: int) -> int:
+    if _wide(d, p):
+        return _ceil_div(d, _WIDE_CHUNK) * _WIDE_CHUNK
+    return next(w for w in (4, 8, 16) if d <= w)
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,8 +90,8 @@ def sinkhorn_geometry(n: int, m: int, d: int, p: int, n_sms: int,
                       blocks_per_sm: int | None = None) -> SinkhornGeometry:
     """The kernels' geometry for an (n, d) × (m, d) reduction on a card of
     ``n_sms`` SMs. A wave is the blocks the card holds at once
-    (``blocks_per_sm`` an SM: 4 at d ≤ 16, 2 for a general p, 2 past d = 16,
-    fewer where shared memory binds; or the number given). Among the column
+    (``blocks_per_sm`` an SM: 4, or 2 in the wide kernel, fewer where
+    shared memory binds; or the number given). Among the column
     splits that fill w whole waves, w = 1, 2, ..., it takes the one with the
     least waves × (columns a split + a block's fixed cost), so each block
     walks one long range; a grid that reaches every SM comes first. At
@@ -92,13 +99,13 @@ def sinkhorn_geometry(n: int, m: int, d: int, p: int, n_sms: int,
     if n < 1 or m < 1 or n_sms < 1 or not 1 <= d <= MAX_DIM or p < 1:
         raise ValueError(f"sinkhorn_geometry: n {n}, m {m}, d {d} (at most {MAX_DIM}), "
                          f"p {p} and n_sms {n_sms} out of range")
-    wide = d > 16
+    wide = _wide(d, p)
     rows = 1 if wide else _ROWS_PER_THREAD
     tile = _WIDE_TILE if wide else _TILE
-    smem = smem_bytes(d, tile)
+    smem = smem_bytes(d, p, tile)
     if blocks_per_sm is None:
         # the launch bounds' register budget, then shared memory
-        regs = 2 if wide or p not in (1, 2) else 4
+        regs = 2 if wide else 4
         blocks_per_sm = max(1, min(regs, _SM_SMEM_BYTES // (smem + 1024)))
     row_blocks = _ceil_div(n, rows * _THREADS)
     slots = n_sms * blocks_per_sm
@@ -116,7 +123,7 @@ def sinkhorn_geometry(n: int, m: int, d: int, p: int, n_sms: int,
         if best is None or key < best[0]:
             best = (key, splits, cols)
     _, splits, cols = best
-    return SinkhornGeometry(_padded_width(d), wide, rows, _THREADS, row_blocks, tile, cols,
+    return SinkhornGeometry(_padded_width(d, p), wide, rows, _THREADS, row_blocks, tile, cols,
                             splits, smem, blocks_per_sm)
 
 
@@ -159,13 +166,18 @@ def transport_cost_plain(x, y, u, v, eps: float, p: int = 2) -> torch.Tensor:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = load_library("sinkhorn_lse")
+    return declare(load_library("sinkhorn_lse"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C signatures of a built sinkhorn_lse library: every pointer and
+    the stream as c_void_p, so none is cut to 32 bits."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sinkhorn_lse_launch.argtypes = [ptr, ptr, ptr, f32] + [i32] * 8 + [ptr] * 4
     lib.sinkhorn_lse_launch.restype = i32
     lib.sinkhorn_cost_launch.argtypes = [ptr] * 4 + [f32] + [i32] * 8 + [ptr] * 3
     lib.sinkhorn_cost_launch.restype = i32
-    lib.sinkhorn_smem_bytes.argtypes = [i32, i32]
+    lib.sinkhorn_smem_bytes.argtypes = [i32, i32, i32]
     lib.sinkhorn_smem_bytes.restype = i32
     lib.sinkhorn_error_string.argtypes = [i32]
     lib.sinkhorn_error_string.restype = ctypes.c_char_p

@@ -2,7 +2,7 @@
 transport cost) without the whole chip_smoke.py: about a minute on one card.
 
     python3 sde_sampler_lrds_torch/tools/sinkhorn_bench.py [--root DIR] [--time-only]
-        [--outputs FILE] [--sweep]
+        [--outputs FILE] [--sweep] [--ablate]
 
 Builds csrc/sinkhorn_lse.cu of the checkout at --root (default: this one),
 prints each kernel instantiation's registers, stack and spills, runs
@@ -20,7 +20,13 @@ prints the max |diff| and whether the two agree bit for bit.
 
 --sweep times both kernels at phase 7's shape on the geometries that
 ``sinkhorn_geometry`` picks for 1, 2, 4 and 8 resident blocks an SM (longer
-column ranges with fewer blocks). Needs a CUDA card; imports no JAX.
+column ranges with fewer blocks).
+
+--ablate times both kernels at phase 7's shape built from copies of the
+source with one change each (under build/ablate/, all nvcc started
+together): the square root or 2^x or both replaced by a multiply (what the
+special-function unit costs), 8 rows a thread, 16 columns a chunk. The
+copies' outputs are not checked. Needs a CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -100,6 +106,65 @@ def sweep(torch, cs, dev, peaks, sfu_rate) -> None:
         ops.sinkhorn_geometry = picked
 
 
+SQRT = 'asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));'
+EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));'
+FMUL = "r = v * 1.0001f;"
+# (label, source substitutions, rows a thread on the host)
+ABLATIONS = (
+    ("as built", (), 4),
+    ("sqrt -> FMUL", ((SQRT, FMUL),), 4),
+    ("2^x -> FMUL", ((EX2, FMUL),), 4),
+    ("sqrt and 2^x -> FMUL", ((SQRT, FMUL), (EX2, FMUL)), 4),
+    ("8 rows a thread", (("constexpr int RR = 4;", "constexpr int RR = 8;"),), 8),
+    ("16 columns a chunk", (("(D <= 8 && !WIDE) ? 8 : 4", "(D <= 8 && !WIDE) ? 16 : 4"),), 4),
+)
+
+
+def ablate(torch, cs, dev, peaks, sfu_rate) -> None:
+    """Phase 7's shape on copies of the source with one change each (see
+    the module docstring), launched through the port's wrappers."""
+    import ctypes
+
+    import sde_sampler_lrds_torch.ops.sinkhorn_lse as ops
+    from sde_sampler_lrds_torch.ops._build import CSRC, NVCC_FLAGS, nvcc
+
+    src = (CSRC / "sinkhorn_lse.cu").read_text()
+    os.makedirs("build/ablate", exist_ok=True)
+    procs = []
+    for i, (label, subs, _) in enumerate(ABLATIONS):
+        text = src
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"ablation {label!r}: {old!r} not found once")
+            text = text.replace(old, new)
+        path = os.path.abspath(f"build/ablate/sinkhorn_{i}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        procs.append((path[:-3] + ".so", subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", path[:-3] + ".so", path], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    built = []
+    for (so, proc), (label, _, rows) in zip(procs, ABLATIONS):
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for ablation {label!r}:\n{log}")
+        for entry in cs.ptxas_report(log):
+            if entry["entry"] in ("tile_kernel<0, 2, 8, 4, false>", "tile_kernel<1, 2, 8, 4, false>",
+                                  "tile_kernel<0, 2, 8, 8, false>", "tile_kernel<1, 2, 8, 8, false>"):
+                print(f"[ablate] {label} ptxas " + json.dumps(entry), flush=True)
+        built.append((label, ops.declare(ctypes.CDLL(so)), rows))
+    library, rows_default = ops._library, ops._ROWS_PER_THREAD
+    try:
+        for label, lib, rows in built:
+            ops._library = lambda lib=lib: lib
+            ops._ROWS_PER_THREAD = rows
+            ops.sinkhorn_geometry.cache_clear()
+            timing(torch, cs, dev, peaks, sfu_rate, SHAPES[:1], f" ablate {label!r}")
+    finally:
+        ops._library, ops._ROWS_PER_THREAD = library, rows_default
+        ops.sinkhorn_geometry.cache_clear()
+
+
 def outputs(torch, cs, dev, path: str) -> None:
     """Save the kernels' outputs on fixed inputs to path, or compare them
     with the ones saved there (see the module docstring)."""
@@ -134,6 +199,7 @@ def main() -> int:
     ap.add_argument("--time-only", action="store_true")
     ap.add_argument("--outputs", metavar="FILE")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--ablate", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     outputs_path = os.path.abspath(args.outputs) if args.outputs else None
@@ -172,6 +238,8 @@ def main() -> int:
     timing(torch, cs, dev, peaks, sfu_rate)
     if args.sweep:
         sweep(torch, cs, dev, peaks, sfu_rate)
+    if args.ablate:
+        ablate(torch, cs, dev, peaks, sfu_rate)
     return 0
 
 

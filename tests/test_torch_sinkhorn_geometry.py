@@ -41,9 +41,9 @@ def test_every_row_and_column_owned_once(p, shape):
         assert geom.cols_per_split % 8 == 0
         rows = geom.rows_per_thread * geom.threads
         assert (geom.row_blocks - 1) * rows < n <= geom.row_blocks * rows
-        assert geom.wide == (d > 16) and geom.width >= d and geom.width % 4 == 0
+        assert geom.wide == (d > 16 or p == 3) and geom.width >= d and geom.width % 4 == 0
         assert geom.rows_per_thread == (1 if geom.wide else 4)
-        assert geom.smem_bytes == t_ops.smem_bytes(d, geom.tile_cols)
+        assert geom.smem_bytes == t_ops.smem_bytes(d, p, geom.tile_cols)
         assert geom.smem_bytes <= t_ops.MAX_SMEM_BYTES
         if shape == (8192, 8192):
             assert geom.row_blocks * geom.splits >= SMS
@@ -93,8 +93,8 @@ def test_geometry_constants_match_source():
     assert const("WIDE_CHUNK") == t_ops._WIDE_CHUNK
     assert const("COL_ALIGN") == t_ops._COL_ALIGN
     assert const("MAX_SMEM") == t_ops.MAX_SMEM_BYTES
-    # resident blocks the launch bounds ask for: wide 2, general p 2, else 4
-    assert "WIDE ? 2 : (PK == P_GENERAL ? 2 : 4)" in src
+    # resident blocks the launch bounds ask for: the wide kernel 2, else 4
+    assert "return WIDE ? 2 : 4;" in src
     for d, p, want in ((8, 2, 4), (8, 1, 4), (8, 3, 2), (37, 2, 2), (224, 2, 1)):
         assert t_ops.sinkhorn_geometry(64, 64, d, p, SMS).blocks_per_sm == want
 
