@@ -172,8 +172,10 @@ tile_kernel(Args a) {
       float s = 0.0f;
 #pragma unroll
       for (int k = 0; k < D; ++k) {
-        xr[r][k] = (row < a.n && k < a.d) ? a.x[(size_t)row * a.d + k] : 0.0f;
-        s = fmaf(xr[r][k], xr[r][k], s);
+        const float v = (row < a.n && k < a.d) ? a.x[(size_t)row * a.d + k] : 0.0f;
+        s = fmaf(v, v, s);
+        // p = 2 holds -2x: the dot then sums |x|^2 + |y|^2 - 2 x.y directly
+        xr[r][k] = PK == P_TWO ? -2.0f * v : v;
       }
       xx[r] = s;
     }
@@ -287,10 +289,11 @@ tile_kernel(Args a) {
           wq[q] = cq.y;
 #pragma unroll
           for (int r = 0; r < R; ++r) {
-            float acc = 0.0f;
+            float acc = PK == P_TWO ? xx[r] + cq.x : 0.0f;
 #pragma unroll
             for (int k = 0; k < D; ++k) acc = cost_term<PK>(acc, xr[r][k], yv[k], a.p);
-            c[r][q] = cost_finish<PK>(acc, xx[r], cq.x, a.p);
+            c[r][q] = PK == P_TWO ? sqrt_approx(fmaxf(acc, 0.0f))
+                                  : cost_finish<PK>(acc, xx[r], cq.x, a.p);
           }
         }
       }
