@@ -29,7 +29,10 @@ Phases:
      full-covariance at 1024);
      the Sinkhorn lse and transport-cost kernels vs theirs (8192 x 8192,
      d = 8, eps 1e-3 and 1, p 2 and 1, -inf duals; a ragged 1000 x 3000
-     with p 2 and 3); the resampling lookup vs its own (N 1024, 8192, 1000,
+     with p 2 and 3, and at d 37, 100 and 224 with p 2 and 1; a whole column
+     split of the host's geometry with -inf duals; two launches bitwise
+     equal at each; the shared memory of every width against the host's
+     mirror); the resampling lookup vs its own (N 1024, 8192, 1000,
      100 000, zero weights and exact ties), indices equal
   3. the fused_traj kernel's own noise: Philox bits against a torch int64
      re-implementation, moments, seeds that differ
@@ -39,14 +42,19 @@ Phases:
      plain eval with torch noise under bench.py's parity gate
   5. the RDS evaluation path: ``solver.eval_metrics`` with the Sinkhorn, MMD
      and sliced-KS losses (8192 samples against 8192 target draws), the
-     same Sinkhorn through the plain versions on the card, and the sampler's
-     Sinkhorn against the noise floor of two independent target draws
+     same Sinkhorn through the plain versions on the card, the sampler's
+     Sinkhorn against the noise floor of two independent target draws, and
+     the Sinkhorn once more with CUDA events around each kernel call (the
+     kernels' device time beside the host clock, annealing and polishing
+     iterations apart)
   6. the SMC baseline (experiments/common.py defaults: 128 levels, 1024
      particles, 1024 warm-up and 32 MALA steps per level, systematic
      resampling) from a full-covariance Gaussian fitted to phase 4's MALA
      dataset, with its metrics on the first 8192 pooled samples
   7. one JSON line per kernel and mode: launches, error, time, bound; the
-     diagonal kernel's times beside the geometry the host picked
+     diagonal kernel's and the Sinkhorn kernels' times beside the geometry
+     the host picked; the resampling lookup beside the graph replay of a
+     kernel that does nothing (the card's launch floor)
   8. the φ⁴ path: PhiFour(a 0.1, b 0.02, d 100) -> 40 000 MALA points from
      chains seeded at ±1 -> 2-component full-covariance GMM fit -> GMM
      reference -> 4096 flat-LV Adam steps at batch 1024 (the kernel's
@@ -677,6 +685,7 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
         xw = torch.randn(1000, d, generator=gw, device=dev)
         yw = 0.5 + torch.randn(3000, d, generator=gw, device=dev)
         cases += [(xw, yw, 1e-2, p) for p in (2, 1)]
+    widest = cases[-2]                           # d = MAX_DIM, p = 2
     g = torch.Generator(dev).manual_seed(13)
     lse_errs, cost_errs = [], []
     for xs, ys, eps, p in cases:
@@ -722,7 +731,7 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
     # a whole column split (the host's geometry) of -inf duals: the split's
     # partials are (-inf, 0) and the merge must pass over them
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for xs, ys, eps, p in (cases[0], (xr, yr, 1e-2, 2), cases[-2]):
+    for xs, ys, eps, p in (cases[0], (xr, yr, 1e-2, 2), widest):
         n, m = xs.shape[0], ys.shape[0]
         geom = sinkhorn_geometry(n, m, xs.shape[1], p, n_sms)
         cols = geom.cols_per_split

@@ -25,8 +25,9 @@ column ranges with fewer blocks).
 --ablate times both kernels at phase 7's shape built from copies of the
 source with one change each (under build/ablate/, all nvcc started
 together): the square root or 2^x or both replaced by a multiply (what the
-special-function unit costs), 8 rows a thread, 16 columns a chunk. The
-copies' outputs are not checked. Needs a CUDA card; imports no JAX.
+special-function unit costs), 8 rows a thread, 16 columns a chunk (in both
+modes, in the cost mode, or with 3 resident blocks an SM). The copies'
+outputs are not checked. Needs a CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -109,14 +110,20 @@ def sweep(torch, cs, dev, peaks, sfu_rate) -> None:
 SQRT = 'asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));'
 EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));'
 FMUL = "r = v * 1.0001f;"
-# (label, source substitutions, rows a thread on the host)
+CH16 = ("(D <= 8 && !WIDE) ? 8 : 4", "(D <= 8 && !WIDE) ? 16 : 4")
+# (label, source substitutions, rows a thread and resident blocks an SM on
+# the host; None: the host's own)
 ABLATIONS = (
-    ("as built", (), 4),
-    ("sqrt -> FMUL", ((SQRT, FMUL),), 4),
-    ("2^x -> FMUL", ((EX2, FMUL),), 4),
-    ("sqrt and 2^x -> FMUL", ((SQRT, FMUL), (EX2, FMUL)), 4),
-    ("8 rows a thread", (("constexpr int RR = 4;", "constexpr int RR = 8;"),), 8),
-    ("16 columns a chunk", (("(D <= 8 && !WIDE) ? 8 : 4", "(D <= 8 && !WIDE) ? 16 : 4"),), 4),
+    ("as built", (), 4, None),
+    ("sqrt -> FMUL", ((SQRT, FMUL),), 4, None),
+    ("2^x -> FMUL", ((EX2, FMUL),), 4, None),
+    ("sqrt and 2^x -> FMUL", ((SQRT, FMUL), (EX2, FMUL)), 4, None),
+    ("8 rows a thread", (("constexpr int RR = 4;", "constexpr int RR = 8;"),), 8, None),
+    ("16 columns a chunk", (CH16,), 4, None),
+    ("16 columns a chunk in the cost mode",
+     (("(D <= 8 && !WIDE) ? 8 : 4", "(D <= 8 && !WIDE) ? (MODE == COST ? 16 : 8) : 4"),), 4, None),
+    ("16 columns a chunk, 3 blocks an SM", (CH16, ("return WIDE ? 2 : 4;", "return WIDE ? 2 : 3;")),
+     4, 3),
 )
 
 
@@ -131,7 +138,7 @@ def ablate(torch, cs, dev, peaks, sfu_rate) -> None:
     src = (CSRC / "sinkhorn_lse.cu").read_text()
     os.makedirs("build/ablate", exist_ok=True)
     procs = []
-    for i, (label, subs, _) in enumerate(ABLATIONS):
+    for i, (label, subs, _, _) in enumerate(ABLATIONS):
         text = src
         for old, new in subs:
             if text.count(old) != 1:
@@ -144,25 +151,25 @@ def ablate(torch, cs, dev, peaks, sfu_rate) -> None:
             [nvcc(), *NVCC_FLAGS, "-o", path[:-3] + ".so", path], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     built = []
-    for (so, proc), (label, _, rows) in zip(procs, ABLATIONS):
+    for (so, proc), (label, _, rows, blocks) in zip(procs, ABLATIONS):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for ablation {label!r}:\n{log}")
         for entry in cs.ptxas_report(log):
-            if entry["entry"] in ("tile_kernel<0, 2, 8, 4, false>", "tile_kernel<1, 2, 8, 4, false>",
-                                  "tile_kernel<0, 2, 8, 8, false>", "tile_kernel<1, 2, 8, 8, false>"):
+            if entry["entry"].startswith(("tile_kernel<0, 2, 8,", "tile_kernel<1, 2, 8,")):
                 print(f"[ablate] {label} ptxas " + json.dumps(entry), flush=True)
-        built.append((label, ops.declare(ctypes.CDLL(so)), rows))
-    library, rows_default = ops._library, ops._ROWS_PER_THREAD
+        built.append((label, ops.declare(ctypes.CDLL(so)), rows, blocks))
+    library, rows_default, picked = ops._library, ops._ROWS_PER_THREAD, ops.sinkhorn_geometry
     try:
-        for label, lib, rows in built:
+        for label, lib, rows, blocks in built:
             ops._library = lambda lib=lib: lib
             ops._ROWS_PER_THREAD = rows
-            ops.sinkhorn_geometry.cache_clear()
+            picked.cache_clear()
+            ops.sinkhorn_geometry = lambda n, m, d, p, n_sms, b=blocks: picked(n, m, d, p, n_sms, b)
             timing(torch, cs, dev, peaks, sfu_rate, SHAPES[:1], f" ablate {label!r}")
     finally:
-        ops._library, ops._ROWS_PER_THREAD = library, rows_default
-        ops.sinkhorn_geometry.cache_clear()
+        ops._library, ops._ROWS_PER_THREAD, ops.sinkhorn_geometry = library, rows_default, picked
+        picked.cache_clear()
 
 
 def outputs(torch, cs, dev, path: str) -> None:

@@ -3,9 +3,10 @@
 column owned by exactly one split, every row by one row block, a grid that
 covers the card at the eval path's 8192 × 8192, shared memory within the
 card's limit, the constants the CUDA source was built with; and the kernels'
-fixed-order merge of per-split partials, mirrored in PyTorch from the plain
-versions and held against the JAX package's Pallas kernels in interpret
-mode. Pure host arithmetic: no card needed."""
+fixed-order merge of per-split partials (a second pass, no thread-block
+cluster), mirrored in PyTorch from the plain versions and held against the
+JAX package's Pallas kernels in interpret mode. Pure host arithmetic: no
+card needed."""
 import math
 import re
 from pathlib import Path
@@ -62,14 +63,6 @@ def test_main_path_geometry():
     for d in (8, 37, 100, t_ops.MAX_DIM):
         g = t_ops.sinkhorn_geometry(1000, 3000, d, 2, SMS)
         assert g.row_blocks * g.splits >= SMS - 4
-
-
-def test_geometry_uses_no_cluster():
-    """The splits of a row block are merged by a second pass, not through
-    a thread-block cluster, so no cluster size limit applies."""
-    fields = {f for f in t_ops.SinkhornGeometry.__dataclass_fields__}
-    assert not any("cluster" in f for f in fields)
-    assert "merge_kernel" in SOURCE.read_text()
 
 
 def test_geometry_refuses_what_the_kernels_do_not_take():
