@@ -202,7 +202,7 @@ tile_kernel(Args a) {
 
   // copies of the tile at column t0 into buffer b: y's d words a column
   // (16 bytes at a time where rows are aligned), and the raw duals
-  auto issue = [&](int b, int t0) {
+  auto stage_tile = [&](int b, int t0) {
     const int cnt = min(T, c_end - t0);
     float* ysb = reinterpret_cast<float*>(ys4 + b * T * dp4);
     if (a.y_vec4) {
@@ -225,12 +225,12 @@ tile_kernel(Args a) {
 #pragma unroll
   for (int r = 0; r < R; ++r) { run_m[r] = -INFINITY; run_s[r] = 0.0f; }
 
-  issue(0, c_begin);
+  stage_tile(0, c_begin);
   for (int t0 = c_begin, b = 0; t0 < c_end; t0 += T, b ^= 1) {
     const int cnt = min(T, c_end - t0);
     cp_async_wait_all();
     __syncthreads();  // tile t0 landed; every thread is done with the other buffer and cw
-    if (t0 + T < c_end) issue(b ^ 1, t0 + T);
+    if (t0 + T < c_end) stage_tile(b ^ 1, t0 + T);
     const float4* yb = ys4 + b * T * dp4;
     for (int j = tid; j < T; j += THREADS) {
       float yy = 0.0f;
