@@ -45,8 +45,8 @@ Phases:
      same Sinkhorn through the plain versions on the card, the sampler's
      Sinkhorn against the noise floor of two independent target draws, and
      the Sinkhorn once more with CUDA events around each kernel call (the
-     kernels' device time beside the host clock, annealing and polishing
-     iterations apart)
+     device's span of each call beside the host clock, annealing and
+     polishing iterations apart)
   6. the SMC baseline (experiments/common.py defaults: 128 levels, 1024
      particles, 1024 warm-up and 32 MALA steps per level, systematic
      resampling) from a full-covariance Gaussian fitted to phase 4's MALA
@@ -1228,11 +1228,13 @@ def phase_eval_path(dev, solver, target, path_counts) -> dict:
 
 
 def sinkhorn_device_host_split(x, y) -> dict:
-    """Phase 5's Sinkhorn once more, each kernel call between two CUDA
-    events: the kernels' device milliseconds beside the host clock, for the
-    annealing iterations (nothing read back) and the polishing ones (one
-    read of the dual change each). The events and the host clock stamps add
-    a few microseconds of host time a call."""
+    """Phase 5's Sinkhorn once more, each kernel wrapper call between two
+    CUDA events: the device's span of each call (its kernels, and any wait
+    for the host to launch them once the device has caught up) beside the
+    host clock, for the annealing iterations (nothing read back) and the
+    polishing ones (one read of the dual change each). What the spans leave
+    of the host clock is the loop's own work between calls. The events and
+    the host clock stamps add a few microseconds of host time a call."""
     from sde_sampler_lrds_torch.eval import Sinkhorn
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import lse, transport_cost
 
@@ -1260,13 +1262,13 @@ def sinkhorn_device_host_split(x, y) -> dict:
     dev_ms = [start.elapsed_time(end) for _, start, end in calls]
     first_polish = min(2 * n_anneal, len(calls) - 1)  # the cost call ends the list
     t_polish = calls[first_polish][0]
-    return {"host_ms": (t1 - t0) * 1e3, "kernel_ms": sum(dev_ms),
+    return {"host_ms": (t1 - t0) * 1e3, "call_span_ms": sum(dev_ms),
             "iterations": sinkhorn.n_iters, "annealing_iterations": n_anneal,
             "annealing_host_ms": (t_polish - t0) * 1e3,
-            "annealing_kernel_ms": sum(dev_ms[:first_polish]),
+            "annealing_call_span_ms": sum(dev_ms[:first_polish]),
             "polishing_host_ms": (t1 - t_polish) * 1e3,
-            "polishing_kernel_ms": sum(dev_ms[first_polish:-1]),
-            "transport_cost_kernel_ms": dev_ms[-1]}
+            "polishing_call_span_ms": sum(dev_ms[first_polish:-1]),
+            "transport_cost_call_span_ms": dev_ms[-1]}
 
 
 def phase_smc(dev, target, dataset, path_counts) -> dict:
