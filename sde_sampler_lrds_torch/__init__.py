@@ -6,25 +6,32 @@ This package imports torch, numpy, scipy (the φ⁴ host oracle) and the
 standard library only.
 
 Ported so far (the LRDS demo pipeline, sample-based evaluation and SMC,
-and the φ⁴ path with a full-covariance GMM reference):
+the φ⁴ path with a full-covariance GMM reference, and the LRDS experiment
+drivers):
   utils/     time grids (uniform and log-SNR), Results, masked statistics,
              device resolution, diagonal and full-covariance GMM fitting by EM
-  targets/   Target base, Gaussian / GMM / ManyModes / IsotropicGauss /
-             GaussFull with diagonal and full-covariance densities, PhiFour
-             with its exact transfer-matrix oracle
-  sde/       OU and VP linear-SDE algebra (scalar, diagonal, full and
-             eigen-factored marginals)
+  targets/   Target base, Gaussian / GMM / ManyModes / TwoModes /
+             IsotropicGauss / GaussFull with diagonal and full-covariance
+             densities, Delta, PhiFour with its exact transfer-matrix oracle
+             and sampler
+  sde/       OU, VP and PinnedBM linear-SDE algebra (scalar, diagonal, full
+             and eigen-factored marginals)
   models/    TimeEmbed / FourierMLP / ClippedCtrl as nn.Modules, and
              load_flax_params to carry a Flax parameter tree across
   losses/    EM / EI / DDPM reference-SDE losses, incl. the flat-LV path
+             and the EUBO's noising pass
   ops/       the hand-written CUDA kernels (sm_90a, csrc/): the fused
              whole-trajectory integrator (diagonal and full-covariance
              reference modes), the Sinkhorn log-sum-exp and transport cost,
              systematic resampling; each with its plain PyTorch version
   eval/      get_metrics, Sinkhorn, MMD, sliced KS
-  solvers/   TrainConfig / Trainable (Adam, guarded step, EMA) and RDS
+  solvers/   TrainConfig / Trainable (Adam, guarded step, EMA), RDS, and
+             TrainableWrapper with the EUBO metrics
   mcmc/      MALA, ULA, SMC
-  api.py     mcmc_sample, fit_gmm, define_tempering_utils, run_smc_sampler
+  api.py     make_target_details, make_target, make_ctrl, make_model,
+             mcmc_sample, fit_gmm, define_tempering_utils, run_smc_sampler
+  experiments/  lrds_run and the *_mcmc_gmm.py drivers
+             (python -m sde_sampler_lrds_torch.experiments.<driver>)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

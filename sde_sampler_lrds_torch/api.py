@@ -1,18 +1,300 @@
-"""Dataset and reference-fitting pipeline and the SMC baseline (counterpart
-of the ``mcmc_sample``, ``fit_gmm``, ``define_tempering_utils`` and
-``run_smc_sampler`` entry points of sde_sampler_lrds_tpu/api.py; the model
-factory and the replica-exchange baseline are not ported yet)."""
+"""Public programmatic API (counterpart of sde_sampler_lrds_tpu/api.py):
+the target and model factories ``make_target_details``, ``make_target``,
+``make_ctrl`` and ``make_model``, the dataset and reference-fitting pipeline
+``mcmc_sample`` and ``fit_gmm``, and the SMC baseline.
+
+``make_model`` takes the JAX package's six axes
+
+    solver    ∈ {dds_orig, pis_orig, dis_orig, cmcd, vp-ref, pbm-ref}
+    reference ∈ {default, gaussian, gmm, nn}
+    loss      ∈ {kl, lv}
+    integrator∈ {em, ei, ddpm_like}
+    model     ∈ {target_informed_zero_init, target_informed_unet_zero_init,
+                 target_informed_langevin_init, target_informed_lerp_tempering,
+                 base_zero_init, unet_zero_init}
+    time grid ∈ {uniform, snr}
+
+and refuses every combination the JAX package refuses, with the same
+messages. Ported so far: the RDS solvers 'vp-ref' and 'pbm-ref' with the
+references 'default', 'gaussian' and 'gmm' and the 'base_zero_init' control;
+every other value raises NotImplementedError naming it. The targets
+'two_modes', 'many_modes' and 'phi_four' are ported; the replica-exchange
+baseline is not.
+"""
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Callable
 
 import torch
 
+from .eval.ks import compute_sliced_ks
+from .eval.mmd import mmd_median
+from .eval.sinkhorn import Sinkhorn
+from .losses import DDPMLikeReferenceSDELoss, EIReferenceSDELoss, EMReferenceSDELoss
 from .mcmc.kernels import MCMCState, run_chain
 from .mcmc.smc import smc_sampler
+from .models import ClippedCtrl, FourierMLP
+from .sde import VP, PinnedBM, get_timesteps
+from .solvers import RDS
+from .solvers.base import TrainConfig
+from .targets import Delta, IsotropicGauss, ManyModes, PhiFour, TwoModes
 from .targets.gauss import Gauss, GaussFull
 from .utils.common import resolve_device
 from .utils.gmm_fit import fit_gmm_em
+
+SOLVER_TYPES = ("dds_orig", "pis_orig", "dis_orig", "cmcd", "vp-ref", "pbm-ref")
+MODEL_TYPES = ("target_informed_zero_init", "target_informed_unet_zero_init",
+               "target_informed_langevin_init", "target_informed_lerp_tempering",
+               "base_zero_init", "unet_zero_init")
+TARGET_NAMES = ("two_modes", "bracket_two_modes", "two_modes_full", "many_modes",
+                "rings", "checkerboard", "phi_four", "mnist", "mnist_zero_one",
+                "cancer", "credit", "ionosphere", "sonar")
+
+
+def make_target_details(target_name: str, **kwargs) -> dict:
+    """Default target hyperparameters. Keys beyond the per-target defaults
+    pass through verbatim; unknown keys then fail in make_target."""
+    if target_name not in TARGET_NAMES:
+        raise ValueError(f"Unknown target {target_name!r}; one of {TARGET_NAMES}")
+    details = _make_target_defaults(target_name, **kwargs)
+    details.update({k: v for k, v in kwargs.items() if k not in details})
+    return details
+
+
+def _make_target_defaults(target_name: str, **kwargs) -> dict:
+    if target_name in ("two_modes", "two_modes_full"):
+        return {"name": target_name, "dim": kwargs.get("dim", 5),
+                "ill_conditioned": kwargs.get(
+                    "ill_conditioned", "not" if target_name == "two_modes" else "medium"),
+                "a": kwargs.get("a", 1.0)}
+    if target_name == "bracket_two_modes":
+        return {"name": target_name, "dim": kwargs.get("dim", 5),
+                "a": kwargs.get("a", 0.75)}
+    if target_name == "many_modes":
+        return {"name": "many_modes", "dim": kwargs.get("dim", 5),
+                "n_modes": kwargs.get("n_modes", 4),
+                "mixture_weight_factor": kwargs.get("mixture_weight_factor", 3.0),
+                "var": kwargs.get("var", 0.5)}
+    if target_name == "phi_four":
+        return {"name": "phi_four", "dim": kwargs.get("dim", 100),
+                "b": kwargs.get("b", 0.0)}
+    return {"name": target_name}
+
+
+def make_target(target_details: dict, device=None):
+    """A target from its details dict, on ``device``."""
+    name = target_details["name"]
+    kw = {k: v for k, v in target_details.items() if k != "name"}
+    device = resolve_device(device)
+    if name == "two_modes":
+        return TwoModes(n_reference_samples=16384, device=device, **kw)
+    if name == "many_modes":
+        return ManyModes(n_reference_samples=10000, device=device, **kw)
+    if name == "phi_four":
+        return PhiFour(a=kw.pop("a", 0.1), b=kw.pop("b", 0.0), dim=kw.pop("dim", 100),
+                       device=device, **kw)
+    if name in TARGET_NAMES:
+        raise NotImplementedError(f"Target {name} is not ported yet.")
+    raise NotImplementedError(f"Target {name} not supported.")
+
+
+def make_ctrl(model_type: str, dim: int, target, prior, sde, compute_dtype=None,
+              base_arch: str | None = None):
+    """The control network of a model type: 'base_zero_init' is
+    ClippedCtrl(FourierMLP(dim, zero_init=True), clip_model=1e4), in float32
+    or, with ``compute_dtype=torch.bfloat16``, with bf16 products."""
+    if "unet" in model_type:
+        raise NotImplementedError(f"model_type {model_type!r} (the MNIST UNet) is not "
+                                  f"ported yet.")
+    if base_arch not in (None, "fouriermlp"):
+        if base_arch == "densenet":
+            raise NotImplementedError("base_arch 'densenet' is not ported yet.")
+        raise ValueError(f"Unknown base_arch {base_arch!r}")
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype!r}")
+    if model_type == "base_zero_init":
+        base = FourierMLP(dim=dim, zero_init=True, compute_dtype=compute_dtype)
+        return ClippedCtrl(base_model=base, clip_model=1e4)
+    if model_type in MODEL_TYPES:
+        raise NotImplementedError(f"model_type {model_type!r} is not ported yet.")
+    raise ValueError(f"Unknown model type {model_type}")
+
+
+def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type: str,
+               model_type: str, time_type: str, solver_details: dict,
+               target_details: dict, training_details: dict, optim_details: dict | None = None,
+               n_steps: int = 100, force_base_zero_init: bool = False,
+               use_ema: bool = False, force_vp20: bool = False,
+               force_vp_cosine: bool = False, compute_samples_based_metrics: bool = True,
+               out_dir=None, mesh=None,
+               compute_dtype=None, base_arch: str | None = None,
+               inference_ctrl_arch: str | None = None, device=None):
+    """A fully configured sampler on ``device``. Extra ``training_details``
+    keys set TrainConfig fields (an unknown key raises)."""
+    if solver_type not in SOLVER_TYPES:
+        raise ValueError(f"Unknown solver_type {solver_type!r}")
+    if ref_type not in ("default", "gaussian", "gmm", "nn"):
+        raise ValueError(f"Unknown ref_type {ref_type!r}")
+    if loss_type not in ("kl", "lv"):
+        raise ValueError(f"Unknown loss_type {loss_type!r}")
+    if integrator_type not in ("em", "ei", "ddpm_like"):
+        raise ValueError(f"Unknown integrator_type {integrator_type!r}")
+    if model_type not in MODEL_TYPES:
+        raise ValueError(f"Unknown model_type {model_type!r}")
+    if time_type not in ("uniform", "snr"):
+        raise ValueError(f"Unknown time_type {time_type!r}")
+    if not isinstance(solver_details, dict):
+        raise TypeError("solver_details must be a dict")
+    if not (isinstance(target_details, dict) and "name" in target_details):
+        raise TypeError("target_details must be a dict with a 'name'")
+    if not isinstance(training_details, dict):
+        raise TypeError("training_details must be a dict")
+
+    # -- validation rules, as the JAX package's --------------------------
+    if ("orig" in solver_type) or ("dis" in solver_type) or ("cmcd" in solver_type):
+        if not (model_type == "base_zero_init" and force_base_zero_init):
+            if solver_type in ("dds_orig", "pis_orig") and model_type not in (
+                    "target_informed_zero_init", "target_informed_unet_zero_init"):
+                raise ValueError("Only target_informed_zero_init model is supported.")
+            if "dis" in solver_type and model_type == "base_zero_init":
+                raise ValueError("Model base_zero_init is not supported.")
+            # the check fires on base_zero_init despite its message, as in
+            # the JAX package and its reference
+            if solver_type == "cmcd" and model_type == "base_zero_init":
+                raise ValueError("Only base_zero_init is supported for CMCD.")
+        if solver_type == "cmcd" and model_type in (
+                "target_informed_lerp_tempering",
+                "target_informed_langevin_init"):
+            raise ValueError(f"model_type {model_type!r} is not supported "
+                             f"for CMCD (needs a static SDE object).")
+        if time_type != "uniform":
+            raise ValueError("Only uniform time discretisation is supported for orig/cmcd models.")
+        if integrator_type != "em":
+            raise ValueError("Can't use EI or DDPM-like discretization with orig models.")
+        if force_vp20 and solver_type != "dis_orig":
+            raise ValueError("Can't use vp_20 for orig models other than DIS.")
+        if force_vp_cosine:
+            raise ValueError("Can't use vp_cosine for orig models.")
+    if "ref" in solver_type:
+        if model_type == "target_informed_lerp_tempering":
+            raise ValueError("Model target_informed_lerp_tempering is not supported.")
+        if solver_type == "pbm-ref" and time_type == "uniform":
+            raise ValueError("PBM schedule is unstable with uniform time discretization.")
+        if integrator_type == "ddpm_like" and time_type == "uniform":
+            raise ValueError("Using the integration scheme from DDPM with uniform times is unstable.")
+    if force_vp20 and force_vp_cosine:
+        raise ValueError("Can't use vp_20 and vp_cosine at the same time.")
+    if solver_type == "pbm-ref" and (force_vp20 or force_vp_cosine):
+        raise ValueError("Can't use vp_20 or vp_cosine with PBM.")
+    if (ref_type != "default" and "ref" not in solver_type) and solver_type != "cmcd":
+        raise ValueError("Only ref models can use a non-default ref.")
+    if solver_type == "cmcd" and ref_type not in ("default", "gaussian"):
+        raise ValueError("Can't use ref other than gaussian for CMCD.")
+    if model_type == "target_informed_langevin_init" and integrator_type in ("ei", "ddpm_like"):
+        raise ValueError("Can't use EI or DDPM-like with Langevin score.")
+    if inference_ctrl_arch is not None:
+        if solver_type != "dis_orig":
+            raise ValueError("inference_ctrl_arch (GBS) is only supported for "
+                             "dis_orig — the reference composes cfg.inference_ctrl "
+                             "only in Bridge (solver/oc.py:194-208).")
+        if inference_ctrl_arch not in MODEL_TYPES:
+            raise ValueError(f"inference_ctrl_arch must be one of {MODEL_TYPES}; "
+                             f"got {inference_ctrl_arch!r}")
+
+    # -- what the port does not have yet ------------------------------------
+    if "ref" not in solver_type:
+        raise NotImplementedError(f"solver_type {solver_type!r} is not ported yet.")
+    if ref_type == "nn":
+        raise NotImplementedError("ref_type 'nn' is not ported yet.")
+    if force_vp_cosine:
+        raise NotImplementedError("force_vp_cosine (CosineVP) is not ported yet.")
+    if optim_details and "lr_scheduler" in optim_details:
+        raise NotImplementedError("optim_details['lr_scheduler'] is not ported yet.")
+    if out_dir is not None:
+        raise NotImplementedError("out_dir (checkpoints) is not ported yet.")
+    if mesh is not None:
+        raise NotImplementedError("mesh (sharded solvers) is not ported yet.")
+
+    # -- target / prior / sde ---------------------------------------------
+    device = resolve_device(device)
+    target = make_target(target_details, device=device)
+    dim = target.dim
+    sigma = solver_details.get("sigma", 1.0)
+
+    optim_details = dict(optim_details or {})
+    # training_details wins over optim_details for the lr
+    lr = training_details.get("lr", optim_details.get("lr", 3e-4))
+    cfg_kwargs = dict(
+        train_steps=training_details["train_steps"],
+        train_batch_size=training_details["train_batch_size"],
+        eval_batch_size=training_details["eval_batch_size"],
+        lr=lr,
+        lr_schedule=None,
+        use_ema=use_ema,
+        eval_interval=training_details.get("eval_interval", 10**9),
+        log_interval=training_details.get("log_interval", 50),
+        grad_clip=training_details.get("grad_clip"),
+        seed=training_details.get("seed", 0),
+    )
+    # any further training_details key sets a TrainConfig field directly
+    cfg_fields = {f.name for f in dataclasses.fields(TrainConfig)}
+    _consumed = ("train_steps", "train_batch_size", "eval_batch_size",
+                 "eval_interval", "log_interval", "grad_clip", "seed")
+    extra_cfg = {k: v for k, v in training_details.items() if k not in _consumed}
+    unknown = set(extra_cfg) - cfg_fields
+    if unknown:
+        raise ValueError(
+            f"Unknown training_details keys {sorted(unknown)}; valid "
+            f"TrainConfig fields: {sorted(cfg_fields)}")
+    cfg_kwargs.update(extra_cfg)
+    cfg = TrainConfig(**cfg_kwargs)
+
+    loss_kwargs = {"method": loss_type}
+    if loss_type == "lv":
+        loss_kwargs["max_rnd"] = 1e8
+
+    t_eps = 1e-4
+    if solver_type == "pbm-ref":
+        sde = PinnedBM(diff_coeff=sigma if ref_type == "default" else math.sqrt(0.2),
+                       terminal_t=5.0)
+        prior = Delta(dim=dim, loc=0.0, device=device)
+        # the uniform grid is refused for pbm-ref above
+        ts = get_timesteps(t_eps, sde.terminal_t - t_eps, steps=n_steps, sde=sde,
+                           device=device)
+    else:
+        sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=20.0 if force_vp20 else 10.0,
+                 scale_diff_coeff=sigma)
+        prior = IsotropicGauss(dim=dim, scale=sde.scale_diff_coeff, device=device)
+        if time_type == "snr":
+            ts = get_timesteps(t_eps, sde.terminal_t - t_eps, steps=n_steps, sde=sde,
+                               device=device)
+        elif integrator_type == "ddpm_like":
+            ts = get_timesteps(0.0, sde.terminal_t - 1e-4, steps=n_steps, device=device)
+        else:
+            ts = get_timesteps(0.0, sde.terminal_t, steps=n_steps, device=device)
+    loss_cls = {"em": EMReferenceSDELoss, "ei": EIReferenceSDELoss,
+                "ddpm_like": DDPMLikeReferenceSDELoss}[integrator_type]
+    solver = RDS(target, prior, sde,
+                 make_ctrl(model_type, dim, target, prior, sde, compute_dtype=compute_dtype,
+                           base_arch=base_arch),
+                 loss_cls, loss_kwargs, train_ts=ts, cfg=cfg, device=device)
+
+    # -- sample-based metrics ----------------------------------------------
+    if compute_samples_based_metrics:
+        solver.sample_losses = {"sinkhorn": Sinkhorn(), "mmd": mmd_median,
+                                "ks": lambda a, b: compute_sliced_ks(a, b)}
+
+    # -- reference install -------------------------------------------------
+    if ref_type == "gaussian":
+        solver.change_reference_type(
+            "gaussian", mean=solver_details["mean_ref"], var=solver_details["var_ref"])
+    elif ref_type == "gmm":
+        solver.change_reference_type(
+            "gmm", weights=solver_details["weights_ref"], means=solver_details["means_ref"],
+            variances=solver_details["variances_ref"])
+    return solver
 
 
 def mcmc_sample(generator: torch.Generator, target, x_init, mcmc_type: str = "mala",

@@ -105,6 +105,20 @@ class BaseOCLoss:
         return x, noise
 
     @staticmethod
+    def _noising_states(generator, x, mean_f, std_f, noise=None):
+        """Control-free reverse (noising) trajectory x_k = mf_k·x + sf_k·z_k
+        from ``x``: the affine loop every EUBO pass shares. Returns the final
+        state, the post-step states (K, B, D) and the noises that produced
+        them (drawn from ``generator`` unless fed as ``noise``)."""
+        zs = noise if noise is not None else torch.randn(
+            (mean_f.shape[0], *x.shape), generator=generator, device=x.device)
+        xs = []
+        for mf, sf, z in zip(mean_f, std_f, zs):
+            x = mf * x + sf * z
+            xs.append(x)
+        return x, torch.stack(xs), zs
+
+    @staticmethod
     def running_cost(u: torch.Tensor, sde_ctrl: torch.Tensor, detached: bool) -> torch.Tensor:
         """Per-step quadratic cost summed over dims: KL = ½‖u‖²,
         LV = u·(ū − ½u) with ū the detached simulation control."""

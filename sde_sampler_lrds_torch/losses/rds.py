@@ -1,6 +1,6 @@
 """Reference-based diffusion sampler (RDS) losses: EM / EI / DDPM integrators
 (counterpart of sde_sampler_lrds_tpu/losses/rds.py, with the flat LV and the
-fused KL training paths; ``compute_eubo`` is not ported yet).
+fused KL training paths and the EUBO's noising pass ``compute_eubo``).
 
 RND accumulation per step, with terminal cost log p_ref(x_T) − log ρ(x_T):
 
@@ -171,6 +171,41 @@ class EMReferenceSDELoss(BaseOCLoss):
         return compute_results(rnd, compute_weights=compute_weights, ts=ts,
                                max_rnd=self.max_rnd, samples=samples, xs=xs)
 
+    def _eubo_grids(self, ts):
+        """(times_s, times_t, t_ctrl, mean_f, std_f) of the noising pass,
+        whose step k runs from noising time T − times_t[k] to T − times_s[k]
+        on the flipped grid."""
+        T = ts[-1]
+        times_s, times_t = torch.flip(ts[:-1], (0,)), torch.flip(ts[1:], (0,))
+        mean_f, var_f = self.sde.transition_params(T - times_t, T - times_s)
+        return times_s, times_t, T - times_s, mean_f, torch.sqrt(var_f)
+
+    @torch.no_grad()
+    def compute_eubo(self, generator, ts, x, ctrl, terminal_unnorm_log_prob,
+                     reference_log_prob, noise=None):
+        """Reverse (noising) pass from true target samples ``x``: the
+        per-sample log-ratio whose mean is the EUBO upper bound. The noising
+        trajectory is control-free, so the control and the reference are
+        evaluated once each over all K·B states (``flat_ctrl_eval``).
+        ``noise`` (K, B, D), when given, replaces the draws from
+        ``generator``."""
+        times_s, times_t, t_ctrl, mean_f, std_f = self._eubo_grids(ts)
+        dt_arr = times_t - times_s
+        diff_arr = self.sde.diff_coeff_t(t_ctrl)
+        drift_k_arr = self.sde.drift_coeff_t(t_ctrl)
+        _, xs, zs = self._noising_states(generator, x, mean_f, std_f, noise=noise)
+        u = flat_ctrl_eval(ctrl, t_ctrl, xs)                          # (K, B, D)
+        ref = flat_ctrl_eval(self.reference_ctrl, t_ctrl, xs)
+        if self.use_rescaling:
+            u = u / diff_arr[:, None, None]
+        cost = torch.sum(u * (ref + 0.5 * u), dim=-1)                 # (K, B)
+        steps = (-cost * (dt_arr * diff_arr**2)[:, None]
+                 + torch.sum(u * xs, dim=-1)
+                 * (1.0 / mean_f - 1.0 + drift_k_arr * dt_arr)[:, None]
+                 - torch.sum(u * zs, dim=-1) * (std_f / mean_f)[:, None])
+        rnd0 = reference_log_prob(x) - terminal_unnorm_log_prob(x)
+        return rnd0 + torch.sum(steps, dim=0)
+
 
 class EIReferenceSDELoss(EMReferenceSDELoss):
     """RDS loss with the exponential integrator (no rescaling: the control
@@ -217,9 +252,26 @@ class EIReferenceSDELoss(EMReferenceSDELoss):
         rnd = rnd + reference_log_prob(x) - terminal_unnorm_log_prob(x)
         return x, rnd, (torch.stack(traj) if return_traj else None)
 
+    @torch.no_grad()
+    def compute_eubo(self, generator, ts, x, ctrl, terminal_unnorm_log_prob,
+                     reference_log_prob, noise=None):
+        """Reverse noising pass with ω weights (see the EM variant)."""
+        times_s, times_t, t_ctrl, mean_f, std_f = self._eubo_grids(ts)
+        omega = self._omega(times_s, times_t)[:, None]                # (K, 1)
+        _, xs, zs = self._noising_states(generator, x, mean_f, std_f, noise=noise)
+        u = flat_ctrl_eval(ctrl, t_ctrl, xs)                          # (K, B, D)
+        ref = flat_ctrl_eval(self.reference_ctrl, t_ctrl, xs)
+        steps = (-torch.sum(u * (ref + 0.5 * u), dim=-1) * omega
+                 - torch.sum(u * zs, dim=-1) * torch.sqrt(omega))
+        rnd0 = reference_log_prob(x) - terminal_unnorm_log_prob(x)
+        return rnd0 + torch.sum(steps, dim=0)
+
 
 class DDPMLikeReferenceSDELoss(EIReferenceSDELoss):
-    """RDS loss with the DDPM-like kernel."""
+    """RDS loss with the DDPM-like kernel. It has no EUBO: the DDPM-like
+    kernel has no reverse pass, as in the JAX package."""
+
+    compute_eubo = None
 
     def _omega(self, s, t):
         return self.sde.omega_ddpm(s, t)

@@ -1,2 +1,2 @@
-from .linear import OU, VP
+from .linear import OU, VP, PinnedBM
 from ..utils.common import get_timesteps

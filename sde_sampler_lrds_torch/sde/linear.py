@@ -1,5 +1,5 @@
 """Linear (Ornstein-Uhlenbeck-type) SDE algebra in closed form (counterpart
-of sde_sampler_lrds_tpu/sde/linear.py: the OU base and VP).
+of sde_sampler_lrds_tpu/sde/linear.py: the OU base, VP and PinnedBM).
 
 dX_t = k(t) X dt + g(t) dW_t with scale s(t) = exp(∫k) and
 sigma_sq(t) = ∫ g²/s². "Noising time" t runs 0 → T; the generative losses use
@@ -256,3 +256,65 @@ class VP(OU):
         return (torch.sqrt(1.0 + lam),
                 2.0 * self.scale_diff_coeff**2 * torch.sinh(d_alpha),
                 torch.sqrt(var))
+
+
+class PinnedBM(OU):
+    """Pinned Brownian motion, the reference process of 'pbm-ref':
+    drift = -X/(T-t); s(t) = (T-t)/T; σ²(t) = g² T t/(T-t). Its coefficients
+    grow like 1/(T - t) toward the pinned end, so the log-SNR grid stops
+    short of T."""
+
+    def __init__(self, diff_coeff: float = 2.0, **kwargs):
+        if diff_coeff <= 0:
+            raise ValueError("Choose positive diff_coeff.")
+        super().__init__(**kwargs)
+        self.diff_coeff = float(diff_coeff)
+
+    def drift_coeff_t(self, t):
+        return -1.0 / (self.terminal_t - _f32(t))
+
+    def diff_coeff_t(self, t):
+        return self.diff_coeff * torch.ones_like(_f32(t))
+
+    def int_drift_coeff_t(self, s, t):
+        return torch.log(self.terminal_t - _f32(t)) - torch.log(self.terminal_t - _f32(s))
+
+    def int_diff_coeff_sq_t(self, s, t):
+        return self.diff_coeff**2 * (_f32(t) - _f32(s))
+
+    def transition_params(self, s, t):
+        s, t = _f32(s), _f32(t)
+        mean_factor = (self.terminal_t - t) / (self.terminal_t - s)
+        var_factor = mean_factor * (t - s) * self.diff_coeff**2
+        return mean_factor, var_factor
+
+    def s(self, t):
+        return (self.terminal_t - _f32(t)) / self.terminal_t
+
+    def sigma_sq(self, t):
+        t = _f32(t)
+        return self.diff_coeff**2 * self.terminal_t * t / (self.terminal_t - t)
+
+    def omega(self, t_k, t_k_p_1):
+        t_k, t_k_p_1 = _f32(t_k), _f32(t_k_p_1)
+        return self.diff_coeff**2 * (t_k / t_k_p_1) * (t_k_p_1 - t_k)
+
+    def omega_ddpm(self, t_k, t_k_p_1):
+        T = self.terminal_t
+        t_k, t_k_p_1 = _f32(t_k), _f32(t_k_p_1)
+        return self.diff_coeff**2 * ((T - t_k) / (T - t_k_p_1)) * (t_k_p_1 - t_k)
+
+    def ei_step_coeffs(self, s, t):
+        s, t = _f32(s), _f32(t)
+        var = self.diff_coeff**2 * (t / s) * (t - s)
+        return t / s, self.diff_coeff**2 * (t - s), torch.sqrt(var)
+
+    def ei_integration_step(self, x, t_k, t_k_p_1, score, z):
+        a_x, a_s, a_z = self.ei_step_coeffs(t_k, t_k_p_1)
+        return a_x * x + a_s * score + a_z * z
+
+    def ddpm_step_coeffs(self, s, t):
+        T = self.terminal_t
+        s, t = _f32(s), _f32(t)
+        var = self.diff_coeff**2 * ((T - t) / (T - s)) * (t - s)
+        return t / s, self.diff_coeff**2 * (t - s), torch.sqrt(var)

@@ -1,6 +1,7 @@
 """Diffusion-based samplers (counterpart of sde_sampler_lrds_tpu/solvers/oc.py;
 only TrainableDiff, the tabulated Gaussian / GMM reference controls and RDS
-are ported yet, with reference types 'default', 'gaussian' and 'gmm').
+are ported yet, with reference types 'default' (VP and PinnedBM),
+'gaussian' and 'gmm').
 
 Routing, as in the JAX package: plain-LV training takes the flat path
 (``lv_flat_call``), whose gradient-free simulation runs through
@@ -176,6 +177,29 @@ class TrainableDiff(Trainable):
                               compute_weights=compute_weights, return_traj=return_traj,
                               **self.loss_call_args(use_ema))
 
+    def compute_eubo(self, generator: torch.Generator, x_target: torch.Tensor,
+                     use_ema: bool = True, noise: torch.Tensor | None = None) -> torch.Tensor:
+        """The per-sample log-ratio of the noising pass from target samples
+        ``x_target`` (its mean is the EUBO); raises where the loss has no
+        reverse pass (the DDPM-like integrator)."""
+        if getattr(self.loss, "compute_eubo", None) is None:
+            raise NotImplementedError(
+                f"EUBO is not defined for {type(self).__name__} with "
+                f"{type(self.loss).__name__} (e.g. the DDPM-like integrator "
+                f"has no reverse pass)")
+        return self.loss.compute_eubo(generator, self.eval_ts, x_target,
+                                      self.eval_module(use_ema), noise=noise,
+                                      **self.loss_call_args(use_ema))
+
+    def load_flax_params(self, params: dict) -> None:
+        """Load the Flax parameter tree of the JAX package's solver
+        (``state.params``, as numpy arrays) into the control, with a fresh
+        optimizer and EMA copy."""
+        from ..models.mlp import load_flax_params
+
+        load_flax_params(self.generative_ctrl, params)
+        self.reset_optimizer()
+
     def fused_eval_sampler(self, use_ema: bool = True):
         """``generator -> (x_T, rnd)`` drawing ``eval_batch_size``
         trajectories through the fused trajectory, or None when out of
@@ -213,7 +237,7 @@ class GaussianReferenceCtrl:
         self.var_init = var_init
 
     def __call__(self, t, x):
-        if torch.as_tensor(t).numel() > 1:
+        if x.ndim == 3:
             return _per_step(self, t, x)
         return self.sde.marginal_score(torch.as_tensor(t).reshape(()), x, self.x_init,
                                        var_init=self.var_init)
@@ -243,7 +267,7 @@ class GMMReferenceCtrl:
         self.weights = weights
 
     def __call__(self, t, x):
-        if torch.as_tensor(t).numel() > 1:
+        if x.ndim == 3:
             return _per_step(self, t, x)
         return self.sde.marginal_gmm_score(torch.as_tensor(t).reshape(()), x, self.means,
                                            self.variances, self.weights)
@@ -280,11 +304,11 @@ class RDS(TrainableDiff):
 
     def change_reference_type(self, ref_type: str = "default", mean=None, var=None,
                               means=None, variances=None, weights=None):
-        """Install the reference process: 'default' (prior-derived),
-        'gaussian' or 'gmm'. Variances are diagonal, full ((D, D) or
+        """Install the reference process: 'default' (the prior's Gaussian
+        for VP; N(prior loc, T·g²) for PinnedBM), 'gaussian' or 'gmm'. Variances are diagonal, full ((D, D) or
         (C, D, D)) or an eigendecomposition (eig, P), given as tensors or
         numpy arrays. The 'nn' reference is not ported."""
-        from ..sde.linear import VP
+        from ..sde.linear import VP, PinnedBM
 
         sde = self.sde
 
@@ -295,10 +319,13 @@ class RDS(TrainableDiff):
 
         zero = torch.zeros((), device=self.device)
         if ref_type == "default":
-            if not isinstance(sde, VP):
-                raise ValueError(f"Default reference for SDE type {type(sde)} unsupported.")
             loc = torch.reshape(self.prior.loc, (-1,))
-            var0 = torch.reshape(torch.square(self.prior.scale), (-1,))
+            if isinstance(sde, VP):
+                var0 = torch.reshape(torch.square(self.prior.scale), (-1,))
+            elif isinstance(sde, PinnedBM):
+                var0 = sde.terminal_t * sde.diff_coeff**2 * torch.ones_like(loc)
+            else:
+                raise ValueError(f"Default reference for SDE type {type(sde)} unsupported.")
             self.reference_distr_utils = {"x_init": loc, "var_init": var0}
             self.reference_log_prob = lambda x: sde.marginal_log_prob(
                 zero, x, loc, var_init=var0)

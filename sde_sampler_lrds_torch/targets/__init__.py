@@ -1,10 +1,12 @@
 from .base import Target
+from .delta import Delta
 from .gauss import (
     GMM,
     Gauss,
     GaussFull,
     IsotropicGauss,
     ManyModes,
+    TwoModes,
     log_prob_gaussian,
     log_prob_gaussian_full,
     mog_full_log_prob,

@@ -1,8 +1,9 @@
 """Gaussian / Gaussian-mixture targets with closed-form log-probs and scores
 (counterpart of sde_sampler_lrds_tpu/targets/gauss.py: the diagonal and
-full-covariance functional densities, the diagonal classes and the single
-full-covariance Gaussian; the full-covariance mixture classes GMMFull and
-TwoModesFull are not ported yet). Mixture scores are computed in log-space
+full-covariance functional densities, the diagonal classes with TwoModes
+and its mode-weight metric, and the single full-covariance Gaussian; the
+full-covariance mixture classes GMMFull and TwoModesFull, BracketTwoModes
+and the gmm_params presets are not ported yet). Mixture scores are computed in log-space
 with softmax responsibilities."""
 from __future__ import annotations
 
@@ -198,6 +199,43 @@ class GMM(Target):
                 self.compute_forgotten_modes(samples, counts=counts))
         if return_samples:
             return samples
+
+
+class _ModeWeightMixin:
+    """Adds the strongest mode's weight, in percent of the samples, as a
+    metric and as the expectation ``mode_weight``."""
+
+    def compute_mode_weight(self, samples: torch.Tensor) -> torch.Tensor:
+        counts = self.compute_mode_count(samples)
+        return 100.0 * counts[0] / counts.sum()
+
+    def compute_stats_sampling(self, generator, return_samples: bool = False):
+        samples = super().compute_stats_sampling(generator, return_samples=True)
+        self.expectations["mode_weight"] = float(self.compute_mode_weight(samples))
+        if return_samples:
+            return samples
+
+
+class TwoModes(_ModeWeightMixin, GMM):
+    """p = (2/3) N(-a·1, C) + (1/3) N(+a·1, C) with a diagonal C of variance
+    0.05 (``ill_conditioned`` 'not'), or 0.05·logspace(-1, 0, dim) ('medium')
+    or 0.05·logspace(-2, 0, dim) ('hard') along the coordinates."""
+
+    def __init__(self, dim: int = 2, a: float = 1.0, centered: bool = False,
+                 ill_conditioned: str = "not", **kwargs):
+        if ill_conditioned not in ("not", "medium", "hard"):
+            raise ValueError(f"ill_conditioned must be 'not', 'medium' or 'hard', "
+                             f"got {ill_conditioned!r}")
+        loc = np.stack([-a * np.ones(dim), a * np.ones(dim)]).astype(np.float32)
+        if centered:
+            loc = loc + np.float32(a / 3.0)
+        if ill_conditioned == "not":
+            var = np.full(dim, 0.05)
+        else:
+            var = 0.05 * np.logspace(-1.0 if ill_conditioned == "medium" else -2.0, 0.0, dim)
+        scale = np.repeat(np.sqrt(var.astype(np.float32))[None, :], 2, axis=0)
+        super().__init__(dim=dim, loc=loc, scale=scale,
+                         mixture_weights=np.array([2.0, 1.0], np.float32), **kwargs)
 
 
 def many_modes_loc(n_modes: int, dim: int, seed_loc: int = 42) -> np.ndarray:

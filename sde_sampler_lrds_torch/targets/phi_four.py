@@ -3,10 +3,10 @@ sde_sampler_lrds_tpu/targets/phi_four.py).
 
 Energy U(φ) = a·d·Σ(∇φ)²/2 + Σ[(1-φ²)²/4 + b·φ]/(a·d), Gibbs density
 e^{-β U}. The exact transfer-matrix oracle of the 1-D Dirichlet chain (log Z
-and the centre-site inter-well weight) is host numpy/scipy float64 code, kept
-here as its own copy. Not ported yet: the forward-filter backward-sampling
-exact sampler (``sample`` raises NotImplementedError) and the Laplace
-oracle (``compute_stats_integration``).
+and the centre-site inter-well weight) and its exact sampler (forward
+filter, backward sampling) are host numpy/scipy float64 code, kept here as
+their own copy. Not ported yet: the Laplace oracle
+(``compute_stats_integration``).
 """
 from __future__ import annotations
 
@@ -141,6 +141,42 @@ class PhiFour(Target):
         self.expectations["weight"] = w
         self.expectations["weight_rb"] = w
         return w
+
+    def sample(self, generator: torch.Generator, shape: tuple = ()) -> torch.Tensor:
+        """Exact i.i.d. samples of the 1-d Dirichlet chain by forward-filter
+        backward-sampling on the transfer-matrix grid, on the host; a numpy
+        generator is seeded from one draw of ``generator``."""
+        if not self._tm_supported():
+            raise NotImplementedError("exact sampling needs the 1-d Dirichlet chain")
+        seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                                 device=generator.device))
+        n = int(np.prod(shape)) if shape else 1
+        out = self.ffbs_sample(np.random.default_rng(seed), n)
+        return torch.as_tensor(out, dtype=torch.float32,
+                               device=self.device).reshape(*shape, self.dim)
+
+    def ffbs_sample(self, rng: np.random.Generator, n: int) -> np.ndarray:
+        """``n`` exact samples (n, dim) from ``rng``: the last site from its
+        marginal, each earlier one from its conditional given the next by
+        inverse CDF on a 601-point grid, then a uniform ±du/2 jitter, with
+        the JAX package's arithmetic and draw order."""
+        u, du, site, bond, b0, alphas = self._tm_messages(grid_points=601)
+        out = np.empty((n, self.dim))
+        logp = alphas[-1] + b0
+        p = np.exp(logp - logp.max())
+        idx = rng.choice(len(u), size=n, p=p / p.sum())
+        out[:, self.dim - 1] = u[idx]
+        for i in range(self.dim - 2, -1, -1):
+            # p(u_i | u_{i+1} = u[c]) ∝ exp(alpha_i(u) + bond(u, c))
+            m = alphas[i][:, None] + bond
+            m -= m.max(axis=0, keepdims=True)
+            cdf = np.cumsum(np.exp(m, dtype=np.float32), axis=0)
+            cdf /= cdf[-1:, :]
+            r = rng.random(n)
+            idx = (cdf[:, idx] < r[None, :]).sum(axis=0)
+            out[:, i] = u[idx]
+        out += rng.uniform(-du / 2, du / 2, size=out.shape)
+        return out.astype(np.float32)
 
     # -- inter-well weight estimators -----------------------------------------
     def compute_phi_four_weight(self, samples: torch.Tensor) -> torch.Tensor:

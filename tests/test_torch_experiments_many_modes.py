@@ -1,0 +1,9 @@
+"""The port's many modes driver end to end on the CPU at a tiny size
+against the JAX package's ``lrds_run``: ManyModes (d 2, 4 modes, vp_20, 4-component diagonal GMM). The pickle has the JAX
+cell's keys, numpy and builtins only, and experiments/summarize_results.py
+reads it (helpers in tests/test_torch_experiments.py)."""
+from test_torch_experiments import check_driver_against_jax
+
+
+def test_many_modes_driver_matches_jax(tmp_path, monkeypatch):
+    check_driver_against_jax("many_modes", tmp_path, monkeypatch)
