@@ -4,7 +4,8 @@ LRDS demo pipeline (the configuration bench.py runs) end to end through the
 port's entry points, evaluates the trained sampler with the sample-based
 metrics, runs the SMC baseline at the experiments' defaults, runs the port's
 LRDS experiment drivers (two_modes vp-ref and pbm-ref, φ⁴ at its full
-width) through their entry points, and checks the quality of each.
+width, many_modes, the 2-D toys and the two_modes sweeps) through their
+entry points, and checks the quality of each.
 
     python3 chip_smoke.py
 
@@ -37,7 +38,12 @@ Phases:
      drivers' pinned-BM plan (two_modes d 64, from the Delta prior's zeros,
      KERNEL_TOL) and with a 64-component reference at D = 8 on the vp_20
      schedule (from N(0, I), gated against the float64 steps,
-     DRIVER_F64_RATIO), at 1024 and 8192 with fed noise
+     DRIVER_F64_RATIO), at 1024 and 8192 with fed noise; the 2-D toys' plan
+     (D = 2, 8 diagonal components fitted to Rings draws, VP on the log-SNR
+     grid, from N(0, I), KERNEL_TOL, two launches bitwise equal); one step
+     of the kernel from the plain version's states at several steps of the
+     64-component plan (KERNEL_TOL); the Sinkhorn kernels at 8192 x 8192 on
+     Rings draws (d = 2)
   3. the fused_traj kernel's own noise: Philox bits against a torch int64
      re-implementation, moments, seeds that differ
   4. the main path: MALA dataset -> diagonal GMM fit -> GMM reference ->
@@ -57,14 +63,22 @@ Phases:
      dataset, with its metrics on the first 8192 pooled samples
   7. one JSON line per kernel and mode: launches, error, time, bound; the
      diagonal kernel's and the Sinkhorn kernels' times beside the geometry
-     the host picked; the resampling lookup beside the graph replay of a
+     the host picked, and at the toys' shapes (D = 2, 8 components; d = 2); the resampling lookup beside the graph replay of a
      kernel that does nothing (the card's launch floor)
   8. the experiment drivers' cells, each through the driver's main and so
      lrds_run (MALA -> GMM fit -> make_model -> TrainableWrapper.run ->
      evaluation over seeds with the EUBO -> pickle): (a) two_modes d 16
      vp-ref at the driver's defaults, gated by the JAX package's record of
      the cell; (b) two_modes d 64 pbm-ref; (c) φ⁴ (b 0.02, d 100,
-     full-covariance fit), gated against the exact transfer-matrix oracle
+     full-covariance fit), gated against the exact transfer-matrix oracle;
+     (d) many_modes, 4 modes at d 8, at the driver's defaults, gated by the
+     JAX package's record; (e) sample_toy_gmm_mcmc on Rings at its defaults,
+     beside the JAX record; (f) the same on Checkerboard (density 0 off the
+     board), on its filtered metrics; (g) one point of each two_modes sweep
+     at d 16 (a 4, 8 components, weight skew 0.1, sigma factor 0.25), cut to
+     1024 train steps, 2 eval seeds and 10 000 MALA points, the ELBO below
+     log Z_IS and, at sigma 0.25, below the log Z' its discretised
+     reference makes the estimators aim at (default_reference_log_z)
   9. the bf16 demo (bench.py --bf16): phase 4's configuration with
      FourierMLP(compute_dtype=bfloat16) on phase 4's MALA dataset and GMM fit:
      256 flat-LV steps and the 8192 x 100 eval through the kernel's bf16 mode,
@@ -81,6 +95,14 @@ before it and read just after. Prints the card as nvidia-smi reports it, then
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, with no result line, when there is no
 CUDA device or any phase fails.
+
+    python3 chip_smoke.py --cell MODULE [driver flags]
+
+runs one cell of a port driver (such as many_modes_mcmc_gmm
+--n_modes_range 64, too long for the smoke run) after the kernels' build,
+with phase 8's path and launch checks and no quality gate, and prints its
+summary line (medians and means over the eval seeds, stage seconds,
+launches).
 """
 from __future__ import annotations
 
@@ -110,6 +132,14 @@ KERNEL_TOL = dict(rtol=1e-3, atol=1e-3)
 # 2e-5 (measured against float64 at 2048 x 2048 on these targets); 10x that
 # is allowed, plus a float32 relative rounding of the log-sum itself
 LSE_TOL_ABS, LSE_TOL_REL = 2e-4, 1e-5
+# the lse at the toys' d 2 on Rings draws: the expansion's cancellation is
+# larger there (|x|^2 up to ~27, nearest pairs ~1e-2 apart), and the plain
+# float32 version itself sits 2.0e-3 (eps * lse units, 8192 x 8192, eps
+# 1e-3) from the same expansion in float64 (measured on the CPU), 10x
+# LSE_TOL_ABS; the kernel is held to at most LSE_F64_RATIO x the plain
+# version's distance from float64, plus LSE_TOL_ABS. Measured on an H100:
+# kernel 1.94e-3, plain 1.69e-3 from float64 at worst (a ratio of 1.14)
+LSE_F64_RATIO = 1.3
 # transport cost and the whole Sinkhorn distance, kernels vs plain versions:
 # the cost's rounding enters every exponent divided by eps; the float32
 # cost at eps = 1e-3 differs from float64 by 5e-5 relative on these inputs
@@ -165,6 +195,41 @@ D100_TOL = dict(rtol=2e-3, atol=5e-3)
 # pinned-BM plan, from the Delta prior's zeros, holds KERNEL_TOL (kernel vs
 # plain 6.9e-5 on rnd)
 DRIVER_F64_RATIO = 2.0
+# the 2-D toys (sample_toy_gmm_mcmc at its defaults): d 2, an 8-component
+# diagonal GMM fitted to the MALA dataset, vp-ref on the log-SNR grid
+TOY_DIM, TOY_COMP = 2, 8
+# the many_modes cell (4 modes, d 8, vp_20, the driver's defaults) against
+# the JAX package's record of it (experiments/results/SUMMARY.md, medians
+# over 16 seeds: |log Z| 0.0046, ESS 0.976, EUBO 0.0112, Sinkhorn 1.003, no
+# forgotten mode), gated as cell (a) on the means over the eval seeds
+GATE_MM_LOGZ, GATE_MM_ESS, GATE_MM_EUBO = 0.05, 0.88, 0.05
+# the toy Rings cell beside the JAX package's record of it (medians over its
+# 8 seeds: |log Z| 1.533, ELBO -2.381, ESS 0.0446, Sinkhorn 2.836; a weak
+# record, matched within seed noise and not beaten): finite metrics, the
+# ELBO at most log Z_IS + GATE_TOY_ELBO_SLACK, |log Z| and the Sinkhorn each
+# at most GATE_TOY_RECORD x the record, on the medians over the eval seeds.
+# Checkerboard has no record: finite filtered metrics and the filtered ELBO
+# at most the filtered log Z_IS + GATE_TOY_ELBO_SLACK
+TOY_RINGS_RECORD = {"log_z": 1.533, "sinkhorn": 2.836}
+GATE_TOY_RECORD, GATE_TOY_ELBO_SLACK = 2.0, 0.05
+# one point of each two_modes sweep at its full width (d 16), cut in depth
+# to keep the script inside its time limit: 1024 train steps, 2 eval seeds,
+# 10 000 MALA points; on every seed the ELBO at most log Z_IS +
+# GATE_TOY_ELBO_SLACK. The sigma point's ELBO is also held below the log Z'
+# its estimators aim at (default_reference_log_z) + GATE_TOY_ELBO_SLACK,
+# and its log Z_IS below log Z' + GATE_SIGMA_LOGZ_SLACK, 4 standard
+# deviations of log Z_IS at ESS 0.18 over 8192 draws
+GATE_SIGMA_LOGZ_SLACK = 0.1
+SWEEP_CUT = ["--train_steps", "1024", "--n_sampling_seeds", "2", "--dataset_size", "10000"]
+SWEEP_POINTS = (("sweep_distance", "two_modes_mcmc_gmm_with_increasing_distance",
+                 ["--a_range", "4.0"]),
+                ("sweep_gmm_components", "two_modes_gmm_sensitivity",
+                 ["--n_components_range", "8"]),
+                ("sweep_weight", "weight_sensitivity", ["--weight_skews", "0.1"]),
+                ("sweep_sigma", "sigma_sensitivity", ["--sigma_factors", "0.25"]))
+# the steps at which phase 2 runs B1 for one step from the plain version's
+# states (the 64-component plan, K = 100)
+ONE_STEP_KS = (0, 1, 33, 66, 98, 99)
 # quality gates of the trained sampler against the target
 GATE_LOGZ, GATE_ESS, GATE_MODE_W = 0.05, 0.9, 0.06
 # the KL-trained demo's own gates (PERF.md §2): 256 reverse-KL steps hardly
@@ -366,6 +431,13 @@ def target_draws(dev, n: int, seed: int) -> torch.Tensor:
 
     target = ManyModes(n_modes=N_MODES, dim=DIM, var=0.5, device=dev)
     return target.sample(torch.Generator(dev).manual_seed(seed), (n,))
+
+
+def toy_draws(dev, n: int, seed: int) -> torch.Tensor:
+    """n draws of the 2-D Rings target from a seed."""
+    from sde_sampler_lrds_torch.targets import Rings
+
+    return Rings(device=dev).sample(torch.Generator(dev).manual_seed(seed), (n,))
 
 
 def finite_metrics(metrics: dict) -> bool:
@@ -685,21 +757,22 @@ def phase_kernel_vs_plain_d100(dev, rec_diag, rec_full):
 
 
 def driver_plans(dev) -> dict:
-    """B1's plans at two shapes the drivers give it: the 'pbm-ref' plan of
+    """B1's plans at three shapes the drivers give it: the 'pbm-ref' plan of
     two_modes at d 64 (make_model's pinned-BM EI loss on its log-SNR grid,
     whose coefficients grow like 1/(T - t) toward the pinned end) with a
-    2-component diagonal GMM fitted to target draws, and a 64-component
+    2-component diagonal GMM fitted to target draws, a 64-component
     diagonal reference at d 8 (many_modes' largest mode count) on the vp_20
-    schedule; each with a random (not near-zero) control, and with the prior
-    its path draws x0 from (the Delta prior's zeros for pbm-ref, N(0, I) for
-    the VP)."""
+    schedule, and the 2-D toys' vp-ref plan with an 8-component diagonal GMM
+    fitted to Rings draws (the kernel's smallest width); each with a random
+    (not near-zero) control, and with the prior its path draws x0 from (the
+    Delta prior's zeros for pbm-ref, N(0, I) for the VP)."""
     from sde_sampler_lrds_torch.api import fit_gmm, make_model, make_target_details
     from sde_sampler_lrds_torch.losses import EIReferenceSDELoss
     from sde_sampler_lrds_torch.models import ClippedCtrl, FourierMLP
     from sde_sampler_lrds_torch.ops.fused_traj import build_plan
     from sde_sampler_lrds_torch.sde import VP, get_timesteps
     from sde_sampler_lrds_torch.solvers import GMMReferenceCtrl
-    from sde_sampler_lrds_torch.targets import IsotropicGauss, ManyModes, TwoModes
+    from sde_sampler_lrds_torch.targets import IsotropicGauss, ManyModes, Rings, TwoModes
 
     g = torch.Generator().manual_seed(25)
     plans = {}
@@ -726,8 +799,23 @@ def driver_plans(dev) -> dict:
         EIReferenceSDELoss(sde=sde, method="lv", reference_ctrl=ref), ctrl.to(dev),
         get_timesteps(1e-4, sde.terminal_t - 1e-4, steps=K_STEPS, sde=sde, device=dev)),
         IsotropicGauss(dim=DIM, scale=sde.scale_diff_coeff, device=dev))
+    rings = Rings(device=dev)
+    w, m, v = fit_gmm(TOY_COMP, rings.sample(torch.Generator(dev).manual_seed(27), (40_000,)),
+                      device=dev)
+    solver = make_model("vp-ref", "gmm", "lv", "ei", "base_zero_init", "snr",
+                        {"sigma": 1.0, "weights_ref": w, "means_ref": m, "variances_ref": v},
+                        make_target_details("rings"),
+                        {"train_steps": 1, "train_batch_size": TRAIN_BATCH,
+                         "eval_batch_size": EVAL_BATCH}, device=dev)
+    ctrl = ClippedCtrl(FourierMLP(dim=TOY_DIM, channels=CHANNELS, num_layers=N_LAYERS),
+                       clip_model=1e4)
+    ctrl.reset_parameters(g)
+    plans["toy_rings_d2"] = (*build_plan(solver.loss, ctrl.to(dev), solver.train_ts),
+                             solver.prior)
     check(plans["pbm_d64"][0].dim == 64 and plans["pbm_d64"][0].n_comp == 2
           and not plans["pbm_d64"][0].full_cov, "the pinned-BM plan")
+    check(plans["toy_rings_d2"][0].dim == TOY_DIM and plans["toy_rings_d2"][0].n_comp == TOY_COMP
+          and not plans["toy_rings_d2"][0].full_cov, "the toys' plan")
     check(plans["c64_d8_vp20"][0].n_comp == 64, "the 64-component plan")
     coefs = plans["pbm_d64"][1]["coefs"]
     say(f"[phase 2] pinned-BM plan: coefficient ranges a_x [{float(coefs[:, 0].min()):.3e}, "
@@ -739,22 +827,71 @@ def driver_plans(dev) -> dict:
     return plans
 
 
-def phase_kernel_vs_plain_driver_shapes(dev, rec) -> None:
-    """B1 against its plain version at the drivers' new shapes (fed noise and
+def phase_kernel_vs_plain_driver_shapes(dev, rec) -> dict:
+    """B1 against its plain version at the drivers' shapes (fed noise and
     states at the train and eval batches, two launches bitwise equal), each
     from the x0 its path starts at. The pinned-BM plan starts at the Delta
-    prior's zeros and is held at KERNEL_TOL. The 64-component plan starts at
-    N(0, I), where 64 components trade responsibilities over 100 steps and
-    the kernel and the plain version each sit ~1e-2 from the same steps in
-    float64 (measured on an H100), so it is gated against the float64 steps
-    (DRIVER_F64_RATIO)."""
+    prior's zeros and is held at KERNEL_TOL, the toys' plan (D = 2) at N(0,
+    I) and at KERNEL_TOL. The 64-component plan starts at N(0, I), where 64
+    components trade responsibilities over 100 steps and the kernel and the
+    plain version each sit ~1e-2 from the same steps in float64 (measured on
+    an H100), so it is gated against the float64 steps (DRIVER_F64_RATIO),
+    and its arithmetic at KERNEL_TOL one step at a time (phase_kernel_one_step).
+    Returns the plans."""
     cases = [(TRAIN_BATCH, "fed"), (EVAL_BATCH, "fed")]
-    gates = {"pbm_d64": None, "c64_d8_vp20": DRIVER_F64_RATIO}
-    for label, (cfg, arrays, prior) in driver_plans(dev).items():
+    gates = {"pbm_d64": None, "c64_d8_vp20": DRIVER_F64_RATIO, "toy_rings_d2": None}
+    plans = driver_plans(dev)
+    for label, (cfg, arrays, prior) in plans.items():
+        say(f"[phase 2] fused_traj {label}: D={cfg.dim}, C={cfg.n_comp}, geometry at B="
+            f"{TRAIN_BATCH} {dataclasses.asdict(diag_geometry_for(cfg, TRAIN_BATCH))}, at B="
+            f"{EVAL_BATCH} {dataclasses.asdict(diag_geometry_for(cfg, EVAL_BATCH))}")
         rec[f"max_abs_err_{label}"] = compare_kernel(
             dev, cfg, arrays, f"fused_traj {label}", cases, KERNEL_TOL,
             f64_ratio=gates[label], prior=prior)
         check_repeatable(dev, cfg, arrays, f"fused_traj {label}", cases, prior=prior)
+    rec["max_abs_err_one_step_c64_d8_vp20"] = phase_kernel_one_step(
+        dev, *plans["c64_d8_vp20"])
+    return plans
+
+
+def one_step_plan(cfg, arrays, k: int):
+    """The plan of step k alone: its rows of the per-step tables (step
+    coefficients, time embedding, reference tables) and the static ones."""
+    static = ("w0", "b0", "wh", "bh", "w_out", "b_out", "ref_p", "ref_pt")
+    return (dataclasses.replace(cfg, k_steps=1),
+            {name: (a if name in static else a[k:k + 1].contiguous())
+             for name, a in arrays.items()})
+
+
+def phase_kernel_one_step(dev, cfg, arrays, prior) -> float:
+    """B1 one step at a time against its plain version: the plain version
+    runs all K steps at the eval batch with fed noise, and from its states
+    at each step k of ONE_STEP_KS the kernel and the plain version take
+    step k alone on the same noise. Without K steps of chaos in between, the
+    two differ only by one step's float32 summation order, so the step's
+    state and rnd term are held at KERNEL_TOL."""
+    from sde_sampler_lrds_torch.ops.fused_traj import fused_traj, fused_traj_plain
+
+    g = torch.Generator(dev).manual_seed(9)
+    x0 = initial_states(prior, EVAL_BATCH, cfg.dim, g, dev)
+    noise = torch.randn(cfg.k_steps, EVAL_BATCH, cfg.dim, generator=g, device=dev)
+    _, _, xs = fused_traj_plain(cfg, arrays, x0, noise=noise, return_traj=True)
+    errs = []
+    for k in ONE_STEP_KS:
+        cfg_k, arrays_k = one_step_plan(cfg, arrays, k)
+        x_k = xs[k].contiguous()
+        got = fused_traj(cfg_k, arrays_k, x_k, noise=noise[k:k + 1].contiguous())
+        want = fused_traj_plain(cfg_k, arrays_k, x_k, noise=noise[k:k + 1])
+        torch.cuda.synchronize()
+        what = f"fused_traj c64_d8_vp20 step {k} alone, B={EVAL_BATCH}, from the plain states"
+        if k + 1 < cfg.k_steps:            # the one-step plan is step k of the whole plan
+            assert_close(want[:1], xs[k + 1:k + 2], f"{what}: plain one step vs whole run",
+                         dict(rtol=1e-6, atol=1e-6))
+        errs.append(assert_close(got, want, what))
+        say(f"[phase 2] {what}: max |diff| x {max_err(got[:1], want[:1]):.3e}, rnd "
+            f"{max_err(got[1:2], want[1:2]):.3e} (max |x_k| {float(x_k.abs().max()):.3e}; "
+            f"tolerance {KERNEL_TOL})")
+    return max(errs)
 
 
 def phase_kernel_vs_plain_bf16(dev, rec):
@@ -793,10 +930,38 @@ def lse_error(got, want, eps: float, what: str):
     return float(diff.max()), eps * float(diff.max())
 
 
+def lse_error_f64(xs, ys, dual, eps: float, p: int, got, want, what: str):
+    """The lse kernel against the same expansion in float64, beside the
+    plain version: the same -inf entries, and the kernel's eps·|diff| from
+    float64 at most LSE_F64_RATIO times the plain version's plus
+    LSE_TOL_ABS. Returns (max |diff|, max eps·|diff|) kernel vs plain."""
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import lse_plain
+
+    exact = lse_plain(xs.double(), ys.double(), dual.double(), eps, p)
+    check(not bool(torch.isnan(got).any() or torch.isposinf(got).any()),
+          f"{what}: NaN or +inf in the kernel's lse")
+    check(torch.equal(torch.isneginf(got), torch.isneginf(exact)),
+          f"{what}: kernel and float64 disagree on which rows are -inf")
+    fin = ~torch.isneginf(exact)
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    k_err = eps * float((got[fin] - exact[fin]).abs().max())
+    p_err = eps * float((want[fin] - exact[fin]).abs().max())
+    diff = float((got[fin] - want[fin]).abs().max())
+    say(f"[phase 2] {what}: eps*|diff| kernel-plain {eps * diff:.3e}; to float64 kernel "
+        f"{k_err:.3e}, plain {p_err:.3e} (gate: kernel <= {LSE_F64_RATIO} x plain + "
+        f"{LSE_TOL_ABS})")
+    check(k_err <= LSE_F64_RATIO * p_err + LSE_TOL_ABS,
+          f"{what}: the kernel's lse is {k_err:.3e} (eps units) from float64, the plain "
+          f"version's {p_err:.3e}")
+    return diff, eps * diff
+
+
 def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
     """B2 (lse) and B3 (transport cost) against their plain versions on the
-    card, at the eval path's 8192 x 8192 x 8 and on a ragged 1000 x 3000 at
-    d 8, 37, 100 and MAX_DIM; two launches of each bitwise equal."""
+    card, at the eval path's 8192 x 8192 x 8, at the toys' 8192 x 8192 x 2
+    (Rings draws) and on a ragged 1000 x 3000 at d 8, 37, 100 and MAX_DIM;
+    two launches of each bitwise equal."""
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import (MAX_DIM, lse, lse_plain,
                                                          sinkhorn_geometry, transport_cost,
                                                          transport_cost_plain)
@@ -805,6 +970,10 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
     x, y = target_draws(dev, SAMPLE_N, 11), target_draws(dev, SAMPLE_N, 12)
     cases = [(x, y, eps, p) for eps in (1e-3, 1.0) for p in (2, 1)]
     cases += [(x[:1000], y[:3000], 1e-2, p) for p in (2, 3)]
+    # the toys' width: d 2, which the kernels pad to 4
+    xt, yt = toy_draws(dev, SAMPLE_N, 16), toy_draws(dev, SAMPLE_N, 17)
+    toy_cases = [(xt, yt, eps, p) for eps, p in ((1e-3, 2), (1.0, 2), (1e-3, 1))]
+    cases += toy_cases
     # other widths on the ragged shape: a ragged d, d 100 and the largest
     # d the kernel takes, normal draws
     gw = torch.Generator(dev).manual_seed(14)
@@ -823,10 +992,12 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
         dual = eps * (log_b + 0.1 * torch.randn(m, generator=g, device=dev))
         dual[::9] = float("-inf")
         dual[128:256] = float("-inf")            # one whole column tile
+        toy = xs.shape[1] == TOY_DIM
         got = lse(xs, ys, dual, eps, p)
         want = lse_plain(xs, ys, dual, eps, p)
         torch.cuda.synchronize()
-        err_row = lse_error(got, want, eps, f"lse rows {what}")
+        err_row = (lse_error_f64(xs, ys, dual, eps, p, got, want, f"lse rows {what}") if toy
+                   else lse_error(got, want, eps, f"lse rows {what}"))
         check(torch.equal(got, lse(xs, ys, dual, eps, p)),
               f"lse {what}: two launches differ")
         # the first Sinkhorn half-steps give duals at the plan's real scale;
@@ -834,7 +1005,8 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
         u = eps * (log_a - want)
         got_col = lse(ys, xs, u, eps, p)
         want_col = lse_plain(ys, xs, u, eps, p)
-        err_col = lse_error(got_col, want_col, eps, f"lse columns {what}")
+        err_col = (lse_error_f64(ys, xs, u, eps, p, got_col, want_col, f"lse columns {what}")
+                   if toy else lse_error(got_col, want_col, eps, f"lse columns {what}"))
         v = eps * (log_b - want_col)
         u[::13], v[::7] = float("-inf"), float("-inf")
         got_c = transport_cost(xs, ys, u, v, eps, p)
@@ -847,9 +1019,11 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
               f"{float(want_c):.6g} (relative {rel:.3e}, tolerance {COST_TOL_REL})")
         lse_errs += [err_row, err_col]
         cost_errs.append((float((got_c - want_c).abs()), rel))
+        lse_gate = (f"gated on float64, LSE_F64_RATIO {LSE_F64_RATIO}" if toy else
+                    f"tolerance {LSE_TOL_ABS} + {LSE_TOL_REL} eps*|lse|")
         say(f"[phase 2] sinkhorn_lse vs plain, {what}: max |diff| rows {err_row[0]:.3e} "
             f"columns {err_col[0]:.3e} (eps*|diff| {max(err_row[1], err_col[1]):.3e}, "
-            f"tolerance {LSE_TOL_ABS} + {LSE_TOL_REL} eps*|lse|); transport_cost "
+            f"{lse_gate}); transport_cost "
             f"{float(got_c):.6g} vs {float(want_c):.6g}, relative {rel:.3e} "
             f"(tolerance {COST_TOL_REL})")
     xr, yr = x[:1000], y[:3000]
@@ -858,7 +1032,7 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
     # a whole column split (the host's geometry) of -inf duals: the split's
     # partials are (-inf, 0) and the merge must pass over them
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for xs, ys, eps, p in (cases[0], (xr, yr, 1e-2, 2), widest):
+    for xs, ys, eps, p in (cases[0], (xr, yr, 1e-2, 2), widest, toy_cases[0]):
         n, m = xs.shape[0], ys.shape[0]
         geom = sinkhorn_geometry(n, m, xs.shape[1], p, n_sms)
         cols = geom.cols_per_split
@@ -868,8 +1042,9 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
                                                                 device=dev), eps, p))
         dual = eps * (-math.log(m) - lse_plain(ys, xs, u, eps, p))
         dual[cols:2 * cols] = float("-inf")
-        err = lse_error(lse(xs, ys, dual, eps, p), lse_plain(xs, ys, dual, eps, p), eps,
-                        f"lse rows {what}")
+        got, want = lse(xs, ys, dual, eps, p), lse_plain(xs, ys, dual, eps, p)
+        err = (lse_error_f64(xs, ys, dual, eps, p, got, want, f"lse rows {what}")
+               if xs.shape[1] == TOY_DIM else lse_error(got, want, eps, f"lse rows {what}"))
         got_c = transport_cost(xs, ys, u, dual, eps, p)
         want_c = transport_cost_plain(xs, ys, u, dual, eps, p)
         rel = float((got_c - want_c).abs() / want_c.abs())
@@ -890,6 +1065,20 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
         "p 1, 2, 3: "
         f"d 8 {sinkhorn_geometry(SAMPLE_N, SAMPLE_N, 8, 2, n_sms).smem_bytes} bytes, d {MAX_DIM} "
         f"{sinkhorn_geometry(SAMPLE_N, SAMPLE_N, MAX_DIM, 2, n_sms).smem_bytes} bytes")
+    # the whole Sinkhorn distance at the toys' width, kernels vs plain versions
+    from sde_sampler_lrds_torch.eval import Sinkhorn
+    from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
+
+    kernel_val = float(Sinkhorn()(xt, yt))
+    plain_val = float(Sinkhorn().compute(xt, yt, ops=PLAIN_OPS))
+    rel = abs(kernel_val - plain_val) / abs(plain_val)
+    say(f"[phase 2] Sinkhorn distance at d 2 (Rings draws, 8192 vs 8192): kernels "
+        f"{kernel_val:.6f}, plain versions {plain_val:.6f}, relative {rel:.3e} (tolerance "
+        f"{COST_TOL_REL})")
+    check(rel <= COST_TOL_REL, "the d 2 Sinkhorn distance differs between kernels and plain "
+                               "versions")
+    say(f"[phase 2] sinkhorn geometry at the toys' d 2: "
+        + json.dumps(dataclasses.asdict(sinkhorn_geometry(SAMPLE_N, SAMPLE_N, TOY_DIM, 2, n_sms))))
     rec_lse["max_abs_err"] = max(e[0] for e in lse_errs)
     rec_lse["max_abs_err_eps_units"] = max(e[1] for e in lse_errs)
     rec_cost["max_abs_err"] = max(e[0] for e in cost_errs)
@@ -1457,8 +1646,16 @@ def phase_smc(dev, target, dataset, path_counts) -> dict:
 CELL_METRICS = ("eval/log_norm_const_is", "eval/elbo", "eval/eubo", "eval/log_norm_const_is_f",
                 "eval/norm_effective_sample_size", "eval/norm_effective_sample_size_f",
                 "eval/lv_loss", "eval/mode_weight", "eval/emc", "eval/tv_weights",
-                "error/sinkhorn", "error/mmd", "error/ks", "eval/weight", "eval/weight_rb",
-                "error/log_norm_const_is")
+                "eval/num_forgotten_modes", "error/sinkhorn", "error/mmd", "error/ks",
+                "eval/weight", "eval/weight_rb", "error/log_norm_const_is", "eval/elbo_filtered",
+                "eval/log_norm_const_is_filtered", "eval/filtered_frac", "error/mode_weight")
+# the metrics every driver cell must have finite on every seed; a target
+# whose density is 0 off its support (Checkerboard) has them filtered
+CELL_FINITE = ("eval/elbo", "eval/log_norm_const_is", "eval/eubo",
+               "eval/norm_effective_sample_size", "eval/norm_effective_sample_size_f")
+CELL_FINITE_FILTERED = ("eval/elbo_filtered", "eval/log_norm_const_is",
+                        "eval/log_norm_const_is_filtered", "eval/eubo",
+                        "eval/norm_effective_sample_size", "eval/norm_effective_sample_size_f")
 
 
 class DriverProbe:
@@ -1494,12 +1691,17 @@ class DriverProbe:
         return False
 
 
-def run_driver_cell(dev, label: str, module: str, argv: list, path_counts) -> tuple:
+def run_driver_cell(dev, label: str, module: str, argv: list, path_counts,
+                    finite=CELL_FINITE) -> tuple:
     """One cell of a port driver, run through its ``main`` (and so through
-    ``lrds_run``) with the driver's own defaults and the flags in ``argv``,
-    its pickle written under build/driver_cells/. Returns (cell, the
-    means over the eval seeds, the probe, a summary dict)."""
+    ``lrds_run`` or ``run_vi``) with the driver's own defaults and the flags
+    in ``argv``, its pickle written under build/driver_cells/; ``finite``
+    names the metrics that must be finite on every seed. Returns (cell, the
+    means over the eval seeds, the probe, a summary dict with the medians
+    too)."""
     import importlib
+
+    from sde_sampler_lrds_torch.ops.fused_traj import build_plan
 
     driver = importlib.import_module(f"sde_sampler_lrds_torch.experiments.{module}")
     argv = argv + ["--device", "cuda", "--results_path", "build/driver_cells"]
@@ -1512,21 +1714,25 @@ def run_driver_cell(dev, label: str, module: str, argv: list, path_counts) -> tu
     wall = time.perf_counter() - t0
     counts = path_counts[label] = read_counts()
     m = cell["metrics"]
-    means = {k: float(np.mean(v)) for k, v in m.items()
-             if isinstance(v, list) and v and isinstance(v[0], float)}
+    lists = {k: v for k, v in m.items() if isinstance(v, list) and v and isinstance(v[0], float)}
+    means = {k: float(np.mean(v)) for k, v in lists.items()}
+    medians = {k: float(np.median(v)) for k, v in lists.items()}
     n_seeds, steps = len(m["eval/elbo"]), probe.solver.cfg.train_steps
     eubo_s = sum(probe.eubo_s)
+    plan = build_plan(probe.solver.loss, probe.solver.generative_ctrl, probe.solver.eval_ts)[0]
     out = {
         "train_path": probe.solver.train_path(), "eval_path": probe.solver.eval_path(),
         "launches": counts, "steps_trained": probe.solver.step_count,
         "n_skipped": probe.solver.n_skipped, "n_seeds": n_seeds,
-        "stage_s": {"mala": cell["times"]["mcmc"], "fit": cell["times"]["ref_fit"],
+        "b1_plan": {"dim": plan.dim, "n_comp": plan.n_comp, "full_cov": plan.full_cov},
+        "stage_s": {"mala": cell["times"]["mcmc"], "fit": cell["times"].get("ref_fit"),
                     "train": m["eval/training_time"][0],
                     "eval": sum(probe.eval_s) - eubo_s, "eubo": eubo_s, "cell": wall},
         "eval_s_per_seed": (sum(probe.eval_s) - eubo_s) / n_seeds,
         "eubo_s_per_seed": eubo_s / n_seeds,
         "train_ms_per_step": m["eval/training_time"][0] * 1e3 / steps,
         "means": {k: means[k] for k in CELL_METRICS if k in means},
+        "medians": {k: medians[k] for k in CELL_METRICS if k in medians},
         "first_seed": {k: m[k][0] for k in CELL_METRICS if k in m},
     }
     say(f"[phase 8] driver cell {label} " + json.dumps(out))
@@ -1534,19 +1740,27 @@ def run_driver_cell(dev, label: str, module: str, argv: list, path_counts) -> tu
     check(out["eval_path"] == "fused", f"{label}: eval path {out['eval_path']}")
     check(probe.solver.step_count == steps, f"{label}: {probe.solver.step_count} steps trained")
     check("eval/eubo_error" not in m, f"{label}: the EUBO pass failed: {m.get('eval/eubo_error')}")
-    check(cell["metrics"]["samples"].shape[0] == probe.solver.cfg.eval_batch_size,
-          f"{label}: eval output shape")
-    check(bool(np.isfinite(cell["metrics"]["samples"]).all()), f"{label}: samples not finite")
-    for key in ("eval/elbo", "eval/log_norm_const_is", "eval/eubo",
-                "eval/norm_effective_sample_size", "eval/norm_effective_sample_size_f"):
+    if "samples" in m:                 # the lrds_run drivers keep the first seed's
+        check(m["samples"].shape[0] == probe.solver.cfg.eval_batch_size,
+              f"{label}: eval output shape")
+        check(bool(np.isfinite(m["samples"]).all()), f"{label}: samples not finite")
+    for key in finite:
         check(all(math.isfinite(v) for v in m[key]), f"{label}: {key} not finite")
-    full = probe.solver.reference_distr_utils["variances_init"].ndim == 3
-    b1, other = ("fused_traj_full_cov", "fused_traj") if full else ("fused_traj",
-                                                                    "fused_traj_full_cov")
+    b1, other = (("fused_traj_full_cov", "fused_traj") if plan.full_cov
+                 else ("fused_traj", "fused_traj_full_cov"))
     check(counts[b1] == steps + n_seeds and counts[other] == 0,
           f"{label}: B1 launched {counts[b1]} times in its {b1} mode and {counts[other]} in "
           f"{other} for {steps} train steps and {n_seeds} evals")
     return cell, means, probe, out
+
+
+def sinkhorn_floor(target, seed: int) -> float:
+    """The Sinkhorn distance between two independent 8192-draw samples of
+    the target: the noise floor a perfect sampler's distance sits at."""
+    from sde_sampler_lrds_torch.eval import Sinkhorn
+
+    g = torch.Generator(target.device).manual_seed(seed)
+    return float(Sinkhorn()(target.sample(g, (EVAL_BATCH,)), target.sample(g, (EVAL_BATCH,))))
 
 
 def check_sandwich(label: str, means: dict, slack_lo: float, slack_hi: float) -> None:
@@ -1565,15 +1779,12 @@ def phase_driver_cells(dev, path_counts) -> tuple:
     the cell; (b) two_modes d 64 on the pinned Brownian motion (pbm-ref),
     4 eval seeds; (c) φ⁴ (b 0.02, d 100, full-covariance fit, 4096 steps,
     4 eval seeds), gated against the exact transfer-matrix oracle."""
-    from sde_sampler_lrds_torch.eval import Sinkhorn
     from sde_sampler_lrds_torch.targets import TwoModes
 
     cells = {}
     _, a, _, cells["a"] = run_driver_cell(
         dev, "cell_a", "two_modes_mcmc_gmm", ["--dim_range", "16"], path_counts)
-    g = torch.Generator(dev).manual_seed(91)
-    target = TwoModes(dim=16, device=dev)
-    floor = float(Sinkhorn()(target.sample(g, (EVAL_BATCH,)), target.sample(g, (EVAL_BATCH,))))
+    floor = sinkhorn_floor(TwoModes(dim=16, device=dev), 91)
     cells["a"]["sinkhorn_floor"] = floor
     say(f"[phase 8] cell_a: Sinkhorn {a['error/sinkhorn']:.4f} (mean of the seeds), noise "
         f"floor of two target draws {floor:.4f}; JAX record: |log Z| 0.0014, ESS 0.9811, "
@@ -1626,38 +1837,199 @@ def phase_driver_cells(dev, path_counts) -> tuple:
     return probe.solver, cells
 
 
+def check_sample_kernels(label: str, counts: dict, n_seeds: int) -> None:
+    check(counts["sinkhorn_lse"] > 0 and counts["transport_cost"] == n_seeds,
+          f"{label}: Sinkhorn kernels launched {counts['sinkhorn_lse']} / "
+          f"{counts['transport_cost']} times in {n_seeds} evals")
+
+
+def phase_more_driver_cells(dev, path_counts) -> dict:
+    """Phase 8 continued, each cell through its driver's main: (d)
+    many_modes, 4 modes at d 8, at the driver's defaults (vp_20, a
+    4-component fit, 4096 steps, 16 eval seeds), gated as cell (a) around
+    the JAX package's record; (e) sample_toy_gmm_mcmc on Rings at its
+    defaults (chains from 4 draws on every ring, an 8-component fit, 4096
+    steps, 16 seeds: B1 at D = 2, B2 / B3 at d = 2), beside the JAX record
+    (GATE_TOY_RECORD); (f) the same on Checkerboard, whose density is 0 off
+    the board: an off-board terminal sample has rnd = +inf, so the gates
+    read the filtered metrics, and the training mask's NaN gradient skips
+    a step with such a sample, as in the JAX package; (g) one point of each
+    two_modes sweep at d 16, cut in depth to SWEEP_CUT (1024 of its 4096 or
+    2048 train steps, 2 of 16 eval seeds, 10 000 of 40 000 MALA points),
+    at the point farthest from cell (a): distance a = 4 on vp_20, an
+    8-component fit, reference weights (0.1, 0.9), and sigma 0.25 x the
+    moment-matched one on the 'default' reference (B1's one-component plan);
+    gated on finite metrics, the path, B1's launches and the ELBO below log
+    Z_IS, the sigma point also below the log Z' of its discretised
+    reference (default_reference_log_z)."""
+    from sde_sampler_lrds_torch.api import make_target, make_target_details
+
+    cells = {}
+    _, mm, _, cells["many_modes_4"] = run_driver_cell(
+        dev, "many_modes_4", "many_modes_mcmc_gmm", ["--n_modes_range", "4"], path_counts)
+    floor = sinkhorn_floor(make_target(make_target_details("many_modes", dim=DIM, n_modes=4),
+                                       device=dev), 92)
+    cells["many_modes_4"]["sinkhorn_floor"] = floor
+    say(f"[phase 8] many_modes_4: means |log Z| {abs(mm['eval/log_norm_const_is']):.4f}, ESS "
+        f"{mm['eval/norm_effective_sample_size']:.4f}, EUBO {mm['eval/eubo']:.4f}, Sinkhorn "
+        f"{mm['error/sinkhorn']:.4f} (floor {floor:.4f}), forgotten modes "
+        f"{mm['eval/num_forgotten_modes']:.4f}; JAX record (medians): 0.0046, 0.976, 0.0112, "
+        f"1.003, 0")
+    check(abs(mm["eval/log_norm_const_is"]) <= GATE_MM_LOGZ,
+          f"many_modes_4: |log Z| {abs(mm['eval/log_norm_const_is']):.4f} > {GATE_MM_LOGZ}")
+    check(mm["eval/norm_effective_sample_size"] >= GATE_MM_ESS,
+          f"many_modes_4: ESS {mm['eval/norm_effective_sample_size']:.4f} < {GATE_MM_ESS}")
+    check_sandwich("many_modes_4", mm, 0.01, 0.02)
+    check(mm["eval/eubo"] <= GATE_MM_EUBO,
+          f"many_modes_4: EUBO {mm['eval/eubo']:.4f} > {GATE_MM_EUBO}")
+    check(mm["error/sinkhorn"] <= GATE_SINKHORN_FLOOR * floor,
+          f"many_modes_4: Sinkhorn {mm['error/sinkhorn']:.4f} > {GATE_SINKHORN_FLOOR} x floor "
+          f"{floor:.4f}")
+    check(mm["eval/num_forgotten_modes"] == 0.0,
+          f"many_modes_4: {mm['eval/num_forgotten_modes']:.4f} of the modes forgotten")
+    check_sample_kernels("many_modes_4", path_counts["many_modes_4"],
+                         cells["many_modes_4"]["n_seeds"])
+
+    cell, _, probe, cells["toy_rings"] = run_driver_cell(
+        dev, "toy_rings", "sample_toy_gmm_mcmc", [], path_counts)
+    m, med = cell["metrics"], cells["toy_rings"]["medians"]
+    floor = sinkhorn_floor(probe.solver.target, 93)
+    cells["toy_rings"]["sinkhorn_floor"] = floor
+    say(f"[phase 8] toy_rings: medians |log Z| {abs(med['eval/log_norm_const_is']):.4f}, ELBO "
+        f"{med['eval/elbo']:.4f}, ESS {med['eval/norm_effective_sample_size']:.4f}, Sinkhorn "
+        f"{med['error/sinkhorn']:.4f} (floor {floor:.4f}), forgotten modes "
+        f"{med['eval/num_forgotten_modes']:.4f}; JAX record (medians): 1.533, -2.381, 0.0446, "
+        f"2.836, 0.6667")
+    check(all(math.isfinite(v) for v in m["error/sinkhorn"]), "toy_rings: Sinkhorn not finite")
+    check(all(e <= z + GATE_TOY_ELBO_SLACK
+              for e, z in zip(m["eval/elbo"], m["eval/log_norm_const_is"])),
+          f"toy_rings: an ELBO above its log Z_IS + {GATE_TOY_ELBO_SLACK}")
+    for key, name in (("eval/log_norm_const_is", "log_z"), ("error/sinkhorn", "sinkhorn")):
+        limit = GATE_TOY_RECORD * TOY_RINGS_RECORD[name]
+        check(abs(med[key]) <= limit, f"toy_rings: median |{key}| {abs(med[key]):.4f} > "
+                                      f"{GATE_TOY_RECORD} x the JAX record ({limit:.4f})")
+    check_sample_kernels("toy_rings", path_counts["toy_rings"], cells["toy_rings"]["n_seeds"])
+
+    cell, means, probe, cells["toy_checkerboard"] = run_driver_cell(
+        dev, "toy_checkerboard", "sample_toy_gmm_mcmc", ["--target_type", "checkerboard"],
+        path_counts, finite=CELL_FINITE_FILTERED)
+    m = cell["metrics"]
+    samples = torch.as_tensor(m["samples"], device=dev)
+    off = int(torch.isneginf(probe.solver.target.unnorm_log_prob(samples)).sum())
+    cells["toy_checkerboard"].update(off_board_first_seed=off,
+                                     filtered_frac=m["eval/filtered_frac"])
+    say(f"[phase 8] toy_checkerboard: {off} of {samples.shape[0]} terminal samples of the first "
+        f"seed off the board; filtered share per seed {json.dumps(m['eval/filtered_frac'])}; "
+        f"{probe.solver.n_skipped} of {probe.solver.step_count} train steps skipped; means: "
+        f"filtered ELBO {means['eval/elbo_filtered']:.4f}, filtered log Z_IS "
+        f"{means['eval/log_norm_const_is_filtered']:.4f}, log Z_IS "
+        f"{means['eval/log_norm_const_is']:.4f}, ESS {means['eval/norm_effective_sample_size']:.4f}"
+        f", Sinkhorn {means['error/sinkhorn']:.4f}")
+    check(all(0.0 <= f < 1.0 for f in m["eval/filtered_frac"]),
+          "toy_checkerboard: eval/filtered_frac missing or 1")
+    check(all(e <= z + GATE_TOY_ELBO_SLACK for e, z in zip(
+        m["eval/elbo_filtered"], m["eval/log_norm_const_is_filtered"])),
+          f"toy_checkerboard: a filtered ELBO above its filtered log Z_IS + "
+          f"{GATE_TOY_ELBO_SLACK}")
+    check(all(math.isfinite(v) for v in m["error/sinkhorn"]),
+          "toy_checkerboard: Sinkhorn not finite")
+    check_sample_kernels("toy_checkerboard", path_counts["toy_checkerboard"],
+                         cells["toy_checkerboard"]["n_seeds"])
+
+    for label, module, point in SWEEP_POINTS:
+        cell, _, probe, cells[label] = run_driver_cell(dev, label, module, point + SWEEP_CUT,
+                                                       path_counts)
+        if label == "sweep_sigma":
+            sigma_metrics, sigma_solver = cell["metrics"], probe.solver
+        m = cell["metrics"]
+        check(all(math.isfinite(v) for v in m["error/sinkhorn"]),
+              f"{label}: Sinkhorn not finite")
+        check(all(e <= z + GATE_TOY_ELBO_SLACK
+                  for e, z in zip(m["eval/elbo"], m["eval/log_norm_const_is"])),
+              f"{label}: an ELBO above its log Z_IS + {GATE_TOY_ELBO_SLACK}")
+        check_sample_kernels(label, path_counts[label], cells[label]["n_seeds"])
+    rho, log_z_prime = default_reference_log_z(sigma_solver)
+    m = sigma_metrics
+    cells["sweep_sigma"].update(var_ratio=rho, log_z_prime=log_z_prime)
+    say(f"[phase 8] sweep_sigma: the zero-control chain ends at {rho:.5f} x the reference's "
+        f"variance, so its estimators aim at log Z' {log_z_prime:.4f} (log Z 0); per seed "
+        f"ELBO {json.dumps(m['eval/elbo'])}, log Z_IS {json.dumps(m['eval/log_norm_const_is'])}")
+    check(all(e <= log_z_prime + GATE_TOY_ELBO_SLACK for e in m["eval/elbo"]),
+          f"sweep_sigma: an ELBO above log Z' {log_z_prime:.4f} + {GATE_TOY_ELBO_SLACK}")
+    check(all(z <= log_z_prime + GATE_SIGMA_LOGZ_SLACK for z in m["eval/log_norm_const_is"]),
+          f"sweep_sigma: a log Z_IS above log Z' {log_z_prime:.4f} + {GATE_SIGMA_LOGZ_SLACK}")
+    check(cells["sweep_sigma"]["b1_plan"]["n_comp"] == 1
+          and cells["sweep_gmm_components"]["b1_plan"]["n_comp"] == 8,
+          "the sweeps' B1 plans: sigma on one component, the components sweep on 8")
+    return cells
+
+
+def default_reference_log_z(solver) -> tuple:
+    """(rho, log Z') of an EI sampler on the 'default' VP reference N(0,
+    sigma^2 I) over a diagonal GMM target (TwoModes). At zero control each
+    step is x <- (a_x - a_s / var_k) x + a_z z, with var_k the reference
+    marginal's variance, which EI's coefficients do not keep: the chain
+    started at N(0, sigma^2) ends at N(0, rho sigma^2), rho = 1.043 on the
+    100-step log-SNR grid for any sigma. The rnd divides by the reference
+    all the same, so the ELBO and IS aim at Z' = E_target[N(x; 0, rho
+    sigma^2) / N(x; 0, sigma^2)] (Z = 1), which grows with |x|^2 / sigma^2 at
+    the modes: log Z' is about 0 at the moment-matched sigma and about 5 at
+    a quarter of it (float64, on the host)."""
+    loss, target = solver.loss, solver.target
+    ts = solver.eval_ts
+    a_x, a_s, a_z = (c.double().cpu() for c in loss._step_coeffs(ts[:-1], ts[1:]))
+    loc, var = (c.double().cpu() for c in loss.reference_ctrl.precompute(ts[-1] - ts[:-1]))
+    sigma_sq = float(solver.sde.scale_diff_coeff) ** 2
+    check(bool((loc == 0).all()) and torch.allclose(var, torch.full_like(var, sigma_sq)),
+          "default_reference_log_z: the reference is not N(0, sigma^2 I) at every step")
+    v = sigma_sq
+    for k in range(ts.shape[0] - 1):
+        v = float(a_x[k] - a_s[k] / var[k].reshape(-1)[0]) ** 2 * v + float(a_z[k]) ** 2
+    rho, d = v / sigma_sq, target.dim
+    alpha = (1.0 - 1.0 / rho) / (2.0 * sigma_sq)
+    mu_sq = target.loc.double().cpu() ** 2
+    s_sq = target.scale.double().cpu() ** 2
+    shrink = 1.0 - 2.0 * alpha * s_sq
+    per_mode = torch.log(target._probs.double().cpu()) + torch.sum(
+        -0.5 * torch.log(shrink) + alpha * mu_sq / shrink, dim=-1)
+    return rho, -0.5 * d * math.log(rho) + float(torch.logsumexp(per_mode, dim=0))
+
+
 def phase_timing_sample_kernels(dev, recs, peaks, sfu_rate) -> None:
-    """B2, B3 at the eval path's 8192 x 8192 x 8 (eps = 1e-3, p = 2, duals
-    from the first Sinkhorn half-steps), beside the geometry the host picked,
-    and B4 at the SMC path's N = 1024 (and 8192 beside it), against their
-    bounds, plain versions and, for B4, torch.searchsorted and the graph
-    replay of a kernel that does nothing (the card's launch floor)."""
+    """B2, B3 at the eval path's 8192 x 8192 x 8 and at the toys' 8192 x
+    8192 x 2 (eps = 1e-3, p = 2, duals from the first Sinkhorn half-steps),
+    beside the geometry the host picked, and B4 at the SMC path's N = 1024
+    (and 8192 beside it), against their bounds, plain versions and, for B4,
+    torch.searchsorted and the graph replay of a kernel that does nothing
+    (the card's launch floor)."""
     from sde_sampler_lrds_torch.ops.resample import (empty_launch, systematic_lookup,
                                                      systematic_lookup_plain)
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, sinkhorn_geometry,
                                                          transport_cost, transport_cost_plain)
 
     n = m = SAMPLE_N
-    d, eps = DIM, 1e-3
-    x, y = target_draws(dev, n, 41), target_draws(dev, m, 42)
-    v = torch.full((m,), eps * -math.log(m), device=dev)
-    u = eps * (-math.log(n) - lse_plain(x, y, v, eps))
-    v = eps * (-math.log(m) - lse_plain(y, x, u, eps))
-    pairs = n * m
-    io = 4 * (n * d + m * d)
-    # per pair: 2d flops for x.y and 8 more (|x|^2 + |y|^2 - 2 x.y, the
-    # clamp, dual - cost, / eps, the running max and sum); one sqrtf, one expf
-    timed = {
-        "sinkhorn_lse": (lambda: lse(x, y, v, eps), lambda: lse_plain(x, y, v, eps),
-                         None, bound(pairs * (2 * d + 8), 2 * pairs, io + 4 * (m + n),
-                                     peaks, sfu_rate)),
+    eps = 1e-3
+    timed = {}
+    for suffix, (x, y) in (("", (target_draws(dev, n, 41), target_draws(dev, m, 42))),
+                           ("_d2", (toy_draws(dev, n, 44), toy_draws(dev, m, 45)))):
+        d = x.shape[1]
+        v = torch.full((m,), eps * -math.log(m), device=dev)
+        u = eps * (-math.log(n) - lse_plain(x, y, v, eps))
+        v = eps * (-math.log(m) - lse_plain(y, x, u, eps))
+        pairs = n * m
+        io = 4 * (n * d + m * d)
+        # per pair: 2d flops for x.y and 8 more (|x|^2 + |y|^2 - 2 x.y, the
+        # clamp, dual - cost, / eps, the running max and sum); one sqrtf,
+        # one expf
+        timed["sinkhorn_lse" + suffix] = (
+            lambda x=x, y=y, v=v: lse(x, y, v, eps), lambda x=x, y=y, v=v: lse_plain(x, y, v, eps),
+            None, bound(pairs * (2 * d + 8), 2 * pairs, io + 4 * (m + n), peaks, sfu_rate), d)
         # per pair: 2d + 7 for the cost, 4 more (u + v - cost, / eps, * cost,
         # the sum); one sqrtf, one expf; out: one scalar
-        "transport_cost": (lambda: transport_cost(x, y, u, v, eps),
-                           lambda: transport_cost_plain(x, y, u, v, eps), None,
-                           bound(pairs * (2 * d + 11), 2 * pairs, io + 4 * (n + m) + 4,
-                                 peaks, sfu_rate)),
-    }
+        timed["transport_cost" + suffix] = (
+            lambda x=x, y=y, u=u, v=v: transport_cost(x, y, u, v, eps),
+            lambda x=x, y=y, u=u, v=v: transport_cost_plain(x, y, u, v, eps), None,
+            bound(pairs * (2 * d + 11), 2 * pairs, io + 4 * (n + m) + 4, peaks, sfu_rate), d)
     g = torch.Generator(dev).manual_seed(43)
     for size in (SMC_KWARGS["n_particles"], 8192):
         cdf = torch.cumsum(torch.softmax(torch.randn(size, generator=g, device=dev), 0), 0)
@@ -1668,15 +2040,15 @@ def phase_timing_sample_kernels(dev, recs, peaks, sfu_rate) -> None:
             lambda c=cdf, q=pos: systematic_lookup(c, q),
             lambda c=cdf, q=pos: systematic_lookup_plain(c, q),
             lambda c=cdf, q=pos: torch.searchsorted(c, q),
-            bound(size * math.ceil(math.log2(size)), 0, 12 * size, peaks, sfu_rate))
-    for key, (kern, plain, library, (bound_ms, bound_by, detail)) in timed.items():
+            bound(size * math.ceil(math.log2(size)), 0, 12 * size, peaks, sfu_rate), None)
+    for key, (kern, plain, library, (bound_ms, bound_by, detail), d) in timed.items():
         # ms, plain_ms and library_ms by graph replay; host_loop_ms is a
         # Python loop of calls, what an eager caller pays per call
         row = {"ms": graph_ms(kern), "host_loop_ms": time_cuda(kern),
                "plain_ms": graph_ms(plain, n=5, reps=3), "bound_ms": bound_ms,
                "bound_by": bound_by,
                "library_ms": None if library is None else graph_ms(library)}
-        if key in ("sinkhorn_lse", "transport_cost"):
+        if d is not None:
             row["geometry"] = dataclasses.asdict(sinkhorn_geometry(
                 n, m, d, 2, torch.cuda.get_device_properties(dev).multi_processor_count))
         if key == "resample_N1024":
@@ -1684,11 +2056,17 @@ def phase_timing_sample_kernels(dev, recs, peaks, sfu_rate) -> None:
         say(f"[phase 7] {key}: " + json.dumps({**row, **detail}))
         if key == "resample_N8192":
             recs["resample"]["reference_shape_N8192"] = row
+        elif key.endswith("_d2"):
+            recs[key[:-3]]["toy_shape_d2"] = {**row, "n": n, "m": m, "d": d}
         else:
             recs["resample" if key.startswith("resample") else key].update(row)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and (argv[0] != "--cell" or len(argv) < 2):
+        print(__doc__, file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1722,6 +2100,12 @@ def main() -> int:
     built = build_libraries(KERNEL_SOURCES)
     say(f"[phase 1] kernels built in {time.perf_counter() - t0:.2f} s: " + ", ".join(
         f"{n} {b['seconds']:.2f} s" for n, b in built.items()))
+    if argv:
+        # one driver cell, with run_driver_cell's path and launch checks and
+        # no quality gate; the kernels are built first, so no stage holds nvcc
+        module, flags = argv[1], argv[2:]
+        run_driver_cell(dev, " ".join(argv[1:]), module, flags, {})
+        return 0
     for n, b in built.items():
         say(f"[phase 1] {n} compiler report:\n{b['log'].strip()}")
         for entry in ptxas_report(b["log"]):
@@ -1753,7 +2137,7 @@ def main() -> int:
     cfg, arrays = comparison_plan(dev)
     phase_kernel_vs_plain(dev, cfg, arrays, recs["fused_traj"])
     phase_kernel_vs_plain_d100(dev, recs["fused_traj"], recs["fused_traj_full_cov"])
-    phase_kernel_vs_plain_driver_shapes(dev, recs["fused_traj"])
+    driver_shape_plans = phase_kernel_vs_plain_driver_shapes(dev, recs["fused_traj"])
     bf16_cfg, bf16_arrays = phase_kernel_vs_plain_bf16(dev, recs["fused_traj_bf16"])
     phase_sinkhorn_kernels(dev, recs["sinkhorn_lse"], recs["transport_cost"])
     phase_resample_kernel(dev, recs["resample"])
@@ -1767,7 +2151,12 @@ def main() -> int:
     eval_times = phase_eval_path(dev, solver, target, path_counts)
     smc = phase_smc(dev, target, dataset, path_counts)
     phi_solver, driver_cells = phase_driver_cells(dev, path_counts)
+    driver_cells.update(phase_more_driver_cells(dev, path_counts))
     phase_timing(dev, cfg, arrays, recs["fused_traj"], peaks, sfu_rate)
+    toy_cfg, toy_arrays, _ = driver_shape_plans["toy_rings_d2"]
+    recs["fused_traj"]["toy_shape_d2_c8"] = {}
+    phase_timing(dev, toy_cfg, toy_arrays, recs["fused_traj"]["toy_shape_d2_c8"], peaks,
+                 sfu_rate, label="fused_traj D=2 C=8")
     phi_cfg, phi_arrays = build_plan(phi_solver.loss, phi_solver.generative_ctrl,
                                      phi_solver.eval_ts)
     phase_timing(dev, phi_cfg, phi_arrays, recs["fused_traj_full_cov"], peaks, sfu_rate,

@@ -13,7 +13,7 @@ drivers):
   targets/   Target base, Gaussian / GMM / ManyModes / TwoModes /
              IsotropicGauss / GaussFull with diagonal and full-covariance
              densities, Delta, PhiFour with its exact transfer-matrix oracle
-             and sampler
+             and sampler, the 2-D Rings and Checkerboard
   sde/       OU, VP and PinnedBM linear-SDE algebra (scalar, diagonal, full
              and eigen-factored marginals)
   models/    TimeEmbed / FourierMLP / ClippedCtrl as nn.Modules, and
@@ -30,7 +30,9 @@ drivers):
   mcmc/      MALA, ULA, SMC
   api.py     make_target_details, make_target, make_ctrl, make_model,
              mcmc_sample, fit_gmm, define_tempering_utils, run_smc_sampler
-  experiments/  lrds_run and the *_mcmc_gmm.py drivers
+  experiments/  lrds_run and the LRDS drivers: *_mcmc_gmm.py, the 2-D
+             toys, and the two_modes sweeps over distance, GMM components,
+             reference weights and sigma
              (python -m sde_sampler_lrds_torch.experiments.<driver>)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

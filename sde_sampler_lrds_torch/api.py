@@ -18,8 +18,8 @@ and refuses every combination the JAX package refuses, with the same
 messages. Ported so far: the RDS solvers 'vp-ref' and 'pbm-ref' with the
 references 'default', 'gaussian' and 'gmm' and the 'base_zero_init' control;
 every other value raises NotImplementedError naming it. The targets
-'two_modes', 'many_modes' and 'phi_four' are ported; the replica-exchange
-baseline is not.
+'two_modes', 'many_modes', 'rings', 'checkerboard' and 'phi_four' are
+ported; the replica-exchange baseline is not.
 """
 from __future__ import annotations
 
@@ -39,7 +39,8 @@ from .models import ClippedCtrl, FourierMLP
 from .sde import VP, PinnedBM, get_timesteps
 from .solvers import RDS
 from .solvers.base import TrainConfig
-from .targets import Delta, IsotropicGauss, ManyModes, PhiFour, TwoModes
+from .targets import (Checkerboard, Delta, IsotropicGauss, ManyModes, PhiFour, Rings,
+                      TwoModes)
 from .targets.gauss import Gauss, GaussFull
 from .utils.common import resolve_device
 from .utils.gmm_fit import fit_gmm_em
@@ -92,6 +93,10 @@ def make_target(target_details: dict, device=None):
         return TwoModes(n_reference_samples=16384, device=device, **kw)
     if name == "many_modes":
         return ManyModes(n_reference_samples=10000, device=device, **kw)
+    if name == "rings":
+        return Rings(device=device, **kw)
+    if name == "checkerboard":
+        return Checkerboard(device=device, **kw)
     if name == "phi_four":
         return PhiFour(a=kw.pop("a", 0.1), b=kw.pop("b", 0.0), dim=kw.pop("dim", 100),
                        device=device, **kw)

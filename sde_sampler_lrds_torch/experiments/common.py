@@ -1,7 +1,8 @@
 """Shared machinery of the LRDS experiment drivers (counterpart of the
-JAX package's experiments/common.py: the dataset preamble, ``run_vi``,
-``lrds_run`` and the result pickle; the SMC / replica-exchange baselines and
-the EBM references are not ported yet).
+JAX package's experiments/common.py: the dataset preamble,
+``sigma_from_moments``, ``run_vi``, ``lrds_run`` and the result pickle; the
+SMC / replica-exchange baselines and the EBM references are not ported
+yet).
 
 One driver cell: build the target → MALA dataset → fit the reference
 (Gaussian or GMM) → ``make_model`` → ``TrainableWrapper.run`` → evaluation
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import pickle
 import pprint
@@ -55,6 +57,11 @@ def build_dataset_and_gaussian(generator: torch.Generator, target, x_init, datas
     var_diag = dataset.var(dim=0, correction=0)
     t_ref = clock(device) - t0
     return dataset, mean, var, var_diag, {"mcmc": t_mcmc, "ref": t_ref}
+
+
+def sigma_from_moments(mean, var_diag, dim: int) -> float:
+    """σ_opt = sqrt((‖mean‖² + tr var)/d)."""
+    return math.sqrt(float(torch.sum(mean**2) + var_diag.sum()) / dim)
 
 
 def run_vi(generator: torch.Generator, solver_type, target_details, solver_details,

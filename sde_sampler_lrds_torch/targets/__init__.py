@@ -1,4 +1,5 @@
 from .base import Target
+from .checkerboard import Checkerboard
 from .delta import Delta
 from .gauss import (
     GMM,
@@ -17,3 +18,4 @@ from .gauss import (
     score_mog_full,
 )
 from .phi_four import PhiFour
+from .rings import Rings

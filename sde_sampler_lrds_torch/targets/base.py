@@ -4,6 +4,7 @@ sampling takes an explicit ``torch.Generator`` where JAX takes a key."""
 from __future__ import annotations
 
 import logging
+import math
 from typing import Callable
 
 import torch
@@ -101,3 +102,44 @@ class Target:
             except NotImplementedError:
                 pass
         logging.warning("Cannot compute statistics for %s", type(self).__name__)
+
+
+class ModeMetrics:
+    """Mode-coverage metrics of a target whose modes ``compute_mode_count``
+    counts and ``_probs`` weighs (``n_mixtures`` of them), and their
+    expectations over the target's reference draws. Mixed in before
+    ``Target``."""
+
+    def _entropy_norm(self) -> float:
+        return math.log(self.n_mixtures)
+
+    def _hist(self, samples, counts=None):
+        counts = self.compute_mode_count(samples) if counts is None else counts
+        return counts / counts.sum()
+
+    def entropy(self, samples, counts=None):
+        hist = self._hist(samples, counts)
+        # xlogy: a mode with zero samples contributes 0, not NaN
+        return -torch.sum(torch.special.xlogy(hist, hist)) / self._entropy_norm()
+
+    def kl_weights(self, samples, counts=None):
+        return torch.sum(self._probs * torch.log(self._probs / self._hist(samples, counts)))
+
+    def tv_weights(self, samples, counts=None):
+        return torch.sum(torch.abs(self._hist(samples, counts) - self._probs))
+
+    def compute_forgotten_modes(self, samples, tol: float = 0.05, counts=None):
+        hist = self._hist(samples, counts)
+        return torch.sum(hist < tol * self._probs.min()) / self.n_mixtures
+
+    def compute_stats_sampling(self, generator, return_samples: bool = False):
+        samples = super().compute_stats_sampling(generator, return_samples=True)
+        if self.has_entropy():
+            counts = self.compute_mode_count(samples)
+            self.expectations["emc"] = float(self.entropy(samples, counts=counts))
+            self.expectations["kl_weights"] = float(self.kl_weights(samples, counts=counts))
+            self.expectations["tv_weights"] = float(self.tv_weights(samples, counts=counts))
+            self.expectations["num_forgotten_modes"] = float(
+                self.compute_forgotten_modes(samples, counts=counts))
+        if return_samples:
+            return samples

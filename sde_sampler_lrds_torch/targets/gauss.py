@@ -13,7 +13,7 @@ from numbers import Number
 import numpy as np
 import torch
 
-from .base import Target
+from .base import ModeMetrics, Target
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -103,7 +103,7 @@ def mog_full_log_prob(x, weights, means, covariances, precisions=None,
 # distribution classes
 # ---------------------------------------------------------------------------
 
-class GMM(Target):
+class GMM(ModeMetrics, Target):
     """Mixture of Gaussians with diagonal component covariances."""
 
     def __init__(self, dim: int = 2, loc=None, scale=None, mixture_weights=None,
@@ -162,43 +162,6 @@ class GMM(Target):
         lp = log_prob_gaussian(samples, self.loc, self.scale**2)
         idx = torch.argmax(lp, dim=-1)
         return torch.bincount(idx, minlength=self.n_mixtures).to(torch.float32)
-
-    def entropy(self, samples, counts=None):
-        if counts is None:
-            counts = self.compute_mode_count(samples)
-        hist = counts / counts.sum()
-        # xlogy: a mode with zero samples contributes 0, not NaN
-        return -torch.sum(torch.special.xlogy(hist, hist)) / math.log(self.n_mixtures)
-
-    def kl_weights(self, samples, counts=None):
-        if counts is None:
-            counts = self.compute_mode_count(samples)
-        hist = counts / counts.sum()
-        return torch.sum(self._probs * torch.log(self._probs / hist))
-
-    def tv_weights(self, samples, counts=None):
-        if counts is None:
-            counts = self.compute_mode_count(samples)
-        hist = counts / counts.sum()
-        return torch.sum(torch.abs(hist - self._probs))
-
-    def compute_forgotten_modes(self, samples, tol: float = 0.05, counts=None):
-        if counts is None:
-            counts = self.compute_mode_count(samples)
-        hist = counts / counts.sum()
-        return torch.sum(hist < tol * self._probs.min()) / self.n_mixtures
-
-    def compute_stats_sampling(self, generator, return_samples: bool = False):
-        samples = super().compute_stats_sampling(generator, return_samples=True)
-        if self.has_entropy():
-            counts = self.compute_mode_count(samples)
-            self.expectations["emc"] = float(self.entropy(samples, counts=counts))
-            self.expectations["kl_weights"] = float(self.kl_weights(samples, counts=counts))
-            self.expectations["tv_weights"] = float(self.tv_weights(samples, counts=counts))
-            self.expectations["num_forgotten_modes"] = float(
-                self.compute_forgotten_modes(samples, counts=counts))
-        if return_samples:
-            return samples
 
 
 class _ModeWeightMixin:

@@ -5,8 +5,7 @@ solver's parameters carried into the port's solver (the LV loss, the
 evaluation and the EUBO metrics under fed noise), the wrapper's EUBO
 bookkeeping, and the port's freedom from JAX imports. The helpers that run
 each driver end to end against the JAX ``lrds_run`` at a tiny size live here
-too; tests/test_torch_experiments_{two_modes,many_modes,phi_four}.py run
-them, one driver a file (the JAX package compiles for 20-45 s a driver on
+too; tests/test_torch_experiments_<driver>.py run them, one driver a file (the JAX package compiles for 20-45 s a driver on
 the CPU). Everything runs in float32 on the CPU.
 """
 import ast
@@ -185,7 +184,7 @@ def test_make_model_refuses_as_jax(case):
     ("ref_type 'nn'", dict(ref_type="nn")),
     ("target_informed_zero_init", dict(model_type="target_informed_zero_init")),
     ("lr_scheduler", dict(optim_details={"lr_scheduler": {"name": "cosine"}})),
-    ("Target rings", dict(target_details={"name": "rings"})),
+    ("Target cancer", dict(target_details={"name": "cancer"})),
 ])
 def test_make_model_names_what_is_not_ported(what, extra):
     args = dict(solver_type="vp-ref", ref_type="default", loss_type="lv",
@@ -308,16 +307,40 @@ def test_wrapper_eubo_bookkeeping():
 
 DRIVER_CELLS = {
     # driver module, its tiny flags, the JAX target and lrds_run arguments
+    # (for the sweeps, those of the sweep's last point)
     "two_modes": ("two_modes_mcmc_gmm", ["--dim_range", "4"],
-                  ("two_modes", {"dim": 4}), {"n_gmm_components": 2}),
+                  ("two_modes", {"dim": 4}), {"n_gmm_components": 2, "extra_params": {"dim": 4}}),
     "many_modes": ("many_modes_mcmc_gmm", ["--dim_range", "2", "--n_modes_range", "4"],
                    ("many_modes", {"dim": 2, "n_modes": 4}),
-                   {"n_gmm_components": 4, "force_vp20": True}),
+                   {"n_gmm_components": 4, "force_vp20": True,
+                    "extra_params": {"dim": 2, "n_modes": 4}}),
     "phi_four": ("sample_phi_four_gmm_mcmc", ["--dim", "8", "--b_range", "0.02"],
                  ("phi_four", {"dim": 8, "b": 0.02}),
                  {"n_gmm_components": 2, "em_type": "full", "mcmc_step_size": 1e-4,
-                  "compute_samples_based_metrics": False}),
+                  "compute_samples_based_metrics": False, "extra_params": {"b": 0.02, "dim": 8}}),
+    "toy_rings": ("sample_toy_gmm_mcmc", [], ("rings", {}),
+                  {"n_gmm_components": 8, "extra_params": {"target": "rings"}}),
+    "toy_checkerboard": ("sample_toy_gmm_mcmc", ["--target_type", "checkerboard"],
+                         ("checkerboard", {}),
+                         {"n_gmm_components": 8, "extra_params": {"target": "checkerboard"}}),
+    "distance": ("two_modes_mcmc_gmm_with_increasing_distance",
+                 ["--dim", "4", "--a_range", "1.0,4.0"], ("two_modes", {"dim": 4, "a": 4.0}),
+                 {"n_gmm_components": 2, "force_vp20": True, "extra_params": {"a": 4.0, "dim": 4}}),
+    "gmm_sensitivity": ("two_modes_gmm_sensitivity",
+                        ["--dim", "4", "--n_components_range", "1,2"],
+                        ("two_modes", {"dim": 4}),
+                        {"n_gmm_components": 2, "extra_params": {"n_components": 2}}),
+    # run_vi drivers: the JAX side is the driver's own preamble and run_vi
+    # at the sweep's last point (jax_vi_cell)
+    "weight_sensitivity": ("weight_sensitivity", ["--dim", "4", "--weight_skews", "0.1,0.5"],
+                           ("two_modes", {"dim": 4}), {"weight_skew": 0.5}),
+    "sigma_sensitivity": ("sigma_sensitivity", ["--dim", "4", "--sigma_factors", "0.25,1.0"],
+                          ("two_modes", {"dim": 4}), {"sigma_factor": 1.0}),
 }
+VI_DRIVERS = ("weight_sensitivity", "sigma_sensitivity")
+# a target with a density of exactly 0 off its support: its unfiltered ELBO
+# is -inf whenever a terminal sample lands there, in both packages
+FILTERED = ("toy_checkerboard",)
 TINY = dict(dataset_size=2000, train_steps=16, train_batch_size=64, eval_batch_size=256,
             n_sampling_seeds=2, n_steps=16, seed=0)
 
@@ -347,10 +370,44 @@ def jax_lrds_cell(name, tmp_path, monkeypatch) -> dict:
     _, _, (target_name, details_kw), run_kw = DRIVER_CELLS[name]
     details = common.make_target_details(target_name, **details_kw)
     target = common.make_target(details)
-    x_init = (jnp.stack([jnp.ones(8), -jnp.ones(8)]) if target_name == "phi_four"
-              else target.loc)
+    if target_name == "phi_four":
+        x_init = jnp.stack([jnp.ones(8), -jnp.ones(8)])
+    elif target_name == "rings":
+        x_init = target.sample_init_points(jax.random.PRNGKey(TINY["seed"]), 4)
+    else:
+        x_init = target.loc
     args = types.SimpleNamespace(results_path=str(tmp_path / "jax"), **TINY)
     return common.lrds_run(args, target, details, x_init, "gmm", mesh=get_mesh(1), **run_kw)
+
+
+def jax_vi_cell(name, tmp_path, monkeypatch) -> dict:
+    """The last point of the JAX weight or sigma sweep at the tiny size: the
+    JAX driver's preamble (MALA dataset, and the 2-component fit or the
+    moment-matched sigma) and its run_vi call."""
+    common = _jax_experiments_common(tmp_path, monkeypatch)
+    _, _, (target_name, details_kw), point = DRIVER_CELLS[name]
+    details = common.make_target_details(target_name, **details_kw)
+    target = common.make_target(details)
+    key, k_data = jax.random.split(jax.random.PRNGKey(TINY["seed"]))
+    dataset, mean, _, var_diag, times = common.build_dataset_and_gaussian(
+        k_data, target, target.loc, TINY["dataset_size"])
+    if name == "weight_sensitivity":
+        _, m, v = common.fit_gmm(2, dataset, em_type="diag")
+        skew = point["weight_skew"]
+        solver_details = {"sigma": 1.0, "weights_ref": jnp.asarray([skew, 1.0 - skew]),
+                          "means_ref": m, "variances_ref": v}
+        ref_type, params = "gmm", dict(point)
+    else:
+        sigma = point["sigma_factor"] * common.sigma_from_moments(mean, var_diag, target.dim)
+        solver_details, ref_type = {"sigma": sigma}, "default"
+        params = {**point, "sigma": sigma}
+    _, metrics = common.run_vi(
+        jax.random.split(key)[1], "vp-ref", details, solver_details,
+        {k: TINY[k] for k in ("train_steps", "train_batch_size", "eval_batch_size")},
+        n_sampling_seeds=TINY["n_sampling_seeds"], ref_type=ref_type, integrator_type="ei",
+        time_type="snr", model_type="base_zero_init", n_steps=TINY["n_steps"],
+        mesh=get_mesh(1))
+    return {"metrics": metrics, "times": times, "params": params}
 
 
 def port_driver_pickle(name, tmp_path) -> dict:
@@ -361,7 +418,15 @@ def port_driver_pickle(name, tmp_path) -> dict:
     out = tmp_path / "port"
     argv = flags + ["--device", "cpu", "--results_path", str(out)] + [
         f"--{k}={v}" for k, v in TINY.items()]
-    driver.main(argv)
+    # one intra-op thread: tier-1 runs six workers on the machine's cores,
+    # and torch's default of a thread a core in each oversubscribes them (the
+    # driver files took up to 500 s together instead of 90)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        driver.main(argv)
+    finally:
+        torch.set_num_threads(threads)
     (path,) = out.glob("*.pkl")
     with open(path, "rb") as f:
         return pickle.load(f), path
@@ -375,32 +440,47 @@ def _only_host_types(obj) -> bool:
     return obj is None or isinstance(obj, (bool, int, float, str, np.ndarray, np.generic))
 
 
-def check_driver_against_jax(name, tmp_path, monkeypatch):
-    """The port's pickle: the JAX lrds_run's keys, numpy and builtins only,
-    finite sampler metrics, and readable by experiments/summarize_results.py."""
+def check_driver_against_jax(name, tmp_path, monkeypatch, n_points: int = 1) -> tuple:
+    """The port's pickle: ``n_points`` cells (one a point of the sweep),
+    each with the JAX cell's keys, numpy and builtins only, finite sampler
+    metrics (the filtered ones where the target's density vanishes off its
+    support), and readable by experiments/summarize_results.py. Returns the
+    pickle and its path."""
     data, path = port_driver_pickle(name, tmp_path)
-    want = jax_lrds_cell(name, tmp_path, monkeypatch)
-    (cell,) = data["results"]
-    assert set(cell) == set(want)
-    assert set(cell["metrics"]) == set(want["metrics"])
-    assert set(cell["times"]) == set(want["times"])
-    assert cell["params"] == {k: v for k, v in cell["params"].items()}
+    want = (jax_vi_cell if name in VI_DRIVERS else jax_lrds_cell)(name, tmp_path, monkeypatch)
+    assert len(data["results"]) == n_points
     assert _only_host_types(data)
     assert data["config"]["device"] == "cpu"
-    m = cell["metrics"]
-    assert len(m["eval/elbo"]) == TINY["n_sampling_seeds"]
-    assert cell["metrics"]["samples"].shape == (TINY["eval_batch_size"],
-                                                 want["metrics"]["samples"].shape[1])
-    for key in ("eval/elbo", "eval/log_norm_const_is", "eval/eubo"):
-        assert all(math.isfinite(v) for v in m[key]), key
     spec = importlib.util.spec_from_file_location(
         "summarize_results", REPO / "experiments" / "summarize_results.py")
     summarize = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(summarize)
-    row, diverged = summarize.summarize_cell(cell)
-    assert not diverged and row["ELBO"] is not None
+    finite = (("eval/elbo_filtered", "eval/log_norm_const_is",
+               "eval/log_norm_const_is_filtered", "eval/eubo") if name in FILTERED
+              else ("eval/elbo", "eval/log_norm_const_is", "eval/eubo"))
+    for cell in data["results"]:
+        assert set(cell) == set(want)
+        assert set(cell["metrics"]) == set(want["metrics"])
+        assert set(cell["times"]) == set(want["times"])
+        assert set(cell["params"]) == set(want["params"])
+    # the sweep's last point is the JAX cell's (sigma_sensitivity's sigma
+    # is moment-matched to each package's own MALA dataset)
+    assert {k: v for k, v in data["results"][-1]["params"].items() if k != "sigma"} == {
+        k: v for k, v in want["params"].items() if k != "sigma"}
+    for cell in data["results"]:
+        m = cell["metrics"]
+        assert len(m["eval/elbo"]) == TINY["n_sampling_seeds"]
+        if "samples" in want["metrics"]:
+            assert m["samples"].shape == (TINY["eval_batch_size"],
+                                          want["metrics"]["samples"].shape[1])
+        for key in finite:
+            assert all(math.isfinite(v) for v in m[key]), key
+        row, diverged = summarize.summarize_cell(cell)
+        if name not in FILTERED:
+            assert not diverged and row["ELBO"] is not None
     summarize.main(["--results_dirs", str(path.parent), "--out", str(tmp_path / "S.md")])
     assert path.stem in (tmp_path / "S.md").read_text()
+    return data, path
 
 
 # ---------------------------------------------------------------------------

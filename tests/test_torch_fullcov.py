@@ -166,6 +166,36 @@ def test_reference_ctrl_tables_and_flat_eval(kind, form):
                                    want, **SCORE_TOL)
 
 
+@pytest.mark.parametrize("kind", ["gmm", "gauss"])
+@pytest.mark.parametrize("form", ["diag", "matrix", "eig"])
+def test_reference_ctrl_one_step_chunk_matches_jax(kind, form):
+    """flat_ctrl_eval past max_flat calls a reference control once per
+    16-step chunk; on a grid of K = 33 (≡ 1 mod 16) steps the last chunk
+    holds one step, (1, B, D) states at (1, 1) times. Each step's score,
+    diagonal or full-covariance, is the JAX reference's score at that step's
+    time and states (the port once took such a chunk for one time)."""
+    means, covs, weights, _ = _mixture(4, seed=7)
+    var = {"diag": np.diagonal(covs, axis1=-2, axis2=-1).copy(), "matrix": covs,
+           "eig": _eigh(covs)}[form]
+    sde, t_sde = VP(0.1, 10.0), TVP(0.1, 10.0)
+    if kind == "gauss":
+        var = var[0] if form != "eig" else tuple(a[0] for a in var)
+        ref_j = GaussianReferenceCtrl(sde, J(means[0]), J(var))
+        ref_t = TGaussRef(t_sde, T(means[0]), T(var))
+    else:
+        ref_j = GMMReferenceCtrl(sde, J(means), J(var), J(weights))
+        ref_t = TGMMRef(t_sde, T(means), T(var), T(weights))
+    k_steps = 33
+    ts = get_timesteps(0.0, 1.0, steps=k_steps)
+    t_grid = np.asarray(ts[-1] - ts[:-1])
+    xs = (1.5 * np.random.default_rng(9).normal(size=(k_steps, 8, 4))).astype(np.float32)
+    got = N(t_flat_ctrl_eval(ref_t, T(t_grid), T(xs), max_flat=1))
+    assert got.shape == xs.shape
+    for k in range(k_steps):
+        np.testing.assert_allclose(got[k], ref_j(jnp.asarray(t_grid[k]), J(xs[k])),
+                                   err_msg=f"step {k}", **SCORE_TOL)
+
+
 def test_flat_ctrl_eval_chunked_matches_one_call_and_jax():
     """The flat control evaluation past max_flat: 16-step chunks,
     checkpointed under autograd, with the same values and gradients."""
