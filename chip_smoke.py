@@ -4,8 +4,9 @@ LRDS demo pipeline (the configuration bench.py runs) end to end through the
 port's entry points, evaluates the trained sampler with the sample-based
 metrics, runs the SMC baseline at the experiments' defaults, runs the port's
 LRDS experiment drivers (two_modes vp-ref and pbm-ref, φ⁴ at its full
-width, many_modes, the 2-D toys and the two_modes sweeps) through their
-entry points, and checks the quality of each.
+width, many_modes, the 2-D toys and the two_modes sweeps) and the CLI with
+its checkpoints, the cosine VP and the sweep launcher through their entry
+points, and checks the quality of each.
 
     python3 chip_smoke.py
 
@@ -89,8 +90,20 @@ Phases:
      noise; then the demo trained with method "kl" (256 steps through the
      fused KL path, the 8192 x 100 eval) under the demo's quality gates, and
      the KL step timed in its forward kernel and its backward loop
+ 11. the CLI (python -m sde_sampler_lrds_torch.scripts.main) at the drivers'
+     width (two_modes d 16, vp_rds on a 2-component GMM fitted to 20 000
+     MALA points, EI + LV on the log-SNR grid, K 100, batch 1024, eval 8192
+     x 100), cut to 1024 train steps: (a) in this process, its
+     metrics.jsonl records, checkpoints, launches and final-eval quality;
+     (b) a second out dir run to 512 steps, then resumed to 1024 by a fresh
+     process; (c) a checkpoint restored into a solver built with another
+     reference, bitwise (parameters, Adam state, EMA, reference, a B1
+     evaluation and the next step under fed inputs, the lr schedule's
+     decay); (d) the cosine VP (force_vp_cosine) on both grids: B1 against
+     its plain version, then 256 trained steps; (e) a two-job sweep on one
+     device slot
 
-Every path (phases 4, 5, 6, 8, 9 and 10) is run with all launch counts set to 0 just
+Every path (phases 4, 5, 6, 8, 9, 10 and 11) is run with all launch counts set to 0 just
 before it and read just after. Prints the card as nvidia-smi reports it, then
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, with no result line, when there is no
@@ -110,9 +123,11 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -230,6 +245,26 @@ SWEEP_POINTS = (("sweep_distance", "two_modes_mcmc_gmm_with_increasing_distance"
 # the steps at which phase 2 runs B1 for one step from the plain version's
 # states (the 64-component plan, K = 100)
 ONE_STEP_KS = (0, 1, 33, 66, 98, 99)
+# phase 11, the CLI (python -m sde_sampler_lrds_torch.scripts.main) at the
+# drivers' width: two_modes d 16, vp-ref on a 2-component GMM fitted to the
+# CLI's 20 000 MALA points, EI + LV on the log-SNR grid, K 100, batch 1024,
+# eval 8192 x 100, cut in depth to 1024 train steps (the drivers take 4096,
+# the CLI's default is 10 000), an eval every 512 steps, a log record every
+# 64 and a checkpoint every 512. Its final eval is gated as cell (a) on one
+# eval seed: |log Z_IS| <= GATE_CELL_LOGZ, ESS >= GATE_CELL_ESS, the mode
+# weight within GATE_CELL_MODE_W of 66.67, ELBO <= log Z_IS + 0.01, a
+# finite Sinkhorn
+CLI_ARGV = ["--solver", "vp_rds", "--target", "two_modes", "--dim", "16", "--ref-type", "gmm",
+            "--gmm-components", "2", "--integrator", "ei", "--time-type", "snr",
+            "--loss-method", "lv", "--steps", "100", "--train-batch-size", "1024",
+            "--eval-batch-size", "8192", "--device", "cuda"]
+CLI_STEPS, CLI_EVAL_INTERVAL, CLI_LOG_INTERVAL = 1024, 512, 64
+CLI_ROOT = Path("build/cli")
+# the checkpoint's exact restore: 256 steps with a multi_step lr schedule
+# (milestone 128, gamma 0.1) and the EMA; the cosine VP: 256 steps, then the
+# ELBO at most log Z_IS + GATE_COSINE_ELBO_SLACK; the sweep: 128 steps a job
+CLI_RESTORE_STEPS, CLI_MILESTONE, COSINE_STEPS, CLI_SWEEP_STEPS = 256, 128, 256, 128
+GATE_COSINE_ELBO_SLACK = 0.05
 # quality gates of the trained sampler against the target
 GATE_LOGZ, GATE_ESS, GATE_MODE_W = 0.05, 0.9, 0.06
 # the KL-trained demo's own gates (PERF.md §2): 256 reverse-KL steps hardly
@@ -1658,36 +1693,38 @@ CELL_FINITE_FILTERED = ("eval/elbo_filtered", "eval/log_norm_const_is",
                         "eval/norm_effective_sample_size", "eval/norm_effective_sample_size_f")
 
 
-class DriverProbe:
-    """Around one driver cell: keeps the solver the driver's
-    ``TrainableWrapper`` wraps and the synchronised host-clock seconds of
-    each evaluation pass (sampler, metrics and EUBO) and of each EUBO pass,
-    by wrapping the class's methods for the duration of the cell."""
+class StageProbe:
+    """Synchronised host-clock seconds of every call to the given functions
+    (module or class attributes, as name=(owner, attribute)), by wrapping
+    them for the duration of a run; ``solver`` keeps the solver the last
+    call of the one named ``solver_from`` worked on (its first argument, or
+    that argument's ``trainable`` for a TrainableWrapper)."""
+
+    def __init__(self, solver_from: str, **targets):
+        self.solver_from, self.targets = solver_from, targets
+        self.seconds, self.solver = {k: [] for k in targets}, None
 
     def __enter__(self):
-        from sde_sampler_lrds_torch.solvers.wrappers import TrainableWrapper
-
-        self.cls, self.solver, self.eval_s, self.eubo_s = TrainableWrapper, None, [], []
-        self.saved = (TrainableWrapper.evaluate, TrainableWrapper.compute_results_eubo)
-        evaluate, eubo = self.saved
-
-        def timed(fn, into):
-            def call(wrapper, *a, **k):
-                self.solver = wrapper.trainable
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(wrapper, *a, **k)
-                torch.cuda.synchronize()
-                into.append(time.perf_counter() - t0)
-                return out
-            return call
-
-        TrainableWrapper.evaluate = timed(evaluate, self.eval_s)
-        TrainableWrapper.compute_results_eubo = timed(eubo, self.eubo_s)
+        self.saved = {name: getattr(owner, attr) for name, (owner, attr) in self.targets.items()}
+        for name, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self._timed(name, self.saved[name]))
         return self
 
+    def _timed(self, name, fn):
+        def call(*a, **k):
+            if name == self.solver_from:
+                self.solver = getattr(a[0], "trainable", a[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
     def __exit__(self, *exc):
-        self.cls.evaluate, self.cls.compute_results_eubo = self.saved
+        for name, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self.saved[name])
         return False
 
 
@@ -1702,13 +1739,15 @@ def run_driver_cell(dev, label: str, module: str, argv: list, path_counts,
     import importlib
 
     from sde_sampler_lrds_torch.ops.fused_traj import build_plan
+    from sde_sampler_lrds_torch.solvers.wrappers import TrainableWrapper
 
     driver = importlib.import_module(f"sde_sampler_lrds_torch.experiments.{module}")
     argv = argv + ["--device", "cuda", "--results_path", "build/driver_cells"]
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with DriverProbe() as probe:
+    with StageProbe("eval", eval=(TrainableWrapper, "evaluate"),
+                    eubo=(TrainableWrapper, "compute_results_eubo")) as probe:
         (cell,) = driver.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1718,7 +1757,7 @@ def run_driver_cell(dev, label: str, module: str, argv: list, path_counts,
     means = {k: float(np.mean(v)) for k, v in lists.items()}
     medians = {k: float(np.median(v)) for k, v in lists.items()}
     n_seeds, steps = len(m["eval/elbo"]), probe.solver.cfg.train_steps
-    eubo_s = sum(probe.eubo_s)
+    eubo_s = sum(probe.seconds["eubo"])
     plan = build_plan(probe.solver.loss, probe.solver.generative_ctrl, probe.solver.eval_ts)[0]
     out = {
         "train_path": probe.solver.train_path(), "eval_path": probe.solver.eval_path(),
@@ -1727,8 +1766,9 @@ def run_driver_cell(dev, label: str, module: str, argv: list, path_counts,
         "b1_plan": {"dim": plan.dim, "n_comp": plan.n_comp, "full_cov": plan.full_cov},
         "stage_s": {"mala": cell["times"]["mcmc"], "fit": cell["times"].get("ref_fit"),
                     "train": m["eval/training_time"][0],
-                    "eval": sum(probe.eval_s) - eubo_s, "eubo": eubo_s, "cell": wall},
-        "eval_s_per_seed": (sum(probe.eval_s) - eubo_s) / n_seeds,
+                    "eval": sum(probe.seconds["eval"]) - eubo_s, "eubo": eubo_s,
+                    "cell": wall},
+        "eval_s_per_seed": (sum(probe.seconds["eval"]) - eubo_s) / n_seeds,
         "eubo_s_per_seed": eubo_s / n_seeds,
         "train_ms_per_step": m["eval/training_time"][0] * 1e3 / steps,
         "means": {k: means[k] for k in CELL_METRICS if k in means},
@@ -2062,6 +2102,330 @@ def phase_timing_sample_kernels(dev, recs, peaks, sfu_rate) -> None:
             recs["resample" if key.startswith("resample") else key].update(row)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the CLI, its checkpoints, the cosine VP and the sweep
+# ---------------------------------------------------------------------------
+
+def cli_in_process(argv: list, what: str) -> None:
+    """The port's CLI ``main`` in this process; a failure (its exit code 1
+    and error.txt) fails the phase."""
+    from sde_sampler_lrds_torch.scripts.main import main as cli_main
+
+    out_dir = Path(argv[argv.index("--out-dir") + 1])
+    try:
+        cli_main(argv)
+    except SystemExit as e:
+        err = out_dir / "error.txt"
+        check(False, f"{what}: the CLI exited with code {e.code}: "
+                     f"{err.read_text()[-2000:] if err.exists() else ''}")
+
+
+def cli_records(out_dir: Path) -> tuple:
+    """(train records, eval records, every record's step) of metrics.jsonl."""
+    recs = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    return ([r for r in recs if "train/loss" in r], [r for r in recs if "eval/elbo" in r],
+            [r["step"] for r in recs])
+
+
+def expected_steps(start: int, stop: int) -> list:
+    """The record steps run() writes from ``start`` to ``stop``: a train
+    record every CLI_LOG_INTERVAL steps and an eval record after it every
+    CLI_EVAL_INTERVAL steps and at the last."""
+    steps = []
+    for s in range(start + CLI_LOG_INTERVAL, stop + 1, CLI_LOG_INTERVAL):
+        steps += [s, s] if (s % CLI_EVAL_INTERVAL == 0 or s == stop) else [s]
+    return steps
+
+
+def cli_cell_flags(steps: int, out_dir: Path) -> list:
+    return CLI_ARGV + ["--train-steps", str(steps), "--eval-interval", str(CLI_EVAL_INTERVAL),
+                       "--log-interval", str(CLI_LOG_INTERVAL), "--ckpt-interval",
+                       str(CLI_EVAL_INTERVAL), "--out-dir", str(out_dir)]
+
+
+def phase_cli(dev, path_counts) -> tuple:
+    """Phase 11: (a) the CLI at full width in this process, its records,
+    checkpoints, launches and quality; (b) a second out dir run to 512 steps,
+    then resumed to 1024 by a fresh process; (c) a checkpoint restored into
+    a solver built with another reference, bitwise; (d) the cosine VP on
+    both grids, B1 against its plain version and 256 trained steps; (e) a
+    two-job sweep on one device slot. Returns (summary, the cosine log-SNR
+    plan with a random control, for phase 7's timing)."""
+    import sde_sampler_lrds_torch.api as api
+    from sde_sampler_lrds_torch.solvers.base import Trainable
+
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    out = {}
+
+    # (a) the full-width run, in process so its launches are counted here
+    out_a = CLI_ROOT / "a"
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StageProbe("eval", mala=(api, "mcmc_sample"), fit=(api, "fit_gmm"),
+                    eval=(Trainable, "eval_metrics"), ckpt_write=(Trainable, "store_checkpoint"),
+                    run=(Trainable, "run")) as probe:
+        cli_in_process(cli_cell_flags(CLI_STEPS, out_a), "cli (a)")
+    wall = time.perf_counter() - t0
+    counts = path_counts["cli"] = read_counts()
+    solver = probe.solver
+    train, evals, steps = cli_records(out_a)
+    final = evals[-1]
+    sec = probe.seconds
+    run_s = sec["run"][0]
+    steps_s = run_s - sum(sec["eval"]) - sum(sec["ckpt_write"][:-1])
+    resolved = json.loads((out_a / "resolved.json").read_text())
+    ckpts = sorted(p.name for p in (out_a / "ckpt").glob("ckpt*.pt"))
+    out["a"] = {
+        "train_path": solver.train_path(), "eval_path": solver.eval_path(),
+        "launches": counts, "steps_trained": solver.step_count, "n_skipped": solver.n_skipped,
+        "records": len(steps), "checkpoints": ckpts, "device": resolved["device"],
+        "stage_s": {"mala": sec["mala"][0], "fit": sec["fit"][0], "steps": steps_s,
+                    "evals": sec["eval"], "ckpt_writes": sec["ckpt_write"], "run": run_s,
+                    "cli": wall},
+        "train_ms_per_step": steps_s * 1e3 / CLI_STEPS,
+        "final_eval": {k: final[k] for k in CELL_METRICS if k in final},
+        "final_train_record": train[-1]}
+    say("[phase 11] cli (a) " + json.dumps(out["a"]))
+    check(out["a"]["train_path"] == "flat_lv_fused" and out["a"]["eval_path"] == "fused",
+          f"cli (a): paths {out['a']['train_path']} / {out['a']['eval_path']}")
+    check(solver.step_count == CLI_STEPS, f"cli (a): {solver.step_count} steps trained")
+    check(steps == expected_steps(0, CLI_STEPS), f"cli (a): record steps {steps}")
+    check(all({"train/loss", "train/grad_norm", "train/time_per_step", "train/n_skipped"}
+              <= set(r) for r in train), "cli (a): train record keys")
+    check(all({"eval/log_norm_const_is", "eval/norm_effective_sample_size", "eval/mode_weight",
+               "error/sinkhorn", "error/mmd", "eval/sample_time"} <= set(r) for r in evals),
+          "cli (a): eval record keys")
+    want_ckpts = [f"ckpt{CLI_EVAL_INTERVAL:06d}.pt", f"ckpt{CLI_STEPS:06d}.pt"]
+    check(ckpts == want_ckpts, f"cli (a): checkpoints {ckpts}")
+    check(resolved["device"] == {"type": "cuda", "name": torch.cuda.get_device_name(0)},
+          f"cli (a): resolved device {resolved['device']}")
+    n_evals = len(evals)
+    check(counts["fused_traj"] == CLI_STEPS + n_evals and counts["fused_traj_full_cov"] == 0
+          and counts["fused_traj_bf16"] == 0,
+          f"cli (a): B1 launched {counts} for {CLI_STEPS} steps and {n_evals} evals")
+    check_sample_kernels("cli (a)", counts, n_evals)
+    log_z, elbo = final["eval/log_norm_const_is"], final["eval/elbo"]
+    ess, mode_w = final["eval/norm_effective_sample_size"], final["eval/mode_weight"]
+    check(finite_metrics({k: v for k, v in final.items() if isinstance(v, float)}),
+          "cli (a): a final metric is not finite")
+    check(abs(log_z) <= GATE_CELL_LOGZ, f"cli (a): |log Z| {abs(log_z):.4f} > {GATE_CELL_LOGZ}")
+    check(ess >= GATE_CELL_ESS, f"cli (a): ESS {ess:.4f} < {GATE_CELL_ESS}")
+    check(abs(mode_w - 200.0 / 3.0) <= GATE_CELL_MODE_W,
+          f"cli (a): mode weight {mode_w:.2f} not within {GATE_CELL_MODE_W} of 66.67")
+    check(elbo <= log_z + 0.01, f"cli (a): ELBO {elbo:.4f} > log Z {log_z:.4f} + 0.01")
+    check(math.isfinite(final["error/sinkhorn"]), "cli (a): Sinkhorn not finite")
+
+    # (b) resume: a second out dir to 512 steps here, then a fresh process
+    out_b = CLI_ROOT / "b"
+    cli_in_process(cli_cell_flags(CLI_EVAL_INTERVAL, out_b), "cli (b), first leg")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sde_sampler_lrds_torch.scripts.main",
+                           *cli_cell_flags(CLI_STEPS, out_b), "--resume"],
+                          capture_output=True, text=True, timeout=600)
+    resume_wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli (b): the resumed process exited with {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    check(f"resumed from step {CLI_EVAL_INTERVAL}" in proc.stderr,
+          f"cli (b): no 'resumed from step {CLI_EVAL_INTERVAL}' in its log")
+    _, evals_b, steps_b = cli_records(out_b)
+    final_line = [ln for ln in proc.stderr.splitlines() if "final metrics: " in ln][-1]
+    resumed_run_s = re.search(r"'train/time': ([0-9.e+-]+)", final_line)
+    resumed_run_s = float(resumed_run_s.group(1)) if resumed_run_s else None
+    out["b"] = {"record_steps": steps_b, "resume_process_s": resume_wall,
+                "resumed_run_s": resumed_run_s,
+                "final_eval": {k: evals_b[-1][k] for k in CELL_METRICS if k in evals_b[-1]},
+                "checkpoints": sorted(p.name for p in (out_b / "ckpt").glob("ckpt*.pt"))}
+    say("[phase 11] cli (b) resume " + json.dumps(out["b"]))
+    check(steps_b == expected_steps(0, CLI_EVAL_INTERVAL)
+          + expected_steps(CLI_EVAL_INTERVAL, CLI_STEPS),
+          f"cli (b): record steps {steps_b}")
+    check(out["b"]["checkpoints"] == want_ckpts,
+          f"cli (b): checkpoints {out['b']['checkpoints']}")
+
+    # (c) the checkpoint restores exactly
+    out["c"] = cli_restore(dev, solver, path_counts)
+    # (d) the cosine VP
+    out["d"], cosine_plan = cli_cosine(dev, solver, path_counts)
+    # (e) the sweep: two jobs on one device slot
+    root = CLI_ROOT / "sweep"
+    base = CLI_ARGV + ["--train-steps", str(CLI_SWEEP_STEPS), "--eval-interval",
+                       str(CLI_SWEEP_STEPS), "--log-interval", str(CLI_LOG_INTERVAL)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sde_sampler_lrds_torch.scripts.sweep",
+                           "--jobs", "2", "--device-slots", "1", "--base", " ".join(base),
+                           "--sweep", "seed=1,2", "--out-root", str(root)],
+                          capture_output=True, text=True, timeout=900)
+    sweep_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli (e): the sweep exited with {proc.returncode}: "
+                                f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    summary = json.loads((root / "summary.json").read_text())
+    jobs = [json.loads((Path(j["out_dir"]) / "resolved.json").read_text())["device"]
+            for j in summary["jobs"]]
+    out["e"] = {"n_jobs": summary["n_jobs"], "n_failed": summary["n_failed"], "devices": jobs,
+                "slots": [j["slot"] for j in summary["jobs"]], "sweep_s": sweep_s,
+                "final_log_z": [j["final_metrics"].get("eval/log_norm_const_is")
+                                for j in summary["jobs"]]}
+    say("[phase 11] cli (e) sweep " + json.dumps(out["e"]))
+    check(summary["n_jobs"] == 2 and summary["n_failed"] == 0, "cli (e): a sweep job failed")
+    check(all(d["type"] == "cuda" for d in jobs), f"cli (e): the jobs ran on {jobs}")
+    check(all(j["final_metrics"].get("step") == CLI_SWEEP_STEPS for j in summary["jobs"]),
+          "cli (e): a job's last record is not its last step's")
+    if resumed_run_s is not None:
+        # the resumed process less its run and (a)'s MALA and GMM fit
+        out["b"]["process_start_and_setup_s"] = (resume_wall - resumed_run_s - sec["mala"][0]
+                                                 - sec["fit"][0])
+    return out, cosine_plan
+
+
+def cli_restore(dev, cli_solver, path_counts) -> dict:
+    """(c): a solver built by make_model(out_dir=...) on cli (a)'s fitted
+    reference trains CLI_RESTORE_STEPS steps with run() (EMA on, an lr
+    schedule with a milestone at CLI_MILESTONE) and stores a checkpoint; a
+    fresh solver built with the 'default' reference loads it. Parameters,
+    Adam state, EMA, counters, reference, an evaluation through B1 and the
+    next training step under fed inputs must be bitwise equal."""
+    from sde_sampler_lrds_torch.api import make_model, make_target_details
+    from sde_sampler_lrds_torch.ops.fused_traj import build_plan, fused_simulate
+
+    ref, dim = cli_solver.reference_distr_utils, cli_solver.target.dim
+    common = dict(
+        loss_type="lv", integrator_type="ei", model_type="base_zero_init", time_type="snr",
+        target_details=make_target_details("two_modes", dim=dim),
+        training_details={"train_steps": CLI_RESTORE_STEPS, "train_batch_size": TRAIN_BATCH,
+                          "eval_batch_size": EVAL_BATCH, "log_interval": CLI_LOG_INTERVAL,
+                          "eval_interval": 10**9, "ckpt_interval": CLI_RESTORE_STEPS,
+                          "seed": 1},
+        optim_details={"lr_scheduler": {"name": "multi_step", "milestones": [CLI_MILESTONE]}},
+        use_ema=True, out_dir=CLI_ROOT / "c", device=dev)
+    stored = make_model("vp-ref", "gmm", solver_details={
+        "sigma": 1.0, "weights_ref": ref["weights_init"], "means_ref": ref["means_init"],
+        "variances_ref": ref["variances_init"]}, **common)
+    stored.setup()
+    reset_counts()
+    stored.run()
+    path_counts["cli_restore"] = read_counts()
+    fresh = make_model("vp-ref", "default", solver_details={"sigma": 1.0}, **common)
+    fresh.setup()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = fresh.load_checkpoint()
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+
+    def same(a, b) -> bool:
+        if isinstance(a, dict):
+            return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return type(a) is type(b) and len(a) == len(b) and all(map(same, a, b))
+        if isinstance(a, torch.Tensor):
+            return a.device == b.device and torch.equal(a, b)
+        return a == b
+
+    checks = {"loaded": loaded,
+              "counters": (fresh.step_count, fresh.n_skipped) == (stored.step_count,
+                                                                  stored.n_skipped),
+              "params": same(fresh.module.state_dict(), stored.module.state_dict()),
+              "adam": same(fresh.optimizer.state_dict(), stored.optimizer.state_dict()),
+              "ema": same(fresh.ema_module.state_dict(), stored.ema_module.state_dict()),
+              "reference": fresh.ref_type == "gmm"
+              and same(fresh.reference_distr_utils, stored.reference_distr_utils)}
+    lrs = [s.optimizer.param_groups[0]["lr"] for s in (stored, fresh)]
+    checks["lr"] = lrs[0] == lrs[1] and abs(lrs[0] - 0.1 * stored.cfg.lr) <= 1e-6 * lrs[0]
+    g = torch.Generator(dev).manual_seed(71)
+    x0 = stored.prior.sample(g, (EVAL_BATCH,))
+    noise = torch.randn(stored.train_ts.shape[0] - 1, EVAL_BATCH, dim, generator=g, device=dev)
+    evals, steps = [], []
+    for s in (stored, fresh):
+        cfg, arrays = build_plan(s.loss, s.eval_module(), s.eval_ts)
+        evals.append(fused_simulate(cfg, arrays, None, x0, noise=noise, **s.loss_call_args()))
+    for s in (stored, fresh):
+        steps.append(s.step(torch.Generator(dev).manual_seed(73), x0=x0[:TRAIN_BATCH],
+                            noise=noise[:, :TRAIN_BATCH]))
+    checks["eval"] = all(torch.equal(a, b) for a, b in zip(*evals))
+    checks["next_step"] = (torch.equal(steps[0]["train/loss"], steps[1]["train/loss"])
+                           and same(fresh.module.state_dict(), stored.module.state_dict())
+                           and same(fresh.ema_module.state_dict(),
+                                    stored.ema_module.state_dict()))
+    out = {"checks": checks, "lr": lrs, "ckpt_read_s": read_s,
+           "ckpt_bytes": (CLI_ROOT / "c" / "ckpt" / f"ckpt{CLI_RESTORE_STEPS:06d}.pt")
+           .stat().st_size, "launches": path_counts["cli_restore"]}
+    say("[phase 11] cli (c) restore " + json.dumps(out))
+    for name, ok in checks.items():
+        check(ok, f"cli (c): the restored solver's {name} differs from the stored one's")
+    return out
+
+
+def cli_cosine(dev, cli_solver, path_counts) -> tuple:
+    """(d): make_model(force_vp_cosine=True) on cli (a)'s fitted reference on
+    the log-SNR and the uniform grid: B1 against its plain version at the
+    train and eval batches from the prior's draws with a random control
+    (KERNEL_TOL on the log-SNR grid; the float64 gate DRIVER_F64_RATIO on
+    the uniform one, whose first step multiplies x by a_x ≈ 11: its plain
+    float32 states sit 0.7 x KERNEL_TOL from float64 on the CPU), then
+    COSINE_STEPS trained steps from the zero control and an eval with the
+    sample metrics. The card's coefficient table is reported beside the
+    host's: α = −2 log cos carries a cosine's last ulp into it."""
+    from sde_sampler_lrds_torch.api import make_model, make_target_details
+    from sde_sampler_lrds_torch.models import ClippedCtrl, FourierMLP
+    from sde_sampler_lrds_torch.ops.fused_traj import _step_coeffs, build_plan
+
+    ref, dim = cli_solver.reference_distr_utils, cli_solver.target.dim
+    g = torch.Generator().manual_seed(72)
+    solvers, out, plan = {}, {}, None
+    for grid in ("snr", "uniform"):
+        solver = make_model(
+            "vp-ref", "gmm", "lv", "ei", "base_zero_init", grid,
+            {"sigma": 1.0, "weights_ref": ref["weights_init"], "means_ref": ref["means_init"],
+             "variances_ref": ref["variances_init"]}, make_target_details("two_modes", dim=dim),
+            {"train_steps": COSINE_STEPS, "train_batch_size": TRAIN_BATCH,
+             "eval_batch_size": EVAL_BATCH, "log_interval": COSINE_STEPS,
+             "eval_interval": 10**9, "seed": 1}, force_vp_cosine=True, device=dev)
+        check(type(solver.sde).__name__ == "CosineVP", f"cosine {grid}: {type(solver.sde)}")
+        ctrl = ClippedCtrl(FourierMLP(dim=dim, channels=CHANNELS, num_layers=N_LAYERS),
+                           clip_model=1e4)
+        ctrl.reset_parameters(g)
+        cfg, arrays = build_plan(solver.loss, ctrl.to(dev), solver.train_ts)
+        coefs = arrays["coefs"]
+        # the same table from the host's float32 cos / log / expm1 (the CPU
+        # tests hold the host's against the JAX package's)
+        host = _step_coeffs(solver.loss, solver.train_ts.cpu())[0]
+        diff = (coefs.cpu() - host).abs()
+        err = compare_kernel(dev, cfg, arrays, f"fused_traj cosine {grid}",
+                             [(TRAIN_BATCH, "fed"), (EVAL_BATCH, "fed")], KERNEL_TOL,
+                             f64_ratio=None if grid == "snr" else DRIVER_F64_RATIO,
+                             prior=solver.prior)
+        out[grid] = {"max_abs_err": err, "t0": float(solver.train_ts[0]),
+                     "a_x_max": float(coefs[:, 0].max()), "a_s_max": float(coefs[:, 1].max()),
+                     "a_z_max": float(coefs[:, 3].max()),
+                     "table_card_vs_host": {"max_abs": float(diff.max()), "max_rel": float(
+                         (diff / host.abs().clamp_min(1e-30)).max())}}
+        if grid == "snr":
+            plan = (cfg, arrays)
+        solvers[grid] = solver
+    reset_counts()
+    for grid, solver in solvers.items():
+        solver.setup()
+        metrics = solver.run()
+        out[grid].update(train_path=solver.train_path(), eval_path=solver.eval_path(),
+                         steps_trained=solver.step_count, n_skipped=solver.n_skipped,
+                         final={k: metrics[k] for k in CELL_METRICS if k in metrics})
+    counts = path_counts["cli_cosine"] = read_counts()
+    out["launches"] = counts
+    say("[phase 11] cli (d) cosine VP " + json.dumps(out))
+    for grid in solvers:
+        o = out[grid]
+        check(o["train_path"] == "flat_lv_fused" and o["eval_path"] == "fused",
+              f"cosine {grid}: paths {o['train_path']} / {o['eval_path']}")
+        check(o["steps_trained"] == COSINE_STEPS, f"cosine {grid}: steps trained")
+        check(finite_metrics(o["final"]), f"cosine {grid}: a metric is not finite: {o['final']}")
+        check(o["final"]["eval/elbo"] <= o["final"]["eval/log_norm_const_is"]
+              + GATE_COSINE_ELBO_SLACK, f"cosine {grid}: ELBO above log Z_IS + "
+                                        f"{GATE_COSINE_ELBO_SLACK}")
+    check(counts["fused_traj"] == 2 * (COSINE_STEPS + 1), f"cosine: B1 launched {counts}")
+    return out, plan
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and (argv[0] != "--cell" or len(argv) < 2):
@@ -2152,11 +2516,15 @@ def main(argv=None) -> int:
     smc = phase_smc(dev, target, dataset, path_counts)
     phi_solver, driver_cells = phase_driver_cells(dev, path_counts)
     driver_cells.update(phase_more_driver_cells(dev, path_counts))
+    cli, (cos_cfg, cos_arrays) = phase_cli(dev, path_counts)
     phase_timing(dev, cfg, arrays, recs["fused_traj"], peaks, sfu_rate)
     toy_cfg, toy_arrays, _ = driver_shape_plans["toy_rings_d2"]
     recs["fused_traj"]["toy_shape_d2_c8"] = {}
     phase_timing(dev, toy_cfg, toy_arrays, recs["fused_traj"]["toy_shape_d2_c8"], peaks,
                  sfu_rate, label="fused_traj D=2 C=8")
+    recs["fused_traj"]["cosine_snr_d16_c2"] = {}
+    phase_timing(dev, cos_cfg, cos_arrays, recs["fused_traj"]["cosine_snr_d16_c2"], peaks,
+                 sfu_rate, label="fused_traj cosine D=16 C=2")
     phi_cfg, phi_arrays = build_plan(phi_solver.loss, phi_solver.generative_ctrl,
                                      phi_solver.eval_ts)
     phase_timing(dev, phi_cfg, phi_arrays, recs["fused_traj_full_cov"], peaks, sfu_rate,
@@ -2171,7 +2539,7 @@ def main(argv=None) -> int:
         check(rec["launches"] > 0, f"{kname} was never launched on a path")
     say("[phase 7] paths: " + json.dumps({"rds_eval": eval_times, "smc": smc,
                                           "driver_cells": driver_cells,
-                                          "bf16_demo": bf16_demo, "kl": kl}))
+                                          "bf16_demo": bf16_demo, "kl": kl, "cli": cli}))
     say(json.dumps({"kernels": [
         {"name": kname, **{k: rec[k] for k in KERNEL_KEYS},
          **{k: v for k, v in rec.items() if k not in KERNEL_KEYS}}

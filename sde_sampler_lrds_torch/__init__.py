@@ -6,16 +6,17 @@ This package imports torch, numpy, scipy (the φ⁴ host oracle) and the
 standard library only.
 
 Ported so far (the LRDS demo pipeline, sample-based evaluation and SMC,
-the φ⁴ path with a full-covariance GMM reference, and the LRDS experiment
-drivers):
+the φ⁴ path with a full-covariance GMM reference, the LRDS experiment
+drivers, and the training host loop with its CLI):
   utils/     time grids (uniform and log-SNR), Results, masked statistics,
              device resolution, diagonal and full-covariance GMM fitting by EM
-  targets/   Target base, Gaussian / GMM / ManyModes / TwoModes /
-             IsotropicGauss / GaussFull with diagonal and full-covariance
-             densities, Delta, PhiFour with its exact transfer-matrix oracle
-             and sampler, the 2-D Rings and Checkerboard
-  sde/       OU, VP and PinnedBM linear-SDE algebra (scalar, diagonal, full
-             and eigen-factored marginals)
+  targets/   Target base, Gaussian / GMM (and its presets) / GMMFull /
+             ManyModes / TwoModes / TwoModesFull / BracketTwoModes /
+             IsotropicGauss (optionally truncated) / GaussFull, Delta,
+             PhiFour with its exact transfer-matrix oracle and sampler, the
+             2-D Rings and Checkerboard
+  sde/       OU, VP, CosineVP and PinnedBM linear-SDE algebra (scalar,
+             diagonal, full and eigen-factored marginals)
   models/    TimeEmbed / FourierMLP / ClippedCtrl as nn.Modules, and
              load_flax_params to carry a Flax parameter tree across
   losses/    EM / EI / DDPM reference-SDE losses, incl. the flat-LV path
@@ -25,8 +26,9 @@ drivers):
              reference modes), the Sinkhorn log-sum-exp and transport cost,
              systematic resampling; each with its plain PyTorch version
   eval/      get_metrics, Sinkhorn, MMD, sliced KS
-  solvers/   TrainConfig / Trainable (Adam, guarded step, EMA), RDS, and
-             TrainableWrapper with the EUBO metrics
+  solvers/   TrainConfig / Trainable (Adam, guarded step, EMA, the run loop
+             with metrics.jsonl and checkpoints), the lr and hyperparameter
+             schedules, RDS, and the TrainableWrappers with the EUBO metrics
   mcmc/      MALA, ULA, SMC
   api.py     make_target_details, make_target, make_ctrl, make_model,
              mcmc_sample, fit_gmm, define_tempering_utils, run_smc_sampler
@@ -34,6 +36,9 @@ drivers):
              toys, and the two_modes sweeps over distance, GMM components,
              reference weights and sigma
              (python -m sde_sampler_lrds_torch.experiments.<driver>)
+  scripts/   the CLI and the sweep launcher
+             (python -m sde_sampler_lrds_torch.scripts.main / .sweep)
+  utils/wandb.py  optional Weights & Biases logging
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -15,11 +15,14 @@ the target and model factories ``make_target_details``, ``make_target``,
     time grid ∈ {uniform, snr}
 
 and refuses every combination the JAX package refuses, with the same
-messages. Ported so far: the RDS solvers 'vp-ref' and 'pbm-ref' with the
-references 'default', 'gaussian' and 'gmm' and the 'base_zero_init' control;
-every other value raises NotImplementedError naming it. The targets
-'two_modes', 'many_modes', 'rings', 'checkerboard' and 'phi_four' are
-ported; the replica-exchange baseline is not.
+messages. Ported so far: the RDS solvers 'vp-ref' and 'pbm-ref' (VP, the
+cosine VP of ``force_vp_cosine``, vp_20, PinnedBM) with the references
+'default', 'gaussian' and 'gmm', the 'base_zero_init' control, the lr
+schedulers of ``optim_details['lr_scheduler']`` and checkpoints under
+``out_dir``; every other value raises NotImplementedError naming it and its
+ROADMAP queue item. The targets 'two_modes', 'two_modes_full',
+'bracket_two_modes', 'many_modes', 'rings', 'checkerboard' and 'phi_four'
+are ported; the replica-exchange baseline is not.
 """
 from __future__ import annotations
 
@@ -36,11 +39,11 @@ from .losses import DDPMLikeReferenceSDELoss, EIReferenceSDELoss, EMReferenceSDE
 from .mcmc.kernels import MCMCState, run_chain
 from .mcmc.smc import smc_sampler
 from .models import ClippedCtrl, FourierMLP
-from .sde import VP, PinnedBM, get_timesteps
+from .sde import VP, CosineVP, PinnedBM, get_timesteps
 from .solvers import RDS
 from .solvers.base import TrainConfig
-from .targets import (Checkerboard, Delta, IsotropicGauss, ManyModes, PhiFour, Rings,
-                      TwoModes)
+from .targets import (BracketTwoModes, Checkerboard, Delta, IsotropicGauss, ManyModes,
+                      PhiFour, Rings, TwoModes, TwoModesFull)
 from .targets.gauss import Gauss, GaussFull
 from .utils.common import resolve_device
 from .utils.gmm_fit import fit_gmm_em
@@ -91,6 +94,10 @@ def make_target(target_details: dict, device=None):
     device = resolve_device(device)
     if name == "two_modes":
         return TwoModes(n_reference_samples=16384, device=device, **kw)
+    if name == "two_modes_full":
+        return TwoModesFull(n_reference_samples=16384, device=device, **kw)
+    if name == "bracket_two_modes":
+        return BracketTwoModes(n_reference_samples=16384, device=device, **kw)
     if name == "many_modes":
         return ManyModes(n_reference_samples=10000, device=device, **kw)
     if name == "rings":
@@ -101,7 +108,7 @@ def make_target(target_details: dict, device=None):
         return PhiFour(a=kw.pop("a", 0.1), b=kw.pop("b", 0.0), dim=kw.pop("dim", 100),
                        device=device, **kw)
     if name in TARGET_NAMES:
-        raise NotImplementedError(f"Target {name} is not ported yet.")
+        raise NotImplementedError(f"Target {name} is not ported yet (ROADMAP A4 / A6).")
     raise NotImplementedError(f"Target {name} not supported.")
 
 
@@ -112,10 +119,10 @@ def make_ctrl(model_type: str, dim: int, target, prior, sde, compute_dtype=None,
     or, with ``compute_dtype=torch.bfloat16``, with bf16 products."""
     if "unet" in model_type:
         raise NotImplementedError(f"model_type {model_type!r} (the MNIST UNet) is not "
-                                  f"ported yet.")
+                                  f"ported yet (ROADMAP A6).")
     if base_arch not in (None, "fouriermlp"):
         if base_arch == "densenet":
-            raise NotImplementedError("base_arch 'densenet' is not ported yet.")
+            raise NotImplementedError("base_arch 'densenet' is not ported yet (ROADMAP A2).")
         raise ValueError(f"Unknown base_arch {base_arch!r}")
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype!r}")
@@ -123,7 +130,7 @@ def make_ctrl(model_type: str, dim: int, target, prior, sde, compute_dtype=None,
         base = FourierMLP(dim=dim, zero_init=True, compute_dtype=compute_dtype)
         return ClippedCtrl(base_model=base, clip_model=1e4)
     if model_type in MODEL_TYPES:
-        raise NotImplementedError(f"model_type {model_type!r} is not ported yet.")
+        raise NotImplementedError(f"model_type {model_type!r} is not ported yet (ROADMAP A2).")
     raise ValueError(f"Unknown model type {model_type}")
 
 
@@ -135,9 +142,14 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
                force_vp_cosine: bool = False, compute_samples_based_metrics: bool = True,
                out_dir=None, mesh=None,
                compute_dtype=None, base_arch: str | None = None,
+               sde_details: dict | None = None, loss_details: dict | None = None,
                inference_ctrl_arch: str | None = None, device=None):
     """A fully configured sampler on ``device``. Extra ``training_details``
-    keys set TrainConfig fields (an unknown key raises)."""
+    keys set TrainConfig fields (an unknown key raises); ``sde_details``
+    are merged into the SDE's constructor, ``loss_details`` into the loss's
+    keyword arguments; ``optim_details['lr_scheduler']`` (a dict with a
+    'name' and its arguments) becomes ``cfg.lr_schedule``; ``out_dir``
+    holds ``metrics.jsonl`` and the checkpoints."""
     if solver_type not in SOLVER_TYPES:
         raise ValueError(f"Unknown solver_type {solver_type!r}")
     if ref_type not in ("default", "gaussian", "gmm", "nn"):
@@ -210,17 +222,14 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
 
     # -- what the port does not have yet ------------------------------------
     if "ref" not in solver_type:
-        raise NotImplementedError(f"solver_type {solver_type!r} is not ported yet.")
+        raise NotImplementedError(f"solver_type {solver_type!r} is not ported yet "
+                                  f"(ROADMAP A2, the other VI samplers).")
     if ref_type == "nn":
-        raise NotImplementedError("ref_type 'nn' is not ported yet.")
-    if force_vp_cosine:
-        raise NotImplementedError("force_vp_cosine (CosineVP) is not ported yet.")
-    if optim_details and "lr_scheduler" in optim_details:
-        raise NotImplementedError("optim_details['lr_scheduler'] is not ported yet.")
-    if out_dir is not None:
-        raise NotImplementedError("out_dir (checkpoints) is not ported yet.")
+        raise NotImplementedError("ref_type 'nn' is not ported yet (ROADMAP A5, learned "
+                                  "references).")
     if mesh is not None:
-        raise NotImplementedError("mesh (sharded solvers) is not ported yet.")
+        raise NotImplementedError("mesh (sharded solvers) is not ported yet (ROADMAP A7, "
+                                  "parallel/mesh.py).")
 
     # -- target / prior / sde ---------------------------------------------
     device = resolve_device(device)
@@ -229,14 +238,22 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
     sigma = solver_details.get("sigma", 1.0)
 
     optim_details = dict(optim_details or {})
-    # training_details wins over optim_details for the lr
+    # training_details wins over optim_details for the lr, and the schedule
+    # starts from that lr
     lr = training_details.get("lr", optim_details.get("lr", 3e-4))
+    lr_schedule = None
+    if "lr_scheduler" in optim_details:
+        from .solvers.schedulers import make_lr_schedule
+
+        sched_cfg = dict(optim_details["lr_scheduler"])
+        lr_schedule = make_lr_schedule(sched_cfg.pop("name"), lr,
+                                       training_details["train_steps"], **sched_cfg)
     cfg_kwargs = dict(
         train_steps=training_details["train_steps"],
         train_batch_size=training_details["train_batch_size"],
         eval_batch_size=training_details["eval_batch_size"],
         lr=lr,
-        lr_schedule=None,
+        lr_schedule=lr_schedule,
         use_ema=use_ema,
         eval_interval=training_details.get("eval_interval", 10**9),
         log_interval=training_details.get("log_interval", 50),
@@ -256,25 +273,37 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
     cfg_kwargs.update(extra_cfg)
     cfg = TrainConfig(**cfg_kwargs)
 
+    sde_details = dict(sde_details or {})
+
+    def _sde(cls, **kw):
+        kw.update(sde_details)
+        return cls(**kw)
+
     loss_kwargs = {"method": loss_type}
     if loss_type == "lv":
         loss_kwargs["max_rnd"] = 1e8
+    loss_kwargs.update(loss_details or {})
 
     t_eps = 1e-4
     if solver_type == "pbm-ref":
-        sde = PinnedBM(diff_coeff=sigma if ref_type == "default" else math.sqrt(0.2),
-                       terminal_t=5.0)
+        sde = _sde(PinnedBM, diff_coeff=sigma if ref_type == "default" else math.sqrt(0.2),
+                   terminal_t=5.0)
         prior = Delta(dim=dim, loc=0.0, device=device)
         # the uniform grid is refused for pbm-ref above
         ts = get_timesteps(t_eps, sde.terminal_t - t_eps, steps=n_steps, sde=sde,
                            device=device)
     else:
-        sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=20.0 if force_vp20 else 10.0,
-                 scale_diff_coeff=sigma)
+        if force_vp_cosine:
+            sde = _sde(CosineVP, scale_diff_coeff=sigma)
+        else:
+            sde = _sde(VP, diff_coeff_sq_min=0.1,
+                       diff_coeff_sq_max=20.0 if force_vp20 else 10.0, scale_diff_coeff=sigma)
         prior = IsotropicGauss(dim=dim, scale=sde.scale_diff_coeff, device=device)
         if time_type == "snr":
             ts = get_timesteps(t_eps, sde.terminal_t - t_eps, steps=n_steps, sde=sde,
                                device=device)
+        elif force_vp_cosine:  # α(T) is infinite: start the uniform grid at 1e-3
+            ts = get_timesteps(1e-3, sde.terminal_t, steps=n_steps, device=device)
         elif integrator_type == "ddpm_like":
             ts = get_timesteps(0.0, sde.terminal_t - 1e-4, steps=n_steps, device=device)
         else:
@@ -284,7 +313,7 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
     solver = RDS(target, prior, sde,
                  make_ctrl(model_type, dim, target, prior, sde, compute_dtype=compute_dtype,
                            base_arch=base_arch),
-                 loss_cls, loss_kwargs, train_ts=ts, cfg=cfg, device=device)
+                 loss_cls, loss_kwargs, train_ts=ts, cfg=cfg, device=device, out_dir=out_dir)
 
     # -- sample-based metrics ----------------------------------------------
     if compute_samples_based_metrics:

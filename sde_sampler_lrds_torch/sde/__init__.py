@@ -1,2 +1,2 @@
-from .linear import OU, VP, PinnedBM
+from .linear import OU, VP, CosineVP, PinnedBM
 from ..utils.common import get_timesteps

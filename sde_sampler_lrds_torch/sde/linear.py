@@ -1,5 +1,6 @@
 """Linear (Ornstein-Uhlenbeck-type) SDE algebra in closed form (counterpart
-of sde_sampler_lrds_tpu/sde/linear.py: the OU base, VP and PinnedBM).
+of sde_sampler_lrds_tpu/sde/linear.py: the OU base, VP, CosineVP and
+PinnedBM).
 
 dX_t = k(t) X dt + g(t) dW_t with scale s(t) = exp(∫k) and
 sigma_sq(t) = ∫ g²/s². "Noising time" t runs 0 → T; the generative losses use
@@ -256,6 +257,28 @@ class VP(OU):
         return (torch.sqrt(1.0 + lam),
                 2.0 * self.scale_diff_coeff**2 * torch.sinh(d_alpha),
                 torch.sqrt(var))
+
+
+class CosineVP(VP):
+    """VP SDE with the cosine α schedule: with u = (t/T + c)/(1 + c),
+    α(t) = −2 log cos(π/2 · u) and β(t) = π tan(π/2 · u) / (T(1 + c)). α
+    grows without bound as t → T (in float32, cos(π/2 · 1) is negative and
+    α(T) is NaN), so the grids stop short of T: the uniform one starts at
+    1e-3, the log-SNR one runs to T − t_eps."""
+
+    def __init__(self, c: float = 0.008, scale_diff_coeff: float = 1.0, **kwargs):
+        super().__init__(scale_diff_coeff=scale_diff_coeff, **kwargs)
+        self.c = float(c)
+
+    def _u(self, t):
+        return ((_f32(t) / self.terminal_t) + self.c) / (1.0 + self.c)
+
+    def _diff_coeff_sq_t(self, t):
+        return math.pi * torch.tan(0.5 * math.pi * self._u(t)) / (
+            self.terminal_t * (1.0 + self.c))
+
+    def alpha_(self, t):
+        return -2.0 * torch.log(torch.cos(0.5 * math.pi * self._u(t)))
 
 
 class PinnedBM(OU):

@@ -1,23 +1,32 @@
 """Training step: Adam with gradient clipping, a guarded (masked-skip)
-update, and EMA (counterpart of sde_sampler_lrds_tpu/solvers/base.py).
+update, and EMA; the host run loop with eval / log / checkpoint intervals
+and hyperparameter schedules (counterpart of
+sde_sampler_lrds_tpu/solvers/base.py).
 
 The JAX package fuses value_and_grad, the finite/magnitude guards, the
 optax update and the EMA into one jitted step; here the same sequence runs
 eagerly: backward, guard, then either the optimizer step or a skip counted
 in ``n_skipped``. ``eval_metrics`` runs an evaluation pass and reduces it
-with ``eval/metrics.get_metrics``, sample losses included. Checkpointing,
-the host run loop and the hyperparameter schedules are not ported yet.
+with ``eval/metrics.get_metrics``, sample losses included. ``run`` streams
+metrics to ``{out_dir}/metrics.jsonl``; checkpoints are ``torch.save``
+payloads of plain tensors, numbers, strings, lists and dicts under
+``{out_dir}/ckpt/``, read back with ``weights_only=True``.
 """
 from __future__ import annotations
 
 import copy
+import json
+import logging
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable
 
 import torch
 
 from ..utils.common import Results, derive_generator, resolve_device
+
+CKPT_DIR = "ckpt"
 
 
 @dataclass
@@ -44,6 +53,11 @@ class TrainConfig:
     # the JAX package fuses this many optimizer steps into one jitted call;
     # here each ``step`` call runs that many steps one after another
     steps_per_call: int = 1
+    # host-side hyperparameter schedule: dotted solver attribute -> decay
+    # spec, e.g. {"generative_ctrl.clip_model": {"milestones": [5000],
+    # "gamma": 0.1}}; the step reads the attribute when it runs (the fused
+    # plan is rebuilt from the modules on every step), so a milestone takes
+    # effect at the next step, or with steps_per_call > 1 at the next call
     param_schedule: dict | None = None
     # flat LV training (losses/rds.py lv_flat_call): 'auto' | 'off'
     flat_lv: str = "auto"
@@ -62,18 +76,32 @@ class Trainable:
     reports as ``error/<name>``."""
 
     def __init__(self, target, cfg: TrainConfig | None = None, device=None,
-                 eval_marginal_dims: tuple[int, ...] = (0,), sample_losses=None):
+                 eval_marginal_dims: tuple[int, ...] = (0,), sample_losses=None,
+                 out_dir: str | Path | None = None):
         self.target = target
         self.eval_marginal_dims = list(eval_marginal_dims)
         self.sample_losses = sample_losses or {}
         self.cfg = cfg or TrainConfig()
         self.device = resolve_device(device)
-        if self.cfg.param_schedule:
-            raise NotImplementedError("param_schedule is not ported yet")
+        self.out_dir = Path(out_dir) if out_dir else None
+        if self.out_dir:
+            (self.out_dir / CKPT_DIR).mkdir(parents=True, exist_ok=True)
         self.optimizer: torch.optim.Optimizer | None = None
         self.ema_module: torch.nn.Module | None = None
         self.step_count = 0
         self.n_skipped = 0
+        self.train_time = 0.0
+        self._param_schedulers: list = []
+
+    def log_metrics(self, metrics: dict, step: int) -> None:
+        """Append ``{"step": step, **metrics}`` to ``{out_dir}/metrics.jsonl``
+        (tensors read as floats) and log it."""
+        record = {"step": step, **{k: _to_float(v) for k, v in metrics.items()}}
+        if self.out_dir:
+            with open(self.out_dir / "metrics.jsonl", "a") as f:
+                f.write(json.dumps(record) + "\n")
+        logging.info("step %d: %s", step,
+                     {k: round(v, 5) for k, v in record.items() if isinstance(v, float)})
 
     # -- subclass surface --------------------------------------------------
     @property
@@ -115,6 +143,43 @@ class Trainable:
         self.target.compute_stats(generator)
         self.init_params(self.cfg.seed)
         self.reset_optimizer()
+        self._param_schedulers = self._build_param_schedulers()
+
+    def _build_param_schedulers(self) -> list:
+        """One MultiStepParams per ``cfg.param_schedule`` entry; a typo'd key
+        or spec field raises here, before any step."""
+        if not self.cfg.param_schedule:
+            return []
+        from .schedulers import MultiStepParams
+
+        out = []
+        for dotted, spec in self.cfg.param_schedule.items():
+            if not isinstance(spec, dict) or "milestones" not in spec:
+                raise ValueError(
+                    f"param_schedule[{dotted!r}] needs a dict with "
+                    f"'milestones' (got {spec!r})")
+            unknown = set(spec) - {"milestones", "gamma"}
+            if unknown:
+                raise ValueError(
+                    f"param_schedule[{dotted!r}]: unknown spec field(s) "
+                    f"{sorted(unknown)}; valid: milestones, gamma")
+            s = MultiStepParams(self, list(spec["milestones"]),
+                                {dotted: spec.get("gamma", 0.1)})
+            if dotted not in s.gammas:
+                raise ValueError(
+                    f"param_schedule key {dotted!r} does not resolve to a "
+                    f"non-None attribute on this solver")
+            out.append(s)
+        return out
+
+    def _advance_param_schedule(self, step: int) -> None:
+        """Fast-forward every hyperparameter schedule to ``step``. The port
+        keeps no state built from a scheduled value across steps (the fused
+        plan is rebuilt from the modules on every step), so nothing has to
+        be rebuilt when a value changes."""
+        for s in self._param_schedulers:
+            s.last_step = step
+            s.update()
 
     def reset_optimizer(self) -> None:
         """Fresh optimizer state and EMA copy for the module's current
@@ -176,6 +241,47 @@ class Trainable:
             metrics = self._one_step(generator, **fed)
         return metrics
 
+    def run(self, eval_fn: Callable | None = None) -> dict:
+        """Host loop: train to ``cfg.train_steps`` from ``step_count`` with a
+        log record every ``log_interval`` steps, an evaluation every
+        ``eval_interval`` and at the last step, and a checkpoint every
+        ``ckpt_interval``. Like the JAX package's, the step generator
+        restarts at ``cfg.seed + 1`` on every call, so a resumed run replays
+        the noise of the first steps. Metrics are read to the host at the
+        log and eval steps only."""
+        if self.optimizer is None:
+            raise RuntimeError("call setup() first")
+        cfg = self.cfg
+        generator = torch.Generator(self.device).manual_seed(cfg.seed + 1)
+        last_metrics: dict = {}
+        start = time.time()
+        start_step = self.step_count
+        spc = max(cfg.steps_per_call, 1)
+        # resume: apply the milestones already passed
+        self._advance_param_schedule(start_step)
+        for step_id in range(start_step + spc - 1, cfg.train_steps, spc):
+            metrics = self.step(generator)
+            self._advance_param_schedule(step_id + 1)
+            if (step_id + 1) % cfg.log_interval == 0:
+                metrics = {k: _to_float(v) for k, v in metrics.items()}
+                for s in self._param_schedulers:
+                    metrics.update({f"sched/{k}": v for k, v in s.get().items()})
+                metrics["train/time_per_step"] = (time.time() - start) / max(
+                    step_id + 1 - start_step, 1)
+                metrics["train/n_skipped"] = self.n_skipped
+                self.log_metrics(metrics, step_id + 1)
+                last_metrics.update(metrics)
+            if (step_id + 1) % cfg.eval_interval == 0 or step_id + 1 == cfg.train_steps:
+                eval_metrics = (eval_fn or self.eval_metrics)(
+                    derive_generator(generator, step_id + 1))
+                self.log_metrics(eval_metrics, step_id + 1)
+                last_metrics.update(eval_metrics)
+            if cfg.ckpt_interval and (step_id + 1) % cfg.ckpt_interval == 0:
+                self.store_checkpoint()
+        self.train_time = time.time() - start
+        last_metrics["train/time"] = self.train_time
+        return last_metrics
+
     # -- evaluation metrics ------------------------------------------------
     def metrics_from_results(self, results: Results, generator: torch.Generator) -> dict:
         """``results.metrics`` plus every metric of its samples. The target
@@ -201,3 +307,66 @@ class Trainable:
         metrics = self.metrics_from_results(results, generator)
         metrics["eval/sample_time"] = time.time() - t0
         return metrics
+
+    # -- checkpointing -----------------------------------------------------
+    def save_attrs(self) -> dict:
+        """The checkpoint payload; subclasses extend it. Only tensors,
+        numbers, strings, lists and dicts, so ``weights_only`` loading reads
+        it."""
+        return {"module": self.module.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "ema": self.ema_module.state_dict(),
+                "step_count": self.step_count, "n_skipped": self.n_skipped,
+                "train_time": self.train_time}
+
+    def restore_attrs(self, raw: dict) -> None:
+        """Load ``save_attrs``' payload (its tensors already on the device)
+        into the set-up module, optimizer and EMA module."""
+        self.module.load_state_dict(raw["module"])
+        self.optimizer.load_state_dict(raw["optimizer"])
+        # a fresh optimizer keeps its step counts on the CPU (unless
+        # capturable), where reading them costs no device sync
+        for state in self.optimizer.state.values():
+            step = state.get("step")
+            if isinstance(step, torch.Tensor) and step.device != torch.device("cpu") \
+                    and not self.optimizer.defaults.get("capturable", False) \
+                    and not self.optimizer.defaults.get("fused", False):
+                state["step"] = step.cpu()
+        self.ema_module.load_state_dict(raw["ema"])
+        self.step_count = int(raw["step_count"])
+        self.n_skipped = int(raw["n_skipped"])
+        self.train_time = float(raw["train_time"])
+
+    def store_checkpoint(self, path: Path | None = None) -> Path:
+        """Write the payload to ``path`` or ``{out_dir}/ckpt/ckpt{step:06d}.pt``."""
+        if not (self.out_dir or path):
+            raise ValueError("store_checkpoint needs an out_dir or a path")
+        path = Path(path) if path else self.out_dir / CKPT_DIR / f"ckpt{self.step_count:06d}.pt"
+        torch.save(self.save_attrs(), path)
+        return path
+
+    def latest_checkpoint(self) -> Path | None:
+        """The newest ``{out_dir}/ckpt/ckpt*.pt`` by modification time."""
+        if not self.out_dir:
+            return None
+        ckpts = sorted((self.out_dir / CKPT_DIR).glob("ckpt*.pt"),
+                       key=lambda p: (p.stat().st_mtime, p.name))
+        return ckpts[-1] if ckpts else None
+
+    def load_checkpoint(self, path: Path | None = None) -> bool:
+        """Restore ``path`` or the latest checkpoint onto this solver's device;
+        False when there is none. Call ``setup()`` first."""
+        path = path or self.latest_checkpoint()
+        if path is None:
+            return False
+        if self.optimizer is None:
+            raise RuntimeError("call setup() before load_checkpoint()")
+        self.restore_attrs(torch.load(path, map_location=self.device, weights_only=True))
+        return True
+
+
+def _to_float(v):
+    try:
+        return float(v)
+    except (TypeError, ValueError):
+        return v

@@ -1,7 +1,7 @@
 """Diffusion-based samplers (counterpart of sde_sampler_lrds_tpu/solvers/oc.py;
 only TrainableDiff, the tabulated Gaussian / GMM reference controls and RDS
 are ported yet, with reference types 'default' (VP and PinnedBM),
-'gaussian' and 'gmm').
+'gaussian' and 'gmm', each stored in and restored from RDS's checkpoints).
 
 Routing, as in the JAX package: plain-LV training takes the flat path
 (``lv_flat_call``), whose gradient-free simulation runs through
@@ -35,8 +35,8 @@ class TrainableDiff(Trainable):
     def __init__(self, target: Target, prior, sde, generative_ctrl,
                  loss_cls, loss_kwargs: dict | None = None,
                  train_ts=None, eval_ts=None, clip_target: float | None = None,
-                 cfg: TrainConfig | None = None, device=None):
-        super().__init__(target, cfg=cfg, device=device)
+                 cfg: TrainConfig | None = None, device=None, out_dir=None):
+        super().__init__(target, cfg=cfg, device=device, out_dir=out_dir)
         self.prior = prior
         self.sde = sde
         self.generative_ctrl = generative_ctrl.to(self.device)
@@ -307,7 +307,7 @@ class RDS(TrainableDiff):
         """Install the reference process: 'default' (the prior's Gaussian
         for VP; N(prior loc, T·g²) for PinnedBM), 'gaussian' or 'gmm'. Variances are diagonal, full ((D, D) or
         (C, D, D)) or an eigendecomposition (eig, P), given as tensors or
-        numpy arrays. The 'nn' reference is not ported."""
+        numpy arrays. The 'nn' reference is not ported (ROADMAP A5)."""
         from ..sde.linear import VP, PinnedBM
 
         sde = self.sde
@@ -345,7 +345,9 @@ class RDS(TrainableDiff):
                 zero, x, means, variances, weights)
             self.reference_score_t = GMMReferenceCtrl(sde, means, variances, weights)
         else:
-            raise NotImplementedError(f"Reference type {ref_type!r} is not ported.")
+            raise NotImplementedError(
+                f"Reference type {ref_type!r} is not ported"
+                + (" (ROADMAP A5, learned references)." if ref_type == "nn" else "."))
         self.ref_type = ref_type
         if self.loss is not None:
             self._rebuild_loss()
@@ -353,3 +355,40 @@ class RDS(TrainableDiff):
     def loss_call_args(self, use_ema: bool = False) -> dict:
         return {"terminal_unnorm_log_prob": self.clipped_target_unnorm_log_prob,
                 "reference_log_prob": self.reference_log_prob}
+
+    # -- checkpointing: the installed reference ------------------------------
+    def save_attrs(self) -> dict:
+        """The trainer's payload and the reference: its type and parameters,
+        an eigen-factored (eig, P) variance as a two-entry list."""
+        attrs = super().save_attrs()
+        ref = {"ref_type": self.ref_type}
+        for k, v in self.reference_distr_utils.items():
+            ref[k] = list(v) if isinstance(v, tuple) else v
+        attrs["reference"] = ref
+        return attrs
+
+    def restore_attrs(self, raw: dict) -> None:
+        """Restore the payload and install the stored reference through
+        ``change_reference_type``, whatever reference this solver was built
+        with."""
+        super().restore_attrs(raw)
+        ref = raw.get("reference")
+        if ref is None:
+            return
+        ref_type = ref["ref_type"]
+        if ref_type == "default":
+            self.change_reference_type("default")
+        elif ref_type == "gaussian":
+            self.change_reference_type("gaussian", mean=ref["x_init"],
+                                       var=_maybe_tuple(ref["var_init"]))
+        elif ref_type == "gmm":
+            self.change_reference_type("gmm", weights=ref["weights_init"],
+                                       means=ref["means_init"],
+                                       variances=_maybe_tuple(ref["variances_init"]))
+        else:  # 'nn' raises, naming its queue item
+            self.change_reference_type(ref_type)
+
+
+def _maybe_tuple(v):
+    """A stored (eig, P) variance comes back as a list."""
+    return tuple(v) if isinstance(v, (list, tuple)) else v

@@ -1,6 +1,6 @@
-"""The experiment drivers' train loop with an EUBO-augmented evaluation
-(counterpart of sde_sampler_lrds_tpu/solvers/wrappers.py; the wrapper with
-intermediate evaluations is not ported yet).
+"""The experiment drivers' train loop with an EUBO-augmented evaluation, and
+its variant with evaluations during training (counterpart of
+sde_sampler_lrds_tpu/solvers/wrappers.py).
 
 ``evaluate_eubo`` runs the loss's reverse (noising) pass on true target
 samples: the EUBO upper bound, a forward log-Z estimate and a forward ESS.
@@ -81,24 +81,37 @@ class TrainableWrapper:
             results.metrics["eval/eubo_error"] = repr(e)[:200]
             return results
 
-    def run(self, generator: torch.Generator | None = None) -> Results:
-        """Set up the trainable if it is not, take ``cfg.train_steps``
-        optimizer steps, then evaluate once with the EUBO. The steps draw
-        from ``generator``; the evaluation from generators derived from it."""
+    def run(self, generator: torch.Generator | None = None,
+            keep_training_metrics: bool = False):
+        """Set up the trainable if it is not, take steps up to
+        ``cfg.train_steps`` (hyperparameter schedules fast-forwarded to the
+        start and advanced after each step), then evaluate once with the
+        EUBO. The steps draw from ``generator``; the evaluation from
+        generators derived from it. With ``keep_training_metrics`` also
+        returns each step call's metrics as lists (read to the host every
+        step)."""
         t = self.trainable
         if t.optimizer is None:
             t.setup()
         if generator is None:
             generator = torch.Generator(t.device).manual_seed(t.cfg.seed + 1)
+        training_metrics = []
         spc = max(t.cfg.steps_per_call, 1)
         start = time.time()
-        for _ in range(t.step_count + spc - 1, t.cfg.train_steps, spc):
-            t.step(generator)
+        start_step = t.step_count
+        t._advance_param_schedule(start_step)
+        for i in range(start_step + spc - 1, t.cfg.train_steps, spc):
+            metrics = t.step(generator)
+            t._advance_param_schedule(i + 1)
+            if keep_training_metrics:
+                training_metrics.append({k: float(v) for k, v in metrics.items()})
         if t.device.type == "cuda":
             torch.cuda.synchronize(t.device)
         training_time = time.time() - start
         results = self.evaluate(derive_generator(generator, 1), derive_generator(generator, 2))
         results.metrics["eval/training_time"] = training_time
+        if keep_training_metrics:
+            return results, list_of_dict_2_dict_of_list(training_metrics)
         return results
 
     def evaluate(self, generator: torch.Generator, g_eubo: torch.Generator | None = None,
@@ -110,3 +123,41 @@ class TrainableWrapper:
         if g_eubo is None:
             g_eubo = derive_generator(generator, 99)
         return self.compute_results_eubo(results, g_eubo, use_ema=use_ema)
+
+
+class TrainableWrapperWithIntermediates(TrainableWrapper):
+    """The train loop with an evaluation (sample metrics and EUBO) every
+    ``results_freq`` steps, over ``n_seeds`` generators each."""
+
+    def run(self, generator: torch.Generator | None = None, results_freq: int = 16,
+            n_seeds: int = 1, bonus_metrics=None):
+        """Returns (final results, each step call's metrics as lists, each
+        snapshot's metrics as lists over its seeds, or {} when none was
+        taken). ``bonus_metrics`` is a list of (name, samples -> float)."""
+        t = self.trainable
+        if t.optimizer is None:
+            t.setup()
+        if generator is None:
+            generator = torch.Generator(t.device).manual_seed(t.cfg.seed + 1)
+        inter_train, inter_eval = [], []
+        spc = max(t.cfg.steps_per_call, 1)
+        start = time.time()
+        t._advance_param_schedule(t.step_count)
+        for i in range(t.step_count + spc - 1, t.cfg.train_steps, spc):
+            metrics = t.step(generator)
+            t._advance_param_schedule(i + 1)
+            inter_train.append({k: float(v) for k, v in metrics.items()})
+            if (i + 1) % results_freq == 0:
+                all_results = []
+                for s in range(n_seeds):
+                    results = self.evaluate(derive_generator(generator, 100 + 2 * s),
+                                            derive_generator(generator, 101 + 2 * s))
+                    for metric_name, metric in bonus_metrics or ():
+                        results.metrics["eval/" + metric_name] = float(metric(results.samples))
+                    all_results.append(dict(results.metrics))
+                inter_eval.append(list_of_dict_2_dict_of_list(all_results))
+        training_time = time.time() - start
+        results = self.evaluate(derive_generator(generator, 1), derive_generator(generator, 2))
+        results.metrics["eval/training_time"] = training_time
+        return (results, list_of_dict_2_dict_of_list(inter_train),
+                list_of_dict_2_dict_of_list(inter_eval) if inter_eval else {})

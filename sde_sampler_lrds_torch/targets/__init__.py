@@ -3,11 +3,15 @@ from .checkerboard import Checkerboard
 from .delta import Delta
 from .gauss import (
     GMM,
+    BracketTwoModes,
     Gauss,
     GaussFull,
+    GMMFull,
     IsotropicGauss,
     ManyModes,
     TwoModes,
+    TwoModesFull,
+    gmm_params,
     log_prob_gaussian,
     log_prob_gaussian_full,
     mog_full_log_prob,

@@ -1,14 +1,15 @@
 """Gaussian / Gaussian-mixture targets with closed-form log-probs and scores
 (counterpart of sde_sampler_lrds_tpu/targets/gauss.py: the diagonal and
-full-covariance functional densities, the diagonal classes with TwoModes
-and its mode-weight metric, and the single full-covariance Gaussian; the
-full-covariance mixture classes GMMFull and TwoModesFull, BracketTwoModes
-and the gmm_params presets are not ported yet). Mixture scores are computed in log-space
-with softmax responsibilities."""
+full-covariance functional densities, the ``gmm_params`` presets, the
+diagonal mixtures GMM, TwoModes, BracketTwoModes and ManyModes, the
+full-covariance mixtures GMMFull and TwoModesFull, Gauss, GaussFull and the
+optionally truncated IsotropicGauss). Mixture scores are computed in
+log-space with softmax responsibilities."""
 from __future__ import annotations
 
 import math
 from numbers import Number
+from statistics import NormalDist
 
 import numpy as np
 import torch
@@ -16,6 +17,39 @@ import torch
 from .base import ModeMetrics, Target
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+
+def gmm_params(name: str = "heart", dim: int = 2):
+    """Preset MoG parameters ('heart', 'dist', 'fab', 'multi', 'grid',
+    'circle') as float32 numpy arrays (loc, scale, weights)."""
+    if name == "heart":
+        loc = 1.5 * np.array(
+            [[-0.5, -0.25], [0.0, -1.0], [0.5, -0.25], [-1.0, 0.5],
+             [-0.5, 1.0], [0.0, 0.5], [0.5, 1.0], [1.0, 0.5]])
+        factor = 1.0 / len(loc)
+    elif name == "dist":
+        loc = np.array([[0.0, 0.0], [2.0, 0.0], [0.0, 3.0], [-4.0, 0.0], [0.0, -5.0]])
+        factor = math.sqrt(0.2)
+    elif name in ("fab", "multi"):
+        n_mixes, loc_scaling = (40, 40) if name == "fab" else (80, 80)
+        rng = np.random.default_rng(42)
+        loc = (rng.random((n_mixes, 2)) - 0.5) * 2 * loc_scaling
+        factor = math.log1p(math.e)  # softplus(1.0)
+    elif name == "grid":
+        x = np.linspace(-5, 5, 3)
+        loc = np.stack(np.meshgrid(x, x, indexing="ij"), axis=-1).reshape(-1, 2)
+        factor = math.sqrt(0.3)
+    elif name == "circle":
+        freq = 2 * np.pi * np.arange(1, 9) / 8
+        loc = np.stack([4.0 * np.cos(freq), 4.0 * np.sin(freq)], axis=1)
+        factor = math.sqrt(0.3)
+    else:
+        raise ValueError("Unknown mode for the Gaussian mixture.")
+    if dim > 2:
+        loc = np.concatenate([loc, np.zeros((loc.shape[0], dim - 2))], axis=1)
+    loc = loc.astype(np.float32)
+    scale = np.float32(factor) * np.ones_like(loc)
+    return loc, scale, np.ones((loc.shape[0],), np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -104,14 +138,17 @@ def mog_full_log_prob(x, weights, means, covariances, precisions=None,
 # ---------------------------------------------------------------------------
 
 class GMM(ModeMetrics, Target):
-    """Mixture of Gaussians with diagonal component covariances."""
+    """Mixture of Gaussians with diagonal component covariances, given its
+    parameters or a ``gmm_params`` preset ``name``."""
 
     def __init__(self, dim: int = 2, loc=None, scale=None, mixture_weights=None,
-                 n_reference_samples: int = int(1e6), domain_scale: float = 5.0,
-                 domain=None, device=None):
+                 n_reference_samples: int = int(1e6), name: str | None = None,
+                 domain_scale: float = 5.0, domain=None, device=None):
         super().__init__(dim=dim, log_norm_const=0.0,
                          n_reference_samples=n_reference_samples, domain=domain,
                          device=device)
+        if name is not None:
+            loc, scale, mixture_weights = gmm_params(name, dim=dim)
         loc = torch.as_tensor(loc, dtype=torch.float32, device=self.device)
         scale = torch.as_tensor(scale, dtype=torch.float32, device=self.device)
         self.n_mixtures = loc.shape[0]
@@ -164,6 +201,77 @@ class GMM(ModeMetrics, Target):
         return torch.bincount(idx, minlength=self.n_mixtures).to(torch.float32)
 
 
+class GMMFull(ModeMetrics, Target):
+    """Mixture of Gaussians with full component covariances (K, D, D), given
+    the covariances or the precisions."""
+
+    def __init__(self, dim: int = 2, loc=None, cov=None, prec=None, cov_log_det=None,
+                 mixture_weights=None, n_reference_samples: int = int(1e6),
+                 domain_scale: float = 5.0, domain=None, device=None):
+        super().__init__(dim=dim, log_norm_const=0.0,
+                         n_reference_samples=n_reference_samples, domain=domain,
+                         device=device)
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        loc = as_t(loc)
+        self.n_mixtures = loc.shape[0]
+        if cov is None and prec is None:
+            raise ValueError("Either cov or prec must be set.")
+        if cov is not None:
+            cov = as_t(cov)
+            prec = torch.linalg.inv(cov) if prec is None else as_t(prec)
+        else:
+            prec = as_t(prec)
+            cov = torch.linalg.inv(prec)
+        self.loc, self.cov, self.prec = loc, cov, prec
+        self.cov_log_det = (torch.linalg.slogdet(cov)[1] if cov_log_det is None
+                            else as_t(cov_log_det))
+        if mixture_weights is None:
+            if self.n_mixtures > 1:
+                raise ValueError("Require mixture weights.")
+            mixture_weights = torch.ones((1,))
+        self.mixture_weights = as_t(mixture_weights)
+        self._probs = self.mixture_weights / self.mixture_weights.sum()
+        self.chol = torch.linalg.cholesky(cov)
+        mean, std = self._mixture_mean_std()
+        if self.domain is None:
+            self.set_domain(torch.stack([mean - domain_scale * std,
+                                         mean + domain_scale * std], dim=1))
+        self.stddevs = std
+
+    def _mixture_mean_std(self):
+        p = self._probs[:, None]
+        mean = torch.sum(p * self.loc, dim=0)
+        diag = torch.diagonal(self.cov, dim1=-2, dim2=-1)
+        second = torch.sum(p * (diag + self.loc**2), dim=0)
+        return mean, torch.sqrt(second - mean**2)
+
+    def unnorm_log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        flat = x.reshape(-1, self.dim)
+        lp = mog_full_log_prob(flat, self.mixture_weights, self.loc, self.cov,
+                               precisions=self.prec, covariances_log_det=self.cov_log_det)
+        return lp.reshape(x.shape[:-1])
+
+    def score(self, x: torch.Tensor) -> torch.Tensor:
+        return score_mog_full(x, self.mixture_weights, self.loc, self.cov,
+                              precisions=self.prec, covariances_log_det=self.cov_log_det)
+
+    def sample(self, generator: torch.Generator, shape: tuple = ()) -> torch.Tensor:
+        n = math.prod(shape)
+        idx = torch.multinomial(self._probs, n, replacement=True,
+                                generator=generator).reshape(shape)
+        eps = torch.randn((*shape, self.dim), generator=generator, device=self.device)
+        return self.loc[idx] + torch.einsum("...ij,...j->...i", self.chol[idx], eps)
+
+    def has_entropy(self) -> bool:
+        return self.n_mixtures > 1
+
+    def compute_mode_count(self, samples: torch.Tensor) -> torch.Tensor:
+        lp = log_prob_gaussian_full(samples, self.loc, self.cov, precisions=self.prec,
+                                    covariances_log_det=self.cov_log_det)
+        idx = torch.argmax(lp, dim=-1)
+        return torch.bincount(idx, minlength=self.n_mixtures).to(torch.float32)
+
+
 class _ModeWeightMixin:
     """Adds the strongest mode's weight, in percent of the samples, as a
     metric and as the expectation ``mode_weight``."""
@@ -199,6 +307,43 @@ class TwoModes(_ModeWeightMixin, GMM):
         scale = np.repeat(np.sqrt(var.astype(np.float32))[None, :], 2, axis=0)
         super().__init__(dim=dim, loc=loc, scale=scale,
                          mixture_weights=np.array([2.0, 1.0], np.float32), **kwargs)
+
+
+class TwoModesFull(_ModeWeightMixin, GMMFull):
+    """Two modes weighted 2 : 1 at ∓a·1 with one covariance for both:
+    0.05·logspace(-1, 0, dim) ('medium') or 0.05·logspace(-2, 0, dim)
+    ('hard') on its diagonal, rotated by the Q of a QR decomposition drawn
+    from numpy's ``default_rng(seed_q)``."""
+
+    def __init__(self, dim: int = 2, a: float = 1.0, centered: bool = False,
+                 ill_conditioned: str = "medium", rand_factor: float = 5.0,
+                 seed_q: int = 42, **kwargs):
+        if ill_conditioned not in ("medium", "hard"):
+            raise ValueError(f"ill_conditioned must be 'medium' or 'hard', "
+                             f"got {ill_conditioned!r}")
+        loc = np.stack([-a * np.ones(dim), a * np.ones(dim)]).astype(np.float32)
+        if centered:
+            loc = loc + np.float32(a / 3.0)
+        rng = np.random.default_rng(seed_q)
+        q, _ = np.linalg.qr(rand_factor * rng.random((dim, dim)))
+        lo = -1.0 if ill_conditioned == "medium" else -2.0
+        cov = q @ np.diag(0.05 * np.logspace(lo, 0.0, dim)) @ q.T
+        super().__init__(dim=dim, loc=loc, cov=np.stack([cov, cov.copy()]).astype(np.float32),
+                         mixture_weights=np.array([2.0, 1.0], np.float32), **kwargs)
+
+
+class BracketTwoModes(_ModeWeightMixin, GMM):
+    """Two modes at ∓a·1 with mirrored diagonal variances, linspace(var_min,
+    var_max, dim) and its reverse, weighted 1 : 0.5 (or equally)."""
+
+    def __init__(self, dim: int = 2, a: float = 0.75, equilibrated: bool = False,
+                 var_min: float = 0.01, var_max: float = 0.2, **kwargs):
+        loc = np.stack([-a * np.ones(dim), a * np.ones(dim)]).astype(np.float32)
+        variance_diag = np.linspace(var_min, var_max, dim, dtype=np.float32)
+        variances = np.stack([variance_diag, variance_diag[::-1]])
+        weights = np.array([0.5, 0.5] if equilibrated else [1.0, 0.5], np.float32)
+        super().__init__(dim=dim, loc=loc, scale=np.sqrt(variances),
+                         mixture_weights=weights, **kwargs)
 
 
 def many_modes_loc(n_modes: int, dim: int, seed_loc: int = 42) -> np.ndarray:
@@ -274,15 +419,20 @@ class GaussFull(Target):
 
 
 class IsotropicGauss(Gauss):
-    """Isotropic Gaussian prior (the truncated variant is not ported yet)."""
+    """Isotropic Gaussian prior. With ``truncate_quartile`` q its draws are
+    truncated to the central 1 − q of its mass, coordinate by coordinate
+    (the density stays the untruncated one's, as in the JAX package)."""
 
     def __init__(self, dim: int = 1, loc: float = 0.0, scale: float = 1.0,
                  truncate_quartile: float | None = None, **kwargs):
-        if truncate_quartile is not None:
-            raise NotImplementedError("truncated IsotropicGauss is not ported")
         super().__init__(dim=dim, loc=loc, scale=scale, **kwargs)
         self._loc0 = float(self.loc[0, 0])
         self._scale0 = float(self.scale[0, 0])
+        if truncate_quartile is not None:
+            dist = NormalDist(self._loc0, self._scale0)
+            truncate_quartile = (dist.inv_cdf(truncate_quartile / 2),
+                                 dist.inv_cdf(1 - truncate_quartile / 2))
+        self.truncate_quartile = truncate_quartile
 
     def unnorm_log_prob(self, x: torch.Tensor) -> torch.Tensor:
         var = self._scale0**2
@@ -294,7 +444,16 @@ class IsotropicGauss(Gauss):
         return (self._loc0 - x) / self._scale0**2
 
     def sample(self, generator: torch.Generator, shape: tuple = ()) -> torch.Tensor:
-        z = torch.randn((*shape, self.dim), generator=generator, device=self.device)
+        if self.truncate_quartile is None:
+            z = torch.randn((*shape, self.dim), generator=generator, device=self.device)
+            return self._loc0 + self._scale0 * z
+        # inverse-cdf draws between the standardized bounds
+        std = NormalDist()
+        lo, hi = ((b - self._loc0) / self._scale0 for b in self.truncate_quartile)
+        c_lo, c_hi = std.cdf(lo), std.cdf(hi)
+        u = torch.rand((*shape, self.dim), generator=generator, device=self.device,
+                       dtype=torch.float64)
+        z = torch.special.ndtri(c_lo + (c_hi - c_lo) * u).clamp(lo, hi).float()
         return self._loc0 + self._scale0 * z
 
 

@@ -85,12 +85,34 @@ def _sde_state(sde):
 # (4) make_model
 # ---------------------------------------------------------------------------
 
-BUILD_CASES = [(s, r, i, t) for s in ("vp-ref", "pbm-ref") for r in ("default", "gaussian", "gmm")
+BUILD_CASES = [pytest.param(s, r, i, t, {}, id=f"{s}-{r}-{i}-{t}")
+               for s in ("vp-ref", "pbm-ref") for r in ("default", "gaussian", "gmm")
                for i in ("em", "ei") for t in ("uniform", "snr")]
+# the cosine VP (uniform grid from 1e-3, log-SNR grid), an lr schedule and
+# an out_dir
+BUILD_CASES += [
+    pytest.param("vp-ref", "gmm", "ei", "uniform", {"force_vp_cosine": True},
+                 id="cosine-gmm-ei-uniform"),
+    pytest.param("vp-ref", "gmm", "ei", "snr", {"force_vp_cosine": True}, id="cosine-gmm-ei-snr"),
+    pytest.param("vp-ref", "default", "em", "uniform", {"force_vp_cosine": True},
+                 id="cosine-default-em-uniform"),
+    pytest.param("vp-ref", "gmm", "ei", "snr",
+                 {"optim_details": {"lr_scheduler": {"name": "multi_step",
+                                                     "milestones": [2, 3]}}},
+                 id="lr_scheduler-multi_step"),
+    pytest.param("pbm-ref", "default", "ei", "snr",
+                 {"optim_details": {"lr": 1e-2, "lr_scheduler": {"name": "step", "step_size": 1,
+                                                                 "gamma": 0.5}}},
+                 id="lr_scheduler-step"),
+    pytest.param("vp-ref", "default", "ei", "snr", {"out_dir": "OUT"}, id="out_dir"),
+]
 
 
-@pytest.mark.parametrize("solver_type,ref_type,integrator,time_type", BUILD_CASES)
-def test_make_model_matches_jax(solver_type, ref_type, integrator, time_type):
+@pytest.mark.parametrize("solver_type,ref_type,integrator,time_type,extra", BUILD_CASES)
+def test_make_model_matches_jax(solver_type, ref_type, integrator, time_type, extra,
+                                tmp_path):
+    if extra.get("out_dir") == "OUT":
+        extra = {"out_dir": tmp_path / "jax", "OUT": tmp_path / "port"}
     if solver_type == "pbm-ref" and time_type == "uniform":
         args = _args(solver_type, ref_type, integrator, time_type)
         with pytest.raises(ValueError, match="PBM schedule is unstable"):
@@ -98,8 +120,19 @@ def test_make_model_matches_jax(solver_type, ref_type, integrator, time_type):
         with pytest.raises(ValueError, match="PBM schedule is unstable"):
             t_make_model(device="cpu", **args)
         return
-    j, t = _pair(solver_type, ref_type, integrator, time_type)
+    port_out = extra.pop("OUT", None)
+    args = _args(solver_type, ref_type, integrator, time_type, **extra)
+    j = make_model(mesh=get_mesh(1), **args)
+    if port_out is not None:
+        args["out_dir"] = port_out
+    t = t_make_model(device="cpu", **args)
     jc, tc = dataclasses.asdict(j.cfg), dataclasses.asdict(t.cfg)
+    # the lr schedule: the same value at every step, within and past the run
+    j_sched, t_sched = jc.pop("lr_schedule"), tc.pop("lr_schedule")
+    assert (j_sched is None) == (t_sched is None)
+    if j_sched is not None:
+        for step in range(12):
+            assert t_sched(step) == float(j_sched(step)), step
     assert jc == tc
     assert _sde_state(j.sde) == _sde_state(t.sde)
     assert type(j.prior).__name__ == type(t.prior).__name__
@@ -109,8 +142,16 @@ def test_make_model_matches_jax(solver_type, ref_type, integrator, time_type):
     assert tts.dtype == np.float32 and tts.shape == jts.shape
     if time_type == "uniform":   # linspace rounding: 1 ulp (ROADMAP §C)
         np.testing.assert_allclose(tts, jts, rtol=0, atol=1.2e-7 * max(1.0, jts.max()))
+    elif extra.get("force_vp_cosine"):
+        # the cosine log-SNR at t_eps, where α ≈ 1.6e-4 is -2 log of a cosine
+        # near 1, moves by 4e-4 when the two float32 cosines are an ulp
+        # apart; the bisection targets shift with it (measured: 8.0e-5)
+        np.testing.assert_allclose(tts, jts, rtol=0, atol=1e-4)
     else:                        # float32 bisection on the log-SNR
         np.testing.assert_allclose(tts, jts, rtol=1e-5)
+    if "out_dir" in args:
+        assert t.out_dir == port_out and (port_out / "ckpt").is_dir()
+        assert (j.out_dir / "ckpt").is_dir()
     assert j.ref_type == t.ref_type == ref_type
     assert set(j.reference_distr_utils) == set(t.reference_distr_utils)
     for k, v in j.reference_distr_utils.items():
@@ -158,6 +199,8 @@ REFUSALS = {
     "training_key": ("vp-ref", "base_zero_init", "ei", "snr", "default",
                      {"training_details": {"train_steps": 4, "train_batch_size": 8,
                                            "eval_batch_size": 8, "no_such_field": 1}}),
+    "lr_scheduler": ("vp-ref", "base_zero_init", "ei", "snr", "default",
+                     {"optim_details": {"lr_scheduler": {"name": "cosine"}}}),
 }
 
 
@@ -183,7 +226,6 @@ def test_make_model_refuses_as_jax(case):
                                     integrator_type="em", time_type="uniform")),
     ("ref_type 'nn'", dict(ref_type="nn")),
     ("target_informed_zero_init", dict(model_type="target_informed_zero_init")),
-    ("lr_scheduler", dict(optim_details={"lr_scheduler": {"name": "cosine"}})),
     ("Target cancer", dict(target_details={"name": "cancer"})),
 ])
 def test_make_model_names_what_is_not_ported(what, extra):

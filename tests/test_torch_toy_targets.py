@@ -1,6 +1,7 @@
 """The port's 2-D toy targets held against the JAX package: ``Rings`` and
 ``Checkerboard`` (densities, scores, the −inf off the board, the mode
-metrics, sampling), ``make_target`` for both names, ``get_metrics`` on them,
+metrics, sampling), ``make_target`` for both names (and for
+'two_modes_full' and 'bracket_two_modes'), ``get_metrics`` on them,
 and ``compute_results`` on density log-ratios that hold +inf, the value an
 off-board terminal sample gives.
 
@@ -245,7 +246,23 @@ def test_make_target_builds_toys_as_jax(name):
     assert t.log_norm_const == j.log_norm_const == 0.0
 
 
-@pytest.mark.parametrize("name", ["two_modes_full", "bracket_two_modes", "mnist", "cancer"])
+@pytest.mark.parametrize("name", ["two_modes_full", "bracket_two_modes"])
+def test_make_target_builds_gaussian_mixtures_as_jax(name):
+    details = make_target_details(name, dim=4)
+    assert t_make_target_details(name, dim=4) == details
+    j, t = make_target(details), t_make_target(details, device="cpu")
+    assert type(t).__name__ == type(j).__name__ and t.dim == j.dim == 4
+    assert t.n_reference_samples == j.n_reference_samples
+    assert t.log_norm_const == j.log_norm_const == 0.0
+    np.testing.assert_array_equal(N(t.loc), np.asarray(j.loc))
+    np.testing.assert_array_equal(N(t.mixture_weights), np.asarray(j.mixture_weights))
+    if name == "two_modes_full":
+        np.testing.assert_array_equal(N(t.cov), np.asarray(j.cov))
+    else:  # float32 linspace and square root of the variances: an ulp
+        np.testing.assert_allclose(N(t.scale), np.asarray(j.scale), rtol=2.4e-7)
+
+
+@pytest.mark.parametrize("name", ["mnist", "cancer"])
 def test_make_target_still_refuses_unported(name):
     with pytest.raises(NotImplementedError, match=f"Target {name} is not ported"):
         t_make_target(t_make_target_details(name), device="cpu")
