@@ -6,7 +6,8 @@ metrics, runs the SMC baseline at the experiments' defaults, runs the port's
 LRDS experiment drivers (two_modes vp-ref and pbm-ref, φ⁴ at its full
 width, many_modes, the 2-D toys and the two_modes sweeps) and the CLI with
 its checkpoints, the cosine VP and the sweep launcher through their entry
-points, and checks the quality of each.
+points, and the other VI samplers (PIS, DDS, DIS, CMCD) on B1's plans, through
+the competing drivers and through the CLI, and checks the quality of each.
 
     python3 chip_smoke.py
 
@@ -103,7 +104,24 @@ Phases:
      its plain version, then 256 trained steps; (e) a two-job sweep on one
      device slot
 
-Every path (phases 4, 5, 6, 8, 9, 10 and 11) is run with all launch counts set to 0 just
+ 12. the other VI samplers (PIS, DDS, DIS, CMCD): (a) B1 against its plain
+     version on their plans (original DDS on its cosine grid, K 129, the
+     Itô term on and off; discrete DIS on VP(0.1, 10); PIS's EM plan on
+     ScaledBM from the Delta prior's zeros; d 16, fed noise at 1024 and
+     8192, KERNEL_TOL), timed at the train and eval shapes in phase 7; (b)
+     original DDS on two_modes d 16 through make_model(base_zero_init,
+     force_base_zero_init): 256 flat-LV steps and a 64-step fused-KL run on
+     B1, each with the 8192 x 129 eval; (c) the four solvers through the
+     many_modes competing driver (4 modes, d 8, batch 1024, eval 8192,
+     K 100), cut to 1024 steps, 2 seeds and 10 000 MALA points, against the
+     JAX records; (d) the CLI's default solver: its default model refused
+     as by the JAX CLI, then dis with the score model and vp_rds with the
+     score model (128 steps each) and dis with GBS's inference control (32
+     steps, Hutchinson), in process; (c0) before (c): the flat LV
+     simulation outside B1's scope, a CUDA graph of the loss's loop, against
+     the loop itself, before and after a training step
+
+Every path (phases 4, 5, 6, 8, 9, 10, 11 and 12) is run with all launch counts set to 0 just
 before it and read just after. Prints the card as nvidia-smi reports it, then
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, with no result line, when there is no
@@ -115,7 +133,9 @@ runs one cell of a port driver (such as many_modes_mcmc_gmm
 --n_modes_range 64, too long for the smoke run) after the kernels' build,
 with phase 8's path and launch checks and no quality gate, and prints its
 summary line (medians and means over the eval seeds, stage seconds,
-launches).
+launches). A competing driver's cell (such as sample_two_modes_competing
+--solver_type dds_orig --dim_range 16, at its full depth) gets phase 12's
+path and launch checks, and at two_modes d 16 its JAX record's gate.
 """
 from __future__ import annotations
 
@@ -265,6 +285,45 @@ CLI_ROOT = Path("build/cli")
 # ELBO at most log Z_IS + GATE_COSINE_ELBO_SLACK; the sweep: 128 steps a job
 CLI_RESTORE_STEPS, CLI_MILESTONE, COSINE_STEPS, CLI_SWEEP_STEPS = 256, 128, 256, 128
 GATE_COSINE_ELBO_SLACK = 0.05
+# phase 12, the other VI samplers. (a) B1 on their plans at the competing
+# drivers' widths (d 16, H 64, 2 hidden layers, a random control): original
+# DDS on its cosine grid (0 -> 6.4 at dt 0.05: K 129) with σ moment-matched
+# to two_modes d 16 and α 1, the Itô term on and off; discrete DIS on
+# VP(0.1, 10), K 100; PIS's EM plan on ScaledBM(σ/√5, T 5), K 100, from the
+# Delta prior's zeros. Every plan is gated at KERNEL_TOL (the plain float32
+# versions sit at most 2 % of it from float64 on these plans, measured on
+# the CPU at B 512). (b) DDS on B1 through make_model(force_base_zero_init):
+# VI_DDS_STEPS flat-LV steps and a 64-step fused-KL run, each ending with
+# the 8192-trajectory eval. (c) the four solvers through the many_modes
+# competing driver (4 modes, d 8, batch 1024, eval 8192, K 100), cut in
+# depth to COMPETING_CUT (the records, experiments/results/SUMMARY.md, are
+# at 4096 steps, 16 seeds); DDS, PIS and CMCD held to |log Z err| <=
+# GATE_VI_LOGZ and ESS >= GATE_VI_ESS (records 0.0052 / 0.0090 / 0.0054
+# and 0.55 / 0.59 / 0.66), DIS within a factor GATE_DIS_FACTOR of its
+# record's |log Z err| (36.53). (d) the CLI's default solver (dis) at
+# CLI_VI_STEPS steps on two_modes d 16, whose default model make_model
+# refuses as the JAX CLI does; then with --model score, vp_rds with the
+# score model, and DIS with GBS's inference control, its divergence by
+# Hutchinson in training and cut to CLI_GBS_STEPS steps: GBS trains on the
+# loss's own loop, with a vector-Jacobian product a step through the
+# inference control (the exact divergence takes d = 16 of them: 466 s for
+# 128 steps on an H100; Hutchinson 82 s; DIS without GBS 2.8 s)
+VI_DIM, VI_DDS_STEPS, VI_KL_STEPS = 16, 256, 64
+COMPETING_CUT = ["--train_steps", "1024", "--n_sampling_seeds", "2", "--dataset_size", "10000"]
+COMPETING_MM = ["--dim_range", str(DIM), "--n_modes_range", str(N_MODES)]
+GATE_VI_LOGZ, GATE_VI_ESS, GATE_DIS_FACTOR = 0.1, 0.25, 2.0
+MANY_MODES_RECORDS = {"dds_orig": (0.005213, 0.5516), "pis_orig": (0.009022, 0.5902),
+                      "cmcd": (0.005419, 0.6631), "dis_orig": (36.53, 6.19e-4)}
+# the two_modes d 16 records of the same drivers at full depth (4096 steps,
+# 16 seeds; medians): the --cell sample_two_modes_competing runs are held
+# to |log Z err| <= record + GATE_CELL_VI_SLACK[0] and ESS >= record -
+# GATE_CELL_VI_SLACK[1] (DDS, PIS), DIS within GATE_DIS_FACTOR of its
+# record; the CMCD record diverged (as the original PyTorch reference
+# does), so its run is held to writing its pickle
+TWO_MODES_RECORDS = {"dds_orig": (0.008415, 0.3094), "pis_orig": (0.01793, 0.1947),
+                     "dis_orig": (35.41, 4.57e-4), "cmcd": None}
+GATE_CELL_VI_SLACK = (0.05, 0.15)
+CLI_VI_STEPS, CLI_GBS_STEPS = 128, 32
 # quality gates of the trained sampler against the target
 GATE_LOGZ, GATE_ESS, GATE_MODE_W = 0.05, 0.9, 0.06
 # the KL-trained demo's own gates (PERF.md §2): 256 reverse-KL steps hardly
@@ -2426,6 +2485,325 @@ def cli_cosine(dev, cli_solver, path_counts) -> tuple:
     return out, plan
 
 
+def vi_sigma(dim: int = VI_DIM) -> float:
+    """σ moment-matched to two_modes at ``dim``, from the target's own mixture
+    moments: sqrt((‖mean‖² + tr var)/d), as the competing drivers take it
+    from their MALA dataset."""
+    from sde_sampler_lrds_torch.api import make_target, make_target_details
+
+    mean, std = make_target(make_target_details("two_modes", dim=dim),
+                            device="cpu")._mixture_mean_std()
+    return math.sqrt(float((mean**2).sum() + (std**2).sum()) / dim)
+
+
+def vi_plans(dev) -> dict:
+    """Phase 12 (a)'s B1 plans with a random control: name -> (cfg, arrays,
+    prior the path draws x0 from)."""
+    from sde_sampler_lrds_torch.losses import (DiscreteTimeReversalLossEI, EMReferenceSDELoss,
+                                               ExponentialIntegratorSDELoss)
+    from sde_sampler_lrds_torch.models import ClippedCtrl, FourierMLP
+    from sde_sampler_lrds_torch.ops.fused_traj import build_plan
+    from sde_sampler_lrds_torch.sde import VP, ScaledBM, get_timesteps
+    from sde_sampler_lrds_torch.targets import Delta, IsotropicGauss
+
+    sigma = vi_sigma()
+    g = torch.Generator().manual_seed(121)
+    ctrl = ClippedCtrl(FourierMLP(dim=VI_DIM, channels=CHANNELS, num_layers=N_LAYERS),
+                       clip_model=1e4)
+    ctrl.reset_parameters(g)
+    ctrl.to(dev)
+    cosine = get_timesteps(0.0, 6.4, dt=0.05, rescale_t="cosine", device=dev)
+    uniform = get_timesteps(0.0, 1.0, steps=K_STEPS, device=dev)
+    pis_sigma = sigma / math.sqrt(5.0)
+    dds = ExponentialIntegratorSDELoss(alpha=1.0, sigma=sigma, method="lv")
+    cases = {
+        "dds_ito": (dds, cosine, True, IsotropicGauss(dim=VI_DIM, scale=sigma, device=dev)),
+        "dds_no_ito": (dds, cosine, False, IsotropicGauss(dim=VI_DIM, scale=sigma, device=dev)),
+        "dis_discrete": (DiscreteTimeReversalLossEI(sde=VP(0.1, 10.0), method="lv"), uniform,
+                         True, IsotropicGauss(dim=VI_DIM, scale=1.0, device=dev)),
+        "pis_em": (EMReferenceSDELoss(sde=ScaledBM(diff_coeff=pis_sigma, terminal_t=5.0),
+                                      method="lv"),
+                   get_timesteps(0.0, 5.0, steps=K_STEPS, device=dev), True,
+                   Delta(dim=VI_DIM, device=dev)),
+    }
+    out = {}
+    for name, (loss, ts, ito, prior) in cases.items():
+        cfg, arrays = build_plan(loss, ctrl, ts, ito=ito)
+        check(cfg.n_comp == 1 and not cfg.full_cov and not bool(arrays["ref_iv"].any()),
+              f"{name}: the plan must run on the dummy one-component reference")
+        check(ito or not bool(arrays["coefs"][:, 5].any()), f"{name}: the Itô term is on")
+        out[name] = (cfg, arrays, prior)
+    return out
+
+
+def phase_vi_kernel_vs_plain(dev, rec) -> dict:
+    """Phase 12 (a): B1 against its plain version on each plan, fed noise
+    and the pre-step states at the train and eval batches, KERNEL_TOL; two
+    launches bitwise equal at each."""
+    plans = vi_plans(dev)
+    rec["vi_plans"] = {}
+    for name, (cfg, arrays, prior) in plans.items():
+        cases = [(TRAIN_BATCH, "fed"), (EVAL_BATCH, "fed")]
+        err = compare_kernel(dev, cfg, arrays, f"fused_traj {name}", cases, KERNEL_TOL,
+                             prior=prior)
+        check_repeatable(dev, cfg, arrays, f"fused_traj {name}", prior=prior)
+        rec["vi_plans"][name] = {"max_abs_err": err, "gate": "KERNEL_TOL", "k_steps": cfg.k_steps}
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        say(f"[phase 12] (a) fused_traj {name}: K {cfg.k_steps}, max |diff| {err:.3e} "
+            f"(KERNEL_TOL)")
+    return plans
+
+
+def phase_vi_dds_on_b1(dev, path_counts) -> dict:
+    """Phase 12 (b): original DDS on two_modes d 16 through
+    make_model("dds_orig", model_type="base_zero_init",
+    force_base_zero_init=True): VI_DDS_STEPS flat-LV steps at batch 1024 and
+    the 8192 x 129 eval, all on B1; then VI_KL_STEPS steps of the fused KL
+    path and its eval."""
+    from sde_sampler_lrds_torch.api import make_model, make_target_details
+
+    out = {}
+    for label, method, steps in (("vi_dds_lv", "lv", VI_DDS_STEPS),
+                                 ("vi_dds_kl", "kl", VI_KL_STEPS)):
+        solver = make_model(
+            "dds_orig", "default", method, "em", "base_zero_init", "uniform",
+            {"sigma": vi_sigma()}, make_target_details("two_modes", dim=VI_DIM),
+            {"train_steps": steps, "train_batch_size": TRAIN_BATCH,
+             "eval_batch_size": EVAL_BATCH, "log_interval": steps, "eval_interval": 10**9,
+             "seed": 3}, force_base_zero_init=True, device=dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.setup()
+        metrics = solver.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = path_counts[label] = read_counts()
+        o = out[label] = {
+            "train_path": solver.train_path(), "eval_path": solver.eval_path(),
+            "k_steps": int(solver.train_ts.shape[0] - 1), "steps_trained": solver.step_count,
+            "n_skipped": solver.n_skipped, "launches": counts, "wall_s": wall,
+            "train_ms_per_step": metrics["train/time"] * 1e3 / steps,
+            "final": {k: metrics[k] for k in CELL_METRICS if k in metrics}}
+        say(f"[phase 12] (b) {label} " + json.dumps(o))
+        want_path = "flat_lv_fused" if method == "lv" else "kl_fused"
+        check(o["train_path"] == want_path and o["eval_path"] == "fused",
+              f"{label}: paths {o['train_path']} / {o['eval_path']}")
+        check(counts["fused_traj"] == steps + 1, f"{label}: B1 launched {counts}")
+        check(solver.step_count == steps, f"{label}: {solver.step_count} steps")
+        check(all(math.isfinite(o["final"][k]) for k in
+                  ("eval/elbo", "eval/log_norm_const_is", "eval/norm_effective_sample_size",
+                   "error/sinkhorn")), f"{label}: a metric is not finite: {o['final']}")
+        check_sample_kernels(label, counts, 1)
+    return out
+
+
+def run_competing_cell(dev, label: str, module: str, argv: list, path_counts,
+                       must_be_finite: bool = True) -> tuple:
+    """One cell of a port competing driver, through its ``main`` (and so
+    ``competing_run`` and ``run_vi``), its pickle under build/driver_cells/:
+    the target-informed control keeps B1 off (both packages' rule), the
+    evaluations run the loss's own loop and B2 / B3 once a seed. Returns
+    (cell, summary with the medians)."""
+    import importlib
+
+    from sde_sampler_lrds_torch.solvers.wrappers import TrainableWrapper
+
+    driver = importlib.import_module(f"sde_sampler_lrds_torch.experiments.{module}")
+    argv = argv + ["--device", "cuda", "--results_path", "build/driver_cells"]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StageProbe("eval", eval=(TrainableWrapper, "evaluate"),
+                    eubo=(TrainableWrapper, "compute_results_eubo")) as probe:
+        cells = driver.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = path_counts[label] = read_counts()
+    cell = cells[-1]
+    m = cell["metrics"]
+    lists = {k: v for k, v in m.items() if isinstance(v, list) and v and isinstance(v[0], float)}
+    medians = {k: float(np.median(v)) for k, v in lists.items()}
+    solver = probe.solver
+    n_seeds, steps = len(m["eval/elbo"]), solver.cfg.train_steps
+    eubo_s = sum(probe.seconds["eubo"])
+    out = {"solver": type(solver).__name__, "control": type(solver.generative_ctrl).__name__,
+           "train_path": solver.train_path(), "eval_path": solver.eval_path(),
+           "k_steps": int(solver.train_ts.shape[0] - 1), "launches": counts,
+           "steps_trained": solver.step_count, "n_skipped": solver.n_skipped,
+           "n_seeds": n_seeds,
+           "stage_s": {"mala": cell["times"]["mcmc"], "train": m["eval/training_time"][0],
+                       "eval": sum(probe.seconds["eval"]) - eubo_s, "eubo": eubo_s,
+                       "cell": wall},
+           "train_ms_per_step": m["eval/training_time"][0] * 1e3 / steps,
+           "medians": {k: medians[k] for k in CELL_METRICS if k in medians}}
+    say(f"[phase 12] competing cell {label} " + json.dumps(out))
+    check(out["control"] == "ScoreCtrl", f"{label}: control {out['control']}")
+    check(out["train_path"] in ("flat_lv_graph", "scan") and out["eval_path"] == "scan",
+          f"{label}: paths {out['train_path']} / {out['eval_path']}")
+    check(solver.step_count == steps, f"{label}: {solver.step_count} steps trained")
+    check(counts["fused_traj"] + counts["fused_traj_full_cov"] == 0,
+          f"{label}: B1 launched {counts} with a ScoreCtrl")
+    if must_be_finite:
+        for key in ("eval/elbo", "eval/log_norm_const_is", "eval/norm_effective_sample_size",
+                    "error/log_norm_const_is", "error/sinkhorn"):
+            check(all(math.isfinite(v) for v in m[key]), f"{label}: {key} not finite")
+        check_sample_kernels(label, counts, n_seeds)
+    return cell, out
+
+
+def check_vi_record(label: str, solver_type: str, med: dict, record, slack=None) -> None:
+    """The VI gates: DIS within GATE_DIS_FACTOR of its record's |log Z err|;
+    the others |log Z err| <= GATE_VI_LOGZ and ESS >= GATE_VI_ESS, or with
+    ``slack`` the record's values widened by it."""
+    err, ess = med["error/log_norm_const_is"], med["eval/norm_effective_sample_size"]
+    if solver_type == "dis_orig":
+        lo, hi = record[0] / GATE_DIS_FACTOR, record[0] * GATE_DIS_FACTOR
+        check(lo <= err <= hi, f"{label}: |log Z err| {err:.4f} outside [{lo:.2f}, {hi:.2f}] "
+                               f"(record {record[0]})")
+        return
+    max_err, min_ess = ((GATE_VI_LOGZ, GATE_VI_ESS) if slack is None
+                        else (record[0] + slack[0], record[1] - slack[1]))
+    check(err <= max_err, f"{label}: |log Z err| {err:.4f} > {max_err:.4f}")
+    check(ess >= min_ess, f"{label}: ESS {ess:.4f} < {min_ess:.4f}")
+
+
+def phase_vi_graph(dev) -> dict:
+    """Phase 12 (c0): the flat LV simulation of a solver outside B1's scope
+    (the competing drivers' ScoreCtrl) replayed as a CUDA graph against the
+    loss's own loop on the same inputs, bitwise, before and after a
+    training step (the graph reads the parameters the optimizer updated in
+    place), for DDS and CMCD at the competing width; and the two timed."""
+    from sde_sampler_lrds_torch.api import make_model, make_target_details
+
+    out = {}
+    for solver_type, details in (("dds_orig", {"sigma": 1.0}),
+                                 ("cmcd", {"mean": torch.zeros(DIM), "var": torch.eye(DIM)})):
+        solver = make_model(
+            solver_type, "gaussian" if solver_type == "cmcd" else "default", "lv", "em",
+            "target_informed_zero_init", "uniform", details,
+            make_target_details("many_modes", dim=DIM, n_modes=N_MODES),
+            {"train_steps": 1, "train_batch_size": TRAIN_BATCH, "eval_batch_size": EVAL_BATCH},
+            device=dev)
+        solver.setup()
+        check(solver.train_path() == "flat_lv_graph", f"{solver_type}: {solver.train_path()}")
+        g = torch.Generator(dev).manual_seed(131)
+        ts, args, k = solver.train_ts, solver.loss_call_args(), solver.train_ts.shape[0] - 1
+        same = []
+        for _ in range(2):
+            x0 = solver.prior.sample(g, (TRAIN_BATCH,))
+            zs = torch.randn(k, TRAIN_BATCH, DIM, generator=g, device=dev)
+            with torch.no_grad():
+                eager = solver.loss.flat_states(ts, x0, solver.train_ctrl(), zs, **args)
+            graphed = solver._graphed_states(x0, zs)
+            same.append((all(torch.equal(a, b) for a, b in zip(eager, graphed)),
+                         max_err(graphed, eager)))
+            solver.step(g)
+        with torch.no_grad():
+            eager_ms = time_cuda(lambda: solver.loss.flat_states(ts, x0, solver.train_ctrl(),
+                                                                 zs, **args), n=5, warmup=1)
+        graph_ms = time_cuda(lambda: solver._graphed_states(x0, zs), n=10, warmup=2)
+        out[solver_type] = {"bitwise_equal": [b for b, _ in same],
+                            "max_abs_diff": [e for _, e in same], "eager_ms": eager_ms,
+                            "graph_ms": graph_ms, "k_steps": k}
+        say(f"[phase 12] (c0) {solver_type} flat simulation as a CUDA graph: " + json.dumps(
+            out[solver_type]))
+        # the same kernels in the same order; cuBLAS may pick another
+        # algorithm under capture, so the gate is KERNEL_TOL's, not bitwise
+        for _, err in same:
+            check(err <= KERNEL_TOL["atol"], f"{solver_type}: the graph replay is {err:.3e} "
+                                             f"from the loss's loop")
+    return out
+
+
+def phase_vi_competing(dev, path_counts) -> dict:
+    """Phase 12 (c): the four solvers through sample_many_modes_competing at
+    the drivers' width, cut to COMPETING_CUT, against the records."""
+    out = {}
+    for solver_type, record in MANY_MODES_RECORDS.items():
+        label = f"competing_mm4_{solver_type}"
+        _, out[label] = run_competing_cell(
+            dev, label, "sample_many_modes_competing",
+            ["--solver_type", solver_type] + COMPETING_MM + COMPETING_CUT, path_counts)
+        med = out[label]["medians"]
+        say(f"[phase 12] (c) {label}: medians |log Z err| "
+            f"{med['error/log_norm_const_is']:.4f}, ESS "
+            f"{med['eval/norm_effective_sample_size']:.4f}; JAX record (4096 steps, 16 "
+            f"seeds): {record[0]}, {record[1]}")
+        check_vi_record(label, solver_type, med, record)
+    return out
+
+
+def phase_vi_cli(dev, path_counts) -> dict:
+    """Phase 12 (d): the CLI's default solver (dis) on two_modes d 16 for
+    CLI_VI_STEPS steps at its default batches: with its default model
+    make_model refuses, as the JAX CLI's does; then --model score, vp_rds
+    with --model score, and DIS with GBS's inference control
+    (CLI_GBS_STEPS steps, the Hutchinson estimator in training), each in
+    this process to exit 0 with finite final metrics."""
+    from sde_sampler_lrds_torch.scripts.main import main as cli_main
+
+    root = CLI_ROOT / "vi"
+    shutil.rmtree(root, ignore_errors=True)
+    base = ["--device", "cuda", "--dim", str(VI_DIM)]
+    refused = root / "default"
+    try:
+        cli_main(base + ["--train-steps", str(CLI_VI_STEPS), "--out-dir", str(refused)])
+        check(False, "the CLI's default (dis with the basic model) ran; make_model refuses it")
+    except SystemExit as e:
+        last = (refused / "error.txt").read_text().strip().splitlines()[-1]
+        check(e.code == 1 and last == "ValueError: Model base_zero_init is not supported.",
+              f"the CLI's default: exit {e.code}, {last}")
+    out = {"default_refused": last}
+    for label, steps, flags in (
+            ("cli_dis_score", CLI_VI_STEPS, ["--model", "score"]),
+            ("cli_vp_rds_score", CLI_VI_STEPS, ["--solver", "vp_rds", "--model", "score"]),
+            ("cli_dis_gbs", CLI_GBS_STEPS, ["--model", "score", "--set",
+                                            "model.inference_ctrl_arch=base_zero_init",
+                                            "loss.div_estimator=rademacher"])):
+        out_dir = root / label
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_in_process(base + flags + ["--train-steps", str(steps), "--out-dir", str(out_dir)],
+                       label)
+        torch.cuda.synchronize()
+        counts = path_counts[label] = read_counts()
+        _, evals, _ = cli_records(out_dir)
+        final = {k: evals[-1][k] for k in CELL_METRICS if k in evals[-1]}
+        out[label] = {"wall_s": time.perf_counter() - t0, "launches": counts, "final": final}
+        say(f"[phase 12] (d) {label} " + json.dumps(out[label]))
+        check(evals[-1]["step"] == steps, f"{label}: final record at {evals[-1]['step']}")
+        check(all(math.isfinite(final[k]) for k in ("eval/elbo", "eval/log_norm_const_is",
+                                                     "error/sinkhorn")),
+              f"{label}: a metric is not finite: {final}")
+        check(counts["fused_traj"] == 0, f"{label}: B1 launched {counts} with a ScoreCtrl")
+        check_sample_kernels(label, counts, 1)
+    return out
+
+
+def run_vi_cell(dev, module: str, flags: list) -> None:
+    """``--cell`` for a competing driver: one run through its main with
+    run_competing_cell's path and launch checks; a two_modes d 16 cell is
+    held to its JAX record (TWO_MODES_RECORDS, GATE_CELL_VI_SLACK), the
+    CMCD one to writing its pickle."""
+    value = lambda flag: flags[flags.index(flag) + 1] if flag in flags else None
+    solver_type = value("--solver_type")
+    record = None
+    if module == "sample_two_modes_competing" and value("--dim_range") == "16":
+        record = TWO_MODES_RECORDS[solver_type]
+    label = " ".join([module] + flags)
+    cell, out = run_competing_cell(dev, label, module, flags, {},
+                                   must_be_finite=solver_type != "cmcd")
+    if record is None:
+        check(math.isfinite(cell["metrics"]["eval/training_time"][0]), f"{label}: no pickle")
+        return
+    med = out["medians"]
+    say(f"[cell] {label}: medians |log Z err| {med['error/log_norm_const_is']:.4f}, ESS "
+        f"{med['eval/norm_effective_sample_size']:.4f}; JAX record {record}")
+    check_vi_record(label, solver_type, med, record, slack=GATE_CELL_VI_SLACK)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and (argv[0] != "--cell" or len(argv) < 2):
@@ -2468,7 +2846,10 @@ def main(argv=None) -> int:
         # one driver cell, with run_driver_cell's path and launch checks and
         # no quality gate; the kernels are built first, so no stage holds nvcc
         module, flags = argv[1], argv[2:]
-        run_driver_cell(dev, " ".join(argv[1:]), module, flags, {})
+        if module.endswith("_competing"):
+            run_vi_cell(dev, module, flags)
+        else:
+            run_driver_cell(dev, " ".join(argv[1:]), module, flags, {})
         return 0
     for n, b in built.items():
         say(f"[phase 1] {n} compiler report:\n{b['log'].strip()}")
@@ -2517,7 +2898,18 @@ def main(argv=None) -> int:
     phi_solver, driver_cells = phase_driver_cells(dev, path_counts)
     driver_cells.update(phase_more_driver_cells(dev, path_counts))
     cli, (cos_cfg, cos_arrays) = phase_cli(dev, path_counts)
+    t12 = time.perf_counter()
+    vi_plan_set = phase_vi_kernel_vs_plain(dev, recs["fused_traj"])
+    vi = {"dds_on_b1": phase_vi_dds_on_b1(dev, path_counts),
+          "graph": phase_vi_graph(dev),
+          "competing": phase_vi_competing(dev, path_counts),
+          "cli": phase_vi_cli(dev, path_counts)}
+    vi["phase_s"] = time.perf_counter() - t12
+    say(f"[phase 12] took {vi['phase_s']:.1f} s")
     phase_timing(dev, cfg, arrays, recs["fused_traj"], peaks, sfu_rate)
+    for plan_name, (vi_cfg, vi_arrays, _) in vi_plan_set.items():
+        phase_timing(dev, vi_cfg, vi_arrays, recs["fused_traj"]["vi_plans"][plan_name], peaks,
+                     sfu_rate, label=f"fused_traj {plan_name}")
     toy_cfg, toy_arrays, _ = driver_shape_plans["toy_rings_d2"]
     recs["fused_traj"]["toy_shape_d2_c8"] = {}
     phase_timing(dev, toy_cfg, toy_arrays, recs["fused_traj"]["toy_shape_d2_c8"], peaks,
@@ -2539,7 +2931,8 @@ def main(argv=None) -> int:
         check(rec["launches"] > 0, f"{kname} was never launched on a path")
     say("[phase 7] paths: " + json.dumps({"rds_eval": eval_times, "smc": smc,
                                           "driver_cells": driver_cells,
-                                          "bf16_demo": bf16_demo, "kl": kl, "cli": cli}))
+                                          "bf16_demo": bf16_demo, "kl": kl, "cli": cli,
+                                          "vi": vi}))
     say(json.dumps({"kernels": [
         {"name": kname, **{k: rec[k] for k in KERNEL_KEYS},
          **{k: v for k, v in rec.items() if k not in KERNEL_KEYS}}

@@ -15,11 +15,14 @@ the target and model factories ``make_target_details``, ``make_target``,
     time grid ∈ {uniform, snr}
 
 and refuses every combination the JAX package refuses, with the same
-messages. Ported so far: the RDS solvers 'vp-ref' and 'pbm-ref' (VP, the
-cosine VP of ``force_vp_cosine``, vp_20, PinnedBM) with the references
-'default', 'gaussian' and 'gmm', the 'base_zero_init' control, the lr
-schedulers of ``optim_details['lr_scheduler']`` and checkpoints under
-``out_dir``; every other value raises NotImplementedError naming it and its
+messages. Ported: every solver — the RDS solvers 'vp-ref' and 'pbm-ref'
+(VP, the cosine VP of ``force_vp_cosine``, vp_20, PinnedBM) with the
+references 'default', 'gaussian' and 'gmm', and the VI samplers
+'dds_orig', 'pis_orig', 'dis_orig' (with GBS's ``inference_ctrl_arch``) and
+'cmcd' (with its refitted prior) — the controls of every model type but the
+UNet ones, on the FourierMLP or the DenseNet, the lr schedulers of
+``optim_details['lr_scheduler']`` and checkpoints under ``out_dir``; the
+'nn' reference, the UNet and the mesh raise NotImplementedError naming their
 ROADMAP queue item. The targets 'two_modes', 'two_modes_full',
 'bracket_two_modes', 'many_modes', 'rings', 'checkerboard' and 'phi_four'
 are ported; the replica-exchange baseline is not.
@@ -35,12 +38,14 @@ import torch
 from .eval.ks import compute_sliced_ks
 from .eval.mmd import mmd_median
 from .eval.sinkhorn import Sinkhorn
-from .losses import DDPMLikeReferenceSDELoss, EIReferenceSDELoss, EMReferenceSDELoss
+from .losses import (ControlledLangevinSDELoss, DDPMLikeReferenceSDELoss, EIReferenceSDELoss,
+                     EMReferenceSDELoss, ExponentialIntegratorSDELoss, TimeReversalLoss)
 from .mcmc.kernels import MCMCState, run_chain
 from .mcmc.smc import smc_sampler
-from .models import ClippedCtrl, FourierMLP
-from .sde import VP, CosineVP, PinnedBM, get_timesteps
-from .solvers import RDS
+from .models import (CancelDriftCtrl, ClippedCtrl, DenseNet, FourierMLP, LerpCtrl, ScoreCtrl,
+                     TimeEmbed, remove_reference_ctrl)
+from .sde import VP, CosineVP, PinnedBM, ScaledBM, get_timesteps
+from .solvers import CMCD, DDS, PIS, RDS, Bridge
 from .solvers.base import TrainConfig
 from .targets import (BracketTwoModes, Checkerboard, Delta, IsotropicGauss, ManyModes,
                       PhiFour, Rings, TwoModes, TwoModesFull)
@@ -112,25 +117,49 @@ def make_target(target_details: dict, device=None):
     raise NotImplementedError(f"Target {name} not supported.")
 
 
+def _time_embed_scale_model(val: float | None = None) -> TimeEmbed:
+    """The TimeEmbed scale net of the target-informed controls: a near-zero
+    output (score models) or ≈ ``val`` (the Langevin and lerp inits)."""
+    return TimeEmbed(dim_out=1, num_layers=4, channels=64, zero_init_last=True,
+                     last_bias_val=0.0 if val is None else val)
+
+
 def make_ctrl(model_type: str, dim: int, target, prior, sde, compute_dtype=None,
               base_arch: str | None = None):
-    """The control network of a model type: 'base_zero_init' is
-    ClippedCtrl(FourierMLP(dim, zero_init=True), clip_model=1e4), in float32
-    or, with ``compute_dtype=torch.bfloat16``, with bf16 products."""
+    """The control network of a model type on the FourierMLP ('fouriermlp',
+    the default) or the DenseNet (``base_arch='densenet'``), in float32 or,
+    with ``compute_dtype=torch.bfloat16``, with bf16 products:
+    'base_zero_init' is ClippedCtrl(net, clip_model=1e4);
+    'target_informed_zero_init' ScoreCtrl, 'target_informed_langevin_init'
+    CancelDriftCtrl and 'target_informed_lerp_tempering' LerpCtrl, each with
+    a TimeEmbed scale net."""
     if "unet" in model_type:
         raise NotImplementedError(f"model_type {model_type!r} (the MNIST UNet) is not "
                                   f"ported yet (ROADMAP A6).")
-    if base_arch not in (None, "fouriermlp"):
-        if base_arch == "densenet":
-            raise NotImplementedError("base_arch 'densenet' is not ported yet (ROADMAP A2).")
-        raise ValueError(f"Unknown base_arch {base_arch!r}")
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype!r}")
-    if model_type == "base_zero_init":
+    if base_arch in (None, "fouriermlp"):
         base = FourierMLP(dim=dim, zero_init=True, compute_dtype=compute_dtype)
+    elif base_arch == "densenet":
+        base = DenseNet(dim=dim, arch=(64, 64), zero_init=True, compute_dtype=compute_dtype)
+    else:
+        raise ValueError(f"Unknown base_arch {base_arch!r}")
+    if model_type == "base_zero_init":
         return ClippedCtrl(base_model=base, clip_model=1e4)
-    if model_type in MODEL_TYPES:
-        raise NotImplementedError(f"model_type {model_type!r} is not ported yet (ROADMAP A2).")
+    if model_type == "target_informed_zero_init":
+        return ScoreCtrl(base_model=base, clip_model=1e4, clip_score=1e4,
+                         target_score=target.score, score_model=_time_embed_scale_model(),
+                         detach_score=False, scale_score=1.0)
+    if model_type == "target_informed_langevin_init":
+        return CancelDriftCtrl(base_model=base, clip_model=1e4, clip_score=1e4,
+                               target_score=target.score,
+                               score_model=_time_embed_scale_model(val=1.0),
+                               detach_score=False, sde=sde)
+    if model_type == "target_informed_lerp_tempering":
+        return LerpCtrl(base_model=base, clip_model=1e4, clip_score=1e4,
+                        target_score=target.score, prior_score=prior.score,
+                        score_model=_time_embed_scale_model(val=1.0),
+                        detach_score=False, sde=sde, scale_lerp=1.0)
     raise ValueError(f"Unknown model type {model_type}")
 
 
@@ -140,7 +169,7 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
                n_steps: int = 100, force_base_zero_init: bool = False,
                use_ema: bool = False, force_vp20: bool = False,
                force_vp_cosine: bool = False, compute_samples_based_metrics: bool = True,
-               out_dir=None, mesh=None,
+               force_T_cosine: float | None = None, out_dir=None, mesh=None,
                compute_dtype=None, base_arch: str | None = None,
                sde_details: dict | None = None, loss_details: dict | None = None,
                inference_ctrl_arch: str | None = None, device=None):
@@ -149,7 +178,11 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
     are merged into the SDE's constructor, ``loss_details`` into the loss's
     keyword arguments; ``optim_details['lr_scheduler']`` (a dict with a
     'name' and its arguments) becomes ``cfg.lr_schedule``; ``out_dir``
-    holds ``metrics.jsonl`` and the checkpoints."""
+    holds ``metrics.jsonl`` and the checkpoints. ``inference_ctrl_arch``
+    (DIS only) adds GBS's learned inference control, a second control of
+    that model type; ``loss_details={'div_estimator': 'rademacher'}`` then
+    estimates its divergence by Hutchinson instead of exactly.
+    ``force_T_cosine`` moves the end of DDS's cosine grid from 6.4."""
     if solver_type not in SOLVER_TYPES:
         raise ValueError(f"Unknown solver_type {solver_type!r}")
     if ref_type not in ("default", "gaussian", "gmm", "nn"):
@@ -221,9 +254,6 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
                              f"got {inference_ctrl_arch!r}")
 
     # -- what the port does not have yet ------------------------------------
-    if "ref" not in solver_type:
-        raise NotImplementedError(f"solver_type {solver_type!r} is not ported yet "
-                                  f"(ROADMAP A2, the other VI samplers).")
     if ref_type == "nn":
         raise NotImplementedError("ref_type 'nn' is not ported yet (ROADMAP A5, learned "
                                   "references).")
@@ -284,36 +314,72 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
         loss_kwargs["max_rnd"] = 1e8
     loss_kwargs.update(loss_details or {})
 
-    t_eps = 1e-4
-    if solver_type == "pbm-ref":
-        sde = _sde(PinnedBM, diff_coeff=sigma if ref_type == "default" else math.sqrt(0.2),
-                   terminal_t=5.0)
-        prior = Delta(dim=dim, loc=0.0, device=device)
-        # the uniform grid is refused for pbm-ref above
-        ts = get_timesteps(t_eps, sde.terminal_t - t_eps, steps=n_steps, sde=sde,
-                           device=device)
-    else:
+    def ctrl(prior, sde):
+        return make_ctrl(model_type, dim, target, prior, sde, compute_dtype=compute_dtype,
+                         base_arch=base_arch)
+
+    def make_vp():
         if force_vp_cosine:
-            sde = _sde(CosineVP, scale_diff_coeff=sigma)
-        else:
-            sde = _sde(VP, diff_coeff_sq_min=0.1,
-                       diff_coeff_sq_max=20.0 if force_vp20 else 10.0, scale_diff_coeff=sigma)
+            return _sde(CosineVP, scale_diff_coeff=sigma)
+        return _sde(VP, diff_coeff_sq_min=0.1, diff_coeff_sq_max=20.0 if force_vp20 else 10.0,
+                    scale_diff_coeff=sigma)
+
+    t_eps = 1e-4
+    common = dict(cfg=cfg, device=device, out_dir=out_dir)
+    if solver_type == "dds_orig":
+        prior = IsotropicGauss(dim=dim, scale=sigma, device=device)
+        end = force_T_cosine if force_T_cosine is not None else 6.4
+        ts = get_timesteps(0.0, end, dt=0.05, rescale_t="cosine", device=device)
+        loss_kwargs.setdefault("alpha", solver_details.get("alpha", 1.0))
+        loss_kwargs.setdefault("sigma", sigma)
+        solver = DDS(target, prior, None, ctrl(prior, None), ExponentialIntegratorSDELoss,
+                     loss_kwargs, train_ts=ts, **common)
+    elif solver_type == "pis_orig":
+        prior = Delta(dim=dim, loc=0.0, device=device)
+        sde = _sde(ScaledBM, diff_coeff=sigma, terminal_t=solver_details.get("terminal_t", 5.0))
+        ts = get_timesteps(0.0, sde.terminal_t, steps=n_steps, device=device)
+        solver = PIS(target, prior, sde, ctrl(prior, sde), EMReferenceSDELoss, loss_kwargs,
+                     train_ts=ts, **common)
+    elif solver_type == "dis_orig":
+        sde = make_vp()
         prior = IsotropicGauss(dim=dim, scale=sde.scale_diff_coeff, device=device)
-        if time_type == "snr":
+        ts = get_timesteps(0.0, sde.terminal_t, steps=n_steps, device=device)
+        inf_ctrl = None
+        if inference_ctrl_arch is not None:
+            inf_ctrl = make_ctrl(inference_ctrl_arch, dim, target, prior, sde,
+                                 compute_dtype=compute_dtype, base_arch=base_arch)
+        solver = Bridge(target, prior, sde, ctrl(prior, sde), TimeReversalLoss, loss_kwargs,
+                        train_ts=ts, inference_ctrl=inf_ctrl, **common)
+    elif solver_type == "cmcd":
+        prior = IsotropicGauss(dim=dim, scale=solver_details.get("prior_scale", 5.0),
+                               device=device)
+        ts = get_timesteps(0.0, 1.0, steps=n_steps, device=device)
+        solver = CMCD(target, prior, None, ctrl(prior, None), ControlledLangevinSDELoss,
+                      loss_kwargs, train_ts=ts, **common)
+    else:  # vp-ref / pbm-ref -> RDS
+        if solver_type == "pbm-ref":
+            sde = _sde(PinnedBM, diff_coeff=sigma if ref_type == "default" else math.sqrt(0.2),
+                       terminal_t=5.0)
+            prior = Delta(dim=dim, loc=0.0, device=device)
+            # the uniform grid is refused for pbm-ref above
             ts = get_timesteps(t_eps, sde.terminal_t - t_eps, steps=n_steps, sde=sde,
                                device=device)
-        elif force_vp_cosine:  # α(T) is infinite: start the uniform grid at 1e-3
-            ts = get_timesteps(1e-3, sde.terminal_t, steps=n_steps, device=device)
-        elif integrator_type == "ddpm_like":
-            ts = get_timesteps(0.0, sde.terminal_t - 1e-4, steps=n_steps, device=device)
         else:
-            ts = get_timesteps(0.0, sde.terminal_t, steps=n_steps, device=device)
-    loss_cls = {"em": EMReferenceSDELoss, "ei": EIReferenceSDELoss,
-                "ddpm_like": DDPMLikeReferenceSDELoss}[integrator_type]
-    solver = RDS(target, prior, sde,
-                 make_ctrl(model_type, dim, target, prior, sde, compute_dtype=compute_dtype,
-                           base_arch=base_arch),
-                 loss_cls, loss_kwargs, train_ts=ts, cfg=cfg, device=device, out_dir=out_dir)
+            sde = make_vp()
+            prior = IsotropicGauss(dim=dim, scale=sde.scale_diff_coeff, device=device)
+            if time_type == "snr":
+                ts = get_timesteps(t_eps, sde.terminal_t - t_eps, steps=n_steps, sde=sde,
+                                   device=device)
+            elif force_vp_cosine:  # α(T) is infinite: start the uniform grid at 1e-3
+                ts = get_timesteps(1e-3, sde.terminal_t, steps=n_steps, device=device)
+            elif integrator_type == "ddpm_like":
+                ts = get_timesteps(0.0, sde.terminal_t - 1e-4, steps=n_steps, device=device)
+            else:
+                ts = get_timesteps(0.0, sde.terminal_t, steps=n_steps, device=device)
+        loss_cls = {"em": EMReferenceSDELoss, "ei": EIReferenceSDELoss,
+                    "ddpm_like": DDPMLikeReferenceSDELoss}[integrator_type]
+        solver = RDS(target, prior, sde, ctrl(prior, sde), loss_cls, loss_kwargs, train_ts=ts,
+                     **common)
 
     # -- sample-based metrics ----------------------------------------------
     if compute_samples_based_metrics:
@@ -321,13 +387,24 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
                                 "ks": lambda a, b: compute_sliced_ks(a, b)}
 
     # -- reference install -------------------------------------------------
-    if ref_type == "gaussian":
-        solver.change_reference_type(
-            "gaussian", mean=solver_details["mean_ref"], var=solver_details["var_ref"])
-    elif ref_type == "gmm":
-        solver.change_reference_type(
-            "gmm", weights=solver_details["weights_ref"], means=solver_details["means_ref"],
-            variances=solver_details["variances_ref"])
+    if "ref" in solver_type:
+        if ref_type == "gaussian":
+            solver.change_reference_type(
+                "gaussian", mean=solver_details["mean_ref"], var=solver_details["var_ref"])
+        elif ref_type == "gmm":
+            solver.change_reference_type(
+                "gmm", weights=solver_details["weights_ref"],
+                means=solver_details["means_ref"], variances=solver_details["variances_ref"])
+    if solver_type == "cmcd" and ref_type == "gaussian":
+        solver.update_prior(mean=solver_details["mean"], var=solver_details["var"])
+
+    # -- Langevin init under RDS: the control models only the deviation
+    # from the reference process (the reference read at each call, so a
+    # later change_reference_type is followed)
+    if model_type == "target_informed_langevin_init" and "ref" in solver_type:
+        solver.ctrl_wrapper = lambda module: remove_reference_ctrl(
+            module, lambda t, x: solver.reference_score_t(t, x), use_rescaling=True,
+            sde=solver.sde)
     return solver
 
 

@@ -1,13 +1,16 @@
-"""Shared machinery of the LRDS experiment drivers (counterpart of the
-JAX package's experiments/common.py: the dataset preamble,
-``sigma_from_moments``, ``run_vi``, ``lrds_run`` and the result pickle; the
-SMC / replica-exchange baselines and the EBM references are not ported
-yet).
+"""Shared machinery of the experiment drivers (counterpart of the JAX
+package's experiments/common.py: the dataset preamble,
+``sigma_from_moments``, ``run_vi``, ``lrds_run``, ``competing_run`` and the
+result pickle; the competing drivers' SMC / replica-exchange cells and the
+EBM references are not ported yet).
 
-One driver cell: build the target → MALA dataset → fit the reference
+One LRDS cell: build the target → MALA dataset → fit the reference
 (Gaussian or GMM) → ``make_model`` → ``TrainableWrapper.run`` → evaluation
-over several seeds → pickle {config, results}. Every random draw comes from
-generators derived from ``--seed``; every constructor gets ``--device``.
+over several seeds → pickle {config, results}. A competing cell trains one
+of the other VI samplers (PIS, DDS, DIS, CMCD) with its scale moment-matched
+to the MALA dataset (CMCD: its prior fitted to it). Every random draw comes
+from generators derived from ``--seed``; every constructor gets
+``--device``.
 """
 from __future__ import annotations
 
@@ -59,9 +62,16 @@ def build_dataset_and_gaussian(generator: torch.Generator, target, x_init, datas
     return dataset, mean, var, var_diag, {"mcmc": t_mcmc, "ref": t_ref}
 
 
-def sigma_from_moments(mean, var_diag, dim: int) -> float:
-    """σ_opt = sqrt((‖mean‖² + tr var)/d)."""
-    return math.sqrt(float(torch.sum(mean**2) + var_diag.sum()) / dim)
+VI_SOLVERS = ("pis_orig", "dds_orig", "dis_orig", "cmcd", "vp-ref", "pbm-ref")
+BASELINES = ("smc", "re")
+
+
+def sigma_from_moments(mean, var_diag, dim: int, terminal_t: float | None = None) -> float:
+    """σ_opt = sqrt((‖mean‖² + tr var)/d), divided by sqrt(T) for PIS."""
+    sigma = math.sqrt(float(torch.sum(mean**2) + var_diag.sum()) / dim)
+    if terminal_t is not None:
+        sigma /= math.sqrt(terminal_t)
+    return sigma
 
 
 def run_vi(generator: torch.Generator, solver_type, target_details, solver_details,
@@ -142,8 +152,8 @@ def announce(config: dict):
 
 
 class _NotPorted(argparse.Action):
-    """A JAX driver flag of a baseline the port does not have yet (SMC,
-    replica exchange, PIS): its default is kept in the config, any other
+    """A JAX driver flag of a baseline the port's drivers do not run yet
+    (SMC, replica exchange): its default is kept in the config, any other
     value raises."""
 
     def __call__(self, parser, namespace, values, option_string=None):
@@ -156,17 +166,18 @@ class _NotPorted(argparse.Action):
 def add_common_args(parser, dataset_size=40000, train_steps=4096,
                     train_batch=1024, eval_batch=8192):
     """The JAX drivers' flags and defaults; ``--device`` is 'cuda' (the
-    default) or 'cpu'. The SMC / replica-exchange / PIS flags keep their
-    defaults in the config; another value raises until those baselines are
-    ported."""
+    default) or 'cpu'. The SMC / replica-exchange flags keep their defaults
+    in the config; another value raises until the drivers run those
+    baselines (ROADMAP A3)."""
     parser.add_argument("--results_path", type=str, default="results")
     for flag, kind, default in (
             ("smc_n_steps", int, 128), ("smc_n_particles", int, 1024),
             ("smc_n_mcmc_steps", int, 32), ("smc_n_warmup_mcmc_steps", int, 1024),
             ("re_n_steps", int, 128), ("re_batch_size", int, 1024),
             ("re_n_mcmc_steps", int, 32), ("re_n_warmup_mcmc_steps", int, 4096),
-            ("re_swap_frequency", int, 8), ("terminal_t_pis", float, 5.0)):
+            ("re_swap_frequency", int, 8)):
         parser.add_argument(f"--{flag}", type=kind, default=default, action=_NotPorted)
+    parser.add_argument("--terminal_t_pis", type=float, default=5.0)
     parser.add_argument("--train_steps", type=int, default=train_steps)
     parser.add_argument("--train_batch_size", type=int, default=train_batch)
     parser.add_argument("--eval_batch_size", type=int, default=eval_batch)
@@ -229,4 +240,44 @@ def lrds_run(args, target, target_details, x_init, ref_type, extra_params=None,
         **model_kwargs)
     return {"metrics": all_metrics, "times": times, "params": extra_params or {},
             **extra_diag,
+            "gauss_params": {"mean": mean.cpu().numpy(), "var": var.cpu().numpy()}}
+
+
+def competing_run(args, target, target_details, x_init, filename_stub, extra_params=None,
+                  model_type="target_informed_zero_init", mcmc_step_size=1e-3,
+                  dis_vp20=False):
+    """One (target configuration, solver) cell of a *_competing.py driver:
+    the MALA dataset's moments set the sampler's scale (σ, over √T for
+    PIS, whose horizon follows ``--terminal_t_pis``) or CMCD's Gaussian
+    prior; the sampler trains with the LV loss on the uniform grid and is
+    evaluated over ``--n_sampling_seeds`` seeds. ``dis_vp20`` runs DIS on
+    the vp_20 schedule (the ManyModes driver only). The 'smc' and 're'
+    cells raise: the replica-exchange sampler is not ported, and both come
+    with ROADMAP A3."""
+    if args.solver_type in BASELINES:
+        raise NotImplementedError(
+            f"--solver_type {args.solver_type} is not ported in the competing drivers yet "
+            f"(ROADMAP A3, the SMC / replica-exchange baselines).")
+    device = resolve_device(args.device)
+    base = torch.Generator(device).manual_seed(args.seed)
+    g_data, g_vi = derive_generator(base, 1), derive_generator(base, 2)
+    dataset, mean, var, var_diag, times = build_dataset_and_gaussian(
+        g_data, target, x_init, args.dataset_size, step_size=mcmc_step_size, device=device)
+    if args.solver_type == "cmcd":
+        solver_details = {"mean": mean, "var": var}
+    else:
+        pis = args.solver_type == "pis_orig"
+        solver_details = {"sigma": sigma_from_moments(
+            mean, var_diag, target.dim, terminal_t=args.terminal_t_pis if pis else None)}
+        if pis:   # the SDE's horizon follows the σ/√T scaling
+            solver_details["terminal_t"] = args.terminal_t_pis
+    _, all_metrics = run_vi(
+        g_vi, args.solver_type, target_details, solver_details,
+        {"train_steps": args.train_steps, "train_batch_size": args.train_batch_size,
+         "eval_batch_size": args.eval_batch_size},
+        n_sampling_seeds=args.n_sampling_seeds,
+        ref_type="gaussian" if args.solver_type == "cmcd" else "default",
+        model_type=model_type, n_steps=args.n_steps, device=device,
+        force_vp20=dis_vp20 and args.solver_type == "dis_orig")
+    return {"metrics": all_metrics, "times": times, "params": extra_params or {},
             "gauss_params": {"mean": mean.cpu().numpy(), "var": var.cpu().numpy()}}

@@ -1,9 +1,10 @@
-"""LRDS (and, once ported, the other VI samplers) on TwoModes across the
-reference scale σ: a sweep of factors around the moment-matched σ (the
-counterpart of the JAX package's experiments/sigma_sensitivity.py: the same
-flags, defaults (2048 train steps) and pickle name). 'vp-ref' and 'pbm-ref'
-run on their 'default' reference; 'pis_orig', 'dds_orig' and 'dis_orig'
-raise NotImplementedError until those solvers are ported (ROADMAP A2).
+"""LRDS and the other VI samplers on TwoModes across the reference scale σ:
+a sweep of factors around the moment-matched σ (the counterpart of the JAX
+package's experiments/sigma_sensitivity.py: the same flags, defaults (2048
+train steps) and pickle name). 'vp-ref' and 'pbm-ref' run on their
+'default' reference with EI on the log-SNR grid; 'pis_orig', 'dds_orig' and
+'dis_orig' with EM on the uniform grid and the target-informed control (σ
+over √T for PIS).
 
     python -m sde_sampler_lrds_torch.experiments.sigma_sensitivity [--device cpu] ...
 """
@@ -24,9 +25,6 @@ def main(argv=None):
     parser.add_argument("--sigma_factors", type=str, default="0.25,0.5,1.0,2.0,4.0")
     add_common_args(parser, train_steps=2048)
     args = parser.parse_args(argv)
-    if "ref" not in args.solver_type:
-        raise NotImplementedError(f"--solver_type {args.solver_type} is not ported yet; it "
-                                  f"comes with the other VI samplers (ROADMAP A2).")
     config = vars(args)
     announce(config)
 
@@ -37,8 +35,11 @@ def main(argv=None):
     base = torch.Generator(device).manual_seed(args.seed)
     dataset, mean, var, var_diag, times = build_dataset_and_gaussian(
         derive_generator(base, 1), target, target.loc, args.dataset_size, device=device)
-    sigma_opt = sigma_from_moments(mean, var_diag, target.dim)
+    sigma_opt = sigma_from_moments(
+        mean, var_diag, target.dim,
+        terminal_t=args.terminal_t_pis if args.solver_type == "pis_orig" else None)
 
+    is_ref = "ref" in args.solver_type
     dump = []
     for i, factor in enumerate(float(x) for x in args.sigma_factors.split(",")):
         _, metrics = run_vi(
@@ -46,8 +47,11 @@ def main(argv=None):
             {"sigma": factor * sigma_opt},
             {"train_steps": args.train_steps, "train_batch_size": args.train_batch_size,
              "eval_batch_size": args.eval_batch_size},
-            n_sampling_seeds=args.n_sampling_seeds, integrator_type="ei", time_type="snr",
-            model_type="base_zero_init", n_steps=args.n_steps, device=device)
+            n_sampling_seeds=args.n_sampling_seeds,
+            integrator_type="ei" if is_ref else "em",
+            time_type="snr" if is_ref else "uniform",
+            model_type="base_zero_init" if is_ref else "target_informed_zero_init",
+            n_steps=args.n_steps, device=device)
         dump.append({"metrics": metrics, "times": times,
                      "params": {"sigma_factor": factor, "sigma": factor * sigma_opt}})
         dump_results(args.results_path, filename, config, dump)

@@ -68,12 +68,14 @@ def compute_results(rnd: torch.Tensor, compute_weights: bool = False,
 
 
 class BaseOCLoss:
-    """Config + reduction shared by all trajectory losses. The exploration
-    noise / dropout hooks on the detached control are not ported yet."""
+    """Config + reduction shared by all trajectory losses, and the
+    exploration hooks of the detached simulation control (``sde_ctrl_noise``,
+    ``sde_ctrl_dropout``)."""
 
     def __init__(self, sde=None, method: str = "kl", traj_per_sample: int = 1,
                  filter_samples: Callable | None = None,
-                 max_rnd: float | None = None):
+                 max_rnd: float | None = None, sde_ctrl_noise: float | None = None,
+                 sde_ctrl_dropout: float | None = None):
         if method not in ("kl", "kl_ito", "lv", "lv_traj"):
             raise ValueError("Unknown loss method.")
         if traj_per_sample == 1 and method == "lv_traj":
@@ -83,10 +85,32 @@ class BaseOCLoss:
         self.traj_per_sample = traj_per_sample
         self.filter_samples = filter_samples
         self.max_rnd = max_rnd
+        self.sde_ctrl_noise = sde_ctrl_noise
+        self.sde_ctrl_dropout = sde_ctrl_dropout
 
     @property
     def is_lv(self) -> bool:
         return self.method in ("lv", "lv_traj")
+
+    def _sde_ctrl(self, u: torch.Tensor, generator, t, x, noise=None,
+                  uniform=None) -> torch.Tensor:
+        """The detached simulation control of the log-variance loss, with the
+        optional exploration hooks: Gaussian noise of scale
+        ``sde_ctrl_noise`` added, and each entry replaced with probability
+        ``sde_ctrl_dropout`` by −drift/diff of the SDE. Their draws come
+        from ``generator`` unless fed as ``noise`` and ``uniform``."""
+        sde_ctrl = u.detach()
+        if self.sde_ctrl_noise is not None:
+            if noise is None:
+                noise = torch.randn(u.shape, generator=generator, device=u.device)
+            sde_ctrl = sde_ctrl + self.sde_ctrl_noise * noise
+        if self.sde_ctrl_dropout is not None:
+            if uniform is None:
+                uniform = torch.rand(u.shape, generator=generator, device=u.device)
+            replacement = -(self.sde.drift(t, x) / self.sde.diff(t, x))
+            sde_ctrl = torch.where(uniform > self.sde_ctrl_dropout,
+                                   torch.broadcast_to(replacement, u.shape).detach(), sde_ctrl)
+        return sde_ctrl
 
     def supports_flat_lv(self, ts, call_args: frozenset) -> bool:
         """Whether ``lv_flat_call`` covers this loss. Default: no."""
@@ -96,8 +120,10 @@ class BaseOCLoss:
         """Shared lv_flat_call preamble: guard (plain LV only), trajectory
         repetition, and the per-step noise the detached simulation consumes
         (drawn from ``generator`` unless fed as ``noise``)."""
-        if not self.is_lv:
-            raise ValueError("lv_flat_call requires a plain LV loss")
+        if (not self.is_lv or self.sde_ctrl_noise is not None
+                or self.sde_ctrl_dropout is not None):
+            raise ValueError("lv_flat_call requires a plain LV loss "
+                             "(no sde_ctrl noise/dropout hooks)")
         x = self.repeat_traj(x)
         if noise is None:
             noise = torch.randn((ts.shape[0] - 1, *x.shape), generator=generator,

@@ -61,7 +61,7 @@ class EMReferenceSDELoss(BaseOCLoss):
         for k in range(t_ctrl.shape[0]):
             tc, dt, diff = t_ctrl[k], dt_arr[k], diff_arr[k]
             u = ctrl(tc, x)
-            sde_ctrl = u.detach() if change_sde_ctrl else u
+            sde_ctrl = self._sde_ctrl(u, generator, tc, x) if change_sde_ctrl else u
             if not self.use_rescaling:
                 u = u * diff
                 sde_ctrl = sde_ctrl * diff
@@ -104,6 +104,15 @@ class EMReferenceSDELoss(BaseOCLoss):
                  else torch.broadcast_to(self.sde.diff_coeff_t(t_ctrl), dt.shape))
         return dt, torch.sqrt(dt), scale
 
+    def flat_states(self, ts, x, ctrl, zs, terminal_unnorm_log_prob, reference_log_prob):
+        """The flat LV path's simulation by the loss's own loop: detached
+        control, the fed per-step noise ``zs``; returns the pre-step states
+        (K, B, D) and x_T."""
+        x_t, _, xs_all = self.simulate(None, ts, x, ctrl, terminal_unnorm_log_prob,
+                                       reference_log_prob, change_sde_ctrl=True,
+                                       return_traj=True, noise=zs)
+        return xs_all[:-1], x_t
+
     def lv_flat_call(self, generator, ts, x, ctrl, terminal_unnorm_log_prob,
                      reference_log_prob, traj_fn=None, noise=None):
         """LV training as gradient-free simulation + flat batched cost.
@@ -111,23 +120,18 @@ class EMReferenceSDELoss(BaseOCLoss):
         The log-variance loss detaches the simulation control, so the
         trajectory carries no parameter gradient — only the per-step cost
         c_cost·u·(ū−½u) + c_dot·u·z does, evaluated at the frozen (x_k, z_k).
-        The simulation runs without autograd (through the fused trajectory
-        kernel when ``traj_fn(x0, zs) -> (xs, x_T)`` is given) and ONE batched
-        control evaluation over all K·B states carries the gradient."""
+        The simulation runs without autograd (``traj_fn(x0, zs) -> (xs,
+        x_T)`` when given: the fused trajectory kernel, or the solver's graph
+        of ``flat_states``) and ONE batched control evaluation over all K·B
+        states carries the gradient."""
         grids = self._flat_grids(ts)
         if grids is None:
             raise ValueError("the flat LV path needs a linear SDE")
         c_cost, c_dot, u_scale = grids
         x, zs = self._flat_lv_setup(generator, ts, x, noise=noise)
         with torch.no_grad():
-            if traj_fn is not None:
-                xs, x_t = traj_fn(x, zs)
-            else:
-                x_t, _, xs_all = self.simulate(
-                    None, ts, x, ctrl, terminal_unnorm_log_prob,
-                    reference_log_prob, change_sde_ctrl=True, return_traj=True,
-                    noise=zs)
-                xs = xs_all[:-1]
+            xs, x_t = (traj_fn(x, zs) if traj_fn is not None else self.flat_states(
+                ts, x, ctrl, zs, terminal_unnorm_log_prob, reference_log_prob))
         u = flat_ctrl_eval(ctrl, ts[-1] - ts[:-1], xs) * u_scale[:, None, None]
         u_bar = u.detach()
         cost = torch.sum(u * (u_bar - 0.5 * u), dim=-1)               # (K, B)
@@ -242,7 +246,7 @@ class EIReferenceSDELoss(EMReferenceSDELoss):
             ref_score = (self.reference_ctrl.apply(_at(tab, k), x)
                          if tabulated else self.reference_ctrl(tc, x))
             u = ctrl(tc, x)
-            sde_ctrl = u.detach() if change_sde_ctrl else u
+            sde_ctrl = self._sde_ctrl(u, generator, tc, x) if change_sde_ctrl else u
             rnd = rnd + omega[k] * self.running_cost(u, sde_ctrl, change_sde_ctrl)
             z = _step_noise(noise, k, generator, x)
             x = a_x[k] * x + a_s[k] * (ref_score + sde_ctrl) + a_z[k] * z

@@ -1,2 +1,2 @@
-from .mlp import FourierMLP, TimeEmbed, gelu_tanh, load_flax_params
-from .reparam import ClippedCtrl
+from .mlp import AngleEncoding, DenseNet, FourierMLP, TimeEmbed, gelu_tanh, load_flax_params
+from .reparam import CancelDriftCtrl, ClippedCtrl, LerpCtrl, ScoreCtrl, remove_reference_ctrl

@@ -1,6 +1,7 @@
 """Time-conditioned control networks as nn.Modules (counterpart of
-sde_sampler_lrds_tpu/models/mlp.py: TimeEmbed, FourierMLP and the near-zero
-output init), plus ``load_flax_params`` to carry a Flax parameter tree across.
+sde_sampler_lrds_tpu/models/mlp.py: AngleEncoding, TimeEmbed, FourierMLP,
+DenseNet and the near-zero output init), plus ``load_flax_params`` to carry
+a Flax parameter tree across.
 
 Two numeric details follow the Flax modules exactly: the activation is the
 tanh form of GELU (Flax ``nn.gelu`` defaults to it), and the time features
@@ -67,17 +68,30 @@ def _init_dense(layer: nn.Linear, generator, zero_init: bool = False,
             layer.bias.zero_()
 
 
+class AngleEncoding(nn.Module):
+    """x -> [sin x, cos x]."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([torch.sin(x), torch.cos(x)], dim=-1)
+
+
 class TimeEmbed(nn.Module):
     """Sinusoidal time features (frequencies linspace 0.1..100 plus a
-    learned phase) followed by a small MLP."""
+    learned phase) followed by a small MLP. ``zero_init_last`` gives the last
+    layer the near-zero init with its bias centred on ``last_bias_val``
+    (the JAX package's ``last_kernel_init=zero_init_kernel()``,
+    ``last_bias_init=zero_init_bias(fan_in=channels, val=...)``)."""
 
     def __init__(self, dim_out: int, channels: int = 64, num_layers: int = 2,
                  activation: Callable = gelu_tanh,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, zero_init_last: bool = False,
+                 last_bias_val: float = 0.0):
         super().__init__()
         self.channels = channels
         self.activation = activation
         self.compute_dtype = compute_dtype
+        self.zero_init_last = zero_init_last
+        self.last_bias_val = last_bias_val
         self.register_buffer(
             "coeff", torch.linspace(0.1, 100.0, channels, dtype=torch.float32)[None, :])
         self.timestep_phase = nn.Parameter(torch.zeros(1, channels))
@@ -90,11 +104,17 @@ class TimeEmbed(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         with torch.no_grad():
             self.timestep_phase.normal_(0.0, 1.0, generator=generator)
-        for layer in [*self.dense, self.out]:
+        for layer in self.dense:
             _init_dense(layer, generator)
+        _init_dense(self.out, generator, zero_init=self.zero_init_last,
+                    bias_fan_in=self.channels)
+        if self.zero_init_last:
+            with torch.no_grad():
+                self.out.bias.add_(self.last_bias_val)
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
-        """t of any shape -> (*t.shape, dim_out), in the compute dtype."""
+    def forward(self, t: torch.Tensor, *args) -> torch.Tensor:
+        """t of any shape -> (*t.shape, dim_out), in the compute dtype; a
+        state argument (the control signature t, x) is ignored."""
         t = torch.as_tensor(t, dtype=torch.float32, device=self.coeff.device)
         ang = self.coeff * t.reshape(-1, 1) + self.timestep_phase
         embed = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
@@ -113,7 +133,8 @@ class FourierMLP(nn.Module):
 
     def __init__(self, dim: int, dim_out: int | None = None, channels: int = 64,
                  num_layers: int = 4, activation: Callable = gelu_tanh,
-                 zero_init: bool = False, compute_dtype: torch.dtype | None = None):
+                 zero_init: bool = False, compute_dtype: torch.dtype | None = None,
+                 use_angle_encoding: bool = False):
         super().__init__()
         self.dim = dim
         self.dim_out = dim_out
@@ -122,7 +143,9 @@ class FourierMLP(nn.Module):
         self.activation = activation
         self.zero_init = zero_init
         self.compute_dtype = compute_dtype
-        self.x_embed = nn.Linear(dim, channels)
+        self.use_angle_encoding = use_angle_encoding
+        self.angle_encoding = AngleEncoding() if use_angle_encoding else None
+        self.x_embed = nn.Linear(2 * dim if use_angle_encoding else dim, channels)
         self.time_embed = TimeEmbed(dim_out=channels, channels=channels,
                                     activation=activation, compute_dtype=compute_dtype)
         self.hidden = nn.ModuleList(
@@ -150,10 +173,55 @@ class FourierMLP(nn.Module):
             raise ValueError(f"time shape {tuple(t.shape)} does not broadcast "
                              f"against x batch shape {tuple(x.shape[:-1])}")
         dt = self.compute_dtype
-        h = dense(self.x_embed, x, dt) + self.time_embed(t)
+        xe = self.angle_encoding(x) if self.use_angle_encoding else x
+        h = dense(self.x_embed, xe, dt) + self.time_embed(t)
         for layer in self.hidden:
             h = dense(layer, self.activation(h), dt)
         return dense(self.out, self.activation(h), dt).float()
+
+
+class DenseNet(nn.Module):
+    """Concatenative DenseNet over [t, x]: each layer's activations are
+    appended to its input; ``zero_init`` gives the output layer the
+    near-zero init. t broadcasts against x's batch shape as in FourierMLP."""
+
+    def __init__(self, dim: int, arch=(64, 64), dim_out: int | None = None,
+                 activation: Callable = gelu_tanh, use_angle_encoding: bool = False,
+                 zero_init: bool = False, compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.dim = dim
+        self.arch = tuple(arch)
+        self.dim_out = dim_out
+        self.activation = activation
+        self.use_angle_encoding = use_angle_encoding
+        self.zero_init = zero_init
+        self.compute_dtype = compute_dtype
+        self.angle_encoding = AngleEncoding() if use_angle_encoding else None
+        width = (dim + 1) * (2 if use_angle_encoding else 1)
+        layers = []
+        for w in self.arch:
+            layers.append(nn.Linear(width, w))
+            width += w
+        self.dense = nn.ModuleList(layers)
+        self.out = nn.Linear(width, dim_out or dim)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        for layer in self.dense:
+            _init_dense(layer, generator)
+        _init_dense(self.out, generator, zero_init=self.zero_init,
+                    bias_fan_in=self.out.in_features)
+
+    def forward(self, t, x: torch.Tensor) -> torch.Tensor:
+        t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
+        t = torch.broadcast_to(t.reshape(()) if t.numel() == 1 else t, x.shape[:-1])
+        h = torch.cat([t[..., None], x], dim=-1)
+        if self.use_angle_encoding:
+            h = self.angle_encoding(h)
+        dt = self.compute_dtype
+        for layer in self.dense:
+            h = torch.cat([h, self.activation(dense(layer, h, dt)).to(h.dtype)], dim=-1)
+        return dense(self.out, h, dt).float()
 
 
 def _broadcasts_to(shape, target) -> bool:
@@ -163,40 +231,51 @@ def _broadcasts_to(shape, target) -> bool:
         return False
 
 
-def load_flax_params(ctrl: nn.Module, params: dict) -> nn.Module:
-    """Fill a FourierMLP (optionally inside ClippedCtrl) from the Flax param
-    tree given as nested dicts of numpy arrays:
-    ``{"params": {"base_model": {"Dense_i": {"kernel", "bias"},
-    "TimeEmbed_0": {"timestep_phase", "Dense_0", "Dense_1"}}}}``.
-    A Flax ``kernel`` is (in, out); ``Linear.weight`` is (out, in)."""
+def _fill(layer: nn.Linear, tree: dict) -> None:
+    """A Flax Dense ``{"kernel" (in, out), "bias"}`` into ``layer``."""
+    kernel = np.array(tree["kernel"], np.float32)
+    bias = np.array(tree["bias"], np.float32)
+    if kernel.shape != (layer.in_features, layer.out_features):
+        raise ValueError(f"kernel shape {kernel.shape} does not fit {layer}")
+    layer.weight.copy_(torch.from_numpy(kernel.T))
+    layer.bias.copy_(torch.from_numpy(bias))
+
+
+def _fill_time_embed(te: TimeEmbed, p: dict) -> None:
+    te.timestep_phase.copy_(torch.from_numpy(np.array(p["timestep_phase"], np.float32)))
+    for i, layer in enumerate([*te.dense, te.out]):
+        _fill(layer, p[f"Dense_{i}"])
+
+
+def _fill_module(module: nn.Module, p: dict) -> None:
     from .reparam import ClippedCtrl
 
-    p = params.get("params", params)
-    base = ctrl
-    if isinstance(ctrl, ClippedCtrl):
-        base = ctrl.base_model
-        p = p["base_model"]
-    if not isinstance(base, FourierMLP):
-        raise TypeError(f"load_flax_params takes a FourierMLP, got {type(base).__name__}")
+    if isinstance(module, ClippedCtrl):   # and ScoreCtrl, CancelDriftCtrl, LerpCtrl
+        _fill_module(module.base_model, p["base_model"])
+        if getattr(module, "score_model", None) is not None:
+            _fill_module(module.score_model, p["score_model"])
+    elif isinstance(module, FourierMLP):
+        _fill(module.x_embed, p["Dense_0"])
+        for i, layer in enumerate(module.hidden, start=1):
+            _fill(layer, p[f"Dense_{i}"])
+        _fill(module.out, p[f"Dense_{module.num_layers - 1}"])
+        _fill_time_embed(module.time_embed, p["TimeEmbed_0"])
+    elif isinstance(module, DenseNet):
+        for i, layer in enumerate([*module.dense, module.out]):
+            _fill(layer, p[f"Dense_{i}"])
+    elif isinstance(module, TimeEmbed):
+        _fill_time_embed(module, p)
+    else:
+        raise TypeError(f"load_flax_params cannot fill a {type(module).__name__}")
 
-    def fill(layer: nn.Linear, tree: dict) -> None:
-        kernel = np.array(tree["kernel"], np.float32)
-        bias = np.array(tree["bias"], np.float32)
-        if kernel.shape != (layer.in_features, layer.out_features):
-            raise ValueError(f"kernel shape {kernel.shape} does not fit {layer}")
-        layer.weight.copy_(torch.from_numpy(kernel.T))
-        layer.bias.copy_(torch.from_numpy(bias))
 
-    n = base.num_layers
+def load_flax_params(ctrl: nn.Module, params: dict) -> nn.Module:
+    """Fill a control from the JAX package's Flax parameter tree, given as
+    nested dicts of numpy arrays (``{"params": {...}}`` or the inner dict):
+    a FourierMLP (angle-encoded or not), a DenseNet or a TimeEmbed, alone or
+    inside ClippedCtrl, ScoreCtrl, CancelDriftCtrl or LerpCtrl (their
+    ``base_model`` and ``score_model``). A Flax ``kernel`` is (in, out);
+    ``Linear.weight`` is (out, in)."""
     with torch.no_grad():
-        fill(base.x_embed, p["Dense_0"])
-        for i, layer in enumerate(base.hidden, start=1):
-            fill(layer, p[f"Dense_{i}"])
-        fill(base.out, p[f"Dense_{n - 1}"])
-        te, te_p = base.time_embed, p["TimeEmbed_0"]
-        te.timestep_phase.copy_(torch.from_numpy(
-            np.array(te_p["timestep_phase"], np.float32)))
-        layers = [*te.dense, te.out]
-        for i, layer in enumerate(layers):
-            fill(layer, te_p[f"Dense_{i}"])
+        _fill_module(ctrl, params.get("params", params))
     return ctrl

@@ -219,7 +219,10 @@ def _fourier_mlp_tables(ctrl_module, t_grid):
     if type(base) is ClippedCtrl:
         clip = base.clip_model
         base = base.base_model
-    if type(base) is not FourierMLP or base.activation is not gelu_tanh:
+    # ScoreCtrl and its subclasses add a score term the kernel does not
+    # compute: ClippedCtrl is matched exactly, not by isinstance
+    if (type(base) is not FourierMLP or base.activation is not gelu_tanh
+            or base.use_angle_encoding):
         return None
     if base.compute_dtype not in (None, torch.bfloat16):
         return None
@@ -334,9 +337,15 @@ def _reference_tables(reference_ctrl, t_grid, dim):
 
 
 @torch.no_grad()
-def _step_coeffs(loss, ts):
+def _step_coeffs(loss, ts, ito: bool = True):
     """Per-step (a_x, a_ref, a_u, a_z, c_cost, c_dot) for the loss's
-    integrator; returns (coefs (K, 6), t_ctrl) or (None, None)."""
+    integrator; returns (coefs (K, 6), t_ctrl) or (None, None). The
+    reference-free losses (original DDS, discrete DIS) have a_ref = 0 and no
+    ``reference_ctrl``, so their plans take the dummy reference table.
+    ``ito`` zeroes the RND's u·z term of a loss that makes it
+    optional (original DDS: ``compute_ito_int``); a_z is unaffected."""
+    from ..losses.dds import ExponentialIntegratorSDELoss
+    from ..losses.dis import DiscreteTimeReversalLossEI
     from ..losses.rds import EIReferenceSDELoss, EMReferenceSDELoss
 
     s_arr, t_arr = ts[:-1], ts[1:]
@@ -358,6 +367,20 @@ def _step_coeffs(loss, ts):
         else:  # effective control g·u: fold the g factors into the coefficients
             coefs = (1.0 - drift_k * dt, diff**2 * dt, diff**2 * dt,
                      diff * sqdt, diff**2 * dt, diff * sqdt)
+    elif type(loss) is DiscreteTimeReversalLossEI:
+        # discrete DIS: the EI kernel without a reference score
+        omega = loss.sde.omega(s_arr, t_arr)
+        a_x, a_s, a_z = loss.sde.ei_step_coeffs(s_arr, t_arr)
+        zero = torch.zeros_like(omega)
+        coefs = (a_x, zero, a_s, a_z, omega, torch.sqrt(omega))
+    elif type(loss) is ExponentialIntegratorSDELoss:
+        # original DDS: the forward clock and Vargas' update
+        t_ctrl = s_arr
+        beta = loss._beta(ts)
+        alpha_k = torch.sqrt(1.0 - beta**2)
+        zero = torch.zeros_like(beta)
+        coefs = (alpha_k, zero, beta**2 * loss.sigma**2, loss.sigma * beta,
+                 beta**2 * loss.sigma**2, loss.sigma * beta if ito else zero)
     else:
         return None, None
     coefs = torch.stack([torch.broadcast_to(torch.as_tensor(c, dtype=torch.float32,
@@ -366,16 +389,18 @@ def _step_coeffs(loss, ts):
     return coefs.contiguous(), t_ctrl
 
 
-def build_plan(loss, ctrl_module, ts, differentiable: bool = False):
+def build_plan(loss, ctrl_module, ts, differentiable: bool = False, ito: bool = True):
     """(cfg, arrays) for ``fused_traj``, or None when the (loss, control,
     reference) triple is outside the kernel's scope. A loss without a
-    reference runs on a one-component dummy table with zero inverse
+    reference (original DDS, discrete DIS, or an EM loss configured without
+    one, as PIS is) runs on a one-component dummy table with zero inverse
     variances; a full-covariance reference gives a ``full_cov`` plan, a
     bf16 control a ``bf16`` one. With ``differentiable`` the MLP tables keep
     their graph to the control's parameters (the fused KL path, whose table
     cotangents reach every parameter, TimeEmbed's included); the step
-    coefficients and the reference tables never carry one."""
-    coefs, t_ctrl = _step_coeffs(loss, ts)
+    coefficients and the reference tables never carry one. ``ito`` is the
+    Itô toggle of ``_step_coeffs``."""
+    coefs, t_ctrl = _step_coeffs(loss, ts, ito=ito)
     if coefs is None:
         return None
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):

@@ -8,9 +8,14 @@ failure writes the traceback to ``error.txt`` and exits with code 1.
         --target two_modes --dim 16 --ref-type gmm --integrator ei \\
         --time-type snr --out-dir logs/run [--device cpu] [--resume]
 
-Solver presets mirror the JAX CLI's: pis, dds, dis, cmcd, vp_rds, pbm_rds.
-The port runs vp_rds and pbm_rds with the 'basic' model; the others fail
-naming their ROADMAP queue item, as does ``--plots``.
+Solver presets mirror the JAX CLI's: pis, dds, dis, cmcd, vp_rds, pbm_rds,
+with the models basic, score, langevin_init and lerp; make_model refuses the
+combinations the JAX package refuses, with its messages (so the default
+``--solver dis --model basic``, and pis / dds with ``--model basic``, exit
+1 as the JAX CLI does). cmcd with the basic model takes make_model's
+``force_base_zero_init``, as in the JAX CLI. The UNet models and
+``--plots`` fail naming their ROADMAP queue item. GBS is ``--solver dis
+--set model.inference_ctrl_arch=<model type>``.
 """
 from __future__ import annotations
 
@@ -41,8 +46,6 @@ MODEL_PRESETS = {
     "lerp": "target_informed_lerp_tempering",
 }
 
-PORTED_SOLVERS = ("vp_rds", "pbm_rds")
-PORTED_MODELS = ("basic",)
 
 
 def build_parser():
@@ -107,15 +110,10 @@ def parse_overrides(pairs):
 
 
 def _refuse_unported(args) -> None:
-    if args.solver not in PORTED_SOLVERS:
-        raise NotImplementedError(
-            f"--solver {args.solver} ({SOLVER_PRESETS[args.solver]}) is not ported yet "
-            f"(ROADMAP A2, the other VI samplers); the port runs {PORTED_SOLVERS}")
-    if args.model not in PORTED_MODELS:
-        item = "A6, the MNIST UNet" if "unet" in args.model else "A2, the target-informed controls"
+    if "unet" in args.model:
         raise NotImplementedError(
             f"--model {args.model} ({MODEL_PRESETS[args.model]}) is not ported yet "
-            f"(ROADMAP {item})")
+            f"(ROADMAP A6, the MNIST UNet)")
     if args.plots:
         raise NotImplementedError("--plots (eval/plots.py) is not ported yet (ROADMAP A7)")
 
@@ -196,16 +194,19 @@ def main(argv=None) -> None:
             use_ema=args.use_ema, out_dir=out_dir,
             sde_details=ov["sde"], loss_details=ov["loss"],
             compute_dtype=compute_dtype, base_arch=base_arch,
-            inference_ctrl_arch=inference_ctrl_arch, device=device)
+            inference_ctrl_arch=inference_ctrl_arch, device=device,
+            # CMCD's own default is the basic model; make_model's check mirrors
+            # the reference's inverted one, so take its escape hatch
+            force_base_zero_init=(args.solver == "cmcd" and args.model == "basic"))
         if args.ckpt_interval is not None:  # keeps a --set train.ckpt_interval otherwise
             solver.cfg.ckpt_interval = args.ckpt_interval
         # the effective TrainConfig and SDE after every override, and the device
         resolved = {
             "train": {k: v for k, v in dataclasses.asdict(solver.cfg).items()
                       if isinstance(v, (int, float, str, bool, type(None)))},
-            "sde": {"class": type(solver.sde).__name__,
-                    **{k: float(v) for k, v in vars(solver.sde).items()
-                       if isinstance(v, (int, float))}},
+            "sde": {"class": type(solver.sde).__name__ if solver.sde else None,
+                    **({k: float(v) for k, v in vars(solver.sde).items()
+                        if isinstance(v, (int, float))} if solver.sde else {})},
             "device": {"type": device.type,
                        "name": (torch.cuda.get_device_name(device) if device.type == "cuda"
                                 else "cpu")},

@@ -1,6 +1,6 @@
 """Linear (Ornstein-Uhlenbeck-type) SDE algebra in closed form (counterpart
-of sde_sampler_lrds_tpu/sde/linear.py: the OU base, VP, CosineVP and
-PinnedBM).
+of sde_sampler_lrds_tpu/sde/linear.py: the OU base, ConstOU, ScaledBM, VP,
+CosineVP and PinnedBM).
 
 dX_t = k(t) X dt + g(t) dW_t with scale s(t) = exp(∫k) and
 sigma_sq(t) = ∫ g²/s². "Noising time" t runs 0 → T; the generative losses use
@@ -46,6 +46,35 @@ class OU:
     def sigma_sq(self, t):
         """∫₀ᵗ diff_coeff_t(u)²/s(u)² du."""
         raise NotImplementedError
+
+    def int_drift_coeff_t(self, s, t):
+        """∫ₛᵗ drift_coeff_t(u) du."""
+        raise NotImplementedError
+
+    def int_diff_coeff_sq_t(self, s, t):
+        """∫ₛᵗ diff_coeff_t(u)² du."""
+        raise NotImplementedError
+
+    # -- SDE coefficients --------------------------------------------------
+    def drift(self, t, x):
+        return self.drift_coeff_t(t) * x
+
+    def diff(self, t, x=None):
+        return self.diff_coeff_t(t)
+
+    def drift_div(self, t, x):
+        """Divergence of the drift field."""
+        return self.drift_coeff_t(t) * x.shape[-1]
+
+    def drift_div_int(self, s, t, x):
+        """∫ₛᵗ div drift du."""
+        return self.int_drift_coeff_t(s, t) * x.shape[-1]
+
+    def transition_params(self, s, t):
+        """(mean_factor, var_factor) with X_t = m·X_s + sqrt(v)·Z, s < t."""
+        s_t, s_s = self.s(t), self.s(s)
+        mean_factor = torch.exp(torch.log(s_t) - torch.log(s_s))
+        return mean_factor, s_t**2 * (self.sigma_sq(t) - self.sigma_sq(s))
 
     def ei_step_coeffs(self, s, t):
         """(a_x, a_s, a_z) of the exponential-integrator step
@@ -183,6 +212,52 @@ def _lift(var_init):
     return var_init[None] if var_init.ndim in (1, 2) else var_init
 
 
+class ConstOU(OU):
+    """dX = -k·X dt + g dW with constant k, g. ``sigma_sq`` is the exact
+    ∫ g²/s² = g²(e^{2kt} − 1)/(2k), as in the JAX package (its reference's
+    formula drops the 1/(2k), which holds for k = 1 only)."""
+
+    def __init__(self, drift_coeff: float = 2.0, diff_coeff: float = 2.0, **kwargs):
+        if drift_coeff < 0 or diff_coeff <= 0:
+            raise ValueError("Choose non-negative drift_coeff and positive diff_coeff.")
+        super().__init__(**kwargs)
+        self.drift_coeff = float(drift_coeff)
+        self.diff_coeff = float(diff_coeff)
+
+    def drift_coeff_t(self, t):
+        return -self.drift_coeff * torch.ones_like(_f32(t))
+
+    def diff_coeff_t(self, t):
+        return self.diff_coeff * torch.ones_like(_f32(t))
+
+    def int_drift_coeff_t(self, s, t):
+        return -self.drift_coeff * (_f32(t) - _f32(s))
+
+    def int_diff_coeff_sq_t(self, s, t):
+        return self.diff_coeff**2 * (_f32(t) - _f32(s))
+
+    def s(self, t):
+        return torch.exp(-self.drift_coeff * _f32(t))
+
+    def sigma_sq(self, t):
+        return self.diff_coeff**2 * torch.expm1(2.0 * self.drift_coeff * _f32(t)) / (
+            2.0 * self.drift_coeff)
+
+
+class ScaledBM(ConstOU):
+    """dX = σ dW, PIS's reference process: s(t) = 1, σ²(t) = σ²t."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs["drift_coeff"] = 0.0
+        super().__init__(*args, **kwargs)
+
+    def s(self, t):
+        return torch.ones_like(_f32(t))
+
+    def sigma_sq(self, t):
+        return self.diff_coeff**2 * _f32(t)
+
+
 class VP(OU):
     """Variance-preserving SDE with a linear β schedule:
     α(t) = β_min t + t²(β_max-β_min)/(2T);  s(t) = e^{-α/2};
@@ -204,6 +279,14 @@ class VP(OU):
 
     def diff_coeff_t(self, t):
         return self.scale_diff_coeff * torch.sqrt(self._diff_coeff_sq_t(t))
+
+    def int_drift_coeff_t(self, s, t):
+        return -0.25 * (self._diff_coeff_sq_t(t) + self._diff_coeff_sq_t(s)) * (
+            _f32(t) - _f32(s))
+
+    def int_diff_coeff_sq_t(self, s, t):
+        return 0.5 * self.scale_diff_coeff**2 * (
+            self._diff_coeff_sq_t(t) + self._diff_coeff_sq_t(s)) * (_f32(t) - _f32(s))
 
     def alpha_(self, t):
         """∫₀ᵗ β(u) du for the linear schedule."""
@@ -276,6 +359,12 @@ class CosineVP(VP):
     def _diff_coeff_sq_t(self, t):
         return math.pi * torch.tan(0.5 * math.pi * self._u(t)) / (
             self.terminal_t * (1.0 + self.c))
+
+    def int_drift_coeff_t(self, s, t):
+        raise NotImplementedError
+
+    def int_diff_coeff_sq_t(self, s, t):
+        raise NotImplementedError
 
     def alpha_(self, t):
         return -2.0 * torch.log(torch.cos(0.5 * math.pi * self._u(t)))

@@ -1,2 +1,3 @@
 from .base import Trainable, TrainConfig
-from .oc import RDS, GaussianReferenceCtrl, GMMReferenceCtrl, TrainableDiff
+from .oc import (CMCD, DDS, PIS, RDS, Bridge, GaussianReferenceCtrl, GMMReferenceCtrl,
+                 TrainableDiff)

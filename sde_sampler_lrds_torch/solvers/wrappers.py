@@ -55,7 +55,8 @@ class TrainableWrapper:
 
     @property
     def eubo_available(self) -> bool:
-        return getattr(self.trainable.loss, "compute_eubo", None) is not None
+        return (getattr(self.trainable.loss, "compute_eubo", None) is not None
+                and getattr(self.trainable, "eubo_available", True))
 
     def compute_results_eubo(self, results: Results, generator: torch.Generator,
                              use_ema: bool = True) -> Results:

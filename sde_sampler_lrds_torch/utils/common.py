@@ -64,19 +64,36 @@ def binary_search_v(f, low, high, target: torch.Tensor, n_attempts: int = 1024) 
 def get_timesteps(start: float, end: float, dt: float | None = None,
                   steps: int | None = None, rescale_t: str | None = None,
                   n_attempts: int = 256, sde=None, device=None) -> torch.Tensor:
-    """A (steps+1,) float32 time grid on [start, end]: uniform, or with
-    ``sde`` equispaced in ``sde.log_snr`` (decreasing in t) by vectorized
-    float32 bisection on the host. The rescaled grids ('quad', 'cosine')
-    are not ported yet."""
+    """A float32 time grid on [start, end]: with ``sde``, (steps+1,) times
+    equispaced in ``sde.log_snr`` (decreasing in t) by vectorized float32
+    bisection on the host; otherwise by ``rescale_t``:
+
+      * None     -> uniform, (steps+1,)
+      * 'quad'   -> the square root of a uniform grid on [start, end²]
+      * 'cosine' -> DDS's cosine-spaced increments dt_k ∝ cos⁴(π/2·(u_k +
+                    s)/(1 + s)), s = 0.008: steps+1 increments after the
+                    prepended start, so (steps+2,) times, as the JAX package
+                    and its reference build it."""
     if (steps is None) == (dt is None):
         raise ValueError("Exactly one of `dt` and `steps` should be defined.")
-    if rescale_t is not None:
-        raise NotImplementedError(f"timestep rescaling {rescale_t!r} is not ported")
     if steps is None:
         steps = int(math.ceil((end - start) / dt))
     device = resolve_device(device)
     if sde is None:
-        return torch.linspace(start, end, steps + 1, dtype=torch.float32, device=device)
+        if rescale_t is None:
+            return torch.linspace(start, end, steps + 1, dtype=torch.float32, device=device)
+        if rescale_t == "quad":
+            grid = torch.linspace(start, end**2, steps + 1, dtype=torch.float32)
+            return torch.clamp(torch.sqrt(grid), max=end).to(device)
+        if rescale_t == "cosine":
+            s = 0.008
+            pre_phase = torch.linspace(start, end, steps + 1, dtype=torch.float32) / end
+            phase = ((pre_phase + s) / (1 + s)) * math.pi * 0.5
+            dts = torch.cos(phase) ** 4
+            dts = dts / dts.sum() * end
+            return torch.cat([torch.tensor([start], dtype=torch.float32),
+                              torch.cumsum(dts, 0)]).to(device)
+        raise ValueError(f"Unknown timestep rescaling method {rescale_t!r}.")
     ends = sde.log_snr(torch.tensor([start, end], dtype=torch.float32))
     if not bool(torch.isfinite(ends).all()):
         raise ValueError("Non-finite log-SNR at the grid endpoints.")
@@ -102,6 +119,12 @@ def masked_var(x: torch.Tensor, mask: torch.Tensor, ddof: int = 1) -> torch.Tens
     mean = torch.where(mask, x, zero).sum() / count
     sq = torch.where(mask, (x - mean) ** 2, zero).sum()
     return sq / torch.clamp(count - ddof, min=1)
+
+
+def on_rows(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of a (B, D) batch applied to x (…, D) row by row: the targets'
+    scores take (B, D) batches, the flat paths hold (K, B, D) states."""
+    return fn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
 
 
 def clip_norm(x: torch.Tensor, max_norm: float | None) -> torch.Tensor:

@@ -7,8 +7,11 @@ cpu`` as subprocesses: the artifacts (config.json, resolved.json with the
 device, metrics.jsonl, the final checkpoint), resume from the checkpoint,
 ``--set`` overrides reaching every namespace (a bf16 control and a
 hyperparameter schedule among them), and the failure path (error.txt, exit
-code 1), with the presets the port lacks refused naming their ROADMAP
-queue item.
+code 1), with the presets the port lacks (the UNet models, ``--plots``)
+refused naming their ROADMAP queue item; the VI presets (pis, dds, dis
+with GBS's inference control, cmcd; the score, langevin_init and lerp
+models) run, and where make_model refuses a preset the message is the JAX
+CLI's.
 """
 import importlib.util
 import json
@@ -154,25 +157,92 @@ def test_cli_failure_writes_error_txt(tmp_path):
 
 
 def test_cli_default_solver_refuses_naming_a2(tmp_path):
-    """The JAX CLI's default preset, dis, waits on ROADMAP A2."""
+    """The JAX CLI's default preset, dis, waited on ROADMAP A2 here. With
+    its default model (basic) the JAX CLI itself exits 1 on make_model's
+    rule "Model base_zero_init is not supported." and so does the port,
+    with that message; with ``--model score`` the default solver runs to
+    exit 0 with finite metrics and the final checkpoint."""
     out = tmp_path / "dis"
     proc = run_cli([], out, tiny=["--device", "cpu"])
     assert proc.returncode == 1
-    assert "ROADMAP A2" in (out / "error.txt").read_text()
+    err = (out / "error.txt").read_text()
+    assert "Model base_zero_init is not supported." in err and "ROADMAP" not in err
     assert json.loads((out / "config.json").read_text())["solver"] == "dis"
+    out = tmp_path / "dis_score"
+    proc = run_cli(["--model", "score"], out)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    final = _records(out)[-1]
+    assert final["step"] == 6 and all(
+        isinstance(final[k], float) and final[k] == final[k]
+        for k in ("eval/elbo", "eval/log_norm_const_is"))
+    assert json.loads((out / "resolved.json").read_text())["sde"]["class"] == "VP"
+    assert (out / "ckpt" / "ckpt000006.pt").exists()
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--solver", "pis"], "ROADMAP A2"), (["--solver", "dds"], "ROADMAP A2"),
-    (["--solver", "cmcd"], "ROADMAP A2"),
-    (["--solver", "vp_rds", "--model", "score"], "ROADMAP A2"),
-    (["--solver", "vp_rds", "--model", "basic_unet"], "ROADMAP A6"),
-    (["--solver", "pbm_rds", "--plots"], "ROADMAP A7"),
+    pytest.param(["--solver", "pis", "--model", "score"], None, id="flags0-ROADMAP A2"),
+    pytest.param(["--solver", "dds", "--model", "score"], None, id="flags1-ROADMAP A2"),
+    pytest.param(["--solver", "cmcd"], None, id="flags2-ROADMAP A2"),
+    pytest.param(["--solver", "vp_rds", "--model", "score"], None, id="flags3-ROADMAP A2"),
+    pytest.param(["--solver", "vp_rds", "--model", "basic_unet"], "ROADMAP A6",
+                 id="flags4-ROADMAP A6"),
+    pytest.param(["--solver", "pbm_rds", "--plots"], "ROADMAP A7", id="flags5-ROADMAP A7"),
 ])
 def test_cli_refuses_unported_in_process(flags, item, tmp_path):
+    """The UNet models and --plots exit 1 naming their queue item. The
+    presets refused here until ROADMAP A2 (pis, dds, cmcd, the score model)
+    now run in process to exit 0 with finite metrics (pis and dds with the
+    score model, which make_model requires of them, as in the JAX CLI)."""
     out = tmp_path / "refused"
+    tiny = ["--steps", "6", "--train-steps", "4", "--train-batch-size", "16",
+            "--eval-batch-size", "64", "--log-interval", "2", "--dim", "2"]
+    if item is None:
+        port_main.main(["--device", "cpu", "--out-dir", str(out), *tiny, *flags])
+        assert not (out / "error.txt").exists()
+        final = _records(out)[-1]
+        assert final["step"] == 4 and final["eval/elbo"] == final["eval/elbo"]
+        return
     with pytest.raises(SystemExit) as exit_info:
         port_main.main(["--device", "cpu", "--out-dir", str(out), *flags])
     assert exit_info.value.code == 1
     assert item in (out / "error.txt").read_text()
     assert not (out / "metrics.jsonl").exists()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--solver", "dis", "--model", "lerp"], ["--solver", "dis", "--model", "langevin_init"],
+    ["--solver", "vp_rds", "--model", "langevin_init"],
+    ["--solver", "dis", "--model", "score", "--set",
+     "model.inference_ctrl_arch=base_zero_init"],
+    ["--solver", "dis", "--model", "score", "--set",
+     "model.inference_ctrl_arch=base_zero_init", "loss.div_estimator=rademacher"],
+])
+def test_cli_vi_presets_run_in_process(flags, tmp_path):
+    """The other VI presets in process on --device cpu: DIS with the lerp
+    and Langevin-init controls, vp_rds with the Langevin-init control (the
+    reference score taken out of it), and GBS (DIS with a learned inference
+    control, its divergence exact or Hutchinson) run to their final record
+    and checkpoint."""
+    out = tmp_path / "run"
+    port_main.main(["--device", "cpu", "--out-dir", str(out), "--steps", "6",
+                    "--train-steps", "4", "--train-batch-size", "16", "--eval-batch-size",
+                    "64", "--log-interval", "2", "--dim", "2", *flags])
+    assert not (out / "error.txt").exists()
+    assert _records(out)[-1]["step"] == 4 and (out / "ckpt" / "ckpt000004.pt").exists()
+
+
+@pytest.mark.parametrize("flags", [["--solver", "dds", "--model", "basic"],
+                                   ["--solver", "pis", "--model", "basic"]])
+def test_cli_vi_refusals_match_jax(flags, tmp_path):
+    """pis and dds with the basic model exit 1 in both CLIs with
+    make_model's own message ("Only target_informed_zero_init model is
+    supported.")."""
+    out_t, out_j = tmp_path / "port", tmp_path / "jax"
+    proc = run_cli(flags, out_t)
+    cmd = [sys.executable, str(REPO / "scripts" / "main.py"), *TINY, "--out-dir", str(out_j),
+           *flags]
+    jproc = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, timeout=600)
+    assert proc.returncode == jproc.returncode == 1
+    last = lambda p: p.read_text().strip().splitlines()[-1]
+    assert last(out_t / "error.txt") == last(out_j / "error.txt") == (
+        "ValueError: Only target_informed_zero_init model is supported.")

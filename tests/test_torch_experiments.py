@@ -1,11 +1,12 @@
 """The port's experiment surface held against the JAX package: ``make_model``
 for 'vp-ref' and 'pbm-ref' (the TrainConfig, SDE, time grid, reference and
-loss it builds, and every combination the JAX package refuses), a JAX
+loss it builds, and every combination the JAX package refuses; the other
+VI samplers are in tests/test_torch_vi_solvers.py), a JAX
 solver's parameters carried into the port's solver (the LV loss, the
 evaluation and the EUBO metrics under fed noise), the wrapper's EUBO
 bookkeeping, and the port's freedom from JAX imports. The helpers that run
-each driver end to end against the JAX ``lrds_run`` at a tiny size live here
-too; tests/test_torch_experiments_<driver>.py run them, one driver a file (the JAX package compiles for 20-45 s a driver on
+each driver end to end against the JAX ``lrds_run`` or ``competing_run`` at a
+tiny size live here too; tests/test_torch_experiments_<driver>.py run them, one driver a file (the JAX package compiles for 20-45 s a driver on
 the CPU). Everything runs in float32 on the CPU.
 """
 import ast
@@ -229,6 +230,10 @@ def test_make_model_refuses_as_jax(case):
     ("Target cancer", dict(target_details={"name": "cancer"})),
 ])
 def test_make_model_names_what_is_not_ported(what, extra):
+    """The 'nn' reference and the unported targets raise naming what is
+    missing. The 'dds_orig' solver and the target-informed control were
+    refused here until ROADMAP A2; they now build the solver and control
+    the JAX package builds."""
     args = dict(solver_type="vp-ref", ref_type="default", loss_type="lv",
                 integrator_type="ei", model_type="base_zero_init", time_type="snr",
                 solver_details={"sigma": 1.0},
@@ -236,8 +241,17 @@ def test_make_model_names_what_is_not_ported(what, extra):
                 training_details={"train_steps": 4, "train_batch_size": 8,
                                   "eval_batch_size": 8}, device="cpu")
     args.update(extra)
+    if what in PORTED_SINCE_A2:
+        solver = t_make_model(**args)
+        assert (type(solver).__name__, type(solver.generative_ctrl).__name__) == \
+            PORTED_SINCE_A2[what]
+        return
     with pytest.raises(NotImplementedError, match=what):
         t_make_model(**args)
+
+
+PORTED_SINCE_A2 = {"solver_type 'dds_orig'": ("DDS", "ScoreCtrl"),
+                   "target_informed_zero_init": ("RDS", "ScoreCtrl")}
 
 
 @pytest.mark.parametrize("flag,value", [
@@ -247,9 +261,11 @@ def test_make_model_names_what_is_not_ported(what, extra):
     ("re_swap_frequency", "4"), ("terminal_t_pis", "3.0"),
 ])
 def test_driver_flags_of_unported_baselines(flag, value):
-    """The drivers keep the JAX flags of the SMC / RE / PIS baselines with
-    their defaults; a value that would change a baseline the port lacks
-    raises instead of passing without effect."""
+    """The drivers keep the JAX flags of the SMC / RE baselines with their
+    defaults; a value that would change a baseline the drivers do not run
+    yet raises instead of passing without effect. PIS's horizon
+    (--terminal_t_pis), refused here until ROADMAP A2, now takes any value,
+    as in the JAX drivers."""
     import argparse
 
     from sde_sampler_lrds_torch.experiments.common import add_common_args
@@ -257,6 +273,9 @@ def test_driver_flags_of_unported_baselines(flag, value):
     parser = add_common_args(argparse.ArgumentParser())
     default = parser.get_default(flag)
     assert getattr(parser.parse_args([f"--{flag}", str(default)]), flag) == default
+    if flag == "terminal_t_pis":
+        assert getattr(parser.parse_args([f"--{flag}", value]), flag) == float(value)
+        return
     with pytest.raises(NotImplementedError, match=f"--{flag}"):
         parser.parse_args([f"--{flag}", value])
 
@@ -571,3 +590,67 @@ def test_port_modules_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
+
+
+# ---------------------------------------------------------------------------
+# (8) the competing drivers end to end against the JAX competing_run
+# ---------------------------------------------------------------------------
+
+COMPETING_CELLS = {
+    # driver, its tiny flags, the JAX target and competing_run arguments
+    "two_modes": ("sample_two_modes_competing", ["--dim_range", "4"], ("two_modes", {"dim": 4}),
+                  {"extra_params": {"dim": 4}}),
+    "many_modes": ("sample_many_modes_competing", ["--dim_range", "2", "--n_modes_range", "4"],
+                   ("many_modes", {"dim": 2, "n_modes": 4, "mixture_weight_factor": 3.0,
+                                   "var": 0.5}),
+                   {"dis_vp20": True, "extra_params": {"dim": 2, "n_modes": 4,
+                                                       "mixture_weight_factor": 3.0,
+                                                       "var": 0.5}}),
+}
+
+
+def check_competing_against_jax(name, solver_type, tmp_path, monkeypatch) -> dict:
+    """The port's competing driver run as a user runs it, on the CPU at the
+    tiny size, against the JAX package's competing_run of the same cell: the
+    pickle's keys (cell, metrics, times, params) are the JAX cell's, numpy
+    and builtins only, the sampler metrics finite, and
+    experiments/summarize_results.py reads it. Returns the pickle."""
+    module, flags, (target_name, details_kw), run_kw = COMPETING_CELLS[name]
+    driver = importlib.import_module(f"sde_sampler_lrds_torch.experiments.{module}")
+    out = tmp_path / "port"
+    argv = flags + ["--solver_type", solver_type, "--device", "cpu", "--results_path",
+                    str(out)] + [f"--{k}={v}" for k, v in TINY.items()]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        driver.main(argv)
+    finally:
+        torch.set_num_threads(threads)
+    (path,) = out.glob("*.pkl")
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    common = _jax_experiments_common(tmp_path, monkeypatch)
+    details = common.make_target_details(target_name, **details_kw)
+    target = common.make_target(details)
+    args = types.SimpleNamespace(results_path=str(tmp_path / "jax"), solver_type=solver_type,
+                                 terminal_t_pis=5.0, **TINY)
+    want = common.competing_run(args, target, details, target.loc, path.name, **run_kw)
+    assert _only_host_types(data) and data["config"]["device"] == "cpu"
+    assert data["config"]["solver_type"] == solver_type
+    (cell,) = data["results"]
+    assert set(cell) == set(want)
+    assert set(cell["metrics"]) == set(want["metrics"])
+    assert set(cell["times"]) == set(want["times"]) and cell["params"] == want["params"]
+    for k in ("mean", "var"):
+        assert cell["gauss_params"][k].shape == np.asarray(want["gauss_params"][k]).shape
+    m = cell["metrics"]
+    for key in ("eval/elbo", "eval/log_norm_const_is", "eval/norm_effective_sample_size"):
+        assert len(m[key]) == TINY["n_sampling_seeds"]
+        assert all(math.isfinite(v) for v in m[key]), key
+    spec = importlib.util.spec_from_file_location(
+        "summarize_results", REPO / "experiments" / "summarize_results.py")
+    summarize = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(summarize)
+    row, diverged = summarize.summarize_cell(cell)
+    assert not diverged and row["ELBO"] is not None
+    return data

@@ -4,8 +4,8 @@ TwoModes (d 4), vp-ref; the weight sweep on a 2-component diagonal fit with
 its weights set to (skew, 1 - skew), the sigma sweep on the 'default'
 reference around the moment-matched sigma, whose scale the 'default'
 reference and the VP prior take (held against JAX with a JAX solver's
-parameters, under fed noise). The solvers the port does not have yet are
-refused (helpers in tests/test_torch_experiments.py)."""
+parameters, under fed noise). The sigma sweep's PIS, DDS and DIS points run
+too (helpers in tests/test_torch_experiments.py)."""
 import math
 
 import jax
@@ -40,12 +40,28 @@ def test_sigma_sensitivity_driver_matches_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("solver_type", ["pis_orig", "dds_orig", "dis_orig"])
 def test_sigma_sensitivity_refuses_unported_solvers(solver_type, tmp_path):
+    """The sweep's PIS, DDS and DIS points, refused here until ROADMAP A2:
+    a one-point sweep at a tiny size writes its pickle with finite metrics
+    and the moment-matched sigma (over √T for PIS)."""
+    import pickle
+
     from sde_sampler_lrds_torch.experiments import sigma_sensitivity
 
-    with pytest.raises(NotImplementedError, match=f"{solver_type} is not ported.*A2"):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
         sigma_sensitivity.main(["--solver_type", solver_type, "--device", "cpu",
-                                "--results_path", str(tmp_path)])
-    assert not list(tmp_path.iterdir())
+                                "--results_path", str(tmp_path), "--dim", "3",
+                                "--sigma_factors", "1.0", "--dataset_size", "500",
+                                "--train_steps", "4", "--train_batch_size", "32",
+                                "--eval_batch_size", "64", "--n_sampling_seeds", "1",
+                                "--n_steps", "8"])
+    finally:
+        torch.set_num_threads(threads)
+    with open(tmp_path / f"sigma_sensitivity_solver_{solver_type}_seed_0.pkl", "rb") as f:
+        (cell,) = pickle.load(f)["results"]
+    assert cell["params"]["sigma_factor"] == 1.0 and cell["params"]["sigma"] > 0
+    assert all(math.isfinite(v) for v in cell["metrics"]["eval/log_norm_const_is"])
 
 
 def test_default_reference_scaled_sigma_matches_jax():
