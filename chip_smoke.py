@@ -6,8 +6,11 @@ metrics, runs the SMC baseline at the experiments' defaults, runs the port's
 LRDS experiment drivers (two_modes vp-ref and pbm-ref, φ⁴ at its full
 width, many_modes, the 2-D toys and the two_modes sweeps) and the CLI with
 its checkpoints, the cosine VP and the sweep launcher through their entry
-points, and the other VI samplers (PIS, DDS, DIS, CMCD) on B1's plans, through
-the competing drivers and through the CLI, and checks the quality of each.
+points, the other VI samplers (PIS, DDS, DIS, CMCD) on B1's plans, through
+the competing drivers and through the CLI, and the sampling baselines
+(replica exchange, PDDS-weighted and preconditioned SMC, RWMH), the
+logistic-regression driver and LangevinSolver, and checks the quality of
+each.
 
     python3 chip_smoke.py
 
@@ -120,8 +123,21 @@ Phases:
      steps, Hutchinson), in process; (c0) before (c): the flat LV
      simulation outside B1's scope, a CUDA graph of the loss's loop, against
      the loop itself, before and after a training step
+ 13. the sampling baselines: (a) the RE cell of sample_two_modes_competing
+     (d 16) at its defaults (128 levels x 1024 replicas, 4096 + 32 steps, a
+     swap every 8) but 4 seeds (one run; the 16-seed cell through --cell),
+     against the JAX record of the cell;
+     (b) its SMC cell cut to 128 warm-up steps a level and 4 seeds (one
+     run), B4 once a resampling event and B2 / B3 once a chunk's Sinkhorn;
+     (c) PDDS-weighted SMC beside SMC without PDDS on the demo target along
+     VP(0.1, 10)'s exact noised mixture (32 levels, 1024 particles, 64 + 8
+     steps); (d) preconditioned SMC and RE, MALA and ULA, on that path; (e)
+     an RWMH dataset on two_modes d 16; (f) the logistic-regression driver on
+     ionosphere with original DDS (256 steps, 2 seeds), and its SMC cell
+     stopping at target.sample (ROADMAP C5); (g) LangevinSolver on the demo
+     target; (h) re_sampler on the card against the CPU under the same draws
 
-Every path (phases 4, 5, 6, 8, 9, 10, 11 and 12) is run with all launch counts set to 0 just
+Every path (phases 4, 5, 6, 8, 9, 10, 11, 12 and 13) is run with all launch counts set to 0 just
 before it and read just after. Prints the card as nvidia-smi reports it, then
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, with no result line, when there is no
@@ -135,7 +151,9 @@ with phase 8's path and launch checks and no quality gate, and prints its
 summary line (medians and means over the eval seeds, stage seconds,
 launches). A competing driver's cell (such as sample_two_modes_competing
 --solver_type dds_orig --dim_range 16, at its full depth) gets phase 12's
-path and launch checks, and at two_modes d 16 its JAX record's gate.
+path and launch checks, and at two_modes d 16 its JAX record's gate; an
+'smc' or 're' cell gets phase 13's, and its JAX record's gate at two_modes
+d 16 and at many_modes 4 modes (--n_modes_range 4).
 """
 from __future__ import annotations
 
@@ -324,6 +342,67 @@ TWO_MODES_RECORDS = {"dds_orig": (0.008415, 0.3094), "pis_orig": (0.01793, 0.194
                      "dis_orig": (35.41, 4.57e-4), "cmcd": None}
 GATE_CELL_VI_SLACK = (0.05, 0.15)
 CLI_VI_STEPS, CLI_GBS_STEPS = 128, 32
+# phase 13, the sampling baselines. (a) the RE competing cell (two_modes d
+# 16, sample_two_modes_competing --solver_type re at its defaults: 40 000
+# MALA points, 128 levels x 1024 replicas, 4096 warm-up + 32 steps, a swap
+# every 8) at RE_CELL_SEEDS eval seeds, one RE run (at its 16 seeds the cell
+# took 35-38 s on an H100 and the whole script 1081.6 s of its 1200 s, so
+# the 16-seed cell runs through --cell), held to the JAX package's record of it
+# (experiments/results/SUMMARY.md:41 and its pickle, medians over 16 chunks:
+# Sinkhorn 0.7886, MMD 0.1902, mode weight 51.37, no forgotten mode) on the
+# medians: Sinkhorn <= GATE_BASELINE_SINKHORN x the record, MMD <= record +
+# GATE_RE_MMD_SLACK, mode weight within GATE_RE_MODE_W of the record (its
+# chunks spread over 48.5-53.1), no chunk forgetting a mode. (b) the SMC
+# cell at the same width cut in depth to SMC_CELL_CUT (128 of 1024 warm-up
+# steps, 4 seeds: one run). The full-depth SMC cells run through --cell,
+# held to their records (two_modes d 16: Sinkhorn 0.6384, mode weight 66.61;
+# many_modes 4 modes: Sinkhorn 0.9845) as (a), the mode weight within
+# GATE_SMC_MODE_W (the record's chunks spread over 65.2-68.7)
+RE_RECORD = {"sinkhorn": 0.7886, "mmd": 0.1902, "mode_weight": 51.37}
+SMC_RECORDS = {"sample_two_modes_competing": {"sinkhorn": 0.6384, "mode_weight": 66.61},
+               "sample_many_modes_competing": {"sinkhorn": 0.9845}}
+GATE_BASELINE_SINKHORN, GATE_RE_MMD_SLACK, GATE_RE_MODE_W, GATE_SMC_MODE_W = 1.15, 0.05, 10.0, 5.0
+RE_CELL_SEEDS = 4
+SMC_CELL_CUT = ["--smc_n_warmup_mcmc_steps", "128", "--n_sampling_seeds", "4"]
+# (c) PDDS-weighted SMC beside the same SMC without PDDS on the demo's
+# ManyModes (4 modes, d 8) annealed along VP(0.1, 10)'s exact noised
+# mixture at PDDS_LEVELS uniform times in [0, 1], from N(0, I): 1024
+# particles, 64 warm-up + 8 MALA steps a level; every level's ESS in (0, 1]
+# and each mode's weight within GATE_PDDS_MODE_W of the target's. Measured
+# on an H100 (700 W): the largest mode error 0.046 with PDDS, 0.050 without;
+# a mode's share over ~300 effective particles (31 resamplings of 1024) has
+# a standard error of ~0.026, so the demo's 0.06 would be 2.3 of them on the
+# worst of 4 modes; 0.1 is ~4. (d) preconditioned SMC (16 levels, 1024 particles,
+# 16 + 4 steps) and RE (32 levels x 256 replicas, 32 + 8 steps, a swap
+# every 4) on the same path, with MALA and with ULA, each level
+# preconditioned by s²(t)(Σ + σ²(t)I) of phase 4's MALA dataset covariance Σ
+# (experiments/common.py:468-487 of the JAX package), from step size
+# PRECOND_STEP: the largest eigenvalue of Σ (18.7 on the demo target) over a
+# mode's variance (0.5) makes preconditioned ULA unstable past 2·0.5/18.7 =
+# 0.053 at t = 0
+PDDS_LEVELS, PDDS_PARTICLES, PDDS_WARM, PDDS_MCMC, PDDS_STEP = 32, 1024, 64, 8, 5e-2
+GATE_PDDS_MODE_W = 0.1
+PRECOND_SMC = dict(levels=16, batch=1024, warm=16, mcmc=4)
+PRECOND_RE = dict(levels=32, batch=256, warm=32, mcmc=8, swap=4)
+PRECOND_STEP = 1e-2
+# (e) an RWMH dataset of RWMH_POINTS on two_modes d 16 (both modes held);
+# (f) the Bayesian logistic-regression driver on ionosphere (d 35) with
+# original DDS cut to LOGREG_CUT, and its SMC cell stopping at
+# target.sample (ROADMAP C5), cut to LOGREG_SMC_CUT (both with fewer MALA
+# points than the driver's 40 000); (g) LangevinSolver on
+# the demo target (8192 chains, 1000 steps to t 10, 500 burned); (h) a short
+# re_sampler run (RE_PARITY levels, replicas, steps, swap frequency) on the
+# card against the same run on the CPU under the CPU run's draws: max |diff|
+# <= RE_PARITY_TOL (float32 sums in other orders over 32 dependent steps;
+# a flipped accept decision would show as O(0.1))
+RWMH_POINTS = 10_000
+LOGREG_CUT = ["--datasets", "ionosphere", "--train_steps", "256", "--n_sampling_seeds", "2",
+              "--dataset_size", "10000"]
+LOGREG_SMC_CUT = ["--datasets", "ionosphere", "--dataset_size", "4000", "--smc_n_steps", "4",
+                  "--smc_n_warmup_mcmc_steps", "4", "--n_sampling_seeds", "1"]
+LANGEVIN_CHAINS, LANGEVIN_STEPS, LANGEVIN_BURN, LANGEVIN_T = 8192, 1000, 500, 10.0
+RE_PARITY = dict(levels=8, batch=256, steps=32, swap=4)
+RE_PARITY_TOL = 1e-3
 # quality gates of the trained sampler against the target
 GATE_LOGZ, GATE_ESS, GATE_MODE_W = 0.05, 0.9, 0.06
 # the KL-trained demo's own gates (PERF.md §2): 256 reverse-KL steps hardly
@@ -2782,13 +2861,465 @@ def phase_vi_cli(dev, path_counts) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sampling baselines (RE, SMC with PDDS weights and
+# preconditioners, RWMH), the logistic-regression driver, LangevinSolver
+# ---------------------------------------------------------------------------
+
+class SamplerProbe:
+    """Wraps ``api.smc_sampler`` and ``api.re_sampler`` (what
+    ``run_smc_sampler`` / ``run_re_sampler`` call) for a run: each call's
+    synchronised host seconds, its MCMC steps and its diagnostics."""
+
+    def __enter__(self):
+        from sde_sampler_lrds_torch import api
+
+        self.api, self.calls = api, []
+        self.saved = {n: getattr(api, n) for n in ("smc_sampler", "re_sampler")}
+        for n, fn in self.saved.items():
+            setattr(api, n, self._timed(n, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def call(gen, x0, times, lpg, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(gen, x0, times, lpg, *a, **k)
+            torch.cuda.synchronize()
+            per_level = k["n_warmup_mcmc_steps"] + k["n_mcmc_steps"]
+            steps = per_level * (times.shape[0] if name == "smc_sampler" else 1)
+            self.calls.append({"sampler": name, "s": time.perf_counter() - t0,
+                               "steps": steps, "diags": out[2]})
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.api, n, fn)
+        return False
+
+    def summary(self) -> dict:
+        """Seconds, ms a step, and for SMC the resampling events (levels
+        below the ESS threshold of 1, the prior's excluded) and acceptance."""
+        out = {"runs": len(self.calls), "sampling_s": sum(c["s"] for c in self.calls),
+               "ms_per_step": [c["s"] * 1e3 / c["steps"] for c in self.calls]}
+        smc = [c["diags"] for c in self.calls if c["sampler"] == "smc_sampler"]
+        if smc:
+            out["resampling_events"] = sum(int((d["ess"][:-1] < 1.0).sum()) for d in smc)
+            out["acceptance"] = [float(d["local_acc"].mean()) for d in smc]
+            out["min_acceptance"] = min(float(d["local_acc"].min()) for d in smc)
+            out["max_acceptance"] = max(float(d["local_acc"].max()) for d in smc)
+        else:
+            out["acceptance"] = [float(c["diags"]["acc"].mean()) for c in self.calls]
+        return out
+
+
+def run_baseline_cell(dev, label: str, module: str, argv: list, path_counts) -> tuple:
+    """One SMC or RE cell of a port competing driver through its ``main``
+    (``competing_run`` -> ``run_sampling_baseline``), its pickle under
+    build/driver_cells/: finite sample metrics on every chunk, B1 never
+    launched, B3 once a chunk and B2 2·(67..100) times a chunk (the
+    annealing's 67 iterations at least), B4 once a resampling event (SMC)
+    or never (RE). Returns (cell, summary with the medians)."""
+    import importlib
+
+    driver = importlib.import_module(f"sde_sampler_lrds_torch.experiments.{module}")
+    argv = argv + ["--device", "cuda", "--results_path", "build/driver_cells"]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with SamplerProbe() as probe:
+        cells = driver.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = path_counts[label] = read_counts()
+    cell = cells[-1]
+    m = cell["metrics"]
+    n_chunks = len(m["error/sinkhorn"])
+    lists = {k: v for k, v in m.items() if isinstance(v, list) and v and isinstance(v[0], float)}
+    sampling = probe.summary()
+    out = {"params": cell["params"], "launches": counts, "n_chunks": n_chunks, **sampling,
+           "stage_s": {"mala": cell["times"]["mcmc"], "sampling": sampling["sampling_s"],
+                       "cell": wall},
+           "sample_time": m["eval/sample_time"],
+           "medians": {k: float(np.median(v)) for k, v in lists.items() if k in CELL_METRICS},
+           "max_forgotten_modes": max(m.get("eval/num_forgotten_modes", [0.0]))}
+    say(f"[phase 13] baseline cell {label} " + json.dumps(out))
+    check(n_chunks >= 1, f"{label}: no chunk was scored")
+    for key in ("error/sinkhorn", "error/mmd", "error/ks", "eval/avg_stddev"):
+        check(all(math.isfinite(v) for v in m[key]), f"{label}: {key} not finite")
+    check(counts["fused_traj"] + counts["fused_traj_full_cov"] + counts["fused_traj_bf16"] == 0,
+          f"{label}: B1 launched {counts}")
+    check(counts["transport_cost"] == n_chunks
+          and 2 * 67 * n_chunks <= counts["sinkhorn_lse"] <= 200 * n_chunks,
+          f"{label}: Sinkhorn kernels launched {counts['sinkhorn_lse']} / "
+          f"{counts['transport_cost']} times for {n_chunks} chunks")
+    if "resampling_events" in sampling:
+        check(counts["resample"] == sampling["resampling_events"] > 0,
+              f"{label}: resampling kernel launched {counts['resample']} times for "
+              f"{sampling['resampling_events']} events")
+        check(0 < sampling["min_acceptance"] and sampling["max_acceptance"] < 1,
+              f"{label}: SMC acceptance outside (0, 1)")
+    else:
+        check(counts["resample"] == 0, f"{label}: RE launched the resampling kernel")
+    return cell, out
+
+
+def check_baseline_record(label: str, solver_type: str, out: dict, record: dict) -> None:
+    """A baseline cell against its JAX record, on the medians over its
+    chunks: Sinkhorn within GATE_BASELINE_SINKHORN x, the RE MMD within
+    GATE_RE_MMD_SLACK, the mode weight within GATE_RE_MODE_W (RE) or
+    GATE_SMC_MODE_W (SMC), and no chunk forgetting a mode."""
+    med = out["medians"]
+    say(f"[phase 13] {label} against the JAX record {json.dumps(record)}: Sinkhorn "
+        f"{med['error/sinkhorn']:.4f}, MMD {med['error/mmd']:.4f}, mode weight "
+        f"{med.get('eval/mode_weight', float('nan')):.2f}, forgotten modes at most "
+        f"{out['max_forgotten_modes']}")
+    limit = GATE_BASELINE_SINKHORN * record["sinkhorn"]
+    check(med["error/sinkhorn"] <= limit,
+          f"{label}: Sinkhorn {med['error/sinkhorn']:.4f} > {limit:.4f}")
+    check(out["max_forgotten_modes"] == 0, f"{label}: a chunk forgot a mode")
+    if "mmd" in record:
+        check(med["error/mmd"] <= record["mmd"] + GATE_RE_MMD_SLACK,
+              f"{label}: MMD {med['error/mmd']:.4f} > {record['mmd'] + GATE_RE_MMD_SLACK:.4f}")
+    if "mode_weight" in record:
+        slack = GATE_RE_MODE_W if solver_type == "re" else GATE_SMC_MODE_W
+        check(abs(med["eval/mode_weight"] - record["mode_weight"]) <= slack,
+              f"{label}: mode weight {med['eval/mode_weight']:.2f} not within {slack} of "
+              f"{record['mode_weight']}")
+
+
+def noised_mog(sde, target):
+    """log_prob_and_grads(t, x) of the target's mixture noised by ``sde`` to
+    time t, one time for all rows or one a row: the exact annealing path of
+    PDDS (diagonal components)."""
+    means, var = target.loc, target.scale**2
+    log_w = torch.log(target._probs)
+
+    def lpg(t, x):
+        t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
+        t = torch.broadcast_to(t.reshape(-1), (x.shape[0],))
+        s, sig = sde.s(t)[:, None, None], sde.sigma_sq(t)[:, None, None]
+        v = s**2 * (var[None] + sig)
+        diff = x[:, None, :] - s * means[None]
+        lpk = log_w - 0.5 * torch.sum(diff**2 / v + torch.log(2 * math.pi * v), dim=-1)
+        resp = torch.softmax(lpk, dim=-1)
+        return torch.logsumexp(lpk, dim=-1), -torch.sum(resp[..., None] * diff / v, dim=1)
+
+    return lpg
+
+
+def level_preconditioners(sde, dataset, times):
+    """s²(t)(Σ + σ²(t)I) of the dataset's covariance Σ at each time, and its
+    square root P·diag(√λ_t) in Σ's eigenbasis (any square root serves the
+    proposal noise)."""
+    cov = torch.cov(dataset.T.double())
+    cov = cov + 1e-6 * torch.eye(cov.shape[0], device=cov.device, dtype=cov.dtype)
+    eig, p = torch.linalg.eigh(cov)
+    lam = sde.s(times).double()[:, None] ** 2 * (
+        torch.clamp(eig, min=1e-8)[None] + sde.sigma_sq(times).double()[:, None])
+    pm = torch.einsum("de,le,fe->ldf", p, lam, p).float()
+    return pm, torch.einsum("de,le->lde", p, torch.sqrt(lam)).float()
+
+
+def mode_weights(target, x) -> list:
+    counts = target.compute_mode_count(x.reshape(-1, x.shape[-1]))
+    return [float(w) for w in counts / counts.sum()]
+
+
+def phase_pdds(dev, target, path_counts) -> dict:
+    """Phase 13 (c): PDDS-weighted SMC beside the same run without PDDS."""
+    from sde_sampler_lrds_torch.mcmc import smc_sampler
+    from sde_sampler_lrds_torch.sde import VP
+
+    sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
+    lpg = noised_mog(sde, target)
+    times = torch.linspace(0.0, 1.0, PDDS_LEVELS, device=dev)
+    x_chk = target_draws(dev, 512, 41)
+    for t in (times[1], times[PDDS_LEVELS // 2]):
+        lp, g = lpg(t, x_chk)
+        args = (t, x_chk, target.loc, target.scale**2, target._probs)
+        check(float((lp - sde.marginal_gmm_log_prob(*args)).abs().max()) < 1e-4
+              and float((g - sde.marginal_gmm_score(*args)).abs().max()) < 1e-4,
+              "the per-row noised mixture disagrees with VP.marginal_gmm_*")
+    x0 = torch.randn(PDDS_PARTICLES, DIM, generator=torch.Generator(dev).manual_seed(42),
+                     device=dev)
+    true_w = [float(w) for w in target._probs]
+    out = {}
+    for label, kw in (("smc_pdds", {"use_pdds_weights": True, "sde": sde}), ("smc_vp", {})):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples, _, diags = smc_sampler(
+            torch.Generator(dev).manual_seed(43), x0, times, lpg, PDDS_WARM, PDDS_MCMC,
+            PDDS_STEP, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = path_counts[label] = read_counts()
+        ess, acc = diags["ess"].cpu(), diags["local_acc"].cpu()
+        w = mode_weights(target, samples[0])
+        steps = PDDS_LEVELS * (PDDS_WARM + PDDS_MCMC)
+        out[label] = {"s": secs, "ms_per_step": secs * 1e3 / steps, "launches": counts,
+                      "resampling_events": int((ess[:-1] < 1.0).sum()),
+                      "min_ess": float(ess.min()), "mean_acceptance": float(acc.mean()),
+                      "mode_weights": w, "true_mode_weights": true_w,
+                      "max_mode_weight_err": max(abs(a - b) for a, b in zip(w, true_w))}
+        say(f"[phase 13] (c) {label} " + json.dumps(out[label]))
+        check(bool(torch.isfinite(samples).all()), f"{label}: samples not finite")
+        check(bool(((ess > 0) & (ess <= 1.0 + 1e-6)).all()), f"{label}: an ESS outside (0, 1]")
+        check(out[label]["max_mode_weight_err"] <= GATE_PDDS_MODE_W,
+              f"{label}: mode weights {w} vs {true_w}")
+        check(counts["resample"] == out[label]["resampling_events"],
+              f"{label}: resampling kernel launched {counts['resample']} times for "
+              f"{out[label]['resampling_events']} events")
+    return out
+
+
+def phase_precond(dev, target, dataset, path_counts) -> dict:
+    """Phase 13 (d): preconditioned SMC and RE, with MALA and with ULA."""
+    from sde_sampler_lrds_torch.mcmc import re_sampler, smc_sampler
+    from sde_sampler_lrds_torch.sde import VP
+
+    sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
+    lpg = noised_mog(sde, target)
+    out = {}
+    for kind, cfg in (("smc", PRECOND_SMC), ("re", PRECOND_RE)):
+        times = torch.linspace(0.0, 1.0, cfg["levels"], device=dev)
+        pm, pc = level_preconditioners(sde, dataset, times)
+        x0 = torch.randn(cfg["batch"], DIM, generator=torch.Generator(dev).manual_seed(44),
+                         device=dev)
+        for use_ula in (False, True):
+            label = f"{kind}_precond_{'ula' if use_ula else 'mala'}"
+            gen = torch.Generator(dev).manual_seed(45)
+            kw = dict(precond_matrix_per_noise=pm, precond_matrix_chol_per_noise=pc,
+                      use_ula=use_ula)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "smc":
+                samples, ss, diags = smc_sampler(gen, x0, times, lpg, cfg["warm"], cfg["mcmc"],
+                                                 PRECOND_STEP, **kw)
+                acc = diags["local_acc"].cpu()
+            else:
+                samples, ss, diags, _ = re_sampler(
+                    gen, x0, times, lpg, cfg["swap"], cfg["warm"], cfg["mcmc"],
+                    torch.full((cfg["levels"],), PRECOND_STEP, device=dev), **kw)
+                acc = diags["acc"].cpu()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = path_counts[label] = read_counts()
+            steps = (cfg["warm"] + cfg["mcmc"]) * (cfg["levels"] if kind == "smc" else 1)
+            out[label] = {"s": secs, "ms_per_step": secs * 1e3 / steps, "launches": counts,
+                          "acceptance": [float(acc.min()), float(acc.mean()), float(acc.max())],
+                          "mode_weights": mode_weights(target, samples[0])}
+            say(f"[phase 13] (d) {label} " + json.dumps(out[label]))
+            check(bool(torch.isfinite(samples).all()) and bool(torch.isfinite(ss).all()),
+                  f"{label}: results not finite")
+            if kind == "smc" and not use_ula:
+                check(bool(((acc > 0) & (acc < 1)).all()), f"{label}: acceptance outside (0, 1)")
+            if kind == "re" and not use_ula:
+                check(0 < float(acc.mean()) < 1, f"{label}: acceptance outside (0, 1)")
+    return out
+
+
+def phase_rwmh(dev) -> dict:
+    """Phase 13 (e): an RWMH dataset on two_modes d 16."""
+    from sde_sampler_lrds_torch.api import make_target, make_target_details, mcmc_sample
+
+    target = make_target(make_target_details("two_modes", dim=VI_DIM), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = mcmc_sample(torch.Generator(dev).manual_seed(46), target, target.loc,
+                       mcmc_type="rwmh", dataset_length=RWMH_POINTS, device=dev)
+    torch.cuda.synchronize()
+    counts = target.compute_mode_count(data)
+    out = {"s": time.perf_counter() - t0, "points": int(data.shape[0]),
+           "mode_counts": [int(c) for c in counts]}
+    say("[phase 13] (e) RWMH dataset " + json.dumps(out))
+    check(bool(torch.isfinite(data).all()), "RWMH dataset not finite")
+    check(bool((counts > 0).all()), f"RWMH dataset misses a mode: {out['mode_counts']}")
+    return out
+
+
+def phase_logreg(dev, path_counts) -> dict:
+    """Phase 13 (f): the logistic-regression driver on ionosphere with
+    original DDS, and its SMC cell stopping at target.sample (C5)."""
+    import importlib
+
+    cell, out = run_competing_cell(
+        dev, "logreg_dds", "sample_bayesian_logreg_competing",
+        ["--solver_type", "dds_orig"] + LOGREG_CUT, path_counts, must_be_finite=False)
+    m = cell["metrics"]
+    out["avg_predictive_log_prob"] = m["eval/avg_predictive_log_prob"]
+    say("[phase 13] (f) logreg dds: avg predictive log-prob "
+        + json.dumps(out["avg_predictive_log_prob"]))
+    check(all(math.isfinite(v) for v in m["eval/avg_predictive_log_prob"]),
+          "logreg: eval/avg_predictive_log_prob not finite")
+    check("error/sinkhorn" not in m and out["launches"]["sinkhorn_lse"] == 0,
+          "logreg: a sample loss ran on a target without a sampler")
+    driver = importlib.import_module(
+        "sde_sampler_lrds_torch.experiments.sample_bayesian_logreg_competing")
+    reset_counts()
+    try:
+        driver.main(["--solver_type", "smc", "--device", "cuda", "--results_path",
+                     "build/driver_cells/logreg_smc"] + LOGREG_SMC_CUT)
+        check(False, "logreg smc: the cell ran past target.sample")
+    except NotImplementedError as e:
+        frame = e.__traceback__
+        while frame.tb_next is not None:
+            frame = frame.tb_next
+        where = frame.tb_frame.f_code.co_name
+    counts = path_counts["logreg_smc"] = read_counts()
+    out["smc_stops_in"] = where
+    say(f"[phase 13] (f) logreg smc stops with NotImplementedError in {where} after "
+        f"{counts['resample']} resampling launches")
+    check(where == "sample" and counts["resample"] > 0,
+          f"logreg smc: stopped in {where} after {counts}")
+    return out
+
+
+def phase_langevin(dev, target) -> dict:
+    """Phase 13 (g): LangevinSolver on the demo target."""
+    from sde_sampler_lrds_torch.sde import get_timesteps
+    from sde_sampler_lrds_torch.solvers import LangevinSolver
+    from sde_sampler_lrds_torch.targets import IsotropicGauss
+
+    solver = LangevinSolver(target, IsotropicGauss(dim=DIM, scale=1.0, device=dev),
+                            eval_ts=get_timesteps(0.0, LANGEVIN_T, steps=LANGEVIN_STEPS,
+                                                  device=dev),
+                            eval_batch_size=LANGEVIN_CHAINS, burn_steps=LANGEVIN_BURN)
+    res = solver.run(torch.Generator(dev).manual_seed(47))
+    truth = {k: float(v) for k, v in target.expectations.items()}
+    out = {"sample_time_s": res.metrics["eval/sample_time"],
+           "expectation_preds": res.expectation_preds, "target_expectations": truth,
+           "mode_weights": mode_weights(target, res.samples)}
+    say("[phase 13] (g) LangevinSolver " + json.dumps(out))
+    check(res.xs.shape == (LANGEVIN_STEPS + 1, LANGEVIN_CHAINS, DIM), "LangevinSolver shape")
+    check(all(math.isfinite(v) for v in res.expectation_preds.values()),
+          "LangevinSolver: an expectation prediction is not finite")
+    return out
+
+
+class DrawTape:
+    """Records every torch.randn / torch.rand draw made while recording (the
+    draws go to the CPU), then replays them in order while replaying, moved
+    to the device each call asks for: the same draws for a run on another
+    device."""
+
+    def __init__(self):
+        self.draws, self.mode, self.pos = [], None, 0
+
+    def __call__(self, mode: str):
+        self.mode, self.pos = mode, 0
+        return self
+
+    def __enter__(self):
+        self.saved = torch.randn, torch.rand
+        torch.randn, torch.rand = self._wrap(self.saved[0]), self._wrap(self.saved[1])
+        return self
+
+    def _wrap(self, fn):
+        def call(*a, **k):
+            if self.mode == "record":
+                out = fn(*a, **k)
+                self.draws.append(out.cpu())
+                return out
+            d = self.draws[self.pos]
+            self.pos += 1
+            shape = tuple(a[0]) if a else tuple(k["size"])
+            check(tuple(d.shape) == shape, f"replayed draw {tuple(d.shape)} for {shape}")
+            return d.to(device=k.get("device"), dtype=k.get("dtype") or d.dtype)
+        return call
+
+    def __exit__(self, *exc):
+        torch.randn, torch.rand = self.saved
+        return False
+
+
+def phase_re_parity(dev, target_cpu, target_dev, dataset) -> dict:
+    """Phase 13 (h): re_sampler on the card against the port on the CPU
+    under the same draws, on the tempering path from the dataset's Gaussian
+    to the demo target."""
+    from sde_sampler_lrds_torch.api import define_tempering_utils
+    from sde_sampler_lrds_torch.mcmc import re_sampler
+
+    cfg = RE_PARITY
+    mean, cov = dataset.mean(dim=0).cpu(), torch.cov(dataset.T).cpu()
+    times = torch.linspace(0.0, 1.0, cfg["levels"])
+    x0 = torch.randn(cfg["batch"], DIM, generator=torch.Generator().manual_seed(48)) * 2.0
+    steps = torch.full((cfg["levels"],), 0.05)
+    tape, outs = DrawTape(), {}
+    for mode, d, tgt in (("record", torch.device("cpu"), target_cpu), ("replay", dev, target_dev)):
+        _, lpg = define_tempering_utils(mean, cov, tgt.unnorm_log_prob, tgt.score, device=d)
+        with tape(mode):
+            outs[mode] = re_sampler(torch.Generator(d).manual_seed(49), x0.to(d), times.to(d),
+                                      lpg, cfg["swap"], 0, cfg["steps"], steps.to(d))
+    check(tape.pos == len(tape.draws), "the card run took fewer draws than the CPU run")
+    (s_c, ss_c, d_c, f_c), (s_g, ss_g, d_g, f_g) = outs["record"], outs["replay"]
+    err = {"samples": float((s_g.cpu() - s_c).abs().max()),
+           "step_sizes": float((ss_g.cpu() - ss_c).abs().max() / ss_c.abs().max()),
+           "log_probs": float((f_g[1].cpu() - f_c[1]).abs().max()),
+           "acc": float((d_g["acc"].cpu() - d_c["acc"]).abs().max()), "draws": len(tape.draws)}
+    say("[phase 13] (h) re_sampler card vs CPU under the CPU's draws, max |diff| "
+        + json.dumps(err))
+    check(err["samples"] <= RE_PARITY_TOL, f"re_sampler card vs CPU: {err}")
+    return err
+
+
+def phase_baselines(dev, target, dataset, path_counts) -> dict:
+    """Phase 13: the sampling baselines through the competing drivers and
+    their kernels' paths, PDDS and preconditioned SMC / RE, RWMH, the
+    logistic-regression driver, LangevinSolver, and RE card against CPU."""
+    from sde_sampler_lrds_torch.targets import ManyModes
+
+    t13 = time.perf_counter()
+    out = {}
+    _, out["re_cell"] = run_baseline_cell(
+        dev, "re_cell", "sample_two_modes_competing",
+        ["--solver_type", "re", "--dim_range", str(VI_DIM), "--n_sampling_seeds",
+         str(RE_CELL_SEEDS)], path_counts)
+    check_baseline_record("re_cell", "re", out["re_cell"], RE_RECORD)
+    _, out["smc_cell"] = run_baseline_cell(
+        dev, "smc_cell", "sample_two_modes_competing",
+        ["--solver_type", "smc", "--dim_range", str(VI_DIM)] + SMC_CELL_CUT, path_counts)
+    out["pdds"] = phase_pdds(dev, target, path_counts)
+    out["precond"] = phase_precond(dev, target, dataset, path_counts)
+    out["rwmh"] = phase_rwmh(dev)
+    out["logreg"] = phase_logreg(dev, path_counts)
+    out["langevin"] = phase_langevin(dev, target)
+    target_cpu = ManyModes(n_modes=N_MODES, dim=DIM, var=0.5, device="cpu")
+    out["re_parity"] = phase_re_parity(dev, target_cpu, target, dataset)
+    out["ms_per_step"] = {"re": out["re_cell"]["ms_per_step"],
+                          "smc": out["smc_cell"]["ms_per_step"]}
+    out["phase_s"] = time.perf_counter() - t13
+    say(f"[phase 13] RE ms a step {json.dumps(out['ms_per_step']['re'])}, SMC ms a step "
+        f"{json.dumps(out['ms_per_step']['smc'])}; took {out['phase_s']:.1f} s")
+    return out
+
+
 def run_vi_cell(dev, module: str, flags: list) -> None:
     """``--cell`` for a competing driver: one run through its main with
     run_competing_cell's path and launch checks; a two_modes d 16 cell is
     held to its JAX record (TWO_MODES_RECORDS, GATE_CELL_VI_SLACK), the
-    CMCD one to writing its pickle."""
+    CMCD one to writing its pickle. An 'smc' or 're' cell gets
+    run_baseline_cell's checks, and the records of RE_RECORD and
+    SMC_RECORDS (two_modes d 16; many_modes at 4 modes, d 8) where its last
+    cell is one of them."""
     value = lambda flag: flags[flags.index(flag) + 1] if flag in flags else None
     solver_type = value("--solver_type")
+    if solver_type in ("smc", "re"):
+        label = " ".join([module] + flags)
+        _, out = run_baseline_cell(dev, label, module, flags, {})
+        params = out["params"]
+        record = None
+        if module == "sample_two_modes_competing" and params.get("dim") == VI_DIM:
+            record = RE_RECORD if solver_type == "re" else SMC_RECORDS[module]
+        if (module == "sample_many_modes_competing" and solver_type == "smc"
+                and (params.get("dim"), params.get("n_modes")) == (DIM, N_MODES)):
+            record = SMC_RECORDS[module]
+        if record is not None:
+            check_baseline_record(label, solver_type, out, record)
+        return
     record = None
     if module == "sample_two_modes_competing" and value("--dim_range") == "16":
         record = TWO_MODES_RECORDS[solver_type]
@@ -2906,6 +3437,7 @@ def main(argv=None) -> int:
           "cli": phase_vi_cli(dev, path_counts)}
     vi["phase_s"] = time.perf_counter() - t12
     say(f"[phase 12] took {vi['phase_s']:.1f} s")
+    baselines = phase_baselines(dev, target, dataset, path_counts)
     phase_timing(dev, cfg, arrays, recs["fused_traj"], peaks, sfu_rate)
     for plan_name, (vi_cfg, vi_arrays, _) in vi_plan_set.items():
         phase_timing(dev, vi_cfg, vi_arrays, recs["fused_traj"]["vi_plans"][plan_name], peaks,
@@ -2932,7 +3464,7 @@ def main(argv=None) -> int:
     say("[phase 7] paths: " + json.dumps({"rds_eval": eval_times, "smc": smc,
                                           "driver_cells": driver_cells,
                                           "bf16_demo": bf16_demo, "kl": kl, "cli": cli,
-                                          "vi": vi}))
+                                          "vi": vi, "baselines": baselines}))
     say(json.dumps({"kernels": [
         {"name": kname, **{k: rec[k] for k in KERNEL_KEYS},
          **{k: v for k, v in rec.items() if k not in KERNEL_KEYS}}

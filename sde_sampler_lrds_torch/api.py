@@ -1,7 +1,8 @@
 """Public programmatic API (counterpart of sde_sampler_lrds_tpu/api.py):
 the target and model factories ``make_target_details``, ``make_target``,
 ``make_ctrl`` and ``make_model``, the dataset and reference-fitting pipeline
-``mcmc_sample`` and ``fit_gmm``, and the SMC baseline.
+``mcmc_sample`` (MALA or RWMH) and ``fit_gmm``, and the SMC and
+replica-exchange baselines on the tempering path.
 
 ``make_model`` takes the JAX package's six axes
 
@@ -25,7 +26,8 @@ UNet ones, on the FourierMLP or the DenseNet, the lr schedulers of
 'nn' reference, the UNet and the mesh raise NotImplementedError naming their
 ROADMAP queue item. The targets 'two_modes', 'two_modes_full',
 'bracket_two_modes', 'many_modes', 'rings', 'checkerboard' and 'phi_four'
-are ported; the replica-exchange baseline is not.
+and the Bayesian logistic-regression posteriors 'cancer', 'credit',
+'ionosphere' and 'sonar' are ported; 'mnist' and 'mnist_zero_one' are not.
 """
 from __future__ import annotations
 
@@ -41,14 +43,14 @@ from .eval.sinkhorn import Sinkhorn
 from .losses import (ControlledLangevinSDELoss, DDPMLikeReferenceSDELoss, EIReferenceSDELoss,
                      EMReferenceSDELoss, ExponentialIntegratorSDELoss, TimeReversalLoss)
 from .mcmc.kernels import MCMCState, run_chain
-from .mcmc.smc import smc_sampler
+from .mcmc.smc import re_sampler, smc_sampler
 from .models import (CancelDriftCtrl, ClippedCtrl, DenseNet, FourierMLP, LerpCtrl, ScoreCtrl,
                      TimeEmbed, remove_reference_ctrl)
 from .sde import VP, CosineVP, PinnedBM, ScaledBM, get_timesteps
 from .solvers import CMCD, DDS, PIS, RDS, Bridge
 from .solvers.base import TrainConfig
-from .targets import (BracketTwoModes, Checkerboard, Delta, IsotropicGauss, ManyModes,
-                      PhiFour, Rings, TwoModes, TwoModesFull)
+from .targets import (BracketTwoModes, Checkerboard, Delta, IsotropicGauss,
+                      LogisticRegression, ManyModes, PhiFour, Rings, TwoModes, TwoModesFull)
 from .targets.gauss import Gauss, GaussFull
 from .utils.common import resolve_device
 from .utils.gmm_fit import fit_gmm_em
@@ -112,6 +114,8 @@ def make_target(target_details: dict, device=None):
     if name == "phi_four":
         return PhiFour(a=kw.pop("a", 0.1), b=kw.pop("b", 0.0), dim=kw.pop("dim", 100),
                        device=device, **kw)
+    if name in ("cancer", "credit", "ionosphere", "sonar"):
+        return LogisticRegression(data_type=name, device=device, **kw)
     if name in TARGET_NAMES:
         raise NotImplementedError(f"Target {name} is not ported yet (ROADMAP A4 / A6).")
     raise NotImplementedError(f"Target {name} not supported.")
@@ -415,12 +419,11 @@ def mcmc_sample(generator: torch.Generator, target, x_init, mcmc_type: str = "ma
                 target_log_prob_and_grad: Callable | None = None,
                 adapt_step_size: bool = True, shuffle: bool = True,
                 device=None) -> torch.Tensor:
-    """MALA dataset: chains seeded at the given mode points,
-    adaptive step sizes, post-warmup pooling. ``generator`` lives on
-    ``device``."""
+    """MALA dataset (RWMH for any ``mcmc_type`` other than 'mala', as in
+    the JAX package): chains seeded at the given mode points, adaptive step
+    sizes, post-warmup pooling. ``generator`` lives on ``device``."""
     device = resolve_device(device)
-    if mcmc_type != "mala":
-        raise NotImplementedError(f"mcmc_type {mcmc_type!r} is not ported")
+    kernel = "mala" if mcmc_type == "mala" else "rwmh"
     if target_log_prob_and_grad is None:
         target_log_prob_and_grad = target.log_prob_and_score
     x_init = torch.as_tensor(x_init, dtype=torch.float32, device=device)
@@ -430,9 +433,9 @@ def mcmc_sample(generator: torch.Generator, target, x_init, mcmc_type: str = "ma
     ta = 0.75 if adapt_step_size else 0.0
     state = MCMCState.init(y_init, target_log_prob_and_grad, step_size)
     state, _ = run_chain(generator, state, target_log_prob_and_grad, n_warmup_steps,
-                         target_acceptance=ta, collect=False)
+                         kernel=kernel, target_acceptance=ta, collect=False)
     state, samples = run_chain(generator, state, target_log_prob_and_grad,
-                               n_mcmc_steps, target_acceptance=ta, collect=True)
+                               n_mcmc_steps, kernel=kernel, target_acceptance=ta, collect=True)
     out = samples.reshape(-1, y_init.shape[-1])
     if shuffle:
         out = out[torch.randperm(out.shape[0], generator=generator, device=device)]
@@ -517,4 +520,26 @@ def run_smc_sampler(generator: torch.Generator, mean, var, n_steps: int, step_si
         n_mcmc_steps=n_mcmc_steps,
         step_sizes_per_noise=torch.full((n_steps, n_particles, 1), step_size, device=device),
         reweight_threshold=reweight_threshold, target_acceptance=target_acceptance)
+    return (samples[0], diags) if return_diagnostics else samples[0]
+
+
+def run_re_sampler(generator: torch.Generator, mean, var, n_steps: int, step_size: float,
+                   batch_size: int, swap_frequency: int, n_mcmc_steps: int,
+                   n_warmup_mcmc_steps: int, target_log_prob: Callable,
+                   target_score: Callable | None = None, target_acceptance: float = 0.75,
+                   return_diagnostics: bool = False, device=None):
+    """Replica-exchange baseline on the tempering path from the Gaussian
+    (mean, var) to the target. Returns the whole level-0 (the target's)
+    block of shape (n_mcmc_steps, batch_size, dim), and with
+    ``return_diagnostics`` also ``re_sampler``'s per-step acceptance."""
+    device = resolve_device(device)
+    prior, lpg = define_tempering_utils(mean, var, target_log_prob, target_score,
+                                        device=device)
+    times = torch.linspace(0.0, 1.0, n_steps, device=device)
+    x0 = prior.sample(generator, (batch_size,))
+    samples, _, diags, _ = re_sampler(
+        generator, x0, times, lpg, swap_frequency=swap_frequency,
+        n_warmup_mcmc_steps=n_warmup_mcmc_steps, n_mcmc_steps=n_mcmc_steps,
+        step_sizes_per_noise=torch.full((n_steps,), step_size, device=device),
+        target_acceptance=target_acceptance)
     return (samples[0], diags) if return_diagnostics else samples[0]

@@ -2,8 +2,9 @@
 and sample-based distances (counterpart of
 sde_sampler_lrds_tpu/eval/metrics.py; same metric names and namespaces
 eval/*, error/*, rel_error/*). Reductions are torch; the returned dict
-holds host floats. The hooks of targets not ported yet (predictive
-log-prob, objectives) come with those targets."""
+holds host floats. Targets may add the φ⁴ weights, the mean test-set
+predictive log-density (``compute_predictive_log_prob``) and an
+``objective``."""
 from __future__ import annotations
 
 import logging
@@ -74,6 +75,8 @@ def get_metrics(distr: Target, samples: torch.Tensor, weights: torch.Tensor | No
         fns["kl_weights"] = lambda s: float(distr.kl_weights(s))
         fns["tv_weights"] = lambda s: float(distr.tv_weights(s))
         fns["num_forgotten_modes"] = lambda s: float(distr.compute_forgotten_modes(s))
+    if hasattr(distr, "compute_predictive_log_prob"):
+        fns["avg_predictive_log_prob"] = lambda s: float(distr.compute_predictive_log_prob(s))
 
     w_col = None if weights is None else weights.reshape(-1, 1)
     for name, fn in fns.items():
@@ -119,4 +122,9 @@ def get_metrics(distr: Target, samples: torch.Tensor, weights: torch.Tensor | No
                 metrics["error/" + name] = float(loss(samples, gt))
         except NotImplementedError:
             logging.warning("Sampling not implemented for %s.", type(distr).__name__)
+
+    if hasattr(distr, "objective"):
+        metrics["eval/obj_avg"] = float(distr.objective(samples.mean(dim=0, keepdim=True)))
+        metrics["eval/avg_obj"] = float(distr.objective(samples).mean())
+        metrics["eval/min_obj"] = float(distr.objective(samples).min())
     return metrics

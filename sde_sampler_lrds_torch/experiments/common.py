@@ -1,20 +1,21 @@
 """Shared machinery of the experiment drivers (counterpart of the JAX
 package's experiments/common.py: the dataset preamble,
-``sigma_from_moments``, ``run_vi``, ``lrds_run``, ``competing_run`` and the
-result pickle; the competing drivers' SMC / replica-exchange cells and the
-EBM references are not ported yet).
+``sigma_from_moments``, ``run_vi``, ``run_sampling_baseline``,
+``lrds_run``, ``competing_run`` and the result pickle; the EBM references
+are not ported yet).
 
 One LRDS cell: build the target → MALA dataset → fit the reference
 (Gaussian or GMM) → ``make_model`` → ``TrainableWrapper.run`` → evaluation
 over several seeds → pickle {config, results}. A competing cell trains one
 of the other VI samplers (PIS, DDS, DIS, CMCD) with its scale moment-matched
-to the MALA dataset (CMCD: its prior fitted to it). Every random draw comes
+to the MALA dataset (CMCD: its prior fitted to it), or runs the SMC or
+replica-exchange baseline on the tempering path from the dataset's Gaussian,
+its pooled samples scored in ``eval_batch_size`` chunks. Every random draw comes
 from generators derived from ``--seed``; every constructor gets
 ``--device``.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import os
@@ -26,7 +27,9 @@ from pathlib import Path
 
 import torch
 
-from ..api import fit_gmm, make_model, make_target, make_target_details, mcmc_sample  # noqa: F401
+from ..api import (fit_gmm, make_model, make_target, make_target_details,  # noqa: F401
+                   mcmc_sample, run_re_sampler, run_smc_sampler)
+from ..eval import Sinkhorn, compute_sliced_ks, get_metrics, mmd_median
 from ..solvers.wrappers import TrainableWrapper, list_of_dict_2_dict_of_list
 from ..utils.common import derive_generator, resolve_device
 
@@ -121,6 +124,59 @@ def run_vi(generator: torch.Generator, solver_type, target_details, solver_detai
     return model, out
 
 
+def run_sampling_baseline(generator: torch.Generator, kind: str, target, mean, var,
+                          eval_batch_size: int, n_sampling_seeds: int = 16, smc_kwargs=None,
+                          re_kwargs=None, device=None) -> dict:
+    """The SMC ('smc') or replica-exchange ('re') baseline on the tempering
+    path from N(mean, var) to the target, run max(eval_batch_size ·
+    n_sampling_seeds / samples a run, 1) times; each run's level-0 block
+    (every MCMC slot of the whole population) is pooled and cut into
+    ``eval_batch_size`` chunks, each scored by ``get_metrics`` and by the
+    Sinkhorn, MMD and sliced KS against as many fresh target draws.
+    ``eval/sample_time`` is the sampling seconds over ``n_sampling_seeds``."""
+    device = resolve_device(device)
+    sinkhorn = Sinkhorn()
+    smc_kwargs = {**{"n_steps": 128, "step_size": 1e-4, "n_particles": 1024,
+                     "n_mcmc_steps": 32, "n_warmup_mcmc_steps": 1024}, **(smc_kwargs or {})}
+    re_kwargs = {**{"n_steps": 128, "step_size": 1e-4, "batch_size": 1024,
+                    "swap_frequency": 8, "n_mcmc_steps": 32, "n_warmup_mcmc_steps": 4096},
+                 **(re_kwargs or {})}
+    if kind == "smc":
+        per_run = smc_kwargs["n_particles"] * smc_kwargs["n_mcmc_steps"]
+    else:
+        per_run = re_kwargs["batch_size"] * re_kwargs["n_mcmc_steps"]
+    n_runs = max(int((eval_batch_size * n_sampling_seeds) / per_run), 1)
+    all_metrics, sampling_time = [], 0.0
+    pooled = torch.empty((0, target.dim), device=device)
+    for r in range(n_runs):
+        g_run, g_gt = derive_generator(generator, 2 * r), derive_generator(generator, 2 * r + 1)
+        t0 = clock(device)
+        if kind == "smc":
+            samples = run_smc_sampler(g_run, mean, var, target_log_prob=target.unnorm_log_prob,
+                                      target_score=target.score, device=device, **smc_kwargs)
+        else:
+            samples = run_re_sampler(g_run, mean, var, target_log_prob=target.unnorm_log_prob,
+                                     target_score=target.score, device=device, **re_kwargs)
+        sampling_time += clock(device) - t0
+        pooled = torch.cat([pooled, samples.reshape(-1, target.dim)])
+        n_chunk = 0
+        while pooled.shape[0] >= eval_batch_size:
+            chunk, pooled = pooled[:eval_batch_size], pooled[eval_batch_size:]
+            # a fresh ground-truth draw a chunk, so the chunks' metric noise
+            # is independent
+            gt = target.sample(derive_generator(g_gt, n_chunk), (chunk.shape[0],))
+            n_chunk += 1
+            metrics = get_metrics(target, chunk, marginal_dims=[0, 1])
+            metrics["error/sinkhorn"] = float(sinkhorn(gt, chunk))
+            metrics["error/mmd"] = float(mmd_median(gt, chunk))
+            metrics["error/ks"] = float(compute_sliced_ks(gt, chunk))
+            all_metrics.append(metrics)
+    out = list_of_dict_2_dict_of_list(all_metrics) if all_metrics else {}
+    out["eval/sample_time"] = sampling_time / max(n_sampling_seeds, 1)
+    out["sinkhorn_config"] = sinkhorn.config
+    return out
+
+
 def dump_results(path: str | Path, filename: str, config: dict, results: list):
     """Pickle {config, results}, numpy and builtins only, atomically (a
     temporary file replaced in one step, so a run killed mid-write leaves the
@@ -151,24 +207,10 @@ def announce(config: dict):
     pprint.pprint({k: v for k, v in config.items() if not callable(v)})
 
 
-class _NotPorted(argparse.Action):
-    """A JAX driver flag of a baseline the port's drivers do not run yet
-    (SMC, replica exchange): its default is kept in the config, any other
-    value raises."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        if values != self.default:
-            raise NotImplementedError(f"{option_string} is not ported yet (its baseline "
-                                      f"is not); only its default {self.default} is taken.")
-        setattr(namespace, self.dest, values)
-
-
 def add_common_args(parser, dataset_size=40000, train_steps=4096,
                     train_batch=1024, eval_batch=8192):
     """The JAX drivers' flags and defaults; ``--device`` is 'cuda' (the
-    default) or 'cpu'. The SMC / replica-exchange flags keep their defaults
-    in the config; another value raises until the drivers run those
-    baselines (ROADMAP A3)."""
+    default) or 'cpu'."""
     parser.add_argument("--results_path", type=str, default="results")
     for flag, kind, default in (
             ("smc_n_steps", int, 128), ("smc_n_particles", int, 1024),
@@ -176,7 +218,7 @@ def add_common_args(parser, dataset_size=40000, train_steps=4096,
             ("re_n_steps", int, 128), ("re_batch_size", int, 1024),
             ("re_n_mcmc_steps", int, 32), ("re_n_warmup_mcmc_steps", int, 4096),
             ("re_swap_frequency", int, 8)):
-        parser.add_argument(f"--{flag}", type=kind, default=default, action=_NotPorted)
+        parser.add_argument(f"--{flag}", type=kind, default=default)
     parser.add_argument("--terminal_t_pis", type=float, default=5.0)
     parser.add_argument("--train_steps", type=int, default=train_steps)
     parser.add_argument("--train_batch_size", type=int, default=train_batch)
@@ -252,17 +294,29 @@ def competing_run(args, target, target_details, x_init, filename_stub, extra_par
     prior; the sampler trains with the LV loss on the uniform grid and is
     evaluated over ``--n_sampling_seeds`` seeds. ``dis_vp20`` runs DIS on
     the vp_20 schedule (the ManyModes driver only). The 'smc' and 're'
-    cells raise: the replica-exchange sampler is not ported, and both come
-    with ROADMAP A3."""
-    if args.solver_type in BASELINES:
-        raise NotImplementedError(
-            f"--solver_type {args.solver_type} is not ported in the competing drivers yet "
-            f"(ROADMAP A3, the SMC / replica-exchange baselines).")
+    cells run ``run_sampling_baseline`` from the dataset's mean and full
+    covariance, at the ``--smc_*`` / ``--re_*`` flags and step size 1e-4."""
     device = resolve_device(args.device)
     base = torch.Generator(device).manual_seed(args.seed)
     g_data, g_vi = derive_generator(base, 1), derive_generator(base, 2)
     dataset, mean, var, var_diag, times = build_dataset_and_gaussian(
         g_data, target, x_init, args.dataset_size, step_size=mcmc_step_size, device=device)
+    gauss_params = {"mean": mean.cpu().numpy(), "var": var.cpu().numpy()}
+    if args.solver_type in BASELINES:
+        all_metrics = run_sampling_baseline(
+            derive_generator(base, 3), args.solver_type, target, mean, var,
+            args.eval_batch_size, n_sampling_seeds=args.n_sampling_seeds,
+            smc_kwargs={"n_steps": args.smc_n_steps, "n_particles": args.smc_n_particles,
+                        "n_mcmc_steps": args.smc_n_mcmc_steps,
+                        "n_warmup_mcmc_steps": args.smc_n_warmup_mcmc_steps,
+                        "step_size": 1e-4},
+            re_kwargs={"n_steps": args.re_n_steps, "batch_size": args.re_batch_size,
+                       "swap_frequency": args.re_swap_frequency,
+                       "n_mcmc_steps": args.re_n_mcmc_steps,
+                       "n_warmup_mcmc_steps": args.re_n_warmup_mcmc_steps, "step_size": 1e-4},
+            device=device)
+        return {"metrics": all_metrics, "times": times, "params": extra_params or {},
+                "gauss_params": gauss_params}
     if args.solver_type == "cmcd":
         solver_details = {"mean": mean, "var": var}
     else:
@@ -280,4 +334,4 @@ def competing_run(args, target, target_details, x_init, filename_stub, extra_par
         model_type=model_type, n_steps=args.n_steps, device=device,
         force_vp20=dis_vp20 and args.solver_type == "dis_orig")
     return {"metrics": all_metrics, "times": times, "params": extra_params or {},
-            "gauss_params": {"mean": mean.cpu().numpy(), "var": var.cpu().numpy()}}
+            "gauss_params": gauss_params}

@@ -1,8 +1,8 @@
 """The other VI samplers on ManyModes across mode counts (counterpart of
 the JAX package's experiments/sample_many_modes_competing.py: the same
 flags, defaults and pickle name; DIS runs on the vp_20 schedule here and
-only here, as in its reference; the 'smc' and 're' cells wait on
-ROADMAP A3).
+only here, as in its reference; 'smc' and 're' run the SMC and
+replica-exchange baselines).
 
     python -m sde_sampler_lrds_torch.experiments.sample_many_modes_competing \\
         --solver_type dds_orig [--device cpu] ...

@@ -1,7 +1,7 @@
 """The other VI samplers on the φ⁴ lattice across couplings (counterpart of
 the JAX package's experiments/sample_phi_four_competing.py: the same flags,
-defaults and pickle name; MALA chains seeded in both wells; the 'smc' and
-'re' cells wait on ROADMAP A3).
+defaults and pickle name; MALA chains seeded in both wells; 'smc' and 're'
+run the SMC and replica-exchange baselines).
 
     python -m sde_sampler_lrds_torch.experiments.sample_phi_four_competing \\
         --solver_type dds_orig [--device cpu] ...

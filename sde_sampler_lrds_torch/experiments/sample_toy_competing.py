@@ -1,8 +1,8 @@
 """The other VI samplers on the 2-D toys, Rings and Checkerboard
 (counterpart of the JAX package's experiments/sample_toy_competing.py: the
 same flags, defaults and pickle name; the Rings chains start from 4 draws
-on every ring, the Checkerboard chains from the squares' centres; the
-'smc' and 're' cells wait on ROADMAP A3).
+on every ring, the Checkerboard chains from the squares' centres; 'smc'
+and 're' run the SMC and replica-exchange baselines).
 
     python -m sde_sampler_lrds_torch.experiments.sample_toy_competing \\
         --solver_type dds_orig [--device cpu] ...

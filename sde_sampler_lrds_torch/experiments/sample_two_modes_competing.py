@@ -1,7 +1,7 @@
 """The other VI samplers on TwoModes(/Full) across dimensions (counterpart
 of the JAX package's experiments/sample_two_modes_competing.py: the same
-flags, defaults and pickle name; the 'smc' and 're' cells wait on
-ROADMAP A3).
+flags, defaults and pickle name; 'smc' and 're' run the SMC and
+replica-exchange baselines).
 
     python -m sde_sampler_lrds_torch.experiments.sample_two_modes_competing \\
         --solver_type dds_orig [--device cpu] ...

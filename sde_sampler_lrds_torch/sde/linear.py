@@ -81,6 +81,12 @@ class OU:
         x' = a_x·x + a_s·score + a_z·z."""
         raise NotImplementedError
 
+    def ei_integration_step(self, x, t_k, t_k_p_1, score, z):
+        """One exponential-integrator step a_x·x + a_s·score + a_z·z (VP and
+        PinnedBM; PDDS's reverse-kernel move)."""
+        a_x, a_s, a_z = self.ei_step_coeffs(t_k, t_k_p_1)
+        return a_x * x + a_s * score + a_z * z
+
     def ddpm_step_coeffs(self, s, t):
         """(a_x, a_s, a_z) of the DDPM-like step."""
         raise NotImplementedError
@@ -420,10 +426,6 @@ class PinnedBM(OU):
         s, t = _f32(s), _f32(t)
         var = self.diff_coeff**2 * (t / s) * (t - s)
         return t / s, self.diff_coeff**2 * (t - s), torch.sqrt(var)
-
-    def ei_integration_step(self, x, t_k, t_k_p_1, score, z):
-        a_x, a_s, a_z = self.ei_step_coeffs(t_k, t_k_p_1)
-        return a_x * x + a_s * score + a_z * z
 
     def ddpm_step_coeffs(self, s, t):
         T = self.terminal_t

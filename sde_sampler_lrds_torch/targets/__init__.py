@@ -21,5 +21,6 @@ from .gauss import (
     score_mog,
     score_mog_full,
 )
+from .logistic_regression import LogisticRegression
 from .phi_four import PhiFour
 from .rings import Rings

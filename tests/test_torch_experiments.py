@@ -232,8 +232,9 @@ def test_make_model_refuses_as_jax(case):
 def test_make_model_names_what_is_not_ported(what, extra):
     """The 'nn' reference and the unported targets raise naming what is
     missing. The 'dds_orig' solver and the target-informed control were
-    refused here until ROADMAP A2; they now build the solver and control
-    the JAX package builds."""
+    refused here until ROADMAP A2, the logistic-regression target 'cancer'
+    until A4; they now build the solver and control the JAX package
+    builds."""
     args = dict(solver_type="vp-ref", ref_type="default", loss_type="lv",
                 integrator_type="ei", model_type="base_zero_init", time_type="snr",
                 solver_details={"sigma": 1.0},
@@ -251,7 +252,8 @@ def test_make_model_names_what_is_not_ported(what, extra):
 
 
 PORTED_SINCE_A2 = {"solver_type 'dds_orig'": ("DDS", "ScoreCtrl"),
-                   "target_informed_zero_init": ("RDS", "ScoreCtrl")}
+                   "target_informed_zero_init": ("RDS", "ScoreCtrl"),
+                   "Target cancer": ("RDS", "ClippedCtrl")}
 
 
 @pytest.mark.parametrize("flag,value", [
@@ -262,10 +264,9 @@ PORTED_SINCE_A2 = {"solver_type 'dds_orig'": ("DDS", "ScoreCtrl"),
 ])
 def test_driver_flags_of_unported_baselines(flag, value):
     """The drivers keep the JAX flags of the SMC / RE baselines with their
-    defaults; a value that would change a baseline the drivers do not run
-    yet raises instead of passing without effect. PIS's horizon
-    (--terminal_t_pis), refused here until ROADMAP A2, now takes any value,
-    as in the JAX drivers."""
+    defaults, and since the baselines run (ROADMAP A3) every flag takes any
+    value, as in the JAX drivers (PIS's horizon --terminal_t_pis since
+    ROADMAP A2); the JAX drivers' defaults are the port's."""
     import argparse
 
     from sde_sampler_lrds_torch.experiments.common import add_common_args
@@ -273,11 +274,8 @@ def test_driver_flags_of_unported_baselines(flag, value):
     parser = add_common_args(argparse.ArgumentParser())
     default = parser.get_default(flag)
     assert getattr(parser.parse_args([f"--{flag}", str(default)]), flag) == default
-    if flag == "terminal_t_pis":
-        assert getattr(parser.parse_args([f"--{flag}", value]), flag) == float(value)
-        return
-    with pytest.raises(NotImplementedError, match=f"--{flag}"):
-        parser.parse_args([f"--{flag}", value])
+    kind = type(default)
+    assert getattr(parser.parse_args([f"--{flag}", value]), flag) == kind(value) != default
 
 
 # ---------------------------------------------------------------------------

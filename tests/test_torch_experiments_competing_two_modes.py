@@ -3,8 +3,12 @@ size against the JAX package's ``competing_run`` (TwoModes d 4): original
 DDS (scale moment-matched to the MALA dataset, no EUBO) and CMCD (its prior
 fitted to the dataset, with the EUBO). The pickle has the JAX cell's keys,
 numpy and builtins only, and experiments/summarize_results.py reads it; the
-'smc' cell raises naming its queue item (helpers in
-tests/test_torch_experiments.py)."""
+'smc' and 're' cells run at a tiny depth (helpers in
+tests/test_torch_experiments.py; the baselines against the JAX package in
+tests/test_torch_experiments_baselines.py)."""
+import math
+import pickle
+
 import pytest
 
 from test_torch_experiments import check_competing_against_jax
@@ -19,9 +23,20 @@ def test_two_modes_competing_driver_matches_jax(solver_type, tmp_path, monkeypat
 
 @pytest.mark.parametrize("baseline", ["smc", "re"])
 def test_two_modes_competing_baselines_name_a3(baseline, tmp_path):
+    """The baselines of ROADMAP A3, which this driver once refused naming
+    that item, run through it: a tiny SMC or RE cell at d 2 writes its
+    pickle, one chunk of finite sample metrics."""
     from sde_sampler_lrds_torch.experiments import sample_two_modes_competing
 
-    with pytest.raises(NotImplementedError, match="A3"):
-        sample_two_modes_competing.main(["--solver_type", baseline, "--device", "cpu",
-                                         "--dim_range", "2", "--results_path", str(tmp_path)])
-    assert not list(tmp_path.glob("*.pkl"))
+    sample_two_modes_competing.main([
+        "--solver_type", baseline, "--device", "cpu", "--dim_range", "2", "--results_path",
+        str(tmp_path), "--dataset_size", "1000", "--eval_batch_size", "128",
+        "--n_sampling_seeds", "1", "--smc_n_steps", "4", "--smc_n_particles", "32",
+        "--smc_n_mcmc_steps", "4", "--smc_n_warmup_mcmc_steps", "4", "--re_n_steps", "4",
+        "--re_batch_size", "32", "--re_n_mcmc_steps", "4", "--re_n_warmup_mcmc_steps", "8"])
+    (path,) = tmp_path.glob("*.pkl")
+    with open(path, "rb") as f:
+        (cell,) = pickle.load(f)["results"]
+    m = cell["metrics"]
+    for key in ("error/sinkhorn", "error/mmd", "error/ks", "eval/mode_weight"):
+        assert len(m[key]) == 1 and math.isfinite(m[key][0]), key

@@ -316,16 +316,24 @@ def test_run_smc_sampler_returns_level_zero_block():
 
 
 def test_smc_rejects_what_is_not_ported():
+    """What ``smc_sampler`` still refuses, as the JAX package does: a
+    per-level initialisation in SMC mode, and an unknown resampler. (The
+    PDDS weights and the preconditioned levels it once refused are held in
+    tests/test_torch_smc_pdds.py.)"""
     x = torch.zeros(4, 2)
     times = torch.linspace(0, 1, 3)
     lpg = lambda t, y: (torch.zeros(y.shape[0]), torch.zeros_like(y))
-    with pytest.raises(NotImplementedError, match="PDDS"):
-        t_smc_sampler(None, x, times, lpg, 1, 1, 1e-2, use_pdds_weights=True)
-    with pytest.raises(NotImplementedError, match="preconditioned"):
-        t_smc_sampler(None, x, times, lpg, 1, 1, 1e-2,
-                      precond_matrix_per_noise=torch.eye(2)[None].repeat(3, 1, 1))
     with pytest.raises(ValueError, match="per_noise_init"):
         t_smc_sampler(None, x, times, lpg, 1, 1, 1e-2, per_noise_init=True)
+    with pytest.raises(ValueError, match="per_noise_init"):
+        t_smc_sampler(None, x[None].repeat(3, 1, 1), times, lpg, 1, 1, 1e-2,
+                      per_noise_init=True, reweight_threshold=0.5)
+    with pytest.raises(ValueError, match="resampler"):
+        t_smc_sampler(None, x, times, lpg, 1, 1, 1e-2, resampler="stratified")
+    # without SMC weights a per-level initialisation runs
+    s, _, d = t_smc_sampler(torch.Generator().manual_seed(0), x[None].repeat(3, 1, 1), times,
+                            lpg, 1, 1, 1e-2, per_noise_init=True, reweight_threshold=0.0)
+    assert s.shape == (3, 1, 4, 2) and torch.all(d["ess"] == 1)
 
 
 def test_smc_ula_and_multinomial_run():
