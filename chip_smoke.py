@@ -9,8 +9,9 @@ its checkpoints, the cosine VP and the sweep launcher through their entry
 points, the other VI samplers (PIS, DDS, DIS, CMCD) on B1's plans, through
 the competing drivers and through the CLI, and the sampling baselines
 (replica exchange, PDDS-weighted and preconditioned SMC, RWMH), the
-logistic-regression driver and LangevinSolver, and checks the quality of
-each.
+logistic-regression driver and LangevinSolver, and the learned ('nn')
+reference (the tilted-EBM potential, its MLE trainer, the toy EBM driver,
+its checkpoint, φ⁴'s Laplace oracle), and checks the quality of each.
 
     python3 chip_smoke.py
 
@@ -62,10 +63,11 @@ Phases:
      the Sinkhorn once more with CUDA events around each kernel call (the
      device's span of each call beside the host clock, annealing and
      polishing iterations apart)
-  6. the SMC baseline (experiments/common.py defaults: 128 levels, 1024
-     particles, 1024 warm-up and 32 MALA steps per level, systematic
-     resampling) from a full-covariance Gaussian fitted to phase 4's MALA
-     dataset, with its metrics on the first 8192 pooled samples
+  6. the SMC baseline (experiments/common.py defaults but the warm-up: 128
+     levels, 1024 particles, 32 MALA steps per level, systematic
+     resampling; 64 of the defaults' 1024 warm-up steps a level) from a
+     full-covariance Gaussian fitted to phase 4's MALA dataset, with its
+     metrics on the first 8192 pooled samples
   7. one JSON line per kernel and mode: launches, error, time, bound; the
      diagonal kernel's and the Sinkhorn kernels' times beside the geometry
      the host picked, and at the toys' shapes (D = 2, 8 components; d = 2); the resampling lookup beside the graph replay of a
@@ -136,8 +138,23 @@ Phases:
      ionosphere with original DDS (256 steps, 2 seeds), and its SMC cell
      stopping at target.sample (ROADMAP C5); (g) LangevinSolver on the demo
      target; (h) re_sampler on the card against the CPU under the same draws
+ 14. the learned ('nn') reference: (a) the GMM-tilted potential's energy and
+     hand-written score on the card against the CPU at the Rings shape (d 2,
+     8 components, 4 × 64 net) and the logreg shape (d 34, full covariance,
+     6 × 128 net) over the RE super-batch, and against autograd; (b)
+     MaximumLikelihoodEBM on Rings for 2 epochs on 4096 MALA points with
+     replica-exchange negatives and with SMC negatives (cut to 32 levels;
+     B4 once a resampling event), and one optimizer step on the card
+     against the CPU under the CPU's draws; (c) sample_toy_ebm_mcmc cut in
+     depth (TOY_EBM_CUT): B1 never launched (the 'nn' reference has no
+     plan), the flat LV simulation a CUDA graph ('flat_lv_graph', held to
+     the loss's loop before and after a step), B2 / B3 in every eval seed's
+     Sinkhorn, the ELBO below log Z_IS; (d) its 'nn' checkpoint restored
+     bit for bit into a fresh solver, the next step equal; (e) φ⁴ d 100's
+     Laplace oracle (x_min, the wells' Laplace log-densities) on the card
+     against the same in float64 on the host
 
-Every path (phases 4, 5, 6, 8, 9, 10, 11, 12 and 13) is run with all launch counts set to 0 just
+Every path (phases 4, 5, 6, 8, 9, 10, 11, 12, 13 and 14) is run with all launch counts set to 0 just
 before it and read just after. Prints the card as nvidia-smi reports it, then
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, with no result line, when there is no
@@ -152,11 +169,19 @@ summary line (medians and means over the eval seeds, stage seconds,
 launches). A competing driver's cell (such as sample_two_modes_competing
 --solver_type dds_orig --dim_range 16, at its full depth) gets phase 12's
 path and launch checks, and at two_modes d 16 its JAX record's gate; an
+
 'smc' or 're' cell gets phase 13's, and its JAX record's gate at two_modes
-d 16 and at many_modes 4 modes (--n_modes_range 4).
+d 16 and at many_modes 4 modes (--n_modes_range 4). An *_ebm_mcmc driver's
+cell (sample_toy_ebm_mcmc, sample_bayesian_logreg_ebm_mcmc --datasets
+ionosphere at its JAX record's flags --ebm_reg_val 1e-3 --dataset_size
+20000 --train_steps 2048 --n_sampling_seeds 8, sample_phi_four_ebm_mcmc
+--b_range 0.02 --n_sampling_seeds 4)
+gets phase 14's path and launch checks and the gates of PERF.md §2 (Rings
+and logreg against their JAX records; φ⁴ none, its abort reported).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -170,6 +195,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+SCRIPT_T0 = time.perf_counter()
 DIM, N_MODES, K_STEPS, CHANNELS, N_LAYERS = 8, 4, 100, 64, 4
 TRAIN_BATCH, EVAL_BATCH, TRAIN_STEPS, LR = 1024, 8192, 256, 3e-3
 DATASET_LENGTH, MALA_STEP = 40_000, 1e-2
@@ -203,9 +229,12 @@ COST_TOL_REL = 1e-3
 # noise floor of two independent target draws, while the prior's is at
 # least GATE_PRIOR_FLOOR x that floor
 SAMPLE_N, GATE_SINKHORN_FLOOR, GATE_PRIOR_FLOOR = 8192, 1.25, 2.0
-# the SMC baseline at experiments/common.py:147-148 defaults
+# the SMC baseline at experiments/common.py:147-148 defaults, cut in depth
+# to 64 of their 1024 warm-up steps a level to keep the script inside its
+# time limit (at 1024 the run took 172 s on an H100, 1.27 ms a host-issued
+# MALA step, and 37 s at 128; the full-depth SMC cells run through --cell)
 SMC_KWARGS = dict(n_steps=128, step_size=1e-4, n_particles=1024, n_mcmc_steps=32,
-                  n_warmup_mcmc_steps=1024)
+                  n_warmup_mcmc_steps=64)
 # bench.py's gate between two evals that differ only in their noise stream
 PARITY_LOGZ, PARITY_ESS = 0.05, 0.1
 # the φ⁴ cell, the port's sample_phi_four_gmm_mcmc driver through lrds_run at
@@ -213,8 +242,9 @@ PARITY_LOGZ, PARITY_ESS = 0.05, 0.1
 # chains seeded at ±1 (step 1e-4, adapted); a 2-component full-covariance GMM
 # reference; VP(0.1, 10), EI + LV on the log-SNR grid (K = 100);
 # ClippedCtrl(FourierMLP(H 64, 2 hidden layers, zero init)); Adam lr 3e-4,
-# 4096 steps at batch 1024; eval 8192 x 100
-PHI_DIM, PHI_COMP, PHI_B = 100, 2, 0.02
+# batch 1024, cut in depth to PHI_TRAIN_STEPS of the driver's 4096 (4096
+# took 149 s at 36 ms a step on an H100); eval 8192 x 100, 4 seeds
+PHI_DIM, PHI_COMP, PHI_B, PHI_TRAIN_STEPS = 100, 2, 0.02, 2048
 # its gates, against the exact transfer-matrix oracle the run computes
 # (log Z = -28.294, W = 1.0733 in docs/RESULTS.md; the oracle code gives
 # W = 1.07617): the Rao-Blackwellized weight within 3 %, the ELBO below
@@ -230,7 +260,11 @@ GATE_CELL_LOGZ, GATE_CELL_ESS, GATE_CELL_MODE_W, GATE_CELL_EUBO = 0.05, 0.88, 5.
 # the pinned-BM cell at d 64: its train steps, cut from the driver's 4096 to
 # keep the script inside its time limit (4096 steps took 154 s at 37.6 ms a
 # step on an H100, the whole driver-cell phase 420 s)
-CELL_B_TRAIN_STEPS = 1024
+CELL_B_TRAIN_STEPS = 512
+# cells (a), (d), (e) and (f) of phase 8, cut in depth from the drivers'
+# 4096 train steps and 16 eval seeds (≈ 30 s a cell on an H100, the whole
+# script 1009 s of its 1200 s); their full depth runs through --cell
+DRIVER_CELL_CUT = ["--train_steps", "1024", "--n_sampling_seeds", "4"]
 # kernel vs plain version at the φ⁴ shapes (D = 100): each step's 100-term
 # sums (two rotations per component, the first MLP layer and the output
 # layer) are taken in other orders, over K = 100 dependent steps, and with
@@ -315,7 +349,8 @@ GATE_COSINE_ELBO_SLACK = 0.05
 # the 8192-trajectory eval. (c) the four solvers through the many_modes
 # competing driver (4 modes, d 8, batch 1024, eval 8192, K 100), cut in
 # depth to COMPETING_CUT (the records, experiments/results/SUMMARY.md, are
-# at 4096 steps, 16 seeds); DDS, PIS and CMCD held to |log Z err| <=
+# at 4096 steps, 16 seeds; at 512 steps CMCD's ESS was 0.15 on an H100,
+# at 1024 0.38); DDS, PIS and CMCD held to |log Z err| <=
 # GATE_VI_LOGZ and ESS >= GATE_VI_ESS (records 0.0052 / 0.0090 / 0.0054
 # and 0.55 / 0.59 / 0.66), DIS within a factor GATE_DIS_FACTOR of its
 # record's |log Z err| (36.53). (d) the CLI's default solver (dis) at
@@ -403,6 +438,51 @@ LOGREG_SMC_CUT = ["--datasets", "ionosphere", "--dataset_size", "4000", "--smc_n
 LANGEVIN_CHAINS, LANGEVIN_STEPS, LANGEVIN_BURN, LANGEVIN_T = 8192, 1000, 500, 10.0
 RE_PARITY = dict(levels=8, batch=256, steps=32, swap=4)
 RE_PARITY_TOL = 1e-3
+# phase 14, the learned reference (the tilted-EBM potential, the MLE
+# trainer, the 'nn' RDS reference). The toy EBM driver's protocol
+# (sample_toy_ebm_mcmc: 100 levels + 1, batch 32 × EBM_ACC accumulated,
+# 32 MCMC steps with half kept, a swap every 8, 512 initial warm-up steps,
+# t_limit 0.2). (a) the potential card vs CPU at the Rings and the logreg
+# shapes over the RE super-batch (100 levels × 32 replicas), max |diff|
+# within POT_TOL of the largest |value| (float32 sums over ≤ 128-wide layers
+# in other orders, and the eigenbasis rotation over 34 coordinates; set
+# before the first card run); (b) MLE on Rings for 2 epochs on EBM_DATA MALA
+# points with RE negatives and with SMC negatives cut to EBM_SMC_CUT (16
+# levels, 16 initial warm-up steps: 100 × 512 sequential MALA steps at ≈ 2.6
+# ms would take two minutes), and one optimizer step card vs CPU under the CPU's draws
+# (EBM_ONE_STEP_WARM warm-up steps) within EBM_STEP_TOL: the negatives
+# within RE_PARITY_TOL (float32 over 32 dependent steps; a flipped accept
+# shows as O(0.1)), the loss and gradient norm 1e-3 relative, the parameters
+# after one Adam step (≈ lr a coordinate) 1e-5; (c) the toy driver cut to
+# TOY_EBM_CUT; (e) φ⁴'s Laplace oracle on the card against the same flow
+# and Laplace log-densities in float64 NumPy on the host within
+# PHI_LAPLACE_TOL: x_min 1e-4 (10 000 float32 steps of a contraction to its
+# fixed point; 3.5e-5 in the port on the CPU), the log-densities (≈ −30,
+# with a float32 log-determinant of a 100 × 100 band) 1e-3 absolute, and the
+# weight, the exponential of their difference, 1e-3 relative
+EBM_LEVELS, EBM_BATCH, EBM_ACC, EBM_MCMC, EBM_SWAP, EBM_WARM = 100, 32, 5, 32, 8, 512
+EBM_T_LIMIT, EBM_DATA, EBM_ONE_STEP_WARM = 0.2, 4096, 16
+EBM_SMC_CUT = {"levels": 16, "warm": 16}
+EBM_POT_SHAPES = {"rings_d2_c8": (2, 8, 4, 64, False), "logreg_d34_full": (34, 1, 6, 128, True)}
+POT_TOL = 1e-4
+PHI_LAPLACE_TOL = {"x_min": 1e-4, "log_laplace_abs": 1e-3, "weight_rel": 1e-3}
+EBM_STEP_TOL = {"negatives": RE_PARITY_TOL, "loss_rel": 1e-3, "params": 1e-5}
+TOY_EBM_CUT = ["--ebm_epochs", "2", "--dataset_size", "4096", "--train_steps", "128",
+               "--n_sampling_seeds", "2"]
+# the --cell gates of the EBM drivers at full depth (PERF.md §2): Rings
+# against the JAX record (experiments/results/SUMMARY.md, medians over its
+# seeds: |log Z err| 1.921, Sinkhorn 0.5383, no forgotten mode) within
+# GATE_TOY_RECORD x, and its Sinkhorn below the port's own GMM-reference
+# Rings cell (phase 8 (e), median 2.8902 over 16 seeds in PR 14's last
+# chip_smoke run on an NVIDIA H100 80GB HBM3 at 700 W); logreg on
+# ionosphere: the median ELBO at most GATE_LOGREG_ELBO nats below the
+# record's -128.4 (or above it; the record was made with --ebm_reg_val 1e-3
+# --dataset_size 20000 --train_steps 2048 --n_sampling_seeds 8, not the
+# driver's defaults); both with the ELBO below log Z_IS +
+# GATE_TOY_ELBO_SLACK on every seed
+EBM_RINGS_RECORD = {"log_z": 1.921, "sinkhorn": 0.5383}
+PORT_RINGS_GMM_SINKHORN = 2.8902
+LOGREG_EBM_RECORD_ELBO, GATE_LOGREG_ELBO = -128.4, 2.0
 # quality gates of the trained sampler against the target
 GATE_LOGZ, GATE_ESS, GATE_MODE_W = 0.05, 0.9, 0.06
 # the KL-trained demo's own gates (PERF.md §2): 256 reverse-KL steps hardly
@@ -456,6 +536,22 @@ def check(cond: bool, what: str) -> None:
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+class Laps:
+    """Wall seconds of each stretch of the run, in order, from the script's
+    start (its imports included)."""
+
+    def __init__(self):
+        self.last, self.seconds = SCRIPT_T0, {}
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        self.seconds[label] = round(now - self.last, 1)
+        self.last = now
+
+    def total(self) -> float:
+        return round(time.perf_counter() - SCRIPT_T0, 1)
 
 
 def card_peaks(name: str):
@@ -1952,16 +2048,18 @@ def check_sandwich(label: str, means: dict, slack_lo: float, slack_hi: float) ->
 def phase_driver_cells(dev, path_counts) -> tuple:
     """The LRDS experiment drivers' cells through their entry points (phase
     8): (a) two_modes d 16, vp-ref, 2-component diagonal GMM, EI, log-SNR
-    grid, at the driver's defaults (40 000 MALA points, 4096 steps at batch
-    1024, 16 eval seeds of 8192), gated by the JAX package's own record of
-    the cell; (b) two_modes d 64 on the pinned Brownian motion (pbm-ref),
-    4 eval seeds; (c) φ⁴ (b 0.02, d 100, full-covariance fit, 4096 steps,
-    4 eval seeds), gated against the exact transfer-matrix oracle."""
+    grid, at the driver's defaults (40 000 MALA points, batch 1024, eval
+    batch 8192) cut to DRIVER_CELL_CUT, gated by the JAX package's own
+    record of the cell; (b) two_modes d 64 on the pinned Brownian motion
+    (pbm-ref), 4 eval seeds; (c) φ⁴ (b 0.02, d 100, full-covariance fit,
+    PHI_TRAIN_STEPS steps, 4 eval seeds), gated against the exact
+    transfer-matrix oracle."""
     from sde_sampler_lrds_torch.targets import TwoModes
 
     cells = {}
     _, a, _, cells["a"] = run_driver_cell(
-        dev, "cell_a", "two_modes_mcmc_gmm", ["--dim_range", "16"], path_counts)
+        dev, "cell_a", "two_modes_mcmc_gmm", ["--dim_range", "16"] + DRIVER_CELL_CUT,
+        path_counts)
     floor = sinkhorn_floor(TwoModes(dim=16, device=dev), 91)
     cells["a"]["sinkhorn_floor"] = floor
     say(f"[phase 8] cell_a: Sinkhorn {a['error/sinkhorn']:.4f} (mean of the seeds), noise "
@@ -1980,10 +2078,7 @@ def phase_driver_cells(dev, path_counts) -> tuple:
     check(a["error/sinkhorn"] <= GATE_SINKHORN_FLOOR * floor,
           f"cell_a: Sinkhorn {a['error/sinkhorn']:.4f} > {GATE_SINKHORN_FLOOR} x floor "
           f"{floor:.4f}")
-    for label, counts in (("cell_a", path_counts["cell_a"]),):
-        check(counts["sinkhorn_lse"] > 0 and counts["transport_cost"] == 16,
-              f"{label}: Sinkhorn kernels launched {counts['sinkhorn_lse']} / "
-              f"{counts['transport_cost']} times in 16 evals")
+    check_sample_kernels("cell_a", path_counts["cell_a"], cells["a"]["n_seeds"])
 
     _, b, _, cells["b"] = run_driver_cell(
         dev, "cell_b", "two_modes_mcmc_gmm",
@@ -1995,7 +2090,8 @@ def phase_driver_cells(dev, path_counts) -> tuple:
 
     _, c, probe, cells["c"] = run_driver_cell(
         dev, "phi_four", "sample_phi_four_gmm_mcmc",
-        ["--b_range", str(PHI_B), "--n_sampling_seeds", "4"], path_counts)
+        ["--b_range", str(PHI_B), "--n_sampling_seeds", "4", "--train_steps",
+         str(PHI_TRAIN_STEPS)], path_counts)
     target = probe.solver.target
     log_z, w_exact = target.log_norm_const, target.expectations["weight_rb"]
     cells["c"].update(oracle_log_z=log_z, oracle_weight=w_exact)
@@ -2024,10 +2120,10 @@ def check_sample_kernels(label: str, counts: dict, n_seeds: int) -> None:
 def phase_more_driver_cells(dev, path_counts) -> dict:
     """Phase 8 continued, each cell through its driver's main: (d)
     many_modes, 4 modes at d 8, at the driver's defaults (vp_20, a
-    4-component fit, 4096 steps, 16 eval seeds), gated as cell (a) around
-    the JAX package's record; (e) sample_toy_gmm_mcmc on Rings at its
-    defaults (chains from 4 draws on every ring, an 8-component fit, 4096
-    steps, 16 seeds: B1 at D = 2, B2 / B3 at d = 2), beside the JAX record
+    4-component fit) cut to DRIVER_CELL_CUT, gated as cell (a) around the
+    JAX package's record; (e) sample_toy_gmm_mcmc on Rings at its defaults
+    (chains from 4 draws on every ring, an 8-component fit) cut to
+    DRIVER_CELL_CUT (B1 at D = 2, B2 / B3 at d = 2), beside the JAX record
     (GATE_TOY_RECORD); (f) the same on Checkerboard, whose density is 0 off
     the board: an off-board terminal sample has rnd = +inf, so the gates
     read the filtered metrics, and the training mask's NaN gradient skips
@@ -2044,7 +2140,8 @@ def phase_more_driver_cells(dev, path_counts) -> dict:
 
     cells = {}
     _, mm, _, cells["many_modes_4"] = run_driver_cell(
-        dev, "many_modes_4", "many_modes_mcmc_gmm", ["--n_modes_range", "4"], path_counts)
+        dev, "many_modes_4", "many_modes_mcmc_gmm", ["--n_modes_range", "4"] + DRIVER_CELL_CUT,
+        path_counts)
     floor = sinkhorn_floor(make_target(make_target_details("many_modes", dim=DIM, n_modes=4),
                                        device=dev), 92)
     cells["many_modes_4"]["sinkhorn_floor"] = floor
@@ -2069,7 +2166,7 @@ def phase_more_driver_cells(dev, path_counts) -> dict:
                          cells["many_modes_4"]["n_seeds"])
 
     cell, _, probe, cells["toy_rings"] = run_driver_cell(
-        dev, "toy_rings", "sample_toy_gmm_mcmc", [], path_counts)
+        dev, "toy_rings", "sample_toy_gmm_mcmc", DRIVER_CELL_CUT, path_counts)
     m, med = cell["metrics"], cells["toy_rings"]["medians"]
     floor = sinkhorn_floor(probe.solver.target, 93)
     cells["toy_rings"]["sinkhorn_floor"] = floor
@@ -2089,8 +2186,9 @@ def phase_more_driver_cells(dev, path_counts) -> dict:
     check_sample_kernels("toy_rings", path_counts["toy_rings"], cells["toy_rings"]["n_seeds"])
 
     cell, means, probe, cells["toy_checkerboard"] = run_driver_cell(
-        dev, "toy_checkerboard", "sample_toy_gmm_mcmc", ["--target_type", "checkerboard"],
-        path_counts, finite=CELL_FINITE_FILTERED)
+        dev, "toy_checkerboard", "sample_toy_gmm_mcmc",
+        ["--target_type", "checkerboard"] + DRIVER_CELL_CUT, path_counts,
+        finite=CELL_FINITE_FILTERED)
     m = cell["metrics"]
     samples = torch.as_tensor(m["samples"], device=dev)
     off = int(torch.isneginf(probe.solver.target.unnorm_log_prob(samples)).sum())
@@ -3297,6 +3395,576 @@ def phase_baselines(dev, target, dataset, path_counts) -> dict:
     return out
 
 
+class EbmDrawTape(DrawTape):
+    """DrawTape that also records and replays ``torch.multinomial`` (the
+    noised-mixture draws' component indices)."""
+
+    def __enter__(self):
+        super().__enter__()
+        self.saved_multinomial = torch.multinomial
+        fn = self.saved_multinomial
+
+        def call(inp, *a, **k):
+            if self.mode == "record":
+                out = fn(inp, *a, **k)
+                self.draws.append(out.cpu())
+                return out
+            d = self.draws[self.pos]
+            self.pos += 1
+            return d.to(inp.device)
+
+        torch.multinomial = call
+        return self
+
+    def __exit__(self, *exc):
+        torch.multinomial = self.saved_multinomial
+        return super().__exit__(*exc)
+
+
+def ebm_potential(dim: int, n_comp: int, layers: int, channels: int, full_cov: bool, seed: int,
+                  zero_init: bool = False, t_limit: float = EBM_T_LIMIT):
+    """A GMM-tilted potential on the CPU: mixture drawn from ``seed``, a
+    FourierMLP energy net with seeded weights (random, not zero-init, unless
+    asked: a trained-looking tilt)."""
+    from sde_sampler_lrds_torch.models import FourierMLP
+    from sde_sampler_lrds_torch.models.potentials import GMMTiltedPotential
+    from sde_sampler_lrds_torch.sde import VP
+
+    g = torch.Generator().manual_seed(seed)
+    w = torch.rand(n_comp, generator=g) + 0.5
+    m = 2.0 * torch.randn(n_comp, dim, generator=g)
+    if full_cov:
+        a = torch.randn(n_comp, dim, dim, generator=g, dtype=torch.float64)
+        eig, p = torch.linalg.eigh(a @ a.transpose(-1, -2) / dim + 0.5 * torch.eye(dim))
+        v = (eig.float(), p.float())
+    else:
+        v = torch.rand(n_comp, dim, generator=g) + 0.2
+    net = FourierMLP(dim=dim, num_layers=layers, channels=channels, zero_init=zero_init)
+    net.reset_parameters(torch.Generator().manual_seed(seed + 1))
+    return GMMTiltedPotential(net, VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0), w, m, v,
+                              t_limit=t_limit)
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| over the largest |want|."""
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+def phase_ebm_potentials(dev) -> dict:
+    """Phase 14 (a): the GMM-tilted potential's energy and score (written
+    out by hand) on the card against the CPU on the same inputs, at the
+    Rings shape (d 2, 8 diagonal components, 4 × 64 net) and the logreg
+    shape (d 34 = ionosphere, one eigen-factored full-covariance component,
+    6 × 128 net), over the RE super-batch of 100 levels × 32 replicas; the
+    hand score against autograd on the card; both timed."""
+    out = {}
+    n = EBM_LEVELS * EBM_BATCH
+    for label, (dim, comps, layers, ch, full) in EBM_POT_SHAPES.items():
+        cpu = ebm_potential(dim, comps, layers, ch, full, seed=140)
+        card = copy.deepcopy(cpu).to(dev)
+        g = torch.Generator().manual_seed(141)
+        x = 1.5 * torch.randn(n, dim, generator=g)
+        t = torch.rand(n, generator=g)
+        xd, td = x.to(dev), t.to(dev)
+        with torch.no_grad():
+            lp_w, g_w = cpu.unnorm_log_prob_and_grad(t, x)
+            lp_g, g_g = card.unnorm_log_prob_and_grad(td, xd)
+            e_w, e_g = cpu.energy(t, x), card.energy(td, xd)
+        y = xd.clone().requires_grad_(True)
+        (g_auto,) = torch.autograd.grad(card.unnorm_log_prob(td, y).sum(), y)
+
+        def autograd_score():
+            yy = xd.clone().requires_grad_(True)
+            return torch.autograd.grad(card.unnorm_log_prob(td, yy).sum(), yy)[0]
+
+        with torch.no_grad():
+            hand_ms = time_cuda(lambda: card.unnorm_log_prob_and_grad(td, xd), n=20, warmup=3)
+        errs = {"energy": rel_err(e_g, e_w), "log_prob": rel_err(lp_g, lp_w),
+                "score": rel_err(g_g, g_w), "score_vs_autograd": rel_err(g_g, g_auto.cpu()),
+                "score_hand_ms": hand_ms,
+                "score_autograd_ms": time_cuda(autograd_score, n=20, warmup=3),
+                "rows": n, "dim": dim, "components": comps, "net": f"{layers}x{ch}"}
+        out[label] = errs
+        say(f"[phase 14] (a) potential {label} card vs CPU (max |diff| / max |value|) "
+            + json.dumps(errs))
+        for k in ("energy", "log_prob", "score", "score_vs_autograd"):
+            check(errs[k] <= POT_TOL, f"potential {label}: {k} {errs[k]:.3e} > {POT_TOL}")
+    return out
+
+
+def rings_ebm_setup(dev, n_points: int, seed: int):
+    """The toy driver's preamble on Rings: a MALA dataset from 4 draws on
+    every ring, its 8-component diagonal GMM fit and the prior N(mean,
+    var) of the negatives."""
+    from sde_sampler_lrds_torch.api import fit_gmm, mcmc_sample
+    from sde_sampler_lrds_torch.targets import Gauss, Rings
+
+    target = Rings(device=dev)
+    g = torch.Generator(dev).manual_seed(seed)
+    data = mcmc_sample(g, target, target.sample_init_points(g, 4), step_size=1e-3,
+                       dataset_length=n_points, device=dev)
+    w, m, v = fit_gmm(TOY_COMP, data, device=dev)
+    prior = Gauss(dim=TOY_DIM, loc=data.mean(0), scale=torch.sqrt(data.var(0, correction=0)),
+                  device=dev)
+    return target, data, (w, m, v), prior
+
+
+def tilted_rings_potential(dev, gmm, seed: int, zero_init: bool = True):
+    from sde_sampler_lrds_torch.models import FourierMLP
+    from sde_sampler_lrds_torch.models.potentials import GMMTiltedPotential
+    from sde_sampler_lrds_torch.sde import VP
+
+    net = FourierMLP(dim=TOY_DIM, zero_init=zero_init).to(dev)
+    net.reset_parameters(torch.Generator(dev).manual_seed(seed))
+    return GMMTiltedPotential(net, VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0), *gmm,
+                              t_limit=EBM_T_LIMIT)
+
+
+class NegativesProbe:
+    """Wraps a trainer's ``sample_negatives`` and the SMC sampler the MLE
+    module calls: the synchronised seconds of each negative pass and the
+    resampling events of each SMC pass (levels below the ESS threshold of
+    1, the first level processed excluded)."""
+
+    def __init__(self, trainer):
+        from sde_sampler_lrds_torch.ebm import mle
+
+        self.trainer, self.mle, self.passes, self.events = trainer, mle, [], 0
+        self.real_smc = mle.smc_sampler
+        real = trainer.sample_negatives
+
+        def negatives(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            self.passes.append(time.perf_counter() - t0)
+            return out
+
+        def smc(*a, **k):
+            out = self.real_smc(*a, **k)
+            self.events += int((out[2]["ess"][:-1] < k["reweight_threshold"]).sum())
+            return out
+
+        trainer.sample_negatives = negatives
+        mle.smc_sampler = smc
+
+    def close(self):
+        self.mle.smc_sampler = self.real_smc
+
+
+def phase_ebm_mle(dev, path_counts) -> dict:
+    """Phase 14 (b): MaximumLikelihoodEBM on Rings with the toy driver's
+    protocol (100 levels, batch 32 × 5 accumulated, half of 32 MCMC steps
+    kept, a swap every 8, lr 1e-3, energy L2 1e-3, t_limit 0.2) for 2
+    epochs on EBM_DATA MALA points, with replica exchange (512 initial
+    warm-up steps, the driver's) and with SMC negatives (cut to
+    EBM_SMC_CUT: 16 levels, 16 initial warm-up steps); then one optimizer
+    step on the card against the CPU under the CPU's draws."""
+    from sde_sampler_lrds_torch.ebm import MaximumLikelihoodEBM
+
+    target, data, gmm, prior = rings_ebm_setup(dev, EBM_DATA, 142)
+    out = {}
+    for sampler, levels, warm in (("replica_exchange", EBM_LEVELS, EBM_WARM),
+                                  ("smc", EBM_SMC_CUT["levels"], EBM_SMC_CUT["warm"])):
+        pot = tilted_rings_potential(dev, gmm, 143)
+        tr = MaximumLikelihoodEBM(pot.sde, prior, pot, sampler, step_sizes_per_noise=1e-2,
+                                  n_steps=levels, perc_keep_mcmc=0.5, swap_frequency=EBM_SWAP)
+        probe = NegativesProbe(tr)
+        label = f"ebm_mle_{sampler}"
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            losses, gnorms, diags = tr.train(
+                torch.Generator(dev).manual_seed(144), data, batch_size=EBM_BATCH, n_epochs=2,
+                lr=1e-3, initial_n_warmup_mcmc_steps=warm, n_mcmc_steps=EBM_MCMC,
+                n_accumulation_steps=EBM_ACC, reg_val=1e-3, batches_per_call=16)
+        finally:
+            probe.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = path_counts[label] = read_counts()
+        n_steps, neg_s = len(losses), sum(probe.passes)
+        res = {"levels": levels + 1, "initial_warmup": warm, "steps": n_steps,
+               "negative_passes": len(probe.passes), "train_s": wall,
+               "first_pass_ms": probe.passes[0] * 1e3,
+               "pass_ms": float(np.median(probe.passes[1:])) * 1e3,
+               "ms_per_optimizer_step": (wall - neg_s) * 1e3 / n_steps,
+               "resampling_events": probe.events, "launches": counts,
+               "last_loss": float(losses[-1]), "diags_last": diags[-1]}
+        out[sampler] = res
+        say(f"[phase 14] (b) MLE on Rings with {sampler} negatives " + json.dumps(res))
+        n_batches = data.shape[0] // (EBM_BATCH * EBM_MCMC // 2)
+        check(bool(np.isfinite(losses).all()) and n_steps == 2 * n_batches,
+              f"{label}: losses {losses}")
+        check(len(probe.passes) == 2 * math.ceil(n_batches / EBM_ACC),
+              f"{label}: {len(probe.passes)} negative passes")
+        check(counts["resample"] == probe.events and (probe.events > 0) == (sampler == "smc"),
+              f"{label}: B4 launched {counts['resample']} times for {probe.events} events")
+        check(counts["fused_traj"] + counts["fused_traj_full_cov"] + counts["fused_traj_bf16"]
+              + counts["sinkhorn_lse"] + counts["transport_cost"] == 0,
+              f"{label}: another kernel ran {counts}")
+    out["one_step"] = ebm_one_step_card_vs_cpu(dev, data.cpu(), gmm, prior)
+    return out
+
+
+def ebm_one_step_card_vs_cpu(dev, data, gmm, prior) -> dict:
+    """One optimizer step of MaximumLikelihoodEBM with replica-exchange
+    negatives (100 levels × 32, EBM_ONE_STEP_WARM warm-up steps, 16 kept) on
+    the card against the same on the CPU under the CPU run's draws
+    (EbmDrawTape): the negatives, the loss, the pre-clip gradient norm and
+    the parameters after the Adam step."""
+    from sde_sampler_lrds_torch.ebm import MaximumLikelihoodEBM
+    from sde_sampler_lrds_torch.targets import Gauss
+
+    tape, outs = EbmDrawTape(), {}
+    cpu = torch.device("cpu")
+    for mode, d in (("record", cpu), ("replay", dev)):
+        pot = tilted_rings_potential(cpu, tuple(a.cpu() for a in gmm), 145, zero_init=False)
+        pot = pot.to(d)
+        pr = Gauss(dim=TOY_DIM, loc=prior.loc[0].to(d), scale=prior.scale[0].to(d), device=d)
+        tr = MaximumLikelihoodEBM(pot.sde, pr, pot, "replica_exchange", step_sizes_per_noise=1e-2,
+                                  n_steps=EBM_LEVELS, perc_keep_mcmc=0.5, swap_frequency=EBM_SWAP)
+        tr.draw_permutation = lambda g, e, n, d=d: torch.arange(n, device=d)
+        negs = []
+        real = tr.sample_negatives
+        tr.sample_negatives = lambda *a, **k: negs.append(real(*a, **k)) or negs[-1]
+        with tape(mode):
+            losses, gnorms, _ = tr.train(
+                torch.Generator(d).manual_seed(146), data[:EBM_BATCH * 16].to(d),
+                batch_size=EBM_BATCH, n_epochs=1, lr=1e-3,
+                initial_n_warmup_mcmc_steps=EBM_ONE_STEP_WARM, n_mcmc_steps=EBM_MCMC)
+        outs[mode] = (losses, gnorms, negs[0][0].cpu(),
+                      [p.detach().cpu() for p in pot.parameters()])
+    check(tape.pos == len(tape.draws), "the card run took fewer draws than the CPU run")
+    (l_c, g_c, n_c, p_c), (l_g, g_g, n_g, p_g) = outs["record"], outs["replay"]
+    err = {"negatives": float((n_g - n_c).abs().max()),
+           "loss_rel": abs(float(l_g[0]) - float(l_c[0])) / abs(float(l_c[0])),
+           "grad_norm_rel": abs(float(g_g[0]) - float(g_c[0])) / abs(float(g_c[0])),
+           "params": max(float((a - b).abs().max()) for a, b in zip(p_g, p_c)),
+           "draws": len(tape.draws), "loss": float(l_g[0])}
+    say("[phase 14] (b) one MLE step card vs CPU under the CPU's draws " + json.dumps(err))
+    check(err["negatives"] <= EBM_STEP_TOL["negatives"], f"MLE step negatives: {err}")
+    check(err["loss_rel"] <= EBM_STEP_TOL["loss_rel"]
+          and err["grad_norm_rel"] <= EBM_STEP_TOL["loss_rel"], f"MLE step loss: {err}")
+    check(err["params"] <= EBM_STEP_TOL["params"], f"MLE step parameters: {err}")
+    return err
+
+
+class EbmProbe(StageProbe):
+    """StageProbe over an EBM driver cell: the evaluation and EUBO passes
+    (and the solver), the EBM training and each negative pass."""
+
+    def __init__(self):
+        from sde_sampler_lrds_torch.ebm import MaximumLikelihoodEBM
+        from sde_sampler_lrds_torch.solvers.wrappers import TrainableWrapper
+
+        super().__init__("eval", eval=(TrainableWrapper, "evaluate"),
+                         eubo=(TrainableWrapper, "compute_results_eubo"),
+                         ebm=(MaximumLikelihoodEBM, "train"),
+                         negatives=(MaximumLikelihoodEBM, "sample_negatives"))
+        self.ebm_steps = []
+
+    def _timed(self, name, fn):
+        timed = super()._timed(name, fn)
+        if name != "ebm":
+            return timed
+
+        def call(*a, **k):
+            out = timed(*a, **k)
+            self.ebm_steps.append(len(out[0]))
+            return out
+        return call
+
+
+def run_ebm_cell(dev, label: str, module: str, argv: list, path_counts, phase: str = "14"):
+    """One cell of a port *_ebm_mcmc driver through its ``main`` (MALA →
+    GMM → the EBM reference → RDS with the 'nn' reference → evaluation over
+    the seeds), its pickle under build/driver_cells/: the flat LV simulation
+    as a CUDA graph ('flat_lv_graph') and the loss's own evaluation loop,
+    B1 launched 0 times, B3 once and B2 2·(67..100) times an eval seed where
+    the cell has sample metrics (none otherwise). A JAX-style abort of the
+    EBM training (a NaN or a loss past 1e9) is reported and returned as
+    ``(None, {"aborted": message}, None)``. Returns (cell, summary, the
+    cell's solver)."""
+    import importlib
+
+    driver = importlib.import_module(f"sde_sampler_lrds_torch.experiments.{module}")
+    argv = argv + ["--device", dev.type, "--results_path", "build/driver_cells"]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with EbmProbe() as probe:
+            cells = driver.main(argv)
+    except RuntimeError as e:
+        if not str(e).startswith(("NaN loss detected", "Training diverged")):
+            raise
+        out = {"aborted": str(e), "launches": read_counts(),
+               "s": time.perf_counter() - t0, "ebm_steps_before": probe.ebm_steps}
+        say(f"[phase {phase}] EBM cell {label} aborted as the JAX trainer aborts: "
+            + json.dumps(out))
+        return None, out, None
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = path_counts[label] = read_counts()
+    cell = cells[-1]
+    m = cell["metrics"]
+    lists = {k: v for k, v in m.items() if isinstance(v, list) and v and isinstance(v[0], float)}
+    n_seeds = len(m["eval/elbo"])
+    solver = probe.solver
+    eubo_s = sum(probe.seconds["eubo"])
+    negs = probe.seconds["negatives"]
+    ebm_s = sum(probe.seconds["ebm"])
+    n_ebm = sum(probe.ebm_steps)
+    out = {
+        "params": cell["params"], "train_path": solver.train_path(),
+        "eval_path": solver.eval_path(), "ref_type": solver.ref_type, "launches": counts,
+        "n_seeds": n_seeds, "forward_ess_ebm": cell["forward_ess_ebm"],
+        "stage_s": {"mala": cell["times"]["mcmc"], "ebm_train": cell["times"]["ebm_train"],
+                    "vi_train": m["eval/training_time"][0],
+                    "eval": sum(probe.seconds["eval"]) - eubo_s, "eubo": eubo_s, "cell": wall},
+        "ebm": {"steps": n_ebm, "negative_passes": len(negs),
+                "first_pass_ms": negs[0] * 1e3 if negs else None,
+                "pass_ms": float(np.median(negs[1:])) * 1e3 if len(negs) > 1 else None,
+                "ms_per_optimizer_step": (ebm_s - sum(negs)) * 1e3 / max(n_ebm, 1)},
+        "vi_train_ms_per_step": m["eval/training_time"][0] * 1e3 / solver.cfg.train_steps,
+        "eval_s_per_seed": (sum(probe.seconds["eval"]) - eubo_s) / n_seeds,
+        "medians": {k: float(np.median(lists[k])) for k in CELL_METRICS if k in lists},
+        "means": {k: float(np.mean(lists[k])) for k in CELL_METRICS if k in lists},
+        "per_seed": {k: lists[k] for k in ("eval/elbo", "eval/log_norm_const_is") if k in lists},
+    }
+    for k in ("dataset_weight_raw", "dataset_weight_rb"):
+        if k in cell:
+            out[k] = cell[k]
+    say(f"[phase {phase}] EBM cell {label} " + json.dumps(out))
+    check(solver.ref_type == "nn", f"{label}: reference {solver.ref_type}")
+    check(out["train_path"] == "flat_lv_graph", f"{label}: train path {out['train_path']}")
+    check(out["eval_path"] == "scan", f"{label}: eval path {out['eval_path']}")
+    check(counts["fused_traj"] + counts["fused_traj_full_cov"] + counts["fused_traj_bf16"] == 0,
+          f"{label}: B1 launched {counts}")
+    for key in ("eval/elbo", "eval/log_norm_const_is"):
+        check(all(math.isfinite(v) for v in m[key]), f"{label}: {key} not finite")
+    if "error/sinkhorn" in m:
+        check(counts["transport_cost"] == n_seeds
+              and 2 * 67 * n_seeds <= counts["sinkhorn_lse"] <= 200 * n_seeds,
+              f"{label}: Sinkhorn kernels launched {counts['sinkhorn_lse']} / "
+              f"{counts['transport_cost']} times for {n_seeds} eval seeds")
+    else:
+        check(counts["sinkhorn_lse"] + counts["transport_cost"] == 0,
+              f"{label}: a sample loss ran without sample metrics")
+    return cell, out, solver
+
+
+def check_elbo_below_log_z(label: str, out: dict) -> None:
+    """ELBO ≤ log Z_IS + GATE_TOY_ELBO_SLACK on every eval seed."""
+    for elbo, log_z in zip(out["per_seed"]["eval/elbo"],
+                           out["per_seed"]["eval/log_norm_const_is"]):
+        check(elbo <= log_z + GATE_TOY_ELBO_SLACK,
+              f"{label}: ELBO {elbo:.4f} > log Z_IS {log_z:.4f} + {GATE_TOY_ELBO_SLACK}")
+
+
+def graph_vs_loop(solver, dev, label: str) -> dict:
+    """The flat LV simulation replayed as a CUDA graph against the loss's
+    own loop on the same inputs, before and after a training step (phase
+    12 (c0)'s check) at the solver's training shape."""
+    g = torch.Generator(dev).manual_seed(147)
+    ts, args, k = solver.train_ts, solver.loss_call_args(), solver.train_ts.shape[0] - 1
+    batch, dim = solver.cfg.train_batch_size, solver.target.dim
+    errs = []
+    for _ in range(2):
+        x0 = solver.prior.sample(g, (batch,))
+        zs = torch.randn(k, batch, dim, generator=g, device=dev)
+        with torch.no_grad():
+            eager = solver.loss.flat_states(ts, x0, solver.train_ctrl(), zs, **args)
+        errs.append(max_err(solver._graphed_states(x0, zs), eager))
+        solver.step(g)
+    with torch.no_grad():
+        eager_ms = time_cuda(lambda: solver.loss.flat_states(ts, x0, solver.train_ctrl(), zs,
+                                                             **args), n=3, warmup=1)
+    out = {"max_abs_diff": errs, "eager_ms": eager_ms,
+           "graph_ms": time_cuda(lambda: solver._graphed_states(x0, zs), n=5, warmup=1)}
+    say(f"[phase 14] {label} flat simulation with the 'nn' reference as a CUDA graph: "
+        + json.dumps(out))
+    for err in errs:
+        check(err <= KERNEL_TOL["atol"], f"{label}: the graph replay is {err:.3e} from the "
+                                         f"loss's loop")
+    return out
+
+
+def nn_checkpoint_restore(dev, solver) -> dict:
+    """Phase 14 (d): the toy cell's solver stored and restored into a fresh
+    solver built with the 'default' reference and then an untrained
+    potential of the same architecture installed: the potential, eps, the
+    control, Adam and the EMA bit for bit, and the next step under fed
+    inputs equal bit for bit."""
+    from sde_sampler_lrds_torch.api import make_model, make_target_details
+
+    path = Path("build/ebm/nn_ckpt.pt")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    solver.store_checkpoint(path)
+    cfg = solver.cfg
+    fresh = make_model("vp-ref", "default", "lv", "ei", "base_zero_init", "snr", {"sigma": 1.0},
+                       make_target_details("rings"),
+                       {"train_steps": cfg.train_steps, "train_batch_size": cfg.train_batch_size,
+                        "eval_batch_size": cfg.eval_batch_size}, device=dev)
+    fresh.setup()
+    untrained = copy.deepcopy(solver.reference_distr_utils["net"])
+    for p in untrained.parameters():
+        torch.nn.init.zeros_(p)
+    fresh.change_reference_type("nn", net=untrained, eps=0.5)
+    check(fresh.load_checkpoint(path), "the 'nn' checkpoint did not load")
+    same = {"eps": fresh._nn_eps == solver._nn_eps and fresh.ref_type == "nn"}
+    for name, a, b in (("reference", fresh.reference_distr_utils["net"],
+                        solver.reference_distr_utils["net"]),
+                       ("module", fresh.module, solver.module),
+                       ("ema", fresh.ema_module, solver.ema_module)):
+        sa, sb = a.state_dict(), b.state_dict()
+        same[name] = set(sa) == set(sb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+    same["optimizer"] = all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for s1, s2 in zip(fresh.optimizer.state.values(), solver.optimizer.state.values())
+        for x, y in zip(s1.values(), s2.values()))
+    g = torch.Generator(dev).manual_seed(148)
+    x0 = solver.prior.sample(g, (cfg.train_batch_size,))
+    noise = torch.randn(solver.train_ts.shape[0] - 1, cfg.train_batch_size, TOY_DIM,
+                        generator=g, device=dev)
+    ms = [s.step(torch.Generator(dev).manual_seed(0), x0=x0, noise=noise)
+          for s in (solver, fresh)]
+    same["next_loss"] = bool(torch.equal(torch.as_tensor(ms[0]["train/loss"]),
+                                         torch.as_tensor(ms[1]["train/loss"])))
+    same["next_params"] = all(torch.equal(a, b) for a, b in
+                              zip(fresh.module.parameters(), solver.module.parameters()))
+    say("[phase 14] (d) 'nn' checkpoint restored into a fresh solver, bit for bit: "
+        + json.dumps(same))
+    for k, v in same.items():
+        check(v, f"'nn' checkpoint restore: {k} differs")
+    return same
+
+
+def phi_four_laplace_f64(a: float, b: float, dim: int) -> dict:
+    """φ⁴'s Laplace oracle in float64 NumPy on the host: the same 10 000
+    flow steps of 5e-3 from ±1, then each well's −βU and Laplace
+    log-density (β 1, the 1-d Dirichlet chain)."""
+    coef = a * dim
+
+    def u(x):
+        xp = np.pad(x, (1, 1))
+        return (coef * np.sum((xp[1:] - xp[:-1]) ** 2 / 2)
+                + np.sum((1 - x**2) ** 2 / 4 + b * x) / coef)
+
+    def grad_u(x):
+        lap = 2 * x - np.pad(x[:, 1:], ((0, 0), (0, 1))) - np.pad(x[:, :-1], ((0, 0), (1, 0)))
+        return (b - x * (1 - x**2)) / coef + coef * lap
+
+    x = np.stack([np.ones(dim), -np.ones(dim)])
+    for _ in range(10000):
+        x = x - 5e-3 * grad_u(x)
+    lap = []
+    for xi in x:
+        h = (np.diag(2 * coef + (3 * xi**2 - 1) / coef)
+             - coef * (np.eye(dim, k=1) + np.eye(dim, k=-1)))
+        log_l = -u(xi)
+        lap.append([log_l, log_l + dim / 2 * math.log(2 * math.pi)
+                    - 0.5 * np.linalg.slogdet(h)[1]])
+    return {"x_min": x, "log_laplace": lap,
+            "true_weight_cor": math.exp(lap[1][1] - lap[0][1]),
+            "true_weight": math.exp(lap[1][0] - lap[0][0])}
+
+
+def phase_phi_four_laplace(dev) -> dict:
+    """Phase 14 (e): φ⁴ (a 0.1, b 0.02, d 100)'s Laplace oracle on the card
+    (``compute_laplace_stats``, the part of ``compute_stats_integration``
+    before the host's transfer-matrix oracle, which phase 8 (c) runs: the
+    gradient flow's minima x_min, each well's Laplace log-density and the
+    weights) against the same in float64 on the host."""
+    from sde_sampler_lrds_torch.targets import PhiFour
+
+    t0 = time.perf_counter()
+    host = phi_four_laplace_f64(0.1, PHI_B, PHI_DIM)
+    host_s = time.perf_counter() - t0
+    card = PhiFour(a=0.1, b=PHI_B, dim=PHI_DIM, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card.compute_laplace_stats()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    lap = [[float(v) for v in card.log_laplace(x)] for x in card.x_min]
+    out = {"x_min": float(np.abs(card.x_min.cpu().double().numpy() - host["x_min"]).max()),
+           "log_laplace": max(abs(a - b) for a, b in
+                              zip(sum(lap, []), sum(host["log_laplace"], []))),
+           "true_weight_cor": [host["true_weight_cor"], card.expectations["true_weight_cor"]],
+           "true_weight": [host["true_weight"], card.expectations["true_weight"]],
+           "host_f64_s": host_s, "card_s": card_s}
+    say("[phase 14] (e) φ⁴ d 100 Laplace oracle card vs host float64 " + json.dumps(out))
+    tol = PHI_LAPLACE_TOL
+    check(out["x_min"] <= tol["x_min"], f"φ⁴ x_min: {out['x_min']:.3e}")
+    check(out["log_laplace"] <= tol["log_laplace_abs"],
+          f"φ⁴ log_laplace: {out['log_laplace']:.3e}")
+    for k in ("true_weight_cor", "true_weight"):
+        check(abs(out[k][1] / out[k][0] - 1) <= tol["weight_rel"], f"φ⁴ {k}: {out[k]}")
+    return out
+
+
+def phase_learned_reference(dev, path_counts) -> dict:
+    """Phase 14: the learned ('nn') reference: (a) the potential card vs
+    CPU, (b) the MLE trainer, (c) the toy EBM driver cut in depth with the
+    graph check, (d) its 'nn' checkpoint restored, (e) φ⁴'s Laplace oracle."""
+    t14 = time.perf_counter()
+    out = {"potentials": phase_ebm_potentials(dev), "mle": phase_ebm_mle(dev, path_counts)}
+    say(f"[phase 14] (c) sample_toy_ebm_mcmc cut to {' '.join(TOY_EBM_CUT)} (the driver's "
+        f"40 000 MALA points, 200 EBM epochs, 4096 steps and 16 seeds otherwise)")
+    _, toy, solver = run_ebm_cell(dev, "ebm_toy_cell", "sample_toy_ebm_mcmc", TOY_EBM_CUT,
+                                  path_counts)
+    check_elbo_below_log_z("ebm_toy_cell", toy)
+    out["toy_cell"] = toy
+    out["graph"] = graph_vs_loop(solver, dev, "ebm_toy_cell")
+    out["checkpoint"] = nn_checkpoint_restore(dev, solver)
+    out["phi_four_laplace"] = phase_phi_four_laplace(dev)
+    out["phase_s"] = time.perf_counter() - t14
+    say(f"[phase 14] took {out['phase_s']:.1f} s")
+    return out
+
+
+def run_ebm_cell_cli(dev, module: str, flags: list) -> None:
+    """``--cell`` for an *_ebm_mcmc driver at full depth: run_ebm_cell's
+    path and launch checks, and the gates of PERF.md §2 — Rings (the toy
+    driver's default target) against the JAX record on the medians over
+    the seeds (|log Z err| and Sinkhorn within GATE_TOY_RECORD x, the
+    Sinkhorn below the port's GMM-reference Rings cell, no forgotten mode)
+    with the ELBO below log Z_IS + 0.05 on every seed; logreg on
+    ionosphere with its median ELBO within GATE_LOGREG_ELBO nats of the
+    record or above it and below log Z_IS + 0.05 on every seed; φ⁴ with no
+    gate (its JAX records diverged), an abort reported."""
+    label = " ".join([module] + flags)
+    cell, out, _ = run_ebm_cell(dev, label, module, flags, {}, phase="cell")
+    if cell is None:
+        check(module == "sample_phi_four_ebm_mcmc", f"{label}: {out['aborted']}")
+        return
+    med = out["medians"]
+    if module == "sample_toy_ebm_mcmc" and cell["params"].get("target") == "rings":
+        say(f"[cell] {label}: medians |log Z err| {med['error/log_norm_const_is']:.4f}, "
+            f"Sinkhorn {med['error/sinkhorn']:.4f}, forgotten modes "
+            f"{med['eval/num_forgotten_modes']}; JAX record {json.dumps(EBM_RINGS_RECORD)}, "
+            f"the port's GMM-reference cell's Sinkhorn {PORT_RINGS_GMM_SINKHORN}")
+        check_elbo_below_log_z(label, out)
+        for k, key in (("log_z", "error/log_norm_const_is"), ("sinkhorn", "error/sinkhorn")):
+            check(med[key] <= GATE_TOY_RECORD * EBM_RINGS_RECORD[k],
+                  f"{label}: {key} {med[key]:.4f} > {GATE_TOY_RECORD} x {EBM_RINGS_RECORD[k]}")
+        check(med["error/sinkhorn"] < PORT_RINGS_GMM_SINKHORN,
+              f"{label}: Sinkhorn {med['error/sinkhorn']:.4f} not below the GMM-reference "
+              f"cell's {PORT_RINGS_GMM_SINKHORN}")
+        check(med["eval/num_forgotten_modes"] == 0, f"{label}: a mode is forgotten")
+    elif module == "sample_bayesian_logreg_ebm_mcmc":
+        say(f"[cell] {label}: median ELBO {med['eval/elbo']:.3f}, log Z_IS "
+            f"{med['eval/log_norm_const_is']:.3f}; JAX record ELBO {LOGREG_EBM_RECORD_ELBO}")
+        check_elbo_below_log_z(label, out)
+        check(med["eval/elbo"] >= LOGREG_EBM_RECORD_ELBO - GATE_LOGREG_ELBO,
+              f"{label}: ELBO {med['eval/elbo']:.3f} more than {GATE_LOGREG_ELBO} below "
+              f"{LOGREG_EBM_RECORD_ELBO}")
+
+
 def run_vi_cell(dev, module: str, flags: list) -> None:
     """``--cell`` for a competing driver: one run through its main with
     run_competing_cell's path and launch checks; a two_modes d 16 cell is
@@ -3369,6 +4037,7 @@ def main(argv=None) -> int:
         f"tensor cores, {peaks[1] / 1e12:.2f} TB/s, {sfu_rate / 1e12:.3f} T "
         f"transcendentals/s ({n_sm} SMs at {clock_mhz:.0f} MHz)")
 
+    laps = Laps()
     t0 = time.perf_counter()
     built = build_libraries(KERNEL_SOURCES)
     say(f"[phase 1] kernels built in {time.perf_counter() - t0:.2f} s: " + ", ".join(
@@ -3379,6 +4048,8 @@ def main(argv=None) -> int:
         module, flags = argv[1], argv[2:]
         if module.endswith("_competing"):
             run_vi_cell(dev, module, flags)
+        elif module.endswith("_ebm_mcmc"):
+            run_ebm_cell_cli(dev, module, flags)
         else:
             run_driver_cell(dev, " ".join(argv[1:]), module, flags, {})
         return 0
@@ -3410,6 +4081,7 @@ def main(argv=None) -> int:
                      "replaces": "sde_sampler_lrds_tpu/ops/resample.py:60"},
     }
     path_counts: dict[str, dict] = {}
+    laps("1 build")
     cfg, arrays = comparison_plan(dev)
     phase_kernel_vs_plain(dev, cfg, arrays, recs["fused_traj"])
     phase_kernel_vs_plain_d100(dev, recs["fused_traj"], recs["fused_traj_full_cov"])
@@ -3418,6 +4090,7 @@ def main(argv=None) -> int:
     phase_sinkhorn_kernels(dev, recs["sinkhorn_lse"], recs["transport_cost"])
     phase_resample_kernel(dev, recs["resample"])
     phase_noise(dev, cfg, arrays)
+    laps("2-3 kernels vs plain")
     solver, target, dataset = phase_main_path(dev, path_counts)
     phase_eval_parity(dev, solver)
     ref = fitted_reference(solver)
@@ -3425,10 +4098,14 @@ def main(argv=None) -> int:
     kl = {"parity": phase_kl_parity(dev, solver),
           "demo": phase_kl_demo(dev, target, ref, path_counts)}
     eval_times = phase_eval_path(dev, solver, target, path_counts)
+    laps("4, 5, 9, 10 demo paths")
     smc = phase_smc(dev, target, dataset, path_counts)
+    laps("6 SMC")
     phi_solver, driver_cells = phase_driver_cells(dev, path_counts)
     driver_cells.update(phase_more_driver_cells(dev, path_counts))
+    laps("8 driver cells")
     cli, (cos_cfg, cos_arrays) = phase_cli(dev, path_counts)
+    laps("11 CLI")
     t12 = time.perf_counter()
     vi_plan_set = phase_vi_kernel_vs_plain(dev, recs["fused_traj"])
     vi = {"dds_on_b1": phase_vi_dds_on_b1(dev, path_counts),
@@ -3437,7 +4114,11 @@ def main(argv=None) -> int:
           "cli": phase_vi_cli(dev, path_counts)}
     vi["phase_s"] = time.perf_counter() - t12
     say(f"[phase 12] took {vi['phase_s']:.1f} s")
+    laps("12 VI samplers")
     baselines = phase_baselines(dev, target, dataset, path_counts)
+    laps("13 baselines")
+    learned = phase_learned_reference(dev, path_counts)
+    laps("14 learned reference")
     phase_timing(dev, cfg, arrays, recs["fused_traj"], peaks, sfu_rate)
     for plan_name, (vi_cfg, vi_arrays, _) in vi_plan_set.items():
         phase_timing(dev, vi_cfg, vi_arrays, recs["fused_traj"]["vi_plans"][plan_name], peaks,
@@ -3456,6 +4137,7 @@ def main(argv=None) -> int:
     phase_timing(dev, bf16_cfg, bf16_arrays, recs["fused_traj_bf16"], peaks, sfu_rate,
                  label="fused_traj_bf16")
     phase_timing_sample_kernels(dev, recs, peaks, sfu_rate)
+    laps("7 timing")
 
     for kname, rec in recs.items():
         rec["launches_by_path"] = {p: c[kname] for p, c in path_counts.items()}
@@ -3464,7 +4146,10 @@ def main(argv=None) -> int:
     say("[phase 7] paths: " + json.dumps({"rds_eval": eval_times, "smc": smc,
                                           "driver_cells": driver_cells,
                                           "bf16_demo": bf16_demo, "kl": kl, "cli": cli,
-                                          "vi": vi, "baselines": baselines}))
+                                          "vi": vi, "baselines": baselines,
+                                          "learned_reference": learned}))
+    say("[phase 7] wall seconds by phase: " + json.dumps({**laps.seconds,
+                                                          "script": laps.total()}))
     say(json.dumps({"kernels": [
         {"name": kname, **{k: rec[k] for k in KERNEL_KEYS},
          **{k: v for k, v in rec.items() if k not in KERNEL_KEYS}}

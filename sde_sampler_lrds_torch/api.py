@@ -18,13 +18,15 @@ replica-exchange baselines on the tempering path.
 and refuses every combination the JAX package refuses, with the same
 messages. Ported: every solver — the RDS solvers 'vp-ref' and 'pbm-ref'
 (VP, the cosine VP of ``force_vp_cosine``, vp_20, PinnedBM) with the
-references 'default', 'gaussian' and 'gmm', and the VI samplers
+references 'default', 'gaussian', 'gmm' and 'nn' (a trained EBM potential,
+``solver_details['net']``, read at ``eps = ts[0]``), and the VI samplers
 'dds_orig', 'pis_orig', 'dis_orig' (with GBS's ``inference_ctrl_arch``) and
 'cmcd' (with its refitted prior) — the controls of every model type but the
 UNet ones, on the FourierMLP or the DenseNet, the lr schedulers of
 ``optim_details['lr_scheduler']`` and checkpoints under ``out_dir``; the
-'nn' reference, the UNet and the mesh raise NotImplementedError naming their
-ROADMAP queue item. The targets 'two_modes', 'two_modes_full',
+UNet and the mesh raise NotImplementedError naming their ROADMAP queue
+item. ``build_ebm`` makes the EBM trainers ('mle*', 'drl', 'daebm') of the
+learned references. The targets 'two_modes', 'two_modes_full',
 'bracket_two_modes', 'many_modes', 'rings', 'checkerboard' and 'phi_four'
 and the Bayesian logistic-regression posteriors 'cancer', 'credit',
 'ionosphere' and 'sonar' are ported; 'mnist' and 'mnist_zero_one' are not.
@@ -258,9 +260,6 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
                              f"got {inference_ctrl_arch!r}")
 
     # -- what the port does not have yet ------------------------------------
-    if ref_type == "nn":
-        raise NotImplementedError("ref_type 'nn' is not ported yet (ROADMAP A5, learned "
-                                  "references).")
     if mesh is not None:
         raise NotImplementedError("mesh (sharded solvers) is not ported yet (ROADMAP A7, "
                                   "parallel/mesh.py).")
@@ -399,6 +398,8 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
             solver.change_reference_type(
                 "gmm", weights=solver_details["weights_ref"],
                 means=solver_details["means_ref"], variances=solver_details["variances_ref"])
+        elif ref_type == "nn":
+            solver.change_reference_type("nn", net=solver_details["net"], eps=float(ts[0]))
     if solver_type == "cmcd" and ref_type == "gaussian":
         solver.update_prior(mean=solver_details["mean"], var=solver_details["var"])
 
@@ -465,6 +466,34 @@ def fit_gmm(n_components: int, dataset, means_init=None, em_type: str = "diag",
         else:
             return w, m, v
     raise ValueError(f"Couldn't fit a GMM on this dataset ({last_err}).")
+
+
+def build_ebm(ebm_type: str, sde, prior, net, target_acceptance: float = 0.75,
+              use_snr_adapted_disc: bool = False, perc_keep_mcmc: float = -1.0,
+              start_eps: float = 1e-3, end_eps: float = 0.0, n_steps: int = 100, **kwargs):
+    """The EBM trainer of ``ebm_type``: 'drl' (DiffusionRecoveryLikelihood),
+    'daebm' (DAEBM) or any name holding 'mle' (MaximumLikelihoodEBM), on
+    the device of ``net``'s parameters."""
+    from .ebm import DAEBM, DiffusionRecoveryLikelihood, MaximumLikelihoodEBM
+
+    if ebm_type == "drl":
+        cls = DiffusionRecoveryLikelihood
+    elif ebm_type == "daebm":
+        cls = DAEBM
+    elif "mle" in ebm_type:
+        cls = MaximumLikelihoodEBM
+    else:
+        raise NotImplementedError(f"EBM type {ebm_type} not found.")
+    return cls(sde=sde, prior=prior, net=net, target_acceptance=target_acceptance,
+               use_snr_adapted_disc=use_snr_adapted_disc, perc_keep_mcmc=perc_keep_mcmc,
+               start_eps=start_eps, end_eps=end_eps, n_steps=n_steps, **kwargs)
+
+
+def score_with_reference_score(score_ref: Callable, score: Callable) -> Callable:
+    """(t, x) ↦ score_ref(t, x) − score(t, x)."""
+    def f(t, x):
+        return score_ref(t, x) - score(t, x)
+    return f
 
 
 def define_tempering_utils(mean, var, target_log_prob: Callable,

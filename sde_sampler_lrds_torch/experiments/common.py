@@ -1,12 +1,14 @@
 """Shared machinery of the experiment drivers (counterpart of the JAX
 package's experiments/common.py: the dataset preamble,
 ``sigma_from_moments``, ``run_vi``, ``run_sampling_baseline``,
-``lrds_run``, ``competing_run`` and the result pickle; the EBM references
-are not ported yet).
+``lrds_run``, ``competing_run``, the learned references'
+``train_ebm_reference`` and ``ebm_run``, and the result pickle).
 
 One LRDS cell: build the target → MALA dataset → fit the reference
 (Gaussian or GMM) → ``make_model`` → ``TrainableWrapper.run`` → evaluation
-over several seeds → pickle {config, results}. A competing cell trains one
+over several seeds → pickle {config, results}. An EBM cell fits a GMM,
+tilts it with a neural energy trained by contrastive maximum likelihood,
+and installs that potential as the 'nn' reference. A competing cell trains one
 of the other VI samplers (PIS, DDS, DIS, CMCD) with its scale moment-matched
 to the MALA dataset (CMCD: its prior fitted to it), or runs the SMC or
 replica-exchange baseline on the tempering path from the dataset's Gaussian,
@@ -25,10 +27,11 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from ..api import (fit_gmm, make_model, make_target, make_target_details,  # noqa: F401
-                   mcmc_sample, run_re_sampler, run_smc_sampler)
+from ..api import (build_ebm, fit_gmm, make_model, make_target,  # noqa: F401
+                   make_target_details, mcmc_sample, run_re_sampler, run_smc_sampler)
 from ..eval import Sinkhorn, compute_sliced_ks, get_metrics, mmd_median
 from ..solvers.wrappers import TrainableWrapper, list_of_dict_2_dict_of_list
 from ..utils.common import derive_generator, resolve_device
@@ -335,3 +338,178 @@ def competing_run(args, target, target_details, x_init, filename_stub, extra_par
         force_vp20=dis_vp20 and args.solver_type == "dis_orig")
     return {"metrics": all_metrics, "times": times, "params": extra_params or {},
             "gauss_params": gauss_params}
+
+
+def normalized_ess(log_w: torch.Tensor) -> torch.Tensor:
+    """exp(2·lse(w) − lse(2w)) / n ∈ (0, 1] of unnormalized log-weights."""
+    return torch.exp(2.0 * torch.logsumexp(log_w, 0)
+                     - torch.logsumexp(2.0 * log_w, 0)) / log_w.shape[0]
+
+
+def train_ebm_reference(generator: torch.Generator, dataset, mean, var_diag,
+                        n_gmm_components=2, em_type="diag", ebm_type="mle_re", n_levels=32,
+                        ebm_epochs=2, ebm_batch_size=64, step_size=1e-2, n_mcmc_steps=8,
+                        sde=None, batches_per_call=16, net_layers=4, net_channels=64,
+                        t_limit=0.0, lr=3e-4, decay=0.0, perc_keep_mcmc=-1.0,
+                        swap_frequency=16, initial_n_warmup_mcmc_steps=64,
+                        n_accumulation_steps=1, means_init=None, reg_val=0.0,
+                        reweight_loss=False, use_ema=False, use_precond=False,
+                        return_trainer=False, target=None, select_best=False,
+                        select_size=4096, select_every=None, net_arch="mlp",
+                        pretrained_params_path=None, device=None):
+    """Fit a GMM on the dataset (full covariances eigendecomposed once),
+    tilt it with a zero-init FourierMLP energy ('dot' tilt), and train the
+    potential by contrastive MLE ('mle_re': replica exchange with persistent
+    replicas, 'mle_smc', 'mle_cd'). ``use_precond`` preconditions the
+    negatives' MALA by the per-level noised data covariance
+    s²(t)(Σ_data + σ²(t)I); ``select_best`` (needs ``target``) keeps the
+    checkpoint of the best forward ESS of the potential at t = 1e-4 against
+    the target on the first ``select_size`` dataset points. Returns (the
+    trained potential, {"ebm_train": seconds, ...})."""
+    from ..models import FourierMLP
+    from ..models.potentials import GMMTiltedPotential
+    from ..sde import VP
+    from ..targets.gauss import Gauss
+
+    if net_arch == "mnist_conv" or pretrained_params_path is not None:
+        raise NotImplementedError("the MNIST energy (net_arch='mnist_conv') and pretrained "
+                                  "EBM checkpoints come with the MNIST slice (ROADMAP A6).")
+    device = resolve_device(device)
+    dataset = torch.as_tensor(dataset, dtype=torch.float32, device=device)
+    dim = dataset.shape[-1]
+    sde = sde or VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
+    w, m, v = fit_gmm(n_gmm_components, dataset, em_type=em_type, means_init=means_init,
+                      device=device)
+    if v.ndim == 3:
+        # factored once: the noised marginals then need no per-row solve
+        eig, p = np.linalg.eigh(v.cpu().numpy())
+        v = (torch.as_tensor(np.maximum(eig, 1e-8), device=device),
+             torch.as_tensor(p, device=device))
+    base_net = FourierMLP(dim=dim, num_layers=net_layers, channels=net_channels,
+                          zero_init=True).to(device)
+    base_net.reset_parameters(derive_generator(generator, 0))
+    pot = GMMTiltedPotential(base_model=base_net, sde=sde, weights=w, means=m, variances=v,
+                             t_limit=t_limit, tilt_type="dot")
+    prior = Gauss(dim=dim, loc=mean, scale=torch.sqrt(var_diag), device=device)
+    sampler = {"mle_re": "replica_exchange", "mle_smc": "smc",
+               "mle_cd": "cd"}.get(ebm_type, "replica_exchange")
+    trainer = build_ebm("mle", sde, prior, pot, sampler_type=sampler,
+                        step_sizes_per_noise=step_size, n_steps=n_levels,
+                        perc_keep_mcmc=perc_keep_mcmc, swap_frequency=swap_frequency)
+    if use_precond:
+        cov = np.cov(dataset.cpu().numpy().T) + 1e-6 * np.eye(dim)
+        eig_c, p_c = np.linalg.eigh(cov)
+        t_levels = trainer.times
+        s2 = sde.s(t_levels).cpu().numpy().astype(np.float64) ** 2
+        sig = sde.sigma_sq(t_levels).cpu().numpy().astype(np.float64)
+        lam = s2[:, None] * (np.maximum(eig_c, 1e-8)[None] + sig[:, None])
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+        trainer.precond_matrix_per_noise = as_t(np.einsum("de,le,fe->ldf", p_c, lam, p_c))
+        trainer.precond_matrix_chol_per_noise = as_t(np.einsum("de,le->lde", p_c, np.sqrt(lam)))
+        trainer.use_precond = True
+    select_fn = None
+    if select_best:
+        assert target is not None, "select_best needs the target"
+        n_sel = min(select_size, dataset.shape[0])
+        xs_sel = dataset[:n_sel]
+        ts_sel = torch.full((n_sel,), 1e-4, device=device)
+        target_lp = target.unnorm_log_prob(xs_sel)
+
+        @torch.no_grad()
+        def select_fn(net):
+            return normalized_ess(net.unnorm_log_prob(ts_sel, xs_sel) - target_lp)
+
+    t0 = clock(device)
+    stage(f"training EBM reference ({ebm_epochs} epochs, {n_levels} levels, "
+          f"batch {ebm_batch_size} x acc {n_accumulation_steps}"
+          + (", fwd-ESS selection" if select_best else "") + ")")
+    losses, gnorms, _ = trainer.train(
+        derive_generator(generator, 1), dataset, batch_size=ebm_batch_size,
+        n_epochs=ebm_epochs, lr=lr, decay=decay,
+        initial_n_warmup_mcmc_steps=initial_n_warmup_mcmc_steps, n_mcmc_steps=n_mcmc_steps,
+        reg_val=reg_val, reweight_loss=reweight_loss, use_ema=use_ema,
+        n_accumulation_steps=n_accumulation_steps, batches_per_call=batches_per_call,
+        select_fn=select_fn, select_every=select_every)
+    t_train = clock(device) - t0
+    stage(f"EBM reference done in {t_train:.1f}s")
+    net = trainer.ema_net
+    extra = {"ebm_train": t_train}
+    if select_best and trainer.best_params is not None:
+        stage(f"selected checkpoint: step {trainer.best_step} "
+              f"(fwd ESS {trainer.best_score:.4f})")
+        net.load_state_dict(trainer.best_params)
+        extra["ebm_select_step"] = trainer.best_step
+        extra["ebm_select_fwd_ess"] = trainer.best_score
+    if select_best:
+        extra["ebm_select_history"] = list(trainer.select_history)
+    if return_trainer:
+        extra.update(trainer=trainer, losses=losses, grad_norms=gnorms)
+    return net, extra
+
+
+def ebm_run(args, target, target_details, x_init, extra_params=None, solver_type="vp-ref",
+            integrator_type="ei", time_type="snr", n_gmm_components=2, em_type="diag",
+            mcmc_step_size=1e-3, ebm_kwargs=None, **model_kwargs):
+    """One cell of a *_ebm_mcmc.py driver: MALA dataset → GMM fit (its
+    means seeded at the target's energy minima ``x_min`` where the target
+    has a Laplace oracle, copies jittered by 5 % of the data's spread with
+    ``np.random.default_rng(seed)``) → the EBM reference → its forward ESS
+    on 8192 dataset points (and φ⁴'s dataset weights) → RDS with the 'nn'
+    reference → evaluation over the seeds."""
+    from ..targets.base import Target as _TargetBase
+
+    device = resolve_device(args.device)
+    base = torch.Generator(device).manual_seed(args.seed)
+    g_data, g_vi, g_ebm = (derive_generator(base, i) for i in (1, 2, 3))
+    dataset, mean, var, var_diag, times = build_dataset_and_gaussian(
+        g_data, target, x_init, args.dataset_size, step_size=mcmc_step_size, device=device)
+    ebm_kwargs = dict(ebm_kwargs or {})
+    # seed the GMM's EM at the energy minima where the target knows them:
+    # only targets that override compute_stats_integration are probed
+    if getattr(target, "x_min", None) is None and \
+            type(target).compute_stats_integration is not _TargetBase.compute_stats_integration:
+        try:
+            target.compute_stats_integration()
+        except (ValueError, NotImplementedError):
+            pass
+    x_min = getattr(target, "x_min", None)
+    if x_min is not None and n_gmm_components % x_min.shape[0] == 0:
+        reps = n_gmm_components // x_min.shape[0]
+        mi = np.repeat(x_min.cpu().numpy(), reps, axis=0)
+        if reps > 1:
+            # EM keeps identical means together: jitter the copies
+            rng = np.random.default_rng(args.seed)
+            scale = 0.05 * dataset.std(dim=0).cpu().numpy()
+            mi = mi + rng.normal(size=mi.shape) * scale[None]
+        ebm_kwargs.setdefault("means_init", mi)
+    ebm_kwargs.setdefault("target", target)
+    net, ebm_times = train_ebm_reference(
+        g_ebm, dataset, mean, var_diag, n_gmm_components=n_gmm_components, em_type=em_type,
+        device=device, **ebm_kwargs)
+    ebm_times.pop("trainer", None)
+    times.update({k: v for k, v in ebm_times.items() if isinstance(v, (int, float))})
+    n_diag = min(8192, dataset.shape[0])
+    xs_d = dataset[:n_diag]
+    with torch.no_grad():
+        lw = net.unnorm_log_prob(torch.full((n_diag,), 1e-4, device=device), xs_d) \
+            - target.unnorm_log_prob(xs_d)
+    fwd_ess = float(normalized_ess(lw))
+    stage(f"EBM reference forward ESS on data: {fwd_ess:.4f}")
+    extra_diag = {}
+    if hasattr(target, "compute_phi_four_weight"):
+        extra_diag["dataset_weight_raw"] = float(target.compute_phi_four_weight(dataset))
+    if hasattr(target, "compute_phi_four_weight_rb"):
+        extra_diag["dataset_weight_rb"] = float(target.compute_phi_four_weight_rb(dataset))
+        stage(f"dataset weight: raw {extra_diag['dataset_weight_raw']:.3f} "
+              f"rb {extra_diag['dataset_weight_rb']:.3f}")
+    _, all_metrics = run_vi(
+        g_vi, solver_type, target_details, {"sigma": 1.0, "net": net},
+        {"train_steps": args.train_steps, "train_batch_size": args.train_batch_size,
+         "eval_batch_size": args.eval_batch_size},
+        n_sampling_seeds=args.n_sampling_seeds, ref_type="nn",
+        integrator_type=integrator_type, time_type=time_type, model_type="base_zero_init",
+        n_steps=args.n_steps, keep_samples=True, progress_file=_progress_file(args),
+        device=device, **model_kwargs)
+    return {"metrics": all_metrics, "times": times, "params": extra_params or {},
+            "forward_ess_ebm": fwd_ess, **extra_diag,
+            "gauss_params": {"mean": mean.cpu().numpy(), "var": var.cpu().numpy()}}

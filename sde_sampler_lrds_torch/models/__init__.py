@@ -1,2 +1,4 @@
 from .mlp import AngleEncoding, DenseNet, FourierMLP, TimeEmbed, gelu_tanh, load_flax_params
 from .reparam import CancelDriftCtrl, ClippedCtrl, LerpCtrl, ScoreCtrl, remove_reference_ctrl
+from .potentials import (BetterPotentialCtrl, DRLWrapper, EBMAnatomyTrick, GaussTiltedPotential,
+                         GMMTiltedPotential)

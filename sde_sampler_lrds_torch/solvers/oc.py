@@ -9,8 +9,8 @@ TrainableDiff and its algorithms
   CMCD  : the annealed-Langevin SDE built from the prior's and the target's
           scores, with a refittable Gaussian prior.
   RDS   : the reference process switchable between 'default' (VP and
-          PinnedBM), 'gaussian' and 'gmm', each stored in and restored from
-          RDS's checkpoints.
+          PinnedBM), 'gaussian', 'gmm' and 'nn' (a trained EBM potential),
+          each stored in and restored from RDS's checkpoints.
 
 Routing, as in the JAX package: plain-LV training takes the flat path
 (``lv_flat_call``), whose gradient-free simulation runs through
@@ -23,9 +23,13 @@ trajectory with its noise drawn in the kernel. ``fused_traj`` launches the
 CUDA kernel for tensors on the card and runs its plain version for tensors
 on the CPU, so the paths are named after the device: 'flat_lv_fused' /
 'kl_fused' / 'fused' on CUDA, 'flat_lv_plain' / 'kl_plain' / 'plain' on the
-CPU.
+CPU. The 'nn' reference has no precompute protocol, so it keeps B1 off:
+its flat LV simulation is the graphed loop ('flat_lv_graph') on the card.
 """
 from __future__ import annotations
+
+import copy
+import logging
 
 import torch
 
@@ -35,7 +39,7 @@ from ..losses.base import compute_results
 from ..ops.fused_traj import build_plan, fused_kl_traj, fused_simulate, fused_traj_states
 from ..sde.integrator import integrate_sde
 from ..sde.langevin import ControlledLangevinSDE, ControlledSDE
-from ..targets.base import Target
+from ..targets.base import Target, WrapperDistrNN
 from ..targets.delta import Delta
 from ..targets.gauss import (Gauss, GaussFull, score_gauss, score_gauss_full, score_mog,
                              score_mog_full)
@@ -573,8 +577,27 @@ class GMMReferenceCtrl:
         return score_mog(x, w, m, v)
 
 
+class NNReferenceCtrl:
+    """Time-t score of a trained EBM potential (``net(t, x)`` with one time
+    a row): a time per step over (B, D) states, or per-step times (K, 1)
+    over flat (K, B, D) states, evaluated as one (K·B) batch. No precompute
+    protocol, so the fused trajectory does not take it."""
+
+    def __init__(self, net):
+        self.net = net
+
+    def __call__(self, t, x):
+        t = torch.as_tensor(t, device=x.device)
+        t = t.reshape((-1,) + (1,) * (x.ndim - 2)) if t.numel() > 1 else t.reshape(())
+        rows = torch.broadcast_to(t, x.shape[:-1]).reshape(-1)
+        return self.net(rows, x.reshape(-1, x.shape[-1])).reshape(x.shape)
+
+
 class RDS(TrainableDiff):
     """Learned reference-based diffusion sampler."""
+
+    _nn_module = None
+    _nn_eps = 1e-4
 
     def setup_models(self):
         self.change_reference_type(ref_type="default")
@@ -586,12 +609,18 @@ class RDS(TrainableDiff):
         kwargs["reference_ctrl"] = self.reference_score_t
         self.loss = self.loss_cls(sde=self.sde, **kwargs)
 
-    def change_reference_type(self, ref_type: str = "default", mean=None, var=None,
-                              means=None, variances=None, weights=None):
+    def change_reference_type(self, ref_type: str = "default", net=None, eps=None, mean=None,
+                              var=None, means=None, variances=None, weights=None):
         """Install the reference process: 'default' (the prior's Gaussian
-        for VP; N(prior loc, T·g²) for PinnedBM), 'gaussian' or 'gmm'. Variances are diagonal, full ((D, D) or
-        (C, D, D)) or an eigendecomposition (eig, P), given as tensors or
-        numpy arrays. The 'nn' reference is not ported (ROADMAP A5)."""
+        for VP; N(prior loc, T·g²) for PinnedBM), 'gaussian' or 'gmm'
+        (variances diagonal, full ((D, D) or (C, D, D)) or an
+        eigendecomposition (eig, P), as tensors or numpy arrays), or 'nn': a
+        trained EBM potential (an nn.Module whose call is its score and
+        with ``unnorm_log_prob(t, x)``), frozen as a copy on this solver's
+        device — its score at each step's time is the reference score and
+        its log-density at ``eps`` (default 1e-4) the reference log-prob —
+        or a (score(t, x), unnorm_log_prob(t, x)) pair of callables, which
+        checkpoints cannot carry."""
         from ..sde.linear import VP, PinnedBM
 
         sde = self.sde
@@ -628,10 +657,22 @@ class RDS(TrainableDiff):
             self.reference_log_prob = lambda x: sde.marginal_gmm_log_prob(
                 zero, x, means, variances, weights)
             self.reference_score_t = GMMReferenceCtrl(sde, means, variances, weights)
+        elif ref_type == "nn":
+            if isinstance(net, nn.Module):
+                module = copy.deepcopy(net).to(self.device).requires_grad_(False)
+                self._nn_module = module
+                net_score, net_log_prob = module, module.unnorm_log_prob
+            else:
+                net_score, net_log_prob = net
+                module = self._nn_module = None
+            self._nn_eps = float(eps if eps is not None else 1e-4)
+            self.reference_distr_utils = {"net": module if module is not None else net}
+            wrapper = WrapperDistrNN(dim=self.target.dim, unnorm_log_prob_t=net_log_prob,
+                                     t=self._nn_eps, device=self.device)
+            self.reference_log_prob = wrapper.unnorm_log_prob
+            self.reference_score_t = NNReferenceCtrl(net_score)
         else:
-            raise NotImplementedError(
-                f"Reference type {ref_type!r} is not ported"
-                + (" (ROADMAP A5, learned references)." if ref_type == "nn" else "."))
+            raise NotImplementedError(f"Reference type {ref_type!r} is unknown.")
         self.ref_type = ref_type
         if self.loss is not None:
             self._rebuild_loss()
@@ -643,11 +684,20 @@ class RDS(TrainableDiff):
     # -- checkpointing: the installed reference ------------------------------
     def save_attrs(self) -> dict:
         """The trainer's payload and the reference: its type and parameters,
-        an eigen-factored (eig, P) variance as a two-entry list."""
+        an eigen-factored (eig, P) variance as a two-entry list; for 'nn',
+        ``eps`` and the potential's state_dict (none for a pair of
+        callables)."""
         attrs = super().save_attrs()
         ref = {"ref_type": self.ref_type}
         for k, v in self.reference_distr_utils.items():
+            if k == "net":
+                continue
             ref[k] = list(v) if isinstance(v, tuple) else v
+        if self.ref_type == "nn":
+            ref["eps"] = self._nn_eps
+            net = self.reference_distr_utils["net"]
+            if isinstance(net, nn.Module):
+                ref["net_state"] = net.state_dict()
         attrs["reference"] = ref
         return attrs
 
@@ -669,8 +719,31 @@ class RDS(TrainableDiff):
             self.change_reference_type("gmm", weights=ref["weights_init"],
                                        means=ref["means_init"],
                                        variances=_maybe_tuple(ref["variances_init"]))
-        else:  # 'nn' raises, naming its queue item
-            self.change_reference_type(ref_type)
+        elif ref_type == "nn":
+            if "net_state" not in ref:
+                # saved from a pair of callables: keep an installed 'nn'
+                # reference and restore the rest; raise when none is
+                if self.ref_type == "nn":
+                    logging.warning(
+                        "Checkpoint has ref_type='nn' with no serialized "
+                        "params (closure-form net); keeping the currently "
+                        "installed 'nn' reference.")
+                    return
+                raise ValueError(
+                    "Checkpoint has ref_type='nn' but no serialized params: it "
+                    "was saved from a closure-form net. Re-install the EBM via "
+                    "change_reference_type('nn', net=...) before loading, "
+                    "or save with an nn.Module potential.")
+            if self._nn_module is None:
+                raise ValueError(
+                    "Restoring an 'nn' reference needs the potential's architecture: "
+                    "install the same EBM via change_reference_type('nn', net=module) "
+                    "first, then load_checkpoint() to restore the trained params.")
+            module = copy.deepcopy(self._nn_module)
+            module.load_state_dict(ref["net_state"])
+            self.change_reference_type("nn", net=module, eps=ref.get("eps"))
+        else:
+            raise NotImplementedError(f"Reference type {ref_type!r} in checkpoint.")
 
 
 def _maybe_tuple(v):

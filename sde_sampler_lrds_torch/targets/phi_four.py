@@ -5,23 +5,26 @@ Energy U(φ) = a·d·Σ(∇φ)²/2 + Σ[(1-φ²)²/4 + b·φ]/(a·d), Gibbs dens
 e^{-β U}. The exact transfer-matrix oracle of the 1-D Dirichlet chain (log Z
 and the centre-site inter-well weight) and its exact sampler (forward
 filter, backward sampling) are host numpy/scipy float64 code, kept here as
-their own copy. Not ported yet: the Laplace oracle
-(``compute_stats_integration``).
+their own copy. The Laplace oracle (``compute_stats_integration``) runs the
+gradient-descent flow from ±1 to the two energy minima ``x_min`` on the
+target's device and weighs the wells by their Laplace approximations.
 """
 from __future__ import annotations
 
 import logging
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .base import Target
+from .base import Target, run_gdflow
 
 
 class PhiFour(Target):
     def __init__(self, a: float, b: float, dim: int, dim_phys: int = 1,
-                 beta: float = 1.0, bc=("dirichlet", 0.0), tilt=None, **kwargs):
+                 beta: float = 1.0, bc=("dirichlet", 0.0), tilt=None,
+                 grid_points: int = 1024, **kwargs):
         self.a = a
         self.b = b
         self.beta = beta
@@ -31,7 +34,7 @@ class PhiFour(Target):
         self.bc = bc
         self.tilt = tilt
         self.coef = a * dim
-        super().__init__(dim=dim, **kwargs)
+        super().__init__(dim=dim, grid_points=grid_points, **kwargs)
         ones = torch.ones(dim, device=self.device)
         self.set_domain(torch.stack([-1.5 * ones, 1.5 * ones], dim=1))
 
@@ -90,6 +93,49 @@ class PhiFour(Target):
             self.compute_stats_transfer_matrix()
         else:
             logging.warning("Cannot compute statistics for %s", type(self).__name__)
+
+    # -- Laplace-approximation oracle ------------------------------------------
+    def hessian(self, x: torch.Tensor) -> torch.Tensor:
+        """∇²U at one configuration x (dim,): on the 1-d chain the band
+        2·coef + (3x² − 1)/coef on the diagonal and −coef beside it (each
+        site sits in two Dirichlet bonds); on 2-d lattices the autograd
+        Hessian of U."""
+        if self.dim_phys != 1:
+            return torch.autograd.functional.hessian(lambda y: self.U(y[None])[0], x)
+        d = x.shape[-1]
+        eye = torch.eye(d, dtype=x.dtype, device=x.device)
+        off = torch.diag(torch.ones(d - 1, dtype=x.dtype, device=x.device), 1)
+        return eye * (2 * self.coef + (3 * x**2 - 1) / self.coef) - self.coef * (off + off.T)
+
+    def log_laplace(self, x: torch.Tensor):
+        """(−βU(x), its Laplace approximation −βU(x) + (dim/2)·log(2π/β) −
+        ½·log det ∇²U(x)) at a minimum x (dim,)."""
+        log_l = -self.beta * self.U(x[None])[0]
+        corr = (self.dim_grid / 2) * math.log(2 * math.pi / self.beta)
+        corr = corr - 0.5 * torch.linalg.slogdet(self.hessian(x))[1]
+        return log_l, log_l + corr
+
+    def compute_stats_integration(self):
+        """``compute_laplace_stats``, then the exact transfer-matrix
+        statistics where the chain allows them."""
+        self.compute_laplace_stats()
+        if self._tm_supported():
+            self.compute_stats_transfer_matrix()
+
+    def compute_laplace_stats(self):
+        """The gradient-descent flow (10 000 steps of 5e-3) from +1 and −1 to
+        the two minima ``x_min`` (2, dim), and the wells' weight from their
+        raw energies (``true_weight``) and from their Laplace approximations
+        (``true_weight_cor``)."""
+        ones = torch.ones(self.dim, device=self.device)
+        x = run_gdflow(self.grad_U, torch.stack([ones, -ones]), 10000, 5e-3)
+        self.x_min = x
+        _, lap_pos = self.log_laplace(x[0])
+        _, lap_neg = self.log_laplace(x[1])
+        en_pos = -self.beta * self.U(x[0][None])[0]
+        en_neg = -self.beta * self.U(x[1][None])[0]
+        self.expectations["true_weight"] = float(torch.exp(en_neg - en_pos))
+        self.expectations["true_weight_cor"] = float(torch.exp(lap_neg - lap_pos))
 
     # -- exact transfer-matrix oracle (1-d chain), host float64 --------------
     def _tm_supported(self) -> bool:

@@ -199,11 +199,14 @@ def test_checkpoint_payload_loads_weights_only(tmp_path):
 
 
 def test_nn_reference_checkpoint_names_its_queue_item(tmp_path):
+    """An 'nn' reference stored without its potential's parameters cannot
+    be restored into a solver with no 'nn' reference installed (the 'nn'
+    reference itself is ported since ROADMAP A5: tests/test_torch_nn_reference.py)."""
     solver = t_make_model(device="cpu", out_dir=tmp_path, **_args())
     solver.setup()
     raw = solver.save_attrs()
     raw["reference"] = {"ref_type": "nn", "eps": 1e-4}
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="no serialized params"):
         solver.restore_attrs(raw)
 
 

@@ -230,11 +230,11 @@ def test_make_model_refuses_as_jax(case):
     ("Target cancer", dict(target_details={"name": "cancer"})),
 ])
 def test_make_model_names_what_is_not_ported(what, extra):
-    """The 'nn' reference and the unported targets raise naming what is
-    missing. The 'dds_orig' solver and the target-informed control were
-    refused here until ROADMAP A2, the logistic-regression target 'cancer'
-    until A4; they now build the solver and control the JAX package
-    builds."""
+    """The unported targets raise naming what is missing. The 'dds_orig'
+    solver and the target-informed control were refused here until ROADMAP
+    A2, the logistic-regression target 'cancer' until A4 and the 'nn'
+    reference (given its potential) until A5; they now build the solver and
+    control the JAX package builds."""
     args = dict(solver_type="vp-ref", ref_type="default", loss_type="lv",
                 integrator_type="ei", model_type="base_zero_init", time_type="snr",
                 solver_details={"sigma": 1.0},
@@ -242,6 +242,14 @@ def test_make_model_names_what_is_not_ported(what, extra):
                 training_details={"train_steps": 4, "train_batch_size": 8,
                                   "eval_batch_size": 8}, device="cpu")
     args.update(extra)
+    if what == "ref_type 'nn'":
+        from sde_sampler_lrds_torch.models import FourierMLP as TFourierMLP
+        from sde_sampler_lrds_torch.models.potentials import GMMTiltedPotential
+        from sde_sampler_lrds_torch.sde import VP as TVP
+
+        net = GMMTiltedPotential(TFourierMLP(dim=DIM, channels=8, zero_init=True), TVP(),
+                                 np.ones(2), np.zeros((2, DIM)), np.ones((2, DIM)))
+        args["solver_details"] = {"sigma": 1.0, "net": net}
     if what in PORTED_SINCE_A2:
         solver = t_make_model(**args)
         assert (type(solver).__name__, type(solver.generative_ctrl).__name__) == \
@@ -253,7 +261,8 @@ def test_make_model_names_what_is_not_ported(what, extra):
 
 PORTED_SINCE_A2 = {"solver_type 'dds_orig'": ("DDS", "ScoreCtrl"),
                    "target_informed_zero_init": ("RDS", "ScoreCtrl"),
-                   "Target cancer": ("RDS", "ClippedCtrl")}
+                   "Target cancer": ("RDS", "ClippedCtrl"),
+                   "ref_type 'nn'": ("RDS", "ClippedCtrl")}
 
 
 @pytest.mark.parametrize("flag,value", [
@@ -652,3 +661,76 @@ def check_competing_against_jax(name, solver_type, tmp_path, monkeypatch) -> dic
     row, diverged = summarize.summarize_cell(cell)
     assert not diverged and row["ELBO"] is not None
     return data
+
+
+# ---------------------------------------------------------------------------
+# (8) the *_ebm_mcmc drivers (learned references) through both packages' mains
+# ---------------------------------------------------------------------------
+
+# the tiny size of the EBM drivers: the common flags above, one EBM epoch
+# over 5 levels
+EBM_TINY = [f"--{k}={v}" for k, v in TINY.items()] + ["--ebm_epochs", "1",
+                                                      "--ebm_n_levels", "4"]
+
+
+def run_jax_driver(script: str, flags: list, tmp_path, monkeypatch) -> dict:
+    """The JAX package's experiments/<script>.py run as a user runs it (its
+    module-level main with flags), its experiments/common.py loaded as
+    ``_jax_experiments_common`` loads it and its solvers on one device;
+    returns the pickle it wrote."""
+    import functools
+    import runpy
+
+    common = _jax_experiments_common(tmp_path, monkeypatch)
+    monkeypatch.setattr(common, "make_model", functools.partial(common.make_model,
+                                                                mesh=get_mesh(1)))
+    monkeypatch.setitem(sys.modules, "common", common)
+    out = tmp_path / "jax"
+    monkeypatch.setattr(sys, "argv", [script] + flags + ["--device", "cpu",
+                                                         "--results_path", str(out)])
+    runpy.run_path(str(REPO / "experiments" / f"{script}.py"), run_name="__main__")
+    (path,) = out.glob("*.pkl")
+    with open(path, "rb") as f:
+        return pickle.load(f), path
+
+
+def run_port_driver(module: str, flags: list, tmp_path) -> tuple:
+    """The port's driver through its main on the CPU at one intra-op thread;
+    returns the pickle and its path."""
+    driver = importlib.import_module(f"sde_sampler_lrds_torch.experiments.{module}")
+    out = tmp_path / "port"
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        driver.main(flags + ["--device", "cpu", "--results_path", str(out)])
+    finally:
+        torch.set_num_threads(threads)
+    (path,) = out.glob("*.pkl")
+    with open(path, "rb") as f:
+        return pickle.load(f), path
+
+
+def check_ebm_driver_against_jax(module: str, flags: list, tmp_path, monkeypatch) -> tuple:
+    """Both packages' driver at the tiny size: the same pickle name, cells,
+    keys (cell, metrics, times, params) and config keys, numpy and builtins
+    only in the port's, a finite forward ESS of the learned reference and
+    finite sampler metrics. Returns the port's pickle and its path."""
+    data, path = run_port_driver(module, EBM_TINY + flags, tmp_path)
+    want, want_path = run_jax_driver(module, EBM_TINY + flags, tmp_path, monkeypatch)
+    assert path.name == want_path.name
+    assert _only_host_types(data)
+    assert set(data["config"]) - {"device"} == set(want["config"]) - {"device"}
+    assert len(data["results"]) == len(want["results"])
+    for cell, ref in zip(data["results"], want["results"]):
+        assert set(cell) == set(ref)
+        assert set(cell["metrics"]) == set(ref["metrics"])
+        assert set(cell["times"]) == set(ref["times"])
+        assert cell["params"] == ref["params"]
+        assert 0.0 < cell["forward_ess_ebm"] <= 1.0
+        m = cell["metrics"]
+        assert len(m["eval/elbo"]) == TINY["n_sampling_seeds"]
+        # (no EUBO without target draws: the logistic-regression posteriors)
+        for key in {"eval/elbo", "eval/log_norm_const_is", "eval/eubo"} & set(m):
+            assert all(math.isfinite(v) for v in m[key]), key
+        assert m["samples"].shape == ref["metrics"]["samples"].shape
+    return data, path
