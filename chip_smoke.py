@@ -11,7 +11,10 @@ the competing drivers and through the CLI, and the sampling baselines
 (replica exchange, PDDS-weighted and preconditioned SMC, RWMH), the
 logistic-regression driver and LangevinSolver, and the learned ('nn')
 reference (the tilted-EBM potential, its MLE trainer, the toy EBM driver,
-its checkpoint, φ⁴'s Laplace oracle), and checks the quality of each.
+its checkpoint, φ⁴'s Laplace oracle), the MNIST slice (the NICE mixture,
+the UNet control, the conv energy, the MNIST driver) with B1 at D 196 and
+B2 / B3 at d 196, and the widths past the kernels' limits (the loss's own
+loop, the plain Sinkhorn), and checks the quality of each.
 
     python3 chip_smoke.py
 
@@ -153,8 +156,30 @@ Phases:
      bit for bit into a fresh solver, the next step equal; (e) φ⁴ d 100's
      Laplace oracle (x_min, the wells' Laplace log-densities) on the card
      against the same in float64 on the host
+ 15. the MNIST slice and the kernels' widths: (a) MixtureNice('mnist_zero_one')
+     log-density, score and each flow's g (fed latents) on the card
+     against the CPU at 2048 rows; (b) the UNet controls (both model types)
+     and the conv energy with the repository's JAX-trained parameters in
+     its tilted potential, card against CPU; (c) sample_mnist_unet cut in
+     depth (MNIST_CUT: 2048 MALA points, 20 steps, one eval seed at 2048)
+     with the UNet on the default full-covariance GMM reference
+     ('flat_lv_graph', B1 0 times, the graph held to the loop) and with the
+     FourierMLP on a diagonal reference (B1 at D 196, C 2, one launch a
+     step and an eval); B2 twice a
+     Sinkhorn iteration and B3 once an eval seed at d 196, every seed's
+     ELBO below its log Z_IS; (g) the loops with an autograd score (the 'nn'
+     conv energy; the target-informed UNet's MixtureNice score) run eagerly
+     ('flat_lv_scan'), a step each, and the 'nn' loop forced into a CUDA
+     graph measured against the eager loop (printed); (d) B1 on the D 196,
+     C 2 plan against its plain version in float64 under fed noise at
+     batches 256 and 2048 (KERNEL_TOL; the float32 plain version's own
+     drift from float64 printed beside);
+     (e) B2 / B3 at 2048 x 2048, d 196, and the whole Sinkhorn, against the
+     plain versions (COST_TOL_REL); (f) ROADMAP C6 on the card: D 129 with
+     a full-covariance reference, one step and one eval on the loss's loop
+     with B1 launched 0 times, and a d 225 Sinkhorn on the plain versions
 
-Every path (phases 4, 5, 6, 8, 9, 10, 11, 12, 13 and 14) is run with all launch counts set to 0 just
+Every path (phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14 and 15) is run with all launch counts set to 0 just
 before it and read just after. Prints the card as nvidia-smi reports it, then
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, with no result line, when there is no
@@ -177,7 +202,14 @@ ionosphere at its JAX record's flags --ebm_reg_val 1e-3 --dataset_size
 20000 --train_steps 2048 --n_sampling_seeds 8, sample_phi_four_ebm_mcmc
 --b_range 0.02 --n_sampling_seeds 4)
 gets phase 14's path and launch checks and the gates of PERF.md §2 (Rings
-and logreg against their JAX records; φ⁴ none, its abort reported).
+and logreg against their JAX records; φ⁴ none, its abort reported). A
+sample_mnist_unet cell gets phase 15's path and launch checks, and with
+the UNet and the GMM reference on mnist_zero_one its JAX record's gates
+(run it at the record's flags: --train_steps 8000 --n_sampling_seeds 4);
+with --ref_type nn its learned reference's forward ESS is printed beside
+the JAX curve's best. An mnist_ebm_curve cell (--ebm_epochs N) prints the
+forward-ESS curve beside its JAX record, the ms per negative pass and per
+step, and the seconds the 300-epoch run would take at that rate.
 """
 from __future__ import annotations
 
@@ -1697,12 +1729,13 @@ def phase_kl_demo(dev, target, ref: dict, path_counts) -> dict:
     return {**out, "step": step}
 
 
-def phase_timing(dev, cfg, arrays, rec, peaks, sfu_rate, label="fused_traj"):
-    """Kernel and plain times at the train and eval shapes, beside the
-    bound: the largest of the flops time, the transcendentals over the SFU
-    rate and the bytes over the memory rate. The flops time is all flops
-    over the float32 peak, or in the bf16 mode the larger of the MLP's over
-    the bf16 tensor-core peak and the rest over the float32 peak."""
+def phase_timing(dev, cfg, arrays, rec, peaks, sfu_rate, label="fused_traj",
+                 batches=(EVAL_BATCH, TRAIN_BATCH)):
+    """Kernel and plain times at the eval and train shapes (``batches``),
+    beside the bound: the largest of the flops time, the transcendentals
+    over the SFU rate and the bytes over the memory rate. The flops time is
+    all flops over the float32 peak, or in the bf16 mode the larger of the
+    MLP's over the bf16 tensor-core peak and the rest over the float32 peak."""
     from sde_sampler_lrds_torch.ops.fused_traj import fused_traj_plain, launch
 
     f32_rate, byte_rate, bf16_rate = peaks
@@ -1719,7 +1752,7 @@ def phase_timing(dev, cfg, arrays, rec, peaks, sfu_rate, label="fused_traj"):
     table_bytes = sum(t.numel() * t.element_size() for t in arrays.values())
     g = torch.Generator(dev).manual_seed(7)
     out = {}
-    for name, b, fed in (("eval", EVAL_BATCH, False), ("train", TRAIN_BATCH, True)):
+    for name, b, fed in (("eval", batches[0], False), ("train", batches[1], True)):
         x0 = torch.randn(b, d, generator=g, device=dev)
         noise = torch.randn(k, b, d, generator=g, device=dev) if fed else None
         ms = time_cuda(lambda: launch(cfg, arrays, x0, noise, 17, fed))
@@ -3765,7 +3798,7 @@ def check_elbo_below_log_z(label: str, out: dict) -> None:
               f"{label}: ELBO {elbo:.4f} > log Z_IS {log_z:.4f} + {GATE_TOY_ELBO_SLACK}")
 
 
-def graph_vs_loop(solver, dev, label: str) -> dict:
+def graph_vs_loop(solver, dev, label: str, phase: str = "14") -> dict:
     """The flat LV simulation replayed as a CUDA graph against the loss's
     own loop on the same inputs, before and after a training step (phase
     12 (c0)'s check) at the solver's training shape."""
@@ -3785,8 +3818,7 @@ def graph_vs_loop(solver, dev, label: str) -> dict:
                                                              **args), n=3, warmup=1)
     out = {"max_abs_diff": errs, "eager_ms": eager_ms,
            "graph_ms": time_cuda(lambda: solver._graphed_states(x0, zs), n=5, warmup=1)}
-    say(f"[phase 14] {label} flat simulation with the 'nn' reference as a CUDA graph: "
-        + json.dumps(out))
+    say(f"[phase {phase}] {label} flat simulation as a CUDA graph: " + json.dumps(out))
     for err in errs:
         check(err <= KERNEL_TOL["atol"], f"{label}: the graph replay is {err:.3e} from the "
                                          f"loss's loop")
@@ -3927,6 +3959,516 @@ def phase_learned_reference(dev, path_counts) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the MNIST slice (ROADMAP A6) and the kernels' width limits (C6)
+# ---------------------------------------------------------------------------
+
+MNIST_ROWS = 2048
+# (c): sample_mnist_unet at its defaults but 2048 MALA points, 20 train steps
+# and one eval seed at the eval batch 2048 (the driver's 20 000 points, 20 000
+# steps and 16 seeds, or the record's flags, through --cell)
+MNIST_CUT = ["--dataset_size", "2048", "--train_steps", "20", "--n_sampling_seeds", "1",
+             "--eval_batch_size", "2048"]
+# the one MNIST record that did not diverge (experiments/results/SUMMARY.md:50;
+# medians over its 4 seeds) and the gate's factor on it
+MNIST_RECORD = {"log_z": 28.57, "sinkhorn": 7.473}
+GATE_MNIST_RECORD = 2.0
+# mnist_ebm_curve's JAX record (experiments/results_mnist/
+# ebm_curve_mnist_zero_one_seed_0.pkl): the GMM's forward ESS, the best one
+# over its 300 epochs, and that training's seconds on a TPU (not a target)
+EBM_CURVE_RECORD = {"gmm_fwd_ess": 2.5e-4, "best_ess": 9.6e-4, "ebm_train_s_tpu": 2107.1}
+MNIST_EBM = "experiments/results_mnist/ebm_params_mnist_zero_one_seed_0.msgpack"
+# card vs CPU, float32 with TF32 off: max |diff| over the largest |value|
+MNIST_TOL = 1e-4
+C6_FULL_DIM, C6_SINKHORN_DIM = 129, 225
+
+
+def mnist_images(n: int, seed: int) -> torch.Tensor:
+    """n host images: the digit means of 0 and 1 in [−1, 1] space plus
+    noise, from a numpy seed."""
+    from sde_sampler_lrds_torch.experiments.sample_mnist_unet import digit_means
+
+    rng = np.random.default_rng(seed)
+    rows = digit_means((0, 1)).numpy()[np.arange(n) % 2]
+    return torch.as_tensor(rows + 0.2 * rng.normal(size=rows.shape), dtype=torch.float32)
+
+
+def mnist_potential(where, seed: int = 157):
+    """The GMM-tilted conv energy with the repository's JAX-trained energy
+    (read from its .msgpack) over a 2-component GMM at the digit means with
+    eigen-factored full covariances (eigenvalues 1e-3..0.5, random
+    rotations), on ``where``."""
+    from sde_sampler_lrds_torch.experiments.common import load_energy_params
+    from sde_sampler_lrds_torch.experiments.sample_mnist_unet import digit_means
+    from sde_sampler_lrds_torch.models import MNISTEnergy
+    from sde_sampler_lrds_torch.models.potentials import GMMTiltedPotential
+    from sde_sampler_lrds_torch.sde import VP
+
+    g = torch.Generator().manual_seed(seed)
+    eig = torch.logspace(-3, math.log10(0.5), 196).repeat(2, 1)
+    rot = torch.linalg.qr(torch.randn(2, 196, 196, generator=g)).Q
+    pot = GMMTiltedPotential(MNISTEnergy().to(where), VP(0.1, 10.0), torch.tensor([0.75, 0.25]),
+                             digit_means((0, 1)), (eig, rot), t_limit=0.01, tilt_type="sum")
+    load_energy_params(pot, MNIST_EBM)
+    return pot.to(where)
+
+
+def phase_mnist_target(dev) -> dict:
+    """(a) MixtureNice('mnist_zero_one') on the card against the CPU at 2048
+    rows: the log-density, the score (autograd through both flows) and each
+    flow's g on fed logistic latents."""
+    from sde_sampler_lrds_torch.api import make_target, make_target_details
+    from sde_sampler_lrds_torch.targets.nice import logistic_sample
+
+    details = make_target_details("mnist_zero_one")
+    card, host = make_target(details, device=dev), make_target(details, device="cpu")
+    x = mnist_images(MNIST_ROWS, 151)
+    xd = x.to(dev)
+    z = logistic_sample(torch.Generator().manual_seed(152), (MNIST_ROWS, 196))
+    errs = {"log_prob": rel_err(card.unnorm_log_prob(xd), host.unnorm_log_prob(x)),
+            "score": rel_err(card.score(xd), host.score(x))}
+    with torch.no_grad():
+        for digit, dc, dh in zip(card.digits, card.nice_dists, host.nice_dists):
+            errs[f"g_digit_{digit}"] = rel_err(dc.model.g(z.to(dev)), dh.model.g(z))
+    out = {"rel_err": errs, "log_prob_ms": time_cuda(lambda: card.unnorm_log_prob(xd), n=5),
+           "score_ms": time_cuda(lambda: card.score(xd), n=5)}
+    say(f"[phase 15] (a) MixtureNice('mnist_zero_one') card vs CPU at {MNIST_ROWS} rows: "
+        + json.dumps(out))
+    for k, e in errs.items():
+        check(e <= MNIST_TOL, f"MixtureNice {k}: card vs CPU {e:.3e} > {MNIST_TOL}")
+    return out
+
+
+def phase_mnist_nets(dev) -> dict:
+    """(b) The UNet controls (both model types, a seeded O(1) net; the
+    target-informed one adds MixtureNice's score) and the conv energy with
+    the repository's JAX-trained parameters in its tilted potential
+    (log-density and autograd score), card against CPU at 2048 rows."""
+    from sde_sampler_lrds_torch.api import make_ctrl, make_target, make_target_details
+    from sde_sampler_lrds_torch.sde import VP
+    from sde_sampler_lrds_torch.targets import IsotropicGauss
+
+    x = mnist_images(MNIST_ROWS, 153)
+    ts = torch.rand(MNIST_ROWS, generator=torch.Generator().manual_seed(154))
+    xd, tsd = x.to(dev), ts.to(dev)
+    details = make_target_details("mnist_zero_one")
+    targets = {"host": (torch.device("cpu"), make_target(details, device="cpu")),
+               "card": (dev, make_target(details, device=dev))}
+    errs, out = {}, {}
+    for model_type in ("unet_zero_init", "target_informed_unet_zero_init"):
+        ctrls = {}
+        for side, (where, tgt) in targets.items():
+            ctrl = make_ctrl(model_type, 196, tgt, IsotropicGauss(dim=196, device=where),
+                             VP(0.1, 10.0))
+            ctrl.reset_parameters(torch.Generator().manual_seed(155))
+            g = torch.Generator().manual_seed(156)
+            with torch.no_grad():       # an O(1) control, not the zero init's
+                for p in ctrl.parameters():
+                    p.add_(0.05 * torch.randn(p.shape, generator=g))
+            ctrls[side] = ctrl.to(where)
+        with torch.no_grad():
+            errs[model_type] = rel_err(ctrls["card"](tsd, xd), ctrls["host"](ts, x))
+            out[f"{model_type}_ms"] = time_cuda(lambda: ctrls["card"](tsd, xd), n=5)
+    card, host = mnist_potential(dev), mnist_potential("cpu")
+    lp_d, score_d = card.unnorm_log_prob_and_grad(tsd, xd)
+    lp_h, score_h = host.unnorm_log_prob_and_grad(ts, x)
+    errs["energy_log_prob"], errs["energy_score"] = rel_err(lp_d, lp_h), rel_err(score_d, score_h)
+    out["energy_score_ms"] = time_cuda(lambda: card.unnorm_log_prob_and_grad(tsd, xd), n=5)
+    out["rel_err"] = errs
+    say(f"[phase 15] (b) the UNet controls and the conv energy card vs CPU at {MNIST_ROWS} "
+        f"rows: " + json.dumps(out))
+    for k, e in errs.items():
+        check(e <= MNIST_TOL, f"{k}: card vs CPU {e:.3e} > {MNIST_TOL}")
+    return out
+
+
+class MnistProbe(EbmProbe):
+    """EbmProbe with each Sinkhorn call's iterations (for B2's count)."""
+
+    def __init__(self):
+        from sde_sampler_lrds_torch.eval import Sinkhorn
+
+        super().__init__()
+        self.targets["sinkhorn"] = (Sinkhorn, "compute")
+        self.seconds["sinkhorn"] = []
+        self.sinkhorn_iters = []
+
+    def _timed(self, name, fn):
+        timed = super()._timed(name, fn)
+        if name != "sinkhorn":
+            return timed
+
+        def call(*a, **k):
+            out = timed(*a, **k)
+            self.sinkhorn_iters.append(a[0].n_iters)
+            return out
+        return call
+
+
+def run_mnist_cell(dev, label: str, argv: list, path_counts, phase: str = "15") -> tuple:
+    """One cell of the port's sample_mnist_unet through its ``main``, its
+    pickle under build/driver_cells/: the path names (the UNet and the
+    'nn' reference, and the FourierMLP past B1's full-covariance width, on
+    the loss's loop as a CUDA graph and the loop's evaluation; the
+    FourierMLP with a diagonal reference on B1 at D 196), B1's launches
+    (one a step and an eval seed on its path, else 0), B2 twice a Sinkhorn
+    iteration and B3 once an eval seed at d 196 on the kernels, finite
+    metrics, every seed's ELBO below its log Z_IS + GATE_TOY_ELBO_SLACK,
+    and the peak device memory. The 'nn' conv energy's loop runs eagerly
+    ('flat_lv_scan'). Returns (cell, summary, the solver)."""
+    import importlib
+
+    from sde_sampler_lrds_torch.ops.fused_traj import build_plan
+
+    driver = importlib.import_module("sde_sampler_lrds_torch.experiments.sample_mnist_unet")
+    argv = argv + ["--device", dev.type, "--results_path", "build/driver_cells"]
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with MnistProbe() as probe:
+        (cell,) = driver.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = path_counts[label] = read_counts()
+    m, solver = cell["metrics"], probe.solver
+    lists = {k: v for k, v in m.items() if isinstance(v, list) and v and isinstance(v[0], float)}
+    n_seeds, steps = len(m["eval/elbo"]), solver.cfg.train_steps
+    eubo_s, negs = sum(probe.seconds["eubo"]), probe.seconds["negatives"]
+    out = {
+        "params": cell["params"], "ref_type": solver.ref_type,
+        "train_path": solver.train_path(), "eval_path": solver.eval_path(),
+        "launches": counts, "n_seeds": n_seeds, "steps_trained": solver.step_count,
+        "n_skipped": solver.n_skipped, "sinkhorn_iters": probe.sinkhorn_iters,
+        "sinkhorn_backend": m["sinkhorn_config"]["backend"],
+        "forward_ess_ebm": cell.get("forward_ess_ebm"),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "stage_s": {"mala": cell["times"]["mcmc"], "fit": cell["times"].get("ref_fit"),
+                    "ebm_train": cell["times"].get("ebm_train"),
+                    "vi_train": m["eval/training_time"][0],
+                    "eval": sum(probe.seconds["eval"]) - eubo_s, "eubo": eubo_s,
+                    "sinkhorn": sum(probe.seconds["sinkhorn"]), "cell": wall},
+        "ebm": {"negative_passes": len(negs),
+                "pass_ms": float(np.median(negs[1:])) * 1e3 if len(negs) > 1 else None},
+        "vi_train_ms_per_step": m["eval/training_time"][0] * 1e3 / steps,
+        "eval_s_per_seed": (sum(probe.seconds["eval"]) - eubo_s) / n_seeds,
+        "medians": {k: float(np.median(lists[k])) for k in CELL_METRICS if k in lists},
+        "per_seed": {k: lists[k] for k in ("eval/elbo", "eval/log_norm_const_is",
+                                           "eval/num_forgotten_modes", "error/sinkhorn")},
+    }
+    say(f"[phase {phase}] MNIST cell {label} " + json.dumps(out))
+    fused = build_plan(solver.loss, solver.generative_ctrl, solver.train_ts) is not None
+    # the conv energy's score goes through autograd: its loop runs eagerly
+    eager = out["ref_type"] == "nn" and solver.reference_distr_utils["net"].score_by_autograd
+    want = "flat_lv_fused" if fused else ("flat_lv_scan" if eager else "flat_lv_graph")
+    check(out["train_path"] == want, f"{label}: train path {out['train_path']}, not {want}")
+    check(out["eval_path"] == ("fused" if fused else "scan"), f"{label}: eval path "
+                                                             f"{out['eval_path']}")
+    b1 = counts["fused_traj"] + counts["fused_traj_full_cov"] + counts["fused_traj_bf16"]
+    check(b1 == ((steps + n_seeds) if fused else 0) and counts["fused_traj"] == b1,
+          f"{label}: B1 launched {counts} ({'on' if fused else 'off'} its path)")
+    check(solver.step_count == steps, f"{label}: {solver.step_count} steps trained")
+    check(out["sinkhorn_backend"] == "cuda" and len(probe.sinkhorn_iters) == n_seeds
+          and counts["transport_cost"] == n_seeds
+          and counts["sinkhorn_lse"] == 2 * sum(probe.sinkhorn_iters),
+          f"{label}: Sinkhorn kernels launched {counts['sinkhorn_lse']} / "
+          f"{counts['transport_cost']} times for iterations {probe.sinkhorn_iters}")
+    check(bool(np.isfinite(m["samples"]).all()), f"{label}: samples not finite")
+    for key in CELL_FINITE + ("error/sinkhorn", "eval/num_forgotten_modes"):
+        check(all(math.isfinite(v) for v in m[key]), f"{label}: {key} not finite")
+    check_elbo_below_log_z(label, out)
+    return cell, out, solver
+
+
+def phase_mnist_autograd_loops(dev) -> dict:
+    """(g) The loops that take a score by autograd (the 'nn' conv energy's;
+    the target-informed UNet's MixtureNice score) run eagerly, named
+    'flat_lv_scan' on the card: one training step each, finite, and the
+    eager loop's time. The evidence for that choice, measured and printed
+    each run: the 'nn' loop captured as a CUDA graph anyway replays far
+    from the eager loop (torch.autograd.grad's backward pass is not
+    replayed faithfully)."""
+    from sde_sampler_lrds_torch.solvers.oc import GraphedCall
+
+    out = {}
+    for label, model_type, ref_type in (("nn_unet", "unet_zero_init", "nn"),
+                                        ("target_informed_unet", "target_informed_unet_zero_init",
+                                         "gmm")):
+        net = mnist_potential(dev) if ref_type == "nn" else None
+        solver = mnist_small_solver(dev, model_type, ref_type, net)
+        check(solver.train_path() == "flat_lv_scan" and solver._flat_traj_fn() is None,
+              f"{label}: train path {solver.train_path()}")
+        g = torch.Generator(dev).manual_seed(162)
+        loss = float(solver.step(g)["train/loss"])
+        ts, args, k = solver.train_ts, solver.loss_call_args(), solver.train_ts.shape[0] - 1
+        x0 = solver.prior.sample(g, (solver.cfg.train_batch_size,))
+        zs = torch.randn(k, x0.shape[0], 196, generator=g, device=dev)
+        fn = lambda x, z: solver.loss.flat_states(ts, x, solver.train_ctrl(), z, **args)
+        with torch.no_grad():
+            eager = fn(x0, zs)
+            row = {"train_path": solver.train_path(), "loss": loss,
+                   "eager_loop_ms": time_cuda(lambda: fn(x0, zs), n=1, warmup=0)}
+            if ref_type == "nn":
+                row["forced_graph_max_abs_diff"] = max_err(GraphedCall(fn, x0, zs)(x0, zs), eager)
+        out[label] = row
+        check(math.isfinite(loss), f"{label}: loss {loss}")
+    say("[phase 15] (g) the loops with an autograd score, eager: " + json.dumps(out))
+    return out
+
+
+def mnist_small_solver(dev, model_type: str, ref_type: str, net=None):
+    """A sample_mnist_unet-shaped solver (VP, EI, log-SNR grid, K 100) at
+    batch 64 on the card: the UNet with the 'nn' reference (the conv
+    energy's autograd score in the loop) or the target-informed UNet with a
+    digit-mean GMM reference (MixtureNice's autograd score in it)."""
+    from sde_sampler_lrds_torch.api import make_model, make_target_details
+    from sde_sampler_lrds_torch.experiments.sample_mnist_unet import digit_means
+
+    details = {"sigma": 1.0}
+    if ref_type == "nn":
+        details["net"] = net
+    else:
+        details.update(weights_ref=torch.tensor([0.75, 0.25]), means_ref=digit_means((0, 1)),
+                       variances_ref=torch.full((2, 196), 0.05))
+    solver = make_model(solver_type="vp-ref", ref_type=ref_type, loss_type="lv",
+                        integrator_type="ei", model_type=model_type, time_type="snr",
+                        solver_details=details,
+                        target_details=make_target_details("mnist_zero_one"),
+                        training_details={"train_steps": 4, "train_batch_size": 64,
+                                          "eval_batch_size": 256}, device=dev)
+    solver.setup(torch.Generator(dev).manual_seed(158))
+    return solver
+
+
+def phase_mnist_b1_sinkhorn(dev, diag_solver, recs) -> dict:
+    """(d) B1's diagonal kernel on the D 196, C 2 plan of the FourierMLP
+    cell (its fitted reference; the control's parameters perturbed to an
+    O(1) control) against its plain version run in float64 under fed noise
+    at KERNEL_TOL, at batches 256 and 2048 (the float32 plain version's
+    distances printed beside); (e) B2 / B3 at 2048 x 2048, d 196 (MixtureNice
+    draws, eps 1e-3, p 2, duals from the first Sinkhorn half-steps) and the
+    whole Sinkhorn against the plain versions at COST_TOL_REL."""
+    from sde_sampler_lrds_torch.eval import Sinkhorn
+    from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
+    from sde_sampler_lrds_torch.ops.fused_traj import build_plan, fused_traj, fused_traj_plain
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
+                                                         transport_cost_plain)
+
+    ctrl = copy.deepcopy(diag_solver.generative_ctrl)
+    g = torch.Generator(dev).manual_seed(159)
+    with torch.no_grad():
+        for p in ctrl.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g, device=dev))
+    cfg, arrays = build_plan(diag_solver.loss, ctrl, diag_solver.train_ts)
+    check(cfg.dim == 196 and cfg.n_comp == 2 and not cfg.full_cov, f"the D 196 plan {cfg}")
+    rec = recs["fused_traj"]["mnist_d196_c2"] = {"plan": dataclasses.asdict(cfg)}
+    errs64 = {}
+    for b in (256, MNIST_ROWS):
+        x0 = initial_states(diag_solver.prior, b, cfg.dim, g, dev)
+        noise = torch.randn(cfg.k_steps, b, cfg.dim, generator=g, device=dev)
+        got = fused_traj(cfg, arrays, x0, noise=noise, return_traj=True)
+        plain = fused_traj_plain(cfg, arrays, x0, noise=noise, return_traj=True)
+        exact = fused_traj_plain(cfg, {k: v.double() for k, v in arrays.items()}, x0.double(),
+                                 noise=noise.double(), return_traj=True, dtype=torch.float64)
+        what = f"fused_traj D=196 C=2 B={b} (fed noise + states)"
+        errs64[b] = {"kernel_to_plain_f64": max_err(got, exact),
+                     "plain_f32_to_plain_f64": max_err(plain, exact),
+                     "kernel_to_plain_f32": max_err(got, plain)}
+        say(f"[phase 15] (d) {what}: " + json.dumps(errs64[b]))
+        # the plain version's own float32 steps drift from its float64 ones
+        # by up to 1.3e-3 here (over 196 summed terms a step), past
+        # KERNEL_TOL; the kernel is held to the plain arithmetic in float64
+        assert_close(got, [e.float() for e in exact],
+                     f"{what} against the plain version in float64", KERNEL_TOL)
+    rec["max_abs_err"] = max(e["kernel_to_plain_f64"] for e in errs64.values())
+    rec["errors_by_batch"] = errs64
+    target = diag_solver.target
+    x, y = target.sample(g, (MNIST_ROWS,)), target.sample(g, (MNIST_ROWS,))
+    eps, n = 1e-3, MNIST_ROWS
+    v = torch.full((n,), eps * -math.log(n), device=dev)
+    u = eps * (-math.log(n) - lse_plain(x, y, v, eps))
+    v = eps * (-math.log(n) - lse_plain(y, x, u, eps))
+    errs = {"lse": rel_err(lse(x, y, v, eps), lse_plain(x, y, v, eps).cpu()),
+            "transport_cost": rel_err(transport_cost(x, y, u, v, eps).reshape(1),
+                                      transport_cost_plain(x, y, u, v, eps).cpu().reshape(1))}
+    kern, plain = Sinkhorn(), Sinkhorn()
+    d_kern, d_plain = kern(x, y), plain.compute(x, y, ops=PLAIN_OPS)
+    errs["sinkhorn"] = abs(float(d_kern) - float(d_plain)) / abs(float(d_plain))
+    check(kern.config["backend"] == "cuda", f"d 196 Sinkhorn backend {kern.config['backend']}")
+    say(f"[phase 15] (e) B2 / B3 at {n} x {n}, d 196 against the plain versions: "
+        + json.dumps({**errs, "sinkhorn": float(d_kern), "iterations": kern.n_iters}))
+    for k, e in errs.items():
+        check(e <= COST_TOL_REL, f"d 196 {k}: kernel vs plain {e:.3e} > {COST_TOL_REL}")
+    recs["sinkhorn_lse"]["mnist_d196"] = {"rel_err": errs["lse"]}
+    recs["transport_cost"]["mnist_d196"] = {"rel_err": errs["transport_cost"]}
+    return {"b1_d196": rec["max_abs_err"], "sinkhorn_d196": errs,
+            "timing": (cfg, arrays, x, y, u, v)}
+
+
+def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate) -> None:
+    """Phase 7 at the MNIST shapes: B1 on the D 196 plan at the eval batch
+    2048 (its own noise) and the train batch 256 (fed), B2 / B3 at 2048 x
+    2048 x 196, each beside its plain version and its bound."""
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
+                                                         transport_cost_plain)
+
+    cfg, arrays, x, y, u, v = timing
+    phase_timing(dev, cfg, arrays, recs["fused_traj"]["mnist_d196_c2"], peaks, sfu_rate,
+                 label="fused_traj D=196 C=2 (MNIST)", batches=(MNIST_ROWS, 256))
+    eps, n, d = 1e-3, x.shape[0], x.shape[1]
+    pairs, io = n * n, 4 * 2 * n * d
+    for name, kern, plain, b in (
+            ("sinkhorn_lse", lambda: lse(x, y, v, eps), lambda: lse_plain(x, y, v, eps),
+             bound(pairs * (2 * d + 8), 2 * pairs, io + 4 * 2 * n, peaks, sfu_rate)),
+            ("transport_cost", lambda: transport_cost(x, y, u, v, eps),
+             lambda: transport_cost_plain(x, y, u, v, eps),
+             bound(pairs * (2 * d + 11), 2 * pairs, io + 4 * 2 * n + 4, peaks, sfu_rate))):
+        bound_ms, bound_by, detail = b
+        row = {"ms": graph_ms(kern), "plain_ms": graph_ms(plain, n=5, reps=3),
+               "bound_ms": bound_ms, "bound_by": bound_by, "n": n, "m": n, "d": d}
+        say(f"[phase 7] {name} at 2048 x 2048 x 196 (MNIST): " + json.dumps({**row, **detail}))
+        recs[name]["mnist_d196"].update(row)
+
+
+def phase_c6(dev, path_counts) -> dict:
+    """(f) Past the kernels' widths on the card: an RDS solver with a
+    2-component full-covariance GMM reference at D 129 takes the loss's
+    loop as a CUDA graph ('flat_lv_graph') and the loop's evaluation
+    ('scan'), one train step and one eval with B1 launched 0 times and
+    finite outputs; a Sinkhorn at d 225 runs the plain versions on the
+    card ('plain', B2 / B3 0 times) and equals a PLAIN_OPS run."""
+    from sde_sampler_lrds_torch.api import make_model, make_target_details
+    from sde_sampler_lrds_torch.eval import Sinkhorn
+    from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
+
+    d = C6_FULL_DIM
+    rng = np.random.default_rng(160)
+    a = rng.normal(size=(2, d, d))
+    var = 0.05 * a @ a.transpose(0, 2, 1) / d + 0.05 * np.eye(d)
+    solver = make_model(
+        solver_type="vp-ref", ref_type="gmm", loss_type="lv", integrator_type="ei",
+        model_type="base_zero_init", time_type="snr",
+        solver_details={"sigma": 1.0, "weights_ref": torch.tensor([0.6, 0.4]),
+                        "means_ref": torch.stack([-torch.ones(d), torch.ones(d)]),
+                        "variances_ref": torch.as_tensor(var, dtype=torch.float32)},
+        target_details=make_target_details("two_modes", dim=d),
+        training_details={"train_steps": 1, "train_batch_size": 1024,
+                          "eval_batch_size": 8192}, device=dev)
+    g = torch.Generator(dev).manual_seed(161)
+    solver.setup(g)
+    reset_counts()
+    metrics = solver.step(g)
+    res = solver.evaluate(g)
+    torch.cuda.synchronize()
+    counts = path_counts["c6_d129_full"] = read_counts()
+    out = {"train_path": solver.train_path(), "eval_path": solver.eval_path(),
+           "loss": float(metrics["train/loss"]), "elbo": res.metrics["eval/elbo"],
+           "launches": counts}
+    check(out["train_path"] == "flat_lv_graph" and out["eval_path"] == "scan",
+          f"C6 D {d} full covariance: paths {out['train_path']} / {out['eval_path']}")
+    check(sum(counts.values()) == 0, f"C6 D {d}: kernels launched {counts}")
+    check(math.isfinite(out["loss"]) and math.isfinite(out["elbo"])
+          and bool(torch.isfinite(res.samples).all()), f"C6 D {d}: not finite {out}")
+    x = torch.randn(MNIST_ROWS, C6_SINKHORN_DIM, generator=g, device=dev)
+    y = 0.5 + torch.randn(MNIST_ROWS, C6_SINKHORN_DIM, generator=g, device=dev)
+    reset_counts()
+    sk = Sinkhorn()
+    dist = float(sk(x, y))
+    counts = path_counts["c6_d225_sinkhorn"] = read_counts()
+    want = float(Sinkhorn().compute(x, y, ops=PLAIN_OPS))
+    out.update(sinkhorn_d225=dist, sinkhorn_backend=sk.config["backend"],
+               sinkhorn_launches=counts)
+    say("[phase 15] (f) C6 on the card: " + json.dumps(out))
+    check(sk.config["backend"] == "plain" and counts["sinkhorn_lse"] == 0
+          and counts["transport_cost"] == 0 and dist == want,
+          f"C6 d {C6_SINKHORN_DIM} Sinkhorn: {sk.config['backend']}, {counts}, {dist} vs {want}")
+    return out
+
+
+def phase_mnist(dev, recs, path_counts) -> dict:
+    """Phase 15: (a) MixtureNice card vs CPU, (b) the UNet and the conv
+    energy card vs CPU, (c) sample_mnist_unet cut in depth (MNIST_CUT) with
+    the UNet (the graph checked against the loop) and the FourierMLP on a
+    diagonal reference (B1 at D 196), (g) the loops with an autograd score (the
+    'nn' conv energy, the target-informed UNet) eager, (d)-(e) B1 at
+    D 196 and B2 / B3 at d 196 against their plain versions, (f) C6."""
+    t15 = time.perf_counter()
+    out = {"target": phase_mnist_target(dev), "nets": phase_mnist_nets(dev)}
+    say(f"[phase 15] (c) sample_mnist_unet cut to {' '.join(MNIST_CUT)} (the driver's 20 000 "
+        f"MALA points, 20 000 steps and 16 eval seeds otherwise)")
+    _, out["cell_unet"], solver = run_mnist_cell(dev, "mnist_unet", MNIST_CUT, path_counts)
+    out["graph_unet"] = graph_vs_loop(solver, dev, "mnist_unet", phase="15")
+    _, out["cell_fouriermlp_diag"], diag_solver = run_mnist_cell(
+        dev, "mnist_fouriermlp_diag", MNIST_CUT + ["--model_type", "base_zero_init",
+                                                   "--em_type", "diag"], path_counts)
+    out["autograd_loops"] = phase_mnist_autograd_loops(dev)
+    sk = phase_mnist_b1_sinkhorn(dev, diag_solver, recs)
+    timing = sk.pop("timing")
+    out["kernels"] = sk
+    out["c6"] = phase_c6(dev, path_counts)
+    out["phase_s"] = time.perf_counter() - t15
+    say(f"[phase 15] took {out['phase_s']:.1f} s")
+    return out, timing
+
+
+def run_mnist_cell_cli(dev, module: str, flags: list) -> None:
+    """``--cell`` for the MNIST drivers. sample_mnist_unet: run_mnist_cell's
+    path and launch checks; with the UNet and the GMM reference on
+    mnist_zero_one, the record's gates (medians |log Z err| and Sinkhorn
+    within GATE_MNIST_RECORD x MNIST_RECORD, no forgotten mode on any
+    seed); its forward ESS beside the JAX curve's best with the 'nn'
+    reference. mnist_ebm_curve: the curve's step-0 (GMM) and best forward
+    ESS beside its JAX record, ms per negative pass and per optimizer step,
+    and the seconds a full 300-epoch run would take at this run's rate."""
+    import importlib
+
+    label = " ".join([module] + flags)
+    if module == "sample_mnist_unet":
+        cell, out, _ = run_mnist_cell(dev, label, flags, {}, phase="cell")
+        med = out["medians"]
+        p = cell["params"]
+        if out["ref_type"] == "nn":
+            say(f"[cell] {label}: forward ESS of the learned reference "
+                f"{out['forward_ess_ebm']:.3e}; the JAX curve's best {EBM_CURVE_RECORD['best_ess']}")
+        elif (out["ref_type"], p["target"], p["model_type"]) == ("gmm", "mnist_zero_one",
+                                                                 "unet_zero_init"):
+            say(f"[cell] {label}: medians |log Z err| {med['error/log_norm_const_is']:.4f}, "
+                f"Sinkhorn {med['error/sinkhorn']:.4f}; JAX record {json.dumps(MNIST_RECORD)}")
+            for k, key in (("log_z", "error/log_norm_const_is"), ("sinkhorn", "error/sinkhorn")):
+                check(med[key] <= GATE_MNIST_RECORD * MNIST_RECORD[k],
+                      f"{label}: {key} {med[key]:.4f} > {GATE_MNIST_RECORD} x {MNIST_RECORD[k]}")
+            check(max(out["per_seed"]["eval/num_forgotten_modes"]) == 0,
+                  f"{label}: a digit is forgotten")
+        return
+    driver = importlib.import_module(f"sde_sampler_lrds_torch.experiments.{module}")
+    argv = flags + ["--device", dev.type, "--results_path", "build/driver_cells"]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with EbmProbe() as probe:
+        (cell,) = driver.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    negs, ebm_s, n_ebm = probe.seconds["negatives"], sum(probe.seconds["ebm"]), sum(probe.ebm_steps)
+    epochs = int(flags[flags.index("--ebm_epochs") + 1]) if "--ebm_epochs" in flags else 300
+    out = {"gmm_fwd_ess": cell["gmm_fwd_ess"], "best_ess": cell["best_ess"],
+           "best_step": cell["best_step"], "history": cell["history"], "launches": counts,
+           "stage_s": {**cell["times"], "cell": wall},
+           "ebm": {"steps": n_ebm, "negative_passes": len(negs),
+                   "first_pass_ms": negs[0] * 1e3 if negs else None,
+                   "pass_ms": float(np.median(negs[1:])) * 1e3 if len(negs) > 1 else None,
+                   "ms_per_optimizer_step": (ebm_s - sum(negs)) * 1e3 / max(n_ebm, 1),
+                   "ms_per_step": ebm_s * 1e3 / max(n_ebm, 1)},
+           "predicted_300_epoch_ebm_s": cell["times"]["ebm_train"] * 300 / epochs,
+           "record": EBM_CURVE_RECORD}
+    say(f"[cell] EBM curve {label} " + json.dumps(out))
+    check(cell["history"] and cell["history"][0][0] == 0
+          and 0.0 < cell["gmm_fwd_ess"] <= 1.0 and 0.0 < cell["best_ess"] <= 1.0,
+          f"{label}: the forward-ESS curve {cell['history'][:3]}")
+    check(sum(counts.values()) == 0, f"{label}: kernels launched {counts}")
+
+
 def run_ebm_cell_cli(dev, module: str, flags: list) -> None:
     """``--cell`` for an *_ebm_mcmc driver at full depth: run_ebm_cell's
     path and launch checks, and the gates of PERF.md §2 — Rings (the toy
@@ -4046,7 +4588,9 @@ def main(argv=None) -> int:
         # one driver cell, with run_driver_cell's path and launch checks and
         # no quality gate; the kernels are built first, so no stage holds nvcc
         module, flags = argv[1], argv[2:]
-        if module.endswith("_competing"):
+        if module in ("sample_mnist_unet", "mnist_ebm_curve"):
+            run_mnist_cell_cli(dev, module, flags)
+        elif module.endswith("_competing"):
             run_vi_cell(dev, module, flags)
         elif module.endswith("_ebm_mcmc"):
             run_ebm_cell_cli(dev, module, flags)
@@ -4119,6 +4663,8 @@ def main(argv=None) -> int:
     laps("13 baselines")
     learned = phase_learned_reference(dev, path_counts)
     laps("14 learned reference")
+    mnist, mnist_timing = phase_mnist(dev, recs, path_counts)
+    laps("15 MNIST and C6")
     phase_timing(dev, cfg, arrays, recs["fused_traj"], peaks, sfu_rate)
     for plan_name, (vi_cfg, vi_arrays, _) in vi_plan_set.items():
         phase_timing(dev, vi_cfg, vi_arrays, recs["fused_traj"]["vi_plans"][plan_name], peaks,
@@ -4137,17 +4683,27 @@ def main(argv=None) -> int:
     phase_timing(dev, bf16_cfg, bf16_arrays, recs["fused_traj_bf16"], peaks, sfu_rate,
                  label="fused_traj_bf16")
     phase_timing_sample_kernels(dev, recs, peaks, sfu_rate)
+    phase_mnist_timing(dev, recs, mnist_timing, peaks, sfu_rate)
     laps("7 timing")
 
     for kname, rec in recs.items():
         rec["launches_by_path"] = {p: c[kname] for p, c in path_counts.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"{kname} was never launched on a path")
+    # the MNIST shapes' entries: their launches on the MNIST paths (B1 at
+    # D 196 on the FourierMLP diagonal cell, B2 / B3 in every MNIST cell)
+    mnist_paths = [p for p in path_counts if p.startswith("mnist_")]
+    for kname, key in (("fused_traj", "mnist_d196_c2"), ("sinkhorn_lse", "mnist_d196"),
+                       ("transport_cost", "mnist_d196")):
+        sub = recs[kname][key]
+        sub["launches_by_path"] = {p: path_counts[p][kname] for p in mnist_paths}
+        sub["launches"] = sum(sub["launches_by_path"].values())
+        check(sub["launches"] > 0, f"{kname} at the MNIST shape was never launched on a path")
     say("[phase 7] paths: " + json.dumps({"rds_eval": eval_times, "smc": smc,
                                           "driver_cells": driver_cells,
                                           "bf16_demo": bf16_demo, "kl": kl, "cli": cli,
                                           "vi": vi, "baselines": baselines,
-                                          "learned_reference": learned}))
+                                          "learned_reference": learned, "mnist": mnist}))
     say("[phase 7] wall seconds by phase: " + json.dumps({**laps.seconds,
                                                           "script": laps.total()}))
     say(json.dumps({"kernels": [

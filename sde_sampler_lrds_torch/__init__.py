@@ -8,20 +8,23 @@ standard library only.
 Ported so far (the LRDS demo pipeline, sample-based evaluation and SMC,
 the φ⁴ path with a full-covariance GMM reference, the LRDS experiment
 drivers, the training host loop with its CLI, the other VI samplers, the
-sampling baselines and the learned references):
+sampling baselines, the learned references and the MNIST slice):
   utils/     time grids (uniform and log-SNR), Results, masked statistics,
-             device resolution, diagonal and full-covariance GMM fitting by EM
+             device resolution, diagonal and full-covariance GMM fitting by EM,
+             a reader of the JAX package's Flax msgpack files
   targets/   Target base, Gaussian / GMM (and its presets) / GMMFull /
              ManyModes / TwoModes / TwoModesFull / BracketTwoModes /
              IsotropicGauss (optionally truncated) / GaussFull, Delta,
              PhiFour with its exact transfer-matrix and Laplace oracles and
              its sampler, the 2-D Rings and Checkerboard, the logistic-
-             regression posteriors, WrapperDistrNN, Boole-grid quadrature
+             regression posteriors, the MNIST NICE-flow mixtures,
+             WrapperDistrNN, Boole-grid quadrature
   sde/       OU, VP, CosineVP and PinnedBM linear-SDE algebra (scalar,
              diagonal, full and eigen-factored marginals)
   models/    TimeEmbed / FourierMLP / ClippedCtrl as nn.Modules, and
              load_flax_params to carry a Flax parameter tree across; the
-             tilted-EBM potentials (models/potentials.py)
+             tilted-EBM potentials (models/potentials.py), the 14×14 MNIST
+             UNet and conv energy (models/mnist_{unet,ebm}.py)
   ebm/       the EBM trainers: contrastive MLE, DAEBM, DRL, score matching
   losses/    EM / EI / DDPM reference-SDE losses, incl. the flat-LV path
              and the EUBO's noising pass

@@ -21,15 +21,16 @@ messages. Ported: every solver — the RDS solvers 'vp-ref' and 'pbm-ref'
 references 'default', 'gaussian', 'gmm' and 'nn' (a trained EBM potential,
 ``solver_details['net']``, read at ``eps = ts[0]``), and the VI samplers
 'dds_orig', 'pis_orig', 'dis_orig' (with GBS's ``inference_ctrl_arch``) and
-'cmcd' (with its refitted prior) — the controls of every model type but the
-UNet ones, on the FourierMLP or the DenseNet, the lr schedulers of
-``optim_details['lr_scheduler']`` and checkpoints under ``out_dir``; the
-UNet and the mesh raise NotImplementedError naming their ROADMAP queue
+'cmcd' (with its refitted prior) — the controls of every model type, on
+the FourierMLP or the DenseNet, the UNet ones on the 14×14 MNIST UNet, the
+lr schedulers of ``optim_details['lr_scheduler']`` and checkpoints under
+``out_dir``; the mesh raises NotImplementedError naming its ROADMAP queue
 item. ``build_ebm`` makes the EBM trainers ('mle*', 'drl', 'daebm') of the
-learned references. The targets 'two_modes', 'two_modes_full',
-'bracket_two_modes', 'many_modes', 'rings', 'checkerboard' and 'phi_four'
-and the Bayesian logistic-regression posteriors 'cancer', 'credit',
-'ionosphere' and 'sonar' are ported; 'mnist' and 'mnist_zero_one' are not.
+learned references. Every target is ported: 'two_modes',
+'two_modes_full', 'bracket_two_modes', 'many_modes', 'rings',
+'checkerboard', 'phi_four', the Bayesian logistic-regression posteriors
+'cancer', 'credit', 'ionosphere' and 'sonar', and the NICE-flow mixtures
+'mnist' (ten digits) and 'mnist_zero_one' (digits 0 and 1).
 """
 from __future__ import annotations
 
@@ -118,8 +119,11 @@ def make_target(target_details: dict, device=None):
                        device=device, **kw)
     if name in ("cancer", "credit", "ionosphere", "sonar"):
         return LogisticRegression(data_type=name, device=device, **kw)
-    if name in TARGET_NAMES:
-        raise NotImplementedError(f"Target {name} is not ported yet (ROADMAP A4 / A6).")
+    if name in ("mnist", "mnist_zero_one"):
+        from .targets.nice import MixtureNice
+
+        digits = (0, 1) if name == "mnist_zero_one" else tuple(range(10))
+        return MixtureNice(digits=digits, device=device, **kw)
     raise NotImplementedError(f"Target {name} not supported.")
 
 
@@ -134,25 +138,39 @@ def make_ctrl(model_type: str, dim: int, target, prior, sde, compute_dtype=None,
               base_arch: str | None = None):
     """The control network of a model type on the FourierMLP ('fouriermlp',
     the default) or the DenseNet (``base_arch='densenet'``), in float32 or,
-    with ``compute_dtype=torch.bfloat16``, with bf16 products:
+    with ``compute_dtype=torch.bfloat16``, with bf16 products; the
+    '*unet_zero_init' types on the MNIST Unet (16 channels, side √dim, the
+    last conv near zero), float32 only:
     'base_zero_init' is ClippedCtrl(net, clip_model=1e4);
     'target_informed_zero_init' ScoreCtrl, 'target_informed_langevin_init'
     CancelDriftCtrl and 'target_informed_lerp_tempering' LerpCtrl, each with
     a TimeEmbed scale net."""
-    if "unet" in model_type:
-        raise NotImplementedError(f"model_type {model_type!r} (the MNIST UNet) is not "
-                                  f"ported yet (ROADMAP A6).")
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype!r}")
-    if base_arch in (None, "fouriermlp"):
+    if "unet" in model_type:
+        from .models.mnist_unet import Unet
+
+        if compute_dtype is not None:
+            raise ValueError("compute_dtype is not supported for the UNet "
+                             "model types yet (GroupNorm/attention numerics).")
+        if base_arch not in (None, "fouriermlp"):
+            raise ValueError(f"base_arch={base_arch!r} conflicts with the "
+                             f"UNet model type {model_type!r}.")
+        side = int(round(math.sqrt(dim)))
+        if side * side != dim:
+            raise ValueError(
+                f"UNet model types need a square dim (got {dim}); the "
+                "reference UNet is the 14x14=196 MNIST net (mnist_unet.py:238).")
+        base = Unet(n_channels=16, side=side, init_last_layer_with_zeros=True)
+    elif base_arch in (None, "fouriermlp"):
         base = FourierMLP(dim=dim, zero_init=True, compute_dtype=compute_dtype)
     elif base_arch == "densenet":
         base = DenseNet(dim=dim, arch=(64, 64), zero_init=True, compute_dtype=compute_dtype)
     else:
         raise ValueError(f"Unknown base_arch {base_arch!r}")
-    if model_type == "base_zero_init":
+    if model_type in ("base_zero_init", "unet_zero_init"):
         return ClippedCtrl(base_model=base, clip_model=1e4)
-    if model_type == "target_informed_zero_init":
+    if model_type in ("target_informed_zero_init", "target_informed_unet_zero_init"):
         return ScoreCtrl(base_model=base, clip_model=1e4, clip_score=1e4,
                          target_score=target.score, score_model=_time_embed_scale_model(),
                          detach_score=False, scale_score=1.0)

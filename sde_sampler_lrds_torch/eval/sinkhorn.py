@@ -5,7 +5,9 @@ The log-domain scaling loop runs in Python; each iteration's two
 log-sum-exp reductions and the final transport cost go through
 ``ops/sinkhorn_lse``, which launches its CUDA kernels for tensors on the
 card and runs its plain versions for tensors on the CPU, so the n × m cost
-matrix is never stored on the card. The JAX package's host C++ tier
+matrix is never stored on the card. Past the kernels' width (d > 224) the
+plain versions run on either device, and ``config`` records backend
+'plain'. The JAX package's host C++ tier
 (``eval/native``) has no counterpart here.
 """
 from __future__ import annotations
@@ -15,7 +17,7 @@ import logging
 import numpy as np
 import torch
 
-from ..ops.sinkhorn_lse import lse, lse_plain, transport_cost, transport_cost_plain
+from ..ops.sinkhorn_lse import MAX_DIM, lse, lse_plain, transport_cost, transport_cost_plain
 
 KERNEL_OPS = (lse, transport_cost)
 PLAIN_OPS = (lse_plain, transport_cost_plain)
@@ -69,9 +71,10 @@ class Sinkhorn:
     @torch.no_grad()
     def compute(self, x, y, w_x=None, w_y=None, ops=None) -> torch.Tensor:
         """The distance as a 0-d tensor. ``ops`` = (lse, transport_cost)
-        defaults to the kernel wrappers; ``PLAIN_OPS`` runs the plain
-        versions on any device."""
-        lse_fn, cost_fn = ops or KERNEL_OPS
+        defaults to the kernel wrappers up to the kernels' width ``MAX_DIM``
+        and to ``PLAIN_OPS`` past it; ``PLAIN_OPS`` runs the plain versions
+        on any device."""
+        lse_fn, cost_fn = ops or (KERNEL_OPS if x.shape[-1] <= MAX_DIM else PLAIN_OPS)
         x, y = x.float(), y.float()
         n, m = x.shape[0], y.shape[0]
         w_x = torch.full((n,), 1.0 / n, device=x.device) if w_x is None \

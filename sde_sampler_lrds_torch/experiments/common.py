@@ -245,14 +245,16 @@ def _progress_file(args):
 def lrds_run(args, target, target_details, x_init, ref_type, extra_params=None,
              solver_type="vp-ref", integrator_type="ei", time_type="snr",
              model_type="base_zero_init", n_gmm_components=None, em_type="diag",
-             mcmc_step_size=1e-3, optim_details=None, prebuilt=None, **model_kwargs):
+             mcmc_step_size=1e-3, optim_details=None, prebuilt=None, net=None,
+             **model_kwargs):
     """One cell of a *_mcmc_gmm.py driver: fit the requested reference
-    ('gaussian' or 'gmm') from the MALA dataset and train RDS on it.
+    ('gaussian' or 'gmm') from the MALA dataset, or install the trained
+    potential ``net`` as the 'nn' reference, and train RDS on it.
     ``prebuilt`` takes a ``build_dataset_and_gaussian`` result, so sweeps
     over reference settings reuse one dataset (the VI generator is the same
     either way)."""
-    if ref_type not in ("gaussian", "gmm"):
-        raise NotImplementedError(f"ref_type {ref_type!r} is not ported in lrds_run.")
+    if ref_type not in ("gaussian", "gmm", "nn"):
+        raise ValueError(f"Unknown ref_type {ref_type!r}")
     device = resolve_device(args.device)
     base = torch.Generator(device).manual_seed(args.seed)
     g_data, g_vi = derive_generator(base, 1), derive_generator(base, 2)
@@ -264,6 +266,8 @@ def lrds_run(args, target, target_details, x_init, ref_type, extra_params=None,
     t0 = clock(device)
     if ref_type == "gaussian":
         solver_details.update(mean_ref=mean, var_ref=var if em_type == "full" else var_diag)
+    elif ref_type == "nn":
+        solver_details.update(net=net)
     else:
         w, m, v = fit_gmm(n_gmm_components or 2, dataset, em_type=em_type, device=device)
         solver_details.update(weights_ref=w, means_ref=m, variances_ref=v)
@@ -364,16 +368,19 @@ def train_ebm_reference(generator: torch.Generator, dataset, mean, var_diag,
     negatives' MALA by the per-level noised data covariance
     s²(t)(Σ_data + σ²(t)I); ``select_best`` (needs ``target``) keeps the
     checkpoint of the best forward ESS of the potential at t = 1e-4 against
-    the target on the first ``select_size`` dataset points. Returns (the
-    trained potential, {"ebm_train": seconds, ...})."""
-    from ..models import FourierMLP
+    the target on the first ``select_size`` dataset points. ``net_arch``
+    'mnist_conv' takes the conv energy ``MNISTEnergy`` with the 'sum' tilt
+    instead (a square image dim). ``pretrained_params_path`` skips the
+    training: the energy net's parameters are read from that file, a JAX
+    ``.msgpack`` (the JAX potential's Flax tree) or the port's own
+    ``torch.save`` of the energy net's state dict (``save_energy_params``),
+    over the GMM fitted here. Returns (the trained potential, {"ebm_train":
+    seconds, ...})."""
+    from ..models import FourierMLP, MNISTEnergy
     from ..models.potentials import GMMTiltedPotential
     from ..sde import VP
     from ..targets.gauss import Gauss
 
-    if net_arch == "mnist_conv" or pretrained_params_path is not None:
-        raise NotImplementedError("the MNIST energy (net_arch='mnist_conv') and pretrained "
-                                  "EBM checkpoints come with the MNIST slice (ROADMAP A6).")
     device = resolve_device(device)
     dataset = torch.as_tensor(dataset, dtype=torch.float32, device=device)
     dim = dataset.shape[-1]
@@ -385,11 +392,23 @@ def train_ebm_reference(generator: torch.Generator, dataset, mean, var_diag,
         eig, p = np.linalg.eigh(v.cpu().numpy())
         v = (torch.as_tensor(np.maximum(eig, 1e-8), device=device),
              torch.as_tensor(p, device=device))
-    base_net = FourierMLP(dim=dim, num_layers=net_layers, channels=net_channels,
-                          zero_init=True).to(device)
+    if net_arch == "mnist_conv":
+        side = int(round(dim**0.5))
+        if side * side != dim:
+            raise ValueError("mnist_conv needs a square image dim")
+        base_net, tilt = MNISTEnergy(side=side), "sum"
+    else:
+        base_net = FourierMLP(dim=dim, num_layers=net_layers, channels=net_channels,
+                              zero_init=True)
+        tilt = "dot"
+    base_net = base_net.to(device)
     base_net.reset_parameters(derive_generator(generator, 0))
     pot = GMMTiltedPotential(base_model=base_net, sde=sde, weights=w, means=m, variances=v,
-                             t_limit=t_limit, tilt_type="dot")
+                             t_limit=t_limit, tilt_type=tilt)
+    if pretrained_params_path is not None:
+        load_energy_params(pot, pretrained_params_path)
+        stage(f"loaded pretrained EBM params from {pretrained_params_path}")
+        return pot, {"ebm_train": 0.0}
     prior = Gauss(dim=dim, loc=mean, scale=torch.sqrt(var_diag), device=device)
     sampler = {"mle_re": "replica_exchange", "mle_smc": "smc",
                "mle_cd": "cd"}.get(ebm_type, "replica_exchange")
@@ -445,6 +464,26 @@ def train_ebm_reference(generator: torch.Generator, dataset, mean, var_diag,
     if return_trainer:
         extra.update(trainer=trainer, losses=losses, grad_norms=gnorms)
     return net, extra
+
+
+def save_energy_params(pot, path: str | Path) -> None:
+    """The energy net's state dict of a tilted potential, by ``torch.save``."""
+    torch.save(pot.base_model.state_dict(), path)
+
+
+def load_energy_params(pot, path: str | Path) -> None:
+    """The energy net's parameters into a tilted potential: from a JAX
+    ``.msgpack`` (the JAX potential's Flax tree, ``{'params': {'base_model':
+    ...}}``) through the port's reader, else from ``save_energy_params``'
+    file."""
+    if Path(path).suffix == ".msgpack":
+        from ..utils import flax_msgpack
+
+        pot.load_flax_params(flax_msgpack.load(path))
+    else:
+        device = next(pot.base_model.parameters()).device
+        pot.base_model.load_state_dict(torch.load(path, map_location=device,
+                                                  weights_only=True))
 
 
 def ebm_run(args, target, target_details, x_init, extra_params=None, solver_type="vp-ref",

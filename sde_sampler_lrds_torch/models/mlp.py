@@ -265,6 +265,8 @@ def _fill_module(module: nn.Module, p: dict) -> None:
             _fill(layer, p[f"Dense_{i}"])
     elif isinstance(module, TimeEmbed):
         _fill_time_embed(module, p)
+    elif hasattr(module, "load_flax_params"):   # Unet, MNISTEnergy
+        module.load_flax_params(p)
     else:
         raise TypeError(f"load_flax_params cannot fill a {type(module).__name__}")
 
@@ -272,7 +274,8 @@ def _fill_module(module: nn.Module, p: dict) -> None:
 def load_flax_params(ctrl: nn.Module, params: dict) -> nn.Module:
     """Fill a control from the JAX package's Flax parameter tree, given as
     nested dicts of numpy arrays (``{"params": {...}}`` or the inner dict):
-    a FourierMLP (angle-encoded or not), a DenseNet or a TimeEmbed, alone or
+    a FourierMLP (angle-encoded or not), a DenseNet, a TimeEmbed or a net
+    with its own ``load_flax_params`` (the MNIST Unet, MNISTEnergy), alone or
     inside ClippedCtrl, ScoreCtrl, CancelDriftCtrl or LerpCtrl (their
     ``base_model`` and ``score_model``). A Flax ``kernel`` is (in, out);
     ``Linear.weight`` is (out, in)."""

@@ -17,7 +17,7 @@ rotations ``ref_p`` (P_c) and ``ref_pt`` (P_cᵀ), ``ref_iv`` holds the
 per-step inverse eigen-variances, and the score per component is
 y = (x − m)·P_c, logit = const − ½Σ y²·iv, g = (y·iv)·P_cᵀ
 (``cfg.full_cov``). Raw (C, D, D) covariances are eigendecomposed once, by
-``torch.linalg.eigh``, at the first plan built for the reference.
+``torch.linalg.eigh``, and kept on the reference (its ``factored``).
 
 ``build_plan`` turns a (loss, control, time grid) triple into those tables.
 ``fused_traj`` runs all K steps: on a CUDA tensor it launches the
@@ -248,17 +248,6 @@ def _fourier_mlp_tables(ctrl_module, t_grid):
     return fields, arrays
 
 
-def _eigen_factors(reference_ctrl, var):
-    """(eig, P) of a raw full covariance stack, by torch.linalg.eigh once
-    per reference: the result is kept on the reference object for the plans
-    built after it (the training path builds one per step)."""
-    cached = getattr(reference_ctrl, "_fused_eigh", None)
-    if cached is None or cached[0] is not var:
-        cached = (var, torch.linalg.eigh(var))
-        reference_ctrl._fused_eigh = cached
-    return cached[1]
-
-
 @torch.no_grad()
 def _factored_reference_tables(reference_ctrl, t_grid, dim):
     """Per-step tables for a full-covariance Gaussian / GMM reference
@@ -266,23 +255,15 @@ def _factored_reference_tables(reference_ctrl, t_grid, dim):
     the noised covariance P_c diag(s²(eig + σ²)) P_cᵀ keeps the eigenbasis,
     so the kernel needs the static rotations plus per-step inverse
     eigen-variances. None for a diagonal reference."""
+    var = reference_ctrl.factored()
+    if not isinstance(var, tuple):
+        return None
+    eig, p = var
     if hasattr(reference_ctrl, "var_init"):           # GaussianReferenceCtrl
-        var = reference_ctrl.var_init
-        if not isinstance(var, tuple):
-            if var is None or var.ndim != 2:
-                return None
-            var = _eigen_factors(reference_ctrl, var)
-        eig, p = var
         eig, p = torch.atleast_2d(eig), (p[None] if p.ndim == 2 else p)
         means = torch.atleast_2d(reference_ctrl.x_init)
         w = torch.ones((means.shape[0],), device=means.device)
     else:                                             # GMMReferenceCtrl
-        var = reference_ctrl.variances
-        if not isinstance(var, tuple):
-            if var is None or var.ndim != 3:
-                return None
-            var = _eigen_factors(reference_ctrl, var)
-        eig, p = var
         means, w = reference_ctrl.means, reference_ctrl.weights
     c, d = means.shape
     if d != dim or eig.shape != (c, d) or p.shape != (c, d, d):
@@ -391,7 +372,9 @@ def _step_coeffs(loss, ts, ito: bool = True):
 
 def build_plan(loss, ctrl_module, ts, differentiable: bool = False, ito: bool = True):
     """(cfg, arrays) for ``fused_traj``, or None when the (loss, control,
-    reference) triple is outside the kernel's scope. A loss without a
+    reference) triple is outside the kernel's scope or its plan beyond the
+    kernel's limits (``limit_error``: the solvers then run the loss's own
+    loop, whatever the device, and name that path). A loss without a
     reference (original DDS, discrete DIS, or an EM loss configured without
     one, as PIS is) runs on a one-component dummy table with zero inverse
     variances; a full-covariance reference gives a ``full_cov`` plan, a
@@ -421,6 +404,8 @@ def build_plan(loss, ctrl_module, ts, differentiable: bool = False, ito: bool = 
         ref = dict(ref_const=zeros(k, 1), ref_m=zeros(k, d), ref_iv=zeros(k, d))
     cfg = FusedTrajCfg(k_steps=k, n_comp=ref["ref_const"].shape[1],
                        full_cov="ref_p" in ref, **fields)
+    if limit_error(cfg) is not None:
+        return None   # past the kernel's limits: the caller runs the loss's own loop
     return cfg, dict(coefs=coefs, **arrays, **ref)
 
 
@@ -524,32 +509,36 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def check_limits(cfg: FusedTrajCfg) -> None:
-    """Raise when cfg lies beyond the kernel's design limits."""
+def limit_error(cfg: FusedTrajCfg) -> str | None:
+    """Why cfg lies beyond the kernel's design limits, or None within them."""
     if cfg.dim < 1:
-        raise ValueError(f"fused_traj kernel: dim {cfg.dim} must be at least 1")
+        return f"dim {cfg.dim} must be at least 1"
     if not 1 <= cfg.channels <= MAX_CHANNELS:
-        raise ValueError(f"fused_traj kernel: channels {cfg.channels} outside "
-                         f"[1, {MAX_CHANNELS}]")
+        return f"channels {cfg.channels} outside [1, {MAX_CHANNELS}]"
     if not 0 <= cfg.n_hidden <= MAX_HIDDEN:
-        raise ValueError(f"fused_traj kernel: {cfg.n_hidden} hidden layers, "
-                         f"at most {MAX_HIDDEN}")
+        return f"{cfg.n_hidden} hidden layers, at most {MAX_HIDDEN}"
     if cfg.n_comp < 1 or cfg.k_steps < 1:
-        raise ValueError("fused_traj kernel: needs a component and a step")
+        return "needs a component and a step"
     if cfg.full_cov and cfg.dim > MAX_FULL_COV_DIM:
-        raise ValueError(f"fused_traj kernel: dim {cfg.dim} in the full-covariance mode, "
-                         f"at most {MAX_FULL_COV_DIM} (one register tile of 4 columns "
-                         f"per thread of a rotation)")
+        return (f"dim {cfg.dim} in the full-covariance mode, at most {MAX_FULL_COV_DIM} "
+                f"(one register tile of 4 columns per thread of a rotation)")
     if not cfg.full_cov and cfg.dim > MAX_DIAG_DIM:
-        raise ValueError(f"fused_traj kernel: dim {cfg.dim} in the diagonal mode, at most "
-                         f"{MAX_DIAG_DIM} ({_DIAG_ELEMS} register elements a lane of a warp)")
+        return (f"dim {cfg.dim} in the diagonal mode, at most {MAX_DIAG_DIM} "
+                f"({_DIAG_ELEMS} register elements a lane of a warp)")
     need = smem_bytes(cfg.dim, cfg.channels, cfg.n_hidden, cfg.full_cov)
     if need > MAX_SMEM_BYTES:
         mode = "full-covariance" if cfg.full_cov else "diagonal"
-        raise ValueError(f"fused_traj kernel: dim {cfg.dim}, channels {cfg.channels} "
-                         f"and {cfg.n_hidden} hidden layers need {need} bytes of "
-                         f"shared memory per block in the {mode} mode, more than "
-                         f"the card's {MAX_SMEM_BYTES}")
+        return (f"dim {cfg.dim}, channels {cfg.channels} and {cfg.n_hidden} hidden layers "
+                f"need {need} bytes of shared memory per block in the {mode} mode, more "
+                f"than the card's {MAX_SMEM_BYTES}")
+    return None
+
+
+def check_limits(cfg: FusedTrajCfg) -> None:
+    """Raise when cfg lies beyond the kernel's design limits."""
+    why = limit_error(cfg)
+    if why is not None:
+        raise ValueError(f"fused_traj kernel: {why}")
 
 
 def fused_traj(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,

@@ -9,12 +9,14 @@ failure writes the traceback to ``error.txt`` and exits with code 1.
         --time-type snr --out-dir logs/run [--device cpu] [--resume]
 
 Solver presets mirror the JAX CLI's: pis, dds, dis, cmcd, vp_rds, pbm_rds,
-with the models basic, score, langevin_init and lerp; make_model refuses the
+with the models basic, score, langevin_init and lerp, and the MNIST UNet's
+basic_unet and score_unet (a square --dim, as --target mnist_zero_one or
+mnist gives); make_model refuses the
 combinations the JAX package refuses, with its messages (so the default
 ``--solver dis --model basic``, and pis / dds with ``--model basic``, exit
 1 as the JAX CLI does). cmcd with the basic model takes make_model's
-``force_base_zero_init``, as in the JAX CLI. The UNet models and
-``--plots`` fail naming their ROADMAP queue item. GBS is ``--solver dis
+``force_base_zero_init``, as in the JAX CLI. ``--plots`` fails naming its
+ROADMAP queue item. GBS is ``--solver dis
 --set model.inference_ctrl_arch=<model type>``.
 """
 from __future__ import annotations
@@ -110,10 +112,6 @@ def parse_overrides(pairs):
 
 
 def _refuse_unported(args) -> None:
-    if "unet" in args.model:
-        raise NotImplementedError(
-            f"--model {args.model} ({MODEL_PRESETS[args.model]}) is not ported yet "
-            f"(ROADMAP A6, the MNIST UNet)")
     if args.plots:
         raise NotImplementedError("--plots (eval/plots.py) is not ported yet (ROADMAP A7)")
 

@@ -147,12 +147,25 @@ class TrainableDiff(Trainable):
         """The simulation of the flat LV path, ``(x0, zs) -> (xs, x_T)``: the
         fused trajectory when the triple is in the kernel's scope; outside
         it, on the card, the loss's own loop (``flat_states``) replayed as a
-        CUDA graph; on the CPU None (lv_flat_call then runs the loop)."""
+        CUDA graph unless the loop takes a score by autograd; else None
+        (lv_flat_call then runs the loop)."""
         plan = build_plan(self.loss, self.generative_ctrl, self.train_ts)
         if plan is not None:
             cfg, arrays = plan
             return lambda x0, zs: fused_traj_states(cfg, arrays, x0, zs)
-        return self._graphed_states if self.device.type == "cuda" else None
+        return self._graphed_states if self._loop_graphed() else None
+
+    def _loop_uses_autograd(self) -> bool:
+        """Whether the loss's loop takes a score by autograd: the control's
+        target score where the target has no analytic one (the MNIST NICE
+        mixture). A CUDA graph does not replay torch.autograd.grad's
+        backward pass faithfully (the card's phase 15 (g): 34 from the
+        loop), so such a loop runs eagerly; decided from the configuration."""
+        return (getattr(self.generative_ctrl, "target_score", None) is not None
+                and self.target.score_by_autograd)
+
+    def _loop_graphed(self) -> bool:
+        return self.device.type == "cuda" and not self._loop_uses_autograd()
 
     def _graphed_states(self, x0: torch.Tensor, zs: torch.Tensor):
         """``loss.flat_states`` through a CUDA graph captured at the first
@@ -200,13 +213,14 @@ class TrainableDiff(Trainable):
         """Which training path ``loss_fn`` takes for the current config:
         'flat_lv_fused' (CUDA kernel) / 'flat_lv_plain' (its plain version on
         the CPU), 'flat_lv_graph' / 'flat_lv_scan' (the loss's own loop, as a
-        CUDA graph on the card / eagerly on the CPU), 'kl_fused' /
+        CUDA graph on the card / eagerly on the CPU, or on the card where
+        the loop takes a score by autograd), 'kl_fused' /
         'kl_plain' (the fused KL path, its forward the kernel / the plain
         version), or 'scan'."""
         if self._flat_lv_ok():
             if build_plan(self.loss, self.generative_ctrl, self.train_ts) is not None:
                 return self._fused_name("flat_lv_")
-            return "flat_lv_graph" if self.device.type == "cuda" else "flat_lv_scan"
+            return "flat_lv_graph" if self._loop_graphed() else "flat_lv_scan"
         if self._fused_kl_fn() is not None:
             return self._fused_name("kl_")
         return "scan"
@@ -430,6 +444,9 @@ class CMCD(TrainableDiff):
         self.prior_fit = None
         super().setup_models()
 
+    def _loop_uses_autograd(self) -> bool:
+        return self.target.score_by_autograd or super()._loop_uses_autograd()
+
     def update_prior(self, mean, var):
         """Refit the Gaussian prior: full covariance for a (D, D) ``var``,
         else diagonal variances."""
@@ -513,16 +530,41 @@ def _per_step(ctrl, t, x):
     return torch.stack([ctrl(t_k, x_k) for t_k, x_k in zip(t.reshape(-1), x)])
 
 
-class GaussianReferenceCtrl:
+class _Factored:
+    """``factored()``: the reference's covariances with raw full matrices
+    replaced by their (eig, P), from one torch.linalg.eigh kept on the
+    object (diagonal and already factored ones unchanged). Its tables then
+    need no factorization and so no host sync, which lets a CUDA graph
+    capture the loss's loop; B1's plans take the same factors."""
+
+    _full_ndim = 3
+
+    def factored(self):
+        var = self._covariances()
+        if isinstance(var, tuple) or var is None or var.ndim != self._full_ndim:
+            return var
+        cached = getattr(self, "_eigh", None)
+        if cached is None or cached[0] is not var:
+            cached = self._eigh = (var, tuple(torch.linalg.eigh(var)))
+        return cached[1]
+
+
+class GaussianReferenceCtrl(_Factored):
     """Time-t score of a noised Gaussian reference (diagonal, full or
     eigen-factored (eig, P) covariance) with a precompute protocol:
     ``precompute(t_grid)`` evaluates the noised marginal's parameters for
-    every grid time at once, ``apply`` takes one step's."""
+    every grid time at once (a full covariance through its factors),
+    ``apply`` takes one step's."""
+
+    _full_ndim = 2
 
     def __init__(self, sde, x_init, var_init):
         self.sde = sde
         self.x_init = x_init
         self.var_init = var_init
+
+    def _covariances(self):
+        return self.var_init
 
     def __call__(self, t, x):
         if x.ndim == 3:
@@ -532,7 +574,7 @@ class GaussianReferenceCtrl:
 
     def precompute(self, t_grid):
         return self.sde.marginal_params(t_grid[:, None], self.x_init,
-                                        var_init=self.var_init)
+                                        var_init=self.factored())
 
     @staticmethod
     def apply(step_params, x):
@@ -544,15 +586,19 @@ class GaussianReferenceCtrl:
         return score_gauss(x, loc, var)
 
 
-class GMMReferenceCtrl:
+class GMMReferenceCtrl(_Factored):
     """Time-t score of a noised GMM reference (diagonal, full or
-    eigen-factored (eig, P) covariances) with a precompute protocol."""
+    eigen-factored (eig, P) covariances) with a precompute protocol (full
+    covariances through their factors)."""
 
     def __init__(self, sde, means, variances, weights):
         self.sde = sde
         self.means = means
         self.variances = variances
         self.weights = weights
+
+    def _covariances(self):
+        return self.variances
 
     def __call__(self, t, x):
         if x.ndim == 3:
@@ -562,7 +608,7 @@ class GMMReferenceCtrl:
 
     def precompute(self, t_grid):
         w, m, v = self.sde.marginal_gmm_params(
-            t_grid[:, None, None], self.means, self.variances, self.weights)
+            t_grid[:, None, None], self.means, self.factored(), self.weights)
         if not isinstance(v, tuple) and v.ndim < 4:        # scalar or diagonal
             v = torch.broadcast_to(v, m.shape)
         return torch.broadcast_to(w, m.shape[:2]), m, v
@@ -609,6 +655,13 @@ class RDS(TrainableDiff):
         kwargs["reference_ctrl"] = self.reference_score_t
         self.loss = self.loss_cls(sde=self.sde, **kwargs)
 
+    def _loop_uses_autograd(self) -> bool:
+        """Also an 'nn' reference whose potential scores by autograd (an
+        energy net other than a float32 FourierMLP, or a pair of callables)."""
+        net = self.reference_distr_utils.get("net") if self.ref_type == "nn" else None
+        return (super()._loop_uses_autograd()
+                or (net is not None and getattr(net, "score_by_autograd", True)))
+
     def change_reference_type(self, ref_type: str = "default", net=None, eps=None, mean=None,
                               var=None, means=None, variances=None, weights=None):
         """Install the reference process: 'default' (the prior's Gaussian
@@ -646,17 +699,20 @@ class RDS(TrainableDiff):
         elif ref_type == "gaussian":
             mean, var = as_t(mean), as_t(var)
             self.reference_distr_utils = {"x_init": mean, "var_init": var}
-            self.reference_log_prob = lambda x: sde.marginal_log_prob(
-                zero, x, mean, var_init=var)
             self.reference_score_t = GaussianReferenceCtrl(sde, mean, var)
+            # a full covariance through its factors: no solve in the loss's loop
+            var_f = self.reference_score_t.factored()
+            self.reference_log_prob = lambda x: sde.marginal_log_prob(
+                zero, x, mean, var_init=var_f)
         elif ref_type == "gmm":
             means, variances, weights = as_t(means), as_t(variances), as_t(weights)
             self.reference_distr_utils = {"means_init": means,
                                           "variances_init": variances,
                                           "weights_init": weights}
-            self.reference_log_prob = lambda x: sde.marginal_gmm_log_prob(
-                zero, x, means, variances, weights)
             self.reference_score_t = GMMReferenceCtrl(sde, means, variances, weights)
+            variances_f = self.reference_score_t.factored()
+            self.reference_log_prob = lambda x: sde.marginal_gmm_log_prob(
+                zero, x, means, variances_f, weights)
         elif ref_type == "nn":
             if isinstance(net, nn.Module):
                 module = copy.deepcopy(net).to(self.device).requires_grad_(False)

@@ -184,15 +184,18 @@ def test_cli_default_solver_refuses_naming_a2(tmp_path):
     pytest.param(["--solver", "dds", "--model", "score"], None, id="flags1-ROADMAP A2"),
     pytest.param(["--solver", "cmcd"], None, id="flags2-ROADMAP A2"),
     pytest.param(["--solver", "vp_rds", "--model", "score"], None, id="flags3-ROADMAP A2"),
-    pytest.param(["--solver", "vp_rds", "--model", "basic_unet"], "ROADMAP A6",
-                 id="flags4-ROADMAP A6"),
+    pytest.param(["--solver", "vp_rds", "--model", "basic_unet", "--target", "mnist_zero_one",
+                  "--dim", "196"], None, id="flags4-ROADMAP A6"),
     pytest.param(["--solver", "pbm_rds", "--plots"], "ROADMAP A7", id="flags5-ROADMAP A7"),
+    pytest.param(["--solver", "vp_rds", "--model", "score_unet", "--target", "mnist_zero_one",
+                  "--dim", "196"], None, id="flags6-ROADMAP A6"),
 ])
 def test_cli_refuses_unported_in_process(flags, item, tmp_path):
-    """The UNet models and --plots exit 1 naming their queue item. The
-    presets refused here until ROADMAP A2 (pis, dds, cmcd, the score model)
-    now run in process to exit 0 with finite metrics (pis and dds with the
-    score model, which make_model requires of them, as in the JAX CLI)."""
+    """--plots exits 1 naming its queue item. The presets refused here
+    until ROADMAP A2 (pis, dds, cmcd, the score model) and A6 (the MNIST
+    UNet's basic_unet and score_unet, on the NICE mixture) now run in
+    process to exit 0 with finite metrics (pis and dds with the score
+    model, which make_model requires of them, as in the JAX CLI)."""
     out = tmp_path / "refused"
     tiny = ["--steps", "6", "--train-steps", "4", "--train-batch-size", "16",
             "--eval-batch-size", "64", "--log-interval", "2", "--dim", "2"]

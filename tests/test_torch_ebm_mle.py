@@ -12,6 +12,8 @@ Tolerances: the losses and gradient norms of the same float32 arithmetic
 in other orders, 1e-5 relative; the parameters after the steps 2e-5
 absolute (Adam moves each by ≈ lr a step whatever the gradient's size).
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -288,16 +290,49 @@ def test_build_ebm_makes_each_trainer():
             n_accumulation_steps=2)
 
 
-def test_mnist_energy_and_score_shim():
-    """The MNIST energy and pretrained EBM checkpoints come with the MNIST
-    slice: train_ebm_reference names it; score_with_reference_score is the
+def test_mnist_energy_and_score_shim(tmp_path):
+    """The MNIST energy and pretrained EBM checkpoints (ROADMAP A6):
+    train_ebm_reference with net_arch='mnist_conv' trains the conv energy
+    under the 'sum' tilt, and with pretrained_params_path skips training
+    (ebm_train 0) and loads the repo's JAX-trained msgpack, or the port's
+    own torch.save of the energy net, into the potential over the GMM it
+    fitted; a non-square dim is refused. score_with_reference_score is the
     difference of the two scores, as the JAX shim."""
-    from sde_sampler_lrds_torch.experiments.common import train_ebm_reference
+    from flax import serialization
 
-    data = torch.randn(64, 4)
-    for kw in ({"net_arch": "mnist_conv"}, {"pretrained_params_path": "ebm.msgpack"}):
-        with pytest.raises(NotImplementedError, match="MNIST slice"):
-            train_ebm_reference(torch.Generator(), data, data.mean(0), data.var(0),
-                                device="cpu", **kw)
+    from sde_sampler_lrds_torch.experiments.common import (save_energy_params,
+                                                           train_ebm_reference)
+    from sde_sampler_lrds_torch.models import MNISTEnergy
+
+    data = 0.3 * torch.randn(64, 196, generator=torch.Generator().manual_seed(0))
+    kw = dict(net_arch="mnist_conv", n_levels=4, ebm_epochs=1, ebm_batch_size=16,
+              initial_n_warmup_mcmc_steps=2, n_mcmc_steps=2, step_size=1e-4, device="cpu")
+    pot, extra = train_ebm_reference(torch.Generator().manual_seed(1), data, data.mean(0),
+                                     data.var(0), **kw)
+    assert isinstance(pot.base_model, MNISTEnergy) and pot.tilt_type == "sum"
+    assert extra["ebm_train"] > 0.0
+    lp, score = pot.unnorm_log_prob_and_grad(torch.full((8,), 0.3), data[:8])
+    assert lp.shape == (8,) and score.shape == (8, 196) and bool(torch.isfinite(score).all())
+    msgpack_file = (Path(__file__).parents[1] / "experiments" / "results_mnist"
+                    / "ebm_params_mnist_zero_one_seed_0.msgpack")
+    want = serialization.msgpack_restore(msgpack_file.read_bytes())["params"]["base_model"]
+    loaded, extra = train_ebm_reference(torch.Generator().manual_seed(1), data, data.mean(0),
+                                        data.var(0), pretrained_params_path=msgpack_file,
+                                        **kw)
+    assert extra == {"ebm_train": 0.0}
+    np.testing.assert_array_equal(N(loaded.base_model.head.weight).T,
+                                  want["Dense_0"]["kernel"])
+    np.testing.assert_array_equal(N(loaded.base_model.net.conv_in.weight).transpose(2, 3, 1, 0),
+                                  want["MNISTNet_0"]["Conv_0"]["kernel"])
+    saved = tmp_path / "ebm_params.pt"
+    save_energy_params(loaded, saved)
+    again, _ = train_ebm_reference(torch.Generator().manual_seed(1), data, data.mean(0),
+                                   data.var(0), pretrained_params_path=saved, **kw)
+    for a, b in zip(again.base_model.state_dict().values(),
+                    loaded.base_model.state_dict().values()):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="square image dim"):
+        train_ebm_reference(torch.Generator(), data[:, :195], data[:, :195].mean(0),
+                            data[:, :195].var(0), **kw)
     f = t_api.score_with_reference_score(lambda t, x: 3.0 * x, lambda t, x: x + t)
     np.testing.assert_allclose(N(f(torch.tensor(0.5), torch.ones(2, 3))), np.full((2, 3), 1.5))

@@ -555,7 +555,7 @@ def check_driver_against_jax(name, tmp_path, monkeypatch, n_points: int = 1) -> 
 # (7) no JAX in the port
 # ---------------------------------------------------------------------------
 
-FORBIDDEN = ("jax", "flax", "optax", "sde_sampler_lrds_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "sde_sampler_lrds_tpu")
 
 
 def _imports(path: Path):
@@ -580,7 +580,7 @@ def test_port_imports_no_jax():
 
 def test_port_modules_import_without_jax():
     """Every module of the port imports in a process where importing jax,
-    flax, optax or the JAX package fails."""
+    flax, optax, msgpack or the JAX package fails."""
     import subprocess
 
     code = (

@@ -264,14 +264,15 @@ def test_make_target_builds_gaussian_mixtures_as_jax(name):
 
 @pytest.mark.parametrize("name", ["mnist", "cancer"])
 def test_make_target_still_refuses_unported(name):
-    """MNIST is not ported yet; the logistic-regression posteriors ('cancer'
-    and the other three, ROADMAP A4) are, and build."""
+    """The targets refused here until their slice now build: the
+    logistic-regression posteriors ('cancer' and the other three, ROADMAP
+    A4) and MNIST's ten-digit NICE mixture (ROADMAP A6)."""
+    target = t_make_target(t_make_target_details(name), device="cpu")
     if name == "cancer":
-        target = t_make_target(t_make_target_details(name), device="cpu")
         assert type(target).__name__ == "LogisticRegression" and target.dim == 31
         return
-    with pytest.raises(NotImplementedError, match=f"Target {name} is not ported"):
-        t_make_target(t_make_target_details(name), device="cpu")
+    assert type(target).__name__ == "MixtureNice" and target.dim == 196
+    assert target.digits == list(range(10)) and len(target.nice_dists) == 10
 
 
 def _rnd_cases():
