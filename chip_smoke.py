@@ -163,21 +163,25 @@ Phases:
      its tilted potential, card against CPU; (c) sample_mnist_unet cut in
      depth (MNIST_CUT: 2048 MALA points, 20 steps, one eval seed at 2048)
      with the UNet on the default full-covariance GMM reference
-     ('flat_lv_graph', B1 0 times, the graph held to the loop) and with the
-     FourierMLP on a diagonal reference (B1 at D 196, C 2, one launch a
-     step and an eval); B2 twice a
+     ('flat_lv_graph', B1 0 times, the graph held to the loop), and with
+     the FourierMLP on a diagonal reference (B1's diagonal kernel at D 196,
+     C 2, one launch a step and an eval) and on the default full-covariance
+     one (B1's wide kernel, likewise); B2 twice a
      Sinkhorn iteration and B3 once an eval seed at d 196, every seed's
      ELBO below its log Z_IS; (g) the loops with an autograd score (the 'nn'
-     conv energy; the target-informed UNet's MixtureNice score) run eagerly
-     ('flat_lv_scan'), a step each, and the 'nn' loop forced into a CUDA
-     graph measured against the eager loop (printed); (d) B1 on the D 196,
-     C 2 plan against its plain version in float64 under fed noise at
-     batches 256 and 2048 (KERNEL_TOL; the float32 plain version's own
-     drift from float64 printed beside);
+     conv energy; the target-informed UNet's MixtureNice score) as CUDA
+     graphs ('flat_lv_graph'), a step each, the replay bitwise equal to the
+     loop with cuDNN off and, with it on, beside the eager loop's own
+     spread (printed); (d) B1 on both D 196, C 2 plans against its plain
+     version in float64 under fed noise at batches 256 and 2048
+     (KERNEL_TOL; the float32 plain version's own drift from float64
+     printed beside);
      (e) B2 / B3 at 2048 x 2048, d 196, and the whole Sinkhorn, against the
-     plain versions (COST_TOL_REL); (f) ROADMAP C6 on the card: D 129 with
-     a full-covariance reference, one step and one eval on the loss's loop
-     with B1 launched 0 times, and a d 225 Sinkhorn on the plain versions
+     plain versions (COST_TOL_REL); (f) ROADMAP C6 on the card: the wide
+     kernel against its plain version past the narrow kernels' limits
+     (WIDE_PLANS), an RDS solver at D 129 with a full-covariance reference,
+     one step and one eval on the wide kernel ('flat_lv_fused', 'fused'),
+     and a d 225 Sinkhorn on the plain versions
 
 Every path (phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14 and 15) is run with all launch counts set to 0 just
 before it and read just after. Prints the card as nvidia-smi reports it, then
@@ -683,16 +687,17 @@ def assert_close(got, want, what: str, tol=KERNEL_TOL) -> float:
 
 def launch_counters() -> list:
     """Every kernel wrapper of the port with the attribute it counts its
-    launches in: fused_traj counts every launch in ``.launches``, its
-    full-covariance ones in ``.full_cov_launches`` and its bf16 ones in
-    ``.bf16_launches`` as well."""
+    launches in: fused_traj counts every launch in ``.launches``, and as
+    well those of its wide kernel in ``.wide_launches``, of its narrow
+    full-covariance one in ``.full_cov_launches`` and its narrow bf16 ones
+    in ``.bf16_launches``."""
     from sde_sampler_lrds_torch.ops.fused_traj import fused_traj
     from sde_sampler_lrds_torch.ops.resample import systematic_lookup
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import lse, transport_cost
 
     return [(fused_traj, "launches"), (fused_traj, "full_cov_launches"),
-            (fused_traj, "bf16_launches"), (lse, "launches"), (transport_cost, "launches"),
-            (systematic_lookup, "launches")]
+            (fused_traj, "bf16_launches"), (fused_traj, "wide_launches"), (lse, "launches"),
+            (transport_cost, "launches"), (systematic_lookup, "launches")]
 
 
 def reset_counts() -> None:
@@ -702,16 +707,25 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Launches by kernel and mode: fused_traj (f32, diagonal /
-    single-Gaussian reference), fused_traj_full_cov (f32, full covariance)
-    and fused_traj_bf16 (the bf16 control) apart. No path runs both a bf16
-    and a full-covariance launch, so the three are exact."""
-    (ft, _), _, _, (lse, _), (cost, _), (res, _) = launch_counters()
+    single-Gaussian reference), fused_traj_full_cov (f32, full covariance),
+    fused_traj_bf16 (the bf16 control) and fused_traj_wide (the wide
+    kernel, past the other three's widths) apart. No path runs both a
+    narrow bf16 and a narrow full-covariance launch, so the four are exact."""
+    (ft, _), _, _, _, (lse, _), (cost, _), (res, _) = launch_counters()
     check(ft.bf16_launches == 0 or ft.full_cov_launches == 0,
           "a path ran both the bf16 and the full-covariance mode")
-    return {"fused_traj": ft.launches - ft.full_cov_launches - ft.bf16_launches,
+    return {"fused_traj": (ft.launches - ft.full_cov_launches - ft.bf16_launches
+                           - ft.wide_launches),
             "fused_traj_full_cov": ft.full_cov_launches, "fused_traj_bf16": ft.bf16_launches,
+            "fused_traj_wide": ft.wide_launches,
             "sinkhorn_lse": lse.launches, "transport_cost": cost.launches,
             "resample": res.launches}
+
+
+def b1_launches(counts: dict) -> int:
+    """B1's launches in all its kernels and modes."""
+    return sum(counts[k] for k in ("fused_traj", "fused_traj_full_cov", "fused_traj_bf16",
+                                   "fused_traj_wide"))
 
 
 def bound(flops: float, transcendentals: float, nbytes: float, peaks, sfu_rate: float):
@@ -831,12 +845,14 @@ def comparison_plan(dev, compute_dtype=None):
     return build_plan(loss, ctrl, get_timesteps(0.0, 1.0, steps=K_STEPS, device=dev))
 
 
-def phi_four_plan(dev, full_cov: bool, compute_dtype=None, dim: int = PHI_DIM):
-    """φ⁴-path shapes (D = 100 or ``dim``, H = 64, 2 hidden layers, K = 100
-    on the log-SNR grid) with a random control (float32 or
-    ``compute_dtype``) and a random 2-component reference with eigenvalues
-    0.025..5 (the range of a φ⁴ well's covariance): eigen-factored with
-    random rotations (full_cov), or diagonal."""
+def phi_four_plan(dev, full_cov: bool, compute_dtype=None, dim: int = PHI_DIM,
+                  channels: int = CHANNELS, n_layers: int = N_LAYERS):
+    """φ⁴-path shapes (D = 100 or ``dim``, H = 64 or ``channels``, 2 hidden
+    layers or ``n_layers`` − 2, K = 100 on the log-SNR grid) with a random
+    control (float32 or ``compute_dtype``) and a random 2-component
+    reference with eigenvalues 0.025..5 (the range of a φ⁴ well's
+    covariance): eigen-factored with random rotations (full_cov), or
+    diagonal."""
     from sde_sampler_lrds_torch.losses import EIReferenceSDELoss
     from sde_sampler_lrds_torch.models import ClippedCtrl, FourierMLP
     from sde_sampler_lrds_torch.ops.fused_traj import build_plan
@@ -844,7 +860,7 @@ def phi_four_plan(dev, full_cov: bool, compute_dtype=None, dim: int = PHI_DIM):
     from sde_sampler_lrds_torch.solvers import GMMReferenceCtrl
 
     g = torch.Generator().manual_seed(15)
-    ctrl = ClippedCtrl(FourierMLP(dim=dim, channels=CHANNELS, num_layers=N_LAYERS,
+    ctrl = ClippedCtrl(FourierMLP(dim=dim, channels=channels, num_layers=n_layers,
                                   compute_dtype=compute_dtype), clip_model=1e4)
     ctrl.reset_parameters(g)
     ctrl.to(dev)
@@ -940,6 +956,14 @@ _DIAG_MORE = [(1, "fed"), (33, "fed"), (4001, "fed"), (8193, "fed")]
 DIAG_CASES = ([(TRAIN_BATCH, "fed"), (EVAL_BATCH, "fed"), (1000, "fed")] + _DIAG_MORE
               + [(EVAL_BATCH, "kernel")])
 BF16_CASES = [(TRAIN_BATCH, "fed"), (1000, "fed"), (EVAL_BATCH, "kernel")] + _DIAG_MORE
+
+
+def wide_geometry_for(cfg, b: int) -> dict:
+    """The wide kernel's launch for b trajectories on this card."""
+    from sde_sampler_lrds_torch.ops.fused_traj import _sm_count, wide_rows
+
+    rows = wide_rows(b, cfg.dim, cfg.channels, _sm_count(torch.device("cuda")))
+    return {"wide_rows_per_block": rows, "blocks": -(-b // rows)}
 
 
 def diag_geometry_for(cfg, batch: int):
@@ -1736,7 +1760,7 @@ def phase_timing(dev, cfg, arrays, rec, peaks, sfu_rate, label="fused_traj",
     over the SFU rate and the bytes over the memory rate. The flops time is
     all flops over the float32 peak, or in the bf16 mode the larger of the
     MLP's over the bf16 tensor-core peak and the rest over the float32 peak."""
-    from sde_sampler_lrds_torch.ops.fused_traj import fused_traj_plain, launch
+    from sde_sampler_lrds_torch.ops.fused_traj import fused_traj_plain, launch, uses_wide
 
     f32_rate, byte_rate, bf16_rate = peaks
     d, h, nh, c, k = cfg.dim, cfg.channels, cfg.n_hidden, cfg.n_comp, cfg.k_steps
@@ -1766,8 +1790,8 @@ def phase_timing(dev, cfg, arrays, rec, peaks, sfu_rate, label="fused_traj",
         nbytes = table_bytes + 4 * (2 * b * d + b) + (2 * 4 * k * b * d if fed else 0)
         t_ops = max(t_flops, trans / sfu_rate) * 1e3
         t_bytes = nbytes / byte_rate * 1e3
-        geom = (None if cfg.full_cov
-                else dataclasses.asdict(diag_geometry_for(cfg, b)))
+        geom = (wide_geometry_for(cfg, b) if uses_wide(cfg)
+                else None if cfg.full_cov else dataclasses.asdict(diag_geometry_for(cfg, b)))
         out[name] = {"batch": b, "fed_noise_and_states": fed, "geometry": geom, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -2852,8 +2876,7 @@ def run_competing_cell(dev, label: str, module: str, argv: list, path_counts,
     check(out["train_path"] in ("flat_lv_graph", "scan") and out["eval_path"] == "scan",
           f"{label}: paths {out['train_path']} / {out['eval_path']}")
     check(solver.step_count == steps, f"{label}: {solver.step_count} steps trained")
-    check(counts["fused_traj"] + counts["fused_traj_full_cov"] == 0,
-          f"{label}: B1 launched {counts} with a ScoreCtrl")
+    check(b1_launches(counts) == 0, f"{label}: B1 launched {counts} with a ScoreCtrl")
     if must_be_finite:
         for key in ("eval/elbo", "eval/log_norm_const_is", "eval/norm_effective_sample_size",
                     "error/log_norm_const_is", "error/sinkhorn"):
@@ -3079,8 +3102,7 @@ def run_baseline_cell(dev, label: str, module: str, argv: list, path_counts) -> 
     check(n_chunks >= 1, f"{label}: no chunk was scored")
     for key in ("error/sinkhorn", "error/mmd", "error/ks", "eval/avg_stddev"):
         check(all(math.isfinite(v) for v in m[key]), f"{label}: {key} not finite")
-    check(counts["fused_traj"] + counts["fused_traj_full_cov"] + counts["fused_traj_bf16"] == 0,
-          f"{label}: B1 launched {counts}")
+    check(b1_launches(counts) == 0, f"{label}: B1 launched {counts}")
     check(counts["transport_cost"] == n_chunks
           and 2 * 67 * n_chunks <= counts["sinkhorn_lse"] <= 200 * n_chunks,
           f"{label}: Sinkhorn kernels launched {counts['sinkhorn_lse']} / "
@@ -3635,8 +3657,7 @@ def phase_ebm_mle(dev, path_counts) -> dict:
               f"{label}: {len(probe.passes)} negative passes")
         check(counts["resample"] == probe.events and (probe.events > 0) == (sampler == "smc"),
               f"{label}: B4 launched {counts['resample']} times for {probe.events} events")
-        check(counts["fused_traj"] + counts["fused_traj_full_cov"] + counts["fused_traj_bf16"]
-              + counts["sinkhorn_lse"] + counts["transport_cost"] == 0,
+        check(b1_launches(counts) + counts["sinkhorn_lse"] + counts["transport_cost"] == 0,
               f"{label}: another kernel ran {counts}")
     out["one_step"] = ebm_one_step_card_vs_cpu(dev, data.cpu(), gmm, prior)
     return out
@@ -3775,8 +3796,7 @@ def run_ebm_cell(dev, label: str, module: str, argv: list, path_counts, phase: s
     check(solver.ref_type == "nn", f"{label}: reference {solver.ref_type}")
     check(out["train_path"] == "flat_lv_graph", f"{label}: train path {out['train_path']}")
     check(out["eval_path"] == "scan", f"{label}: eval path {out['eval_path']}")
-    check(counts["fused_traj"] + counts["fused_traj_full_cov"] + counts["fused_traj_bf16"] == 0,
-          f"{label}: B1 launched {counts}")
+    check(b1_launches(counts) == 0, f"{label}: B1 launched {counts}")
     for key in ("eval/elbo", "eval/log_norm_const_is"):
         check(all(math.isfinite(v) for v in m[key]), f"{label}: {key} not finite")
     if "error/sinkhorn" in m:
@@ -3980,7 +4000,8 @@ EBM_CURVE_RECORD = {"gmm_fwd_ess": 2.5e-4, "best_ess": 9.6e-4, "ebm_train_s_tpu"
 MNIST_EBM = "experiments/results_mnist/ebm_params_mnist_zero_one_seed_0.msgpack"
 # card vs CPU, float32 with TF32 off: max |diff| over the largest |value|
 MNIST_TOL = 1e-4
-C6_FULL_DIM, C6_SINKHORN_DIM = 129, 225
+C6_FULL_DIM, C6_DIAG_DIM, C6_SINKHORN_DIM = 129, 365, 225
+MNIST_DIM = 196
 
 
 def mnist_images(n: int, seed: int) -> torch.Tensor:
@@ -4107,18 +4128,18 @@ class MnistProbe(EbmProbe):
 
 def run_mnist_cell(dev, label: str, argv: list, path_counts, phase: str = "15") -> tuple:
     """One cell of the port's sample_mnist_unet through its ``main``, its
-    pickle under build/driver_cells/: the path names (the UNet and the
-    'nn' reference, and the FourierMLP past B1's full-covariance width, on
-    the loss's loop as a CUDA graph and the loop's evaluation; the
-    FourierMLP with a diagonal reference on B1 at D 196), B1's launches
-    (one a step and an eval seed on its path, else 0), B2 twice a Sinkhorn
+    pickle under build/driver_cells/: the path names (the UNet, with the
+    GMM or the 'nn' reference, on the loss's loop as a CUDA graph and the
+    loop's evaluation; the FourierMLP on B1 at D 196: its diagonal kernel
+    with a diagonal reference, its wide kernel with the default
+    full-covariance one), B1's launches (one a step and an eval seed on
+    its path, in the kernel its plan names, else 0), B2 twice a Sinkhorn
     iteration and B3 once an eval seed at d 196 on the kernels, finite
     metrics, every seed's ELBO below its log Z_IS + GATE_TOY_ELBO_SLACK,
-    and the peak device memory. The 'nn' conv energy's loop runs eagerly
-    ('flat_lv_scan'). Returns (cell, summary, the solver)."""
+    and the peak device memory. Returns (cell, summary, the solver)."""
     import importlib
 
-    from sde_sampler_lrds_torch.ops.fused_traj import build_plan
+    from sde_sampler_lrds_torch.ops.fused_traj import build_plan, uses_wide
 
     driver = importlib.import_module("sde_sampler_lrds_torch.experiments.sample_mnist_unet")
     argv = argv + ["--device", dev.type, "--results_path", "build/driver_cells"]
@@ -4157,16 +4178,16 @@ def run_mnist_cell(dev, label: str, argv: list, path_counts, phase: str = "15") 
                                            "eval/num_forgotten_modes", "error/sinkhorn")},
     }
     say(f"[phase {phase}] MNIST cell {label} " + json.dumps(out))
-    fused = build_plan(solver.loss, solver.generative_ctrl, solver.train_ts) is not None
-    # the conv energy's score goes through autograd: its loop runs eagerly
-    eager = out["ref_type"] == "nn" and solver.reference_distr_utils["net"].score_by_autograd
-    want = "flat_lv_fused" if fused else ("flat_lv_scan" if eager else "flat_lv_graph")
+    plan = build_plan(solver.loss, solver.generative_ctrl, solver.train_ts)
+    fused = plan is not None
+    want = "flat_lv_fused" if fused else "flat_lv_graph"
     check(out["train_path"] == want, f"{label}: train path {out['train_path']}, not {want}")
     check(out["eval_path"] == ("fused" if fused else "scan"), f"{label}: eval path "
                                                              f"{out['eval_path']}")
-    b1 = counts["fused_traj"] + counts["fused_traj_full_cov"] + counts["fused_traj_bf16"]
-    check(b1 == ((steps + n_seeds) if fused else 0) and counts["fused_traj"] == b1,
-          f"{label}: B1 launched {counts} ({'on' if fused else 'off'} its path)")
+    b1 = b1_launches(counts)
+    mode = ("fused_traj_wide" if uses_wide(plan[0]) else "fused_traj") if fused else None
+    check(b1 == ((steps + n_seeds) if fused else 0) and (mode is None or counts[mode] == b1),
+          f"{label}: B1 launched {counts} ({'on ' + mode if fused else 'off'} its path)")
     check(solver.step_count == steps, f"{label}: {solver.step_count} steps trained")
     check(out["sinkhorn_backend"] == "cuda" and len(probe.sinkhorn_iters) == n_seeds
           and counts["transport_cost"] == n_seeds
@@ -4182,37 +4203,49 @@ def run_mnist_cell(dev, label: str, argv: list, path_counts, phase: str = "15") 
 
 def phase_mnist_autograd_loops(dev) -> dict:
     """(g) The loops that take a score by autograd (the 'nn' conv energy's;
-    the target-informed UNet's MixtureNice score) run eagerly, named
-    'flat_lv_scan' on the card: one training step each, finite, and the
-    eager loop's time. The evidence for that choice, measured and printed
-    each run: the 'nn' loop captured as a CUDA graph anyway replays far
-    from the eager loop (torch.autograd.grad's backward pass is not
-    replayed faithfully)."""
-    from sde_sampler_lrds_torch.solvers.oc import GraphedCall
-
+    the target-informed UNet's MixtureNice score) run as CUDA graphs
+    ('flat_lv_graph', the backward pass inside the capture): one training
+    step each, finite; the graph's replay against the eager loop bitwise
+    with cuDNN off; and with cuDNN on, the 'nn' eager loop against itself (its
+    convolutions' backward algorithms are not bitwise repeatable, and the
+    'nn' loop amplifies a difference of one rounding to tens over its 100
+    steps: the graph replays within that spread), with the graph's and the
+    eager loop's times."""
     out = {}
     for label, model_type, ref_type in (("nn_unet", "unet_zero_init", "nn"),
                                         ("target_informed_unet", "target_informed_unet_zero_init",
                                          "gmm")):
         net = mnist_potential(dev) if ref_type == "nn" else None
         solver = mnist_small_solver(dev, model_type, ref_type, net)
-        check(solver.train_path() == "flat_lv_scan" and solver._flat_traj_fn() is None,
-              f"{label}: train path {solver.train_path()}")
+        check(solver.train_path() == "flat_lv_graph", f"{label}: train path "
+                                                      f"{solver.train_path()}")
         g = torch.Generator(dev).manual_seed(162)
         loss = float(solver.step(g)["train/loss"])
         ts, args, k = solver.train_ts, solver.loss_call_args(), solver.train_ts.shape[0] - 1
         x0 = solver.prior.sample(g, (solver.cfg.train_batch_size,))
         zs = torch.randn(k, x0.shape[0], 196, generator=g, device=dev)
-        fn = lambda x, z: solver.loss.flat_states(ts, x, solver.train_ctrl(), z, **args)
+        loop = lambda: solver.loss.flat_states(ts, x0, solver.train_ctrl(), zs, **args)
         with torch.no_grad():
-            eager = fn(x0, zs)
+            first = []
             row = {"train_path": solver.train_path(), "loss": loss,
-                   "eager_loop_ms": time_cuda(lambda: fn(x0, zs), n=1, warmup=0)}
-            if ref_type == "nn":
-                row["forced_graph_max_abs_diff"] = max_err(GraphedCall(fn, x0, zs)(x0, zs), eager)
+                   "eager_loop_ms": time_cuda(lambda: first.append(loop()), n=1, warmup=0)}
+            first = [t.clone() for t in first[0]]
+            if ref_type == "nn":        # the spread of the eager loop itself
+                row["cudnn_eager_vs_eager"] = max_err(loop(), first)
+            row.update(cudnn_graph_vs_eager=max_err(solver._graphed_states(x0, zs), first),
+                       graph_ms=time_cuda(lambda: solver._graphed_states(x0, zs), n=3,
+                                          warmup=1))
+            with torch.backends.cudnn.flags(enabled=False):
+                solver._graph = None            # captured again without cuDNN
+                eager = loop()
+                same = [torch.equal(a, b) for a, b in zip(solver._graphed_states(x0, zs), eager)]
+            solver._graph = None
+        row["no_cudnn_graph_bitwise"] = all(same)
         out[label] = row
         check(math.isfinite(loss), f"{label}: loss {loss}")
-    say("[phase 15] (g) the loops with an autograd score, eager: " + json.dumps(out))
+        check(row["no_cudnn_graph_bitwise"], f"{label}: without cuDNN the graph replay "
+                                             f"differs from the loop")
+    say("[phase 15] (g) the loops with an autograd score as CUDA graphs: " + json.dumps(out))
     return out
 
 
@@ -4240,37 +4273,32 @@ def mnist_small_solver(dev, model_type: str, ref_type: str, net=None):
     return solver
 
 
-def phase_mnist_b1_sinkhorn(dev, diag_solver, recs) -> dict:
-    """(d) B1's diagonal kernel on the D 196, C 2 plan of the FourierMLP
-    cell (its fitted reference; the control's parameters perturbed to an
-    O(1) control) against its plain version run in float64 under fed noise
-    at KERNEL_TOL, at batches 256 and 2048 (the float32 plain version's
-    distances printed beside); (e) B2 / B3 at 2048 x 2048, d 196 (MixtureNice
-    draws, eps 1e-3, p 2, duals from the first Sinkhorn half-steps) and the
-    whole Sinkhorn against the plain versions at COST_TOL_REL."""
-    from sde_sampler_lrds_torch.eval import Sinkhorn
-    from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
+def mnist_b1_vs_plain(dev, solver, rec) -> float:
+    """B1 on the D 196, C 2 plan of a FourierMLP cell (its fitted reference;
+    the control's parameters perturbed to an O(1) control) against its
+    plain version run in float64 under fed noise at KERNEL_TOL, at batches
+    256 and 2048 (the float32 plain version's distances printed beside).
+    Returns the largest distance."""
     from sde_sampler_lrds_torch.ops.fused_traj import build_plan, fused_traj, fused_traj_plain
-    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
-                                                         transport_cost_plain)
 
-    ctrl = copy.deepcopy(diag_solver.generative_ctrl)
+    ctrl = copy.deepcopy(solver.generative_ctrl)
     g = torch.Generator(dev).manual_seed(159)
     with torch.no_grad():
         for p in ctrl.parameters():
             p.add_(0.05 * torch.randn(p.shape, generator=g, device=dev))
-    cfg, arrays = build_plan(diag_solver.loss, ctrl, diag_solver.train_ts)
-    check(cfg.dim == 196 and cfg.n_comp == 2 and not cfg.full_cov, f"the D 196 plan {cfg}")
-    rec = recs["fused_traj"]["mnist_d196_c2"] = {"plan": dataclasses.asdict(cfg)}
+    cfg, arrays = build_plan(solver.loss, ctrl, solver.train_ts)
+    check(cfg.dim == MNIST_DIM and cfg.n_comp == 2, f"the D 196 plan {cfg}")
+    rec["plan"] = dataclasses.asdict(cfg)
     errs64 = {}
     for b in (256, MNIST_ROWS):
-        x0 = initial_states(diag_solver.prior, b, cfg.dim, g, dev)
+        x0 = initial_states(solver.prior, b, cfg.dim, g, dev)
         noise = torch.randn(cfg.k_steps, b, cfg.dim, generator=g, device=dev)
         got = fused_traj(cfg, arrays, x0, noise=noise, return_traj=True)
         plain = fused_traj_plain(cfg, arrays, x0, noise=noise, return_traj=True)
         exact = fused_traj_plain(cfg, {k: v.double() for k, v in arrays.items()}, x0.double(),
                                  noise=noise.double(), return_traj=True, dtype=torch.float64)
-        what = f"fused_traj D=196 C=2 B={b} (fed noise + states)"
+        what = (f"fused_traj{'_wide' if cfg.full_cov else ''} D=196 C=2 "
+                f"{'full' if cfg.full_cov else 'diag'} B={b} (fed noise + states)")
         errs64[b] = {"kernel_to_plain_f64": max_err(got, exact),
                      "plain_f32_to_plain_f64": max_err(plain, exact),
                      "kernel_to_plain_f32": max_err(got, plain)}
@@ -4282,7 +4310,30 @@ def phase_mnist_b1_sinkhorn(dev, diag_solver, recs) -> dict:
                      f"{what} against the plain version in float64", KERNEL_TOL)
     rec["max_abs_err"] = max(e["kernel_to_plain_f64"] for e in errs64.values())
     rec["errors_by_batch"] = errs64
+    return cfg, arrays
+
+
+def phase_mnist_b1_sinkhorn(dev, diag_solver, full_solver, recs) -> dict:
+    """(d) B1 at D 196, C 2 against its plain version in float64
+    (mnist_b1_vs_plain): its diagonal kernel on the diagonal-reference
+    cell's plan, its wide kernel on the full-covariance cell's; (e) B2 / B3
+    at 2048 x 2048, d 196 (MixtureNice draws, eps 1e-3, p 2, duals from the
+    first Sinkhorn half-steps) and the whole Sinkhorn against the plain
+    versions at COST_TOL_REL."""
+    from sde_sampler_lrds_torch.eval import Sinkhorn
+    from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
+    from sde_sampler_lrds_torch.ops.fused_traj import uses_wide
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
+                                                         transport_cost_plain)
+
+    rec = recs["fused_traj"]["mnist_d196_c2"] = {}
+    cfg, arrays = mnist_b1_vs_plain(dev, diag_solver, rec)
+    check(not cfg.full_cov and not uses_wide(cfg), f"the diagonal D 196 plan {cfg}")
+    rec_w = recs["fused_traj_wide"]["mnist_d196_c2_full"] = {}
+    cfg_w, arrays_w = mnist_b1_vs_plain(dev, full_solver, rec_w)
+    check(cfg_w.full_cov and uses_wide(cfg_w), f"the full-covariance D 196 plan {cfg_w}")
     target = diag_solver.target
+    g = torch.Generator(dev).manual_seed(163)
     x, y = target.sample(g, (MNIST_ROWS,)), target.sample(g, (MNIST_ROWS,))
     eps, n = 1e-3, MNIST_ROWS
     v = torch.full((n,), eps * -math.log(n), device=dev)
@@ -4301,20 +4352,28 @@ def phase_mnist_b1_sinkhorn(dev, diag_solver, recs) -> dict:
         check(e <= COST_TOL_REL, f"d 196 {k}: kernel vs plain {e:.3e} > {COST_TOL_REL}")
     recs["sinkhorn_lse"]["mnist_d196"] = {"rel_err": errs["lse"]}
     recs["transport_cost"]["mnist_d196"] = {"rel_err": errs["transport_cost"]}
-    return {"b1_d196": rec["max_abs_err"], "sinkhorn_d196": errs,
-            "timing": (cfg, arrays, x, y, u, v)}
+    return {"b1_d196": rec["max_abs_err"], "b1_wide_d196_full": rec_w["max_abs_err"],
+            "sinkhorn_d196": errs, "timing": (cfg, arrays, cfg_w, arrays_w, x, y, u, v)}
 
 
 def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate) -> None:
-    """Phase 7 at the MNIST shapes: B1 on the D 196 plan at the eval batch
+    """Phase 7 at the MNIST shapes: B1's diagonal kernel on the D 196 plan
+    and its wide kernel on the D 196 full-covariance one at the eval batch
     2048 (its own noise) and the train batch 256 (fed), B2 / B3 at 2048 x
     2048 x 196, each beside its plain version and its bound."""
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
                                                          transport_cost_plain)
 
-    cfg, arrays, x, y, u, v = timing
+    cfg, arrays, cfg_w, arrays_w, x, y, u, v = timing
     phase_timing(dev, cfg, arrays, recs["fused_traj"]["mnist_d196_c2"], peaks, sfu_rate,
                  label="fused_traj D=196 C=2 (MNIST)", batches=(MNIST_ROWS, 256))
+    # the wide kernel's entry is timed at this shape, where a path runs it
+    phase_timing(dev, cfg_w, arrays_w, recs["fused_traj_wide"], peaks, sfu_rate,
+                 label="fused_traj_wide D=196 C=2 full covariance (MNIST)",
+                 batches=(MNIST_ROWS, 256))
+    recs["fused_traj_wide"]["mnist_d196_c2_full"].update(
+        {k: recs["fused_traj_wide"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "train_shape")})
     eps, n, d = 1e-3, x.shape[0], x.shape[1]
     pairs, io = n * n, 4 * 2 * n * d
     for name, kern, plain, b in (
@@ -4330,17 +4389,63 @@ def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate) -> None:
         recs[name]["mnist_d196"].update(row)
 
 
-def phase_c6(dev, path_counts) -> dict:
-    """(f) Past the kernels' widths on the card: an RDS solver with a
-    2-component full-covariance GMM reference at D 129 takes the loss's
-    loop as a CUDA graph ('flat_lv_graph') and the loop's evaluation
-    ('scan'), one train step and one eval with B1 launched 0 times and
-    finite outputs; a Sinkhorn at d 225 runs the plain versions on the
-    card ('plain', B2 / B3 0 times) and equals a PLAIN_OPS run."""
+# the wide kernel's plans past the narrow kernels' limits: (full
+# covariance, D, the control's width and layers, bf16): D 129 full
+# covariance (one past the narrow kernel's register tile), the first
+# diagonal D past its shared memory at H 64 (365), that D in bf16, and a
+# control past the narrow kernels' width and depth caps (H 320, 9 hidden
+# layers) at the demo's D 8
+WIDE_PLANS = ((True, C6_FULL_DIM, CHANNELS, N_LAYERS, None),
+              (False, C6_DIAG_DIM, CHANNELS, N_LAYERS, None),
+              (False, C6_DIAG_DIM, CHANNELS, N_LAYERS, torch.bfloat16),
+              (False, DIM, 320, 11, None))
+
+
+def phase_wide_kernel(dev, rec) -> None:
+    """(f) B1's wide kernel against its plain version on WIDE_PLANS at the
+    train batch with fed noise and the states and at MNIST's eval batch
+    with its own noise (the plain version fed the kernel's Philox draws),
+    the first plan also at a ragged batch; float32 plans gated against the
+    same steps in float64 (DRIVER_F64_RATIO), the bf16 one at BF16_TOL; two
+    launches bitwise equal; the host's shared-memory arithmetic against the
+    kernel's."""
+    from sde_sampler_lrds_torch.ops.fused_traj import _library, uses_wide, wide_smem_bytes
+
+    for d, h, rows in ((C6_FULL_DIM, CHANNELS, 4), (MNIST_DIM, CHANNELS, 16),
+                       (C6_DIAG_DIM, CHANNELS, 32), (DIM, 320, 12)):
+        c_bytes, host = _library().fused_traj_wide_smem_bytes(d, h, rows), wide_smem_bytes(d, h,
+                                                                                           rows)
+        check(c_bytes == host, f"wide shared memory at D={d}, H={h}, {rows} rows: kernel "
+                               f"{c_bytes} bytes, host mirror {host}")
+    rec["max_abs_err_by_plan"] = {}
+    for i, (full, d, h, n_layers, dtype) in enumerate(WIDE_PLANS):
+        cfg, arrays = phi_four_plan(dev, full_cov=full, dim=d, compute_dtype=dtype,
+                                    channels=h, n_layers=n_layers)
+        check(uses_wide(cfg), f"the wide plan {cfg}")
+        label = (f"fused_traj_wide {'full' if full else 'diag'} D={d} H={h} "
+                 f"n_h={cfg.n_hidden}{' bf16' if cfg.bf16 else ''}")
+        cases = [(TRAIN_BATCH, "fed"), (MNIST_ROWS, "kernel")] + ([(1000, "fed")] if i == 0
+                                                                  else [])
+        rec["max_abs_err_by_plan"][label] = compare_kernel(
+            dev, cfg, arrays, label, cases, BF16_TOL if cfg.bf16 else KERNEL_TOL,
+            f64_ratio=None if cfg.bf16 else DRIVER_F64_RATIO)
+        check_repeatable(dev, cfg, arrays, label, [(TRAIN_BATCH, "fed")])
+    rec["max_abs_err"] = max([*rec["max_abs_err_by_plan"].values(),
+                              rec.get("mnist_d196_c2_full", {}).get("max_abs_err", 0.0)])
+
+
+def phase_c6(dev, path_counts, rec) -> dict:
+    """(f) Past the narrow kernels' widths on the card: the wide kernel
+    against its plain version (phase_wide_kernel); an RDS solver with a
+    2-component full-covariance GMM reference at D 129 keeps B1's paths
+    ('flat_lv_fused', 'fused'), one train step and one eval on the wide
+    kernel, finite; a Sinkhorn at d 225 runs the plain versions on the card
+    ('plain', B2 / B3 0 times) and equals a PLAIN_OPS run."""
     from sde_sampler_lrds_torch.api import make_model, make_target_details
     from sde_sampler_lrds_torch.eval import Sinkhorn
     from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
 
+    phase_wide_kernel(dev, rec)
     d = C6_FULL_DIM
     rng = np.random.default_rng(160)
     a = rng.normal(size=(2, d, d))
@@ -4364,9 +4469,10 @@ def phase_c6(dev, path_counts) -> dict:
     out = {"train_path": solver.train_path(), "eval_path": solver.eval_path(),
            "loss": float(metrics["train/loss"]), "elbo": res.metrics["eval/elbo"],
            "launches": counts}
-    check(out["train_path"] == "flat_lv_graph" and out["eval_path"] == "scan",
+    check(out["train_path"] == "flat_lv_fused" and out["eval_path"] == "fused",
           f"C6 D {d} full covariance: paths {out['train_path']} / {out['eval_path']}")
-    check(sum(counts.values()) == 0, f"C6 D {d}: kernels launched {counts}")
+    check(counts["fused_traj_wide"] == 2 and b1_launches(counts) == 2,
+          f"C6 D {d}: kernels launched {counts}")
     check(math.isfinite(out["loss"]) and math.isfinite(out["elbo"])
           and bool(torch.isfinite(res.samples).all()), f"C6 D {d}: not finite {out}")
     x = torch.randn(MNIST_ROWS, C6_SINKHORN_DIM, generator=g, device=dev)
@@ -4389,9 +4495,11 @@ def phase_mnist(dev, recs, path_counts) -> dict:
     """Phase 15: (a) MixtureNice card vs CPU, (b) the UNet and the conv
     energy card vs CPU, (c) sample_mnist_unet cut in depth (MNIST_CUT) with
     the UNet (the graph checked against the loop) and the FourierMLP on a
-    diagonal reference (B1 at D 196), (g) the loops with an autograd score (the
-    'nn' conv energy, the target-informed UNet) eager, (d)-(e) B1 at
-    D 196 and B2 / B3 at d 196 against their plain versions, (f) C6."""
+    diagonal reference (B1's diagonal kernel at D 196) and on the default
+    full-covariance one (its wide kernel), (g) the loops with an autograd
+    score (the 'nn' conv energy, the target-informed UNet) as CUDA graphs,
+    (d)-(e) B1 at D 196 and B2 / B3 at d 196 against their plain versions,
+    (f) C6: the wide kernel at D 129 and past the narrow limits."""
     t15 = time.perf_counter()
     out = {"target": phase_mnist_target(dev), "nets": phase_mnist_nets(dev)}
     say(f"[phase 15] (c) sample_mnist_unet cut to {' '.join(MNIST_CUT)} (the driver's 20 000 "
@@ -4401,11 +4509,14 @@ def phase_mnist(dev, recs, path_counts) -> dict:
     _, out["cell_fouriermlp_diag"], diag_solver = run_mnist_cell(
         dev, "mnist_fouriermlp_diag", MNIST_CUT + ["--model_type", "base_zero_init",
                                                    "--em_type", "diag"], path_counts)
+    _, out["cell_fouriermlp_full"], full_solver = run_mnist_cell(
+        dev, "mnist_fouriermlp_full", MNIST_CUT + ["--model_type", "base_zero_init"],
+        path_counts)
     out["autograd_loops"] = phase_mnist_autograd_loops(dev)
-    sk = phase_mnist_b1_sinkhorn(dev, diag_solver, recs)
+    sk = phase_mnist_b1_sinkhorn(dev, diag_solver, full_solver, recs)
     timing = sk.pop("timing")
     out["kernels"] = sk
-    out["c6"] = phase_c6(dev, path_counts)
+    out["c6"] = phase_c6(dev, path_counts, recs["fused_traj_wide"])
     out["phase_s"] = time.perf_counter() - t15
     say(f"[phase 15] took {out['phase_s']:.1f} s")
     return out, timing
@@ -4612,6 +4723,12 @@ def main(argv=None) -> int:
                                 "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:396",
                                 "mode": "f32, eigen-factored full-covariance reference",
                                 "library_ms": None},
+        "fused_traj_wide": {"route": "cuda", "source": "sde_sampler_lrds_torch/csrc/fused_traj.cu",
+                            "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:331",
+                            "mode": "f32 or bf16, either reference, past the narrow kernels' "
+                                    "widths (D > 128 full covariance, diagonal past shared "
+                                    "memory, H > 256, > 8 hidden layers)",
+                            "library_ms": None},
         "fused_traj_bf16": {"route": "cuda", "source": "sde_sampler_lrds_torch/csrc/fused_traj.cu",
                             "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:380",
                             "mode": "bf16 control MLP, diagonal or full-covariance reference",
@@ -4693,8 +4810,8 @@ def main(argv=None) -> int:
     # the MNIST shapes' entries: their launches on the MNIST paths (B1 at
     # D 196 on the FourierMLP diagonal cell, B2 / B3 in every MNIST cell)
     mnist_paths = [p for p in path_counts if p.startswith("mnist_")]
-    for kname, key in (("fused_traj", "mnist_d196_c2"), ("sinkhorn_lse", "mnist_d196"),
-                       ("transport_cost", "mnist_d196")):
+    for kname, key in (("fused_traj", "mnist_d196_c2"), ("fused_traj_wide", "mnist_d196_c2_full"),
+                       ("sinkhorn_lse", "mnist_d196"), ("transport_cost", "mnist_d196")):
         sub = recs[kname][key]
         sub["launches_by_path"] = {p: path_counts[p][kname] for p in mnist_paths}
         sub["launches"] = sum(sub["launches_by_path"].values())

@@ -97,6 +97,19 @@
 // NVIDIA H100 80GB HBM3, 700 W): 3.65 ms at B 1024 with fed noise and
 // states, 7.73 ms at B 8192 with its own noise, against 7.06 / 13.23 ms
 // before.
+// The wide kernel (traj_kernel_wide) runs every plan past those two
+// kernels' limits (D > 128 with a full-covariance reference, a diagonal
+// one past their shared memory, H > 256, more than 8 hidden layers), so
+// that the port takes every width the TPU kernel does: the TPU kernel
+// holds the weights and the (C, D, D) rotations in VMEM, the wide kernel
+// only its trajectories' rows in shared memory. A block of tb trajectories
+// (a multiple of R up to TB, picked by the host to cover the SMs and to fit
+// the rows) keeps state, control, noise, score and two hidden rows per
+// trajectory there and reads the MLP weights and P_c, P_cᵀ from global
+// memory through the read-only path, every product on R × 4 register
+// tiles; the reductions, the online softmax and the update are traj_body's.
+// It is the first, simple design: what bounds it is the L1 / L2 traffic of
+// the weight and rotation reads, one per register tile per block-step.
 // Shared memory per block, in floats, each region padded to 16 bytes:
 //   full-covariance mode (traj_kernel_full):
 //     D·H + H + n_h·H² + n_h·H + H·D + D   weights and biases
@@ -113,7 +126,13 @@
 //                                          and the MLP's input row
 //   = 41 440 bytes at D = 8 with one warp of one trajectory (59 296 with 8
 //   warps of 4), 90 752 at D = 100, and shared memory caps D at 364 for
-//   H = 64, n_h = 2; the lanes' registers cap it at 512.
+//   H = 64, n_h = 2; the lanes' registers cap it at 512;
+//   wide kernel (traj_kernel_wide), tb trajectories:
+//     4·tb·D + 2·tb·H                      state, control, noise, score;
+//                                          hidden rows
+//     + 3·TB + 2·D + 1                     softmax factors, the step's rows
+//   = 60 336 bytes at D = 196, H = 64, tb = 16; tb = 4 caps D at 3194 for
+//   H = 64.
 //
 // The bf16 control mode (FourierMLP with compute_dtype = bfloat16, Flax
 // Dense semantics) takes the seven MLP tables (embed, w0, b0, wh, bh, w_out,
@@ -186,6 +205,7 @@ struct Params {
   unsigned long long seed;
   int B, K, D, H, n_hidden, C, has_clip;
   float clip;
+  int tb;                  // trajectories per block of the wide kernel, else 0
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -403,26 +423,31 @@ struct Ring {
 };
 
 // acc[r][q] += Σ_{i < rows} x[r·ldx + i]·w[i·ldw + q] for a register tile of
-// R trajectories × JT columns (JT 4 or 2), x and w in shared memory; each sum
-// runs over i in order. VEC: ldx, ldw, x and w 4-aligned and rows % 4 == 0
-// (x read as float4s along i, a row of the tile as one float4 or float2);
-// else scalar reads, the columns past `cols` reading column cols − 1, whose
-// sums are discarded.
-template <bool VEC, int JT>
+// R trajectories × JT columns (JT 4 or 2), x in shared memory and w in shared
+// memory, or with GLOBAL_W in global memory read through the read-only path;
+// each sum runs over i in order. VEC: ldx, ldw, x and w 4-aligned and
+// rows % 4 == 0 (x read as float4s along i, a row of the tile as one float4
+// or float2); else scalar reads, the columns past `cols` reading column
+// cols − 1, whose sums are discarded.
+template <bool VEC, int JT, bool GLOBAL_W = false>
 __device__ __forceinline__ void tile_fma(float (&acc)[R][JT], const float* __restrict__ x,
                                          int ldx, const float* __restrict__ w, int ldw,
                                          int rows, int cols) {
   auto wrow = [&](int i, float (&wv)[JT]) {
-    const float* wi = w + i * ldw;
+    const float* wi = w + (size_t)i * ldw;
     if constexpr (VEC && JT == 4) {
-      const float4 t = *reinterpret_cast<const float4*>(wi);
+      const float4 t = GLOBAL_W ? __ldg(reinterpret_cast<const float4*>(wi))
+                                : *reinterpret_cast<const float4*>(wi);
       wv[0] = t.x, wv[1] = t.y, wv[2] = t.z, wv[3] = t.w;
     } else if constexpr (VEC && JT == 2) {
-      const float2 t = *reinterpret_cast<const float2*>(wi);
+      const float2 t = GLOBAL_W ? __ldg(reinterpret_cast<const float2*>(wi))
+                                : *reinterpret_cast<const float2*>(wi);
       wv[0] = t.x, wv[1] = t.y;
     } else {
 #pragma unroll
-      for (int q = 0; q < JT; ++q) wv[q] = wi[min(q, cols - 1)];
+      for (int q = 0; q < JT; ++q) {
+        wv[q] = GLOBAL_W ? __ldg(wi + min(q, cols - 1)) : wi[min(q, cols - 1)];
+      }
     }
   };
   auto fma_row = [&](int r, float xv, const float (&wv)[JT]) {
@@ -1180,6 +1205,259 @@ __global__ void __launch_bounds__(NT, 1) traj_kernel_full(const Params p) {
   traj_body<BF16>(p);
 }
 
+// ---------------------------------------------------------------------------
+// The wide kernel: widths past the other two kernels' limits
+// ---------------------------------------------------------------------------
+
+// Shared-memory floats for one block of the wide kernel with tb
+// trajectories: state, control, noise and score rows, two hidden rows, the
+// per-trajectory softmax factors and the step's reference rows.
+__host__ __device__ inline int wide_smem_floats(int D, int H, int tb) {
+  return 4 * round4(tb * D) + 2 * round4(tb * H) + 3 * TB + round4(2 * D + 1);
+}
+
+// out[b][j] = epilogue(Σ_i in[b][i]·W[i][j]) for the tb rows of a wide
+// block: in and out in shared memory, W (n_in × n_out, row-major), bias and
+// extra (or null) in global memory, all f32. Work item o is the register
+// tile of R trajectories (o / nq) × 4 columns (o % nq), so a warp's threads
+// read neighbouring columns of one weight row and broadcast one input row.
+// The epilogue is dense_tiled's: bias (+ extra), gelu where GELU, the bf16
+// mode's rounding points where BF16.
+template <bool GELU, bool BF16, bool VEC>
+__device__ void wide_dense(const float* __restrict__ in, int n_in, const float* __restrict__ W,
+                           const float* __restrict__ bias, const float* __restrict__ extra,
+                           int n_out, float* __restrict__ out, int tb) {
+  const int nq = (n_out + 3) / 4, items = (tb / R) * nq;
+  for (int o = threadIdx.x; o < items; o += NT) {
+    const int g = o / nq, j0 = (o % nq) * 4, cols = min(4, n_out - j0);
+    float acc[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
+    }
+    tile_fma<VEC, 4, true>(acc, in + g * R * n_in, n_in, W + j0, n_out, n_in, cols);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q >= cols) break;
+      const int j = j0 + q;
+      float bj = bias != nullptr ? __ldg(bias + j) : 0.0f;
+      const float ej = extra != nullptr ? __ldg(extra + j) : 0.0f;
+      if constexpr (!BF16) bj += ej;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float v;
+        if constexpr (BF16) {
+          v = round_bf16(round_bf16(acc[r][q]) + bj);
+          if (extra != nullptr) v = round_bf16(v + ej);
+          if (GELU) v = round_bf16(gelu_tanh(v));
+        } else {
+          v = acc[r][q] + bj;
+          if (GELU) v = gelu_tanh(v);
+        }
+        out[(g * R + r) * n_out + j] = v;
+      }
+    }
+  }
+}
+
+// wide_dense with float4 reads where both widths are multiples of 4 and W
+// is 16-byte aligned.
+template <bool GELU, bool BF16>
+__device__ void wide_layer(const float* in, int n_in, const float* W, const float* bias,
+                           const float* extra, int n_out, float* out, int tb) {
+  if (((n_in | n_out) & 3) == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0) {
+    wide_dense<GELU, BF16, true>(in, n_in, W, bias, extra, n_out, out, tb);
+  } else {
+    wide_dense<GELU, BF16, false>(in, n_in, W, bias, extra, n_out, out, tb);
+  }
+}
+
+// The wide kernel: a block of NT threads owns tb trajectories (a multiple
+// of R up to TB, picked by the host) for all K steps, in either reference
+// mode, with no limit on D, H or the hidden layers but the tb rows'
+// shared memory. Only the trajectories' rows live in shared memory; the
+// MLP weights and the rotations P_c, P_cᵀ are read from global memory
+// through the read-only path (L1 and L2 hold them: every block reads the
+// same tables), so the per-block footprint grows with D and H, not D² or
+// H². Every product runs on R × 4 register tiles (wide_dense); the
+// reductions, the online softmax and the update follow traj_body, warp w
+// taking trajectories w, w + NW, ... The MLP tables are f32 (the host
+// widens a bf16 plan's tables exactly) and BF16 selects the bf16 mode's
+// rounding points.
+template <bool BF16, bool FULL>
+__global__ void __launch_bounds__(NT, 2) traj_kernel_wide(const Params p) {
+  constexpr int TPW_MAX = TB / NW;   // trajectories a warp reduces, at most
+  extern __shared__ float4 smem4[];
+  float* s = reinterpret_cast<float*>(smem4);
+  const int D = p.D, H = p.H, nh = p.n_hidden, C = p.C, B = p.B, tb = p.tb;
+  const int TD = tb * D;
+  float* xt = s;                  s += round4(TD);  // state     [b][d]
+  float* ut = s;                  s += round4(TD);  // control   [b][d]
+  float* zt = s;                  s += round4(TD);  // noise     [b][d]
+  float* rt = s;                  s += round4(TD);  // ref score [b][d]
+  float* hA = s;                  s += round4(tb * H);
+  float* hB = s;                  s += round4(tb * H);
+  float* f_scale = s;             s += TB;
+  float* f_wgt = s;               s += TB;
+  float* f_norm = s;              s += TB;
+  float* rows = s;                                  // m_kc, iv_kc, const_kc
+  // the reference score's scratch, as in traj_body
+  float* dt = ut;
+  float* yt = zt;
+  const float* w0 = static_cast<const float*>(p.w0);
+  const float* b0 = static_cast<const float*>(p.b0);
+  const float* wh = static_cast<const float*>(p.wh);
+  const float* bh = static_cast<const float*>(p.bh);
+  const float* wo = static_cast<const float*>(p.w_out);
+  const float* bo = static_cast<const float*>(p.b_out);
+  const float* embed = static_cast<const float*>(p.embed);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int base = blockIdx.x * tb, valid = min(tb, B - base);
+  for (int o = tid; o < TD; o += NT) {
+    xt[o] = o < valid * D ? p.x0[(size_t)base * D + o] : 0.0f;
+  }
+  float rnd[TPW_MAX], mx[TPW_MAX], sw[TPW_MAX];
+#pragma unroll
+  for (int i = 0; i < TPW_MAX; ++i) rnd[i] = mx[i] = sw[i] = 0.0f;
+  __syncthreads();
+
+  for (int k = 0; k < p.K; ++k) {
+    // the step's coefficients, and its pre-step states out
+    const float* cf = p.coefs + 6 * k;
+    if (p.xs_out != nullptr) {
+      float* xs = p.xs_out + ((size_t)k * B + base) * D;
+      for (int o = tid; o < valid * D; o += NT) xs[o] = xt[o];
+    }
+    // ---- reference score of the noised MoG: online softmax over C ------
+    for (int c = 0; c < C; ++c) {
+      const size_t row = ((size_t)k * C + c) * D;
+      for (int e = tid; e <= 2 * D; e += NT) {
+        rows[e] = e < D       ? __ldg(p.ref_m + row + e)
+                  : e < 2 * D ? __ldg(p.ref_iv + row + e - D)
+                              : __ldg(p.ref_const + (size_t)k * C + c);
+      }
+      __syncthreads();
+      {
+        TileIter it(D);
+        for (int o = tid; o < TD; o += NT, it.advance()) dt[o] = xt[o] - rows[it.d];
+      }
+      __syncthreads();
+      float* ys = dt;
+      if constexpr (FULL) {  // y = (x − m)·P_c
+        wide_layer<false, false>(dt, D, p.ref_p + (size_t)c * D * D, nullptr, nullptr, D, yt,
+                                 tb);
+        __syncthreads();
+        ys = yt;
+      }
+      // y ← y·iv in place; logit = const − ½ Σ y²·iv
+#pragma unroll
+      for (int i = 0; i < TPW_MAX; ++i) {
+        const int b = warp + i * NW;
+        if (b >= tb) break;
+        float q = 0.0f;
+        for (int d = lane; d < D; d += 32) {
+          const float v = ys[b * D + d], sv = v * rows[D + d];
+          ys[b * D + d] = sv;
+          q = fmaf(v, sv, q);
+        }
+        for (int off = 16; off > 0; off >>= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
+        softmax_step(c, C, rows[2 * D] - 0.5f * q, mx[i], sw[i], lane, b, f_scale, f_wgt,
+                     f_norm);
+      }
+      __syncthreads();
+      const float* gt = ys;
+      if constexpr (FULL) {  // g = (y·iv)·P_cᵀ
+        wide_layer<false, false>(yt, D, p.ref_pt + (size_t)c * D * D, nullptr, nullptr, D, dt,
+                                 tb);
+        __syncthreads();
+        gt = dt;
+      }
+      {
+        TileIter it(D);
+        for (int o = tid; o < TD; o += NT, it.advance()) {
+          const int b = it.b;
+          float v = c == 0 ? f_wgt[b] * gt[o] : fmaf(f_wgt[b], gt[o], rt[o] * f_scale[b]);
+          if (c == C - 1) v *= f_norm[b];
+          rt[o] = v;
+        }
+      }
+      __syncthreads();
+    }
+    // ---- control u = clip(FourierMLP(t_k, x)) -------------------------
+    const float* xin = xt;
+    if constexpr (BF16) {
+      for (int o = tid; o < TD; o += NT) ut[o] = round_bf16(xt[o]);
+      __syncthreads();
+      xin = ut;
+    }
+    wide_layer<true, BF16>(xin, D, w0, b0, embed + (size_t)k * H, H, hA, tb);
+    __syncthreads();
+    float* hin = hA;
+    float* hout = hB;
+    for (int l = 0; l < nh; ++l) {
+      wide_layer<true, BF16>(hin, H, wh + (size_t)l * H * H, bh + (size_t)l * H, nullptr, H,
+                             hout, tb);
+      __syncthreads();
+      float* tmp = hin;
+      hin = hout;
+      hout = tmp;
+    }
+    wide_layer<false, BF16>(hin, H, wo, bo, nullptr, D, ut, tb);
+    __syncthreads();
+    // ---- noise + state update ------------------------------------------
+    const float a_x = __ldg(cf + 0), a_ref = __ldg(cf + 1), a_u = __ldg(cf + 2);
+    const float a_z = __ldg(cf + 3);
+    {
+      TileIter it(D);
+      for (int o = tid; o < TD; o += NT, it.advance()) {
+        float u = ut[o];
+        if (p.has_clip) {
+          u = fminf(fmaxf(u, -p.clip), p.clip);
+          ut[o] = u;
+        }
+        float z = 0.0f;
+        if (p.noise != nullptr) {
+          if (it.b < valid) z = __ldg(p.noise + ((size_t)k * B + base) * D + o);
+        } else {
+          z = philox_normal(p.seed, k, base + it.b, it.d);
+        }
+        zt[o] = z;
+        xt[o] = a_x * xt[o] + a_ref * rt[o] + a_u * u + a_z * z;
+      }
+    }
+    __syncthreads();
+    // ---- RND increment ---------------------------------------------------
+    const float c_cost = __ldg(cf + 4), c_dot = __ldg(cf + 5);
+#pragma unroll
+    for (int i = 0; i < TPW_MAX; ++i) {
+      const int b = warp + i * NW;
+      if (b >= tb) break;
+      float uu = 0.0f, uz = 0.0f;
+      for (int d = lane; d < D; d += 32) {
+        const float u = ut[b * D + d];
+        uu = fmaf(u, u, uu);
+        uz = fmaf(u, zt[b * D + d], uz);
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        uu += __shfl_xor_sync(0xffffffffu, uu, off);
+        uz += __shfl_xor_sync(0xffffffffu, uz, off);
+      }
+      rnd[i] = rnd[i] + c_cost * 0.5f * uu + c_dot * uz;
+    }
+    __syncthreads();  // the next step's reference score overwrites ut, zt
+  }
+
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < TPW_MAX; ++i) {
+      const int b = warp + i * NW;
+      if (b < valid) p.rnd_out[base + b] = rnd[i];
+    }
+  }
+  for (int o = tid; o < valid * D; o += NT) p.x_out[(size_t)base * D + o] = xt[o];
+}
+
 }  // namespace
 
 extern "C" {
@@ -1193,15 +1471,24 @@ int fused_traj_smem_bytes(int D, int H, int n_hidden, int full, int warps, int t
   return (int)(sizeof(float) * (size_t)floats);
 }
 
+// Dynamic shared memory of one block of the wide kernel with tb
+// trajectories, in bytes.
+int fused_traj_wide_smem_bytes(int D, int H, int tb) {
+  return (int)(sizeof(float) * (size_t)wide_smem_floats(D, H, tb));
+}
+
 const char* fused_traj_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for inputs the kernels do not take. ref_p and ref_pt
-// are both null (diagonal mode) or both set (full-covariance mode); the
-// seven MLP tables (embed .. b_out) are f32, or __nv_bfloat16 when bf16 is
-// non-zero. The diagonal mode runs on the geometry (tw trajectories a warp,
+// are both null (diagonal mode) or both set (full-covariance mode). With tb
+// non-zero the wide kernel runs, tb trajectories a block (a multiple of R
+// up to TB) on `blocks` blocks, its seven MLP tables f32 in either mode
+// (bf16 selects the bf16 rounding points); tw and warps are 0. Else the
+// seven tables (embed .. b_out) are f32, or __nv_bfloat16 when bf16 is
+// non-zero; the diagonal mode runs on the geometry (tw trajectories a warp,
 // warps a block, blocks) the caller picked, checked by diag_geometry_ok;
 // the full-covariance mode has its own fixed tile and takes zeros there.
 int fused_traj_launch(const float* x0, const float* coefs, const void* embed,
@@ -1213,30 +1500,39 @@ int fused_traj_launch(const float* x0, const float* coefs, const void* embed,
                       unsigned long long seed, float* x_out, float* rnd_out,
                       float* xs_out, int B, int K, int D, int H, int n_hidden,
                       int C, int bf16, int has_clip, float clip, int tw, int warps,
-                      int blocks, void* stream) {
+                      int blocks, int tb, void* stream) {
   if ((ref_p == nullptr) != (ref_pt == nullptr)) return (int)cudaErrorInvalidValue;
   const bool full = ref_p != nullptr;
-  if (full && (D > MAX_FULL_D || tw != 0 || warps != 0 || blocks != 0)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (!full && !diag_geometry_ok(B, D, H, tw, warps, blocks)) return (int)cudaErrorInvalidValue;
   Params p{x0,     coefs,  embed,   w0,     b0,       wh,    bh,
            w_out,  b_out,  ref_const, ref_m, ref_iv,  ref_p, ref_pt,
            noise,  x_out,  rnd_out, xs_out, seed,     B,     K,
-           D,      H,      n_hidden, C,     has_clip, clip};
-  const int smem = fused_traj_smem_bytes(D, H, n_hidden, full, warps, tw);
+           D,      H,      n_hidden, C,     has_clip, clip,  tb};
+  int smem, threads = NT;
   void (*kernel)(Params);
-  if (full) {
+  if (tb != 0) {
+    if (tb < R || tb > TB || tb % R != 0 || tw != 0 || warps != 0 || B < 1 || D < 1 ||
+        H < 1 || blocks != (B + tb - 1) / tb) {
+      return (int)cudaErrorInvalidValue;
+    }
+    smem = fused_traj_wide_smem_bytes(D, H, tb);
+    kernel = bf16 ? (full ? traj_kernel_wide<true, true> : traj_kernel_wide<true, false>)
+                  : (full ? traj_kernel_wide<false, true> : traj_kernel_wide<false, false>);
+  } else if (full) {
+    if (D > MAX_FULL_D || tw != 0 || warps != 0 || blocks != 0) return (int)cudaErrorInvalidValue;
+    smem = fused_traj_smem_bytes(D, H, n_hidden, 1, 0, 0);
     kernel = bf16 ? traj_kernel_full<true> : traj_kernel_full<false>;
     blocks = (B + TB - 1) / TB;
   } else {
+    if (!diag_geometry_ok(B, D, H, tw, warps, blocks)) return (int)cudaErrorInvalidValue;
+    smem = fused_traj_smem_bytes(D, H, n_hidden, 0, warps, tw);
     const int elems = (D + 32 / tw - 1) / (32 / tw);
     kernel = bf16 ? diag_kernel<true>(tw, elems) : diag_kernel<false>(tw, elems);
+    threads = 32 * warps;
   }
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, full ? NT : 32 * warps, smem, (cudaStream_t)stream>>>(p);
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

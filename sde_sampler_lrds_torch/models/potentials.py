@@ -244,12 +244,6 @@ class GMMTiltedPotential(nn.Module):
             g = vjp(torch.ones_like(out))
         return e, g / c_i
 
-    @property
-    def score_by_autograd(self) -> bool:
-        """Whether the score goes through autograd (an energy net other than
-        a float32 FourierMLP)."""
-        return not _mlp_by_hand(self.base_model)
-
     def unnorm_log_prob_and_grad(self, t, x, scaling_factor=1.0):
         """(−E(t, x), −∇ₓE(t, x)); the gradient needs no autograd for a
         float32 FourierMLP energy net."""
@@ -288,8 +282,6 @@ class BetterPotentialCtrl(nn.Module):
     """Gaussian-prior-tilted neural energy with Karras input scaling:
     E = ½‖x_scaled‖² + c(t)·E_NN(t, x_scaled) (``energy_type`` 'dot',
     'sq_norm', 'residual_sq_norm' or 'sum'); the score by autograd."""
-
-    score_by_autograd = True
 
     def __init__(self, base_model: nn.Module, sde, data_mean, data_scalar_var,
                  energy_type: str = "sq_norm", use_gaussian_prior: bool = True,
@@ -357,10 +349,6 @@ class DRLWrapper(nn.Module):
         super().__init__()
         self.net = net
 
-    @property
-    def score_by_autograd(self) -> bool:
-        return getattr(self.net, "score_by_autograd", True)
-
     def unnorm_log_prob(self, t, x, scaling_factor=1.0):
         return self.net.unnorm_log_prob(t, scaling_factor * x, scaling_factor=scaling_factor)
 
@@ -394,10 +382,6 @@ class EBMAnatomyTrick(nn.Module):
     def find_factor(self, t, x):
         idx = torch.searchsorted(self.times, _per_row(t, x.shape[0], x).contiguous())
         return self.step_sizes[torch.clamp(idx, 0, self.step_sizes.numel() - 1)]
-
-    @property
-    def score_by_autograd(self) -> bool:
-        return getattr(self.net, "score_by_autograd", True)
 
     def unnorm_log_prob(self, t, x, scaling_factor=1.0):
         return self.net.unnorm_log_prob(t, x, scaling_factor=scaling_factor) / self.find_factor(t, x)

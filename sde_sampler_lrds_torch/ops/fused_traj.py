@@ -25,7 +25,10 @@ hand-written kernel ``csrc/fused_traj.cu``, on a CPU tensor it runs
 ``fused_traj_plain``, the same arithmetic as a Python loop of torch ops.
 The diagonal mode's kernel gives each warp a few trajectories for all K
 steps; ``diag_geometry`` picks how many, and how many warps a block has, so
-that the grid covers the card's SMs.
+that the grid covers the card's SMs. A plan past these narrow kernels'
+limits (``limit_error``) runs on the wide kernel (``uses_wide``), which
+keeps only its trajectories' rows in shared memory (``wide_rows`` picks 4
+to 32 a block) and reads the weights and rotations from global memory.
 The public layout is row-major: x0 (B, D), noise (K, B, D); returns
 x_T (B, D), rnd (B,) and, with ``return_traj``, the pre-step states
 xs (K, B, D).
@@ -56,23 +59,29 @@ from ._build import load_library
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
-# the kernel's design limits (csrc/fused_traj.cu): hidden width and hidden
-# layers; the state width D is bounded by the block's shared memory, checked
-# against the card's per-block limit (D ≤ 364 at H = 64 with 2 hidden
-# layers in the diagonal mode), and in the diagonal mode by the _DIAG_ELEMS
-# dimensions a lane holds in registers: D ≤ MAX_DIAG_DIM = 512 at one
-# trajectory a warp. The full-covariance mode's ring
-# of _RING_STAGES panels of _ring_rows(D) rows of P and the step's m, iv
-# and const rows add about 4·(2·_ring_rows(D)·D + 2·D) bytes (D ≤ 131 by
-# shared memory), and its rotations give each thread one register tile of
-# 4 columns, each warp 32 of them: D ≤ MAX_FULL_COV_DIM = 128. Steps K
-# and components C have no upper limit (their per-step tables are read from
-# global memory, the rotations stream through the ring one panel at a time,
-# the softmax over C is online); both must be ≥ 1.
+# the narrow kernels' design limits (csrc/fused_traj.cu): hidden width and
+# hidden layers; the state width D is bounded by the block's shared memory,
+# checked against the card's per-block limit (D ≤ 364 at H = 64 with 2
+# hidden layers in the diagonal mode), and in the diagonal mode by the
+# _DIAG_ELEMS dimensions a lane holds in registers: D ≤ MAX_DIAG_DIM = 512
+# at one trajectory a warp. The full-covariance mode's ring of _RING_STAGES
+# panels of _ring_rows(D) rows of P and the step's m, iv and const rows add
+# about 4·(2·_ring_rows(D)·D + 2·D) bytes (D ≤ 131 by shared memory), and
+# its rotations give each thread one register tile of 4 columns, each warp
+# 32 of them: D ≤ MAX_FULL_COV_DIM = 128. Steps K and components C have no
+# upper limit (their per-step tables are read from global memory, the
+# rotations stream through the ring one panel at a time, the softmax over C
+# is online); both must be ≥ 1. A plan past these limits runs on the wide
+# kernel (traj_kernel_wide), which keeps only _WIDE_ROWS_MIN.._TB
+# trajectories' rows in shared memory and reads the weights and rotations
+# from global memory: its one limit is those rows' shared memory (D ≤ 3194
+# at H = 64, beyond the TPU kernel's, which holds every weight and the
+# (C, D, D) rotations in VMEM).
 MAX_CHANNELS, MAX_HIDDEN = 256, 8
 MAX_FULL_COV_DIM = 128
 MAX_SMEM_BYTES = 232_448
-_TB = 32  # trajectories per block of the full-covariance mode
+_TB = 32  # trajectories per block of the full-covariance mode; most of the wide one
+_WIDE_ROWS_MIN = 4  # trajectories of one register tile (R): the wide kernel's least block
 _RING_STAGES, _RING_MAX_ROWS = 2, 48
 # the diagonal mode's kernel (traj_kernel_diag): at most _DIAG_MAX_WARPS warps
 # a block and two blocks an SM (128 registers a thread), so up to
@@ -117,6 +126,30 @@ def smem_bytes(dim: int, channels: int, n_hidden: int, full_cov: bool,
     floats = (weights + 2 * _TB * h + 4 * _round4(_TB * d) + 3 * _TB
               + _RING_STAGES * _ring_rows(d) * d + _round4(2 * d + 1))
     return 4 * floats
+
+
+def wide_smem_bytes(dim: int, channels: int, rows: int) -> int:
+    """Dynamic shared memory of one block of the wide kernel holding
+    ``rows`` trajectories, in bytes: the host-side mirror of
+    ``fused_traj_wide_smem_bytes`` (state, control, noise and score rows,
+    two hidden rows, the softmax factors, the step's reference rows)."""
+    d, h = dim, channels
+    return 4 * (4 * _round4(rows * d) + 2 * _round4(rows * h) + 3 * _TB + _round4(2 * d + 1))
+
+
+def wide_rows(batch: int, dim: int, channels: int, n_sms: int) -> int:
+    """Trajectories a block of the wide kernel owns: enough blocks to cover
+    the card's SMs (⌈B / n_sms⌉ rounded up to a register tile of 4, at most
+    32), fewer while the block's rows exceed its shared memory."""
+    if batch < 1 or n_sms < 1:
+        raise ValueError(f"wide_rows: batch {batch} and n_sms {n_sms} must be positive")
+    tb = min(_TB, _round4(max(-(-batch // n_sms), _WIDE_ROWS_MIN)))
+    while tb > _WIDE_ROWS_MIN and wide_smem_bytes(dim, channels, tb) > MAX_SMEM_BYTES:
+        tb -= _WIDE_ROWS_MIN
+    if wide_smem_bytes(dim, channels, tb) > MAX_SMEM_BYTES:
+        raise ValueError(f"fused_traj kernel: dim {dim} and channels {channels} exceed the "
+                         f"shared memory of a wide block of {tb} trajectories")
+    return tb
 
 
 @dataclasses.dataclass(frozen=True)
@@ -372,9 +405,9 @@ def _step_coeffs(loss, ts, ito: bool = True):
 
 def build_plan(loss, ctrl_module, ts, differentiable: bool = False, ito: bool = True):
     """(cfg, arrays) for ``fused_traj``, or None when the (loss, control,
-    reference) triple is outside the kernel's scope or its plan beyond the
-    kernel's limits (``limit_error``: the solvers then run the loss's own
-    loop, whatever the device, and name that path). A loss without a
+    reference) triple is outside the kernel's scope. Any width is in scope:
+    a plan past the narrow kernels' limits (``limit_error``) runs on the
+    wide kernel (``uses_wide``). A loss without a
     reference (original DDS, discrete DIS, or an EM loss configured without
     one, as PIS is) runs on a one-component dummy table with zero inverse
     variances; a full-covariance reference gives a ``full_cov`` plan, a
@@ -404,8 +437,6 @@ def build_plan(loss, ctrl_module, ts, differentiable: bool = False, ito: bool = 
         ref = dict(ref_const=zeros(k, 1), ref_m=zeros(k, d), ref_iv=zeros(k, d))
     cfg = FusedTrajCfg(k_steps=k, n_comp=ref["ref_const"].shape[1],
                        full_cov="ref_p" in ref, **fields)
-    if limit_error(cfg) is not None:
-        return None   # past the kernel's limits: the caller runs the loss's own loop
     return cfg, dict(coefs=coefs, **arrays, **ref)
 
 
@@ -500,17 +531,20 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_traj_launch.argtypes = (
         [ptr] * 15 + [ctypes.c_ulonglong] + [ptr] * 3 + [i32] * 8
-        + [ctypes.c_float] + [i32] * 3 + [ptr])
+        + [ctypes.c_float] + [i32] * 4 + [ptr])
     lib.fused_traj_launch.restype = i32
     lib.fused_traj_smem_bytes.argtypes = [i32] * 6
     lib.fused_traj_smem_bytes.restype = i32
+    lib.fused_traj_wide_smem_bytes.argtypes = [i32] * 3
+    lib.fused_traj_wide_smem_bytes.restype = i32
     lib.fused_traj_error_string.argtypes = [i32]
     lib.fused_traj_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def limit_error(cfg: FusedTrajCfg) -> str | None:
-    """Why cfg lies beyond the kernel's design limits, or None within them."""
+    """Why cfg lies beyond the narrow kernels' design limits
+    (traj_kernel_diag, traj_kernel_full), or None within them."""
     if cfg.dim < 1:
         return f"dim {cfg.dim} must be at least 1"
     if not 1 <= cfg.channels <= MAX_CHANNELS:
@@ -535,10 +569,31 @@ def limit_error(cfg: FusedTrajCfg) -> str | None:
 
 
 def check_limits(cfg: FusedTrajCfg) -> None:
-    """Raise when cfg lies beyond the kernel's design limits."""
+    """Raise when cfg lies beyond the narrow kernels' design limits."""
     why = limit_error(cfg)
     if why is not None:
         raise ValueError(f"fused_traj kernel: {why}")
+
+
+def uses_wide(cfg: FusedTrajCfg) -> bool:
+    """Whether cfg runs on the wide kernel: past the narrow kernels' limits."""
+    return limit_error(cfg) is not None
+
+
+def wide_limit_error(cfg: FusedTrajCfg) -> str | None:
+    """Why the wide kernel refuses cfg, or None where it takes it: its one
+    limit past the arguments' ranges is that a block of 4 trajectories' rows
+    fit the card's shared memory."""
+    if cfg.dim < 1 or cfg.channels < 1 or cfg.n_hidden < 0:
+        return f"dim {cfg.dim}, channels {cfg.channels}, {cfg.n_hidden} hidden layers"
+    if cfg.n_comp < 1 or cfg.k_steps < 1:
+        return "needs a component and a step"
+    need = wide_smem_bytes(cfg.dim, cfg.channels, _WIDE_ROWS_MIN)
+    if need > MAX_SMEM_BYTES:
+        return (f"dim {cfg.dim} and channels {cfg.channels} need {need} bytes of shared "
+                f"memory for a wide block of {_WIDE_ROWS_MIN} trajectories, more than the "
+                f"card's {MAX_SMEM_BYTES}")
+    return None
 
 
 def fused_traj(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
@@ -568,14 +623,18 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
            noise: torch.Tensor | None, seed: int, return_traj: bool):
     """Check the inputs and launch the CUDA kernel on the current stream;
     with ``noise`` None the kernel draws its normals from ``seed``. Counts
-    each launch in ``fused_traj.launches``, each full-covariance one in
-    ``fused_traj.full_cov_launches`` and each bf16 one in
-    ``fused_traj.bf16_launches`` as well."""
+    each launch in ``fused_traj.launches``, and by kernel as well: each of
+    the wide kernel in ``fused_traj.wide_launches``, of the narrow
+    full-covariance one in ``fused_traj.full_cov_launches`` and each narrow
+    bf16 one in ``fused_traj.bf16_launches``."""
     if x0.device.type != "cuda":
         raise ValueError(f"the fused_traj kernel runs on cuda, got {x0.device}")
     lib = _library()
     b, d, k, h, c = x0.shape[0], cfg.dim, cfg.k_steps, cfg.channels, cfg.n_comp
-    check_limits(cfg)
+    wide = uses_wide(cfg)
+    why = wide_limit_error(cfg) if wide else None
+    if why is not None:
+        raise ValueError(f"fused_traj kernel: {why}")
     if x0.dtype != torch.float32 or x0.shape != (b, d):
         raise ValueError(f"x0 must be float32 of shape (B, {d})")
     nh = max(cfg.n_hidden, 1)
@@ -591,7 +650,8 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
         if t.device != x0.device or t.dtype != dtype or t.shape != shapes[name]:
             raise ValueError(f"table {name!r} must be {dtype} of shape "
                              f"{shapes[name]} on {x0.device}")
-        tables.append(t.contiguous())
+        # the wide kernel reads f32 tables: a bf16 plan's widen exactly
+        tables.append((t.float() if wide and dtype == torch.bfloat16 else t).contiguous())
     if not cfg.full_cov:
         tables += [None, None]            # no rotations: the diagonal mode
     x0 = x0.contiguous()
@@ -606,11 +666,14 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
           if return_traj else None)
     if b == 0:
         return x_out, rnd, xs
-    geometry = (0, 0, 0)
-    if not cfg.full_cov:
+    geometry = (0, 0, 0, 0)
+    if wide:
+        tb = wide_rows(b, d, h, _sm_count(x0.device))
+        geometry = (0, 0, -(-b // tb), tb)
+    elif not cfg.full_cov:
         geom = diag_geometry(b, d, h, cfg.n_hidden, _sm_count(x0.device))
         check_geometry(cfg, b, geom)
-        geometry = (geom.traj_per_warp, geom.warps_per_block, geom.blocks)
+        geometry = (geom.traj_per_warp, geom.warps_per_block, geom.blocks, 0)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     with torch.cuda.device(x0.device):
@@ -623,12 +686,14 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
         raise RuntimeError("fused_traj kernel launch failed: "
                            + lib.fused_traj_error_string(err).decode())
     fused_traj.launches += 1
-    fused_traj.full_cov_launches += int(cfg.full_cov)
-    fused_traj.bf16_launches += int(cfg.bf16)
+    fused_traj.wide_launches += int(wide)
+    fused_traj.full_cov_launches += int(cfg.full_cov and not wide)
+    fused_traj.bf16_launches += int(cfg.bf16 and not wide)
     return x_out, rnd, xs
 
 
 fused_traj.launches = 0
+fused_traj.wide_launches = 0
 fused_traj.full_cov_launches = 0
 fused_traj.bf16_launches = 0
 

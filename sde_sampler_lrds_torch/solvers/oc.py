@@ -147,25 +147,12 @@ class TrainableDiff(Trainable):
         """The simulation of the flat LV path, ``(x0, zs) -> (xs, x_T)``: the
         fused trajectory when the triple is in the kernel's scope; outside
         it, on the card, the loss's own loop (``flat_states``) replayed as a
-        CUDA graph unless the loop takes a score by autograd; else None
-        (lv_flat_call then runs the loop)."""
+        CUDA graph; on the CPU None (lv_flat_call then runs the loop)."""
         plan = build_plan(self.loss, self.generative_ctrl, self.train_ts)
         if plan is not None:
             cfg, arrays = plan
             return lambda x0, zs: fused_traj_states(cfg, arrays, x0, zs)
-        return self._graphed_states if self._loop_graphed() else None
-
-    def _loop_uses_autograd(self) -> bool:
-        """Whether the loss's loop takes a score by autograd: the control's
-        target score where the target has no analytic one (the MNIST NICE
-        mixture). A CUDA graph does not replay torch.autograd.grad's
-        backward pass faithfully (the card's phase 15 (g): 34 from the
-        loop), so such a loop runs eagerly; decided from the configuration."""
-        return (getattr(self.generative_ctrl, "target_score", None) is not None
-                and self.target.score_by_autograd)
-
-    def _loop_graphed(self) -> bool:
-        return self.device.type == "cuda" and not self._loop_uses_autograd()
+        return self._graphed_states if self.device.type == "cuda" else None
 
     def _graphed_states(self, x0: torch.Tensor, zs: torch.Tensor):
         """``loss.flat_states`` through a CUDA graph captured at the first
@@ -213,14 +200,13 @@ class TrainableDiff(Trainable):
         """Which training path ``loss_fn`` takes for the current config:
         'flat_lv_fused' (CUDA kernel) / 'flat_lv_plain' (its plain version on
         the CPU), 'flat_lv_graph' / 'flat_lv_scan' (the loss's own loop, as a
-        CUDA graph on the card / eagerly on the CPU, or on the card where
-        the loop takes a score by autograd), 'kl_fused' /
+        CUDA graph on the card / eagerly on the CPU), 'kl_fused' /
         'kl_plain' (the fused KL path, its forward the kernel / the plain
         version), or 'scan'."""
         if self._flat_lv_ok():
             if build_plan(self.loss, self.generative_ctrl, self.train_ts) is not None:
                 return self._fused_name("flat_lv_")
-            return "flat_lv_graph" if self._loop_graphed() else "flat_lv_scan"
+            return "flat_lv_graph" if self.device.type == "cuda" else "flat_lv_scan"
         if self._fused_kl_fn() is not None:
             return self._fused_name("kl_")
         return "scan"
@@ -319,7 +305,10 @@ class GraphedCall:
     static copies of its inputs (after two warm-up calls on a side stream)
     and replayed for each new pair: the inputs are copied in and the
     outputs copied out. The tensors ``fn`` reads besides its inputs (the
-    parameters, the time grid) are read by address at every replay."""
+    parameters, the time grid) are read by address at every replay. A score
+    that ``fn`` takes by autograd inside is captured with its backward pass
+    (bitwise equal to the eager call with cuDNN off; cuDNN's convolution
+    backward is not bitwise repeatable, in eager calls either)."""
 
     def __init__(self, fn, x0: torch.Tensor, zs: torch.Tensor):
         self.x0, self.zs = x0.detach().clone(), zs.detach().clone()
@@ -443,9 +432,6 @@ class CMCD(TrainableDiff):
         self.inference_sde = self.sde
         self.prior_fit = None
         super().setup_models()
-
-    def _loop_uses_autograd(self) -> bool:
-        return self.target.score_by_autograd or super()._loop_uses_autograd()
 
     def update_prior(self, mean, var):
         """Refit the Gaussian prior: full covariance for a (D, D) ``var``,
@@ -654,13 +640,6 @@ class RDS(TrainableDiff):
         kwargs = dict(self.loss_kwargs)
         kwargs["reference_ctrl"] = self.reference_score_t
         self.loss = self.loss_cls(sde=self.sde, **kwargs)
-
-    def _loop_uses_autograd(self) -> bool:
-        """Also an 'nn' reference whose potential scores by autograd (an
-        energy net other than a float32 FourierMLP, or a pair of callables)."""
-        net = self.reference_distr_utils.get("net") if self.ref_type == "nn" else None
-        return (super()._loop_uses_autograd()
-                or (net is not None and getattr(net, "score_by_autograd", True)))
 
     def change_reference_type(self, ref_type: str = "default", net=None, eps=None, mean=None,
                               var=None, means=None, variances=None, weights=None):

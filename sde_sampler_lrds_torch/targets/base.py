@@ -82,13 +82,6 @@ class Target:
             (g,) = torch.autograd.grad(self.unnorm_log_prob(y).sum(), y)
         return g
 
-    @property
-    def score_by_autograd(self) -> bool:
-        """Whether ``score`` differentiates the log-density by autograd (no
-        analytic score): a loop calling it is then not captured as a CUDA
-        graph."""
-        return type(self).score is Target.score
-
     def log_prob_and_score(self, x: torch.Tensor):
         """(unnorm_log_prob, score) in one call (shared by the MCMC kernels)."""
         return self.unnorm_log_prob(x), self.score(x)

@@ -226,8 +226,6 @@ class MixtureNice(ModeMetrics, Target):
     with ``normalize`` (u = (x + 1)/2, hence −d·log 2), and the digit
     classification of samples (the mode metrics)."""
 
-    score_by_autograd = True      # the flows' gradients
-
     def __init__(self, equilibrated: bool = False, normalize: bool = True,
                  digits=(0, 1, 2, 3, 4, 5, 6, 7, 8, 9), nice_dists=None, checkpoints=None,
                  means_data_path=None, local_minimums=None, dim: int = 196,

@@ -117,7 +117,7 @@ extern "C" int fused_traj_prof(unsigned long long* out, int reset) {
     lib = ctypes.CDLL(lib_path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_traj_launch.argtypes = ([ptr] * 15 + [ctypes.c_ulonglong] + [ptr] * 3
-                                      + [i32] * 8 + [ctypes.c_float] + [i32] * 3 + [ptr])
+                                      + [i32] * 8 + [ctypes.c_float] + [i32] * 4 + [ptr])
     lib.fused_traj_launch.restype = i32
     lib.fused_traj_error_string.argtypes = [i32]
     lib.fused_traj_error_string.restype = ctypes.c_char_p

@@ -1,13 +1,17 @@
-"""Widths past the port's kernel limits (ROADMAP C6), held against the JAX
-package on the CPU. The JAX package takes any width; the port's B1 kernel
-stops at D 128 with a full-covariance reference and at the block's shared
-memory with a diagonal one (D 364 at H 64 with two hidden layers), and its
-Sinkhorn kernels at d 224. Past those limits ``build_plan`` returns None
-and the solvers run the loss's own loop ('flat_lv_scan' / 'scan' here,
-'flat_lv_graph' / 'scan' on the card), and the Sinkhorn runs its plain
-versions on the tensors' device and records backend 'plain'. The routing
-is decided from the plan's shape before any launch: with the guard taken
-away, ``check_limits`` refuses the same plan.
+"""Widths past the port's narrow kernel limits (ROADMAP C6), held against
+the JAX package on the CPU. The JAX package takes any width; the port's
+narrow B1 kernels stop at D 128 with a full-covariance reference and at the
+block's shared memory with a diagonal one (D 364 at H 64 with two hidden
+layers), and past them ``build_plan`` still gives a plan, which the wide
+kernel runs (``uses_wide``: every trajectory's rows in shared memory, the
+weights and rotations read from global memory). The solvers keep the
+kernel's paths ('flat_lv_plain' / 'plain' here, 'flat_lv_fused' / 'fused'
+on the card). The wide kernel runs only on the card (chip_smoke.py phase
+15 (f) holds it against its plain version); here the plan's plain version
+is held against the JAX Pallas kernel in interpret mode at D 129, and its
+host geometry is checked. The Sinkhorn kernels stop at d 224; past it the
+Sinkhorn runs its plain versions on the tensors' device and records
+backend 'plain'.
 
 Tiny depth (K 6, batch 16); tolerances as tests/test_torch_experiments.py
 (losses and the evaluation's states and log-ratios 1e-4, the log-ratios'
@@ -18,6 +22,7 @@ the leaf's largest update).
 import copy
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,6 +32,7 @@ from sde_sampler_lrds_torch.eval import sinkhorn as t_sinkhorn
 from sde_sampler_lrds_torch.ops import fused_traj as t_ft
 from sde_sampler_lrds_torch.ops.sinkhorn_lse import MAX_DIM
 from sde_sampler_lrds_tpu.api import make_model, make_target_details
+from sde_sampler_lrds_tpu.ops import fused_traj as j_ft
 from sde_sampler_lrds_tpu.parallel.mesh import get_mesh
 
 K, B = 6, 16
@@ -81,35 +87,30 @@ def _args(dim: int, full: bool, loss_type: str = "lv") -> dict:
                 n_steps=K)
 
 
-def _unguarded_plan(monkeypatch, solver):
-    """The plan build_plan would make with the limit guard taken away."""
-    with monkeypatch.context() as m:
-        m.setattr(t_ft, "limit_error", lambda cfg: None)
-        return t_ft.build_plan(solver.loss, solver.generative_ctrl, solver.train_ts)
-
-
 @pytest.mark.parametrize("dim,full", [(FULL_DIM, True), (DIAG_DIM, False)],
                          ids=["full_cov_d129", "diagonal_first_past_limit"])
-def test_paths_past_the_kernel_limits(dim, full, monkeypatch):
+def test_paths_past_the_kernel_limits(dim, full):
     """D 129 with a full-covariance reference and the first diagonal D the
-    kernel refuses (364 + 1 at H 64, two hidden layers) take the loss's own
-    loop in training and evaluation (LV and KL), and check_limits refuses
-    the very plan the guard turned away."""
+    narrow kernels refuse (364 + 1 at H 64, two hidden layers) keep the
+    kernel's paths in training and evaluation (LV and KL): check_limits
+    refuses the plan, so it runs on the wide kernel, which takes it."""
     if not full:
         assert DIAG_DIM == 365
     t = t_make_model(device="cpu", **_args(dim, full))
     assert t.loss.reference_ctrl is not None
-    assert (t.train_path(), t.eval_path()) == ("flat_lv_scan", "scan")
-    assert t_ft.build_plan(t.loss, t.generative_ctrl, t.train_ts) is None
-    cfg, _ = _unguarded_plan(monkeypatch, t)
+    assert (t.train_path(), t.eval_path()) == ("flat_lv_plain", "plain")
+    cfg, _ = t_ft.build_plan(t.loss, t.generative_ctrl, t.train_ts)
     assert (cfg.dim, cfg.full_cov, cfg.channels, cfg.n_hidden) == (dim, full, 64, 2)
     with pytest.raises(ValueError, match="fused_traj kernel"):
         t_ft.check_limits(cfg)
+    assert t_ft.uses_wide(cfg) and t_ft.wide_limit_error(cfg) is None
     kl = t_make_model(device="cpu", **_args(dim, full, loss_type="kl"))
-    assert kl._fused_kl_fn() is None and kl.train_path() == "scan"
-    # one D less is inside the limits: the kernel's path, its plain version here
+    assert kl._fused_kl_fn() is not None and kl.train_path() == "kl_plain"
+    # one D less is inside the narrow kernels' limits: the same paths
     inside = t_make_model(device="cpu", **_args(dim - 1, full))
     assert (inside.train_path(), inside.eval_path()) == ("flat_lv_plain", "plain")
+    in_cfg, _ = t_ft.build_plan(inside.loss, inside.generative_ctrl, inside.train_ts)
+    assert not t_ft.uses_wide(in_cfg)
 
 
 def _perturbed(j, seed=3):
@@ -168,6 +169,81 @@ def test_step_and_eval_past_the_limits_match_jax(dim, full):
     # of a D-term float32 sum does
     np.testing.assert_allclose(N(got.rnd), np.asarray(want.rnd), rtol=1e-4,
                                atol=1e-4 * np.sqrt(dim / 3))
+    # the fused evaluation (the wide kernel's plan, its plain version here)
+    # under the same draws
+    cfg, arrays = t._fused_eval_plan()
+    assert t_ft.uses_wide(cfg)
+    samples, rnd = t_ft.fused_simulate(cfg, arrays, None, T(x0), noise=T(np.stack(zs)),
+                                       **t.loss_call_args())
+    np.testing.assert_allclose(N(samples), np.asarray(want.samples), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(N(rnd), np.asarray(want.rnd), rtol=1e-4,
+                               atol=1e-4 * np.sqrt(dim / 3))
+
+
+@pytest.mark.parametrize("dim,full", [(FULL_DIM, True), (DIAG_DIM, False)],
+                         ids=["full_cov_d129", "diagonal_first_past_limit"])
+def test_wide_plan_plain_matches_jax_kernel(dim, full):
+    """The TPU kernel takes these widths: the port's plan and its plain
+    version against the JAX plan and its Pallas kernel in interpret mode,
+    under fed noise, with the states (an O(1) control: the perturbed
+    parameters). Tolerance as tests/test_torch_fullcov.py's 1e-4, the
+    absolute part grown by √(D/8) from its D 8."""
+    args = _args(dim, full)
+    j = make_model(mesh=get_mesh(1), **args)
+    t = t_make_model(device="cpu", **args)
+    j.setup(jax.random.PRNGKey(0))
+    params = _perturbed(j)
+    t.setup(torch.Generator().manual_seed(0))
+    t.load_flax_params(jax.tree_util.tree_map(np.asarray, params))
+    cfg_j, arr_j = j_ft.build_plan(j.loss, j.generative_ctrl, j.ctrl_params(params),
+                                   j.train_ts, block_b=128)
+    cfg_t, arr_t = t_ft.build_plan(t.loss, t.generative_ctrl, t.train_ts)
+    assert (cfg_j.dim, cfg_j.full_cov) == (cfg_t.dim, cfg_t.full_cov) == (dim, full)
+    assert t_ft.uses_wide(cfg_t)
+    rng = np.random.default_rng(7)
+    x0 = rng.normal(size=(B, dim)).astype(np.float32)
+    noise = rng.normal(size=(K, B, dim)).astype(np.float32)
+    want = j_ft._fused_traj(cfg_j, arr_j, jnp.asarray(x0), jnp.asarray(noise), True, True)
+    got = t_ft.fused_traj(cfg_t, arr_t, T(x0), noise=T(noise), return_traj=True)
+    tol = dict(rtol=1e-4, atol=1e-4 * np.sqrt(dim / 8))
+    for name, g, w in zip(("x_T", "rnd", "xs"), got, want):
+        np.testing.assert_allclose(N(g), np.asarray(w), err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("batch", [1, 16, 256, 1000, 2048, 8192, 100_000])
+@pytest.mark.parametrize("dim,channels", [(129, 64), (196, 64), (365, 64), (500, 300),
+                                          (1500, 64), (3194, 64)])
+def test_wide_rows_cover_the_batch(batch, dim, channels):
+    """The wide kernel's block: a multiple of 4 trajectories (one register
+    tile) up to 32 whose rows fit the card's shared memory, as many blocks
+    as cover the card's 132 SMs where the batch allows it, and every
+    trajectory in exactly one block."""
+    tb = t_ft.wide_rows(batch, dim, channels, 132)
+    blocks = -(-batch // tb)
+    assert tb % 4 == 0 and 4 <= tb <= 32 and (blocks - 1) * tb < batch <= blocks * tb
+    assert t_ft.wide_smem_bytes(dim, channels, tb) <= t_ft.MAX_SMEM_BYTES
+    want = min(32, max(4, -(-(-(-batch // 132)) // 4) * 4))
+    assert tb == want or (tb < want and t_ft.wide_smem_bytes(dim, channels, tb + 4)
+                          > t_ft.MAX_SMEM_BYTES)
+
+
+def test_wide_smem_formula_and_limit():
+    """Four rows of tb·D (state, control, noise, score) and two of tb·H
+    (hidden), each padded to 16 bytes, 3·32 softmax factors and the step's
+    2·D + 1 reference entries padded so; the wide kernel's one limit is a
+    block of 4 trajectories: D 3194 at H 64, and past it launch refuses."""
+    assert t_ft.wide_smem_bytes(196, 64, 16) == 4 * (4 * 3136 + 2 * 1024 + 96 + 396)
+    assert t_ft.wide_smem_bytes(129, 64, 4) == 4 * (4 * 516 + 2 * 256 + 96 + 260)
+    cfg = lambda d: t_ft.FusedTrajCfg(k_steps=K, dim=d, channels=64, n_hidden=2, n_comp=2,
+                                      clip=None, full_cov=True)
+    assert t_ft.wide_limit_error(cfg(3194)) is None
+    assert "shared memory" in t_ft.wide_limit_error(cfg(3195))
+    with pytest.raises(ValueError, match="shared memory"):
+        t_ft.wide_rows(16, 3195, 64, 132)
+    # the narrow kernels' limits stand: channels and hidden layers past them
+    # go wide too
+    many = t_ft.FusedTrajCfg(k_steps=K, dim=8, channels=300, n_hidden=9, n_comp=1, clip=None)
+    assert t_ft.uses_wide(many) and t_ft.wide_limit_error(many) is None
 
 
 def test_sinkhorn_past_the_kernel_width_runs_the_plain_versions(monkeypatch):
