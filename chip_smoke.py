@@ -19,8 +19,9 @@ loop, the plain Sinkhorn), and checks the quality of each.
     python3 chip_smoke.py
 
 Phases:
-  1. card, versions, kernel build (one nvcc per source, all started
-     together) and each kernel instantiation's registers, stack and spills
+  1. card, versions, kernel build (one nvcc per source, fused_traj.cu's
+     three parts apart, all started together) and each kernel
+     instantiation's registers, stack and spills
   2. fused_traj kernel vs its plain version at the main path's shapes
      (fed noise, pre-step states; the diagonal kernel at batches 1, 33, 1000,
      1024, 4001, 8192 and 8193, which give every trajectories-per-warp the
@@ -74,7 +75,10 @@ Phases:
   7. one JSON line per kernel and mode: launches, error, time, bound; the
      diagonal kernel's and the Sinkhorn kernels' times beside the geometry
      the host picked, and at the toys' shapes (D = 2, 8 components; d = 2); the resampling lookup beside the graph replay of a
-     kernel that does nothing (the card's launch floor)
+     kernel that does nothing (the card's launch floor); B1's cluster
+     kernel at MNIST's D 196, C 2 full covariance (train 256, eval 2048)
+     beside its geometry (cluster size, tile, clusters, the clusters the
+     card holds at once), and the wide kernel forced on the same plan
   8. the experiment drivers' cells, each through the driver's main and so
      lrds_run (MALA -> GMM fit -> make_model -> TrainableWrapper.run ->
      evaluation over seeds with the EUBO -> pickle): (a) two_modes d 16
@@ -166,7 +170,7 @@ Phases:
      ('flat_lv_graph', B1 0 times, the graph held to the loop), and with
      the FourierMLP on a diagonal reference (B1's diagonal kernel at D 196,
      C 2, one launch a step and an eval) and on the default full-covariance
-     one (B1's wide kernel, likewise); B2 twice a
+     one (B1's cluster kernel, likewise); B2 twice a
      Sinkhorn iteration and B3 once an eval seed at d 196, every seed's
      ELBO below its log Z_IS; (g) the loops with an autograd score (the 'nn'
      conv energy; the target-informed UNet's MixtureNice score) as CUDA
@@ -177,11 +181,15 @@ Phases:
      (KERNEL_TOL; the float32 plain version's own drift from float64
      printed beside);
      (e) B2 / B3 at 2048 x 2048, d 196, and the whole Sinkhorn, against the
-     plain versions (COST_TOL_REL); (f) ROADMAP C6 on the card: the wide
-     kernel against its plain version past the narrow kernels' limits
-     (WIDE_PLANS), an RDS solver at D 129 with a full-covariance reference,
-     one step and one eval on the wide kernel ('flat_lv_fused', 'fused'),
-     and a d 225 Sinkhorn on the plain versions
+     plain versions (COST_TOL_REL); (f) ROADMAP C6 on the card: the
+     cluster kernel against its plain version past the narrow kernels'
+     limits where a cluster holds the tables (WIDE_PLANS: D 129 full
+     covariance, D 365 diagonal in f32 and bf16), the wide kernel on the
+     plan none holds (H 320, 9 hidden layers), the host's shared-memory
+     mirrors of both against the kernels', RDS solvers with a
+     full-covariance reference at D 129 (the cluster kernel) and D 400 (the
+     wide one), one step and one eval each ('flat_lv_fused', 'fused'), and
+     a d 225 Sinkhorn on the plain versions
 
 Every path (phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14 and 15) is run with all launch counts set to 0 just
 before it and read just after. Prints the card as nvidia-smi reports it, then
@@ -217,6 +225,7 @@ step, and the seconds the 300-epoch run would take at that rate.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -639,14 +648,16 @@ def graph_ms(fn, n: int = 50, reps: int = 5) -> float:
 
 def ptxas_report(log: str) -> list:
     """Per kernel entry of an ``nvcc -Xptxas -v`` log: its name (the
-    trajectory kernels' instantiations as traj_kernel_diag<BF16, TW, E> and
-    traj_kernel_full<BF16>, the Sinkhorn ones as tile_kernel<MODE, PK, ...>
+    trajectory kernels' instantiations as traj_kernel_diag<BF16, TW, E>,
+    traj_kernel_full<BF16>, traj_kernel_wide<BF16, FULL> and
+    traj_kernel_cluster<BF16, FULL>, the Sinkhorn ones as tile_kernel<MODE, PK, ...>
     and merge_kernel<MODE>), its registers, stack frame and spill bytes."""
     entries, current = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"(traj_kernel(?:_full|_diag)?|tile_kernel|merge_kernel)I((?:L[ib]\d+E)+)E",
+            t = re.search(r"(traj_kernel(?:_full|_diag|_wide|_cluster)?|tile_kernel|merge_kernel)"
+                          r"I((?:L[ib]\d+E)+)E",
                           m.group(1))
             targs = [("true" if v == "1" else "false") if k == "b" else v
                      for k, v in re.findall(r"L([ib])(\d+)E", t.group(2))] if t else []
@@ -688,15 +699,16 @@ def assert_close(got, want, what: str, tol=KERNEL_TOL) -> float:
 def launch_counters() -> list:
     """Every kernel wrapper of the port with the attribute it counts its
     launches in: fused_traj counts every launch in ``.launches``, and as
-    well those of its wide kernel in ``.wide_launches``, of its narrow
-    full-covariance one in ``.full_cov_launches`` and its narrow bf16 ones
-    in ``.bf16_launches``."""
+    well those of its cluster kernel in ``.cluster_launches``, of its wide
+    kernel in ``.wide_launches``, of its narrow full-covariance one in
+    ``.full_cov_launches`` and its narrow bf16 ones in ``.bf16_launches``."""
     from sde_sampler_lrds_torch.ops.fused_traj import fused_traj
     from sde_sampler_lrds_torch.ops.resample import systematic_lookup
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import lse, transport_cost
 
     return [(fused_traj, "launches"), (fused_traj, "full_cov_launches"),
-            (fused_traj, "bf16_launches"), (fused_traj, "wide_launches"), (lse, "launches"),
+            (fused_traj, "bf16_launches"), (fused_traj, "wide_launches"),
+            (fused_traj, "cluster_launches"), (lse, "launches"),
             (transport_cost, "launches"), (systematic_lookup, "launches")]
 
 
@@ -708,16 +720,18 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Launches by kernel and mode: fused_traj (f32, diagonal /
     single-Gaussian reference), fused_traj_full_cov (f32, full covariance),
-    fused_traj_bf16 (the bf16 control) and fused_traj_wide (the wide
-    kernel, past the other three's widths) apart. No path runs both a
-    narrow bf16 and a narrow full-covariance launch, so the four are exact."""
-    (ft, _), _, _, _, (lse, _), (cost, _), (res, _) = launch_counters()
+    fused_traj_bf16 (the bf16 control), fused_traj_cluster (the cluster
+    kernel, past the other three's widths where a cluster holds the tables)
+    and fused_traj_wide (the wide kernel, past them otherwise) apart. No
+    path runs both a narrow bf16 and a narrow full-covariance launch, so the
+    five are exact."""
+    (ft, _), _, _, _, _, (lse, _), (cost, _), (res, _) = launch_counters()
     check(ft.bf16_launches == 0 or ft.full_cov_launches == 0,
           "a path ran both the bf16 and the full-covariance mode")
     return {"fused_traj": (ft.launches - ft.full_cov_launches - ft.bf16_launches
-                           - ft.wide_launches),
+                           - ft.wide_launches - ft.cluster_launches),
             "fused_traj_full_cov": ft.full_cov_launches, "fused_traj_bf16": ft.bf16_launches,
-            "fused_traj_wide": ft.wide_launches,
+            "fused_traj_wide": ft.wide_launches, "fused_traj_cluster": ft.cluster_launches,
             "sinkhorn_lse": lse.launches, "transport_cost": cost.launches,
             "resample": res.launches}
 
@@ -725,7 +739,33 @@ def read_counts() -> dict:
 def b1_launches(counts: dict) -> int:
     """B1's launches in all its kernels and modes."""
     return sum(counts[k] for k in ("fused_traj", "fused_traj_full_cov", "fused_traj_bf16",
-                                   "fused_traj_wide"))
+                                   "fused_traj_wide", "fused_traj_cluster"))
+
+
+def b1_kernel(cfg) -> str:
+    """The read_counts key of the kernel a plan of B1 runs on: the narrow
+    ones by mode, past their widths the cluster or the wide kernel."""
+    from sde_sampler_lrds_torch.ops.fused_traj import uses_cluster, uses_wide
+
+    if uses_wide(cfg):
+        return "fused_traj_cluster" if uses_cluster(cfg) else "fused_traj_wide"
+    return ("fused_traj_bf16" if cfg.bf16 else "fused_traj_full_cov" if cfg.full_cov
+            else "fused_traj")
+
+
+@contextlib.contextmanager
+def wide_forced():
+    """Plans past the narrow kernels' widths run on the wide kernel while
+    this lasts (the cluster kernel's routing replaced, as the tools replace
+    a geometry): to time the wide kernel where a path runs the cluster one."""
+    from sde_sampler_lrds_torch.ops import fused_traj as ft
+
+    routed = ft.uses_cluster
+    ft.uses_cluster = lambda cfg: False
+    try:
+        yield
+    finally:
+        ft.uses_cluster = routed
 
 
 def bound(flops: float, transcendentals: float, nbytes: float, peaks, sfu_rate: float):
@@ -959,10 +999,18 @@ BF16_CASES = [(TRAIN_BATCH, "fed"), (1000, "fed"), (EVAL_BATCH, "kernel")] + _DI
 
 
 def wide_geometry_for(cfg, b: int) -> dict:
-    """The wide kernel's launch for b trajectories on this card."""
-    from sde_sampler_lrds_torch.ops.fused_traj import _sm_count, wide_rows
+    """The launch of the kernel past the narrow widths for b trajectories
+    on this card: the cluster kernel's (cluster size, tile, clusters and
+    the co-resident clusters of each size), or the wide kernel's."""
+    from sde_sampler_lrds_torch.ops import fused_traj as ft
 
-    rows = wide_rows(b, cfg.dim, cfg.channels, _sm_count(torch.device("cuda")))
+    dev = torch.device("cuda")
+    if ft.uses_cluster(cfg):
+        active = ft._cluster_active(torch.cuda.current_device(), cfg.dim, cfg.channels,
+                                    cfg.n_hidden, cfg.n_comp, cfg.full_cov, cfg.bf16)
+        geom = ft.cluster_geometry(b, cfg, ft._sm_count(dev), active)
+        return {**dataclasses.asdict(geom), "max_active_clusters": active}
+    rows = ft.wide_rows(b, cfg.dim, cfg.channels, ft._sm_count(dev))
     return {"wide_rows_per_block": rows, "blocks": -(-b // rows)}
 
 
@@ -4001,6 +4049,9 @@ MNIST_EBM = "experiments/results_mnist/ebm_params_mnist_zero_one_seed_0.msgpack"
 # card vs CPU, float32 with TF32 off: max |diff| over the largest |value|
 MNIST_TOL = 1e-4
 C6_FULL_DIM, C6_DIAG_DIM, C6_SINKHORN_DIM = 129, 365, 225
+# a full covariance whose rotations no cluster's shared memory holds: the
+# wide kernel's path
+C6_WIDE_FULL_DIM = 400
 MNIST_DIM = 196
 
 
@@ -4131,7 +4182,7 @@ def run_mnist_cell(dev, label: str, argv: list, path_counts, phase: str = "15") 
     pickle under build/driver_cells/: the path names (the UNet, with the
     GMM or the 'nn' reference, on the loss's loop as a CUDA graph and the
     loop's evaluation; the FourierMLP on B1 at D 196: its diagonal kernel
-    with a diagonal reference, its wide kernel with the default
+    with a diagonal reference, its cluster kernel with the default
     full-covariance one), B1's launches (one a step and an eval seed on
     its path, in the kernel its plan names, else 0), B2 twice a Sinkhorn
     iteration and B3 once an eval seed at d 196 on the kernels, finite
@@ -4139,7 +4190,7 @@ def run_mnist_cell(dev, label: str, argv: list, path_counts, phase: str = "15") 
     and the peak device memory. Returns (cell, summary, the solver)."""
     import importlib
 
-    from sde_sampler_lrds_torch.ops.fused_traj import build_plan, uses_wide
+    from sde_sampler_lrds_torch.ops.fused_traj import build_plan
 
     driver = importlib.import_module("sde_sampler_lrds_torch.experiments.sample_mnist_unet")
     argv = argv + ["--device", dev.type, "--results_path", "build/driver_cells"]
@@ -4185,7 +4236,7 @@ def run_mnist_cell(dev, label: str, argv: list, path_counts, phase: str = "15") 
     check(out["eval_path"] == ("fused" if fused else "scan"), f"{label}: eval path "
                                                              f"{out['eval_path']}")
     b1 = b1_launches(counts)
-    mode = ("fused_traj_wide" if uses_wide(plan[0]) else "fused_traj") if fused else None
+    mode = b1_kernel(plan[0]) if fused else None
     check(b1 == ((steps + n_seeds) if fused else 0) and (mode is None or counts[mode] == b1),
           f"{label}: B1 launched {counts} ({'on ' + mode if fused else 'off'} its path)")
     check(solver.step_count == steps, f"{label}: {solver.step_count} steps trained")
@@ -4297,8 +4348,8 @@ def mnist_b1_vs_plain(dev, solver, rec) -> float:
         plain = fused_traj_plain(cfg, arrays, x0, noise=noise, return_traj=True)
         exact = fused_traj_plain(cfg, {k: v.double() for k, v in arrays.items()}, x0.double(),
                                  noise=noise.double(), return_traj=True, dtype=torch.float64)
-        what = (f"fused_traj{'_wide' if cfg.full_cov else ''} D=196 C=2 "
-                f"{'full' if cfg.full_cov else 'diag'} B={b} (fed noise + states)")
+        what = (f"{b1_kernel(cfg)} D=196 C=2 {'full' if cfg.full_cov else 'diag'} B={b} "
+                f"(fed noise + states)")
         errs64[b] = {"kernel_to_plain_f64": max_err(got, exact),
                      "plain_f32_to_plain_f64": max_err(plain, exact),
                      "kernel_to_plain_f32": max_err(got, plain)}
@@ -4316,22 +4367,25 @@ def mnist_b1_vs_plain(dev, solver, rec) -> float:
 def phase_mnist_b1_sinkhorn(dev, diag_solver, full_solver, recs) -> dict:
     """(d) B1 at D 196, C 2 against its plain version in float64
     (mnist_b1_vs_plain): its diagonal kernel on the diagonal-reference
-    cell's plan, its wide kernel on the full-covariance cell's; (e) B2 / B3
+    cell's plan, its cluster kernel on the full-covariance cell's (and two
+    of its launches bitwise equal at batches 256 and 2048); (e) B2 / B3
     at 2048 x 2048, d 196 (MixtureNice draws, eps 1e-3, p 2, duals from the
     first Sinkhorn half-steps) and the whole Sinkhorn against the plain
     versions at COST_TOL_REL."""
     from sde_sampler_lrds_torch.eval import Sinkhorn
     from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
-    from sde_sampler_lrds_torch.ops.fused_traj import uses_wide
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
                                                          transport_cost_plain)
 
     rec = recs["fused_traj"]["mnist_d196_c2"] = {}
     cfg, arrays = mnist_b1_vs_plain(dev, diag_solver, rec)
-    check(not cfg.full_cov and not uses_wide(cfg), f"the diagonal D 196 plan {cfg}")
-    rec_w = recs["fused_traj_wide"]["mnist_d196_c2_full"] = {}
+    check(b1_kernel(cfg) == "fused_traj", f"the diagonal D 196 plan {cfg}")
+    rec_w = recs["fused_traj_cluster"]["mnist_d196_c2_full"] = {}
     cfg_w, arrays_w = mnist_b1_vs_plain(dev, full_solver, rec_w)
-    check(cfg_w.full_cov and uses_wide(cfg_w), f"the full-covariance D 196 plan {cfg_w}")
+    check(cfg_w.full_cov and b1_kernel(cfg_w) == "fused_traj_cluster",
+          f"the full-covariance D 196 plan {cfg_w}")
+    check_repeatable(dev, cfg_w, arrays_w, "fused_traj_cluster D=196 C=2 full",
+                     [(256, "fed"), (MNIST_ROWS, "kernel")], prior=full_solver.prior)
     target = diag_solver.target
     g = torch.Generator(dev).manual_seed(163)
     x, y = target.sample(g, (MNIST_ROWS,)), target.sample(g, (MNIST_ROWS,))
@@ -4352,28 +4406,34 @@ def phase_mnist_b1_sinkhorn(dev, diag_solver, full_solver, recs) -> dict:
         check(e <= COST_TOL_REL, f"d 196 {k}: kernel vs plain {e:.3e} > {COST_TOL_REL}")
     recs["sinkhorn_lse"]["mnist_d196"] = {"rel_err": errs["lse"]}
     recs["transport_cost"]["mnist_d196"] = {"rel_err": errs["transport_cost"]}
-    return {"b1_d196": rec["max_abs_err"], "b1_wide_d196_full": rec_w["max_abs_err"],
+    return {"b1_d196": rec["max_abs_err"], "b1_cluster_d196_full": rec_w["max_abs_err"],
             "sinkhorn_d196": errs, "timing": (cfg, arrays, cfg_w, arrays_w, x, y, u, v)}
 
 
 def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate) -> None:
     """Phase 7 at the MNIST shapes: B1's diagonal kernel on the D 196 plan
-    and its wide kernel on the D 196 full-covariance one at the eval batch
-    2048 (its own noise) and the train batch 256 (fed), B2 / B3 at 2048 x
-    2048 x 196, each beside its plain version and its bound."""
+    and its cluster kernel on the D 196 full-covariance one at the eval
+    batch 2048 (its own noise) and the train batch 256 (fed), and its wide
+    kernel forced on that plan (wide_forced) at the same shapes, B2 / B3 at
+    2048 x 2048 x 196, each beside its plain version and its bound."""
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
                                                          transport_cost_plain)
 
     cfg, arrays, cfg_w, arrays_w, x, y, u, v = timing
     phase_timing(dev, cfg, arrays, recs["fused_traj"]["mnist_d196_c2"], peaks, sfu_rate,
                  label="fused_traj D=196 C=2 (MNIST)", batches=(MNIST_ROWS, 256))
-    # the wide kernel's entry is timed at this shape, where a path runs it
-    phase_timing(dev, cfg_w, arrays_w, recs["fused_traj_wide"], peaks, sfu_rate,
-                 label="fused_traj_wide D=196 C=2 full covariance (MNIST)",
+    # the cluster kernel's entry is timed at this shape, where a path runs
+    # it; the wide kernel's at the same plan, forced, beside it
+    phase_timing(dev, cfg_w, arrays_w, recs["fused_traj_cluster"], peaks, sfu_rate,
+                 label="fused_traj_cluster D=196 C=2 full covariance (MNIST)",
                  batches=(MNIST_ROWS, 256))
-    recs["fused_traj_wide"]["mnist_d196_c2_full"].update(
-        {k: recs["fused_traj_wide"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                 "train_shape")})
+    recs["fused_traj_cluster"]["mnist_d196_c2_full"].update(
+        {k: recs["fused_traj_cluster"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "geometry", "train_shape")})
+    with wide_forced():
+        phase_timing(dev, cfg_w, arrays_w, recs["fused_traj_wide"], peaks, sfu_rate,
+                     label="fused_traj_wide D=196 C=2 full covariance (MNIST, forced)",
+                     batches=(MNIST_ROWS, 256))
     eps, n, d = 1e-3, x.shape[0], x.shape[1]
     pairs, io = n * n, 4 * 2 * n * d
     for name, kern, plain, b in (
@@ -4389,27 +4449,30 @@ def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate) -> None:
         recs[name]["mnist_d196"].update(row)
 
 
-# the wide kernel's plans past the narrow kernels' limits: (full
-# covariance, D, the control's width and layers, bf16): D 129 full
-# covariance (one past the narrow kernel's register tile), the first
-# diagonal D past its shared memory at H 64 (365), that D in bf16, and a
-# control past the narrow kernels' width and depth caps (H 320, 9 hidden
-# layers) at the demo's D 8
+# the plans past the narrow kernels' limits: (full covariance, D, the
+# control's width and layers, bf16): D 129 full covariance (one past the
+# narrow kernel's register tile), the first diagonal D past its shared
+# memory at H 64 (365) and that D in bf16, on the cluster kernel; a control
+# past the narrow kernels' width and depth caps (H 320, 9 hidden layers,
+# an MLP of 3.7 MB that no cluster holds) at the demo's D 8, on the wide one
 WIDE_PLANS = ((True, C6_FULL_DIM, CHANNELS, N_LAYERS, None),
               (False, C6_DIAG_DIM, CHANNELS, N_LAYERS, None),
               (False, C6_DIAG_DIM, CHANNELS, N_LAYERS, torch.bfloat16),
               (False, DIM, 320, 11, None))
+WIDE_PLAN_KERNELS = ("fused_traj_cluster",) * 3 + ("fused_traj_wide",)
 
 
-def phase_wide_kernel(dev, rec) -> None:
-    """(f) B1's wide kernel against its plain version on WIDE_PLANS at the
-    train batch with fed noise and the states and at MNIST's eval batch
-    with its own noise (the plain version fed the kernel's Philox draws),
-    the first plan also at a ragged batch; float32 plans gated against the
-    same steps in float64 (DRIVER_F64_RATIO), the bf16 one at BF16_TOL; two
-    launches bitwise equal; the host's shared-memory arithmetic against the
-    kernel's."""
-    from sde_sampler_lrds_torch.ops.fused_traj import _library, uses_wide, wide_smem_bytes
+def phase_wide_kernel(dev, recs) -> None:
+    """(f) B1's cluster and wide kernels against their plain version on
+    WIDE_PLANS (each on the kernel WIDE_PLAN_KERNELS names) at the train
+    batch with fed noise and the states and at MNIST's eval batch with its
+    own noise (the plain version fed the kernel's Philox draws), the first
+    plan also at a ragged batch; float32 plans gated against the same steps
+    in float64 (DRIVER_F64_RATIO), the bf16 one at BF16_TOL; two launches
+    bitwise equal; the host's shared-memory arithmetic against the
+    kernels'."""
+    from sde_sampler_lrds_torch.ops.fused_traj import (_library, cluster_smem_bytes,
+                                                       wide_smem_bytes)
 
     for d, h, rows in ((C6_FULL_DIM, CHANNELS, 4), (MNIST_DIM, CHANNELS, 16),
                        (C6_DIAG_DIM, CHANNELS, 32), (DIM, 320, 12)):
@@ -4417,64 +4480,86 @@ def phase_wide_kernel(dev, rec) -> None:
                                                                                            rows)
         check(c_bytes == host, f"wide shared memory at D={d}, H={h}, {rows} rows: kernel "
                                f"{c_bytes} bytes, host mirror {host}")
-    rec["max_abs_err_by_plan"] = {}
-    for i, (full, d, h, n_layers, dtype) in enumerate(WIDE_PLANS):
+    for d, h, nh, c, full, cl, rows in ((MNIST_DIM, CHANNELS, 2, 2, True, 8, 16),
+                                        (MNIST_DIM, CHANNELS, 2, 2, True, 8, 24),
+                                        (C6_FULL_DIM, CHANNELS, 2, 2, True, 4, 36),
+                                        (C6_DIAG_DIM, CHANNELS, 2, 2, False, 2, 16),
+                                        (C6_DIAG_DIM, 36, 0, 3, False, 1, 4)):
+        c_bytes = _library().fused_traj_cluster_smem_bytes(d, h, nh, c, int(full), cl, rows)
+        host = cluster_smem_bytes(d, h, nh, c, full, cl, rows)
+        check(c_bytes == host, f"cluster shared memory at D={d}, H={h}, n_h={nh}, C={c}, "
+                               f"full {full}, clusters of {cl}, {rows} rows: kernel {c_bytes} "
+                               f"bytes, host mirror {host}")
+    for kname in set(WIDE_PLAN_KERNELS):
+        recs[kname]["max_abs_err_by_plan"] = {}
+    for i, ((full, d, h, n_layers, dtype), kname) in enumerate(zip(WIDE_PLANS,
+                                                                   WIDE_PLAN_KERNELS)):
         cfg, arrays = phi_four_plan(dev, full_cov=full, dim=d, compute_dtype=dtype,
                                     channels=h, n_layers=n_layers)
-        check(uses_wide(cfg), f"the wide plan {cfg}")
-        label = (f"fused_traj_wide {'full' if full else 'diag'} D={d} H={h} "
+        check(b1_kernel(cfg) == kname, f"the plan {cfg} runs on {b1_kernel(cfg)}, not {kname}")
+        label = (f"{kname} {'full' if full else 'diag'} D={d} H={h} "
                  f"n_h={cfg.n_hidden}{' bf16' if cfg.bf16 else ''}")
         cases = [(TRAIN_BATCH, "fed"), (MNIST_ROWS, "kernel")] + ([(1000, "fed")] if i == 0
                                                                   else [])
-        rec["max_abs_err_by_plan"][label] = compare_kernel(
+        say(f"[phase 15] (f) {label}: geometry at B={TRAIN_BATCH} "
+            + json.dumps(wide_geometry_for(cfg, TRAIN_BATCH)))
+        recs[kname]["max_abs_err_by_plan"][label] = compare_kernel(
             dev, cfg, arrays, label, cases, BF16_TOL if cfg.bf16 else KERNEL_TOL,
             f64_ratio=None if cfg.bf16 else DRIVER_F64_RATIO)
         check_repeatable(dev, cfg, arrays, label, [(TRAIN_BATCH, "fed")])
-    rec["max_abs_err"] = max([*rec["max_abs_err_by_plan"].values(),
-                              rec.get("mnist_d196_c2_full", {}).get("max_abs_err", 0.0)])
+    for kname in set(WIDE_PLAN_KERNELS):
+        rec = recs[kname]
+        rec["max_abs_err"] = max([*rec["max_abs_err_by_plan"].values(),
+                                  rec.get("mnist_d196_c2_full", {}).get("max_abs_err", 0.0)])
 
 
-def phase_c6(dev, path_counts, rec) -> dict:
-    """(f) Past the narrow kernels' widths on the card: the wide kernel
-    against its plain version (phase_wide_kernel); an RDS solver with a
-    2-component full-covariance GMM reference at D 129 keeps B1's paths
-    ('flat_lv_fused', 'fused'), one train step and one eval on the wide
-    kernel, finite; a Sinkhorn at d 225 runs the plain versions on the card
-    ('plain', B2 / B3 0 times) and equals a PLAIN_OPS run."""
+def phase_c6(dev, path_counts, recs) -> dict:
+    """(f) Past the narrow kernels' widths on the card: the cluster and
+    wide kernels against their plain version (phase_wide_kernel); RDS
+    solvers with a 2-component full-covariance GMM reference keep B1's paths
+    ('flat_lv_fused', 'fused'), one train step and one eval each, finite: at
+    D 129 (batch 1024, eval 8192) on the cluster kernel, at D 400 (batch
+    256, eval 2048; its rotations, 2.6 MB, fit no cluster) on the wide one;
+    a Sinkhorn at d 225 runs the plain versions on the card ('plain', B2 /
+    B3 0 times) and equals a PLAIN_OPS run."""
     from sde_sampler_lrds_torch.api import make_model, make_target_details
     from sde_sampler_lrds_torch.eval import Sinkhorn
     from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
 
-    phase_wide_kernel(dev, rec)
-    d = C6_FULL_DIM
-    rng = np.random.default_rng(160)
-    a = rng.normal(size=(2, d, d))
-    var = 0.05 * a @ a.transpose(0, 2, 1) / d + 0.05 * np.eye(d)
-    solver = make_model(
-        solver_type="vp-ref", ref_type="gmm", loss_type="lv", integrator_type="ei",
-        model_type="base_zero_init", time_type="snr",
-        solver_details={"sigma": 1.0, "weights_ref": torch.tensor([0.6, 0.4]),
-                        "means_ref": torch.stack([-torch.ones(d), torch.ones(d)]),
-                        "variances_ref": torch.as_tensor(var, dtype=torch.float32)},
-        target_details=make_target_details("two_modes", dim=d),
-        training_details={"train_steps": 1, "train_batch_size": 1024,
-                          "eval_batch_size": 8192}, device=dev)
-    g = torch.Generator(dev).manual_seed(161)
-    solver.setup(g)
-    reset_counts()
-    metrics = solver.step(g)
-    res = solver.evaluate(g)
-    torch.cuda.synchronize()
-    counts = path_counts["c6_d129_full"] = read_counts()
-    out = {"train_path": solver.train_path(), "eval_path": solver.eval_path(),
-           "loss": float(metrics["train/loss"]), "elbo": res.metrics["eval/elbo"],
-           "launches": counts}
-    check(out["train_path"] == "flat_lv_fused" and out["eval_path"] == "fused",
-          f"C6 D {d} full covariance: paths {out['train_path']} / {out['eval_path']}")
-    check(counts["fused_traj_wide"] == 2 and b1_launches(counts) == 2,
-          f"C6 D {d}: kernels launched {counts}")
-    check(math.isfinite(out["loss"]) and math.isfinite(out["elbo"])
-          and bool(torch.isfinite(res.samples).all()), f"C6 D {d}: not finite {out}")
+    phase_wide_kernel(dev, recs)
+    out = {}
+    for d, batch, eval_batch, kname, seed in (
+            (C6_FULL_DIM, 1024, 8192, "fused_traj_cluster", 160),
+            (C6_WIDE_FULL_DIM, 256, MNIST_ROWS, "fused_traj_wide", 164)):
+        rng = np.random.default_rng(seed)
+        a = rng.normal(size=(2, d, d))
+        var = 0.05 * a @ a.transpose(0, 2, 1) / d + 0.05 * np.eye(d)
+        solver = make_model(
+            solver_type="vp-ref", ref_type="gmm", loss_type="lv", integrator_type="ei",
+            model_type="base_zero_init", time_type="snr",
+            solver_details={"sigma": 1.0, "weights_ref": torch.tensor([0.6, 0.4]),
+                            "means_ref": torch.stack([-torch.ones(d), torch.ones(d)]),
+                            "variances_ref": torch.as_tensor(var, dtype=torch.float32)},
+            target_details=make_target_details("two_modes", dim=d),
+            training_details={"train_steps": 1, "train_batch_size": batch,
+                              "eval_batch_size": eval_batch}, device=dev)
+        g = torch.Generator(dev).manual_seed(seed + 1)
+        solver.setup(g)
+        reset_counts()
+        metrics = solver.step(g)
+        res = solver.evaluate(g)
+        torch.cuda.synchronize()
+        counts = path_counts[f"c6_d{d}_full"] = read_counts()
+        cell = out[f"d{d}_full"] = {
+            "train_path": solver.train_path(), "eval_path": solver.eval_path(),
+            "loss": float(metrics["train/loss"]), "elbo": res.metrics["eval/elbo"],
+            "launches": counts}
+        check(cell["train_path"] == "flat_lv_fused" and cell["eval_path"] == "fused",
+              f"C6 D {d} full covariance: paths {cell['train_path']} / {cell['eval_path']}")
+        check(counts[kname] == 2 and b1_launches(counts) == 2,
+              f"C6 D {d}: kernels launched {counts}, not twice {kname}")
+        check(math.isfinite(cell["loss"]) and math.isfinite(cell["elbo"])
+              and bool(torch.isfinite(res.samples).all()), f"C6 D {d}: not finite {cell}")
     x = torch.randn(MNIST_ROWS, C6_SINKHORN_DIM, generator=g, device=dev)
     y = 0.5 + torch.randn(MNIST_ROWS, C6_SINKHORN_DIM, generator=g, device=dev)
     reset_counts()
@@ -4516,7 +4601,7 @@ def phase_mnist(dev, recs, path_counts) -> dict:
     sk = phase_mnist_b1_sinkhorn(dev, diag_solver, full_solver, recs)
     timing = sk.pop("timing")
     out["kernels"] = sk
-    out["c6"] = phase_c6(dev, path_counts, recs["fused_traj_wide"])
+    out["c6"] = phase_c6(dev, path_counts, recs)
     out["phase_s"] = time.perf_counter() - t15
     say(f"[phase 15] took {out['phase_s']:.1f} s")
     return out, timing
@@ -4723,11 +4808,18 @@ def main(argv=None) -> int:
                                 "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:396",
                                 "mode": "f32, eigen-factored full-covariance reference",
                                 "library_ms": None},
+        "fused_traj_cluster": {"route": "cuda",
+                               "source": "sde_sampler_lrds_torch/csrc/fused_traj.cu",
+                               "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:331",
+                               "mode": "f32 or bf16, either reference, past the narrow kernels' "
+                                       "widths where a cluster of <= 8 CTAs holds the tables "
+                                       "(D 129 / 196 full covariance, D 365 diagonal)",
+                               "library_ms": None},
         "fused_traj_wide": {"route": "cuda", "source": "sde_sampler_lrds_torch/csrc/fused_traj.cu",
                             "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:331",
                             "mode": "f32 or bf16, either reference, past the narrow kernels' "
-                                    "widths (D > 128 full covariance, diagonal past shared "
-                                    "memory, H > 256, > 8 hidden layers)",
+                                    "widths where no cluster holds the tables (H 320 x 9 "
+                                    "layers, D 400 full covariance); timed at D 196 full, forced",
                             "library_ms": None},
         "fused_traj_bf16": {"route": "cuda", "source": "sde_sampler_lrds_torch/csrc/fused_traj.cu",
                             "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:380",
@@ -4810,7 +4902,8 @@ def main(argv=None) -> int:
     # the MNIST shapes' entries: their launches on the MNIST paths (B1 at
     # D 196 on the FourierMLP diagonal cell, B2 / B3 in every MNIST cell)
     mnist_paths = [p for p in path_counts if p.startswith("mnist_")]
-    for kname, key in (("fused_traj", "mnist_d196_c2"), ("fused_traj_wide", "mnist_d196_c2_full"),
+    for kname, key in (("fused_traj", "mnist_d196_c2"),
+                       ("fused_traj_cluster", "mnist_d196_c2_full"),
                        ("sinkhorn_lse", "mnist_d196"), ("transport_cost", "mnist_d196")):
         sub = recs[kname][key]
         sub["launches_by_path"] = {p: path_counts[p][kname] for p in mnist_paths}

@@ -97,12 +97,46 @@
 // NVIDIA H100 80GB HBM3, 700 W): 3.65 ms at B 1024 with fed noise and
 // states, 7.73 ms at B 8192 with its own noise, against 7.06 / 13.23 ms
 // before.
-// The wide kernel (traj_kernel_wide) runs every plan past those two
-// kernels' limits (D > 128 with a full-covariance reference, a diagonal
-// one past their shared memory, H > 256, more than 8 hidden layers), so
-// that the port takes every width the TPU kernel does: the TPU kernel
-// holds the weights and the (C, D, D) rotations in VMEM, the wide kernel
-// only its trajectories' rows in shared memory. A block of tb trajectories
+// Past those two kernels' limits (D > 128 with a full-covariance
+// reference, a diagonal one past their shared memory, H > 256, more than 8
+// hidden layers) the port takes every width the TPU kernel does, which
+// holds the weights and the (C, D, D) rotations in VMEM for every grid
+// program. The card's counterpart of that VMEM is a thread-block cluster:
+// the cluster kernel (traj_kernel_cluster) runs every such plan whose
+// tables a cluster of at most 8 CTAs holds (each CTA its slice of them,
+// loaded once a launch), and the wide kernel (traj_kernel_wide) the rest
+// (H 320 with 9 hidden layers, a full D 400).
+//
+// The cluster kernel splits the columns of every product over the CTAs of
+// a cluster: CTA q owns the quads S_q of D and H_q of H, keeps columns S_q
+// of P_c, P_cᵀ and W_out and units H_q of W0 and each Wh in its shared
+// memory for the whole launch, and writes each slice of a row that the next
+// product reads in full (x, y_c·iv_c, each hidden row) into every peer's
+// shared memory (st.shared::cluster), as it writes the partial sums of the
+// quadratic forms and of the RND; a cluster barrier (barrier.cluster
+// arrive.release / wait.acquire) a step for all components, one a hidden
+// layer and one after the update, n_h + 2 in all, make them seen. The
+// products of a phase that do not depend on each other run together (y_c
+// = (x − m_c)·P_c for every c beside the first layer; g_c for every c
+// beside the second), on register tiles of R trajectories × 4 columns with
+// the inputs cut into chunks where the tiles are fewer than the threads, so
+// every warp works at a tile of 20 trajectories; partial sums across
+// chunks, CTAs and quads add in a fixed order, so launches are bitwise
+// repeatable. Clusters are persistent (as many as
+// cudaOccupancyMaxActiveClusters allows, each looping over tiles), so the
+// tables cross L2 once a launch. The next step's rows (m, iv, const, the
+// embed row, the coefficients) are prefetched by cp.async during a step.
+// What bounds it: the latency of a step's chain of phases and cluster
+// barriers at one CTA of 8 warps an SM (its tables fill most of the SM's
+// shared memory), not the FMAs: a register tile reads 9 LDS.128 for 64
+// FMAs, so the products run at about a fifth of the FMA rate, and a step
+// at D 196, C 2 takes ≈ 55 k cycles against ≈ 4 k of FMAs. At the eval
+// batch the tiles (28 trajectories at D 196) need 5 waves of the card's
+// 15 clusters of 8, and the wide kernel is faster there; the tensor cores
+// and bf16 tables are the levers (PERF.md).
+//
+// The wide kernel holds only its trajectories' rows in shared memory. A
+// block of tb trajectories
 // (a multiple of R up to TB, picked by the host to cover the SMs and to fit
 // the rows) keeps state, control, noise, score and two hidden rows per
 // trajectory there and reads the MLP weights and P_c, P_cᵀ from global
@@ -132,7 +166,24 @@
 //                                          hidden rows
 //     + 3·TB + 2·D + 1                     softmax factors, the step's rows
 //   = 60 336 bytes at D = 196, H = 64, tb = 16; tb = 4 caps D at 3194 for
-//   H = 64.
+//   H = 64;
+//   cluster kernel (traj_kernel_cluster), one CTA of a cluster of cl with
+//   tiles of tb, D_p = round4(D), H_p = round4(H), ld_d = 4·⌈⌈D/4⌉/cl⌉ and
+//   ld_h = 4·⌈⌈H/4⌉/cl⌉ the slices' widths (cluster_layout):
+//     (full) 2·C·D_p·ld_d                  columns S_q of P_c and P_cᵀ
+//     + D_p·ld_h + n_h·H_p·ld_h + H_p·ld_d + ld_h + n_h·ld_h + ld_d
+//                                          the MLP's slices and biases
+//     + 2·(C·D_p + C·ld_d + round4(C) + ld_h + 8)   two steps' rows
+//     + tb·S_d + (full) C·tb·S_d + 2·tb·S_h  the full rows read: x, y_c·iv_c,
+//                                          two hidden rows, in strides S_d =
+//                                          D_p, S_h = H_p where that is an
+//                                          odd number of quads, else 4 more
+//     + C·tb·ld_d + 2·tb·ld_d              y_c then g_c, score, control on S_q
+//     + max(16·256, max(C, 2)·tb·ld_d/4)   partial sums
+//     + (C + 2)·cl·tb + (2·C + 1)·tb       exchanged sums, softmax factors
+//   = 181 552 bytes at D = 196, H = 64, n_h = 2, C = 2, cl = 8, tb = 16
+//   (the D 196 full plan fits tiles of up to 28 in clusters of 8, none in
+//   smaller ones).
 //
 // The bf16 control mode (FourierMLP with compute_dtype = bfloat16, Flax
 // Dense semantics) takes the seven MLP tables (embed, w0, b0, wh, bh, w_out,
@@ -158,29 +209,23 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+// The library is built from this one file as one object, or as three
+// compiled side by side and linked (ops/_build.py: FUSED_TRAJ_PART 0, 1, 2):
+// part 0 holds the diagonal kernels and the C interface, part 1 the narrow
+// full-covariance and the wide kernels, part 2 the cluster kernel. Only the
+// host functions that launch a family of kernels (and so instantiate it)
+// are split; every part sees every definition.
+#ifdef FUSED_TRAJ_PART
+#define FT_PART0 (FUSED_TRAJ_PART == 0)
+#define FT_PART1 (FUSED_TRAJ_PART == 1)
+#define FT_PART2 (FUSED_TRAJ_PART == 2)
+#else
+#define FT_PART0 1
+#define FT_PART1 1
+#define FT_PART2 1
+#endif
 
-constexpr int TB = 32;         // trajectories per block
-constexpr int NT = 256;        // threads per block
-constexpr int R = 4;           // trajectories per thread in a dense layer
-constexpr int NW = NT / 32;    // warps per block
-constexpr int TPW = TB / NW;   // trajectories per warp in the reductions
-// full-covariance mode: the products run on register tiles of R trajectories
-// × J columns, and the rotations stream through a ring of NSTAGE panels of
-// ring_rows(D) rows of P; a rotation gives warp w trajectory group w and
-// lane l columns J·l .. J·l + J − 1, so D ≤ MAX_FULL_D
-constexpr int J = 4;           // columns per register tile
-constexpr int NSTAGE = 2;      // panels in the ring
-constexpr int MAX_RP = 48;     // most rows of P per panel
-constexpr int MAX_FULL_D = J * 32;
-static_assert(TB / R == NW, "a rotation's trajectory groups are the warps");
-// diagonal mode (traj_kernel_diag): a block of at most DIAG_MAX_WARPS warps,
-// each lane holding at most DIAG_ELEMS dimensions of its trajectory (its
-// kernels are built for 1, DIAG_ELEMS / 2 and DIAG_ELEMS) and DIAG_UNITS
-// units of a hidden layer
-constexpr int DIAG_MAX_WARPS = 8;
-constexpr int DIAG_ELEMS = 16;
-constexpr int DIAG_UNITS = 8;
+namespace fused_traj_detail {
 
 // The MLP tables are f32, or __nv_bfloat16 in the bf16 mode.
 struct Params {
@@ -205,8 +250,46 @@ struct Params {
   unsigned long long seed;
   int B, K, D, H, n_hidden, C, has_clip;
   float clip;
-  int tb;                  // trajectories per block of the wide kernel, else 0
+  int tb;                  // trajectories per block of the wide kernel, or per
+                           // tile of the cluster kernel, else 0
+  int cl;                  // CTAs per cluster of the cluster kernel, else 0
 };
+
+// The launches of each family of kernels, on `stream`: 0 or a CUDA error.
+int launch_diag(const Params& p, int bf16, int tw, int warps, int blocks, cudaStream_t stream);
+int launch_full(const Params& p, int bf16, cudaStream_t stream);
+int launch_wide(const Params& p, int bf16, bool full, int blocks, cudaStream_t stream);
+int launch_cluster(const Params& p, int bf16, bool full, int blocks, cudaStream_t stream);
+int cluster_max_active(int D, int H, int n_hidden, int C, int full, int bf16, int cl, int tb);
+
+}  // namespace fused_traj_detail
+
+namespace {
+
+using fused_traj_detail::Params;
+
+constexpr int TB = 32;         // trajectories per block
+constexpr int NT = 256;        // threads per block
+constexpr int R = 4;           // trajectories per thread in a dense layer
+constexpr int NW = NT / 32;    // warps per block
+constexpr int TPW = TB / NW;   // trajectories per warp in the reductions
+// full-covariance mode: the products run on register tiles of R trajectories
+// × J columns, and the rotations stream through a ring of NSTAGE panels of
+// ring_rows(D) rows of P; a rotation gives warp w trajectory group w and
+// lane l columns J·l .. J·l + J − 1, so D ≤ MAX_FULL_D
+constexpr int J = 4;           // columns per register tile
+constexpr int NSTAGE = 2;      // panels in the ring
+constexpr int MAX_RP = 48;     // most rows of P per panel
+constexpr int MAX_FULL_D = J * 32;
+static_assert(TB / R == NW, "a rotation's trajectory groups are the warps");
+// diagonal mode (traj_kernel_diag): a block of at most DIAG_MAX_WARPS warps,
+// each lane holding at most DIAG_ELEMS dimensions of its trajectory (its
+// kernels are built for 1, DIAG_ELEMS / 2 and DIAG_ELEMS) and DIAG_UNITS
+// units of a hidden layer
+constexpr int DIAG_MAX_WARPS = 8;
+constexpr int DIAG_ELEMS = 16;
+constexpr int DIAG_UNITS = 8;
+
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
@@ -1458,10 +1541,796 @@ __global__ void __launch_bounds__(NT, 2) traj_kernel_wide(const Params p) {
   for (int o = tid; o < valid * D; o += NT) p.x_out[(size_t)base * D + o] = xt[o];
 }
 
+// ---------------------------------------------------------------------------
+// The cluster kernel: the wide kernel's plans whose tables fit a cluster
+// ---------------------------------------------------------------------------
+
+// The regions of a cluster CTA's shared memory, as offsets in floats. Every
+// region is a whole number of float4s (tb, DP, HP, ldd, ldh and the step
+// rows' pieces are multiples of 4), so each starts on 16 bytes.
+struct ClusterLayout {
+  int DP, HP, ldd, ldh, sr;               // padded D, H; slice widths; step rows
+  int sd, sh;                             // row strides of the full rows
+  int p, pt, w0, wh, wo, b0, bh, bo;      // the CTA's slices of the tables
+  int rows;                               // two buffers of a step's rows
+  int xr, ysg, hA, hB;                    // the full rows the products read
+  int yq, rq, uq;                         // the CTA's slices of the tile's rows
+  int part, qp, rp, fs, fw, fn;
+  int total;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(int D, int H, int nh, int C, bool full,
+                                                        int cl, int tb) {
+  ClusterLayout L;
+  L.DP = round4(D);
+  L.HP = round4(H);
+  L.ldd = 4 * (((D + 3) / 4 + cl - 1) / cl);
+  L.ldh = 4 * (((H + 3) / 4 + cl - 1) / cl);
+  // the full rows' strides: an odd number of quads, so the rows of a
+  // register tile (a group's rows lie tb / R rows apart) start on
+  // different banks
+  L.sd = (L.DP / 4) % 2 == 1 ? L.DP : L.DP + 4;
+  L.sh = (L.HP / 4) % 2 == 1 ? L.HP : L.HP + 4;
+  // a step's rows: m_kc (C × DP), iv_kc on S_q (C × ldd), const_kc, the
+  // embed row on H_q, the six coefficients
+  L.sr = C * L.DP + C * L.ldd + round4(C) + L.ldh + 8;
+  const int quads = (C > 2 ? C : 2) * tb * (L.ldd / 4);
+  int o = 0;
+  L.p = o;    o += full ? C * L.DP * L.ldd : 0;
+  L.pt = o;   o += full ? C * L.DP * L.ldd : 0;
+  L.w0 = o;   o += L.DP * L.ldh;
+  L.wh = o;   o += nh * L.HP * L.ldh;
+  L.wo = o;   o += L.HP * L.ldd;
+  L.b0 = o;   o += L.ldh;
+  L.bh = o;   o += nh * L.ldh;
+  L.bo = o;   o += L.ldd;
+  L.rows = o; o += 2 * L.sr;
+  L.xr = o;   o += tb * L.sd;
+  L.ysg = o;  o += full ? C * tb * L.sd : 0;
+  L.hA = o;   o += tb * L.sh;
+  L.hB = o;   o += tb * L.sh;
+  L.yq = o;   o += C * tb * L.ldd;
+  L.rq = o;   o += tb * L.ldd;
+  L.uq = o;   o += tb * L.ldd;
+  // the products' partial sums (at most 4·R floats a thread), or the
+  // per-quad sums of the quadratic forms and of the update
+  L.part = o; o += 4 * R * NT > quads ? 4 * R * NT : quads;
+  L.qp = o;   o += C * cl * tb;
+  L.rp = o;   o += 2 * cl * tb;
+  L.fs = o;   o += C * tb;
+  L.fw = o;   o += C * tb;
+  L.fn = o;   o += tb;
+  L.total = o;
+  return L;
+}
+
+// Whether (cl, tb, clusters) is a launch the cluster kernel takes for B
+// trajectories: a portable cluster of 1, 2, 4 or 8 CTAs, tiles of a
+// multiple of R up to CLUSTER_TB_MAX trajectories, at least one cluster and
+// no more clusters than tiles.
+constexpr int CLUSTER_TB_MAX = 64;
+__host__ __device__ inline bool cluster_geometry_ok(int B, int cl, int tb, int clusters) {
+  if (cl != 1 && cl != 2 && cl != 4 && cl != 8) return false;
+  if (tb < R || tb > CLUSTER_TB_MAX || tb % R != 0 || B < 1) return false;
+  return clusters >= 1 && clusters <= (B + tb - 1) / tb;
+}
+
+// dst (rows_pad rows of stride ld) ← the columns col0 .. col0 + cols − 1 of
+// rows 0 .. rows − 1 of a row-major table of stride ld_src, zero elsewhere;
+// by cp.async in 16 bytes where the source quads are aligned (the last
+// ragged one zero-filled), else in 4. The caller commits and waits.
+__device__ __noinline__ void slice_to_smem(float* dst, int ld, int rows_pad, const float* src,
+                                           int ld_src, int rows, int col0, int cols) {
+  if (((ld_src | col0) & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int nq = ld / 4;
+    for (int e = threadIdx.x; e < rows_pad * nq; e += NT) {
+      const int i = e / nq, j = (e - i * nq) * 4;
+      float* d = dst + i * ld + j;
+      const int n = i < rows ? min(4, cols - j) : 0;
+      if (n > 0) {
+        const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(d));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
+                     "l"(src + (size_t)i * ld_src + col0 + j), "r"(4 * n) : "memory");
+      } else {
+        *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows_pad * ld; e += NT) {
+      const int i = e / ld, j = e - i * ld;
+      if (i < rows && j < cols) {
+        cp_async4(dst + e, src + (size_t)i * ld_src + col0 + j);
+      } else {
+        dst[e] = 0.0f;
+      }
+    }
+  }
+}
+
+// This CTA's rank in its cluster, and the cluster barrier: every thread of
+// every CTA arrives (release) and waits (acquire), so what a thread wrote
+// into its CTA's shared memory before it is seen by every thread of the
+// cluster after it.
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// v into the same place of CTA `rank`'s shared memory (push_to), or of
+// every CTA's in the cluster, this CTA's own included (push4): distributed
+// shared memory, by mapa and st.shared::cluster. Stores are not waited for:
+// the cluster barrier after them makes them seen.
+__device__ __forceinline__ void push_to(float* at, int rank, float v) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(at));
+  unsigned ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(ra) : "r"(a), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(ra), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void push4(float* at, int cl, float4 v) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(at));
+  for (int r = 0; r < cl; ++r) {
+    unsigned ra;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(ra) : "r"(a), "r"(r));
+    asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(ra), "f"(v.x),
+                 "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
+  }
+}
+
+// Σ_{i < n} v[i] over a warp: lane l adds v[l], v[l + 32], ... in order,
+// then a butterfly; every lane gets the same bits (a + b == b + a).
+__device__ __forceinline__ float warp_sum(const float* v, int n, int lane) {
+  float s = 0.0f;
+  for (int i = lane; i < n; i += 32) s += v[i];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// One product of a phase: out[b][j] = Σ_i f(in[b][i])·W[i][j] for the tb
+// rows of a tile and the CTA's columns j < w, in (tb rows of stride ldi,
+// 4·nin4 inputs) and W (4·nin4 rows of stride ldw, zero past the slice) in
+// shared memory; f(x) = x − sub[i] where sub is set (the rotation's x − m),
+// x rounded to bf16 where rnd is (the bf16 control's first layer), else x.
+struct Job {
+  const float* in;
+  const float* W;
+  const float* sub;
+  int ldi, nin4, ldw, w;
+  bool rnd;
+};
+
+// acc[r][q] += Σ_{i < rows} f(x[r·ldx + i])·w[i·ldw + q] over a register
+// tile of R rows (ldx apart) × 4 columns, i in order, as tile_fma's VEC
+// path; f is x − sub[i] where SUB, x rounded to bf16 where RND, else x
+// (a branch-free loop, so the loads of later inputs are issued early).
+template <bool SUB, bool RND>
+__device__ __forceinline__ void job_tile(float (&acc)[R][4], const float* __restrict__ x, int ldx,
+                                         const float* __restrict__ w, int ldw, int rows,
+                                         const float* __restrict__ sub) {
+#pragma unroll 2
+  for (int i = 0; i < rows; i += 4) {
+    float4 xv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) xv[r] = *reinterpret_cast<const float4*>(x + r * ldx + i);
+    if constexpr (SUB) {
+      const float4 m4 = *reinterpret_cast<const float4*>(sub + i);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        xv[r] = make_float4(xv[r].x - m4.x, xv[r].y - m4.y, xv[r].z - m4.z, xv[r].w - m4.w);
+      }
+    }
+    if constexpr (RND) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        xv[r] = make_float4(round_bf16(xv[r].x), round_bf16(xv[r].y), round_bf16(xv[r].z),
+                            round_bf16(xv[r].w));
+      }
+    }
+    float4 wv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wv[q] = *reinterpret_cast<const float4*>(w + (size_t)(i + q) * ldw);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float xs = q == 0 ? xv[r].x : q == 1 ? xv[r].y : q == 2 ? xv[r].z : xv[r].w;
+        acc[r][0] = fmaf(xs, wv[q].x, acc[r][0]);
+        acc[r][1] = fmaf(xs, wv[q].y, acc[r][1]);
+        acc[r][2] = fmaf(xs, wv[q].z, acc[r][2]);
+        acc[r][3] = fmaf(xs, wv[q].w, acc[r][3]);
+      }
+    }
+  }
+}
+
+// The products of one phase, nj independent jobs (job(j) describes job j),
+// each quad of sums (columns j0 .. j0 + 3 of a row b; past the job's width
+// the zero padding gives 0) handed to epi(j, b, j0, sums) once. The work
+// items are register tiles of R rows (tb / R apart) × 4 columns over all
+// jobs; where they
+// are fewer than the threads, each job's inputs are cut into chunks of
+// whole quads, so every warp works: each item sums one chunk into `part`,
+// and after a block barrier each sum is its chunks' partial sums added in
+// chunk order. The cut depends on the shapes alone, so launches are
+// bitwise repeatable. SUB / RND: whether a job of the phase may read x − m
+// or x rounded to bf16 (the other phases carry no code for them).
+template <bool SUB, bool RND, class JobOf, class Epi>
+__device__ __forceinline__ void run_jobs(int nj, int tb, float* __restrict__ part, JobOf job,
+                                         Epi epi) {
+  int tiles = 0;
+  for (int j = 0; j < nj; ++j) tiles += (tb / R) * ((job(j).w + 3) >> 2);
+  if (tiles == 0) return;
+  const int target = tiles >= NT ? 1 : NT / tiles;  // chunks a tile, at most
+  // a job's quads of columns, chunk and chunks
+  auto cut = [&](const Job& jb, int& nq, int& chunk, int& ks) {
+    nq = (jb.w + 3) >> 2;
+    ks = min(target, jb.nin4);
+    chunk = (jb.nin4 + ks - 1) / ks;
+    ks = (jb.nin4 + chunk - 1) / chunk;
+  };
+  int items = 0;
+  bool split = false;
+  for (int j = 0; j < nj; ++j) {
+    int nq, chunk, ks;
+    cut(job(j), nq, chunk, ks);
+    items += (tb / R) * nq * ks;
+    split |= ks > 1;
+  }
+  for (int o = threadIdx.x; o < items; o += NT) {
+    // the item's job, and where its partial sums go
+    int j = 0, rest = o, poff = 0, nq, chunk, ks;
+    Job jb = job(0);
+    cut(jb, nq, chunk, ks);
+    while (rest >= (tb / R) * nq * ks) {
+      rest -= (tb / R) * nq * ks;
+      poff += ks > 1 ? ks * tb * 4 * nq : 0;
+      jb = job(++j);
+      cut(jb, nq, chunk, ks);
+    }
+    // group g's rows are g, g + G, g + 2·G, g + 3·G
+    const int G = tb / R, tiles_j = G * nq, kc = rest / tiles_j, t = rest - kc * tiles_j;
+    const int g = t / nq, j0 = (t - g * nq) * 4;
+    const int i0 = 4 * chunk * kc, rows = 4 * min(chunk, jb.nin4 - chunk * kc);
+    float acc[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
+    }
+    const float* x = jb.in + g * jb.ldi + i0;
+    const float* w = jb.W + (size_t)i0 * jb.ldw + j0;
+    if (SUB && jb.sub != nullptr) {
+      job_tile<SUB, false>(acc, x, G * jb.ldi, w, jb.ldw, rows, jb.sub + i0);
+    } else if (RND && jb.rnd) {
+      job_tile<false, RND>(acc, x, G * jb.ldi, w, jb.ldw, rows, nullptr);
+    } else {
+      job_tile<false, false>(acc, x, G * jb.ldi, w, jb.ldw, rows, nullptr);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      if (ks == 1) {
+        epi(j, g + r * G, j0, v);
+      } else {
+        *reinterpret_cast<float4*>(part + poff + (kc * tb + g + r * G) * 4 * nq + j0) = v;
+      }
+    }
+  }
+  if (!split) return;
+  __syncthreads();
+  int poff = 0;
+  for (int j = 0; j < nj; ++j) {
+    int nq, chunk, ks;
+    cut(job(j), nq, chunk, ks);
+    if (ks == 1) continue;
+    const float4* pj = reinterpret_cast<const float4*>(part + poff);
+    for (int e = threadIdx.x; e < tb * nq; e += NT) {
+      float4 v = pj[e];
+#pragma unroll 4
+      for (int kc = 1; kc < ks; ++kc) {
+        const float4 w = pj[kc * tb * nq + e];
+        v = make_float4(v.x + w.x, v.y + w.y, v.z + w.z, v.w + w.w);
+      }
+      const int b = e / nq;
+      epi(j, b, 4 * (e - b * nq), v);
+    }
+    poff += ks * tb * 4 * nq;
+  }
+}
+
+// The MLP epilogue of dense_tiled: + bias (+ extra), gelu where GELU, the
+// bf16 mode's rounding points where BF16.
+template <bool GELU, bool BF16>
+__device__ __forceinline__ float mlp_epilogue(float acc, float bias, bool has_extra, float extra) {
+  if constexpr (BF16) {
+    float v = round_bf16(round_bf16(acc) + bias);
+    if (has_extra) v = round_bf16(v + extra);
+    return GELU ? round_bf16(gelu_tanh(v)) : v;
+  } else {
+    const float v = acc + (bias + extra);
+    return GELU ? gelu_tanh(v) : v;
+  }
+}
+
+// The cluster kernel: a cluster of cl CTAs (p.cl) owns tiles of tb
+// trajectories (p.tb) for all K steps, tile cluster_id, cluster_id +
+// clusters, ... (persistent clusters, as many as the card holds at once).
+// CTA q of the cluster owns the columns S_q (quads of D, split evenly) and
+// the hidden units H_q (quads of H). At the launch's start it copies its
+// slices of the tables into its shared memory, where they stay to the end:
+// columns S_q of every P_c and of every P_cᵀ, units H_q of W0 and of each Wh,
+// columns S_q of W_out, the biases. So the tables cross L2 once a launch,
+// not once a block-step. Each CTA keeps the full rows that its products
+// read (the state, y_c·iv_c for every component, two hidden rows); the
+// CTA that computes a slice of such a row writes it into every peer's
+// shared memory (distributed shared memory). A step:
+//   A  the next step's rows (m, iv, const, embed, coefficients) prefetched
+//      by cp.async
+//   B  for every component y_c = (x − m_c)·P_c on S_q, beside the first MLP
+//      layer on H_q (into every peer): one phase of products
+//   C  y_c·iv_c on S_q (into every peer) and the quadratic forms' partial
+//      sums over S_q (into every peer)
+//   —  cluster barrier
+//   D  every CTA the same softmax factors from the partial sums in rank
+//      order; g_c = (y_c·iv_c)·P_cᵀ on S_q for every component beside the
+//      second MLP layer; the score on S_q
+//   —  cluster barrier; a layer and a barrier for each further hidden layer
+//   F  the output layer on S_q, the update and noise on S_q (the new state
+//      into every peer), the RND's ‖u‖², u·z partial sums (into every peer)
+//   —  cluster barrier; the RND from the partial sums in rank order
+// That is n_h + 2 cluster barriers a step (2 without hidden layers). Every
+// buffer a CTA writes into a peer is read there after a cluster barrier,
+// and written again only after another one that follows that read. The
+// diagonal mode (FULL false) keeps no rotations: y_c = x − m_c on S_q, g_c
+// = y_c·iv_c there. The MLP tables are f32 (a bf16 plan's widened exactly
+// by the host); BF16 selects the bf16 rounding points. Random draws are
+// traj_body's, keyed by (seed, step, trajectory, dimension).
+template <bool BF16, bool FULL>
+__global__ void __launch_bounds__(NT, 1) traj_kernel_cluster(const Params p) {
+  extern __shared__ float4 smem4[];
+  float* s = reinterpret_cast<float*>(smem4);
+  const int D = p.D, H = p.H, nh = p.n_hidden, C = p.C, B = p.B, K = p.K;
+  const int tb = p.tb, cl = p.cl;
+  const ClusterLayout L = cluster_layout(D, H, nh, C, FULL, cl, tb);
+  const int DP = L.DP, HP = L.HP, ldd = L.ldd, ldh = L.ldh, SD = L.sd, SH = L.sh;
+  const int rank = cluster_rank();
+  const int nqd = (D + 3) / 4, nqh = (H + 3) / 4;
+  const int j_lo = 4 * (rank * nqd / cl), h_lo = 4 * (rank * nqh / cl);
+  const int w_d = max(0, min(D, 4 * ((rank + 1) * nqd / cl)) - j_lo);
+  const int w_h = max(0, min(H, 4 * ((rank + 1) * nqh / cl)) - h_lo);
+  const int nq_d = (w_d + 3) / 4;
+  const float* const pq = s + L.p;
+  const float* const ptq = s + L.pt;
+  const float* const w0q = s + L.w0;
+  const float* const whq = s + L.wh;
+  const float* const woq = s + L.wo;
+  const float* const b0q = s + L.b0;
+  const float* const bhq = s + L.bh;
+  const float* const boq = s + L.bo;
+  float* const xr = s + L.xr;      // the state's full rows            [b][SD]
+  float* const ysg = s + L.ysg;    // y_c·iv_c's full rows             [c][b][SD]
+  float* const hA = s + L.hA;      // hidden rows, two buffers         [b][SH]
+  float* const hB = s + L.hB;
+  float* const yq = s + L.yq;      // y_c, then g_c, on S_q            [c][b][ldd]
+  float* const rq = s + L.rq;      // the reference score on S_q      [b][ldd]
+  float* const uq = s + L.uq;      // the control on S_q              [b][ldd]
+  float* const part = s + L.part;
+  float* const qp = s + L.qp;      // quadratic forms by rank         [c][rank][b]
+  float* const rp = s + L.rp;      // ‖u‖² then u·z by rank           [2][rank][b]
+  float* const fs = s + L.fs;      // softmax factors                 [c][b]
+  float* const fw = s + L.fw;
+  float* const fn = s + L.fn;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // a step's rows: m_kc [c][DP], iv_kc on S_q [c][ldd], const_kc, the embed
+  // row on H_q, the coefficients; step k's in buffer n & 1, n the steps this
+  // CTA has taken
+  auto rows_of = [&](int n) { return s + L.rows + (n & 1) * L.sr; };
+  auto fetch_rows = [&](int k, float* r) {
+    slice_to_smem(r, DP, C, p.ref_m + (size_t)k * C * D, D, C, 0, D);
+    slice_to_smem(r + C * DP, ldd, C, p.ref_iv + (size_t)k * C * D, D, C, j_lo, w_d);
+    slice_to_smem(r + C * DP + C * ldd, round4(C), 1, p.ref_const + (size_t)k * C, C, 1, 0, C);
+    slice_to_smem(r + C * DP + C * ldd + round4(C), ldh, 1,
+                  static_cast<const float*>(p.embed) + (size_t)k * H, H, 1, h_lo, w_h);
+    slice_to_smem(r + C * DP + C * ldd + round4(C) + ldh, 8, 1, p.coefs + 6 * k, 6, 1, 0, 6);
+    cp_async_commit();
+  };
+
+  // the tables' slices, once a launch, and step 0's rows
+  if constexpr (FULL) {
+    for (int c = 0; c < C; ++c) {
+      slice_to_smem(s + L.p + c * DP * ldd, ldd, DP, p.ref_p + (size_t)c * D * D, D, D, j_lo,
+                    w_d);
+      slice_to_smem(s + L.pt + c * DP * ldd, ldd, DP, p.ref_pt + (size_t)c * D * D, D, D, j_lo,
+                    w_d);
+    }
+  }
+  slice_to_smem(s + L.w0, ldh, DP, static_cast<const float*>(p.w0), H, D, h_lo, w_h);
+  for (int l = 0; l < nh; ++l) {
+    slice_to_smem(s + L.wh + l * HP * ldh, ldh, HP,
+                  static_cast<const float*>(p.wh) + (size_t)l * H * H, H, H, h_lo, w_h);
+    slice_to_smem(s + L.bh + l * ldh, ldh, 1, static_cast<const float*>(p.bh) + (size_t)l * H,
+                  H, 1, h_lo, w_h);
+  }
+  slice_to_smem(s + L.wo, ldd, HP, static_cast<const float*>(p.w_out), D, H, j_lo, w_d);
+  slice_to_smem(s + L.b0, ldh, 1, static_cast<const float*>(p.b0), H, 1, h_lo, w_h);
+  slice_to_smem(s + L.bo, ldd, 1, static_cast<const float*>(p.b_out), D, 1, j_lo, w_d);
+  // the rows past the tables zeroed: every padding (past D, H and the
+  // slices, in the tables too) is 0 and stays 0 through every product,
+  // gelu(0) = 0 included
+  for (int e = L.rows + tid; e < L.total; e += NT) s[e] = 0.0f;
+  __syncthreads();
+  fetch_rows(0, rows_of(0));
+  cp_async_wait<0>();
+  // every CTA of the cluster has started and zeroed its rows before any
+  // peer writes into them
+  cluster_sync();
+
+  const int n_tiles = (B + tb - 1) / tb, n_clusters = gridDim.x / cl;
+  float mx = 0.0f, sw = 0.0f, rnd = 0.0f;  // thread t < tb: trajectory t's
+  int n = 0;
+  for (int tile = blockIdx.x / cl; tile < n_tiles; tile += n_clusters) {
+    const int base = tile * tb, valid = min(tb, B - base);
+    for (int e = tid; e < tb * SD; e += NT) {
+      const int b = e / SD, d = e - b * SD;
+      xr[e] = b < valid && d < D ? p.x0[(size_t)(base + b) * D + d] : 0.0f;
+    }
+    rnd = 0.0f;
+    __syncthreads();
+
+    for (int k = 0; k < K; ++k, ++n) {
+      const float* m_k = rows_of(n);
+      const float* iv_k = m_k + C * DP;
+      const float* cst_k = iv_k + C * ldd;
+      const float* emb_k = cst_k + round4(C);
+      const float* cf_k = emb_k + ldh;
+      // ---- A: the pre-step states on S_q; the next step's rows ----------
+      if (p.xs_out != nullptr) {
+        float* xso = p.xs_out + ((size_t)k * B + base) * D + j_lo;
+        for (int e = tid; e < valid * w_d; e += NT) {
+          const int b = e / w_d, j = e - b * w_d;
+          xso[(size_t)b * D + j] = xr[b * SD + j_lo + j];
+        }
+      }
+      fetch_rows(k + 1 < K ? k + 1 : 0, rows_of(n + 1));
+      // the fed noise of this thread's first item of the update, loaded
+      // here so that its latency is spent while the step runs
+      float4 z_pre = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (p.noise != nullptr && tid < tb * nq_d) {
+        const int b = tid / nq_d, jq = tid - b * nq_d;
+        if (b < valid) {
+          const float* zr = p.noise + ((size_t)k * B + base + b) * D + j_lo + 4 * jq;
+          z_pre.x = __ldg(zr);
+          if (4 * jq + 1 < w_d) z_pre.y = __ldg(zr + 1);
+          if (4 * jq + 2 < w_d) z_pre.z = __ldg(zr + 2);
+          if (4 * jq + 3 < w_d) z_pre.w = __ldg(zr + 3);
+        }
+      }
+      // ---- B: y_c = (x − m_c)·P_c on S_q; the first layer on H_q ---------
+      const int nrot = FULL ? C : 0;
+      run_jobs<FULL, BF16>(
+          nrot + 1, tb, part,
+          [&](int j) {
+            return j < nrot ? Job{xr, pq + j * DP * ldd, m_k + j * DP, SD, DP / 4, ldd, w_d, false}
+                            : Job{xr, w0q, nullptr, SD, DP / 4, ldh, w_h, BF16};
+          },
+          [&](int j, int b, int c0, float4 v) {
+            if (j < nrot) {
+              *reinterpret_cast<float4*>(yq + (j * tb + b) * ldd + c0) = v;
+            } else {
+              v.x = mlp_epilogue<true, BF16>(v.x, b0q[c0], true, emb_k[c0]);
+              v.y = mlp_epilogue<true, BF16>(v.y, b0q[c0 + 1], true, emb_k[c0 + 1]);
+              v.z = mlp_epilogue<true, BF16>(v.z, b0q[c0 + 2], true, emb_k[c0 + 2]);
+              v.w = mlp_epilogue<true, BF16>(v.w, b0q[c0 + 3], true, emb_k[c0 + 3]);
+              push4(hA + b * SH + h_lo + c0, cl, v);
+            }
+          });
+      __syncthreads();
+      // ---- C: y_c·iv_c on S_q, the quadratic forms' partial sums ----------
+      for (int e = tid; e < C * tb * nq_d; e += NT) {
+        const int c = e / (tb * nq_d), rest = e - c * tb * nq_d;
+        const int b = rest / nq_d, jq = rest - b * nq_d;
+        float4 v;
+        if constexpr (FULL) {
+          v = reinterpret_cast<const float4*>(yq + (c * tb + b) * ldd)[jq];
+        } else {
+          const float4 x4 = reinterpret_cast<const float4*>(xr + b * SD + j_lo)[jq];
+          const float4 m4 = reinterpret_cast<const float4*>(m_k + c * DP + j_lo)[jq];
+          v = make_float4(x4.x - m4.x, x4.y - m4.y, x4.z - m4.z, x4.w - m4.w);
+        }
+        const float4 iv4 = reinterpret_cast<const float4*>(iv_k + c * ldd)[jq];
+        const float4 sv = make_float4(v.x * iv4.x, v.y * iv4.y, v.z * iv4.z, v.w * iv4.w);
+        float q = v.x * sv.x;
+        q = fmaf(v.y, sv.y, q);
+        q = fmaf(v.z, sv.z, q);
+        q = fmaf(v.w, sv.w, q);
+        part[e] = q;
+        if constexpr (FULL) {
+          push4(ysg + (c * tb + b) * SD + j_lo + 4 * jq, cl, sv);
+        } else {
+          reinterpret_cast<float4*>(yq + (c * tb + b) * ldd)[jq] = sv;  // g_c
+        }
+      }
+      __syncthreads();
+      // each (c, b)'s partial sum over S_q by a warp, written by lane r
+      // into CTA r
+      for (int cb = warp; cb < C * tb; cb += NW) {
+        const float q = warp_sum(part + cb * nq_d, nq_d, lane);
+        if (lane < cl) push_to(qp + ((cb / tb) * cl + rank) * tb + cb % tb, lane, q);
+      }
+      cluster_sync();
+      // ---- D: softmax factors; the score on S_q beside the second layer ---
+      if (tid < tb) {  // the same factors in every CTA: partial sums in rank order
+        for (int c = 0; c < C; ++c) {
+          float q = 0.0f;
+          for (int r = 0; r < cl; ++r) q += qp[(c * cl + r) * tb + tid];
+          const float logit = cst_k[c] - 0.5f * q;
+          float scale = 0.0f, wgt = 1.0f;
+          if (c == 0) {
+            mx = logit;
+            sw = 1.0f;
+          } else {
+            const float nmx = fmaxf(mx, logit);
+            scale = expf(mx - nmx);
+            wgt = expf(logit - nmx);
+            sw = sw * scale + wgt;
+            mx = nmx;
+          }
+          fs[c * tb + tid] = scale;
+          fw[c * tb + tid] = wgt;
+        }
+        fn[tid] = -1.0f / sw;
+      }
+      // g_c = (y_c·iv_c)·P_cᵀ on S_q for every c; the second layer on H_q
+      // (the output layer on S_q, with no hidden layer)
+      run_jobs<false, false>(
+          nrot + 1, tb, part,
+          [&](int j) {
+            return j < nrot ? Job{ysg + j * tb * SD, ptq + j * DP * ldd, nullptr, SD, DP / 4, ldd,
+                                  w_d, false}
+                   : nh > 0 ? Job{hA, whq, nullptr, SH, HP / 4, ldh, w_h, false}
+                            : Job{hA, woq, nullptr, SH, HP / 4, ldd, w_d, false};
+          },
+          [&](int j, int b, int c0, float4 v) {
+            if (j < nrot) {
+              *reinterpret_cast<float4*>(yq + (j * tb + b) * ldd + c0) = v;  // g_c
+            } else if (nh > 0) {
+              v.x = mlp_epilogue<true, BF16>(v.x, bhq[c0], false, 0.0f);
+              v.y = mlp_epilogue<true, BF16>(v.y, bhq[c0 + 1], false, 0.0f);
+              v.z = mlp_epilogue<true, BF16>(v.z, bhq[c0 + 2], false, 0.0f);
+              v.w = mlp_epilogue<true, BF16>(v.w, bhq[c0 + 3], false, 0.0f);
+              push4(hB + b * SH + h_lo + c0, cl, v);
+            } else {
+              v.x = mlp_epilogue<false, BF16>(v.x, boq[c0], false, 0.0f);
+              v.y = mlp_epilogue<false, BF16>(v.y, boq[c0 + 1], false, 0.0f);
+              v.z = mlp_epilogue<false, BF16>(v.z, boq[c0 + 2], false, 0.0f);
+              v.w = mlp_epilogue<false, BF16>(v.w, boq[c0 + 3], false, 0.0f);
+              *reinterpret_cast<float4*>(uq + b * ldd + c0) = v;
+            }
+          });
+      __syncthreads();
+      // the score on S_q: the softmax-weighted sum over c, in the online
+      // softmax's order
+      for (int e = tid; e < tb * w_d; e += NT) {
+        const int b = e / w_d, j = e - b * w_d;
+        float v = fw[b] * yq[b * ldd + j];
+        for (int c = 1; c < C; ++c) {
+          v = fmaf(fw[c * tb + b], yq[(c * tb + b) * ldd + j], v * fs[c * tb + b]);
+        }
+        rq[b * ldd + j] = v * fn[b];
+      }
+      // ---- E: the further hidden layers, a barrier each -------------------
+      for (int l = 1; l < nh; ++l) {
+        cluster_sync();
+        const float* const hin = (l & 1) ? hB : hA;
+        float* const hout = (l & 1) ? hA : hB;
+        const float* const bias = bhq + l * ldh;
+        run_jobs<false, false>(
+            1, tb, part,
+            [&](int) { return Job{hin, whq + l * HP * ldh, nullptr, SH, HP / 4, ldh, w_h, false}; },
+            [&](int, int b, int c0, float4 v) {
+              v.x = mlp_epilogue<true, BF16>(v.x, bias[c0], false, 0.0f);
+              v.y = mlp_epilogue<true, BF16>(v.y, bias[c0 + 1], false, 0.0f);
+              v.z = mlp_epilogue<true, BF16>(v.z, bias[c0 + 2], false, 0.0f);
+              v.w = mlp_epilogue<true, BF16>(v.w, bias[c0 + 3], false, 0.0f);
+              push4(hout + b * SH + h_lo + c0, cl, v);
+            });
+      }
+      // ---- F: the output layer, the update and noise on S_q ----------------
+      if (nh > 0) {
+        cluster_sync();
+        run_jobs<false, false>(
+            1, tb, part,
+            [&](int) {
+              return Job{(nh & 1) ? hB : hA, woq, nullptr, SH, HP / 4, ldd, w_d, false};
+            },
+            [&](int, int b, int c0, float4 v) {
+              v.x = mlp_epilogue<false, BF16>(v.x, boq[c0], false, 0.0f);
+              v.y = mlp_epilogue<false, BF16>(v.y, boq[c0 + 1], false, 0.0f);
+              v.z = mlp_epilogue<false, BF16>(v.z, boq[c0 + 2], false, 0.0f);
+              v.w = mlp_epilogue<false, BF16>(v.w, boq[c0 + 3], false, 0.0f);
+              *reinterpret_cast<float4*>(uq + b * ldd + c0) = v;
+            });
+      }
+      __syncthreads();
+      // every read of this step's rows comes before the barrier that ends it:
+      // a thread past it prefetches into that buffer
+      const float a_x = cf_k[0], a_ref = cf_k[1], a_u = cf_k[2], a_z = cf_k[3];
+      const float c_cost = cf_k[4], c_dot = cf_k[5];
+      for (int e = tid; e < tb * nq_d; e += NT) {
+        const int b = e / nq_d, jq = e - b * nq_d;
+        float xn[4], uu = 0.0f, uz = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = 4 * jq + q;
+          xn[q] = 0.0f;
+          if (j >= w_d) continue;
+          float u = uq[b * ldd + j];
+          if (p.has_clip) u = fminf(fmaxf(u, -p.clip), p.clip);
+          float z = 0.0f;
+          if (p.noise != nullptr) {
+            if (e == tid) {
+              z = q == 0 ? z_pre.x : q == 1 ? z_pre.y : q == 2 ? z_pre.z : z_pre.w;
+            } else if (b < valid) {
+              z = __ldg(p.noise + ((size_t)k * B + base + b) * D + j_lo + j);
+            }
+          } else {
+            z = philox_normal(p.seed, k, base + b, j_lo + j);
+          }
+          xn[q] = a_x * xr[b * SD + j_lo + j] + a_ref * rq[b * ldd + j] + a_u * u + a_z * z;
+          uu = fmaf(u, u, uu);
+          uz = fmaf(u, z, uz);
+        }
+        part[e] = uu;
+        part[tb * nq_d + e] = uz;
+        push4(xr + b * SD + j_lo + 4 * jq, cl, make_float4(xn[0], xn[1], xn[2], xn[3]));
+      }
+      __syncthreads();
+      for (int b = warp; b < tb; b += NW) {
+        const float uu = warp_sum(part + b * nq_d, nq_d, lane);
+        const float uz = warp_sum(part + (tb + b) * nq_d, nq_d, lane);
+        if (lane < cl) {
+          push_to(rp + rank * tb + b, lane, uu);
+          push_to(rp + (cl + rank) * tb + b, lane, uz);
+        }
+      }
+      cp_async_wait<0>();  // the next step's rows
+      cluster_sync();
+      if (tid < tb) {  // the RND from the partial sums in rank order
+        float uu = 0.0f, uz = 0.0f;
+        for (int r = 0; r < cl; ++r) {
+          uu += rp[r * tb + tid];
+          uz += rp[(cl + r) * tb + tid];
+        }
+        rnd = rnd + c_cost * 0.5f * uu + c_dot * uz;
+      }
+    }
+    // the tile's x_T on S_q, and its rnd from the cluster's first CTA
+    for (int e = tid; e < valid * w_d; e += NT) {
+      const int b = e / w_d, j = e - b * w_d;
+      p.x_out[(size_t)(base + b) * D + j_lo + j] = xr[b * SD + j_lo + j];
+    }
+    if (rank == 0 && tid < valid) p.rnd_out[base + tid] = rnd;
+    __syncthreads();  // the next tile's rows overwrite xr
+  }
+  cp_async_wait<0>();
+  // no CTA leaves while a peer may still write into its shared memory
+  cluster_sync();
+}
+
+#if FT_PART2
+// The cluster kernel for the mode (bf16, full), with its shared memory set
+// for (cl, tb); null where the card refuses that much shared memory.
+void (*cluster_kernel(int D, int H, int n_hidden, int C, int full, int bf16, int cl, int tb,
+                      int* smem, cudaError_t* err))(Params) {
+  void (*kernel)(Params) =
+      bf16 ? (full ? traj_kernel_cluster<true, true> : traj_kernel_cluster<true, false>)
+           : (full ? traj_kernel_cluster<false, true> : traj_kernel_cluster<false, false>);
+  *smem = (int)(sizeof(float) * (size_t)cluster_layout(D, H, n_hidden, C, full != 0, cl, tb).total);
+  *err = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *smem);
+  return *err == cudaSuccess ? kernel : nullptr;
+}
+
+// The launch configuration of a cluster kernel: `clusters` clusters of cl
+// CTAs of NT threads (attr holds the cluster dimension).
+cudaLaunchConfig_t cluster_config(int cl, int clusters, int smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(clusters * cl, 1, 1);
+  config.blockDim = dim3(NT, 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cl;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+#endif
+
+// kernel<<<blocks, threads, smem, stream>>>(p) after its shared memory is
+// allowed; 0 or the CUDA error.
+int launch_plain(void (*kernel)(Params), const Params& p, int blocks, int threads, int smem,
+                 cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+namespace fused_traj_detail {
+
+#if FT_PART0
+int launch_diag(const Params& p, int bf16, int tw, int warps, int blocks, cudaStream_t stream) {
+  const int elems = (p.D + 32 / tw - 1) / (32 / tw);
+  return launch_plain(bf16 ? diag_kernel<true>(tw, elems) : diag_kernel<false>(tw, elems), p,
+                      blocks, 32 * warps,
+                      (int)(sizeof(float) * (size_t)diag_smem_floats(p.D, p.H, p.n_hidden, warps,
+                                                                      tw)),
+                      stream);
+}
+#endif
+
+#if FT_PART1
+int launch_full(const Params& p, int bf16, cudaStream_t stream) {
+  return launch_plain(bf16 ? traj_kernel_full<true> : traj_kernel_full<false>, p,
+                      (p.B + TB - 1) / TB, NT,
+                      (int)(sizeof(float) * (size_t)smem_floats(p.D, p.H, p.n_hidden, true)),
+                      stream);
+}
+
+int launch_wide(const Params& p, int bf16, bool full, int blocks, cudaStream_t stream) {
+  return launch_plain(bf16 ? (full ? traj_kernel_wide<true, true> : traj_kernel_wide<true, false>)
+                           : (full ? traj_kernel_wide<false, true> : traj_kernel_wide<false, false>),
+                      p, blocks, NT,
+                      (int)(sizeof(float) * (size_t)wide_smem_floats(p.D, p.H, p.tb)), stream);
+}
+#endif
+
+#if FT_PART2
+int launch_cluster(const Params& p, int bf16, bool full, int blocks, cudaStream_t stream) {
+  int smem;
+  cudaError_t err;
+  void (*kernel)(Params) =
+      cluster_kernel(p.D, p.H, p.n_hidden, p.C, full, bf16, p.cl, p.tb, &smem, &err);
+  if (kernel == nullptr) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t config = cluster_config(p.cl, blocks, smem, stream, attr);
+  err = cudaLaunchKernelEx(&config, kernel, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int cluster_max_active(int D, int H, int n_hidden, int C, int full, int bf16, int cl, int tb) {
+  if (!cluster_geometry_ok(1, cl, tb, 1)) return -(int)cudaErrorInvalidValue;
+  int smem;
+  cudaError_t err;
+  void (*kernel)(Params) = cluster_kernel(D, H, n_hidden, C, full, bf16, cl, tb, &smem, &err);
+  if (kernel == nullptr) return -(int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t config = cluster_config(cl, 1, smem, nullptr, attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &config);
+  return err == cudaSuccess ? n : -(int)err;
+}
+#endif
+
+}  // namespace fused_traj_detail
 
 extern "C" {
 
+#if FT_PART0
 // Dynamic shared memory one block needs, in bytes: full non-zero for the
 // full-covariance mode (warps and tw ignored), else the diagonal mode with
 // `warps` warps of `tw` trajectories.
@@ -1483,11 +2352,13 @@ const char* fused_traj_error_string(int err) {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for inputs the kernels do not take. ref_p and ref_pt
-// are both null (diagonal mode) or both set (full-covariance mode). With tb
-// non-zero the wide kernel runs, tb trajectories a block (a multiple of R
-// up to TB) on `blocks` blocks, its seven MLP tables f32 in either mode
-// (bf16 selects the bf16 rounding points); tw and warps are 0. Else the
-// seven tables (embed .. b_out) are f32, or __nv_bfloat16 when bf16 is
+// are both null (diagonal mode) or both set (full-covariance mode). With cl
+// non-zero the cluster kernel runs: `blocks` clusters of cl CTAs, tiles of
+// tb trajectories (cluster_geometry_ok), its seven MLP tables f32 in either
+// mode (bf16 selects the bf16 rounding points). Else with tb non-zero the
+// wide kernel runs, tb trajectories a block (a multiple of R up to TB) on
+// `blocks` blocks, its tables f32 alike; tw and warps are 0 for both. Else
+// the seven tables (embed .. b_out) are f32, or __nv_bfloat16 when bf16 is
 // non-zero; the diagonal mode runs on the geometry (tw trajectories a warp,
 // warps a block, blocks) the caller picked, checked by diag_geometry_ok;
 // the full-covariance mode has its own fixed tile and takes zeros there.
@@ -1500,40 +2371,53 @@ int fused_traj_launch(const float* x0, const float* coefs, const void* embed,
                       unsigned long long seed, float* x_out, float* rnd_out,
                       float* xs_out, int B, int K, int D, int H, int n_hidden,
                       int C, int bf16, int has_clip, float clip, int tw, int warps,
-                      int blocks, int tb, void* stream) {
+                      int blocks, int tb, int cl, void* stream) {
+  namespace ftd = fused_traj_detail;
   if ((ref_p == nullptr) != (ref_pt == nullptr)) return (int)cudaErrorInvalidValue;
   const bool full = ref_p != nullptr;
-  Params p{x0,     coefs,  embed,   w0,     b0,       wh,    bh,
-           w_out,  b_out,  ref_const, ref_m, ref_iv,  ref_p, ref_pt,
-           noise,  x_out,  rnd_out, xs_out, seed,     B,     K,
-           D,      H,      n_hidden, C,     has_clip, clip,  tb};
-  int smem, threads = NT;
-  void (*kernel)(Params);
+  const Params p{x0,     coefs,  embed,   w0,     b0,       wh,    bh,
+                 w_out,  b_out,  ref_const, ref_m, ref_iv,  ref_p, ref_pt,
+                 noise,  x_out,  rnd_out, xs_out, seed,     B,     K,
+                 D,      H,      n_hidden, C,     has_clip, clip,  tb,    cl};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (cl != 0) {
+    if (!cluster_geometry_ok(B, cl, tb, blocks) || tw != 0 || warps != 0 || D < 1 || H < 1 ||
+        n_hidden < 0 || C < 1 || K < 1) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return ftd::launch_cluster(p, bf16, full, blocks, s);
+  }
   if (tb != 0) {
     if (tb < R || tb > TB || tb % R != 0 || tw != 0 || warps != 0 || B < 1 || D < 1 ||
         H < 1 || blocks != (B + tb - 1) / tb) {
       return (int)cudaErrorInvalidValue;
     }
-    smem = fused_traj_wide_smem_bytes(D, H, tb);
-    kernel = bf16 ? (full ? traj_kernel_wide<true, true> : traj_kernel_wide<true, false>)
-                  : (full ? traj_kernel_wide<false, true> : traj_kernel_wide<false, false>);
-  } else if (full) {
-    if (D > MAX_FULL_D || tw != 0 || warps != 0 || blocks != 0) return (int)cudaErrorInvalidValue;
-    smem = fused_traj_smem_bytes(D, H, n_hidden, 1, 0, 0);
-    kernel = bf16 ? traj_kernel_full<true> : traj_kernel_full<false>;
-    blocks = (B + TB - 1) / TB;
-  } else {
-    if (!diag_geometry_ok(B, D, H, tw, warps, blocks)) return (int)cudaErrorInvalidValue;
-    smem = fused_traj_smem_bytes(D, H, n_hidden, 0, warps, tw);
-    const int elems = (D + 32 / tw - 1) / (32 / tw);
-    kernel = bf16 ? diag_kernel<true>(tw, elems) : diag_kernel<false>(tw, elems);
-    threads = 32 * warps;
+    return ftd::launch_wide(p, bf16, full, blocks, s);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  if (full) {
+    if (D > MAX_FULL_D || tw != 0 || warps != 0 || blocks != 0) return (int)cudaErrorInvalidValue;
+    return ftd::launch_full(p, bf16, s);
+  }
+  if (!diag_geometry_ok(B, D, H, tw, warps, blocks)) return (int)cudaErrorInvalidValue;
+  return ftd::launch_diag(p, bf16, tw, warps, blocks, s);
 }
+#endif
+
+#if FT_PART2
+// Dynamic shared memory of one CTA of the cluster kernel (clusters of cl
+// CTAs, tiles of tb trajectories), in bytes.
+int fused_traj_cluster_smem_bytes(int D, int H, int n_hidden, int C, int full, int cl, int tb) {
+  return (int)(sizeof(float) * (size_t)cluster_layout(D, H, n_hidden, C, full != 0, cl, tb).total);
+}
+
+// How many clusters of cl CTAs of the cluster kernel, each with the shared
+// memory of tiles of tb trajectories, the card holds at once
+// (cudaOccupancyMaxActiveClusters; clusters of 8 may not all fit the
+// GPCs); a negative CUDA error code where the query fails.
+int fused_traj_cluster_max_active(int D, int H, int n_hidden, int C, int full, int bf16, int cl,
+                                  int tb) {
+  return fused_traj_detail::cluster_max_active(D, H, n_hidden, C, full, bf16, cl, tb);
+}
+#endif
 
 }  // extern "C"

@@ -26,9 +26,14 @@ hand-written kernel ``csrc/fused_traj.cu``, on a CPU tensor it runs
 The diagonal mode's kernel gives each warp a few trajectories for all K
 steps; ``diag_geometry`` picks how many, and how many warps a block has, so
 that the grid covers the card's SMs. A plan past these narrow kernels'
-limits (``limit_error``) runs on the wide kernel (``uses_wide``), which
-keeps only its trajectories' rows in shared memory (``wide_rows`` picks 4
-to 32 a block) and reads the weights and rotations from global memory.
+limits (``limit_error``) runs on the cluster kernel where its tables fit a
+thread-block cluster's shared memory (``uses_cluster``: each CTA of a
+cluster of up to 8 holds its slice of the weights and rotations for the
+whole launch; ``cluster_geometry`` picks the cluster size, the tile of
+trajectories and the clusters), else on the wide kernel (``uses_wide``),
+which keeps only its trajectories' rows in shared memory (``wide_rows``
+picks 4 to 32 a block) and reads the weights and rotations from global
+memory.
 The public layout is row-major: x0 (B, D), noise (K, B, D); returns
 x_T (B, D), rnd (B,) and, with ``return_traj``, the pre-step states
 xs (K, B, D).
@@ -76,7 +81,10 @@ _LOG_2PI = math.log(2.0 * math.pi)
 # trajectories' rows in shared memory and reads the weights and rotations
 # from global memory: its one limit is those rows' shared memory (D ≤ 3194
 # at H = 64, beyond the TPU kernel's, which holds every weight and the
-# (C, D, D) rotations in VMEM).
+# (C, D, D) rotations in VMEM). Where a plan's tables fit a cluster of
+# _CLUSTER_SIZES CTAs (each CTA its slice of them, and the rows of a tile
+# of 4 to _CLUSTER_ROWS_MAX trajectories, in the card's shared memory), the
+# cluster kernel (traj_kernel_cluster) runs it instead.
 MAX_CHANNELS, MAX_HIDDEN = 256, 8
 MAX_FULL_COV_DIM = 128
 MAX_SMEM_BYTES = 232_448
@@ -93,10 +101,19 @@ _RING_STAGES, _RING_MAX_ROWS = 2, 48
 _DIAG_MAX_WARPS, _DIAG_RESIDENT_WARPS, _DIAG_ELEMS = 8, 16, 16
 _DIAG_TRAJ_PER_WARP = (1, 2, 4)
 MAX_DIAG_DIM = _DIAG_ELEMS * 32
+# the cluster kernel (traj_kernel_cluster): portable cluster sizes, the
+# largest tile, and the threads of a CTA
+_CLUSTER_SIZES = (1, 2, 4, 8)
+_CLUSTER_ROWS_MAX = 64
+_CLUSTER_THREADS = 256
 
 
 def _round4(n: int) -> int:
     return (n + 3) & ~3
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _ring_rows(d: int) -> int:
@@ -150,6 +167,92 @@ def wide_rows(batch: int, dim: int, channels: int, n_sms: int) -> int:
         raise ValueError(f"fused_traj kernel: dim {dim} and channels {channels} exceed the "
                          f"shared memory of a wide block of {tb} trajectories")
     return tb
+
+
+def cluster_smem_bytes(dim: int, channels: int, n_hidden: int, n_comp: int, full_cov: bool,
+                       cluster_size: int, rows: int) -> int:
+    """Dynamic shared memory of one CTA of the cluster kernel (clusters of
+    ``cluster_size`` CTAs, tiles of ``rows`` trajectories), in bytes: the
+    host-side mirror of ``fused_traj_cluster_smem_bytes`` (``cluster_layout``
+    in csrc/fused_traj.cu). With D_p, H_p the widths padded to 4 and
+    ld_d = 4·⌈⌈D/4⌉/cl⌉, ld_h = 4·⌈⌈H/4⌉/cl⌉ the slices' widths, in floats:
+    the CTA's slices of the tables (full covariance: 2·C·D_p·ld_d of P_c and
+    P_cᵀ; D_p·ld_h + n_h·H_p·ld_h + H_p·ld_d + ld_h + n_h·ld_h + ld_d of the
+    MLP), two buffers of a step's rows (C·D_p + C·ld_d + round4(C) + ld_h + 8
+    each), the full rows the products read (tb·S_d of the state, full
+    covariance C·tb·S_d of y·iv, 2·tb·S_h hidden; the strides S_d, S_h are
+    D_p, H_p where that is an odd number of quads, else 4 more), the tile's
+    slices (C·tb·ld_d of y then g, 2·tb·ld_d of the score and the control),
+    the partial sums (max(16·256, max(C, 2)·tb·ld_d / 4)), (C + 2)·cl·tb
+    exchanged sums and (2·C + 1)·tb softmax factors."""
+    d, h, nh, c, cl, tb = dim, channels, n_hidden, n_comp, cluster_size, rows
+    dp, hp = _round4(d), _round4(h)
+    ldd, ldh = 4 * _ceil(_ceil(d, 4), cl), 4 * _ceil(_ceil(h, 4), cl)
+    tables = ((2 * c * dp * ldd if full_cov else 0) + dp * ldh + nh * hp * ldh + hp * ldd
+              + ldh + nh * ldh + ldd)
+    step_rows = 2 * (c * dp + c * ldd + _round4(c) + ldh + 8)
+    # the full rows' strides: an odd number of quads (the kernel's S_d, S_h)
+    sd, sh = (w if (w // 4) % 2 else w + 4 for w in (dp, hp))
+    full_rows = tb * sd + (c * tb * sd if full_cov else 0) + 2 * tb * sh
+    slices = c * tb * ldd + 2 * tb * ldd
+    part = max(16 * _CLUSTER_THREADS, max(c, 2) * tb * (ldd // 4))
+    return 4 * (tables + step_rows + full_rows + slices + part + (c + 2) * cl * tb
+                + (2 * c + 1) * tb)
+
+
+@functools.cache
+def _cluster_rows_max(cfg: FusedTrajCfg, cluster_size: int) -> int:
+    """The largest tile (a multiple of 4 up to _CLUSTER_ROWS_MAX) whose
+    CTA fits the card's shared memory in clusters of ``cluster_size``, or
+    0 where not even 4 fit."""
+    fits = lambda tb: cluster_smem_bytes(cfg.dim, cfg.channels, cfg.n_hidden, cfg.n_comp,
+                                         cfg.full_cov, cluster_size, tb) <= MAX_SMEM_BYTES
+    return next((tb for tb in range(_CLUSTER_ROWS_MAX, 0, -_WIDE_ROWS_MIN) if fits(tb)), 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterGeometry:
+    """The cluster kernel's launch: ``clusters`` clusters of
+    ``cluster_size`` CTAs; cluster i owns the tiles of ``rows`` trajectories
+    i, i + clusters, ... for all K steps."""
+    cluster_size: int
+    rows: int
+    clusters: int
+
+
+def cluster_geometry(batch: int, cfg: FusedTrajCfg, n_sms: int,
+                     active: dict | None = None) -> ClusterGeometry:
+    """The cluster kernel's geometry for ``batch`` trajectories. ``active``
+    maps a cluster size to the clusters of it the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; by default ``n_sms // size``, one
+    CTA an SM). The size: the one whose co-resident clusters, each with its
+    largest tile, hold the most of the batch at once; on a tie the one that
+    holds the most trajectories, then the smaller.
+    The tile: the batch spread evenly over the fewest waves of those
+    clusters, rounded up to 4. The clusters: no more than the tiles (at B
+    256, D 196 full covariance, on an H100 that holds 15 clusters of 8:
+    clusters of 8, tiles of 20, 13 clusters). Raises where no cluster holds
+    the plan's tables."""
+    if batch < 1 or n_sms < 1:
+        raise ValueError(f"cluster_geometry: batch {batch} and n_sms {n_sms} must be positive")
+    if active is None:
+        active = {cl: n_sms // cl for cl in _CLUSTER_SIZES}
+    best = None
+    for cl in _CLUSTER_SIZES:
+        tb_max, n = _cluster_rows_max(cfg, cl), active.get(cl, 0)
+        if tb_max == 0 or n < 1:
+            continue
+        held = (min(batch, tb_max * n), tb_max * n)
+        if best is None or held > best[0]:
+            best = (held, cl, tb_max, n)
+    if best is None:
+        raise ValueError(f"fused_traj kernel: no cluster of {_CLUSTER_SIZES} CTAs holds the "
+                         f"tables of {cfg} with a tile of {_WIDE_ROWS_MIN} trajectories "
+                         f"(co-resident clusters {active})")
+    _, cl, tb_max, n = best
+    waves = _ceil(batch, tb_max * n)
+    tb = min(tb_max, max(_WIDE_ROWS_MIN, _round4(_ceil(batch, waves * n))))
+    return ClusterGeometry(cl, tb, min(n, _ceil(batch, tb)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -531,12 +634,16 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_traj_launch.argtypes = (
         [ptr] * 15 + [ctypes.c_ulonglong] + [ptr] * 3 + [i32] * 8
-        + [ctypes.c_float] + [i32] * 4 + [ptr])
+        + [ctypes.c_float] + [i32] * 5 + [ptr])
     lib.fused_traj_launch.restype = i32
     lib.fused_traj_smem_bytes.argtypes = [i32] * 6
     lib.fused_traj_smem_bytes.restype = i32
     lib.fused_traj_wide_smem_bytes.argtypes = [i32] * 3
     lib.fused_traj_wide_smem_bytes.restype = i32
+    lib.fused_traj_cluster_smem_bytes.argtypes = [i32] * 7
+    lib.fused_traj_cluster_smem_bytes.restype = i32
+    lib.fused_traj_cluster_max_active.argtypes = [i32] * 8
+    lib.fused_traj_cluster_max_active.restype = i32
     lib.fused_traj_error_string.argtypes = [i32]
     lib.fused_traj_error_string.restype = ctypes.c_char_p
     return lib
@@ -576,8 +683,20 @@ def check_limits(cfg: FusedTrajCfg) -> None:
 
 
 def uses_wide(cfg: FusedTrajCfg) -> bool:
-    """Whether cfg runs on the wide kernel: past the narrow kernels' limits."""
+    """Whether cfg is past the narrow kernels' limits: it runs on the
+    cluster kernel where ``uses_cluster``, else on the wide kernel."""
     return limit_error(cfg) is not None
+
+
+def uses_cluster(cfg: FusedTrajCfg) -> bool:
+    """Whether cfg runs on the cluster kernel: past the narrow kernels'
+    limits, with tables that a cluster of at most 8 CTAs holds beside the
+    rows of a tile of 4 trajectories (D 129 and 196 with a full covariance,
+    D 365 diagonal at H 64; not a full D 400, nor H 320 with 9 hidden
+    layers, whose MLP is 3.7 MB: those stay on the wide kernel). Decided by
+    the plan's shape alone."""
+    return uses_wide(cfg) and cfg.n_comp >= 1 and cfg.k_steps >= 1 and any(
+        _cluster_rows_max(cfg, cl) for cl in _CLUSTER_SIZES)
 
 
 def wide_limit_error(cfg: FusedTrajCfg) -> str | None:
@@ -594,6 +713,28 @@ def wide_limit_error(cfg: FusedTrajCfg) -> str | None:
                 f"memory for a wide block of {_WIDE_ROWS_MIN} trajectories, more than the "
                 f"card's {MAX_SMEM_BYTES}")
     return None
+
+
+@functools.cache
+def _cluster_active(device_index: int, dim: int, channels: int, n_hidden: int, n_comp: int,
+                    full_cov: bool, bf16: bool) -> dict:
+    """Clusters of each size the card holds at once with the plan's largest
+    tile (``fused_traj_cluster_max_active``); raises where the query fails."""
+    cfg = FusedTrajCfg(k_steps=1, dim=dim, channels=channels, n_hidden=n_hidden, n_comp=n_comp,
+                       clip=None, full_cov=full_cov, bf16=bf16)
+    lib, out = _library(), {}
+    with torch.cuda.device(device_index):
+        for cl in _CLUSTER_SIZES:
+            tb = _cluster_rows_max(cfg, cl)
+            if tb == 0:
+                continue
+            n = lib.fused_traj_cluster_max_active(dim, channels, n_hidden, n_comp, int(full_cov),
+                                                  int(bf16), cl, tb)
+            if n < 0:
+                raise RuntimeError(f"fused_traj cluster kernel: the occupancy query for clusters "
+                                   f"of {cl} failed: " + lib.fused_traj_error_string(-n).decode())
+            out[cl] = n
+    return out
 
 
 def fused_traj(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
@@ -624,15 +765,17 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
     """Check the inputs and launch the CUDA kernel on the current stream;
     with ``noise`` None the kernel draws its normals from ``seed``. Counts
     each launch in ``fused_traj.launches``, and by kernel as well: each of
-    the wide kernel in ``fused_traj.wide_launches``, of the narrow
-    full-covariance one in ``fused_traj.full_cov_launches`` and each narrow
-    bf16 one in ``fused_traj.bf16_launches``."""
+    the cluster kernel in ``fused_traj.cluster_launches``, of the wide
+    kernel in ``fused_traj.wide_launches``, of the narrow full-covariance
+    one in ``fused_traj.full_cov_launches`` and each narrow bf16 one in
+    ``fused_traj.bf16_launches``. A launch the card refuses raises."""
     if x0.device.type != "cuda":
         raise ValueError(f"the fused_traj kernel runs on cuda, got {x0.device}")
     lib = _library()
     b, d, k, h, c = x0.shape[0], cfg.dim, cfg.k_steps, cfg.channels, cfg.n_comp
     wide = uses_wide(cfg)
-    why = wide_limit_error(cfg) if wide else None
+    cluster = wide and uses_cluster(cfg)
+    why = wide_limit_error(cfg) if wide and not cluster else None
     if why is not None:
         raise ValueError(f"fused_traj kernel: {why}")
     if x0.dtype != torch.float32 or x0.shape != (b, d):
@@ -650,7 +793,7 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
         if t.device != x0.device or t.dtype != dtype or t.shape != shapes[name]:
             raise ValueError(f"table {name!r} must be {dtype} of shape "
                              f"{shapes[name]} on {x0.device}")
-        # the wide kernel reads f32 tables: a bf16 plan's widen exactly
+        # the cluster and wide kernels read f32 tables: a bf16 plan's widen exactly
         tables.append((t.float() if wide and dtype == torch.bfloat16 else t).contiguous())
     if not cfg.full_cov:
         tables += [None, None]            # no rotations: the diagonal mode
@@ -666,14 +809,20 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
           if return_traj else None)
     if b == 0:
         return x_out, rnd, xs
-    geometry = (0, 0, 0, 0)
-    if wide:
+    geometry = (0, 0, 0, 0, 0)
+    if cluster:
+        active = _cluster_active(x0.device.index if x0.device.index is not None
+                                 else torch.cuda.current_device(), d, h, cfg.n_hidden, c,
+                                 cfg.full_cov, cfg.bf16)
+        geom = cluster_geometry(b, cfg, _sm_count(x0.device), active)
+        geometry = (0, 0, geom.clusters, geom.rows, geom.cluster_size)
+    elif wide:
         tb = wide_rows(b, d, h, _sm_count(x0.device))
-        geometry = (0, 0, -(-b // tb), tb)
+        geometry = (0, 0, -(-b // tb), tb, 0)
     elif not cfg.full_cov:
         geom = diag_geometry(b, d, h, cfg.n_hidden, _sm_count(x0.device))
         check_geometry(cfg, b, geom)
-        geometry = (geom.traj_per_warp, geom.warps_per_block, geom.blocks, 0)
+        geometry = (geom.traj_per_warp, geom.warps_per_block, geom.blocks, 0, 0)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     with torch.cuda.device(x0.device):
@@ -686,13 +835,15 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
         raise RuntimeError("fused_traj kernel launch failed: "
                            + lib.fused_traj_error_string(err).decode())
     fused_traj.launches += 1
-    fused_traj.wide_launches += int(wide)
+    fused_traj.cluster_launches += int(cluster)
+    fused_traj.wide_launches += int(wide and not cluster)
     fused_traj.full_cov_launches += int(cfg.full_cov and not wide)
     fused_traj.bf16_launches += int(cfg.bf16 and not wide)
     return x_out, rnd, xs
 
 
 fused_traj.launches = 0
+fused_traj.cluster_launches = 0
 fused_traj.wide_launches = 0
 fused_traj.full_cov_launches = 0
 fused_traj.bf16_launches = 0

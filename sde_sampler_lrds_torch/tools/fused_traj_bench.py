@@ -2,7 +2,7 @@
 whole chip_smoke.py: about a minute on one card instead of 5-10.
 
     python3 sde_sampler_lrds_torch/tools/fused_traj_bench.py [--root DIR] [--time-only]
-        [--profile] [--sweep]
+        [--profile] [--sweep] [--mnist [--force-wide]]
 
 Builds csrc/fused_traj.cu of the checkout at --root (default: this one),
 prints each kernel instantiation's registers, stack and spills, runs
@@ -27,6 +27,20 @@ keeps the old arithmetic.
 geometry it takes (1, 2 or 4 trajectories a warp, 1 to 8 warps a block),
 beside the one diag_geometry picks.
 
+--mnist times, instead of the rest, B1 at MNIST's D 196 with a
+2-component full covariance (sample_mnist_unet --model_type base_zero_init
+on its default full GMM) at the train batch 256 (fed noise and states) and
+the eval batch 2048 (its own noise), beside its plain version and its
+bound, on the kernel the checkout routes it to (the cluster kernel, or the
+wide one in a checkout without it); --force-wide times the wide kernel too
+at the same plan (the cluster kernel's routing replaced while it runs, as
+--sweep replaces the diagonal geometry). Then an LV training step of that
+configuration (the FourierMLP control, batch 256, K 100, the log-SNR grid):
+its milliseconds (host clock, synchronised, over 50 steps after 3) and
+B1's share of them (CUDA events around each launch). With --root on the
+parent's checkout, in turns with this one (parent, change, change,
+parent), it compares two commits on one card.
+
 --profile adds the cycles per step of each segment of the full-covariance
 kernel (a block-step; at D = 100) and of the diagonal kernel (a warp-step,
 f32 at D = 8): a copy of the source with clock64() marks (block 0, thread
@@ -44,6 +58,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 # the segments the marks end, in the order of a step; the per-component
 # segments sum over the C components
@@ -53,7 +68,8 @@ SEGMENTS = ("pre-step states", "x - m (and the rt pass before it)", "rotation by
             "update + noise", "RND")
 # (anchor in the source, mark index, before or after it)
 MARKS = (
-    ("    // ---- reference score of the noised MoG", 0, "before"),
+    ("    // ---- reference score of the noised MoG: online softmax over C ------\n"
+     "    for (int c = 0; c < C; ++c) {\n#pragma unroll", 0, "before"),
     ("      // y = (x − m)·P_c, the ring's next matrix\n", 1, "before"),
     ("        rotate<false>(dt, ring, yt);\n      }\n      __syncthreads();\n", 2, "after"),
     ("      // g = (y·iv)·P_cᵀ, the ring's next matrix\n", 3, "before"),
@@ -61,9 +77,12 @@ MARKS = (
     ("    // the fed noise of the step is copied", 5, "before"),
     ("layer<true, BF16>(xin, D, w0, b0, erow, H, hA);\n    __syncthreads();\n", 6, "after"),
     ("    layer<false, BF16>(hin, H, wo,", 7, "before"),
-    ("    // ---- noise + state update", 8, "before"),
-    ("    // ---- RND increment", 9, "before"),
-    ("__syncthreads();  // the next step's reference score overwrites ut, zt\n", 10, "after"),
+    ("    // ---- noise + state update ------------------------------------------\n"
+     "    const float a_x = __ldg(cf + 0), a_ref = __ldg(cf + 1), a_u = __ldg(cf + 2);\n"
+     "    const float a_z = __ldg(cf + 3);\n    {  // fed noise", 8, "before"),
+    ("    // ---- RND increment, the warp's", 9, "before"),
+    ("__syncthreads();  // the next step's reference score overwrites ut, zt\n"
+     "  }\n  cp_async_wait<0>();  // the copies ahead", 10, "after the first line"),
 )
 # the diagonal kernel's segments and marks (counters 16 and up)
 DIAG_SEGMENTS = ("step loads + pre-step states", "reference score (C components)",
@@ -91,7 +110,11 @@ def profiled_library(csrc, nvcc_flags, nvcc):
         if src.count(anchor) != 1:
             raise RuntimeError(f"profile mark {i}: anchor not found once in fused_traj.cu")
         mark = MARK.format(i=i)
-        src = src.replace(anchor, mark + anchor if where == "before" else anchor + mark)
+        if where == "after the first line":
+            first, rest = anchor.split("\n", 1)
+            src = src.replace(anchor, first + "\n" + mark + rest)
+        else:
+            src = src.replace(anchor, mark + anchor if where == "before" else anchor + mark)
     for loop in LOOPS:
         if src.count(loop) != 1:
             raise RuntimeError("profile: a step loop not found once in fused_traj.cu")
@@ -116,8 +139,10 @@ extern "C" int fused_traj_prof(unsigned long long* out, int reset) {
                    capture_output=True)
     lib = ctypes.CDLL(lib_path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # the launch's geometry arguments: (tw, warps, blocks, tb[, cl])
+    n_geom = 5 if "int blocks, int tb, int cl," in src else 4
     lib.fused_traj_launch.argtypes = ([ptr] * 15 + [ctypes.c_ulonglong] + [ptr] * 3
-                                      + [i32] * 8 + [ctypes.c_float] + [i32] * 4 + [ptr])
+                                      + [i32] * 8 + [ctypes.c_float] + [i32] * n_geom + [ptr])
     lib.fused_traj_launch.restype = i32
     lib.fused_traj_error_string.argtypes = [i32]
     lib.fused_traj_error_string.restype = ctypes.c_char_p
@@ -210,6 +235,76 @@ def sweep(cs, dev, peaks, sfu_rate) -> None:
         ft.diag_geometry = picked
 
 
+def mnist(cs, torch, dev, peaks, sfu_rate, force_wide: bool) -> None:
+    """B1 at MNIST's D 196, C 2 full-covariance plan and the LV step of its
+    base_zero_init configuration (see the module docstring)."""
+    import numpy as np
+
+    import sde_sampler_lrds_torch.ops.fused_traj as ft
+    from sde_sampler_lrds_torch.api import make_model, make_target_details
+    from sde_sampler_lrds_torch.experiments.sample_mnist_unet import digit_means
+
+    cfg, arrays = cs.phi_four_plan(dev, full_cov=True, dim=196)
+    routed = "fused_traj_cluster" if getattr(ft, "uses_cluster", lambda c: False)(cfg) \
+        else "fused_traj_wide"
+    cs.phase_timing(dev, cfg, arrays, {}, peaks, sfu_rate, label=f"{routed} D=196 C=2 full",
+                    batches=(2048, 256))
+    if force_wide and hasattr(ft, "uses_cluster"):
+        routed_by = ft.uses_cluster
+        ft.uses_cluster = lambda c: False
+        try:
+            cs.phase_timing(dev, cfg, arrays, {}, peaks, sfu_rate,
+                            label="fused_traj_wide D=196 C=2 full (forced)", batches=(2048, 256))
+        finally:
+            ft.uses_cluster = routed_by
+    # the LV step: sample_mnist_unet's base_zero_init configuration on a
+    # 2-component full-covariance GMM (a fixed SPD covariance in place of
+    # the fit to MALA draws: the step's work does not depend on its values)
+    d = 196
+    rng = np.random.default_rng(170)
+    a = rng.normal(size=(2, d, d))
+    var = 0.02 * a @ a.transpose(0, 2, 1) / d + 0.01 * np.eye(d)
+    solver = make_model(
+        solver_type="vp-ref", ref_type="gmm", loss_type="lv", integrator_type="ei",
+        model_type="base_zero_init", time_type="snr",
+        solver_details={"sigma": 1.0, "weights_ref": torch.tensor([0.75, 0.25]),
+                        "means_ref": digit_means((0, 1)),
+                        "variances_ref": torch.as_tensor(var, dtype=torch.float32)},
+        target_details=make_target_details("mnist_zero_one"),
+        training_details={"train_steps": 53, "train_batch_size": 256,
+                          "eval_batch_size": 2048}, device=dev)
+    g = torch.Generator(dev).manual_seed(171)
+    solver.setup(g)
+    launch, spans = ft.launch, []
+
+    def timed_launch(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    ft.launch = timed_launch
+    try:
+        for _ in range(3):
+            solver.step(g)
+        torch.cuda.synchronize()
+        spans.clear()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            solver.step(g)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 50
+    finally:
+        ft.launch = launch
+    b1_ms = sum(s.elapsed_time(e) for s, e in spans) / 50
+    print("[mnist] " + json.dumps({
+        "lv_step_ms": step_ms, "b1_ms_per_step": b1_ms, "b1_share": b1_ms / step_ms,
+        "b1_launches_per_step": len(spans) / 50, "train_path": solver.train_path(),
+        "kernel": routed}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -217,6 +312,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--outputs", metavar="FILE")
+    ap.add_argument("--mnist", action="store_true")
+    ap.add_argument("--force-wide", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     outputs_path = os.path.abspath(args.outputs) if args.outputs else None
@@ -247,6 +344,10 @@ def main() -> int:
     _, peaks = cs.card_peaks(torch.cuda.get_device_name(0))
     sfu_rate = (cs.SFU_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
                 * clock_mhz * 1e6)
+    if args.mnist:
+        torch.backends.cudnn.allow_tf32 = False
+        mnist(cs, torch, dev, peaks, sfu_rate, args.force_wide)
+        return 0
     if args.outputs:
         outputs(cs, torch, dev, outputs_path)
     if not args.time_only:
