@@ -88,9 +88,9 @@ Phases:
      (d) many_modes, 4 modes at d 8, at the driver's defaults, gated by the
      JAX package's record; (e) sample_toy_gmm_mcmc on Rings at its defaults,
      beside the JAX record; (f) the same on Checkerboard (density 0 off the
-     board), on its filtered metrics; (g) one point of each two_modes sweep
+     board; 256 steps, all skipped), on its filtered metrics; (g) one point of each two_modes sweep
      at d 16 (a 4, 8 components, weight skew 0.1, sigma factor 0.25), cut to
-     1024 train steps, 2 eval seeds and 10 000 MALA points, the ELBO below
+     512 train steps, 2 eval seeds and 10 000 MALA points, the ELBO below
      log Z_IS and, at sigma 0.25, below the log Z' its discretised
      reference makes the estimators aim at (default_reference_log_z)
   9. the bf16 demo (bench.py --bf16): phase 4's configuration with
@@ -185,7 +185,8 @@ Phases:
      cluster kernel against its plain version past the narrow kernels'
      limits where a cluster holds the tables (WIDE_PLANS: D 129 full
      covariance, D 365 diagonal in f32 and bf16), the wide kernel on the
-     plan none holds (H 320, 9 hidden layers), the host's shared-memory
+     plans none holds (H 320, 9 hidden layers; D 400 full covariance) and
+     on MNIST's D 196 full plan, forced, in (d), the host's shared-memory
      mirrors of both against the kernels', RDS solvers with a
      full-covariance reference at D 129 (the cluster kernel) and D 400 (the
      wide one), one step and one eval each ('flat_lv_fused', 'fused'), and
@@ -310,6 +311,9 @@ CELL_B_TRAIN_STEPS = 512
 # 4096 train steps and 16 eval seeds (≈ 30 s a cell on an H100, the whole
 # script 1009 s of its 1200 s); their full depth runs through --cell
 DRIVER_CELL_CUT = ["--train_steps", "1024", "--n_sampling_seeds", "4"]
+# (f) Checkerboard skips every step (an off-board sample in every batch)
+# and its gates read only the evals, so 256 steps reach them as 1024 do
+CHECKERBOARD_CUT = ["--train_steps", "256", "--n_sampling_seeds", "4"]
 # kernel vs plain version at the φ⁴ shapes (D = 100): each step's 100-term
 # sums (two rotations per component, the first MLP layer and the output
 # layer) are taken in other orders, over K = 100 dependent steps, and with
@@ -345,14 +349,14 @@ GATE_MM_LOGZ, GATE_MM_ESS, GATE_MM_EUBO = 0.05, 0.88, 0.05
 TOY_RINGS_RECORD = {"log_z": 1.533, "sinkhorn": 2.836}
 GATE_TOY_RECORD, GATE_TOY_ELBO_SLACK = 2.0, 0.05
 # one point of each two_modes sweep at its full width (d 16), cut in depth
-# to keep the script inside its time limit: 1024 train steps, 2 eval seeds,
+# to keep the script inside its time limit: 512 train steps, 2 eval seeds,
 # 10 000 MALA points; on every seed the ELBO at most log Z_IS +
 # GATE_TOY_ELBO_SLACK. The sigma point's ELBO is also held below the log Z'
 # its estimators aim at (default_reference_log_z) + GATE_TOY_ELBO_SLACK,
 # and its log Z_IS below log Z' + GATE_SIGMA_LOGZ_SLACK, 4 standard
 # deviations of log Z_IS at ESS 0.18 over 8192 draws
 GATE_SIGMA_LOGZ_SLACK = 0.1
-SWEEP_CUT = ["--train_steps", "1024", "--n_sampling_seeds", "2", "--dataset_size", "10000"]
+SWEEP_CUT = ["--train_steps", "512", "--n_sampling_seeds", "2", "--dataset_size", "10000"]
 SWEEP_POINTS = (("sweep_distance", "two_modes_mcmc_gmm_with_increasing_distance",
                  ["--a_range", "4.0"]),
                 ("sweep_gmm_components", "two_modes_gmm_sensitivity",
@@ -2229,11 +2233,11 @@ def phase_more_driver_cells(dev, path_counts) -> dict:
     JAX package's record; (e) sample_toy_gmm_mcmc on Rings at its defaults
     (chains from 4 draws on every ring, an 8-component fit) cut to
     DRIVER_CELL_CUT (B1 at D = 2, B2 / B3 at d = 2), beside the JAX record
-    (GATE_TOY_RECORD); (f) the same on Checkerboard, whose density is 0 off
-    the board: an off-board terminal sample has rnd = +inf, so the gates
+    (GATE_TOY_RECORD); (f) the same on Checkerboard cut to CHECKERBOARD_CUT,
+    whose density is 0 off the board: an off-board terminal sample has rnd = +inf, so the gates
     read the filtered metrics, and the training mask's NaN gradient skips
     a step with such a sample, as in the JAX package; (g) one point of each
-    two_modes sweep at d 16, cut in depth to SWEEP_CUT (1024 of its 4096 or
+    two_modes sweep at d 16, cut in depth to SWEEP_CUT (512 of its 4096 or
     2048 train steps, 2 of 16 eval seeds, 10 000 of 40 000 MALA points),
     at the point farthest from cell (a): distance a = 4 on vp_20, an
     8-component fit, reference weights (0.1, 0.9), and sigma 0.25 x the
@@ -2292,7 +2296,7 @@ def phase_more_driver_cells(dev, path_counts) -> dict:
 
     cell, means, probe, cells["toy_checkerboard"] = run_driver_cell(
         dev, "toy_checkerboard", "sample_toy_gmm_mcmc",
-        ["--target_type", "checkerboard"] + DRIVER_CELL_CUT, path_counts,
+        ["--target_type", "checkerboard"] + CHECKERBOARD_CUT, path_counts,
         finite=CELL_FINITE_FILTERED)
     m = cell["metrics"]
     samples = torch.as_tensor(m["samples"], device=dev)
@@ -4324,12 +4328,14 @@ def mnist_small_solver(dev, model_type: str, ref_type: str, net=None):
     return solver
 
 
-def mnist_b1_vs_plain(dev, solver, rec) -> float:
+def mnist_b1_vs_plain(dev, solver, rec, forced=None) -> tuple:
     """B1 on the D 196, C 2 plan of a FourierMLP cell (its fitted reference;
     the control's parameters perturbed to an O(1) control) against its
     plain version run in float64 under fed noise at KERNEL_TOL, at batches
-    256 and 2048 (the float32 plain version's distances printed beside).
-    Returns the largest distance."""
+    256 and 2048 (the float32 plain version's distances printed beside);
+    with a ``forced`` record, the wide kernel forced on the same plan
+    (wide_forced) likewise, on the same inputs. Returns the plan."""
+    from sde_sampler_lrds_torch.ops import fused_traj as ft
     from sde_sampler_lrds_torch.ops.fused_traj import build_plan, fused_traj, fused_traj_plain
 
     ctrl = copy.deepcopy(solver.generative_ctrl)
@@ -4359,8 +4365,24 @@ def mnist_b1_vs_plain(dev, solver, rec) -> float:
         # KERNEL_TOL; the kernel is held to the plain arithmetic in float64
         assert_close(got, [e.float() for e in exact],
                      f"{what} against the plain version in float64", KERNEL_TOL)
+        if forced is not None:
+            wide_before = ft.fused_traj.wide_launches
+            with wide_forced():
+                got_w = fused_traj(cfg, arrays, x0, noise=noise, return_traj=True)
+            check(ft.fused_traj.wide_launches == wide_before + 1,
+                  f"D 196 B={b}: the forced launch did not run the wide kernel")
+            what_w = f"fused_traj_wide (forced) D=196 C=2 full B={b} (fed noise + states)"
+            forced.setdefault("errors_by_batch", {})[b] = {
+                "kernel_to_plain_f64": max_err(got_w, exact),
+                "kernel_to_plain_f32": max_err(got_w, plain)}
+            say(f"[phase 15] (d) {what_w}: " + json.dumps(forced["errors_by_batch"][b]))
+            assert_close(got_w, [e.float() for e in exact],
+                         f"{what_w} against the plain version in float64", KERNEL_TOL)
     rec["max_abs_err"] = max(e["kernel_to_plain_f64"] for e in errs64.values())
     rec["errors_by_batch"] = errs64
+    if forced is not None:
+        forced["max_abs_err"] = max(e["kernel_to_plain_f64"]
+                                    for e in forced["errors_by_batch"].values())
     return cfg, arrays
 
 
@@ -4368,7 +4390,9 @@ def phase_mnist_b1_sinkhorn(dev, diag_solver, full_solver, recs) -> dict:
     """(d) B1 at D 196, C 2 against its plain version in float64
     (mnist_b1_vs_plain): its diagonal kernel on the diagonal-reference
     cell's plan, its cluster kernel on the full-covariance cell's (and two
-    of its launches bitwise equal at batches 256 and 2048); (e) B2 / B3
+    of its launches bitwise equal at batches 256 and 2048) and its wide
+    kernel forced on that plan (bitwise at 256), where phase 7 times it
+    beside the cluster kernel; (e) B2 / B3
     at 2048 x 2048, d 196 (MixtureNice draws, eps 1e-3, p 2, duals from the
     first Sinkhorn half-steps) and the whole Sinkhorn against the plain
     versions at COST_TOL_REL."""
@@ -4381,11 +4405,15 @@ def phase_mnist_b1_sinkhorn(dev, diag_solver, full_solver, recs) -> dict:
     cfg, arrays = mnist_b1_vs_plain(dev, diag_solver, rec)
     check(b1_kernel(cfg) == "fused_traj", f"the diagonal D 196 plan {cfg}")
     rec_w = recs["fused_traj_cluster"]["mnist_d196_c2_full"] = {}
-    cfg_w, arrays_w = mnist_b1_vs_plain(dev, full_solver, rec_w)
+    rec_f = recs["fused_traj_wide"]["mnist_d196_c2_full_forced"] = {}
+    cfg_w, arrays_w = mnist_b1_vs_plain(dev, full_solver, rec_w, forced=rec_f)
     check(cfg_w.full_cov and b1_kernel(cfg_w) == "fused_traj_cluster",
           f"the full-covariance D 196 plan {cfg_w}")
     check_repeatable(dev, cfg_w, arrays_w, "fused_traj_cluster D=196 C=2 full",
                      [(256, "fed"), (MNIST_ROWS, "kernel")], prior=full_solver.prior)
+    with wide_forced():
+        check_repeatable(dev, cfg_w, arrays_w, "fused_traj_wide (forced) D=196 C=2 full",
+                         [(256, "fed")], prior=full_solver.prior)
     target = diag_solver.target
     g = torch.Generator(dev).manual_seed(163)
     x, y = target.sample(g, (MNIST_ROWS,)), target.sample(g, (MNIST_ROWS,))
@@ -4407,6 +4435,7 @@ def phase_mnist_b1_sinkhorn(dev, diag_solver, full_solver, recs) -> dict:
     recs["sinkhorn_lse"]["mnist_d196"] = {"rel_err": errs["lse"]}
     recs["transport_cost"]["mnist_d196"] = {"rel_err": errs["transport_cost"]}
     return {"b1_d196": rec["max_abs_err"], "b1_cluster_d196_full": rec_w["max_abs_err"],
+            "b1_wide_forced_d196_full": rec_f["max_abs_err"],
             "sinkhorn_d196": errs, "timing": (cfg, arrays, cfg_w, arrays_w, x, y, u, v)}
 
 
@@ -4415,15 +4444,19 @@ def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate) -> None:
     and its cluster kernel on the D 196 full-covariance one at the eval
     batch 2048 (its own noise) and the train batch 256 (fed), and its wide
     kernel forced on that plan (wide_forced) at the same shapes, B2 / B3 at
-    2048 x 2048 x 196, each beside its plain version and its bound."""
+    2048 x 2048 x 196, each beside its plain version and its bound. Then
+    phase 15 (f)'s plans past the narrow widths at their paths' batches:
+    the wide kernel's entry on the D 400 path's plan, and the cluster
+    kernel on D 129 full and D 365 diagonal with the wide kernel forced
+    beside it."""
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
                                                          transport_cost_plain)
 
-    cfg, arrays, cfg_w, arrays_w, x, y, u, v = timing
+    cfg, arrays, cfg_w, arrays_w, x, y, u, v = timing["mnist"]
     phase_timing(dev, cfg, arrays, recs["fused_traj"]["mnist_d196_c2"], peaks, sfu_rate,
                  label="fused_traj D=196 C=2 (MNIST)", batches=(MNIST_ROWS, 256))
     # the cluster kernel's entry is timed at this shape, where a path runs
-    # it; the wide kernel's at the same plan, forced, beside it
+    # it; the wide kernel at the same plan, forced, beside it
     phase_timing(dev, cfg_w, arrays_w, recs["fused_traj_cluster"], peaks, sfu_rate,
                  label="fused_traj_cluster D=196 C=2 full covariance (MNIST)",
                  batches=(MNIST_ROWS, 256))
@@ -4431,9 +4464,25 @@ def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate) -> None:
         {k: recs["fused_traj_cluster"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                     "geometry", "train_shape")})
     with wide_forced():
-        phase_timing(dev, cfg_w, arrays_w, recs["fused_traj_wide"], peaks, sfu_rate,
-                     label="fused_traj_wide D=196 C=2 full covariance (MNIST, forced)",
-                     batches=(MNIST_ROWS, 256))
+        phase_timing(dev, cfg_w, arrays_w, recs["fused_traj_wide"]["mnist_d196_c2_full_forced"],
+                     peaks, sfu_rate, batches=(MNIST_ROWS, 256),
+                     label="fused_traj_wide D=196 C=2 full covariance (MNIST, forced)")
+    # the wide kernel's entry where a path runs it: the D 400 path's plan
+    wide_plans = timing["wide_plans"]
+    cfg_4, arrays_4, batches_4 = wide_plans.pop("c6_d400_full")
+    phase_timing(dev, cfg_4, arrays_4, recs["fused_traj_wide"], peaks, sfu_rate,
+                 label="fused_traj_wide D=400 C=2 full covariance (c6_d400_full)",
+                 batches=batches_4)
+    for key, (cfg_c, arrays_c, batches) in wide_plans.items():
+        what = f"D={cfg_c.dim} C={cfg_c.n_comp} {'full covariance' if cfg_c.full_cov else 'diag'}"
+        recs["fused_traj_cluster"][key] = {}
+        phase_timing(dev, cfg_c, arrays_c, recs["fused_traj_cluster"][key], peaks, sfu_rate,
+                     label=f"fused_traj_cluster {what} ({key})", batches=batches)
+        recs["fused_traj_wide"][f"{key}_forced"] = {}
+        with wide_forced():
+            phase_timing(dev, cfg_c, arrays_c, recs["fused_traj_wide"][f"{key}_forced"], peaks,
+                         sfu_rate, label=f"fused_traj_wide {what} ({key}, forced)",
+                         batches=batches)
     eps, n, d = 1e-3, x.shape[0], x.shape[1]
     pairs, io = n * n, 4 * 2 * n * d
     for name, kern, plain, b in (
@@ -4452,17 +4501,20 @@ def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate) -> None:
 # the plans past the narrow kernels' limits: (full covariance, D, the
 # control's width and layers, bf16): D 129 full covariance (one past the
 # narrow kernel's register tile), the first diagonal D past its shared
-# memory at H 64 (365) and that D in bf16, on the cluster kernel; a control
-# past the narrow kernels' width and depth caps (H 320, 9 hidden layers,
-# an MLP of 3.7 MB that no cluster holds) at the demo's D 8, on the wide one
+# memory at H 64 (365) and that D in bf16, on the cluster kernel; on the
+# wide one, a control past the narrow kernels' width and depth caps (H 320,
+# 9 hidden layers, an MLP of 3.7 MB that no cluster holds) at the demo's
+# D 8, and the full covariance of phase 15 (f)'s D 400 path (2.6 MB of
+# rotations that no cluster holds)
 WIDE_PLANS = ((True, C6_FULL_DIM, CHANNELS, N_LAYERS, None),
               (False, C6_DIAG_DIM, CHANNELS, N_LAYERS, None),
               (False, C6_DIAG_DIM, CHANNELS, N_LAYERS, torch.bfloat16),
-              (False, DIM, 320, 11, None))
-WIDE_PLAN_KERNELS = ("fused_traj_cluster",) * 3 + ("fused_traj_wide",)
+              (False, DIM, 320, 11, None),
+              (True, C6_WIDE_FULL_DIM, CHANNELS, N_LAYERS, None))
+WIDE_PLAN_KERNELS = ("fused_traj_cluster",) * 3 + ("fused_traj_wide",) * 2
 
 
-def phase_wide_kernel(dev, recs) -> None:
+def phase_wide_kernel(dev, recs) -> tuple:
     """(f) B1's cluster and wide kernels against their plain version on
     WIDE_PLANS (each on the kernel WIDE_PLAN_KERNELS names) at the train
     batch with fed noise and the states and at MNIST's eval batch with its
@@ -4470,12 +4522,13 @@ def phase_wide_kernel(dev, recs) -> None:
     plan also at a ragged batch; float32 plans gated against the same steps
     in float64 (DRIVER_F64_RATIO), the bf16 one at BF16_TOL; two launches
     bitwise equal; the host's shared-memory arithmetic against the
-    kernels'."""
+    kernels'. Returns the f32 D 365 diagonal plan, for phase 7."""
     from sde_sampler_lrds_torch.ops.fused_traj import (_library, cluster_smem_bytes,
                                                        wide_smem_bytes)
 
     for d, h, rows in ((C6_FULL_DIM, CHANNELS, 4), (MNIST_DIM, CHANNELS, 16),
-                       (C6_DIAG_DIM, CHANNELS, 32), (DIM, 320, 12)):
+                       (C6_DIAG_DIM, CHANNELS, 32), (DIM, 320, 12),
+                       (C6_WIDE_FULL_DIM, CHANNELS, 16)):
         c_bytes, host = _library().fused_traj_wide_smem_bytes(d, h, rows), wide_smem_bytes(d, h,
                                                                                            rows)
         check(c_bytes == host, f"wide shared memory at D={d}, H={h}, {rows} rows: kernel "
@@ -4507,13 +4560,19 @@ def phase_wide_kernel(dev, recs) -> None:
             dev, cfg, arrays, label, cases, BF16_TOL if cfg.bf16 else KERNEL_TOL,
             f64_ratio=None if cfg.bf16 else DRIVER_F64_RATIO)
         check_repeatable(dev, cfg, arrays, label, [(TRAIN_BATCH, "fed")])
+        if (full, d, dtype) == (False, C6_DIAG_DIM, None):
+            d365 = (cfg, arrays)
     for kname in set(WIDE_PLAN_KERNELS):
         rec = recs[kname]
+        # the plans here and phase 15 (d)'s D 196 full (the wide kernel's
+        # forced there)
         rec["max_abs_err"] = max([*rec["max_abs_err_by_plan"].values(),
-                                  rec.get("mnist_d196_c2_full", {}).get("max_abs_err", 0.0)])
+                                  *(sub["max_abs_err"] for sub in rec.values()
+                                    if isinstance(sub, dict) and "max_abs_err" in sub)])
+    return d365
 
 
-def phase_c6(dev, path_counts, recs) -> dict:
+def phase_c6(dev, path_counts, recs) -> tuple:
     """(f) Past the narrow kernels' widths on the card: the cluster and
     wide kernels against their plain version (phase_wide_kernel); RDS
     solvers with a 2-component full-covariance GMM reference keep B1's paths
@@ -4521,12 +4580,15 @@ def phase_c6(dev, path_counts, recs) -> dict:
     D 129 (batch 1024, eval 8192) on the cluster kernel, at D 400 (batch
     256, eval 2048; its rotations, 2.6 MB, fit no cluster) on the wide one;
     a Sinkhorn at d 225 runs the plain versions on the card ('plain', B2 /
-    B3 0 times) and equals a PLAIN_OPS run."""
+    B3 0 times) and equals a PLAIN_OPS run. Returns the cell record and,
+    for phase 7, the plans past the narrow widths with their paths'
+    (eval, train) batches."""
     from sde_sampler_lrds_torch.api import make_model, make_target_details
     from sde_sampler_lrds_torch.eval import Sinkhorn
     from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
+    from sde_sampler_lrds_torch.ops.fused_traj import build_plan
 
-    phase_wide_kernel(dev, recs)
+    plans = {"d365_diag": (*phase_wide_kernel(dev, recs), (MNIST_ROWS, TRAIN_BATCH))}
     out = {}
     for d, batch, eval_batch, kname, seed in (
             (C6_FULL_DIM, 1024, 8192, "fused_traj_cluster", 160),
@@ -4560,6 +4622,8 @@ def phase_c6(dev, path_counts, recs) -> dict:
               f"C6 D {d}: kernels launched {counts}, not twice {kname}")
         check(math.isfinite(cell["loss"]) and math.isfinite(cell["elbo"])
               and bool(torch.isfinite(res.samples).all()), f"C6 D {d}: not finite {cell}")
+        plans[f"c6_d{d}_full"] = (*build_plan(solver.loss, solver.generative_ctrl,
+                                              solver.train_ts), (eval_batch, batch))
     x = torch.randn(MNIST_ROWS, C6_SINKHORN_DIM, generator=g, device=dev)
     y = 0.5 + torch.randn(MNIST_ROWS, C6_SINKHORN_DIM, generator=g, device=dev)
     reset_counts()
@@ -4573,10 +4637,10 @@ def phase_c6(dev, path_counts, recs) -> dict:
     check(sk.config["backend"] == "plain" and counts["sinkhorn_lse"] == 0
           and counts["transport_cost"] == 0 and dist == want,
           f"C6 d {C6_SINKHORN_DIM} Sinkhorn: {sk.config['backend']}, {counts}, {dist} vs {want}")
-    return out
+    return out, plans
 
 
-def phase_mnist(dev, recs, path_counts) -> dict:
+def phase_mnist(dev, recs, path_counts) -> tuple:
     """Phase 15: (a) MixtureNice card vs CPU, (b) the UNet and the conv
     energy card vs CPU, (c) sample_mnist_unet cut in depth (MNIST_CUT) with
     the UNet (the graph checked against the loop) and the FourierMLP on a
@@ -4599,9 +4663,9 @@ def phase_mnist(dev, recs, path_counts) -> dict:
         path_counts)
     out["autograd_loops"] = phase_mnist_autograd_loops(dev)
     sk = phase_mnist_b1_sinkhorn(dev, diag_solver, full_solver, recs)
-    timing = sk.pop("timing")
+    timing = {"mnist": sk.pop("timing")}
     out["kernels"] = sk
-    out["c6"] = phase_c6(dev, path_counts, recs)
+    out["c6"], timing["wide_plans"] = phase_c6(dev, path_counts, recs)
     out["phase_s"] = time.perf_counter() - t15
     say(f"[phase 15] took {out['phase_s']:.1f} s")
     return out, timing
@@ -4819,7 +4883,8 @@ def main(argv=None) -> int:
                             "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:331",
                             "mode": "f32 or bf16, either reference, past the narrow kernels' "
                                     "widths where no cluster holds the tables (H 320 x 9 "
-                                    "layers, D 400 full covariance); timed at D 196 full, forced",
+                                    "layers, D 400 full covariance); timed on the D 400 path's "
+                                    "plan, and forced on the cluster kernel's plans",
                             "library_ms": None},
         "fused_traj_bf16": {"route": "cuda", "source": "sde_sampler_lrds_torch/csrc/fused_traj.cu",
                             "replaces": "sde_sampler_lrds_tpu/ops/fused_traj.py:380",

@@ -221,11 +221,10 @@ class ClusterGeometry:
 
 
 def cluster_geometry(batch: int, cfg: FusedTrajCfg, n_sms: int,
-                     active: dict | None = None) -> ClusterGeometry:
+                     active: dict) -> ClusterGeometry:
     """The cluster kernel's geometry for ``batch`` trajectories. ``active``
     maps a cluster size to the clusters of it the card holds at once
-    (``cudaOccupancyMaxActiveClusters``; by default ``n_sms // size``, one
-    CTA an SM). The size: the one whose co-resident clusters, each with its
+    (``cudaOccupancyMaxActiveClusters``, ``_cluster_active``). The size: the one whose co-resident clusters, each with its
     largest tile, hold the most of the batch at once; on a tie the one that
     holds the most trajectories, then the smaller.
     The tile: the batch spread evenly over the fewest waves of those
@@ -235,8 +234,6 @@ def cluster_geometry(batch: int, cfg: FusedTrajCfg, n_sms: int,
     the plan's tables."""
     if batch < 1 or n_sms < 1:
         raise ValueError(f"cluster_geometry: batch {batch} and n_sms {n_sms} must be positive")
-    if active is None:
-        active = {cl: n_sms // cl for cl in _CLUSTER_SIZES}
     best = None
     for cl in _CLUSTER_SIZES:
         tb_max, n = _cluster_rows_max(cfg, cl), active.get(cl, 0)

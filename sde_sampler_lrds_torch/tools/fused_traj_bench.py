@@ -33,8 +33,8 @@ on its default full GMM) at the train batch 256 (fed noise and states) and
 the eval batch 2048 (its own noise), beside its plain version and its
 bound, on the kernel the checkout routes it to (the cluster kernel, or the
 wide one in a checkout without it); --force-wide times the wide kernel too
-at the same plan (the cluster kernel's routing replaced while it runs, as
---sweep replaces the diagonal geometry). Then an LV training step of that
+at the same plan (chip_smoke.py's wide_forced: the cluster kernel's
+routing replaced while it runs, as --sweep replaces the diagonal geometry). Then an LV training step of that
 configuration (the FourierMLP control, batch 256, K 100, the log-SNR grid):
 its milliseconds (host clock, synchronised, over 50 steps after 3) and
 B1's share of them (CUDA events around each launch). With --root on the
@@ -249,14 +249,13 @@ def mnist(cs, torch, dev, peaks, sfu_rate, force_wide: bool) -> None:
         else "fused_traj_wide"
     cs.phase_timing(dev, cfg, arrays, {}, peaks, sfu_rate, label=f"{routed} D=196 C=2 full",
                     batches=(2048, 256))
-    if force_wide and hasattr(ft, "uses_cluster"):
-        routed_by = ft.uses_cluster
-        ft.uses_cluster = lambda c: False
-        try:
+    # a checkout without the cluster kernel has no wide_forced: there the
+    # plan already runs on the wide kernel
+    forced = getattr(cs, "wide_forced", None)
+    if force_wide and forced is not None:
+        with forced():
             cs.phase_timing(dev, cfg, arrays, {}, peaks, sfu_rate,
                             label="fused_traj_wide D=196 C=2 full (forced)", batches=(2048, 256))
-        finally:
-            ft.uses_cluster = routed_by
     # the LV step: sample_mnist_unet's base_zero_init configuration on a
     # 2-component full-covariance GMM (a fixed SPD covariance in place of
     # the fit to MALA draws: the step's work does not depend on its values)

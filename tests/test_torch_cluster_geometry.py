@@ -26,20 +26,19 @@ CLUSTER_PLANS = {"d129_full": plan(129, True), "d196_full": plan(196, True),
                  "d365_diag": plan(365, False)}
 
 
-@pytest.mark.parametrize("active", [None, H100_ACTIVE], ids=["default", "h100"])
 @pytest.mark.parametrize("name", sorted(CLUSTER_PLANS))
-@pytest.mark.parametrize("batch", [1, 256, 1000, 2048])
-def test_cluster_geometry_covers_the_batch(batch, name, active):
+@pytest.mark.parametrize("batch", [1, 33, 256, 1000, 1024, 2048, 4001, 8192])
+def test_cluster_geometry_covers_the_batch(batch, name):
     """A portable cluster of 1–8 CTAs, tiles of a multiple of 4 up to 64
     trajectories, no more clusters than tiles nor than the card holds at
     once, every trajectory in one tile, the tiles spread over the clusters
     with at most one more a cluster than another, and each CTA within the
     card's shared memory."""
     cfg = CLUSTER_PLANS[name]
-    geom = ft.cluster_geometry(batch, cfg, N_SMS, active)
+    geom = ft.cluster_geometry(batch, cfg, N_SMS, H100_ACTIVE)
     cl, tb, clusters = geom.cluster_size, geom.rows, geom.clusters
     tiles = -(-batch // tb)
-    held = (active or {c: N_SMS // c for c in (1, 2, 4, 8)})[cl]
+    held = H100_ACTIVE[cl]
     assert cl in (1, 2, 4, 8) and tb % 4 == 0 and 4 <= tb <= 64
     assert 1 <= clusters <= min(tiles, held)
     assert (tiles - 1) * tb < batch <= tiles * tb
@@ -50,13 +49,23 @@ def test_cluster_geometry_covers_the_batch(batch, name, active):
     assert tiles <= clusters * -(-batch // (tb_max * held))
 
 
-@pytest.mark.parametrize("active", [None, H100_ACTIVE], ids=["default", "h100"])
-def test_cluster_fills_the_card_at_the_train_batch(active):
+def test_cluster_fills_the_card_at_the_train_batch():
     """MNIST's train batch, 256 trajectories at D 196 with a full
     covariance, keeps at least 96 of the 132 SMs busy in one wave."""
-    geom = ft.cluster_geometry(256, CLUSTER_PLANS["d196_full"], N_SMS, active)
+    geom = ft.cluster_geometry(256, CLUSTER_PLANS["d196_full"], N_SMS, H100_ACTIVE)
     assert geom.cluster_size == 8 and geom.clusters * geom.cluster_size >= 96
     assert geom.clusters * geom.rows >= 256
+
+
+@pytest.mark.parametrize("name, batch, want", [
+    ("d196_full", 256, (8, 20, 13)), ("d196_full", 2048, (8, 28, 15)),
+    ("d129_full", 1024, (4, 36, 29)), ("d365_diag", 1024, (4, 36, 29))])
+def test_cluster_geometry_at_the_paths_batches(name, batch, want):
+    """The launches chip_smoke.py printed on the H100 (cluster size, tile,
+    clusters): MNIST's train and eval batches at D 196, the C6 path's
+    train batch at D 129 and phase 15 (f)'s at D 365."""
+    geom = ft.cluster_geometry(batch, CLUSTER_PLANS[name], N_SMS, H100_ACTIVE)
+    assert (geom.cluster_size, geom.rows, geom.clusters) == want
 
 
 @pytest.mark.parametrize("case", [
@@ -108,7 +117,7 @@ def test_wide_keeps_the_plans_no_cluster_holds(cfg):
     assert ft.uses_wide(cfg) and not ft.uses_cluster(cfg)
     assert ft.wide_limit_error(cfg) is None
     with pytest.raises(ValueError, match="no cluster"):
-        ft.cluster_geometry(256, cfg, N_SMS)
+        ft.cluster_geometry(256, cfg, N_SMS, H100_ACTIVE)
 
 
 @pytest.mark.parametrize("cfg", [plan(8, False), plan(100, True), plan(128, True),
@@ -125,4 +134,4 @@ def test_cluster_geometry_refuses_a_card_that_holds_no_cluster():
     with pytest.raises(ValueError, match="no cluster"):
         ft.cluster_geometry(256, CLUSTER_PLANS["d196_full"], N_SMS, {4: 0, 8: 0})
     with pytest.raises(ValueError, match="positive"):
-        ft.cluster_geometry(0, CLUSTER_PLANS["d196_full"], N_SMS)
+        ft.cluster_geometry(0, CLUSTER_PLANS["d196_full"], N_SMS, H100_ACTIVE)
