@@ -13,8 +13,10 @@ logistic-regression driver and LangevinSolver, and the learned ('nn')
 reference (the tilted-EBM potential, its MLE trainer, the toy EBM driver,
 its checkpoint, φ⁴'s Laplace oracle), the MNIST slice (the NICE mixture,
 the UNet control, the conv energy, the MNIST driver) with B1 at D 196 and
-B2 / B3 at d 196, and the widths past the kernels' limits (the loss's own
-loop, the plain Sinkhorn), and checks the quality of each.
+B2 / B3 at d 196, the widths past the kernels' limits (the loss's own
+loop, the plain Sinkhorn), and the surface (the data-parallel mesh over the
+one card, the profiling trace, a JAX checkpoint, the CLI's --plots), and
+checks the quality of each.
 
     python3 chip_smoke.py
 
@@ -191,9 +193,26 @@ Phases:
      full-covariance reference at D 129 (the cluster kernel) and D 400 (the
      wide one), one step and one eval each ('flat_lv_fused', 'fused'), and
      a d 225 Sinkhorn on the plain versions
+ 16. the surface: the data-parallel mesh over the one card (a device may
+     repeat): (a) the trained demo's eval plan at 8192 x 100 through
+     fused_simulate_sharded under fed noise on 2 and 4 shards, B1 once a
+     shard, within KERNEL_TOL of the one-shard run (equal where a shard
+     keeps its geometry) and each shard bitwise equal to the kernel alone
+     on its rows; (b) make_model(mesh=<2 shards>) on the demo, 16 flat-LV
+     steps under fed noise and one eval ('flat_lv_fused' / 'fused', 2 B1
+     launches a step and 2 for the eval), each loss within KERNEL_TOL of a
+     one-shard solver's, and the fused-KL gradient on 2 shards within
+     KL_GRAD_TOL of one shard's; (c) the D 129 full-covariance plan on the
+     cluster kernel at the train batch split in 2, gated against float64 as
+     phase 15 (f); (d) utils.profiling.trace around one demo eval, the trace
+     naming B1's kernel and the annotate region; (e) the JAX demo checkpoint
+     committed under sde_sampler_lrds_torch/tools/data/ loaded into the
+     port's demo solver and evaluated with one B1 launch, its log Z and ESS
+     beside the JAX eval's; (f) whether matplotlib imports, and only then the
+     CLI once with --plots and its PNG names
 
-Every path (phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14 and 15) is run with all launch counts set to 0 just
-before it and read just after. Prints the card as nvidia-smi reports it, then
+Every path (phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16) is run with
+all launch counts set to 0 just before it and read just after. Prints the card as nvidia-smi reports it, then
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, with no result line, when there is no
 CUDA device or any phase fails.
@@ -4805,6 +4824,309 @@ def run_vi_cell(dev, module: str, flags: list) -> None:
     check_vi_record(label, solver_type, med, record, slack=GATE_CELL_VI_SLACK)
 
 
+# phase 16: the surface. The meshes' shard counts over the one card, the
+# demo's steps on the 2-shard mesh, and the JAX demo checkpoint committed
+# in the port's package with the JAX eval's log Z and ESS beside it
+MESH_SHARDS = (2, 4)
+SURFACE_STEPS = 16
+JAX_DEMO_CKPT = Path("sde_sampler_lrds_torch/tools/data/jax_demo_ckpt.msgpack")
+PLOT_PNGS = {"plots_traj_0.png", "plots_traj_1.png", "plots_hist_0.png", "plots_hist_1.png",
+             "plots_density_0_1.png", "plots_groundtruth_density_0_1.png"}
+PLOTS_ROOT = Path("build/plots")
+
+
+def repeated_mesh(dev, n: int):
+    """A mesh of ``n`` shards on the one card (a device may repeat)."""
+    from sde_sampler_lrds_torch.parallel import get_mesh
+
+    return get_mesh(devices=[dev] * n)
+
+
+def surface_sharded_eval(dev, solver, path_counts) -> dict:
+    """(a) The trained demo's eval plan at 8192 x 100 through
+    fused_simulate_sharded under fed noise on 2 and 4 shards: B1 once a
+    shard; the gathered rows within KERNEL_TOL of the one-shard run's (and
+    equal to them where the shard keeps the full batch's geometry), each
+    shard's rows bitwise equal to the kernel run alone on them."""
+    from sde_sampler_lrds_torch.ops.fused_traj import (build_plan, diag_geometry, fused_simulate,
+                                                       fused_simulate_sharded, fused_traj)
+
+    cfg, arrays = build_plan(solver.loss, solver.generative_ctrl, solver.eval_ts)
+    args = solver.loss_call_args()
+    g = torch.Generator(dev).manual_seed(161)
+    x0 = solver.prior.sample(g, (EVAL_BATCH,))
+    noise = torch.randn(K_STEPS, EVAL_BATCH, DIM, generator=g, device=dev)
+    x_one, rnd_one = fused_simulate(cfg, arrays, None, x0, noise=noise, **args)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    full_geom = diag_geometry(EVAL_BATCH, DIM, CHANNELS, cfg.n_hidden, n_sm)
+    out = {}
+    for n in MESH_SHARDS:
+        mesh = repeated_mesh(dev, n)
+        reset_counts()
+        t0 = time.perf_counter()
+        x_s, rnd_s = fused_simulate_sharded(mesh, cfg, arrays, None, x0, noise=noise, **args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = path_counts[f"mesh_eval_{n}_shards"] = read_counts()
+        rows = EVAL_BATCH // n
+        geom = diag_geometry(rows, DIM, CHANNELS, cfg.n_hidden, n_sm)
+        same_geom = (geom.traj_per_warp, geom.warps_per_block) == (full_geom.traj_per_warp,
+                                                                   full_geom.warps_per_block)
+        for i in range(n):
+            r = slice(i * rows, (i + 1) * rows)
+            alone = fused_traj(cfg, arrays, x0[r], noise=noise[:, r].contiguous())
+            check(torch.equal(x_s[r], alone[0]),
+                  f"mesh of {n}: shard {i}'s rows differ from the kernel run alone on them")
+        err = assert_close((x_s, rnd_s), (x_one, rnd_one),
+                           f"fused_simulate_sharded on {n} shards vs one", KERNEL_TOL)
+        if same_geom:
+            check(torch.equal(x_s, x_one) and torch.equal(rnd_s, rnd_one),
+                  f"mesh of {n}: the shards keep the full batch's geometry but differ")
+        out[f"{n}_shards"] = {"launches": counts["fused_traj"], "max_abs_err_vs_one": err,
+                              "shard_geometry": dataclasses.asdict(geom),
+                              "same_geometry_as_one": same_geom, "host_ms": ms}
+        check(counts["fused_traj"] == n and b1_launches(counts) == n,
+              f"mesh of {n}: B1 launched {counts}, not once a shard")
+    out["one_shard_geometry"] = dataclasses.asdict(full_geom)
+    say("[phase 16] (a) sharded eval: " + json.dumps(out))
+    return out
+
+
+def surface_demo_kwargs(ref: dict, loss_type: str = "lv") -> dict:
+    """make_model's arguments of the LRDS demo (bench.py's configuration) at
+    SURFACE_STEPS steps, with phase 4's fitted GMM reference."""
+    from sde_sampler_lrds_torch.api import make_target_details
+
+    return dict(solver_type="vp-ref", ref_type="gmm", loss_type=loss_type, integrator_type="ei",
+                model_type="base_zero_init", time_type="uniform",
+                solver_details={"sigma": 1.0, "weights_ref": ref["weights"],
+                                "means_ref": ref["means"], "variances_ref": ref["variances"]},
+                target_details=make_target_details("many_modes", dim=DIM, n_modes=N_MODES,
+                                                   var=0.5),
+                training_details={"train_steps": SURFACE_STEPS, "train_batch_size": TRAIN_BATCH,
+                                  "eval_batch_size": EVAL_BATCH, "lr": LR},
+                n_steps=K_STEPS)
+
+
+def surface_mesh_solver(dev, solver, ref, path_counts) -> dict:
+    """(b) make_model(mesh=<2 shards>) on the demo: 'flat_lv_fused' /
+    'fused', SURFACE_STEPS steps under fed noise (2 B1 launches a step)
+    and one eval (2 more), each step's loss within KERNEL_TOL of a
+    one-shard solver's on the same inputs; the KL demo's fused-KL gradient
+    on 2 shards (phase 4's trained control) within KL_GRAD_TOL of one
+    shard's, its forward once a shard."""
+    from sde_sampler_lrds_torch.api import make_model
+
+    mesh = repeated_mesh(dev, 2)
+    kw = surface_demo_kwargs(ref)
+    two, one = make_model(mesh=mesh, **kw), make_model(device=dev, **kw)
+    for s in (two, one):
+        s.setup(torch.Generator(dev).manual_seed(162))
+    one.generative_ctrl.load_state_dict(two.generative_ctrl.state_dict())
+    one.reset_optimizer()
+    paths = (two.train_path(), two.eval_path())
+    check(paths == ("flat_lv_fused", "fused") and two.mesh.size == 2,
+          f"the 2-shard demo's paths {paths}")
+    g = torch.Generator(dev).manual_seed(163)
+    fed = [{"x0": two.prior.sample(g, (TRAIN_BATCH,)),
+            "noise": torch.randn(K_STEPS, TRAIN_BATCH, DIM, generator=g, device=dev)}
+           for _ in range(SURFACE_STEPS)]
+    reset_counts()
+    t0 = time.perf_counter()
+    losses_two = [float(two.step(None, **f)["train/loss"]) for f in fed]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = two.evaluate(torch.Generator(dev).manual_seed(164))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = path_counts["mesh_demo_2_shards"] = read_counts()
+    losses_one = [float(one.step(None, **f)["train/loss"]) for f in fed]
+    loss_err = max(abs(a - b) / (KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * abs(b))
+                   for a, b in zip(losses_two, losses_one))
+    log_z, ess, _ = is_stats(res.rnd)
+    out = {"paths": paths, "launches": counts, "losses_2_shards": losses_two,
+           "losses_1_shard": losses_one, "loss_diff_over_tol": loss_err,
+           "ms_per_step": (t1 - t0) * 1e3 / SURFACE_STEPS, "eval_ms": (t2 - t1) * 1e3,
+           "eval/log_norm_const_is": log_z, "eval/norm_ess": ess}
+    check(counts["fused_traj"] == 2 * SURFACE_STEPS + 2 and b1_launches(counts)
+          == counts["fused_traj"], f"the 2-shard demo launched {counts}, not 2 a step + 2")
+    check(loss_err <= 1.0, f"the 2-shard demo's losses {losses_two} vs one shard's {losses_one}")
+    check(math.isfinite(log_z) and bool(torch.isfinite(res.samples).all()),
+          "the 2-shard demo's eval is not finite")
+
+    kl_two, kl_one = (make_model(mesh=mesh, **surface_demo_kwargs(ref, "kl")),
+                      make_model(device=dev, **surface_demo_kwargs(ref, "kl")))
+    f = fed[0]
+    grads = {}
+    for name, s in (("two", kl_two), ("one", kl_one)):
+        s.setup(torch.Generator(dev).manual_seed(165))
+        s.generative_ctrl.load_state_dict(solver.generative_ctrl.state_dict())
+        s.generative_ctrl.zero_grad()
+        reset_counts()
+        loss, _ = s.loss_fn(None, **f)
+        torch.cuda.synchronize()
+        if name == "two":
+            counts = path_counts["mesh_kl_2_shards"] = read_counts()
+        loss.backward()
+        grads[name] = [p.grad.detach().clone() for p in s.generative_ctrl.parameters()]
+    grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(grads["two"], grads["one"]))
+    out["kl"] = {"path": kl_two.train_path(), "launches": counts, "grad_rel_diff_max": grad_rel}
+    check(kl_two.train_path() == "kl_fused" and counts["fused_traj"] == 2,
+          f"the 2-shard KL step: {out['kl']}")
+    check(grad_rel <= KL_GRAD_TOL, f"the fused-KL gradient on 2 shards is {grad_rel:.3e} from "
+                                   f"one shard's (tolerance {KL_GRAD_TOL})")
+    say("[phase 16] (b) make_model(mesh=2 shards): " + json.dumps(out))
+    return out
+
+
+def surface_cluster_shards(dev, path_counts) -> dict:
+    """(c) A plan on the cluster kernel (D 129 full covariance, phase 15
+    (f)'s) at the train batch split in 2: each shard within the cluster
+    kernel's co-resident clusters, the gathered states gated against the
+    same steps in float64 as phase 15 (f) gates them (DRIVER_F64_RATIO)."""
+    from sde_sampler_lrds_torch.ops.fused_traj import (_cluster_active, _sm_count,
+                                                       cluster_geometry,
+                                                       fused_traj_plain, fused_traj_states_sharded)
+
+    cfg, arrays = phi_four_plan(dev, full_cov=True, dim=C6_FULL_DIM)
+    check(b1_kernel(cfg) == "fused_traj_cluster", f"the D {C6_FULL_DIM} plan runs on "
+                                                  f"{b1_kernel(cfg)}")
+    mesh = repeated_mesh(dev, 2)
+    g = torch.Generator(dev).manual_seed(166)
+    x0 = torch.randn(TRAIN_BATCH, cfg.dim, generator=g, device=dev)
+    noise = torch.randn(cfg.k_steps, TRAIN_BATCH, cfg.dim, generator=g, device=dev)
+    reset_counts()
+    xs, x_t = fused_traj_states_sharded(mesh, cfg, arrays, x0, noise)
+    torch.cuda.synchronize()
+    counts = path_counts["mesh_cluster_d129"] = read_counts()
+    check(counts["fused_traj_cluster"] == 2 and b1_launches(counts) == 2,
+          f"the D {C6_FULL_DIM} plan on 2 shards launched {counts}")
+    active = _cluster_active(torch.cuda.current_device(), cfg.dim, cfg.channels, cfg.n_hidden,
+                             cfg.n_comp, cfg.full_cov, cfg.bf16)
+    geom = cluster_geometry(TRAIN_BATCH // 2, cfg, _sm_count(x0.device), active)
+    check(geom.clusters <= active[geom.cluster_size],
+          f"a shard's {geom} exceeds the {active} co-resident clusters")
+    plain = fused_traj_plain(cfg, arrays, x0, noise=noise, return_traj=True)
+    exact = fused_traj_plain(cfg, {k: v.double() for k, v in arrays.items()}, x0.double(),
+                             noise=noise.double(), return_traj=True, dtype=torch.float64)
+    out = {"launches": counts, "shard_geometry": dataclasses.asdict(geom),
+           "co_resident_clusters": active}
+    for name, got, want, ex in (("x_T", x_t, plain[0], exact[0]), ("states", xs, plain[2],
+                                                                   exact[2])):
+        k_err = float((got - ex).abs().max())
+        p_err = float((want - ex).abs().max())
+        out[f"{name}_to_f64"] = {"kernel": k_err, "plain": p_err}
+        check(bool(torch.isfinite(got).all()) and k_err <= DRIVER_F64_RATIO * p_err
+              + KERNEL_TOL["atol"], f"D {C6_FULL_DIM} on 2 shards: {name} {k_err:.3e} from the "
+                                    f"float64 steps, the plain version's {p_err:.3e}")
+    say("[phase 16] (c) cluster kernel on 2 shards: " + json.dumps(out))
+    return out
+
+
+def surface_trace(dev, solver, path_counts) -> dict:
+    """(d) utils.profiling.trace around one demo eval (its fused path), an
+    annotate region inside: the trace file names B1's kernel and the
+    region."""
+    from sde_sampler_lrds_torch.utils.profiling import annotate, trace
+
+    log_dir = Path("build/trace")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    g = torch.Generator(dev).manual_seed(167)
+    reset_counts()
+    t0 = time.perf_counter()
+    with trace(log_dir):
+        with annotate("phase16_demo_eval"):
+            solver.evaluate(g)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = path_counts["trace_demo_eval"] = read_counts()
+    files = sorted(log_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"trace() wrote {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = sorted({n for n in names if "traj_kernel" in n})
+    out = {"file": str(files[0]), "bytes": files[0].stat().st_size, "events": len(events),
+           "b1_kernels": kernels, "launches": counts, "seconds": seconds,
+           "device_events": sum(1 for e in events if e.get("cat") == "kernel")}
+    say("[phase 16] (d) trace: " + json.dumps(out))
+    check("phase16_demo_eval" in names, "the trace lacks the annotate region")
+    check(bool(kernels) and counts["fused_traj"] == 1,
+          f"the trace names no B1 kernel ({counts})")
+    return out
+
+
+def surface_jax_checkpoint(dev, target, path_counts) -> dict:
+    """(e) The JAX demo checkpoint committed in the port's package, loaded
+    into the port's demo solver on the card and evaluated with one B1
+    launch; its log Z and ESS beside the JAX eval's recorded beside the
+    file, within bench.py's parity gate."""
+    solver = demo_solver(dev, target)
+    solver.setup(torch.Generator(dev).manual_seed(168))
+    check(solver.load_checkpoint(JAX_DEMO_CKPT), f"no checkpoint at {JAX_DEMO_CKPT}")
+    record = json.loads(JAX_DEMO_CKPT.with_suffix(".json").read_text())
+    reset_counts()
+    x_t, rnd = solver.fused_eval_sampler()(torch.Generator(dev).manual_seed(169))
+    torch.cuda.synchronize()
+    counts = path_counts["jax_checkpoint_eval"] = read_counts()
+    log_z, ess, _ = is_stats(rnd)
+    out = {"ref_type": solver.ref_type, "step_count": solver.step_count, "launches": counts,
+           "port": {"log_norm_const_is": log_z, "norm_ess": ess},
+           "jax_record": {k: record[k] for k in ("log_norm_const_is", "norm_ess",
+                                                 "eval_batch_size")}}
+    say("[phase 16] (e) JAX checkpoint: " + json.dumps(out))
+    check(solver.ref_type == "gmm" and solver.step_count == record["train_steps"],
+          f"the checkpoint restored {solver.ref_type} at step {solver.step_count}")
+    check(counts["fused_traj"] == 1 and b1_launches(counts) == 1, f"the eval launched {counts}")
+    check(bool(torch.isfinite(x_t).all()) and abs(log_z - record["log_norm_const_is"])
+          < PARITY_LOGZ and abs(ess - record["norm_ess"]) < PARITY_ESS,
+          "the JAX checkpoint's eval on the card disagrees with its JAX record beyond "
+          "bench.py's gate")
+    return out
+
+
+def surface_plots(dev, path_counts) -> dict:
+    """(f) Whether matplotlib imports here; only if it does, the CLI once
+    with --plots (a tiny vp_rds run) and its PNG names checked."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        out = {"matplotlib": None, "skipped": f"matplotlib does not import: {e}"}
+        say("[phase 16] (f) --plots skipped: " + json.dumps(out))
+        return out
+    out_dir = PLOTS_ROOT / "run"
+    shutil.rmtree(PLOTS_ROOT, ignore_errors=True)
+    argv = ["--device", dev.type, "--solver", "vp_rds", "--target", "two_modes", "--dim", "2",
+            "--steps", "16", "--train-steps", "8", "--train-batch-size", "256",
+            "--eval-batch-size", "1024", "--log-interval", "4", "--plots",
+            "--out-dir", str(out_dir)]
+    reset_counts()
+    t0 = time.perf_counter()
+    cli_in_process(argv, "the CLI with --plots")
+    counts = path_counts["cli_plots"] = read_counts()
+    pngs = {p.name for p in out_dir.glob("*.png")}
+    out = {"matplotlib": matplotlib.__version__, "pngs": sorted(pngs), "launches": counts,
+           "seconds": time.perf_counter() - t0}
+    say("[phase 16] (f) --plots: " + json.dumps(out))
+    check(pngs == PLOT_PNGS, f"--plots wrote {sorted(pngs)}, not {sorted(PLOT_PNGS)}")
+    return out
+
+
+def phase_surface(dev, solver, target, ref: dict, path_counts) -> dict:
+    """Phase 16: the mesh over one card (a)-(c), the profiling trace (d),
+    the JAX checkpoint (e), --plots (f)."""
+    t16 = time.perf_counter()
+    out = {"sharded_eval": surface_sharded_eval(dev, solver, path_counts),
+           "mesh_solver": surface_mesh_solver(dev, solver, ref, path_counts),
+           "cluster_shards": surface_cluster_shards(dev, path_counts),
+           "trace": surface_trace(dev, solver, path_counts),
+           "jax_checkpoint": surface_jax_checkpoint(dev, target, path_counts),
+           "plots": surface_plots(dev, path_counts)}
+    out["phase_s"] = time.perf_counter() - t16
+    say(f"[phase 16] took {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and (argv[0] != "--cell" or len(argv) < 2):
@@ -4939,6 +5261,8 @@ def main(argv=None) -> int:
     laps("14 learned reference")
     mnist, mnist_timing = phase_mnist(dev, recs, path_counts)
     laps("15 MNIST and C6")
+    surface = phase_surface(dev, solver, target, ref, path_counts)
+    laps("16 surface")
     phase_timing(dev, cfg, arrays, recs["fused_traj"], peaks, sfu_rate)
     for plan_name, (vi_cfg, vi_arrays, _) in vi_plan_set.items():
         phase_timing(dev, vi_cfg, vi_arrays, recs["fused_traj"]["vi_plans"][plan_name], peaks,
@@ -4978,7 +5302,8 @@ def main(argv=None) -> int:
                                           "driver_cells": driver_cells,
                                           "bf16_demo": bf16_demo, "kl": kl, "cli": cli,
                                           "vi": vi, "baselines": baselines,
-                                          "learned_reference": learned, "mnist": mnist}))
+                                          "learned_reference": learned, "mnist": mnist,
+                                          "surface": surface}))
     say("[phase 7] wall seconds by phase: " + json.dumps({**laps.seconds,
                                                           "script": laps.total()}))
     say(json.dumps({"kernels": [

@@ -5,13 +5,18 @@ its counterpart's file and names so a reader can hold the two side by side.
 This package imports torch, numpy, scipy (the φ⁴ host oracle) and the
 standard library only.
 
-Ported so far (the LRDS demo pipeline, sample-based evaluation and SMC,
-the φ⁴ path with a full-covariance GMM reference, the LRDS experiment
-drivers, the training host loop with its CLI, the other VI samplers, the
-sampling baselines, the learned references and the MNIST slice):
+Ported: every module of the JAX package (the LRDS demo pipeline,
+sample-based evaluation and SMC, the φ⁴ path with a full-covariance GMM
+reference, the LRDS experiment drivers, the training host loop with its
+CLI, the other VI samplers, the sampling baselines, the learned references,
+the MNIST slice and the surface: the data-parallel mesh, JAX checkpoints,
+plots and profiling):
   utils/     time grids (uniform and log-SNR), Results, masked statistics,
              device resolution, diagonal and full-covariance GMM fitting by EM,
-             a reader of the JAX package's Flax msgpack files
+             a reader of the JAX package's Flax msgpack files, the profiling
+             hooks (a torch.profiler trace, regions, a call's flops)
+  parallel/  the data-parallel mesh: an ordered list of devices (a device
+             may repeat), batch splits and replicas
   targets/   Target base, Gaussian / GMM (and its presets) / GMMFull /
              ManyModes / TwoModes / TwoModesFull / BracketTwoModes /
              IsotropicGauss (optionally truncated) / GaussFull, Delta,
@@ -30,11 +35,13 @@ sampling baselines, the learned references and the MNIST slice):
              and the EUBO's noising pass
   ops/       the hand-written CUDA kernels (sm_90a, csrc/): the fused
              whole-trajectory integrator (diagonal and full-covariance
-             reference modes), the Sinkhorn log-sum-exp and transport cost,
-             systematic resampling; each with its plain PyTorch version
-  eval/      get_metrics, Sinkhorn, MMD, sliced KS
+             reference modes; once a shard on a mesh), the Sinkhorn
+             log-sum-exp and transport cost, systematic resampling; each with
+             its plain PyTorch version
+  eval/      get_metrics, Sinkhorn, MMD, sliced KS, the diagnostic plots
   solvers/   TrainConfig / Trainable (Adam, guarded step, EMA, the run loop
-             with metrics.jsonl and checkpoints), the lr and hyperparameter
+             with metrics.jsonl and checkpoints, the JAX package's
+             checkpoints loaded whole), the lr and hyperparameter
              schedules, RDS (with the learned 'nn' reference), and the
              TrainableWrappers with the EUBO metrics
   mcmc/      MALA, ULA, SMC
@@ -44,9 +51,10 @@ sampling baselines, the learned references and the MNIST slice):
   experiments/  lrds_run and the LRDS drivers: *_mcmc_gmm.py, the 2-D
              toys, the two_modes sweeps over distance, GMM components,
              reference weights and sigma, the competing drivers, and the
-             learned-reference drivers *_ebm_mcmc.py
+             learned-reference drivers *_ebm_mcmc.py, the φ⁴ weight analysis
+             analyze_phi4_rb.py
              (python -m sde_sampler_lrds_torch.experiments.<driver>)
-  scripts/   the CLI and the sweep launcher
+  scripts/   the CLI (with --plots) and the sweep launcher
              (python -m sde_sampler_lrds_torch.scripts.main / .sweep)
   utils/wandb.py  optional Weights & Biases logging
 

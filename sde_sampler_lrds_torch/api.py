@@ -24,13 +24,14 @@ references 'default', 'gaussian', 'gmm' and 'nn' (a trained EBM potential,
 'cmcd' (with its refitted prior) — the controls of every model type, on
 the FourierMLP or the DenseNet, the UNet ones on the 14×14 MNIST UNet, the
 lr schedulers of ``optim_details['lr_scheduler']`` and checkpoints under
-``out_dir``; the mesh raises NotImplementedError naming its ROADMAP queue
-item. ``build_ebm`` makes the EBM trainers ('mle*', 'drl', 'daebm') of the
-learned references. Every target is ported: 'two_modes',
-'two_modes_full', 'bracket_two_modes', 'many_modes', 'rings',
-'checkerboard', 'phi_four', the Bayesian logistic-regression posteriors
-'cancer', 'credit', 'ionosphere' and 'sonar', and the NICE-flow mixtures
-'mnist' (ten digits) and 'mnist_zero_one' (digits 0 and 1).
+``out_dir``, and the data-parallel ``mesh`` (``parallel/mesh.py``: B1 once
+a shard, the solver on the mesh's first device). ``build_ebm`` makes the
+EBM trainers ('mle*', 'drl', 'daebm') of the learned references. Every
+target is ported: 'two_modes', 'two_modes_full', 'bracket_two_modes',
+'many_modes', 'rings', 'checkerboard', 'phi_four', the Bayesian
+logistic-regression posteriors 'cancer', 'credit', 'ionosphere' and
+'sonar', and the NICE-flow mixtures 'mnist' (ten digits) and
+'mnist_zero_one' (digits 0 and 1).
 """
 from __future__ import annotations
 
@@ -206,7 +207,10 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
     (DIS only) adds GBS's learned inference control, a second control of
     that model type; ``loss_details={'div_estimator': 'rademacher'}`` then
     estimates its divergence by Hutchinson instead of exactly.
-    ``force_T_cosine`` moves the end of DDS's cosine grid from 6.4."""
+    ``force_T_cosine`` moves the end of DDS's cosine grid from 6.4. A
+    ``mesh`` (``parallel.get_mesh``) runs B1 once a shard of it; the solver
+    lives on its first device, which ``device`` must be where both are
+    given."""
     if solver_type not in SOLVER_TYPES:
         raise ValueError(f"Unknown solver_type {solver_type!r}")
     if ref_type not in ("default", "gaussian", "gmm", "nn"):
@@ -277,13 +281,8 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
             raise ValueError(f"inference_ctrl_arch must be one of {MODEL_TYPES}; "
                              f"got {inference_ctrl_arch!r}")
 
-    # -- what the port does not have yet ------------------------------------
-    if mesh is not None:
-        raise NotImplementedError("mesh (sharded solvers) is not ported yet (ROADMAP A7, "
-                                  "parallel/mesh.py).")
-
     # -- target / prior / sde ---------------------------------------------
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None and device is None else resolve_device(device)
     target = make_target(target_details, device=device)
     dim = target.dim
     sigma = solver_details.get("sigma", 1.0)
@@ -346,7 +345,7 @@ def make_model(solver_type: str, ref_type: str, loss_type: str, integrator_type:
                     scale_diff_coeff=sigma)
 
     t_eps = 1e-4
-    common = dict(cfg=cfg, device=device, out_dir=out_dir)
+    common = dict(cfg=cfg, device=device, out_dir=out_dir, mesh=mesh)
     if solver_type == "dds_orig":
         prior = IsotropicGauss(dim=dim, scale=sigma, device=device)
         end = force_T_cosine if force_T_cosine is not None else 6.4

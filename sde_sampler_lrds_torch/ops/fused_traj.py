@@ -50,6 +50,15 @@ RND and the state update stay float32.
 saved pre-step states; its backward is the adjoint of the generalized step
 as a PyTorch reverse loop over the saved states (the JAX package's
 ``_fused_kl_bwd`` is a ``lax.scan``, not a Pallas kernel).
+
+On a data-parallel mesh (``parallel/mesh.py``) the kernel runs once a shard,
+as the JAX package runs its ``pallas_call`` under ``shard_map``:
+``fused_simulate_sharded``, ``fused_traj_states_sharded`` and
+``fused_kl_traj(..., mesh=mesh)``'s forward split the batch's rows over the
+mesh's devices, launch B1 on each shard's rows against the plan's tables
+replicated once a device, and gather the outputs on the mesh's first
+device in shard order. Each launch picks its geometry from its shard's
+batch, and its kernel from the plan alone.
 """
 from __future__ import annotations
 
@@ -60,6 +69,8 @@ import math
 
 import torch
 
+from ..parallel.mesh import Mesh, replicate, shard_batch
+from ..utils.common import derive_generator
 from ._build import load_library
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -870,6 +881,66 @@ def fused_traj_states(cfg: FusedTrajCfg, arrays: dict, x0, noise: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# per shard on a data-parallel mesh
+# ---------------------------------------------------------------------------
+
+def _per_shard(mesh: Mesh, cfg: FusedTrajCfg, arrays, x0: torch.Tensor,
+               noise: torch.Tensor | None, generator: torch.Generator | None,
+               return_traj: bool):
+    """``fused_traj`` on each shard's rows of x0 (and of the fed noise's
+    batch axis), on the shard's device: (x_T, rnd, xs or None) gathered on
+    the mesh's first device in shard order. ``arrays`` is the plan's tables,
+    or their per-device copies as ``replicate(arrays, mesh)`` gives them
+    (made here otherwise: once a device for the call). Without fed noise
+    shard i draws from ``derive_generator(generator, i)`` on its device."""
+    tables = arrays if isinstance(arrays, list) else replicate(arrays, mesh)
+    x_rows = shard_batch(x0, mesh)
+    z_rows = ([z.transpose(0, 1) for z in shard_batch(noise.transpose(0, 1), mesh)]
+              if noise is not None else [None] * mesh.size)
+    outs = []
+    for i, dev in enumerate(mesh.devices):
+        g = (derive_generator(generator, i, device=dev)
+             if noise is None and generator is not None else None)
+        outs.append(fused_traj(cfg, tables[i], x_rows[i], noise=z_rows[i], generator=g,
+                               return_traj=return_traj))
+    first = mesh.device
+    x_t = torch.cat([o[0].to(first) for o in outs])
+    rnd = torch.cat([o[1].to(first) for o in outs])
+    xs = torch.cat([o[2].to(first) for o in outs], dim=1) if return_traj else None
+    return x_t, rnd, xs
+
+
+def fused_simulate_sharded(mesh: Mesh, cfg: FusedTrajCfg, arrays, generator, x0,
+                           terminal_unnorm_log_prob, reference_log_prob=None,
+                           initial_log_prob=None, noise: torch.Tensor | None = None):
+    """``fused_simulate`` with B1 launched once a shard of the mesh. The
+    noise: the fed (K, B, D) ``noise``, split as x0 is, or else shard i's
+    own, drawn (in the kernel on the card, by ``torch.randn`` on the CPU)
+    from ``derive_generator(generator, i)`` on the shard's device: the
+    counterpart of the JAX package's ``fold_in(key, axis_index)``, which
+    leaves ``generator`` untouched. The boundary costs are elementwise and
+    run on the mesh's first device, over the gathered rows."""
+    x0 = x0.float()
+    x_t, rnd, _ = _per_shard(mesh, cfg, arrays, x0, noise, generator, False)
+    x0 = x0.to(mesh.device)
+    if initial_log_prob is not None:
+        rnd = rnd + initial_log_prob(x0)
+    if reference_log_prob is not None:
+        rnd = rnd + reference_log_prob(x_t)
+    return x_t, rnd - terminal_unnorm_log_prob(x_t)
+
+
+def fused_traj_states_sharded(mesh: Mesh, cfg: FusedTrajCfg, arrays, x0,
+                              noise: torch.Tensor):
+    """``fused_traj_states`` with B1 launched once a shard of the mesh: the
+    rows of x0 and the batch axis of the fed noise split over it, the states
+    xs (K, B, D) and x_T gathered on its first device in shard order."""
+    x_t, _, xs = _per_shard(mesh, cfg, arrays, x0.detach().float(), noise.detach(), None,
+                            True)
+    return xs, x_t
+
+
+# ---------------------------------------------------------------------------
 # differentiable fused trajectory (KL training)
 # ---------------------------------------------------------------------------
 # The KL loss keeps the simulated control attached, so the trajectory carries
@@ -919,9 +990,12 @@ class _FusedKLTraj(torch.autograd.Function):
     x0 and the MLP tables (given positionally, in ``_MLP_KEYS`` order)."""
 
     @staticmethod
-    def forward(ctx, cfg, aux, x0, noise, *mlp):
+    def forward(ctx, cfg, aux, mesh, x0, noise, *mlp):
         arrays = dict(aux, **dict(zip(_MLP_KEYS, mlp)))
-        x_t, rnd, xs = fused_traj(cfg, arrays, x0, noise=noise, return_traj=True)
+        if mesh is None or mesh.size == 1:
+            x_t, rnd, xs = fused_traj(cfg, arrays, x0, noise=noise, return_traj=True)
+        else:
+            x_t, rnd, xs = _per_shard(mesh, cfg, arrays, x0, noise, None, True)
         ctx.cfg, ctx.aux, ctx.xs = cfg, aux, xs
         ctx.save_for_backward(noise, *mlp)
         return x_t, rnd
@@ -953,23 +1027,27 @@ class _FusedKLTraj(torch.autograd.Function):
                 dh = dh @ wh[i].t() * gelu_grads[i][k]
             lam = (a_x * lam + _ref_score_vjp(cfg, aux, k, xs[k], a_ref * lam)
                    + dh @ w0.t())
-        wanted = [k for k, need in zip(_MLP_KEYS, ctx.needs_input_grad[4:]) if need]
+        wanted = [k for k, need in zip(_MLP_KEYS, ctx.needs_input_grad[5:]) if need]
         grads = dict(zip(wanted, torch.autograd.grad(
             u, [tab[k] for k in wanted], torch.stack(g_us), allow_unused=True)))
         table_grads = [None if grads.get(k) is None else grads[k].to(t.dtype)
                        for k, t in zip(_MLP_KEYS, mlp)]
-        return (None, None, lam, None, *table_grads)
+        return (None, None, None, lam, None, *table_grads)
 
 
-def fused_kl_traj(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor, noise: torch.Tensor):
+def fused_kl_traj(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor, noise: torch.Tensor,
+                  mesh: Mesh | None = None):
     """Differentiable fused trajectory for KL training: (x_T, running rnd)
     under the fed per-step normals ``noise`` (K, B, D), with gradients to x0
     and to the MLP tables of a ``build_plan(..., differentiable=True)`` plan
     (and through them to the control's parameters). The forward launches the
-    kernel on a CUDA tensor and runs the plain version on a CPU one."""
+    kernel on a CUDA tensor and runs the plain version on a CPU one; with a
+    ``mesh`` of more than one device it does so once a shard, and the
+    backward is the same adjoint loop over the gathered rows, on the mesh's
+    first device, as in the JAX package."""
     if cfg.bf16:
         raise ValueError("fused_kl_traj takes a float32 plan: the adjoint mirrors "
                          "the float32 control")
     aux = {k: v for k, v in arrays.items() if k not in _MLP_KEYS}
-    return _FusedKLTraj.apply(cfg, aux, x0.float(), noise.detach().float(),
+    return _FusedKLTraj.apply(cfg, aux, mesh, x0.float(), noise.detach().float(),
                               *(arrays[k] for k in _MLP_KEYS))

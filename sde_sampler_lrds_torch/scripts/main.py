@@ -15,8 +15,11 @@ mnist gives); make_model refuses the
 combinations the JAX package refuses, with its messages (so the default
 ``--solver dis --model basic``, and pis / dds with ``--model basic``, exit
 1 as the JAX CLI does). cmcd with the basic model takes make_model's
-``force_base_zero_init``, as in the JAX CLI. ``--plots`` fails naming its
-ROADMAP queue item. GBS is ``--solver dis
+``force_base_zero_init``, as in the JAX CLI. ``--plots`` writes the JAX
+CLI's figures after the run (``eval/plots.py``: an eval with trajectories
+seeded ``seed + 17``, one PNG a figure, named after its key); it needs
+matplotlib, and without it the run fails before training, as any error
+does, with a message that names it. GBS is ``--solver dis
 --set model.inference_ctrl_arch=<model type>``.
 """
 from __future__ import annotations
@@ -75,7 +78,7 @@ def build_parser():
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--out-dir", default="logs/run")
     p.add_argument("--plots", action="store_true",
-                   help="write marginal plots (not ported: ROADMAP A7)")
+                   help="write marginal plots (needs matplotlib)")
     p.add_argument("--resume", action="store_true", help="resume from latest ckpt")
     p.add_argument("--ckpt-interval", type=int, default=None)
     p.add_argument("--wandb", action="store_true", help="log to wandb if available")
@@ -111,9 +114,31 @@ def parse_overrides(pairs):
     return out
 
 
-def _refuse_unported(args) -> None:
+def _require_plotting(args) -> None:
+    """``--plots`` fails here, before training, where matplotlib is missing."""
     if args.plots:
-        raise NotImplementedError("--plots (eval/plots.py) is not ported yet (ROADMAP A7)")
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise ImportError("--plots needs matplotlib, which is not installed") from e
+
+
+def write_plots(solver, seed: int, out_dir: Path, device) -> list:
+    """The JAX CLI's plots: an eval with trajectories from a generator
+    seeded ``seed + 17``, marginals of dims 0 and 1, one PNG a figure named
+    after its key ('plots/hist_0' -> plots_hist_0.png). Returns the paths."""
+    import torch
+
+    from ..eval.plots import get_plots, save_fig
+
+    results = solver.evaluate(torch.Generator(device).manual_seed(seed + 17), return_traj=True)
+    plots = get_plots(solver.target, results.samples, weights=results.weights, ts=results.ts,
+                      xs=results.xs, marginal_dims=[0, 1])
+    paths = []
+    for name, fig in plots.items():
+        paths.append(out_dir / f"{name.replace('/', '_')}.png")
+        save_fig(fig, paths[-1])
+    return paths
 
 
 def _compute_dtype(value):
@@ -142,7 +167,7 @@ def main(argv=None) -> None:
         from ..api import fit_gmm, make_model, make_target, make_target_details, mcmc_sample
         from ..utils.wandb import maybe_init_wandb, wandb_log
 
-        _refuse_unported(args)
+        _require_plotting(args)
         device = torch.device(args.device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("--device cuda but no CUDA device is available; "
@@ -217,6 +242,8 @@ def main(argv=None) -> None:
         metrics = solver.run()
         wandb_log(wandb_run, metrics, solver.step_count)
         solver.store_checkpoint()
+        if args.plots:
+            write_plots(solver, args.seed, out_dir, device)
         logging.info("final metrics: %s",
                      {k: v for k, v in metrics.items() if isinstance(v, float)})
     except Exception as e:

@@ -10,7 +10,10 @@ in ``n_skipped``. ``eval_metrics`` runs an evaluation pass and reduces it
 with ``eval/metrics.get_metrics``, sample losses included. ``run`` streams
 metrics to ``{out_dir}/metrics.jsonl``; checkpoints are ``torch.save``
 payloads of plain tensors, numbers, strings, lists and dicts under
-``{out_dir}/ckpt/``, read back with ``weights_only=True``.
+``{out_dir}/ckpt/``, read back with ``weights_only=True``. A checkpoint the
+JAX package wrote (``ckpt*.msgpack``, its solver's ``save_attrs``) loads
+whole as well: the parameters, the EMA copy, Adam's moments and count, the
+step and skip counts and the training time (``restore_jax_attrs``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Callable
 
 import torch
 
+from ..parallel.mesh import Mesh, get_mesh
 from ..utils.common import Results, derive_generator, resolve_device
 
 CKPT_DIR = "ckpt"
@@ -73,16 +77,24 @@ class Trainable:
     """Gradient-trained solver: owns the target, the device, the trainable
     module, its optimizer and EMA copy. ``sample_losses`` maps a name to a
     ``(samples, target_draws) -> scalar`` distance that ``eval_metrics``
-    reports as ``error/<name>``."""
+    reports as ``error/<name>``. ``mesh`` is the data-parallel mesh
+    (``parallel/mesh.py``), by default the one-device mesh of the solver's
+    device; the state lives on the mesh's first device, which is the
+    solver's device (the counterpart of the JAX package's replicated
+    state)."""
 
     def __init__(self, target, cfg: TrainConfig | None = None, device=None,
                  eval_marginal_dims: tuple[int, ...] = (0,), sample_losses=None,
-                 out_dir: str | Path | None = None):
+                 out_dir: str | Path | None = None, mesh: Mesh | None = None):
         self.target = target
         self.eval_marginal_dims = list(eval_marginal_dims)
         self.sample_losses = sample_losses or {}
         self.cfg = cfg or TrainConfig()
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None \
+                and get_mesh(devices=[device]).device != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's first device {mesh.device}")
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh if mesh is not None else get_mesh(devices=[self.device])
         self.out_dir = Path(out_dir) if out_dir else None
         if self.out_dir:
             (self.out_dir / CKPT_DIR).mkdir(parents=True, exist_ok=True)
@@ -337,6 +349,46 @@ class Trainable:
         self.n_skipped = int(raw["n_skipped"])
         self.train_time = float(raw["train_time"])
 
+    # -- the JAX package's checkpoints --------------------------------------
+    def _load_flax_tree(self, module: torch.nn.Module, tree: dict) -> None:
+        """Fill ``module`` (this solver's module or a copy of it) from the
+        JAX solver's parameter tree (Flax layout, numpy arrays)."""
+        raise NotImplementedError
+
+    def restore_jax_attrs(self, raw: dict) -> None:
+        """Load the JAX package's checkpoint payload (its ``save_attrs`` as
+        ``flax.serialization.msgpack_restore`` gives it: ``TrainState``'s
+        fields under 'state', and 'train_time') into the set-up module,
+        optimizer and EMA module. optax's Adam state is the one node of the
+        (chained, integer-keyed) optimizer state with 'count', 'mu' and 'nu';
+        its moments, laid out as the parameters, become ``torch.optim.Adam``'s
+        ``exp_avg`` / ``exp_avg_sq`` and its count the ``step`` (both count
+        the accepted steps). The step and skip counts are the lr schedule's
+        index (accepted = step − skipped)."""
+        state = raw["state"]
+        self._load_flax_tree(self.module, state["params"])
+        self._load_flax_tree(self.ema_module, state["ema_params"])
+        self.optimizer = self.make_optimizer()
+        adam = _find_adam_state(state["opt_state"])
+        if (adam is None) != (self.cfg.optimizer == "sgd"):
+            raise ValueError(f"the checkpoint's optimizer state does not hold "
+                             f"{self.cfg.optimizer}'s")
+        if adam is not None:
+            moments = []
+            for key in ("mu", "nu"):
+                copy_ = copy.deepcopy(self.module).requires_grad_(False)
+                for p in copy_.parameters():
+                    p.zero_()
+                self._load_flax_tree(copy_, adam[key])
+                moments.append(list(copy_.parameters()))
+            step = torch.tensor(float(adam["count"]))
+            for p, m, v in zip(self.module.parameters(), *moments):
+                self.optimizer.state[p] = {"step": step.clone(), "exp_avg": m.clone(),
+                                           "exp_avg_sq": v.clone()}
+        self.step_count = int(state["step"])
+        self.n_skipped = int(state["n_skipped"])
+        self.train_time = float(raw["train_time"])
+
     def store_checkpoint(self, path: Path | None = None) -> Path:
         """Write the payload to ``path`` or ``{out_dir}/ckpt/ckpt{step:06d}.pt``."""
         if not (self.out_dir or path):
@@ -346,23 +398,45 @@ class Trainable:
         return path
 
     def latest_checkpoint(self) -> Path | None:
-        """The newest ``{out_dir}/ckpt/ckpt*.pt`` by modification time."""
+        """The newest ``{out_dir}/ckpt/ckpt*.pt`` or JAX ``ckpt*.msgpack`` by
+        modification time."""
         if not self.out_dir:
             return None
-        ckpts = sorted((self.out_dir / CKPT_DIR).glob("ckpt*.pt"),
-                       key=lambda p: (p.stat().st_mtime, p.name))
+        ckpts = [p for pattern in ("ckpt*.pt", "ckpt*.msgpack")
+                 for p in (self.out_dir / CKPT_DIR).glob(pattern)]
+        ckpts.sort(key=lambda p: (p.stat().st_mtime, p.name))
         return ckpts[-1] if ckpts else None
 
     def load_checkpoint(self, path: Path | None = None) -> bool:
         """Restore ``path`` or the latest checkpoint onto this solver's device;
-        False when there is none. Call ``setup()`` first."""
+        False when there is none. A ``.msgpack`` file is the JAX package's
+        (``restore_jax_attrs``). Call ``setup()`` first."""
         path = path or self.latest_checkpoint()
         if path is None:
             return False
         if self.optimizer is None:
             raise RuntimeError("call setup() before load_checkpoint()")
-        self.restore_attrs(torch.load(path, map_location=self.device, weights_only=True))
+        if Path(path).suffix == ".msgpack":
+            from ..utils.flax_msgpack import load
+
+            self.restore_jax_attrs(load(path))
+        else:
+            self.restore_attrs(torch.load(path, map_location=self.device, weights_only=True))
         return True
+
+
+def _find_adam_state(tree):
+    """The node of optax's optimizer state with 'count', 'mu' and 'nu'
+    (``ScaleByAdamState``, nested under integer keys when chained), or
+    None."""
+    if not isinstance(tree, dict):
+        return None
+    if {"count", "mu", "nu"} <= set(tree):
+        return tree
+    found = [n for n in map(_find_adam_state, tree.values()) if n is not None]
+    if len(found) > 1:
+        raise ValueError("more than one Adam state in the optimizer state")
+    return found[0] if found else None
 
 
 def _to_float(v):

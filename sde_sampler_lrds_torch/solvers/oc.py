@@ -25,6 +25,16 @@ on the CPU, so the paths are named after the device: 'flat_lv_fused' /
 'kl_fused' / 'fused' on CUDA, 'flat_lv_plain' / 'kl_plain' / 'plain' on the
 CPU. The 'nn' reference has no precompute protocol, so it keeps B1 off:
 its flat LV simulation is the graphed loop ('flat_lv_graph') on the card.
+
+On a data-parallel mesh of more than one device (``parallel/mesh.py``) the
+routing is the JAX package's: the fused paths launch B1 once a shard
+(``fused_traj_states_sharded``, ``fused_simulate_sharded``, the forward of
+``fused_kl_traj(..., mesh=)``), under the same path names; the flat LV
+simulation falls back to the loss's own loop ('flat_lv_scan') when the
+train batch does not divide the mesh, fused KL training to the loss's own
+loop ('scan') likewise, and the fused eval to the loss's eval ('scan') when
+the eval batch does not. Every other computation runs on the mesh's first
+device, the solver's.
 """
 from __future__ import annotations
 
@@ -36,7 +46,9 @@ import torch
 from torch import nn
 
 from ..losses.base import compute_results
-from ..ops.fused_traj import build_plan, fused_kl_traj, fused_simulate, fused_traj_states
+from ..ops.fused_traj import (build_plan, fused_kl_traj, fused_simulate, fused_simulate_sharded,
+                              fused_traj_states, fused_traj_states_sharded)
+from ..parallel.mesh import constrain_batch, replicate
 from ..sde.integrator import integrate_sde
 from ..sde.langevin import ControlledLangevinSDE, ControlledSDE
 from ..targets.base import Target, WrapperDistrNN
@@ -61,8 +73,8 @@ class TrainableDiff(Trainable):
     def __init__(self, target: Target, prior, sde, generative_ctrl,
                  loss_cls, loss_kwargs: dict | None = None,
                  train_ts=None, eval_ts=None, clip_target: float | None = None,
-                 cfg: TrainConfig | None = None, device=None, out_dir=None):
-        super().__init__(target, cfg=cfg, device=device, out_dir=out_dir)
+                 cfg: TrainConfig | None = None, device=None, out_dir=None, mesh=None):
+        super().__init__(target, cfg=cfg, device=device, out_dir=out_dir, mesh=mesh)
         self.prior = prior
         self.sde = sde
         self.generative_ctrl = generative_ctrl.to(self.device)
@@ -119,6 +131,7 @@ class TrainableDiff(Trainable):
         (or the fed ``x0``, with the fed per-step ``noise``)."""
         x = x0 if x0 is not None else self.prior.sample(
             generator, (self.cfg.train_batch_size,))
+        x = constrain_batch(x, self.mesh)
         ctrl = self.train_ctrl()
         if self._flat_lv_ok():
             return self.loss.lv_flat_call(
@@ -143,14 +156,27 @@ class TrainableDiff(Trainable):
                 and self.loss.supports_flat_lv(self.train_ts,
                                                frozenset(self.loss_call_args())))
 
+    def _sharded_batch_off(self, batch: int) -> bool:
+        """Whether a batch keeps off the per-shard paths: it does not divide
+        a mesh of more than one device."""
+        return self.mesh.size > 1 and batch % self.mesh.size != 0
+
     def _flat_traj_fn(self):
         """The simulation of the flat LV path, ``(x0, zs) -> (xs, x_T)``: the
-        fused trajectory when the triple is in the kernel's scope; outside
-        it, on the card, the loss's own loop (``flat_states``) replayed as a
-        CUDA graph; on the CPU None (lv_flat_call then runs the loop)."""
+        fused trajectory when the triple is in the kernel's scope (once a
+        shard on a mesh of several devices, the plan's tables replicated
+        once); outside it, on the card, the loss's own loop
+        (``flat_states``) replayed as a CUDA graph; on the CPU None
+        (lv_flat_call then runs the loop). None as well when the train batch
+        does not divide a mesh of several devices, as in the JAX package."""
+        if self._sharded_batch_off(self.cfg.train_batch_size):
+            return None
         plan = build_plan(self.loss, self.generative_ctrl, self.train_ts)
         if plan is not None:
             cfg, arrays = plan
+            if self.mesh.size > 1:
+                tables = replicate(arrays, self.mesh)
+                return lambda x0, zs: fused_traj_states_sharded(self.mesh, cfg, tables, x0, zs)
             return lambda x0, zs: fused_traj_states(cfg, arrays, x0, zs)
         return self._graphed_states if self.device.type == "cuda" else None
 
@@ -182,7 +208,8 @@ class TrainableDiff(Trainable):
         if mode not in ("auto", "off", "force"):
             raise ValueError(f"train.fused_kl must be 'auto', 'off' or 'force', got {mode!r}")
         loss = self.loss
-        if (mode == "off" or not hasattr(loss, "kl_fused_call")
+        if (mode == "off" or self.cfg.train_batch_size % self.mesh.size
+                or not hasattr(loss, "kl_fused_call")
                 or not loss.supports_fused_kl(self.train_ts, frozenset(self.loss_call_args()))):
             return None
         plan = build_plan(loss, self.generative_ctrl, self.train_ts, differentiable=True,
@@ -190,7 +217,8 @@ class TrainableDiff(Trainable):
         if plan is None or plan[0].bf16:
             return None
         cfg, arrays = plan
-        return lambda x0, zs: fused_kl_traj(cfg, arrays, x0, zs)
+        mesh = self.mesh if self.mesh.size > 1 else None
+        return lambda x0, zs: fused_kl_traj(cfg, arrays, x0, zs, mesh=mesh)
 
     def _fused_name(self, name: str) -> str:
         return name + ("fused" if self.device.type == "cuda" else "plain")
@@ -204,6 +232,8 @@ class TrainableDiff(Trainable):
         'kl_plain' (the fused KL path, its forward the kernel / the plain
         version), or 'scan'."""
         if self._flat_lv_ok():
+            if self._sharded_batch_off(self.cfg.train_batch_size):
+                return "flat_lv_scan"
             if build_plan(self.loss, self.generative_ctrl, self.train_ts) is not None:
                 return self._fused_name("flat_lv_")
             return "flat_lv_graph" if self.device.type == "cuda" else "flat_lv_scan"
@@ -214,14 +244,15 @@ class TrainableDiff(Trainable):
     # -- evaluation --------------------------------------------------------
     def _fused_eval_plan(self, use_ema: bool = True, ito: bool = True):
         """build_plan for the eval grid, or None when the fused eval is
-        switched off or out of scope. ``ito`` is the evaluation's
-        ``compute_weights`` (original DDS makes the RND's u·z term
-        optional with it)."""
+        switched off or out of scope, or when the eval batch does not divide
+        the mesh. ``ito`` is the evaluation's ``compute_weights`` (original
+        DDS makes the RND's u·z term optional with it)."""
         mode = self.cfg.fused_eval
         if mode not in ("auto", "off"):
             raise ValueError(f"train.fused_eval must be 'auto' or 'off', got {mode!r}")
         args = set(self.loss_call_args())
-        if mode == "off" or "terminal_unnorm_log_prob" not in args or not args <= _CALL_ARGS:
+        if (mode == "off" or self.cfg.eval_batch_size % self.mesh.size
+                or "terminal_unnorm_log_prob" not in args or not args <= _CALL_ARGS):
             return None
         return build_plan(self.loss, self._generative(self.eval_module(use_ema)),
                           self.eval_ts, ito=ito)
@@ -235,19 +266,27 @@ class TrainableDiff(Trainable):
                  compute_weights: bool = True, return_traj: bool = False) -> Results:
         """Evaluation pass over ``eval_batch_size`` prior draws. Without
         trajectories and in the kernel's scope it runs the fused trajectory
-        (kernel noise on the card); otherwise the loss's own loop."""
+        (kernel noise on the card; once a shard on a mesh of several
+        devices); otherwise the loss's own loop."""
         plan = None if return_traj else self._fused_eval_plan(use_ema, ito=compute_weights)
-        x = self.prior.sample(generator, (self.cfg.eval_batch_size,))
+        x = constrain_batch(self.prior.sample(generator, (self.cfg.eval_batch_size,)),
+                            self.mesh)
         if plan is not None:
             cfg, arrays = plan
-            samples, rnd = fused_simulate(cfg, arrays, generator, x,
-                                          **self.loss_call_args(use_ema))
+            samples, rnd = self._fused_simulate(cfg, arrays, generator, x,
+                                                **self.loss_call_args(use_ema))
             return compute_results(rnd, compute_weights=compute_weights,
                                    ts=self.eval_ts, max_rnd=self.loss.max_rnd,
                                    samples=samples)
         return self.loss.eval(generator, self.eval_ts, x, self.eval_ctrl(use_ema),
                               compute_weights=compute_weights, return_traj=return_traj,
                               **self.loss_call_args(use_ema), **self._eval_kwargs(use_ema))
+
+    def _fused_simulate(self, cfg, arrays, generator, x, **args):
+        """``fused_simulate``, once a shard on a mesh of several devices."""
+        if self.mesh.size > 1:
+            return fused_simulate_sharded(self.mesh, cfg, arrays, generator, x, **args)
+        return fused_simulate(cfg, arrays, generator, x, **args)
 
     def compute_eubo(self, generator: torch.Generator, x_target: torch.Tensor,
                      use_ema: bool = True, noise: torch.Tensor | None = None) -> torch.Tensor:
@@ -273,29 +312,37 @@ class TrainableDiff(Trainable):
         sde = getattr(self, "inference_sde", self.sde)
         return integrate_sde(sde, generator, self.eval_ts, x, return_traj=True, noise=noise)
 
+    def _load_flax_tree(self, module: nn.Module, tree: dict) -> None:
+        from ..models.mlp import load_flax_params
+
+        load_flax_params(module, tree)
+
     def load_flax_params(self, params: dict) -> None:
         """Load the Flax parameter tree of the JAX package's solver
         (``state.params``, as numpy arrays) into the control, with a fresh
         optimizer and EMA copy."""
-        from ..models.mlp import load_flax_params
-
-        load_flax_params(self.generative_ctrl, params)
+        self._load_flax_tree(self.module, params)
         self.reset_optimizer()
 
     def fused_eval_sampler(self, use_ema: bool = True):
         """``generator -> (x_T, rnd)`` drawing ``eval_batch_size``
-        trajectories through the fused trajectory, or None when out of
-        scope. The plan is built here, so it sees the current parameters."""
+        trajectories through the fused trajectory (once a shard on a mesh of
+        several devices, the plan's tables replicated once), or None when
+        out of scope. The plan is built here, so it sees the current
+        parameters."""
         plan = self._fused_eval_plan(use_ema)
         if plan is None:
             return None
         cfg, arrays = plan
+        if self.mesh.size > 1:
+            arrays = replicate(arrays, self.mesh)
         args = self.loss_call_args(use_ema)
 
         @torch.no_grad()
         def sample(generator: torch.Generator):
-            x0 = self.prior.sample(generator, (self.cfg.eval_batch_size,))
-            return fused_simulate(cfg, arrays, generator, x0, **args)
+            x0 = constrain_batch(self.prior.sample(generator, (self.cfg.eval_batch_size,)),
+                                 self.mesh)
+            return self._fused_simulate(cfg, arrays, generator, x0, **args)
 
         return sample
 
@@ -381,8 +428,8 @@ class Bridge(TrainableDiff):
         loss's own loop (``div_probes`` feeds its Hutchinson probes)."""
         if self._both is None:
             return super().loss_fn(generator, x0=x0, noise=noise)
-        x = x0 if x0 is not None else self.prior.sample(
-            generator, (self.cfg.train_batch_size,))
+        x = constrain_batch(x0 if x0 is not None else self.prior.sample(
+            generator, (self.cfg.train_batch_size,)), self.mesh)
         return self.loss(generator, self.train_ts, x, self.train_ctrl(),
                          inference_ctrl=self._both.inference, noise=noise,
                          div_probes=div_probes, **self.loss_call_args())
@@ -403,14 +450,13 @@ class Bridge(TrainableDiff):
             return {}
         return {"inference_ctrl": self.eval_module(use_ema).inference}
 
-    def load_flax_params(self, params: dict) -> None:
+    def _load_flax_tree(self, module: nn.Module, tree: dict) -> None:
         """The JAX Bridge's {"generative", "inference"} parameter tree."""
         from ..models.mlp import load_flax_params
 
-        load_flax_params(self.generative_ctrl, params["generative"])
-        if self._both is not None:
-            load_flax_params(self._both.inference, params["inference"])
-        self.reset_optimizer()
+        load_flax_params(self._generative(module), tree["generative"])
+        if isinstance(module, _BridgeModules):
+            load_flax_params(module.inference, tree["inference"])
 
 
 class CMCD(TrainableDiff):
@@ -741,7 +787,18 @@ class RDS(TrainableDiff):
         ``change_reference_type``, whatever reference this solver was built
         with."""
         super().restore_attrs(raw)
-        ref = raw.get("reference")
+        self._restore_reference(raw.get("reference"))
+
+    def restore_jax_attrs(self, raw: dict) -> None:
+        """The JAX RDS's checkpoint: the train state, then its reference
+        payload for each ``ref_type`` (an eigen-factored variance stored as
+        {'0': eig, '1': P}; for 'nn', ``eps`` and the potential's Flax
+        parameters 'net_params', loaded into a copy of the installed
+        potential)."""
+        super().restore_jax_attrs(raw)
+        self._restore_reference(raw.get("reference"))
+
+    def _restore_reference(self, ref: dict | None) -> None:
         if ref is None:
             return
         ref_type = ref["ref_type"]
@@ -755,7 +812,7 @@ class RDS(TrainableDiff):
                                        means=ref["means_init"],
                                        variances=_maybe_tuple(ref["variances_init"]))
         elif ref_type == "nn":
-            if "net_state" not in ref:
+            if "net_state" not in ref and "net_params" not in ref:
                 # saved from a pair of callables: keep an installed 'nn'
                 # reference and restore the rest; raise when none is
                 if self.ref_type == "nn":
@@ -775,12 +832,18 @@ class RDS(TrainableDiff):
                     "install the same EBM via change_reference_type('nn', net=module) "
                     "first, then load_checkpoint() to restore the trained params.")
             module = copy.deepcopy(self._nn_module)
-            module.load_state_dict(ref["net_state"])
+            if "net_state" in ref:
+                module.load_state_dict(ref["net_state"])
+            else:
+                module.load_flax_params(ref["net_params"])
             self.change_reference_type("nn", net=module, eps=ref.get("eps"))
         else:
             raise NotImplementedError(f"Reference type {ref_type!r} in checkpoint.")
 
 
 def _maybe_tuple(v):
-    """A stored (eig, P) variance comes back as a list."""
+    """A stored (eig, P) variance comes back as a list (the port's
+    checkpoints) or as Flax's {'0': eig, '1': P} (the JAX package's)."""
+    if isinstance(v, dict):
+        return tuple(v[str(i)] for i in range(len(v)))
     return tuple(v) if isinstance(v, (list, tuple)) else v

@@ -191,6 +191,13 @@ class GMM(ModeMetrics, Target):
                           device=self.device)
         return self.loc[idx] + self.scale[idx] * eps
 
+    def marginal(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The 1-D marginal density along coordinate ``dim`` at the points x
+        (the plots' overlay)."""
+        lp = log_prob_gaussian(x.reshape(-1, 1), self.loc[:, dim:dim + 1],
+                               self.scale[:, dim:dim + 1] ** 2)
+        return torch.exp(torch.logsumexp(torch.log(self._probs)[None] + lp, dim=-1))
+
     # -- mode-coverage metrics ---------------------------------------------
     def has_entropy(self) -> bool:
         return self.n_mixtures > 1

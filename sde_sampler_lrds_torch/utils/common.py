@@ -23,14 +23,14 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def derive_generator(generator: torch.Generator, data: int) -> torch.Generator:
-    """A new generator on ``generator``'s device seeded from its current
-    state and ``data``, leaving ``generator`` untouched: the counterpart of
-    ``jax.random.fold_in(key, data)``."""
+def derive_generator(generator: torch.Generator, data: int, device=None) -> torch.Generator:
+    """A new generator on ``device`` (default: ``generator``'s) seeded from
+    ``generator``'s current state and ``data``, leaving ``generator``
+    untouched: the counterpart of ``jax.random.fold_in(key, data)``."""
     state = generator.get_state().cpu().numpy().tobytes()
     digest = hashlib.sha256(state + int(data).to_bytes(8, "little", signed=True)).digest()
     seed = int.from_bytes(digest[:8], "little") & (2**63 - 1)
-    return torch.Generator(generator.device).manual_seed(seed)
+    return torch.Generator(device if device is not None else generator.device).manual_seed(seed)
 
 
 @dataclasses.dataclass

@@ -7,8 +7,8 @@ cpu`` as subprocesses: the artifacts (config.json, resolved.json with the
 device, metrics.jsonl, the final checkpoint), resume from the checkpoint,
 ``--set`` overrides reaching every namespace (a bf16 control and a
 hyperparameter schedule among them), and the failure path (error.txt, exit
-code 1), with the presets the port lacks (the UNet models, ``--plots``)
-refused naming their ROADMAP queue item; the VI presets (pis, dds, dis
+code 1); ``--plots`` writes the JAX CLI's figures (tests/test_torch_plots.py
+holds their names and contents); the VI presets (pis, dds, dis
 with GBS's inference control, cmcd; the score, langevin_init and lerp
 models) run, and where make_model refuses a preset the message is the JAX
 CLI's.
@@ -186,16 +186,17 @@ def test_cli_default_solver_refuses_naming_a2(tmp_path):
     pytest.param(["--solver", "vp_rds", "--model", "score"], None, id="flags3-ROADMAP A2"),
     pytest.param(["--solver", "vp_rds", "--model", "basic_unet", "--target", "mnist_zero_one",
                   "--dim", "196"], None, id="flags4-ROADMAP A6"),
-    pytest.param(["--solver", "pbm_rds", "--plots"], "ROADMAP A7", id="flags5-ROADMAP A7"),
+    pytest.param(["--solver", "pbm_rds", "--time-type", "snr", "--plots"], None,
+                 id="flags5-ROADMAP A7"),
     pytest.param(["--solver", "vp_rds", "--model", "score_unet", "--target", "mnist_zero_one",
                   "--dim", "196"], None, id="flags6-ROADMAP A6"),
 ])
 def test_cli_refuses_unported_in_process(flags, item, tmp_path):
-    """--plots exits 1 naming its queue item. The presets refused here
-    until ROADMAP A2 (pis, dds, cmcd, the score model) and A6 (the MNIST
-    UNet's basic_unet and score_unet, on the NICE mixture) now run in
-    process to exit 0 with finite metrics (pis and dds with the score
-    model, which make_model requires of them, as in the JAX CLI)."""
+    """The presets refused here until ROADMAP A2 (pis, dds, cmcd, the score
+    model), A6 (the MNIST UNet's basic_unet and score_unet, on the NICE
+    mixture) and A7 (--plots) now run in process to exit 0 with finite
+    metrics (pis and dds with the score model, which make_model requires of
+    them, as in the JAX CLI), --plots with its figures written."""
     out = tmp_path / "refused"
     tiny = ["--steps", "6", "--train-steps", "4", "--train-batch-size", "16",
             "--eval-batch-size", "64", "--log-interval", "2", "--dim", "2"]
@@ -204,6 +205,8 @@ def test_cli_refuses_unported_in_process(flags, item, tmp_path):
         assert not (out / "error.txt").exists()
         final = _records(out)[-1]
         assert final["step"] == 4 and final["eval/elbo"] == final["eval/elbo"]
+        if "--plots" in flags:
+            assert (out / "plots_hist_0.png").exists() and (out / "plots_traj_1.png").exists()
         return
     with pytest.raises(SystemExit) as exit_info:
         port_main.main(["--device", "cpu", "--out-dir", str(out), *flags])
