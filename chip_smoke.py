@@ -13,10 +13,10 @@ logistic-regression driver and LangevinSolver, and the learned ('nn')
 reference (the tilted-EBM potential, its MLE trainer, the toy EBM driver,
 its checkpoint, φ⁴'s Laplace oracle), the MNIST slice (the NICE mixture,
 the UNet control, the conv energy, the MNIST driver) with B1 at D 196 and
-B2 / B3 at d 196, the widths past the kernels' limits (the loss's own
-loop, the plain Sinkhorn), and the surface (the data-parallel mesh over the
-one card, the profiling trace, a JAX checkpoint, the CLI's --plots), and
-checks the quality of each.
+B2 / B3 at d 196, the widths past the kernels' limits (B1's cluster and
+wide kernels, B2 / B3 past d 224), the surface (the data-parallel mesh over
+the one card, the profiling trace, a JAX checkpoint, the CLI's --plots) and
+the NICE pre-training entry point, and checks the quality of each.
 
     python3 chip_smoke.py
 
@@ -42,10 +42,11 @@ Phases:
      full-covariance at 1024);
      the Sinkhorn lse and transport-cost kernels vs theirs (8192 x 8192,
      d = 8, eps 1e-3 and 1, p 2 and 1, -inf duals; a ragged 1000 x 3000
-     with p 2 and 3, and at d 37, 100 and 224 with p 2 and 1; a whole column
+     with p 2 and 3, and at d 37, 100 and 224 with p 2 and 1; 2048 x 2048
+     at d 225, 784 and 2048 with p 2, and p 1 at d 784; a whole column
      split of the host's geometry with -inf duals; two launches bitwise
-     equal at each; the shared memory of every width against the host's
-     mirror); the resampling lookup vs its own (N 1024, 8192, 1000,
+     equal at each; the shared memory of every width up to 2048 against
+     the host's mirror); the resampling lookup vs its own (N 1024, 8192, 1000,
      100 000, zero weights and exact ties), indices equal; fused_traj at the
      drivers' pinned-BM plan (two_modes d 64, from the Delta prior's zeros,
      KERNEL_TOL) and with a 64-component reference at D = 8 on the vp_20
@@ -192,7 +193,10 @@ Phases:
      mirrors of both against the kernels', RDS solvers with a
      full-covariance reference at D 129 (the cluster kernel) and D 400 (the
      wide one), one step and one eval each ('flat_lv_fused', 'fused'), and
-     a d 225 Sinkhorn on the plain versions
+     the Sinkhorn at d 225, 784 and 2048 on B2 / B3 (2048 vs 2048 normal
+     draws, B2 twice an iteration, B3 once, within COST_TOL_REL of the
+     plain versions, or of the same iterations in float64 where the plain
+     versions sit farther than that from it)
  16. the surface: the data-parallel mesh over the one card (a device may
      repeat): (a) the trained demo's eval plan at 8192 x 100 through
      fused_simulate_sharded under fed noise on 2 and 4 shards, B1 once a
@@ -210,11 +214,18 @@ Phases:
      port's demo solver and evaluated with one B1 launch, its log Z and ESS
      beside the JAX eval's; (f) whether matplotlib imports, and only then the
      CLI once with --plots and its PNG names
+ 17. the NICE pre-training entry point (python -m
+     sde_sampler_lrds_torch.scripts.train_nice): (a) one digit's flow at
+     the committed flows' widths (196, mid 192, hidden 3, coupling 4),
+     NICE_CUT_STEPS of the script's 5000 steps, written and read back
+     bitwise, its NLL on its images below the Flax initialisation's and
+     beside the committed JAX flow's, a MixtureNice of it on the card; (b)
+     one step at the script's default widths (mid 1000, hidden 5)
 
-Every path (phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16) is run with
-all launch counts set to 0 just before it and read just after. Prints the card as nvidia-smi reports it, then
-a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
-"device": {...}}``. Exits non-zero, with no result line, when there is no
+Every path (phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17) is run
+with all launch counts set to 0 just before it and read just after. Prints
+the card as nvidia-smi reports it, then a ``{"kernels": [...]}`` line, and
+as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when there is no
 CUDA device or any phase fails.
 
     python3 chip_smoke.py --cell MODULE [driver flags]
@@ -241,7 +252,11 @@ the UNet and the GMM reference on mnist_zero_one its JAX record's gates
 with --ref_type nn its learned reference's forward ESS is printed beside
 the JAX curve's best. An mnist_ebm_curve cell (--ebm_epochs N) prints the
 forward-ESS curve beside its JAX record, the ms per negative pass and per
-step, and the seconds the 300-epoch run would take at that rate.
+step, and the seconds the 300-epoch run would take at that rate. A
+train_nice cell (--steps 5000 --labels 0 ... 9 by default) trains the ten
+digits' flows at the committed widths through the script's main into
+build/nice/cell/ with phase 17's checks, and prints each digit's NLL beside
+the committed JAX flow's.
 """
 from __future__ import annotations
 
@@ -288,6 +303,10 @@ LSE_F64_RATIO = 1.3
 # the cost's rounding enters every exponent divided by eps; the float32
 # cost at eps = 1e-3 differs from float64 by 5e-5 relative on these inputs
 COST_TOL_REL = 1e-3
+# the Sinkhorn kernels past the first design's d 224 (the wide kernel walks
+# d in chunks at every width): 2048 x 2048 normal draws at these d, p 2, and
+# p 1 at SINKHORN_WIDE_P1_DIM; the whole Sinkhorn at each in phase 15 (f)
+SINKHORN_WIDE_DIMS, SINKHORN_WIDE_P1_DIM = (225, 784, 2048), 784
 # sample-based evaluation (the sampler's 8192 samples against 8192 target
 # draws, Sinkhorn(p = 2, eps = 1e-3, 100 iterations) as experiments/common.py
 # builds it) and the gates on its Sinkhorn distance: within 1.25x of the
@@ -1356,11 +1375,11 @@ def lse_error_f64(xs, ys, dual, eps: float, p: int, got, want, what: str):
 def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
     """B2 (lse) and B3 (transport cost) against their plain versions on the
     card, at the eval path's 8192 x 8192 x 8, at the toys' 8192 x 8192 x 2
-    (Rings draws) and on a ragged 1000 x 3000 at d 8, 37, 100 and MAX_DIM;
-    two launches of each bitwise equal."""
-    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (MAX_DIM, lse, lse_plain,
-                                                         sinkhorn_geometry, transport_cost,
-                                                         transport_cost_plain)
+    (Rings draws), on a ragged 1000 x 3000 at d 8, 37, 100 and 224, and at
+    2048 x 2048 past d 224 (SINKHORN_WIDE_DIMS); two launches of each
+    bitwise equal."""
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, sinkhorn_geometry,
+                                                         transport_cost, transport_cost_plain)
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import _library as sinkhorn_library
 
     x, y = target_draws(dev, SAMPLE_N, 11), target_draws(dev, SAMPLE_N, 12)
@@ -1370,14 +1389,19 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
     xt, yt = toy_draws(dev, SAMPLE_N, 16), toy_draws(dev, SAMPLE_N, 17)
     toy_cases = [(xt, yt, eps, p) for eps, p in ((1e-3, 2), (1.0, 2), (1e-3, 1))]
     cases += toy_cases
-    # other widths on the ragged shape: a ragged d, d 100 and the largest
-    # d the kernel takes, normal draws
+    # other widths on the ragged shape: a ragged d, d 100 and 224 (the first
+    # design's limit), normal draws
     gw = torch.Generator(dev).manual_seed(14)
-    for d in (37, 100, MAX_DIM):
+    for d in (37, 100, 224):
         xw = torch.randn(1000, d, generator=gw, device=dev)
         yw = 0.5 + torch.randn(3000, d, generator=gw, device=dev)
         cases += [(xw, yw, 1e-2, p) for p in (2, 1)]
-    widest = cases[-2]                           # d = MAX_DIM, p = 2
+    # past it, at MNIST's eval shape 2048 x 2048
+    for d in SINKHORN_WIDE_DIMS:
+        xw = torch.randn(MNIST_ROWS, d, generator=gw, device=dev)
+        yw = 0.5 + torch.randn(MNIST_ROWS, d, generator=gw, device=dev)
+        cases += [(xw, yw, 1e-2, p) for p in ((2, 1) if d == SINKHORN_WIDE_P1_DIM else (2,))]
+    widest = cases[-1]                           # d 2048, p 2
     g = torch.Generator(dev).manual_seed(13)
     lse_errs, cost_errs = [], []
     for xs, ys, eps, p in cases:
@@ -1451,16 +1475,18 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
             f"transport_cost relative {rel:.3e}")
     # the host's shared-memory mirror against the kernel's at every width
     lib = sinkhorn_library()
-    for d in range(1, MAX_DIM + 1):
+    widest_d = max(SINKHORN_WIDE_DIMS)
+    for d in range(1, widest_d + 1):
         for p in (1, 2, 3):
             geom = sinkhorn_geometry(SAMPLE_N, SAMPLE_N, d, p, n_sms)
             kernel_smem = lib.sinkhorn_smem_bytes(d, p, geom.tile_cols)
             check(kernel_smem == geom.smem_bytes, f"sinkhorn shared memory at d {d}, p {p}: "
                   f"kernel {kernel_smem} vs host {geom.smem_bytes}")
-    say(f"[phase 2] sinkhorn shared memory per block, kernel = host mirror at d 1..{MAX_DIM}, "
+    say(f"[phase 2] sinkhorn shared memory per block, kernel = host mirror at d 1..{widest_d}, "
         "p 1, 2, 3: "
-        f"d 8 {sinkhorn_geometry(SAMPLE_N, SAMPLE_N, 8, 2, n_sms).smem_bytes} bytes, d {MAX_DIM} "
-        f"{sinkhorn_geometry(SAMPLE_N, SAMPLE_N, MAX_DIM, 2, n_sms).smem_bytes} bytes")
+        f"d 8 {sinkhorn_geometry(SAMPLE_N, SAMPLE_N, 8, 2, n_sms).smem_bytes} bytes, d "
+        f"{widest_d} {sinkhorn_geometry(SAMPLE_N, SAMPLE_N, widest_d, 2, n_sms).smem_bytes} "
+        "bytes")
     # the whole Sinkhorn distance at the toys' width, kernels vs plain versions
     from sde_sampler_lrds_torch.eval import Sinkhorn
     from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
@@ -4071,7 +4097,7 @@ EBM_CURVE_RECORD = {"gmm_fwd_ess": 2.5e-4, "best_ess": 9.6e-4, "ebm_train_s_tpu"
 MNIST_EBM = "experiments/results_mnist/ebm_params_mnist_zero_one_seed_0.msgpack"
 # card vs CPU, float32 with TF32 off: max |diff| over the largest |value|
 MNIST_TOL = 1e-4
-C6_FULL_DIM, C6_DIAG_DIM, C6_SINKHORN_DIM = 129, 365, 225
+C6_FULL_DIM, C6_DIAG_DIM = 129, 365
 # a full covariance whose rotations no cluster's shared memory holds: the
 # wide kernel's path
 C6_WIDE_FULL_DIM = 400
@@ -4458,7 +4484,41 @@ def phase_mnist_b1_sinkhorn(dev, diag_solver, full_solver, recs) -> dict:
             "sinkhorn_d196": errs, "timing": (cfg, arrays, cfg_w, arrays_w, x, y, u, v)}
 
 
-def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate) -> None:
+def phase_timing_wide_sinkhorn(dev, recs, peaks, sfu_rate, path_counts) -> None:
+    """Phase 7 past the first design's d 224: B2 / B3 at 2048 x 2048 x 784
+    and x 2048 (normal draws, eps 1e-3, p 2, duals from the first Sinkhorn
+    half-steps) beside their plain versions and bounds, with their launches
+    on phase 15 (f)'s Sinkhorn at that width."""
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
+                                                         transport_cost_plain)
+
+    eps, n = 1e-3, MNIST_ROWS
+    pairs = n * n
+    g = torch.Generator(dev).manual_seed(165)
+    for d in SINKHORN_WIDE_DIMS[1:]:
+        x = torch.randn(n, d, generator=g, device=dev)
+        y = 0.5 + torch.randn(n, d, generator=g, device=dev)
+        v = torch.full((n,), eps * -math.log(n), device=dev)
+        u = eps * (-math.log(n) - lse_plain(x, y, v, eps))
+        v = eps * (-math.log(n) - lse_plain(y, x, u, eps))
+        io = 4 * 2 * n * d
+        for name, kern, plain, b in (
+                ("sinkhorn_lse", lambda: lse(x, y, v, eps), lambda: lse_plain(x, y, v, eps),
+                 bound(pairs * (2 * d + 8), 2 * pairs, io + 4 * 2 * n, peaks, sfu_rate)),
+                ("transport_cost", lambda: transport_cost(x, y, u, v, eps),
+                 lambda: transport_cost_plain(x, y, u, v, eps),
+                 bound(pairs * (2 * d + 11), 2 * pairs, io + 4 * 2 * n + 4, peaks, sfu_rate))):
+            bound_ms, bound_by, detail = b
+            key = f"c6_d{d}_sinkhorn"
+            row = {"ms": graph_ms(kern), "plain_ms": graph_ms(plain, n=5, reps=3),
+                   "bound_ms": bound_ms, "bound_by": bound_by, "n": n, "m": n, "d": d,
+                   "launches": path_counts[key][name]}
+            say(f"[phase 7] {name} at {n} x {n} x {d} (past d 224): "
+                + json.dumps({**row, **detail}))
+            recs[name][f"wide_d{d}"] = row
+
+
+def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate, path_counts) -> None:
     """Phase 7 at the MNIST shapes: B1's diagonal kernel on the D 196 plan
     and its cluster kernel on the D 196 full-covariance one at the eval
     batch 2048 (its own noise) and the train batch 256 (fed), and its wide
@@ -4467,7 +4527,7 @@ def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate) -> None:
     phase 15 (f)'s plans past the narrow widths at their paths' batches:
     the wide kernel's entry on the D 400 path's plan, and the cluster
     kernel on D 129 full and D 365 diagonal with the wide kernel forced
-    beside it."""
+    beside it; and B2 / B3 at 2048 x 2048 past d 224 (d 784, 2048)."""
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
                                                          transport_cost_plain)
 
@@ -4515,6 +4575,7 @@ def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate) -> None:
                "bound_ms": bound_ms, "bound_by": bound_by, "n": n, "m": n, "d": d}
         say(f"[phase 7] {name} at 2048 x 2048 x 196 (MNIST): " + json.dumps({**row, **detail}))
         recs[name]["mnist_d196"].update(row)
+    phase_timing_wide_sinkhorn(dev, recs, peaks, sfu_rate, path_counts)
 
 
 # the plans past the narrow kernels' limits: (full covariance, D, the
@@ -4591,6 +4652,61 @@ def phase_wide_kernel(dev, recs) -> tuple:
     return d365
 
 
+def sinkhorn_f64(x, y, sk) -> float:
+    """``sk``'s last Sinkhorn (uniform weights, its eps schedule, its
+    n_iters iterations) in float64 through the plain versions."""
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import lse_plain, transport_cost_plain
+
+    x, y = x.double(), y.double()
+    log_a = torch.full((x.shape[0],), -math.log(x.shape[0]), dtype=torch.float64,
+                       device=x.device)
+    log_b = torch.full((y.shape[0],), -math.log(y.shape[0]), dtype=torch.float64,
+                       device=x.device)
+    v = sk.eps * log_b
+    for e in sk.eps_schedule()[:sk.n_iters]:
+        u = float(e) * (log_a - lse_plain(x, y, v, float(e), sk.p))
+        v = float(e) * (log_b - lse_plain(y, x, u, float(e), sk.p))
+    return float(transport_cost_plain(x, y, u, v, sk.eps, sk.p))
+
+
+def c6_sinkhorn(dev, g, path_counts) -> dict:
+    """(f) The Sinkhorn past the first design's d 224 on B2 / B3: at each d
+    of SINKHORN_WIDE_DIMS (2048 vs 2048 normal draws from ``g``) B2 twice an
+    iteration and B3 once, backend 'cuda', within COST_TOL_REL of a
+    PLAIN_OPS run; or, where the plain versions sit farther than
+    COST_TOL_REL from the same iterations in float64 (d 2048: 2.0e-3, the
+    kernels 3e-5; PERF.md §2), within COST_TOL_REL of float64 and no
+    farther from it than the plain versions."""
+    from sde_sampler_lrds_torch.eval import Sinkhorn
+    from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
+
+    out = {}
+    for d in SINKHORN_WIDE_DIMS:
+        x = torch.randn(MNIST_ROWS, d, generator=g, device=dev)
+        y = 0.5 + torch.randn(MNIST_ROWS, d, generator=g, device=dev)
+        reset_counts()
+        sk = Sinkhorn()
+        dist = float(sk(x, y))
+        counts = path_counts[f"c6_d{d}_sinkhorn"] = read_counts()
+        want = float(Sinkhorn().compute(x, y, ops=PLAIN_OPS))
+        exact = sinkhorn_f64(x, y, sk)
+        rel, rel64, plain64 = (abs(dist - want) / abs(want), abs(dist - exact) / abs(exact),
+                               abs(want - exact) / abs(exact))
+        out[f"sinkhorn_d{d}"] = {"kernels": dist, "plain": want, "float64": exact, "rel": rel,
+                                 "rel_float64": rel64, "plain_rel_float64": plain64,
+                                 "backend": sk.config["backend"], "iterations": sk.n_iters,
+                                 "launches": counts}
+        check(sk.config["backend"] == "cuda" and counts["sinkhorn_lse"] == 2 * sk.n_iters
+              and counts["transport_cost"] == 1 and b1_launches(counts) == 0,
+              f"C6 d {d} Sinkhorn: {sk.config['backend']}, {counts} in {sk.n_iters} iterations")
+        check(math.isfinite(dist) and (rel <= COST_TOL_REL or (
+            plain64 > COST_TOL_REL and rel64 <= COST_TOL_REL and rel64 <= plain64)),
+              f"C6 d {d} Sinkhorn: kernels {dist} vs plain versions {want} (relative {rel:.3e}, "
+              f"tolerance {COST_TOL_REL}), float64 {exact} (kernels {rel64:.3e}, plain "
+              f"{plain64:.3e})")
+    return out
+
+
 def phase_c6(dev, path_counts, recs) -> tuple:
     """(f) Past the narrow kernels' widths on the card: the cluster and
     wide kernels against their plain version (phase_wide_kernel); RDS
@@ -4598,13 +4714,13 @@ def phase_c6(dev, path_counts, recs) -> tuple:
     ('flat_lv_fused', 'fused'), one train step and one eval each, finite: at
     D 129 (batch 1024, eval 8192) on the cluster kernel, at D 400 (batch
     256, eval 2048; its rotations, 2.6 MB, fit no cluster) on the wide one;
-    a Sinkhorn at d 225 runs the plain versions on the card ('plain', B2 /
-    B3 0 times) and equals a PLAIN_OPS run. Returns the cell record and,
+    the Sinkhorn at d 225, 784 and 2048 (SINKHORN_WIDE_DIMS, 2048 vs 2048
+    normal draws) runs B2 twice an iteration and B3 once (backend 'cuda')
+    and is held to the plain versions and float64 (c6_sinkhorn). Returns
+    the cell record and,
     for phase 7, the plans past the narrow widths with their paths'
     (eval, train) batches."""
     from sde_sampler_lrds_torch.api import make_model, make_target_details
-    from sde_sampler_lrds_torch.eval import Sinkhorn
-    from sde_sampler_lrds_torch.eval.sinkhorn import PLAIN_OPS
     from sde_sampler_lrds_torch.ops.fused_traj import build_plan
 
     plans = {"d365_diag": (*phase_wide_kernel(dev, recs), (MNIST_ROWS, TRAIN_BATCH))}
@@ -4643,19 +4759,8 @@ def phase_c6(dev, path_counts, recs) -> tuple:
               and bool(torch.isfinite(res.samples).all()), f"C6 D {d}: not finite {cell}")
         plans[f"c6_d{d}_full"] = (*build_plan(solver.loss, solver.generative_ctrl,
                                               solver.train_ts), (eval_batch, batch))
-    x = torch.randn(MNIST_ROWS, C6_SINKHORN_DIM, generator=g, device=dev)
-    y = 0.5 + torch.randn(MNIST_ROWS, C6_SINKHORN_DIM, generator=g, device=dev)
-    reset_counts()
-    sk = Sinkhorn()
-    dist = float(sk(x, y))
-    counts = path_counts["c6_d225_sinkhorn"] = read_counts()
-    want = float(Sinkhorn().compute(x, y, ops=PLAIN_OPS))
-    out.update(sinkhorn_d225=dist, sinkhorn_backend=sk.config["backend"],
-               sinkhorn_launches=counts)
+    out.update(c6_sinkhorn(dev, g, path_counts))
     say("[phase 15] (f) C6 on the card: " + json.dumps(out))
-    check(sk.config["backend"] == "plain" and counts["sinkhorn_lse"] == 0
-          and counts["transport_cost"] == 0 and dist == want,
-          f"C6 d {C6_SINKHORN_DIM} Sinkhorn: {sk.config['backend']}, {counts}, {dist} vs {want}")
     return out, plans
 
 
@@ -5127,6 +5232,139 @@ def phase_surface(dev, solver, target, ref: dict, path_counts) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the NICE pre-training entry point (scripts/train_nice.py)
+# ---------------------------------------------------------------------------
+
+# the committed flows' widths (data/nice_label_*.msgpack meta), the script's
+# defaults, and the digit phase 17 trains, cut to NICE_CUT_STEPS of its
+# 5000 steps (the ten digits at full depth through --cell train_nice)
+NICE_WIDTHS = ["--mid-dim", "192", "--hidden", "3", "--coupling", "4"]
+NICE_DEFAULT_WIDTHS = ["--mid-dim", "1000", "--hidden", "5", "--coupling", "4"]
+NICE_LABEL, NICE_CUT_STEPS, NICE_ROOT = 3, 400, Path("build/nice")
+# the --cell's report: a port flow more than this share of the committed JAX
+# flow's NLL worse than it is listed
+NICE_CELL_REL = 0.02
+
+
+def nice_nll(model, imgs, mean, dev) -> float:
+    """A flow's mean negative log-density on its digit's images, centred on
+    its own mean."""
+    with torch.no_grad():
+        x = torch.as_tensor(imgs - mean.reshape(1, -1), dtype=torch.float32, device=dev)
+        return float(-model.log_prob(x).mean())
+
+
+def nice_flows(dev, out_dir: Path, labels, steps: int, path_counts, key: str) -> dict:
+    """The port's train_nice main on the card at the committed widths for
+    ``labels``, ``steps`` steps each, into ``out_dir``; then each written
+    checkpoint read back bitwise (the port's reader against the trained
+    parameters, and its writer giving the file's bytes again), its digit's
+    mean NLL beside the committed JAX flow's on the same images and beside
+    the Flax initialisation's, and a MixtureNice of the written flows on the
+    card. No kernel of the port runs on this path."""
+    from sde_sampler_lrds_torch.scripts import train_nice
+    from sde_sampler_lrds_torch.targets.nice import (MixtureNice, NiceModel,
+                                                     load_nice_checkpoint)
+    from sde_sampler_lrds_torch.utils import flax_msgpack
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--per-label", "--labels", *map(str, labels), "--steps", str(steps),
+            "--source", "sklearn_digits", "--out", str(out_dir), "--device", dev.type,
+            *NICE_WIDTHS]
+    reset_counts()
+    t0 = time.perf_counter()
+    train_nice.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = path_counts[key] = read_counts()
+    check(sum(counts.values()) == 0, f"{key}: NICE training launched kernels {counts}")
+    out = {"seconds": seconds, "ms_per_step": 1e3 * seconds / (steps * len(labels)),
+           "steps": steps, "launches": counts, "digits": {}}
+    for label in labels:
+        path = out_dir / f"nice_label_{label}.msgpack"
+        mean = np.load(out_dir / f"mnist_mean_label_{label}.npy")
+        meta, model = load_nice_checkpoint(path, device=dev)
+        blob = path.read_bytes()
+        check(flax_msgpack.msgpack_serialize(flax_msgpack.msgpack_restore(blob)) == blob,
+              f"{path}: the port's reader and writer do not give its bytes back")
+        check(meta == {"coupling": 4, "in_out_dim": MNIST_DIM, "mid_dim": 192, "hidden": 3,
+                       "mask_config": 1, "latent": "logistic", "use_dequant": False,
+                       "use_sigmoid": False, "alpha_sigmoid": 1e-5, "skip_centering": False},
+              f"{path}: meta {meta}")
+        imgs, _ = train_nice.load_digit_images("sklearn_digits", label=label)
+        check(np.array_equal(mean, imgs.mean(axis=0)), f"{path}: mean not the images' mean")
+        meta_j, jax_flow = load_nice_checkpoint(Path("data") / f"nice_label_{label}.msgpack",
+                                                device=dev)
+        init = NiceModel(**{k: v for k, v in meta.items() if k != "skip_centering"})
+        init.init_flax_(torch.Generator().manual_seed(0))
+        row = {"images": int(imgs.shape[0]), "nll": nice_nll(model, imgs, mean, dev),
+               "nll_jax": nice_nll(jax_flow, imgs, np.load(
+                   Path("data") / f"mnist_mean_label_{label}.npy"), dev),
+               "nll_init": nice_nll(init.to(dev), imgs, mean, dev)}
+        row["rel_to_jax"] = (row["nll"] - row["nll_jax"]) / abs(row["nll_jax"])
+        out["digits"][label] = row
+        check(math.isfinite(row["nll"]) and row["nll"] < row["nll_init"],
+              f"{key}: digit {label}'s flow did not train: {row}")
+    mix = MixtureNice(digits=tuple(labels),
+                      checkpoints=[out_dir / f"nice_label_{d}.msgpack" for d in labels],
+                      means_data_path=[out_dir / f"mnist_mean_label_{d}.npy" for d in labels],
+                      device=dev)
+    imgs, _ = train_nice.load_digit_images("sklearn_digits", label=labels[0])
+    x = torch.as_tensor(2.0 * imgs[:256] - 1.0, device=dev)
+    lp, score = mix.log_prob_and_score(x)
+    samples = mix.sample(torch.Generator(dev).manual_seed(171), (256,))
+    check(bool(torch.isfinite(lp).all() and torch.isfinite(score).all()
+               and torch.isfinite(samples).all()) and samples.shape == (256, MNIST_DIM),
+          f"{key}: the MixtureNice of the written flows is not finite")
+    out["mixture_mean_log_prob"] = float(lp.mean())
+    return out
+
+
+def phase_nice(dev, path_counts) -> dict:
+    """Phase 17: (a) the NICE pre-training entry point on the card at the
+    committed flows' widths (196, mid 192, hidden 3, coupling 4) for one
+    digit, cut to NICE_CUT_STEPS steps, through nice_flows; (b) one step at
+    the script's default widths (mid 1000, hidden 5), finite."""
+    from sde_sampler_lrds_torch.scripts import train_nice
+
+    t17 = time.perf_counter()
+    out = {"committed_widths": nice_flows(dev, NICE_ROOT / "flows", [NICE_LABEL],
+                                          NICE_CUT_STEPS, path_counts, "nice_train")}
+    imgs, _ = train_nice.load_digit_images("sklearn_digits", label=NICE_LABEL)
+    reset_counts()
+    t0 = time.perf_counter()
+    meta, model, _, losses = train_nice.train_nice(imgs, mid_dim=1000, hidden=5, n_steps=2,
+                                                   verbose=False, device=dev)
+    torch.cuda.synchronize()
+    path_counts["nice_train_defaults"] = read_counts()
+    out["default_widths"] = {"losses": losses.tolist(), "seconds": time.perf_counter() - t0,
+                             "parameters": sum(p.numel() for p in model.parameters())}
+    check(bool(torch.isfinite(losses).all()) and meta["mid_dim"] == 1000,
+          f"NICE at the default widths: {out['default_widths']}")
+    out["phase_s"] = time.perf_counter() - t17
+    say("[phase 17] NICE pre-training: " + json.dumps(out))
+    return out
+
+
+def run_nice_cell(dev, flags: list) -> None:
+    """``--cell train_nice [--steps N] [--labels d ...]``: the ten digits'
+    flows (or those named) at the committed widths and the script's 5000
+    steps through nice_flows, each digit's NLL beside the committed JAX
+    flow's; a digit more than NICE_CELL_REL of the JAX NLL worse is printed
+    as such (ROADMAP U4), not gated."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --cell train_nice")
+    ap.add_argument("--steps", type=int, default=5000)
+    ap.add_argument("--labels", type=int, nargs="*", default=list(range(10)))
+    args = ap.parse_args(flags)
+    out = nice_flows(dev, NICE_ROOT / "cell", args.labels, args.steps, {}, "nice_cell")
+    out["worse_than_jax"] = {d: r["rel_to_jax"] for d, r in out["digits"].items()
+                             if r["rel_to_jax"] > NICE_CELL_REL}
+    say("[cell] train_nice: " + json.dumps(out))
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and (argv[0] != "--cell" or len(argv) < 2):
@@ -5172,6 +5410,8 @@ def main(argv=None) -> int:
         module, flags = argv[1], argv[2:]
         if module in ("sample_mnist_unet", "mnist_ebm_curve"):
             run_mnist_cell_cli(dev, module, flags)
+        elif module == "train_nice":
+            run_nice_cell(dev, flags)
         elif module.endswith("_competing"):
             run_vi_cell(dev, module, flags)
         elif module.endswith("_ebm_mcmc"):
@@ -5263,6 +5503,8 @@ def main(argv=None) -> int:
     laps("15 MNIST and C6")
     surface = phase_surface(dev, solver, target, ref, path_counts)
     laps("16 surface")
+    nice = phase_nice(dev, path_counts)
+    laps("17 NICE pre-training")
     phase_timing(dev, cfg, arrays, recs["fused_traj"], peaks, sfu_rate)
     for plan_name, (vi_cfg, vi_arrays, _) in vi_plan_set.items():
         phase_timing(dev, vi_cfg, vi_arrays, recs["fused_traj"]["vi_plans"][plan_name], peaks,
@@ -5281,7 +5523,7 @@ def main(argv=None) -> int:
     phase_timing(dev, bf16_cfg, bf16_arrays, recs["fused_traj_bf16"], peaks, sfu_rate,
                  label="fused_traj_bf16")
     phase_timing_sample_kernels(dev, recs, peaks, sfu_rate)
-    phase_mnist_timing(dev, recs, mnist_timing, peaks, sfu_rate)
+    phase_mnist_timing(dev, recs, mnist_timing, peaks, sfu_rate, path_counts)
     laps("7 timing")
 
     for kname, rec in recs.items():
@@ -5303,7 +5545,7 @@ def main(argv=None) -> int:
                                           "bf16_demo": bf16_demo, "kl": kl, "cli": cli,
                                           "vi": vi, "baselines": baselines,
                                           "learned_reference": learned, "mnist": mnist,
-                                          "surface": surface}))
+                                          "surface": surface, "nice": nice}))
     say("[phase 7] wall seconds by phase: " + json.dumps({**laps.seconds,
                                                           "script": laps.total()}))
     say(json.dumps({"kernels": [

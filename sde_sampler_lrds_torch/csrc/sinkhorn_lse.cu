@@ -19,15 +19,26 @@
 // under that bound), never by memory: the cost matrix is never stored.
 //
 // What the design does about it:
-// - A thread owns R rows of x, held in registers at a padded width D (4, 8
-//   or 16). Wider rows (d > 16), and any p other than 1 and 2, keep x in
-//   shared memory and sum the pair cost over chunks of 16 dimensions, one
-//   row a thread.
-// - A block walks one long column range in tiles of y staged in shared
-//   memory by cp.async, the next tile into a second buffer while the
-//   current one is used. Beside each column sit its |y|^2 and its dual
-//   times s = log2(e) / eps, read together as one 8-byte load; every thread
-//   reads a column once, as float4 broadcasts, and uses it for its R rows.
+// - Narrow rows (d <= 16, p 1 or 2): a thread owns RR rows of x, held in
+//   registers at a padded width D (4, 8 or 16). A block walks one long
+//   column range in tiles of y staged in shared memory by cp.async, the
+//   next tile into a second buffer while the current one is used. Beside
+//   each column sit its |y|^2 and its dual times s = log2(e) / eps, read
+//   together as one 8-byte load; every thread reads a column once, as
+//   float4 broadcasts, and uses it for its rows.
+// - Wide rows (d > 16, or any p other than 1 and 2; stream_kernel): d is
+//   walked in chunks of WIDE_CHUNK dimensions, so a block's shared memory
+//   is the same at every d. A stage is one chunk of the block's WIDE_ROWS *
+//   THREADS rows of x and of a tile of WIDE_TILE columns of y, copied by
+//   cp.async into one of two buffers while the other is summed; a thread
+//   keeps its WIDE_ROWS rows' partial costs against the tile's columns in
+//   registers across the chunks, and the tile's logits are taken after its
+//   last chunk. |x|^2 is summed over the first tile's chunks, each column's
+//   |y|^2 over the tile's chunks by the thread of that column. At p other
+//   than 2 every term is positive and the cost grows with d (about 900 at
+//   d 784, p 1, where a float32 ulp is 6e-5): each chunk's sum is added to
+//   the pair's total with a compensation (Kahan), so the total keeps the
+//   accuracy of a pairwise sum.
 // - Logits are in base 2, one FMA each: (dual_j - M_ij) * s. The square
 //   root and 2^x are one MUFU instruction each (sqrt.approx, ex2.approx).
 // - The running (max, sum) per row is updated once per chunk of CH
@@ -49,8 +60,12 @@ namespace {
 constexpr int THREADS = 128;     // threads a block
 constexpr int RR = 4;            // rows a thread at d <= 16
 constexpr int TILE = 128;        // columns a stage at d <= 16
-constexpr int WIDE_TILE = 32;    // columns a stage at d > 16
-constexpr int WIDE_CHUNK = 16;   // dimensions summed per pass at d > 16
+constexpr int WIDE_ROWS = 2;     // rows a thread in the wide kernel
+constexpr int WIDE_TILE = 32;    // columns a tile in the wide kernel
+constexpr int WIDE_CHUNK = 16;   // dimensions a stage in the wide kernel
+constexpr int WIDE_BLOCKS = 3;   // resident blocks an SM the wide kernel asks for at p = 2,
+constexpr int SUM_BLOCKS = 2;    // at other p (its compensated sums take more registers)
+constexpr int NARROW_BLOCKS = 4; // and the narrow one
 constexpr int COL_ALIGN = 8;     // a split's columns are a multiple of this
 constexpr int MAX_SMEM = 232448;  // shared memory a block may take
 constexpr float LN2 = 0.69314718055994531f;
@@ -68,10 +83,10 @@ struct Args {
   float scale;      // log2(e) / eps: logits in base 2
   int p;
   int n, m, d;
-  int dp;           // padded width: D, or d rounded up to WIDE_CHUNK
   int tile;         // columns a stage
   int cols_per_split;
-  bool y_vec4;      // y rows 16-byte aligned: 16-byte copies
+  bool x_vec4;      // x rows 16-byte aligned: 16-byte copies (wide kernel)
+  bool y_vec4;      // y rows likewise
 };
 
 // 2^v and sqrt(v) on the special-function unit, one instruction each;
@@ -129,56 +144,90 @@ __device__ __forceinline__ void unpack(float* v, const float4 q) {
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
-// Resident blocks an SM the launch bounds ask for (the register budget);
-// mirrored by the host's sinkhorn_geometry.
-template <bool WIDE>
-constexpr int min_blocks() { return WIDE ? 2 : 4; }
+// The running (max, sum) of row r's base-2 logits (LSE) or its running
+// cost sum (COST), updated with a chunk of CH columns: costs c, duals times
+// s in wq (-inf for a column past the range), u_r the row's dual times s.
+template <int MODE, int CH>
+__device__ __forceinline__ void chunk_update(const float* c, const float* wq, float u_r,
+                                             float scale, float& run_m, float& run_s) {
+  if (MODE == LSE) {
+    // the chunk's base-2 logits and their max, one rescale of the running
+    // sum, then one 2^x a pair, with no branch
+    float l[CH];
+    float cmax = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < CH; ++q) {
+      l[q] = fmaf(-c[q], scale, wq[q]);
+      cmax = fmaxf(cmax, l[q]);
+    }
+    const float m_new = fmaxf(run_m, cmax);
+    // the TPU kernel's isfinite shift: while every logit so far is -inf,
+    // subtract 0, so 2^(-inf - 0) = 0 and never NaN
+    const float shift = m_new == -INFINITY ? 0.0f : m_new;
+    float sum = run_s * ex2(run_m - shift);
+#pragma unroll
+    for (int q = 0; q < CH; ++q) sum += ex2(l[q] - shift);
+    run_s = sum;
+    run_m = m_new;
+  } else {
+    // a -inf dual gives 2^-inf = 0, never 0 * inf
+#pragma unroll
+    for (int q = 0; q < CH; ++q) run_s = fmaf(ex2(fmaf(-c[q], scale, u_r + wq[q])), c[q], run_s);
+  }
+}
 
-// D registers a row (WIDE: the chunk width, x in shared memory), R rows a
-// thread: this thread's rows are row0 + r * THREADS + threadIdx.x, r < R.
-template <int MODE, int PK, int D, int R, bool WIDE>
-__global__ void __launch_bounds__(THREADS, min_blocks<WIDE>())
+// Each thread's partials for its rows, at split blockIdx.y.
+template <int MODE, int R>
+__device__ __forceinline__ void store_partials(const Args& a, int row0, const float* run_m,
+                                               const float* run_s) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * THREADS + threadIdx.x;
+    if (row >= a.n) continue;
+    const size_t at = (size_t)blockIdx.y * a.n + row;
+    if (MODE == LSE) {
+      a.part_a[at] = run_m[r];
+      a.part_b[at] = run_s[r];
+    } else {
+      a.part_a[at] = run_s[r];
+    }
+  }
+}
+
+// Narrow rows: D registers a row, R rows a thread: this thread's rows are
+// row0 + r * THREADS + threadIdx.x, r < R.
+template <int MODE, int PK, int D, int R>
+__global__ void __launch_bounds__(THREADS, NARROW_BLOCKS)
 tile_kernel(Args a) {
-  constexpr int CH = (D <= 8 && !WIDE) ? 8 : 4;  // columns a chunk
+  constexpr int CH = D <= 8 ? 8 : 4;  // columns a chunk
+  constexpr int D4 = D / 4;
   extern __shared__ float4 smem4[];
-  const int dp = WIDE ? a.dp : D;
-  const int dp4 = dp / 4;
   const int T = a.tile;
-  float4* ys4 = smem4;                                           // (2, T, dp)
-  float2* cw = reinterpret_cast<float2*>(ys4 + 2 * T * dp4);     // (T,) |y|^2, dual * s
+  float4* ys4 = smem4;                                           // (2, T, D)
+  float2* cw = reinterpret_cast<float2*>(ys4 + 2 * T * D4);      // (T,) |y|^2, dual * s
   float* wraw = reinterpret_cast<float*>(cw + T);                // (2, T) duals as copied
-  float4* xs4 = reinterpret_cast<float4*>(wraw + 2 * T);         // WIDE: (dp / 4, R * THREADS)
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * (R * THREADS);
   const int c_begin = blockIdx.y * a.cols_per_split;
   const int c_end = min(a.m, c_begin + a.cols_per_split);
 
   // padded dimensions and never-copied columns read as zeros
-  for (int i = tid; i < 2 * T * dp4; i += THREADS) ys4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < 2 * T * D4; i += THREADS) ys4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  float xr[R][WIDE ? 1 : D];
+  float xr[R][D];
   float xx[R];
-  if constexpr (WIDE) {
-    float* xsf = reinterpret_cast<float*>(xs4);
-    for (int idx = tid; idx < R * THREADS * dp; idx += THREADS) {
-      const int r = idx / dp, k = idx - r * dp;
-      xsf[((k >> 2) * (R * THREADS) + r) * 4 + (k & 3)] =
-          (row0 + r < a.n && k < a.d) ? a.x[(size_t)(row0 + r) * a.d + k] : 0.0f;
-    }
-  } else {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = row0 + r * THREADS + tid;
-      float s = 0.0f;
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * THREADS + tid;
+    float s = 0.0f;
 #pragma unroll
-      for (int k = 0; k < D; ++k) {
-        const float v = (row < a.n && k < a.d) ? a.x[(size_t)row * a.d + k] : 0.0f;
-        s = fmaf(v, v, s);
-        // p = 2 holds -2x: the dot then sums |x|^2 + |y|^2 - 2 x.y directly
-        xr[r][k] = PK == P_TWO ? -2.0f * v : v;
-      }
-      xx[r] = s;
+    for (int k = 0; k < D; ++k) {
+      const float v = (row < a.n && k < a.d) ? a.x[(size_t)row * a.d + k] : 0.0f;
+      s = fmaf(v, v, s);
+      // p = 2 holds -2x: the dot then sums |x|^2 + |y|^2 - 2 x.y directly
+      xr[r][k] = PK == P_TWO ? -2.0f * v : v;
     }
+    xx[r] = s;
   }
   float u_r[R];
 #pragma unroll
@@ -186,35 +235,23 @@ tile_kernel(Args a) {
     const int row = row0 + r * THREADS + tid;
     u_r[r] = (MODE == COST && row < a.n) ? a.u[row] * a.scale : 0.0f;
   }
-  __syncthreads();  // the zeros (and WIDE's x) are in place before any copy lands
-  if constexpr (WIDE) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float s = 0.0f;
-      for (int k4 = 0; k4 < dp4; ++k4) {
-        const float4 v = xs4[k4 * (R * THREADS) + r * THREADS + tid];
-        s = fmaf(v.x, v.x, s); s = fmaf(v.y, v.y, s);
-        s = fmaf(v.z, v.z, s); s = fmaf(v.w, v.w, s);
-      }
-      xx[r] = s;
-    }
-  }
+  __syncthreads();  // the zeros are in place before any copy lands
 
   // copies of the tile at column t0 into buffer b: y's d words a column
   // (16 bytes at a time where rows are aligned), and the raw duals
   auto stage_tile = [&](int b, int t0) {
     const int cnt = min(T, c_end - t0);
-    float* ysb = reinterpret_cast<float*>(ys4 + b * T * dp4);
+    float* ysb = reinterpret_cast<float*>(ys4 + b * T * D4);
     if (a.y_vec4) {
       const int d4 = a.d / 4;
       for (int idx = tid; idx < cnt * d4; idx += THREADS) {
         const int j = idx / d4, k4 = idx - j * d4;
-        cp_async16(ysb + j * dp + 4 * k4, a.y + (size_t)(t0 + j) * a.d + 4 * k4);
+        cp_async16(ysb + j * D + 4 * k4, a.y + (size_t)(t0 + j) * a.d + 4 * k4);
       }
     } else {
       for (int idx = tid; idx < cnt * a.d; idx += THREADS) {
         const int j = idx / a.d, k = idx - j * a.d;
-        cp_async4(ysb + j * dp + k, a.y + (size_t)t0 * a.d + idx);
+        cp_async4(ysb + j * D + k, a.y + (size_t)t0 * a.d + idx);
       }
     }
     for (int j = tid; j < cnt; j += THREADS) cp_async4(wraw + b * T + j, a.w + t0 + j);
@@ -231,12 +268,12 @@ tile_kernel(Args a) {
     cp_async_wait_all();
     __syncthreads();  // tile t0 landed; every thread is done with the other buffer and cw
     if (t0 + T < c_end) stage_tile(b ^ 1, t0 + T);
-    const float4* yb = ys4 + b * T * dp4;
+    const float4* yb = ys4 + b * T * D4;
     for (int j = tid; j < T; j += THREADS) {
       float yy = 0.0f;
       if (PK == P_TWO)
-        for (int k4 = 0; k4 < dp4; ++k4) {
-          const float4 v = yb[j * dp4 + k4];
+        for (int k4 = 0; k4 < D4; ++k4) {
+          const float4 v = yb[j * D4 + k4];
           yy = fmaf(v.x, v.x, yy); yy = fmaf(v.y, v.y, yy);
           yy = fmaf(v.z, v.z, yy); yy = fmaf(v.w, v.w, yy);
         }
@@ -247,98 +284,210 @@ tile_kernel(Args a) {
     const int jn = (cnt + CH - 1) / CH * CH;
     for (int j0 = 0; j0 < jn; j0 += CH) {
       float c[R][CH], wq[CH];
-      if constexpr (WIDE) {
-        float acc[R][CH];
 #pragma unroll
-        for (int r = 0; r < R; ++r)
+      for (int q = 0; q < CH; ++q) {
+        float yv[D];
 #pragma unroll
-          for (int q = 0; q < CH; ++q) acc[r][q] = 0.0f;
-        for (int kc = 0; kc < dp4; kc += D / 4) {
-          float xv[R][D];
+        for (int i = 0; i < D4; ++i) unpack(&yv[4 * i], yb[(j0 + q) * D4 + i]);
+        const float2 cq = cw[j0 + q];
+        wq[q] = cq.y;
 #pragma unroll
-          for (int r = 0; r < R; ++r)
+        for (int r = 0; r < R; ++r) {
+          float acc = PK == P_TWO ? xx[r] + cq.x : 0.0f;
 #pragma unroll
-            for (int i = 0; i < D / 4; ++i)
-              unpack(&xv[r][4 * i], xs4[(kc + i) * (R * THREADS) + r * THREADS + tid]);
-#pragma unroll
-          for (int q = 0; q < CH; ++q) {
-            float yv[D];
-#pragma unroll
-            for (int i = 0; i < D / 4; ++i) unpack(&yv[4 * i], yb[(j0 + q) * dp4 + kc + i]);
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-#pragma unroll
-              for (int k = 0; k < D; ++k)
-                acc[r][q] = cost_term<PK>(acc[r][q], xv[r][k], yv[k], a.p);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < CH; ++q) {
-          const float2 cq = cw[j0 + q];
-          wq[q] = cq.y;
-#pragma unroll
-          for (int r = 0; r < R; ++r) c[r][q] = cost_finish<PK>(acc[r][q], xx[r], cq.x, a.p);
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < CH; ++q) {
-          float yv[D];
-#pragma unroll
-          for (int i = 0; i < D / 4; ++i) unpack(&yv[4 * i], yb[(j0 + q) * (D / 4) + i]);
-          const float2 cq = cw[j0 + q];
-          wq[q] = cq.y;
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            float acc = PK == P_TWO ? xx[r] + cq.x : 0.0f;
-#pragma unroll
-            for (int k = 0; k < D; ++k) acc = cost_term<PK>(acc, xr[r][k], yv[k], a.p);
-            c[r][q] = PK == P_TWO ? sqrt_approx(fmaxf(acc, 0.0f))
-                                  : cost_finish<PK>(acc, xx[r], cq.x, a.p);
-          }
+          for (int k = 0; k < D; ++k) acc = cost_term<PK>(acc, xr[r][k], yv[k], a.p);
+          c[r][q] = PK == P_TWO ? sqrt_approx(fmaxf(acc, 0.0f))
+                                : cost_finish<PK>(acc, xx[r], cq.x, a.p);
         }
       }
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (MODE == LSE) {
-          // the chunk's base-2 logits and their max, one rescale of the
-          // running sum, then one 2^x a pair, with no branch
-          float l[CH];
-          float cmax = -INFINITY;
-#pragma unroll
-          for (int q = 0; q < CH; ++q) {
-            l[q] = fmaf(-c[r][q], a.scale, wq[q]);
-            cmax = fmaxf(cmax, l[q]);
-          }
-          const float m_new = fmaxf(run_m[r], cmax);
-          // the TPU kernel's isfinite shift: while every logit so far is
-          // -inf, subtract 0, so 2^(-inf - 0) = 0 and never NaN
-          const float shift = m_new == -INFINITY ? 0.0f : m_new;
-          float sum = run_s[r] * ex2(run_m[r] - shift);
-#pragma unroll
-          for (int q = 0; q < CH; ++q) sum += ex2(l[q] - shift);
-          run_s[r] = sum;
-          run_m[r] = m_new;
-        } else {
-          // a -inf dual gives 2^-inf = 0, never 0 * inf
-#pragma unroll
-          for (int q = 0; q < CH; ++q)
-            run_s[r] = fmaf(ex2(fmaf(-c[r][q], a.scale, u_r[r] + wq[q])), c[r][q], run_s[r]);
-        }
-      }
+      for (int r = 0; r < R; ++r)
+        chunk_update<MODE, CH>(c[r], wq, u_r[r], a.scale, run_m[r], run_s[r]);
     }
   }
+  store_partials<MODE, R>(a, row0, run_m, run_s);
+}
+
+// Wide rows (d > 16, or p other than 1 and 2): d in chunks of K = WIDE_CHUNK
+// dimensions, so shared memory does not grow with d. A stage is (tile,
+// chunk): x's chunk for the block's R * THREADS rows, (K / 4, rows) float4s,
+// and y's for the tile's T columns, (T, K / 4); the next stage's copies go
+// into the other buffer while this one is summed. acc[r][q] holds row r's
+// partial cost against the tile's column q across the chunks (and, at p
+// other than 2, comp[r][q] its running compensation).
+template <int MODE, int PK>
+__global__ void __launch_bounds__(THREADS, PK == P_TWO ? WIDE_BLOCKS : SUM_BLOCKS)
+stream_kernel(Args a) {
+  constexpr int R = WIDE_ROWS, T = WIDE_TILE, K = WIDE_CHUNK, K4 = K / 4, CH = 4;
+  constexpr int ROWS = R * THREADS;
+  extern __shared__ float4 smem4[];
+  float4* xs4 = smem4;                                        // (2, K4, ROWS)
+  float4* ys4 = xs4 + 2 * K4 * ROWS;                          // (2, T, K4)
+  float2* cw = reinterpret_cast<float2*>(ys4 + 2 * T * K4);   // (T,) |y|^2, dual * s
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * ROWS;
+  const int c_begin = blockIdx.y * a.cols_per_split;
+  const int c_end = min(a.m, c_begin + a.cols_per_split);
+  const int n_chunks = (a.d + K - 1) / K;
+  const int n_stages = (c_end - c_begin + T - 1) / T * n_chunks;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // rows past n and columns past the range are never copied: they read as
+  // zeros, later as stale finite values (their rows are not stored, their
+  // columns carry a dual of -inf)
+  for (int i = tid; i < 2 * K4 * (ROWS + T); i += THREADS) smem4[i] = zero4;
+  __syncthreads();  // the zeros are in place before any copy lands
+
+  // stage s: tile s / n_chunks, chunk s % n_chunks, into buffer s & 1; a
+  // chunk's dimensions past d are written as zeros
+  auto stage = [&](int s) {
+    const int t0 = c_begin + (s / n_chunks) * T;
+    const int k0 = (s % n_chunks) * K;
+    const int kw = min(K, a.d - k0);
+    float* xb = reinterpret_cast<float*>(xs4 + (s & 1) * K4 * ROWS);
+    float* yb = reinterpret_cast<float*>(ys4 + (s & 1) * T * K4);
+    if (a.x_vec4) {
+      for (int idx = tid; idx < ROWS * K4; idx += THREADS) {
+        const int r = idx / K4, k4 = idx - r * K4;
+        if (row0 + r >= a.n) continue;
+        float* dst = xb + (k4 * ROWS + r) * 4;
+        if (4 * k4 < kw) cp_async16(dst, a.x + (size_t)(row0 + r) * a.d + k0 + 4 * k4);
+        else *reinterpret_cast<float4*>(dst) = zero4;
+      }
+    } else {
+      for (int idx = tid; idx < ROWS * K; idx += THREADS) {
+        const int r = idx / K, k = idx - r * K;
+        if (row0 + r >= a.n) continue;
+        float* dst = xb + ((k >> 2) * ROWS + r) * 4 + (k & 3);
+        if (k < kw) cp_async4(dst, a.x + (size_t)(row0 + r) * a.d + k0 + k);
+        else *dst = 0.0f;
+      }
+    }
+    if (a.y_vec4) {
+      for (int idx = tid; idx < T * K4; idx += THREADS) {
+        const int j = idx / K4, k4 = idx - j * K4;
+        if (t0 + j >= c_end) continue;
+        float* dst = yb + idx * 4;
+        if (4 * k4 < kw) cp_async16(dst, a.y + (size_t)(t0 + j) * a.d + k0 + 4 * k4);
+        else *reinterpret_cast<float4*>(dst) = zero4;
+      }
+    } else {
+      for (int idx = tid; idx < T * K; idx += THREADS) {
+        const int j = idx / K, k = idx - j * K;
+        if (t0 + j >= c_end) continue;
+        if (k < kw) cp_async4(yb + idx, a.y + (size_t)(t0 + j) * a.d + k0 + k);
+        else yb[idx] = 0.0f;
+      }
+    }
+    cp_async_commit();
+  };
+
+  float xx[R], u_r[R], run_m[R], run_s[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r * THREADS + tid;
-    if (row >= a.n) continue;
-    const size_t at = (size_t)blockIdx.y * a.n + row;
-    if (MODE == LSE) {
-      a.part_a[at] = run_m[r];
-      a.part_b[at] = run_s[r];
-    } else {
-      a.part_a[at] = run_s[r];
+    xx[r] = 0.0f;
+    u_r[r] = (MODE == COST && row < a.n) ? a.u[row] * a.scale : 0.0f;
+    run_m[r] = -INFINITY;
+    run_s[r] = 0.0f;
+  }
+  constexpr bool KAHAN = PK != P_TWO;
+  float acc[R][T], comp[R][KAHAN ? T : 1];
+  float yy = 0.0f, wv = -INFINITY;  // the tile's column tid (tid < T)
+
+  stage(0);
+  for (int s = 0; s < n_stages; ++s) {
+    const int kc = s % n_chunks;
+    const int t0 = c_begin + (s / n_chunks) * T;
+    cp_async_wait_all();
+    __syncthreads();  // stage s landed; every thread is done with the other buffer
+    if (s + 1 < n_stages) stage(s + 1);
+    if (kc == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int q = 0; q < T; ++q) {
+          acc[r][q] = 0.0f;
+          if (KAHAN) comp[r][q] = 0.0f;
+        }
+      yy = 0.0f;
+      if (tid < T) wv = t0 + tid < c_end ? a.w[t0 + tid] * a.scale : -INFINITY;
+    }
+    const float4* xb = xs4 + (s & 1) * K4 * ROWS;
+    const float4* yb = ys4 + (s & 1) * T * K4;
+    float xv[R][K];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int i = 0; i < K4; ++i) unpack(&xv[r][4 * i], xb[i * ROWS + r * THREADS + tid]);
+    if (PK == P_TWO) {
+      if (t0 == c_begin) {  // |x|^2 over the first tile's chunks
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int k = 0; k < K; ++k) xx[r] = fmaf(xv[r][k], xv[r][k], xx[r]);
+      }
+      if (tid < T) {  // |y|^2 of the tile's column tid
+#pragma unroll
+        for (int i = 0; i < K4; ++i) {
+          const float4 v = yb[tid * K4 + i];
+          yy = fmaf(v.x, v.x, yy); yy = fmaf(v.y, v.y, yy);
+          yy = fmaf(v.z, v.z, yy); yy = fmaf(v.w, v.w, yy);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < T; ++q) {
+      // p = 2: the dot product straight into the total; else the chunk's
+      // sum first, then into the total with its compensation
+      float part[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) part[r] = KAHAN ? 0.0f : acc[r][q];
+#pragma unroll
+      for (int i = 0; i < K4; ++i) {
+        float yv[4];
+        unpack(yv, yb[q * K4 + i]);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            part[r] = cost_term<PK>(part[r], xv[r][4 * i + k], yv[k], a.p);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (KAHAN) {
+          const float v = part[r] - comp[r][q];
+          const float t = acc[r][q] + v;
+          comp[r][q] = (t - acc[r][q]) - v;
+          acc[r][q] = t;
+        } else {
+          acc[r][q] = part[r];
+        }
+      }
+    }
+    if (kc == n_chunks - 1) {  // the tile's last chunk: its logits
+      if (tid < T) cw[tid] = make_float2(yy, wv);
+      __syncthreads();
+#pragma unroll
+      for (int j0 = 0; j0 < T; j0 += CH) {
+        float wq[CH], yq[CH];
+#pragma unroll
+        for (int q = 0; q < CH; ++q) {
+          const float2 cq = cw[j0 + q];
+          yq[q] = cq.x;
+          wq[q] = cq.y;
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float c[CH];
+#pragma unroll
+          for (int q = 0; q < CH; ++q) c[q] = cost_finish<PK>(acc[r][j0 + q], xx[r], yq[q], a.p);
+          chunk_update<MODE, CH>(c, wq, u_r[r], a.scale, run_m[r], run_s[r]);
+        }
+      }
     }
   }
+  store_partials<MODE, R>(a, row0, run_m, run_s);
 }
 
 // Each row's partials, merged over the splits in split order.
@@ -366,20 +515,20 @@ __global__ void merge_kernel(const float* part_a, const float* part_b, float* ou
   out[i] = (mx + log2f(s)) * LN2;
 }
 
-// x in shared memory, one row a thread: past d = 16, and for a general p
-// (whose |x - y|^p loop would not fit R rows in registers)
+// The wide kernel: past d = 16, and for a general p (whose |x - y|^p loop
+// would not fit RR rows in registers)
 bool wide(int d, int p) { return d > 16 || (p != 1 && p != 2); }
-int padded_width(int d, int p) {
-  if (wide(d, p)) return (d + WIDE_CHUNK - 1) / WIDE_CHUNK * WIDE_CHUNK;
-  return d <= 4 ? 4 : d <= 8 ? 8 : 16;
-}
+int padded_width(int d) { return d <= 4 ? 4 : d <= 8 ? 8 : 16; }
 
-// Shared memory of a block: two tiles of y, the tile's (|y|^2, dual) pairs,
-// two tiles of raw duals and, in the wide kernel, the block's rows of x.
+// Shared memory of a block. Narrow: two tiles of y at the padded width, the
+// tile's (|y|^2, dual) pairs and two tiles of raw duals. Wide, at every d:
+// two stages of x's chunk for the block's rows and y's for a tile, and the
+// tile's (|y|^2, dual) pairs.
 int smem_bytes(int d, int p, int tile) {
-  const int dp = padded_width(d, p);
-  return (int)sizeof(float) * (2 * tile * dp + 2 * tile + 2 * tile +
-                               (wide(d, p) ? THREADS * dp : 0));
+  if (wide(d, p))
+    return (int)sizeof(float) *
+           (2 * WIDE_CHUNK * (WIDE_ROWS * THREADS + tile) + 2 * tile);
+  return (int)sizeof(float) * (2 * tile * padded_width(d) + 4 * tile);
 }
 
 // The host's geometry is one these kernels take.
@@ -392,32 +541,35 @@ bool geometry_ok(const Args& a, int splits, int smem) {
          (long long)splits * a.cols_per_split >= a.m;
 }
 
-template <int MODE, int PK, int D, int R, bool WIDE>
-cudaError_t launch_tiles(const Args& a, int splits, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_kernel<MODE, PK, D, R, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <typename Kernel>
+cudaError_t launch_grid(Kernel kernel, const Args& a, int rows, int splits, int smem,
+                        cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.n + R * THREADS - 1) / (R * THREADS), splits);
-  tile_kernel<MODE, PK, D, R, WIDE><<<grid, THREADS, smem, stream>>>(a);
+  dim3 grid((a.n + rows - 1) / rows, splits);
+  kernel<<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int MODE, int PK>
 cudaError_t launch_width(const Args& a, int splits, int smem, cudaStream_t stream) {
+  constexpr int rows = RR * THREADS;
   if constexpr (PK != P_GENERAL) {
-    if (a.d <= 4) return launch_tiles<MODE, PK, 4, RR, false>(a, splits, smem, stream);
-    if (a.d <= 8) return launch_tiles<MODE, PK, 8, RR, false>(a, splits, smem, stream);
-    if (a.d <= 16) return launch_tiles<MODE, PK, 16, RR, false>(a, splits, smem, stream);
+    if (a.d <= 4) return launch_grid(tile_kernel<MODE, PK, 4, RR>, a, rows, splits, smem, stream);
+    if (a.d <= 8) return launch_grid(tile_kernel<MODE, PK, 8, RR>, a, rows, splits, smem, stream);
+    if (a.d <= 16)
+      return launch_grid(tile_kernel<MODE, PK, 16, RR>, a, rows, splits, smem, stream);
   }
-  return launch_tiles<MODE, PK, WIDE_CHUNK, 1, true>(a, splits, smem, stream);
+  return launch_grid(stream_kernel<MODE, PK>, a, WIDE_ROWS * THREADS, splits, smem, stream);
 }
 
 template <int MODE>
 int launch(Args a, int tile, int cols_per_split, int splits, int smem, float* out,
            cudaStream_t stream) {
-  a.dp = padded_width(a.d, a.p);
   a.tile = tile;
   a.cols_per_split = cols_per_split;
+  a.x_vec4 = a.d % 4 == 0 && reinterpret_cast<size_t>(a.x) % 16 == 0;
   a.y_vec4 = a.d % 4 == 0 && reinterpret_cast<size_t>(a.y) % 16 == 0;
   if (!geometry_ok(a, splits, smem)) return (int)cudaErrorInvalidValue;
   cudaError_t err;
@@ -432,8 +584,21 @@ int launch(Args a, int tile, int cols_per_split, int splits, int smem, float* ou
 
 }  // namespace
 
+// The library is built from this one file as one object, or as two
+// compiled side by side and linked (ops/_build.py: SINKHORN_LSE_PART 0, 1):
+// part 0 holds the lse entry (which instantiates the LSE kernels) and the
+// helpers, part 1 the transport-cost entry (the COST kernels).
+#ifdef SINKHORN_LSE_PART
+#define SK_PART0 (SINKHORN_LSE_PART == 0)
+#define SK_PART1 (SINKHORN_LSE_PART == 1)
+#else
+#define SK_PART0 1
+#define SK_PART1 1
+#endif
+
 extern "C" {
 
+#if SK_PART0
 const char* sinkhorn_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Shared memory a block takes at width d and power p with `tile` columns a
@@ -448,10 +613,12 @@ int sinkhorn_smem_bytes(int d, int p, int tile) { return smem_bytes(d, p, tile);
 int sinkhorn_lse_launch(const float* x, const float* y, const float* dual, float scale,
                         int p, int n, int m, int d, int tile, int cols_per_split, int splits,
                         int smem, float* part_m, float* part_s, float* out, void* stream) {
-  Args a{x, y, nullptr, dual, part_m, part_s, scale, p, n, m, d, 0, 0, 0, false};
+  Args a{x, y, nullptr, dual, part_m, part_s, scale, p, n, m, d, 0, 0, false, false};
   return launch<LSE>(a, tile, cols_per_split, splits, smem, out, (cudaStream_t)stream);
 }
+#endif
 
+#if SK_PART1
 // out (n,) = per-row sum_j exp((u_i + v_j - M_ij) / eps) * M_ij, scale =
 // log2(e) / eps, on the host's geometry as above; scratch part holds
 // splits * n floats.
@@ -459,8 +626,9 @@ int sinkhorn_cost_launch(const float* x, const float* y, const float* u, const f
                          float scale, int p, int n, int m, int d, int tile,
                          int cols_per_split, int splits, int smem, float* part, float* out,
                          void* stream) {
-  Args a{x, y, u, v, part, nullptr, scale, p, n, m, d, 0, 0, 0, false};
+  Args a{x, y, u, v, part, nullptr, scale, p, n, m, d, 0, 0, false, false};
   return launch<COST>(a, tile, cols_per_split, splits, smem, out, (cudaStream_t)stream);
 }
+#endif
 
 }  // extern "C"

@@ -4,10 +4,9 @@ sde_sampler_lrds_tpu/eval/sinkhorn.py).
 The log-domain scaling loop runs in Python; each iteration's two
 log-sum-exp reductions and the final transport cost go through
 ``ops/sinkhorn_lse``, which launches its CUDA kernels for tensors on the
-card and runs its plain versions for tensors on the CPU, so the n × m cost
-matrix is never stored on the card. Past the kernels' width (d > 224) the
-plain versions run on either device, and ``config`` records backend
-'plain'. The JAX package's host C++ tier
+card at every width and runs its plain versions for tensors on the CPU, so
+the n × m cost matrix is never stored on the card; ``config`` records
+backend 'cuda' or 'plain'. The JAX package's host C++ tier
 (``eval/native``) has no counterpart here.
 """
 from __future__ import annotations
@@ -17,10 +16,15 @@ import logging
 import numpy as np
 import torch
 
-from ..ops.sinkhorn_lse import MAX_DIM, lse, lse_plain, transport_cost, transport_cost_plain
+from ..ops.sinkhorn_lse import lse, lse_plain, transport_cost, transport_cost_plain
 
 KERNEL_OPS = (lse, transport_cost)
 PLAIN_OPS = (lse_plain, transport_cost_plain)
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Whether the kernel wrappers launch their kernels on ``x``."""
+    return x.device.type == "cuda"
 
 
 class Sinkhorn:
@@ -71,10 +75,10 @@ class Sinkhorn:
     @torch.no_grad()
     def compute(self, x, y, w_x=None, w_y=None, ops=None) -> torch.Tensor:
         """The distance as a 0-d tensor. ``ops`` = (lse, transport_cost)
-        defaults to the kernel wrappers up to the kernels' width ``MAX_DIM``
-        and to ``PLAIN_OPS`` past it; ``PLAIN_OPS`` runs the plain versions
-        on any device."""
-        lse_fn, cost_fn = ops or (KERNEL_OPS if x.shape[-1] <= MAX_DIM else PLAIN_OPS)
+        defaults to the kernel wrappers ``KERNEL_OPS`` at every width (their
+        kernels on the card, their plain versions on the CPU);
+        ``PLAIN_OPS`` runs the plain versions on any device."""
+        lse_fn, cost_fn = ops or KERNEL_OPS
         x, y = x.float(), y.float()
         n, m = x.shape[0], y.shape[0]
         w_x = torch.full((n,), 1.0 / n, device=x.device) if w_x is None \
@@ -99,7 +103,7 @@ class Sinkhorn:
             if not err > stop:
                 break
         self.n_iters = it
-        self.backend = "cuda" if (x.device.type == "cuda" and lse_fn is lse) else "plain"
+        self.backend = "cuda" if (on_card(x) and lse_fn is KERNEL_OPS[0]) else "plain"
         logging.info("Sinkhorn ran %d iterations (%s)", it, self.backend)
         return cost_fn(x, y, u, v, self.eps, self.p)
 

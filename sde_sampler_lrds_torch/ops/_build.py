@@ -24,8 +24,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the sources built in parts: how many (csrc/fused_traj.cu: the diagonal,
-# the full-covariance and wide, and the cluster kernels)
-PARTS = {"fused_traj": 3}
+# the full-covariance and wide, and the cluster kernels; csrc/sinkhorn_lse.cu:
+# the lse and the transport-cost kernels)
+PARTS = {"fused_traj": 3, "sinkhorn_lse": 2}
 
 
 def nvcc() -> str:

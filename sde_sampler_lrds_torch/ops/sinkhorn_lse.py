@@ -7,12 +7,14 @@ With M_ij = ‖x_i − y_j‖_p:
     transport_cost(x, y, u, v, eps)  = Σ_ij exp((u_i + v_j − M_ij)/eps)·M_ij
 
 On a CUDA tensor each wrapper launches the hand-written kernel
-``csrc/sinkhorn_lse.cu`` (the cost matrix never reaches device memory) on
-the geometry ``sinkhorn_geometry`` picks, and merges its per-split partials
-in a second pass; on a CPU tensor it runs its plain version, which builds
-the cost matrix a block of rows at a time. p = 2 uses the |x|² + |y|² − 2x·y expansion in
-both, as the JAX package does. A dual of −inf is legal: its term drops
-out, and a row whose every logit is −inf gives −inf.
+``csrc/sinkhorn_lse.cu`` at any d (the cost matrix never reaches device
+memory; past d 16 the kernel walks d in chunks, so its shared memory does
+not grow with d) on the geometry ``sinkhorn_geometry`` picks, and merges
+its per-split partials in a second pass; on a CPU tensor it runs its plain
+version, which builds the cost matrix a block of rows at a time. p = 2
+uses the |x|² + |y|² − 2x·y expansion in both, as the JAX package does. A
+dual of −inf is legal: its term drops out, and a row whose every logit is
+−inf gives −inf.
 """
 from __future__ import annotations
 
@@ -25,15 +27,16 @@ import torch
 
 from ._build import load_library
 
-# the widths the kernels take (past d = 16 a block keeps 128 rows of x in
-# shared memory; the first design's limit, kept)
-MAX_DIM = 224
 # the kernels' geometry (csrc/sinkhorn_lse.cu): 128 threads a block; at
 # d ≤ 16 and p 1 or 2 four rows a thread in registers at a padded width of
-# 4, 8 or 16 and tiles of 128 columns, else (the wide kernel) one row a
-# thread with x in shared memory at d rounded up to 16 and tiles of 32
-# columns; a split's columns a multiple of 8 (the largest chunk)
-_THREADS, _ROWS_PER_THREAD, _TILE, _WIDE_TILE, _WIDE_CHUNK, _COL_ALIGN = 128, 4, 128, 32, 16, 8
+# 4, 8 or 16 and tiles of 128 columns, else (the wide kernel, any d) two
+# rows a thread and tiles of 32 columns, d walked 16 dimensions a stage; a
+# split's columns a multiple of 8 (the largest chunk)
+_THREADS, _ROWS_PER_THREAD, _TILE, _COL_ALIGN = 128, 4, 128, 8
+_WIDE_ROWS, _WIDE_TILE, _WIDE_CHUNK = 2, 32, 16
+# resident blocks an SM the launch bounds ask for: narrow, wide at p 2, wide
+# at other p (whose compensated sums take more registers)
+_NARROW_BLOCKS, _WIDE_BLOCKS, _SUM_BLOCKS = 4, 3, 2
 MAX_SMEM_BYTES = 232_448        # shared memory a block may take
 _SM_SMEM_BYTES = 233_472        # an SM's, of which 1 KB is reserved a block
 # a block's fixed cost (its rows of x, the first tile's copy, the partial
@@ -51,8 +54,8 @@ class SinkhornGeometry:
     rows = rows_per_thread·threads, and columns [k·cols_per_split,
     (k + 1)·cols_per_split) ∩ [0, m), staged ``tile_cols`` at a time."""
     width: int              # padded width of a row: 4, 8, 16, or d rounded up to 16
-    wide: bool              # x in shared memory, the cost summed 16 dimensions at a
-                            # time: past d = 16, and for p other than 1 and 2
+    wide: bool              # d walked 16 dimensions a stage, shared memory the same
+                            # at every d: past d = 16, and for p other than 1 and 2
     rows_per_thread: int
     threads: int
     row_blocks: int
@@ -64,11 +67,14 @@ class SinkhornGeometry:
 
 
 def smem_bytes(d: int, p: int, tile_cols: int) -> int:
-    """Shared memory of a block (mirror of ``smem_bytes`` in the source):
-    two tiles of y at the padded width, the tile's (|y|², dual) pairs, two
-    tiles of raw duals and, in the wide kernel, the block's rows of x."""
-    width = _padded_width(d, p)
-    return 4 * (2 * tile_cols * width + 4 * tile_cols + (_THREADS * width if _wide(d, p) else 0))
+    """Shared memory of a block (mirror of ``smem_bytes`` in the source).
+    Narrow: two tiles of y at the padded width, the tile's (|y|², dual)
+    pairs and two tiles of raw duals. Wide, the same at every d: two stages
+    of a 16-dimension chunk of the block's rows of x and of a tile of y, and
+    the tile's (|y|², dual) pairs."""
+    if _wide(d, p):
+        return 4 * (2 * _WIDE_CHUNK * (_WIDE_ROWS * _THREADS + tile_cols) + 2 * tile_cols)
+    return 4 * (2 * tile_cols * _padded_width(d, p) + 4 * tile_cols)
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -90,22 +96,22 @@ def sinkhorn_geometry(n: int, m: int, d: int, p: int, n_sms: int,
                       blocks_per_sm: int | None = None) -> SinkhornGeometry:
     """The kernels' geometry for an (n, d) × (m, d) reduction on a card of
     ``n_sms`` SMs. A wave is the blocks the card holds at once
-    (``blocks_per_sm`` an SM: 4, or 2 in the wide kernel, fewer where
-    shared memory binds; or the number given). Among the column
-    splits that fill w whole waves, w = 1, 2, ..., it takes the one with the
-    least waves × (columns a split + a block's fixed cost), so each block
-    walks one long range; a grid that reaches every SM comes first. At
+    (``blocks_per_sm`` an SM: 4, or in the wide kernel 3 at p 2 and 2 at
+    other p, fewer where shared memory binds; or the number given). Among
+    the column splits that fill w whole waves, w = 1, 2, ..., it takes the
+    one with the least waves × (columns a split + a block's fixed cost), so
+    each block walks one long range; a grid that reaches every SM comes first. At
     8192 × 8192 × 8 on 132 SMs: 16 row blocks × 32 splits of 256 columns."""
-    if n < 1 or m < 1 or n_sms < 1 or not 1 <= d <= MAX_DIM or p < 1:
-        raise ValueError(f"sinkhorn_geometry: n {n}, m {m}, d {d} (at most {MAX_DIM}), "
-                         f"p {p} and n_sms {n_sms} out of range")
+    if n < 1 or m < 1 or n_sms < 1 or d < 1 or p < 1:
+        raise ValueError(f"sinkhorn_geometry: n {n}, m {m}, d {d}, p {p} and n_sms {n_sms} "
+                         "out of range")
     wide = _wide(d, p)
-    rows = 1 if wide else _ROWS_PER_THREAD
+    rows = _WIDE_ROWS if wide else _ROWS_PER_THREAD
     tile = _WIDE_TILE if wide else _TILE
     smem = smem_bytes(d, p, tile)
     if blocks_per_sm is None:
         # the launch bounds' register budget, then shared memory
-        regs = 2 if wide else 4
+        regs = (_WIDE_BLOCKS if p == 2 else _SUM_BLOCKS) if wide else _NARROW_BLOCKS
         blocks_per_sm = max(1, min(regs, _SM_SMEM_BYTES // (smem + 1024)))
     row_blocks = _ceil_div(n, rows * _THREADS)
     slots = n_sms * blocks_per_sm
@@ -209,8 +215,8 @@ def _sm_count(device: torch.device) -> int:
 def _launch_prep(x, name: str):
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, got {x.device}")
-    if not 1 <= x.shape[1] <= MAX_DIM:
-        raise ValueError(f"{name} kernel: d = {x.shape[1]} outside [1, {MAX_DIM}]")
+    if x.shape[1] < 1:
+        raise ValueError(f"{name} kernel: d = {x.shape[1]}, at least 1 needed")
     return _library(), torch.cuda.current_stream(x.device).cuda_stream
 
 

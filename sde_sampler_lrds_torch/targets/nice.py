@@ -7,7 +7,9 @@ per-digit flows with 3:1 alternating weights and scores samples by digit
 classification (the mode metrics).
 
 The checkpoints are the JAX package's Flax msgpack files ({meta, params}),
-read by the port's own reader (``utils/flax_msgpack.py``).
+read and written by the port's own msgpack code (``utils/flax_msgpack.py``);
+``NiceModel.init_flax_`` draws a flow's first parameters by Flax's law, for
+training one from scratch (``scripts/train_nice.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ from .base import ModeMetrics, Target
 
 DATA_DIR = Path(__file__).parents[2] / "data"
 _TINY, _EPS = 1.17549e-38, 1.19209e-07
+# the standard deviation of a unit normal truncated to (-2, 2): Flax's
+# variance_scaling divides by it, so a truncated draw has the variance asked
+_TRUNC_STD = 0.87962566103423978
 
 
 def logistic_log_prob(z: torch.Tensor) -> torch.Tensor:
@@ -152,6 +157,34 @@ class NiceModel(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.log_prob(x)
 
+    @torch.no_grad()
+    def init_flax_(self, generator: torch.Generator) -> "NiceModel":
+        """Flax's initialisation of the JAX NiceModel, drawn from
+        ``generator`` (on the parameters' device): each Dense kernel from
+        ``lecun_normal`` (a normal truncated to ±2 of its scale, scaled to
+        variance 1/fan_in), zero biases, a zero ``scale``."""
+        for c in self.couplings:
+            for layer in c.dense:
+                std = math.sqrt(1.0 / layer.in_features) / _TRUNC_STD
+                nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+                layer.bias.zero_()
+        self.scale.zero_()
+        return self
+
+    def flax_params(self) -> dict:
+        """The JAX NiceModel's Flax tree of this flow, numpy float32 with the
+        Dense kernels as (in, out): the inverse of ``load_flax_params``."""
+        def arr(t):
+            return np.ascontiguousarray(t.detach().cpu().numpy(), dtype=np.float32)
+
+        p = {f"couplings_{i}": {f"Dense_{j}": {"kernel": arr(layer.weight.T),
+                                               "bias": arr(layer.bias)}
+                                for j, layer in enumerate(c.dense)}
+             for i, c in enumerate(self.couplings)}
+        p["scale"] = arr(self.scale)
+        return {"params": p}
+
     def load_flax_params(self, params: dict) -> "NiceModel":
         """The JAX NiceModel's Flax tree ({"params": {"couplings_i": {"Dense_j":
         …}, "scale"}}, numpy arrays)."""
@@ -174,6 +207,13 @@ def load_nice_checkpoint(path: str | Path, device=None):
     model = NiceModel(**{k: v for k, v in meta.items() if k != "skip_centering"})
     model.load_flax_params(data["params"])
     return meta, model.to(resolve_device(device))
+
+
+def save_nice_checkpoint(path: str | Path, meta: dict, model: NiceModel) -> None:
+    """The JAX package's NICE checkpoint, {meta, params}, of ``model``: the
+    same bytes ``sde_sampler_lrds_tpu.targets.nice.save_nice_checkpoint``
+    writes for the same meta and parameters."""
+    flax_msgpack.save(path, {"meta": dict(meta), "params": model.flax_params()})
 
 
 class Nice(Target):

@@ -2,15 +2,17 @@
 transport cost) without the whole chip_smoke.py: about a minute on one card.
 
     python3 sde_sampler_lrds_torch/tools/sinkhorn_bench.py [--root DIR] [--time-only]
-        [--outputs FILE] [--sweep] [--ablate]
+        [--outputs FILE] [--sweep] [--ablate] [--shapes N,M,D ...]
 
 Builds csrc/sinkhorn_lse.cu of the checkout at --root (default: this one),
 prints each kernel instantiation's registers, stack and spills, runs
 chip_smoke.py's phase-2 comparisons of both kernels against their plain
 versions (skipped with --time-only) and times both by CUDA-graph replay at
-phase 7's shape (8192 x 8192, d 8, eps 1e-3, p 2) and at d 100 and d 224 on
-1000 x 3000, each beside the geometry the host picked (none where the
-checkout's wrapper has no ``sinkhorn_geometry``). To compare two commits in
+phase 7's shape (8192 x 8192, d 8, eps 1e-3, p 2), at d 100 and d 224 on
+1000 x 3000 and at MNIST's 2048 x 2048 at d 196, 784 and 2048 (or the
+--shapes given), each beside its plain version's time and the geometry the
+host picked (none where the checkout's wrapper has no
+``sinkhorn_geometry``). To compare two commits in
 one call, unpack the other with ``git archive`` into a gitignored directory
 and pass it as --root, in turns with this one.
 
@@ -40,7 +42,8 @@ import subprocess
 import sys
 
 # (n, m, d) timed, eps 1e-3, p 2: phase 7's shape first
-SHAPES = ((8192, 8192, 8), (1000, 3000, 100), (1000, 3000, 224))
+SHAPES = ((8192, 8192, 8), (1000, 3000, 100), (1000, 3000, 224), (2048, 2048, 196),
+          (2048, 2048, 784), (2048, 2048, 2048))
 # (n, m, d, eps, p) of the --outputs cases
 OUTPUT_CASES = ((8192, 8192, 8, 1e-3, 2), (1000, 3000, 8, 1e-2, 1), (1000, 3000, 37, 1e-2, 2),
                 (1000, 3000, 100, 1e-2, 3), (1000, 3000, 224, 1e-2, 2))
@@ -74,23 +77,27 @@ def geometry(n, m, d, p):
     return dataclasses.asdict(geom)
 
 
-def timing(torch, cs, dev, peaks, sfu_rate, shapes=SHAPES, label="") -> None:
-    from sde_sampler_lrds_torch.ops.sinkhorn_lse import lse, transport_cost
+def timing(torch, cs, dev, peaks, sfu_rate, shapes=SHAPES, label="", plain=False) -> None:
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
+                                                         transport_cost_plain)
 
     eps = 1e-3
     for n, m, d in shapes:
         x, y, u, v = inputs(torch, cs, dev, n, m, d, eps, 41)
         pairs, io = n * m, 4 * (n * d + m * d)
-        for name, fn, b in (
-                ("sinkhorn_lse", lambda: lse(x, y, v, eps),
+        for name, fn, plain_fn, b in (
+                ("sinkhorn_lse", lambda: lse(x, y, v, eps), lambda: lse_plain(x, y, v, eps),
                  cs.bound(pairs * (2 * d + 8), 2 * pairs, io + 4 * (m + n), peaks, sfu_rate)),
                 ("transport_cost", lambda: transport_cost(x, y, u, v, eps),
+                 lambda: transport_cost_plain(x, y, u, v, eps),
                  cs.bound(pairs * (2 * d + 11), 2 * pairs, io + 4 * (n + m) + 4, peaks,
                           sfu_rate))):
             ms = cs.graph_ms(fn)
-            print(f"[time] {name}{label} n={n} m={m} d={d}: " + json.dumps({
-                "ms": ms, "host_loop_ms": cs.time_cuda(fn), "bound_ms": b[0],
-                "share_of_bound": b[0] / ms, "geometry": geometry(n, m, d, 2)}), flush=True)
+            row = {"ms": ms, "host_loop_ms": cs.time_cuda(fn), "bound_ms": b[0],
+                   "share_of_bound": b[0] / ms, "geometry": geometry(n, m, d, 2)}
+            if plain:
+                row["plain_ms"] = cs.graph_ms(plain_fn, n=5, reps=3)
+            print(f"[time] {name}{label} n={n} m={m} d={d}: " + json.dumps(row), flush=True)
 
 
 def sweep(torch, cs, dev, peaks, sfu_rate) -> None:
@@ -110,7 +117,7 @@ def sweep(torch, cs, dev, peaks, sfu_rate) -> None:
 SQRT = 'asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));'
 EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));'
 FMUL = "r = v * 1.0001f;"
-CH16 = ("(D <= 8 && !WIDE) ? 8 : 4", "(D <= 8 && !WIDE) ? 16 : 4")
+CH16 = ("D <= 8 ? 8 : 4", "D <= 8 ? 16 : 4")
 # (label, source substitutions, rows a thread and resident blocks an SM on
 # the host; None: the host's own)
 ABLATIONS = (
@@ -121,9 +128,9 @@ ABLATIONS = (
     ("8 rows a thread", (("constexpr int RR = 4;", "constexpr int RR = 8;"),), 8, None),
     ("16 columns a chunk", (CH16,), 4, None),
     ("16 columns a chunk in the cost mode",
-     (("(D <= 8 && !WIDE) ? 8 : 4", "(D <= 8 && !WIDE) ? (MODE == COST ? 16 : 8) : 4"),), 4, None),
-    ("16 columns a chunk, 3 blocks an SM", (CH16, ("return WIDE ? 2 : 4;", "return WIDE ? 2 : 3;")),
-     4, 3),
+     (("D <= 8 ? 8 : 4", "D <= 8 ? (MODE == COST ? 16 : 8) : 4"),), 4, None),
+    ("16 columns a chunk, 3 blocks an SM",
+     (CH16, ("constexpr int NARROW_BLOCKS = 4;", "constexpr int NARROW_BLOCKS = 3;")), 4, 3),
 )
 
 
@@ -207,6 +214,8 @@ def main() -> int:
     ap.add_argument("--outputs", metavar="FILE")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--shapes", nargs="+", metavar="N,M,D",
+                    help="time these shapes, each beside its plain version, instead of SHAPES")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     outputs_path = os.path.abspath(args.outputs) if args.outputs else None
@@ -242,7 +251,11 @@ def main() -> int:
         cs.phase_sinkhorn_kernels(dev, rec_lse, rec_cost)
         print("[compare] " + json.dumps({"sinkhorn_lse": rec_lse, "transport_cost": rec_cost}),
               flush=True)
-    timing(torch, cs, dev, peaks, sfu_rate)
+    if args.shapes:
+        timing(torch, cs, dev, peaks, sfu_rate,
+               [tuple(int(v) for v in shape.split(",")) for shape in args.shapes], plain=True)
+    else:
+        timing(torch, cs, dev, peaks, sfu_rate)
     if args.sweep:
         sweep(torch, cs, dev, peaks, sfu_rate)
     if args.ablate:

@@ -1,4 +1,4 @@
-"""A small msgpack reader for the JAX package's checkpoints (Flax
+"""A small msgpack reader and writer for the JAX package's checkpoints (Flax
 ``serialization.msgpack_serialize`` / ``to_bytes`` files), in pure Python
 with numpy: the NICE flows under ``data/`` and the EBM parameters the MNIST
 EBM curve writes.
@@ -111,3 +111,107 @@ def msgpack_restore(blob: bytes):
 def load(path: str | Path):
     """``msgpack_restore`` of a file."""
     return msgpack_restore(Path(path).read_bytes())
+
+
+def _pack_header(out: bytearray, n: int, fix: tuple | None, codes: tuple) -> None:
+    """A length or count: the fix form (max, base) where there is one and n
+    fits, else the 8-, 16- or 32-bit form (codes[0] None: no 8-bit form)."""
+    if fix is not None and n <= fix[0]:
+        out.append(fix[1] | n)
+    elif codes[0] is not None and n <= 0xFF:
+        out += struct.pack(">BB", codes[0], n)
+    elif n <= 0xFFFF:
+        out += struct.pack(">BH", codes[1], n)
+    else:
+        out += struct.pack(">BI", codes[2], n)
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+    elif v > 0:
+        for code, fmt, top in ((0xCC, ">BB", 0xFF), (0xCD, ">BH", 0xFFFF),
+                               (0xCE, ">BI", 0xFFFFFFFF), (0xCF, ">BQ", 2**64 - 1)):
+            if v <= top:
+                out += struct.pack(fmt, code, v)
+                return
+        raise ValueError(f"msgpack: integer {v} out of range")
+    else:
+        for code, fmt, low in ((0xD0, ">Bb", -2**7), (0xD1, ">Bh", -2**15),
+                               (0xD2, ">Bi", -2**31), (0xD3, ">Bq", -2**63)):
+            if v >= low:
+                out += struct.pack(fmt, code, v)
+                return
+        raise ValueError(f"msgpack: integer {v} out of range")
+
+
+def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
+    n = len(data)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        out.append(fixed[n])
+    elif n <= 0xFF:
+        out += struct.pack(">BB", 0xC7, n)
+    elif n <= 0xFFFF:
+        out += struct.pack(">BH", 0xC8, n)
+    else:
+        out += struct.pack(">BI", 0xC9, n)
+    out += struct.pack(">b", code)
+    out += data
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    """Flax's ndarray payload: msgpack of (shape, dtype name, C-order bytes)."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("msgpack: object and structured dtypes are not supported")
+    out = bytearray()
+    _pack(out, [list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    return bytes(out)
+
+
+def _pack(out: bytearray, v) -> None:
+    if v is None:
+        out.append(0xC0)
+    elif type(v) is bool:
+        out.append(0xC3 if v else 0xC2)
+    elif isinstance(v, np.ndarray):
+        if v.nbytes > 2**30:
+            raise ValueError("msgpack: arrays past 2**30 bytes would be chunked; not supported")
+        _pack_ext(out, EXT_NDARRAY, _ndarray_to_bytes(v))
+    elif isinstance(v, np.generic):
+        _pack_ext(out, EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(v)))
+    elif type(v) is int:
+        _pack_int(out, v)
+    elif type(v) is float:
+        out += struct.pack(">Bd", 0xCB, v)
+    elif type(v) is str:
+        raw = v.encode("utf-8")
+        _pack_header(out, len(raw), (31, 0xA0), (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif type(v) is bytes:
+        _pack_header(out, len(v), None, (0xC4, 0xC5, 0xC6))
+        out += v
+    elif type(v) in (list, tuple):
+        _pack_header(out, len(v), (15, 0x90), (None, 0xDC, 0xDD))
+        for item in v:
+            _pack(out, item)
+    elif type(v) is dict:
+        _pack_header(out, len(v), (15, 0x80), (None, 0xDE, 0xDF))
+        for k in sorted(v):
+            _pack(out, k)
+            _pack(out, v[k])
+    else:
+        raise TypeError(f"msgpack: cannot serialize {type(v).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """The Flax msgpack bytes of a tree of dicts with string keys, lists,
+    tuples, Python scalars, strings, numpy arrays and numpy scalars."""
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)
+
+
+def save(path: str | Path, tree) -> None:
+    """Write ``msgpack_serialize(tree)`` to ``path``."""
+    Path(path).write_bytes(msgpack_serialize(tree))

@@ -2,7 +2,9 @@
 (sde_sampler_lrds_torch/ops/sinkhorn_lse.py ``sinkhorn_geometry``): every
 column owned by exactly one split, every row by one row block, a grid that
 covers the card at the eval path's 8192 × 8192, shared memory within the
-card's limit, the constants the CUDA source was built with; and the kernels'
+card's limit and, past d 16, the same at every d (the wide kernel walks d
+in chunks, so it takes any width), the constants the CUDA source was built
+with; and the kernels'
 fixed-order merge of per-split partials (a second pass, no thread-block
 cluster), mirrored in PyTorch from the plain versions and held against the
 JAX package's Pallas kernels in interpret mode. Pure host arithmetic: no
@@ -22,6 +24,7 @@ SOURCE = Path(t_ops.__file__).resolve().parents[1] / "csrc" / "sinkhorn_lse.cu"
 P_KINDS = (1, 2, 3)                    # p = 1, p = 2, a general integer p
 SHAPES = ((8192, 8192), (1000, 3000), (37, 300), (1, 1))
 SMS = 132
+WIDEST = 2048                          # the mirror loop's widths: d 1 .. WIDEST
 
 
 def _ranges(geom, m):
@@ -33,7 +36,8 @@ def _ranges(geom, m):
 @pytest.mark.parametrize("p", P_KINDS)
 def test_every_row_and_column_owned_once(p, shape):
     n, m = shape
-    for d in range(1, t_ops.MAX_DIM + 1):
+    wide_smem = t_ops.smem_bytes(17, 2, t_ops._WIDE_TILE)
+    for d in range(1, WIDEST + 1):
         geom = t_ops.sinkhorn_geometry(n, m, d, p, SMS)
         # the splits cover every column exactly once, none of them empty
         cols = np.concatenate([np.arange(r.start, r.stop) for r in _ranges(geom, m)])
@@ -43,9 +47,12 @@ def test_every_row_and_column_owned_once(p, shape):
         rows = geom.rows_per_thread * geom.threads
         assert (geom.row_blocks - 1) * rows < n <= geom.row_blocks * rows
         assert geom.wide == (d > 16 or p == 3) and geom.width >= d and geom.width % 4 == 0
-        assert geom.rows_per_thread == (1 if geom.wide else 4)
+        assert geom.rows_per_thread == (2 if geom.wide else 4)
         assert geom.smem_bytes == t_ops.smem_bytes(d, p, geom.tile_cols)
         assert geom.smem_bytes <= t_ops.MAX_SMEM_BYTES
+        # past the chunk width shared memory no longer grows with d
+        if geom.wide:
+            assert geom.smem_bytes == wide_smem
         if shape == (8192, 8192):
             assert geom.row_blocks * geom.splits >= SMS
 
@@ -59,17 +66,23 @@ def test_main_path_geometry():
     assert (geom.cols_per_split, geom.splits, geom.blocks_per_sm) == (256, 32, 4)
     assert geom.row_blocks * geom.splits <= SMS * geom.blocks_per_sm
     assert geom.rows_per_thread * geom.cols_per_split == 1024
-    # the ragged shapes reach every SM too
-    for d in (8, 37, 100, t_ops.MAX_DIM):
+    # the ragged shapes reach every SM too, at every width
+    for d in (8, 37, 100, 224, 784, 2048):
         g = t_ops.sinkhorn_geometry(1000, 3000, d, 2, SMS)
         assert g.row_blocks * g.splits >= SMS - 4
 
 
 def test_geometry_refuses_what_the_kernels_do_not_take():
-    for args in ((0, 5, 8, 2), (5, 0, 8, 2), (5, 5, 0, 2), (5, 5, t_ops.MAX_DIM + 1, 2),
-                 (5, 5, 8, 0)):
+    for args in ((0, 5, 8, 2), (5, 0, 8, 2), (5, 5, 0, 2), (5, 5, 8, 0)):
         with pytest.raises(ValueError):
             t_ops.sinkhorn_geometry(*args, SMS)
+    # no width limit: past the first design's d 224 the wide kernel takes
+    # the reduction on the same shared memory as at d 17
+    for d in (225, 4096):
+        geom = t_ops.sinkhorn_geometry(5, 5, d, 2, SMS)
+        assert geom.wide and geom.width == -(-d // 16) * 16
+        assert (geom.row_blocks, geom.splits, geom.cols_per_split) == (1, 1, 8)
+        assert geom.smem_bytes == t_ops.smem_bytes(17, 2, geom.tile_cols) <= t_ops.MAX_SMEM_BYTES
 
 
 def test_geometry_constants_match_source():
@@ -82,13 +95,19 @@ def test_geometry_constants_match_source():
     assert const("THREADS") == t_ops._THREADS
     assert const("RR") == t_ops._ROWS_PER_THREAD
     assert const("TILE") == t_ops._TILE
+    assert const("WIDE_ROWS") == t_ops._WIDE_ROWS
     assert const("WIDE_TILE") == t_ops._WIDE_TILE
     assert const("WIDE_CHUNK") == t_ops._WIDE_CHUNK
     assert const("COL_ALIGN") == t_ops._COL_ALIGN
     assert const("MAX_SMEM") == t_ops.MAX_SMEM_BYTES
-    # resident blocks the launch bounds ask for: the wide kernel 2, else 4
-    assert "return WIDE ? 2 : 4;" in src
-    for d, p, want in ((8, 2, 4), (8, 1, 4), (8, 3, 2), (37, 2, 2), (224, 2, 1)):
+    # resident blocks the launch bounds ask for: the wide kernel 3 at p 2
+    # and 2 at other p (its compensated sums), else 4
+    assert const("WIDE_BLOCKS") == t_ops._WIDE_BLOCKS == 3
+    assert const("SUM_BLOCKS") == t_ops._SUM_BLOCKS == 2
+    assert const("NARROW_BLOCKS") == t_ops._NARROW_BLOCKS == 4
+    assert "PK == P_TWO ? WIDE_BLOCKS : SUM_BLOCKS" in src
+    for d, p, want in ((8, 2, 4), (8, 1, 4), (8, 3, 2), (37, 2, 3), (37, 1, 2), (224, 2, 3),
+                       (2048, 2, 3), (2048, 1, 2)):
         assert t_ops.sinkhorn_geometry(64, 64, d, p, SMS).blocks_per_sm == want
 
 
@@ -134,17 +153,20 @@ def _points(seed, n, m, d):
             (0.5 + 1.3 * rng.normal(size=(m, d))).astype(np.float32))
 
 
-# (n, m, d, n_sms): a width of each kernel kind, split counts from 1 up
-MERGE_CASES = ((37, 300, 3, 132), (130, 129, 8, 8), (20, 256, 21, 4), (9, 40, 100, 1))
+# (n, m, d, n_sms, eps): a width of each kernel kind, split counts from 1
+# up, and a width past the first design's limit of d 224, with eps at its
+# costs' scale (≈ 350 at p 1: at eps 0.1 the float32 rounding of the costs,
+# summed in two orders, moves the plan's entries by ≈ 1e-4)
+MERGE_CASES = ((37, 300, 3, 132, 0.1), (130, 129, 8, 8, 0.1), (20, 256, 21, 4, 0.1),
+               (9, 40, 100, 1, 0.1), (6, 24, 300, 2, 1.0))
 
 
 @pytest.mark.parametrize("p", P_KINDS)
 @pytest.mark.parametrize("case", MERGE_CASES)
 def test_split_merge_matches_jax(case, p):
-    n, m, d, n_sms = case
+    n, m, d, n_sms, eps = case
     geom = t_ops.sinkhorn_geometry(n, m, d, p, n_sms)
     rng, x, y = _points(100 + d + p, n, m, d)
-    eps = 0.1
     dual = (eps * rng.normal(size=(m,))).astype(np.float32)
     dual[::7] = -np.inf
     if geom.splits > 1:                          # one whole split of −inf duals
@@ -153,7 +175,7 @@ def test_split_merge_matches_jax(case, p):
                      geom).numpy()
     want = np.asarray(pallas_lse(x, y, dual, eps, p=p, bn=8, bm=128, interpret=True))
     assert np.isfinite(got).all()
-    # logits ~ 50 at eps = 0.1: float32 cost sums in other orders differ by a
+    # logits ~ 50 at eps = 0.1 (d 8): float32 cost sums in other orders differ by a
     # few ulps of the cost (1e-6 relative), i.e. ~1e-5 in the logits; the
     # base-2 round trip adds a few ulps of the result
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)

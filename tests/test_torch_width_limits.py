@@ -9,9 +9,10 @@ kernel's paths ('flat_lv_plain' / 'plain' here, 'flat_lv_fused' / 'fused'
 on the card). The wide kernel runs only on the card (chip_smoke.py phase
 15 (f) holds it against its plain version); here the plan's plain version
 is held against the JAX Pallas kernel in interpret mode at D 129, and its
-host geometry is checked. The Sinkhorn kernels stop at d 224; past it the
-Sinkhorn runs its plain versions on the tensors' device and records
-backend 'plain'.
+host geometry is checked. The Sinkhorn kernels take every width (past d
+16 they walk d in chunks): the Sinkhorn takes its kernel wrappers at every
+d, which run their plain versions on CPU tensors and launch the kernels on
+CUDA ones, and records backend 'cuda' there.
 
 Tiny depth (K 6, batch 16); tolerances as tests/test_torch_experiments.py
 (losses and the evaluation's states and log-ratios 1e-4, the log-ratios'
@@ -30,7 +31,6 @@ import torch
 from sde_sampler_lrds_torch.api import make_model as t_make_model
 from sde_sampler_lrds_torch.eval import sinkhorn as t_sinkhorn
 from sde_sampler_lrds_torch.ops import fused_traj as t_ft
-from sde_sampler_lrds_torch.ops.sinkhorn_lse import MAX_DIM
 from sde_sampler_lrds_tpu.api import make_model, make_target_details
 from sde_sampler_lrds_tpu.ops import fused_traj as j_ft
 from sde_sampler_lrds_tpu.parallel.mesh import get_mesh
@@ -247,21 +247,44 @@ def test_wide_smem_formula_and_limit():
 
 
 def test_sinkhorn_past_the_kernel_width_runs_the_plain_versions(monkeypatch):
-    """At d 225 the Sinkhorn takes PLAIN_OPS whatever the device (the
-    kernel ops are never called, shown here by ops that raise), equals a
-    PLAIN_OPS run and records backend 'plain'; at d 224 it still takes the
-    kernel ops."""
-    def refused(*a, **k):
-        raise AssertionError("the kernel ops ran past their width")
+    """Past the first design's d 224 the Sinkhorn takes the kernel wrappers
+    (KERNEL_OPS) as at every width: at d 225 on a CUDA-typed input (the
+    device test ``on_card`` monkeypatched, the wrappers recorded) it calls
+    them 2 × iterations + 1 times and records backend 'cuda'; on CPU tensors
+    the wrappers run their plain versions, so it equals a PLAIN_OPS run and
+    records 'plain'; ``ops=`` still takes what the caller passes."""
+    calls = []
 
-    monkeypatch.setattr(t_sinkhorn, "KERNEL_OPS", (refused, refused))
+    def recorded(name, fn):
+        def call(*a, **k):
+            calls.append((name, a[0].shape[1]))
+            return fn(*a, **k)
+        return call
+
+    kernel_ops = t_sinkhorn.KERNEL_OPS
     rng = np.random.default_rng(5)
-    x = T(rng.normal(size=(96, MAX_DIM + 1)).astype(np.float32))
-    y = T((0.5 + rng.normal(size=(80, MAX_DIM + 1))).astype(np.float32))
+    d = 225
+    x = T(rng.normal(size=(96, d)).astype(np.float32))
+    y = T((0.5 + rng.normal(size=(80, d))).astype(np.float32))
+    want = t_sinkhorn.Sinkhorn(max_iters=30).compute(x, y, ops=t_sinkhorn.PLAIN_OPS)
     sk = t_sinkhorn.Sinkhorn(max_iters=30)
     got = sk(x, y)
     assert sk.config["backend"] == "plain" and sk.n_iters == 30
-    want = t_sinkhorn.Sinkhorn(max_iters=30).compute(x, y, ops=t_sinkhorn.PLAIN_OPS)
     assert float(got) == float(want) and np.isfinite(float(got))
-    with pytest.raises(AssertionError, match="past their width"):
-        sk(x[:, :MAX_DIM], y[:, :MAX_DIM])
+
+    monkeypatch.setattr(t_sinkhorn, "KERNEL_OPS", (recorded("lse", kernel_ops[0]),
+                                                   recorded("cost", kernel_ops[1])))
+    monkeypatch.setattr(t_sinkhorn, "on_card", lambda t: True)
+    for width in (d, 224, 2048):
+        calls.clear()
+        xs = T(rng.normal(size=(12, width)).astype(np.float32))
+        ys = T(rng.normal(size=(10, width)).astype(np.float32))
+        sk = t_sinkhorn.Sinkhorn(max_iters=30)
+        val = sk(xs, ys)
+        assert sk.config["backend"] == "cuda" and np.isfinite(float(val))
+        assert calls == [("lse", width)] * (2 * sk.n_iters) + [("cost", width)]
+    # a caller's ops are taken as given, and are not the kernels
+    calls.clear()
+    sk = t_sinkhorn.Sinkhorn(max_iters=30)
+    assert float(sk.compute(x, y, ops=t_sinkhorn.PLAIN_OPS)) == float(want)
+    assert calls == [] and sk.config["backend"] == "plain"
