@@ -42,8 +42,11 @@ Phases:
      full-covariance at 1024);
      the Sinkhorn lse and transport-cost kernels vs theirs (8192 x 8192,
      d = 8, eps 1e-3 and 1, p 2 and 1, -inf duals; a ragged 1000 x 3000
-     with p 2 and 3, and at d 37, 100 and 224 with p 2 and 1; 2048 x 2048
-     at d 225, 784 and 2048 with p 2, and p 1 at d 784; a whole column
+     with p 2 and 3, and at d 37, 100 and 224 with p 2 and 1; 8192 x 8192
+     at d 64 and 100, eps 1e-3 and 1, p 2 (cell (b)'s and phi^4's widths at
+     the eval batch); 2048 x 2048 at d 225, 784 and 2048 with p 2, and p 1
+     at d 784 (p 2 past d 16 on the tensor-core body, 3xTF32 mma.sync); a
+     whole column
      split of the host's geometry with -inf duals; two launches bitwise
      equal at each; the shared memory of every width up to 2048 against
      the host's mirror); the resampling lookup vs its own (N 1024, 8192, 1000,
@@ -81,13 +84,18 @@ Phases:
      kernel that does nothing (the card's launch floor); B1's cluster
      kernel at MNIST's D 196, C 2 full covariance (train 256, eval 2048)
      beside its geometry (cluster size, tile, clusters, the clusters the
-     card holds at once), and the wide kernel forced on the same plan
+     card holds at once), and the wide kernel forced on the same plan;
+     B2 / B3 at 2048 x 2048 x 196, 784 and 2048 against the bound of their
+     tensor-core body (3 TF32 products over the dense TF32 peak), with the
+     float32-pipe bound beside it (fp32_bound_ms)
   8. the experiment drivers' cells, each through the driver's main and so
      lrds_run (MALA -> GMM fit -> make_model -> TrainableWrapper.run ->
      evaluation over seeds with the EUBO -> pickle): (a) two_modes d 16
      vp-ref at the driver's defaults, gated by the JAX package's record of
-     the cell; (b) two_modes d 64 pbm-ref; (c) φ⁴ (b 0.02, d 100,
-     full-covariance fit), gated against the exact transfer-matrix oracle;
+     the cell; (b) two_modes d 64 pbm-ref (every B2 / B3 launch on the
+     tensor-core body); (c) φ⁴ (b 0.02, d 100, full-covariance fit; no
+     Sinkhorn: the driver leaves it to the analysis), gated against the
+     exact transfer-matrix oracle;
      (d) many_modes, 4 modes at d 8, at the driver's defaults, gated by the
      JAX package's record; (e) sample_toy_gmm_mcmc on Rings at its defaults,
      beside the JAX record; (f) the same on Checkerboard (density 0 off the
@@ -194,7 +202,8 @@ Phases:
      full-covariance reference at D 129 (the cluster kernel) and D 400 (the
      wide one), one step and one eval each ('flat_lv_fused', 'fused'), and
      the Sinkhorn at d 225, 784 and 2048 on B2 / B3 (2048 vs 2048 normal
-     draws, B2 twice an iteration, B3 once, within COST_TOL_REL of the
+     draws, B2 twice an iteration, B3 once, every launch on the
+     tensor-core body, within COST_TOL_REL of the
      plain versions, or of the same iterations in float64 where the plain
      versions sit farther than that from it)
  16. the surface: the data-parallel mesh over the one card (a device may
@@ -307,6 +316,10 @@ COST_TOL_REL = 1e-3
 # d in chunks at every width): 2048 x 2048 normal draws at these d, p 2, and
 # p 1 at SINKHORN_WIDE_P1_DIM; the whole Sinkhorn at each in phase 15 (f)
 SINKHORN_WIDE_DIMS, SINKHORN_WIDE_P1_DIM = (225, 784, 2048), 784
+# phase 2's widths at the drivers' eval shape 8192 x 8192: cell (b)'s d 64
+# and phi^4's d 100 (whose driver leaves the Sinkhorn to the analysis's
+# --distances)
+SINKHORN_EVAL_DIMS = (64, 100)
 # sample-based evaluation (the sampler's 8192 samples against 8192 target
 # draws, Sinkhorn(p = 2, eps = 1e-3, 100 iterations) as experiments/common.py
 # builds it) and the gates on its Sinkhorn distance: within 1.25x of the
@@ -600,10 +613,11 @@ BF16_TOL = (dict(rtol=5e-2, atol=5e-2), dict(rtol=5e-2, atol=1e-1))
 # per-trajectory terms: measured on an H100, value 2.8e-6 relative,
 # gradients 1.3e-3 of a leaf's largest entry (x_embed.bias)
 KL_VALUE_TOL, KL_GRAD_TOL = 1e-4, 5e-3
-# float32 non-tensor-core peak, memory rate and dense bf16 tensor-core peak
-# of the H100 variants (NVIDIA data sheets), for the kernels' bounds
-PEAKS = {"PCIe": (51.2e12, 2.0e12, 756e12), "NVL": (60.0e12, 3.9e12, 835e12),
-         "SXM": (67.0e12, 3.35e12, 989e12)}
+# float32 non-tensor-core peak, memory rate, dense bf16 and dense TF32
+# tensor-core peaks of the H100 variants (NVIDIA data sheets: half the
+# rates given with sparsity), for the kernels' bounds
+PEAKS = {"PCIe": (51.2e12, 2.0e12, 756e12, 378e12), "NVL": (60.0e12, 3.9e12, 835e12, 417.5e12),
+         "SXM": (67.0e12, 3.35e12, 989e12, 494.7e12)}
 # the keys every kernel's entry of the {"kernels": [...]} line has, in order
 KERNEL_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
@@ -693,13 +707,14 @@ def ptxas_report(log: str) -> list:
     trajectory kernels' instantiations as traj_kernel_diag<BF16, TW, E>,
     traj_kernel_full<BF16>, traj_kernel_wide<BF16, FULL> and
     traj_kernel_cluster<BF16, FULL>, the Sinkhorn ones as tile_kernel<MODE, PK, ...>
-    and merge_kernel<MODE>), its registers, stack frame and spill bytes."""
+    stream_kernel<MODE, PK>, mma_kernel<MODE> and merge_kernel<MODE>), its
+    registers, stack frame and spill bytes."""
     entries, current = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"(traj_kernel(?:_full|_diag|_wide|_cluster)?|tile_kernel|merge_kernel)"
-                          r"I((?:L[ib]\d+E)+)E",
+            t = re.search(r"(traj_kernel(?:_full|_diag|_wide|_cluster)?|tile_kernel|stream_kernel"
+                          r"|mma_kernel|merge_kernel)I((?:L[ib]\d+E)+)E",
                           m.group(1))
             targs = [("true" if v == "1" else "false") if k == "b" else v
                      for k, v in re.findall(r"L([ib])(\d+)E", t.group(2))] if t else []
@@ -743,7 +758,9 @@ def launch_counters() -> list:
     launches in: fused_traj counts every launch in ``.launches``, and as
     well those of its cluster kernel in ``.cluster_launches``, of its wide
     kernel in ``.wide_launches``, of its narrow full-covariance one in
-    ``.full_cov_launches`` and its narrow bf16 ones in ``.bf16_launches``."""
+    ``.full_cov_launches`` and its narrow bf16 ones in ``.bf16_launches``;
+    lse and transport_cost count every launch in ``.launches``, and those
+    of their tensor-core body (p 2 past d 16) as well in ``.mma_launches``."""
     from sde_sampler_lrds_torch.ops.fused_traj import fused_traj
     from sde_sampler_lrds_torch.ops.resample import systematic_lookup
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import lse, transport_cost
@@ -751,7 +768,8 @@ def launch_counters() -> list:
     return [(fused_traj, "launches"), (fused_traj, "full_cov_launches"),
             (fused_traj, "bf16_launches"), (fused_traj, "wide_launches"),
             (fused_traj, "cluster_launches"), (lse, "launches"),
-            (transport_cost, "launches"), (systematic_lookup, "launches")]
+            (transport_cost, "launches"), (systematic_lookup, "launches"),
+            (lse, "mma_launches"), (transport_cost, "mma_launches")]
 
 
 def reset_counts() -> None:
@@ -766,8 +784,10 @@ def read_counts() -> dict:
     kernel, past the other three's widths where a cluster holds the tables)
     and fused_traj_wide (the wide kernel, past them otherwise) apart. No
     path runs both a narrow bf16 and a narrow full-covariance launch, so the
-    five are exact."""
-    (ft, _), _, _, _, _, (lse, _), (cost, _), (res, _) = launch_counters()
+    five are exact. sinkhorn_lse and transport_cost count every body's
+    launches; sinkhorn_lse_mma and transport_cost_mma those of the
+    tensor-core body among them."""
+    (ft, _), _, _, _, _, (lse, _), (cost, _), (res, _), _, _ = launch_counters()
     check(ft.bf16_launches == 0 or ft.full_cov_launches == 0,
           "a path ran both the bf16 and the full-covariance mode")
     return {"fused_traj": (ft.launches - ft.full_cov_launches - ft.bf16_launches
@@ -775,6 +795,7 @@ def read_counts() -> dict:
             "fused_traj_full_cov": ft.full_cov_launches, "fused_traj_bf16": ft.bf16_launches,
             "fused_traj_wide": ft.wide_launches, "fused_traj_cluster": ft.cluster_launches,
             "sinkhorn_lse": lse.launches, "transport_cost": cost.launches,
+            "sinkhorn_lse_mma": lse.mma_launches, "transport_cost_mma": cost.mma_launches,
             "resample": res.launches}
 
 
@@ -810,16 +831,44 @@ def wide_forced():
         ft.uses_cluster = routed
 
 
-def bound(flops: float, transcendentals: float, nbytes: float, peaks, sfu_rate: float):
+def bound(flops: float, transcendentals: float, nbytes: float, peaks, sfu_rate: float,
+          tf32_flops: float = 0.0):
     """(bound_ms, bound_by, detail): the larger of the operations time (flops
-    over the float32 peak, or transcendentals over the SFU rate, whichever
-    is longer) and the bytes time."""
+    over the float32 peak, transcendentals over the SFU rate, or tf32_flops
+    over the dense TF32 tensor-core peak, whichever is longest) and the
+    bytes time."""
     t_flops, t_sfu, t_bytes = flops / peaks[0], transcendentals / sfu_rate, nbytes / peaks[1]
-    t_ops = max(t_flops, t_sfu)
+    t_tf32 = tf32_flops / peaks[3]
+    t_ops = max(t_flops, t_sfu, t_tf32)
     detail = {"flops": flops, "transcendentals": transcendentals, "bytes": nbytes,
               "flops_ms": t_flops * 1e3, "transcendentals_ms": t_sfu * 1e3,
               "bytes_ms": t_bytes * 1e3}
+    if tf32_flops:
+        detail.update(tf32_flops=tf32_flops, tf32_ms=t_tf32 * 1e3)
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), detail
+
+
+def sinkhorn_bounds(n: int, m: int, d: int, peaks, sfu_rate: float) -> dict:
+    """B2's and B3's bounds at p 2 on an (n, d) x (m, d) reduction, each as
+    (bound_ms, bound_by, detail) with fp32_bound_ms in its detail. Per pair:
+    2d flops for x.y and 8 more (|x|^2 + |y|^2 - 2 x.y, the clamp, dual -
+    cost, / eps, the running max and sum; B3: 11, with u + v - cost and
+    * cost), one square root and one 2^x; x, y and the duals read once, the
+    rows (B2) or the total (B3) written once. Past d 16 the kernel takes
+    x.y on the tensor cores in 3xTF32 (mma_kernel): then the bound is the
+    three TF32 products over the TF32 peak beside the rest on the float32
+    pipe, and fp32_bound_ms is the bound with x.y on the float32 pipe (the
+    one earlier rows give)."""
+    pairs, io = n * m, 4 * (n * d + m * d)
+    out = {}
+    for name, extra, nbytes in (("sinkhorn_lse", 8, io + 4 * (m + n)),
+                                ("transport_cost", 11, io + 4 * (n + m) + 4)):
+        fp32 = bound(pairs * (2 * d + extra), 2 * pairs, nbytes, peaks, sfu_rate)
+        b = (bound(pairs * extra, 2 * pairs, nbytes, peaks, sfu_rate, tf32_flops=3 * 2 * d * pairs)
+             if d > 16 else fp32)
+        b[2]["fp32_bound_ms"] = fp32[0]
+        out[name] = b
+    return out
 
 
 def target_draws(dev, n: int, seed: int) -> torch.Tensor:
@@ -1372,12 +1421,39 @@ def lse_error_f64(xs, ys, dual, eps: float, p: int, got, want, what: str):
     return diff, eps * diff
 
 
+def cost_error(xs, ys, u, v, eps: float, p: int, got, want, what: str) -> float:
+    """B3 against its plain version: within COST_TOL_REL relative; where it
+    is not, the same sum in float64 decides: the kernel within COST_TOL_REL
+    of it and no farther from it than the plain version (at costs / eps ~
+    7e4, the plain float32 version's own rounding of the costs reaches the
+    tolerance: p 1 at 2048 x 2048 x 784, eps 1e-2). Returns the relative
+    difference kernel vs plain."""
+    from sde_sampler_lrds_torch.ops.sinkhorn_lse import transport_cost_plain
+
+    check(bool(torch.isfinite(got)), f"transport cost {what}: {float(got)}")
+    rel = float((got - want).abs() / want.abs())
+    if rel <= COST_TOL_REL:
+        return rel
+    exact = transport_cost_plain(xs.double(), ys.double(), u.double(), v.double(), eps, p)
+    k64 = float((got.double() - exact).abs() / exact.abs())
+    p64 = float((want.double() - exact).abs() / exact.abs())
+    say(f"[phase 2] transport cost {what}: kernel {float(got):.6g} vs plain {float(want):.6g} "
+        f"(relative {rel:.3e}); float64 {float(exact):.6g}: kernel {k64:.3e}, plain {p64:.3e} "
+        f"from it (gate: kernel <= {COST_TOL_REL} and <= plain)")
+    check(k64 <= COST_TOL_REL and k64 <= p64,
+          f"transport cost {what}: kernel {float(got):.6g} vs plain {float(want):.6g} "
+          f"(relative {rel:.3e}, tolerance {COST_TOL_REL}); float64 {float(exact):.6g}: "
+          f"kernel {k64:.3e}, plain {p64:.3e} from it")
+    return rel
+
+
 def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
     """B2 (lse) and B3 (transport cost) against their plain versions on the
     card, at the eval path's 8192 x 8192 x 8, at the toys' 8192 x 8192 x 2
-    (Rings draws), on a ragged 1000 x 3000 at d 8, 37, 100 and 224, and at
-    2048 x 2048 past d 224 (SINKHORN_WIDE_DIMS); two launches of each
-    bitwise equal."""
+    (Rings draws), on a ragged 1000 x 3000 at d 8, 37, 100 and 224, at
+    8192 x 8192 at d 64 and 100 (SINKHORN_EVAL_DIMS, the tensor-core body
+    walking many column tiles a split), and at 2048 x 2048 past d 224
+    (SINKHORN_WIDE_DIMS); two launches of each bitwise equal."""
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, sinkhorn_geometry,
                                                          transport_cost, transport_cost_plain)
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import _library as sinkhorn_library
@@ -1396,6 +1472,16 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
         xw = torch.randn(1000, d, generator=gw, device=dev)
         yw = 0.5 + torch.randn(3000, d, generator=gw, device=dev)
         cases += [(xw, yw, 1e-2, p) for p in (2, 1)]
+    # the drivers' eval shape 8192 x 8192 at cell (b)'s d 64 and phi^4's d
+    # 100 (the analysis's --distances), p 2 on the tensor-core body: each
+    # split walks many column tiles, so the running max is rescaled across
+    # tiles, at the Sinkhorn's first and last eps
+    eval_cases = []
+    for d in SINKHORN_EVAL_DIMS:
+        xw = torch.randn(SAMPLE_N, d, generator=gw, device=dev)
+        yw = 0.5 + torch.randn(SAMPLE_N, d, generator=gw, device=dev)
+        eval_cases += [(xw, yw, eps, 2) for eps in (1e-3, 1.0)]
+    cases += eval_cases
     # past it, at MNIST's eval shape 2048 x 2048
     for d in SINKHORN_WIDE_DIMS:
         xw = torch.randn(MNIST_ROWS, d, generator=gw, device=dev)
@@ -1433,10 +1519,7 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
         want_c = transport_cost_plain(xs, ys, u, v, eps, p)
         check(torch.equal(got_c, transport_cost(xs, ys, u, v, eps, p)),
               f"transport cost {what}: two launches differ")
-        rel = float((got_c - want_c).abs() / want_c.abs())
-        check(bool(torch.isfinite(got_c)) and rel <= COST_TOL_REL,
-              f"transport cost {what}: kernel {float(got_c):.6g} vs plain "
-              f"{float(want_c):.6g} (relative {rel:.3e}, tolerance {COST_TOL_REL})")
+        rel = cost_error(xs, ys, u, v, eps, p, got_c, want_c, what)
         lse_errs += [err_row, err_col]
         cost_errs.append((float((got_c - want_c).abs()), rel))
         lse_gate = (f"gated on float64, LSE_F64_RATIO {LSE_F64_RATIO}" if toy else
@@ -1452,7 +1535,7 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
     # a whole column split (the host's geometry) of -inf duals: the split's
     # partials are (-inf, 0) and the merge must pass over them
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for xs, ys, eps, p in (cases[0], (xr, yr, 1e-2, 2), widest, toy_cases[0]):
+    for xs, ys, eps, p in (cases[0], (xr, yr, 1e-2, 2), eval_cases[-2], widest, toy_cases[0]):
         n, m = xs.shape[0], ys.shape[0]
         geom = sinkhorn_geometry(n, m, xs.shape[1], p, n_sms)
         cols = geom.cols_per_split
@@ -1467,9 +1550,7 @@ def phase_sinkhorn_kernels(dev, rec_lse, rec_cost):
                if xs.shape[1] == TOY_DIM else lse_error(got, want, eps, f"lse rows {what}"))
         got_c = transport_cost(xs, ys, u, dual, eps, p)
         want_c = transport_cost_plain(xs, ys, u, dual, eps, p)
-        rel = float((got_c - want_c).abs() / want_c.abs())
-        check(bool(torch.isfinite(got_c)) and rel <= COST_TOL_REL,
-              f"transport cost {what}: relative {rel:.3e}")
+        rel = cost_error(xs, ys, u, dual, eps, p, got_c, want_c, what)
         lse_errs.append(err)
         say(f"[phase 2] sinkhorn_lse vs plain, {what}: max |diff| {err[0]:.3e}; "
             f"transport_cost relative {rel:.3e}")
@@ -1859,7 +1940,7 @@ def phase_timing(dev, cfg, arrays, rec, peaks, sfu_rate, label="fused_traj",
     MLP's over the bf16 tensor-core peak and the rest over the float32 peak."""
     from sde_sampler_lrds_torch.ops.fused_traj import fused_traj_plain, launch, uses_wide
 
-    f32_rate, byte_rate, bf16_rate = peaks
+    f32_rate, byte_rate, bf16_rate, _ = peaks
     d, h, nh, c, k = cfg.dim, cfg.channels, cfg.n_hidden, cfg.n_comp, cfg.k_steps
     # per trajectory-step: the MLP's multiply-adds (2 flops each); the
     # reference score (6 flops per component and dimension, and in the
@@ -2239,8 +2320,11 @@ def phase_driver_cells(dev, path_counts) -> tuple:
         ["--dim_range", "64", "--solver_type", "pbm-ref", "--n_sampling_seeds", "4",
          "--train_steps", str(CELL_B_TRAIN_STEPS)], path_counts)
     check_sandwich("cell_b", b, 0.05, 0.1)
-    check(path_counts["cell_b"]["sinkhorn_lse"] > 0
-          and path_counts["cell_b"]["transport_cost"] == 4, "cell_b: Sinkhorn kernels")
+    counts_b = path_counts["cell_b"]
+    check(counts_b["sinkhorn_lse"] > 0 and counts_b["transport_cost"] == 4
+          and counts_b["sinkhorn_lse_mma"] == counts_b["sinkhorn_lse"]
+          and counts_b["transport_cost_mma"] == counts_b["transport_cost"],
+          f"cell_b: Sinkhorn kernels at d 64, every launch on the tensor-core body: {counts_b}")
 
     _, c, probe, cells["c"] = run_driver_cell(
         dev, "phi_four", "sample_phi_four_gmm_mcmc",
@@ -2446,20 +2530,14 @@ def phase_timing_sample_kernels(dev, recs, peaks, sfu_rate) -> None:
         v = torch.full((m,), eps * -math.log(m), device=dev)
         u = eps * (-math.log(n) - lse_plain(x, y, v, eps))
         v = eps * (-math.log(m) - lse_plain(y, x, u, eps))
-        pairs = n * m
-        io = 4 * (n * d + m * d)
-        # per pair: 2d flops for x.y and 8 more (|x|^2 + |y|^2 - 2 x.y, the
-        # clamp, dual - cost, / eps, the running max and sum); one sqrtf,
-        # one expf
+        bounds = sinkhorn_bounds(n, m, d, peaks, sfu_rate)
         timed["sinkhorn_lse" + suffix] = (
             lambda x=x, y=y, v=v: lse(x, y, v, eps), lambda x=x, y=y, v=v: lse_plain(x, y, v, eps),
-            None, bound(pairs * (2 * d + 8), 2 * pairs, io + 4 * (m + n), peaks, sfu_rate), d)
-        # per pair: 2d + 7 for the cost, 4 more (u + v - cost, / eps, * cost,
-        # the sum); one sqrtf, one expf; out: one scalar
+            None, bounds["sinkhorn_lse"], d)
         timed["transport_cost" + suffix] = (
             lambda x=x, y=y, u=u, v=v: transport_cost(x, y, u, v, eps),
             lambda x=x, y=y, u=u, v=v: transport_cost_plain(x, y, u, v, eps), None,
-            bound(pairs * (2 * d + 11), 2 * pairs, io + 4 * (n + m) + 4, peaks, sfu_rate), d)
+            bounds["transport_cost"], d)
     g = torch.Generator(dev).manual_seed(43)
     for size in (SMC_KWARGS["n_particles"], 8192):
         cdf = torch.cumsum(torch.softmax(torch.randn(size, generator=g, device=dev), 0), 0)
@@ -4487,13 +4565,13 @@ def phase_mnist_b1_sinkhorn(dev, diag_solver, full_solver, recs) -> dict:
 def phase_timing_wide_sinkhorn(dev, recs, peaks, sfu_rate, path_counts) -> None:
     """Phase 7 past the first design's d 224: B2 / B3 at 2048 x 2048 x 784
     and x 2048 (normal draws, eps 1e-3, p 2, duals from the first Sinkhorn
-    half-steps) beside their plain versions and bounds, with their launches
-    on phase 15 (f)'s Sinkhorn at that width."""
+    half-steps) beside their plain versions and bounds (sinkhorn_bounds:
+    the tensor-core body's, with fp32_bound_ms beside it), with their
+    launches on phase 15 (f)'s Sinkhorn at that width."""
     from sde_sampler_lrds_torch.ops.sinkhorn_lse import (lse, lse_plain, transport_cost,
                                                          transport_cost_plain)
 
     eps, n = 1e-3, MNIST_ROWS
-    pairs = n * n
     g = torch.Generator(dev).manual_seed(165)
     for d in SINKHORN_WIDE_DIMS[1:]:
         x = torch.randn(n, d, generator=g, device=dev)
@@ -4501,18 +4579,18 @@ def phase_timing_wide_sinkhorn(dev, recs, peaks, sfu_rate, path_counts) -> None:
         v = torch.full((n,), eps * -math.log(n), device=dev)
         u = eps * (-math.log(n) - lse_plain(x, y, v, eps))
         v = eps * (-math.log(n) - lse_plain(y, x, u, eps))
-        io = 4 * 2 * n * d
-        for name, kern, plain, b in (
-                ("sinkhorn_lse", lambda: lse(x, y, v, eps), lambda: lse_plain(x, y, v, eps),
-                 bound(pairs * (2 * d + 8), 2 * pairs, io + 4 * 2 * n, peaks, sfu_rate)),
+        bounds = sinkhorn_bounds(n, n, d, peaks, sfu_rate)
+        for name, kern, plain in (
+                ("sinkhorn_lse", lambda: lse(x, y, v, eps), lambda: lse_plain(x, y, v, eps)),
                 ("transport_cost", lambda: transport_cost(x, y, u, v, eps),
-                 lambda: transport_cost_plain(x, y, u, v, eps),
-                 bound(pairs * (2 * d + 11), 2 * pairs, io + 4 * 2 * n + 4, peaks, sfu_rate))):
-            bound_ms, bound_by, detail = b
+                 lambda: transport_cost_plain(x, y, u, v, eps))):
+            bound_ms, bound_by, detail = bounds[name]
             key = f"c6_d{d}_sinkhorn"
             row = {"ms": graph_ms(kern), "plain_ms": graph_ms(plain, n=5, reps=3),
-                   "bound_ms": bound_ms, "bound_by": bound_by, "n": n, "m": n, "d": d,
-                   "launches": path_counts[key][name]}
+                   "bound_ms": bound_ms, "fp32_bound_ms": detail["fp32_bound_ms"],
+                   "bound_by": bound_by, "n": n, "m": n, "d": d,
+                   "launches": path_counts[key][name],
+                   "mma_launches": path_counts[key][f"{name}_mma"]}
             say(f"[phase 7] {name} at {n} x {n} x {d} (past d 224): "
                 + json.dumps({**row, **detail}))
             recs[name][f"wide_d{d}"] = row
@@ -4563,16 +4641,15 @@ def phase_mnist_timing(dev, recs, timing, peaks, sfu_rate, path_counts) -> None:
                          sfu_rate, label=f"fused_traj_wide {what} ({key}, forced)",
                          batches=batches)
     eps, n, d = 1e-3, x.shape[0], x.shape[1]
-    pairs, io = n * n, 4 * 2 * n * d
-    for name, kern, plain, b in (
-            ("sinkhorn_lse", lambda: lse(x, y, v, eps), lambda: lse_plain(x, y, v, eps),
-             bound(pairs * (2 * d + 8), 2 * pairs, io + 4 * 2 * n, peaks, sfu_rate)),
+    bounds = sinkhorn_bounds(n, n, d, peaks, sfu_rate)
+    for name, kern, plain in (
+            ("sinkhorn_lse", lambda: lse(x, y, v, eps), lambda: lse_plain(x, y, v, eps)),
             ("transport_cost", lambda: transport_cost(x, y, u, v, eps),
-             lambda: transport_cost_plain(x, y, u, v, eps),
-             bound(pairs * (2 * d + 11), 2 * pairs, io + 4 * 2 * n + 4, peaks, sfu_rate))):
-        bound_ms, bound_by, detail = b
+             lambda: transport_cost_plain(x, y, u, v, eps))):
+        bound_ms, bound_by, detail = bounds[name]
         row = {"ms": graph_ms(kern), "plain_ms": graph_ms(plain, n=5, reps=3),
-               "bound_ms": bound_ms, "bound_by": bound_by, "n": n, "m": n, "d": d}
+               "bound_ms": bound_ms, "fp32_bound_ms": detail["fp32_bound_ms"],
+               "bound_by": bound_by, "n": n, "m": n, "d": d}
         say(f"[phase 7] {name} at 2048 x 2048 x 196 (MNIST): " + json.dumps({**row, **detail}))
         recs[name]["mnist_d196"].update(row)
     phase_timing_wide_sinkhorn(dev, recs, peaks, sfu_rate, path_counts)
@@ -4697,8 +4774,11 @@ def c6_sinkhorn(dev, g, path_counts) -> dict:
                                  "backend": sk.config["backend"], "iterations": sk.n_iters,
                                  "launches": counts}
         check(sk.config["backend"] == "cuda" and counts["sinkhorn_lse"] == 2 * sk.n_iters
-              and counts["transport_cost"] == 1 and b1_launches(counts) == 0,
-              f"C6 d {d} Sinkhorn: {sk.config['backend']}, {counts} in {sk.n_iters} iterations")
+              and counts["transport_cost"] == 1 and b1_launches(counts) == 0
+              and counts["sinkhorn_lse_mma"] == counts["sinkhorn_lse"]
+              and counts["transport_cost_mma"] == 1,
+              f"C6 d {d} Sinkhorn: {sk.config['backend']}, {counts} in {sk.n_iters} iterations "
+              "(every B2 / B3 launch on the tensor-core body)")
         check(math.isfinite(dist) and (rel <= COST_TOL_REL or (
             plain64 > COST_TOL_REL and rel64 <= COST_TOL_REL and rel64 <= plain64)),
               f"C6 d {d} Sinkhorn: kernels {dist} vs plain versions {want} (relative {rel:.3e}, "
@@ -5395,8 +5475,8 @@ def main(argv=None) -> int:
     say(smi)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, device {name}; peaks used for bounds: H100 "
-        f"{variant} {peaks[0] / 1e12:.1f} TFLOP/s f32, {peaks[2] / 1e12:.0f} TFLOP/s bf16 "
-        f"tensor cores, {peaks[1] / 1e12:.2f} TB/s, {sfu_rate / 1e12:.3f} T "
+        f"{variant} {peaks[0] / 1e12:.1f} TFLOP/s f32, {peaks[2] / 1e12:.0f} TFLOP/s bf16 and "
+        f"{peaks[3] / 1e12:.1f} TF32 tensor cores, {peaks[1] / 1e12:.2f} TB/s, {sfu_rate / 1e12:.3f} T "
         f"transcendentals/s ({n_sm} SMs at {clock_mhz:.0f} MHz)")
 
     laps = Laps()
@@ -5540,6 +5620,12 @@ def main(argv=None) -> int:
         sub["launches_by_path"] = {p: path_counts[p][kname] for p in mnist_paths}
         sub["launches"] = sum(sub["launches_by_path"].values())
         check(sub["launches"] > 0, f"{kname} at the MNIST shape was never launched on a path")
+        if kname in ("sinkhorn_lse", "transport_cost"):
+            # at d 196 every B2 / B3 launch runs the tensor-core body
+            sub["mma_launches"] = sum(path_counts[p][f"{kname}_mma"] for p in mnist_paths)
+            check(sub["mma_launches"] == sub["launches"],
+                  f"{kname} at d 196: {sub['mma_launches']} of {sub['launches']} launches on "
+                  "the tensor-core body")
     say("[phase 7] paths: " + json.dumps({"rds_eval": eval_times, "smc": smc,
                                           "driver_cells": driver_cells,
                                           "bf16_demo": bf16_demo, "kl": kl, "cli": cli,

@@ -16,42 +16,53 @@
 // root (p = 2) and one exponential, against 4d bytes per row or column read
 // once, so at n = m = 8192, d = 8 it is bound by the special-function units
 // (two results a pair) and the FP32 pipe (about 16 instructions a pair fit
-// under that bound), never by memory: the cost matrix is never stored.
+// under that bound), never by memory: the cost matrix is never stored. At
+// p = 2 past d = 16 the 2d flops of x.y dominate, and they are a matrix
+// product: on the tensor cores they are bound by the TF32 rate.
 //
-// What the design does about it:
-// - Narrow rows (d <= 16, p 1 or 2): a thread owns RR rows of x, held in
-//   registers at a padded width D (4, 8 or 16). A block walks one long
-//   column range in tiles of y staged in shared memory by cp.async, the
+// What the design does about it, in three bodies:
+// - Narrow rows (d <= 16, p 1 or 2; tile_kernel): a thread owns RR rows of
+//   x, held in registers at a padded width D (4, 8 or 16). A block walks one
+//   long column range in tiles of y staged in shared memory by cp.async, the
 //   next tile into a second buffer while the current one is used. Beside
 //   each column sit its |y|^2 and its dual times s = log2(e) / eps, read
 //   together as one 8-byte load; every thread reads a column once, as
 //   float4 broadcasts, and uses it for its rows.
-// - Wide rows (d > 16, or any p other than 1 and 2; stream_kernel): d is
-//   walked in chunks of WIDE_CHUNK dimensions, so a block's shared memory
-//   is the same at every d. A stage is one chunk of the block's WIDE_ROWS *
+// - p = 2 past d = 16 (mma_kernel): the x.y products of a block's MMA_ROWS
+//   rows against a tile of MMA_TILE columns on the tensor cores, by
+//   mma.sync m16n8k8 TF32 in 3xTF32 (each value split into a TF32 high part
+//   and a TF32 rest; lo.hi + hi.lo + hi.hi keeps float32 accuracy, where one
+//   TF32 product would move eps * lse by ~7e-4). d is walked in stages of
+//   MMA_CHUNK dimensions, x's and y's chunks copied by cp.async into one of
+//   two buffers while the other is multiplied, so shared memory is the same
+//   at every d. |x|^2 and |y|^2 are exact float32 sums of the same staged
+//   chunks. After a tile's last stage the pair costs, logits and running
+//   (max, sum) are taken on the accumulators, as FlashAttention takes its
+//   softmax on S = QK^T.
+// - Other wide rows (d > 16 at p = 1, any d at another p; stream_kernel):
+//   the tensor cores cannot take |x - y|. d is walked in chunks of
+//   WIDE_CHUNK dimensions; a stage is one chunk of the block's WIDE_ROWS *
 //   THREADS rows of x and of a tile of WIDE_TILE columns of y, copied by
 //   cp.async into one of two buffers while the other is summed; a thread
 //   keeps its WIDE_ROWS rows' partial costs against the tile's columns in
 //   registers across the chunks, and the tile's logits are taken after its
-//   last chunk. |x|^2 is summed over the first tile's chunks, each column's
-//   |y|^2 over the tile's chunks by the thread of that column. At p other
-//   than 2 every term is positive and the cost grows with d (about 900 at
-//   d 784, p 1, where a float32 ulp is 6e-5): each chunk's sum is added to
-//   the pair's total with a compensation (Kahan), so the total keeps the
+//   last chunk. Every term is positive and the cost grows with d (about 900
+//   at d 784, p 1, where a float32 ulp is 6e-5): each chunk's sum is added
+//   to the pair's total with a compensation (Kahan), so the total keeps the
 //   accuracy of a pairwise sum.
 // - Logits are in base 2, one FMA each: (dual_j - M_ij) * s. The square
 //   root and 2^x are one MUFU instruction each (sqrt.approx, ex2.approx).
-// - The running (max, sum) per row is updated once per chunk of CH
-//   columns: the chunk's max, one rescale, then one 2^x a pair, with no
-//   branch. -inf logits use the TPU kernel's isfinite shift, so an all -inf
-//   chunk, split or row contributes 0 and never NaN.
+// - The running (max, sum) per row is updated once per chunk of columns:
+//   the chunk's max, one rescale, then one 2^x a pair, with no branch. -inf
+//   logits use the TPU kernel's isfinite shift, so an all -inf chunk, split
+//   or row contributes 0 and never NaN.
 // - The host picks the geometry (column splits of a row block, tile width)
 //   so the grid fills the card in whole waves; each (row block, column
 //   split) writes a partial (max, sum) or partial sum per row, and a second
 //   pass merges the splits of each row in a fixed order, in base 2, so two
 //   launches give the same bits. Ragged columns carry a dual of -inf.
-// The cost mode shares the body: a per-row sum of 2^((u_i + v_j) s - M_ij s)
-// * M_ij, with no max.
+// The cost mode shares each body: a per-row sum of 2^((u_i + v_j) s - M_ij
+// s) * M_ij, with no max.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -63,8 +74,12 @@ constexpr int TILE = 128;        // columns a stage at d <= 16
 constexpr int WIDE_ROWS = 2;     // rows a thread in the wide kernel
 constexpr int WIDE_TILE = 32;    // columns a tile in the wide kernel
 constexpr int WIDE_CHUNK = 16;   // dimensions a stage in the wide kernel
-constexpr int WIDE_BLOCKS = 3;   // resident blocks an SM the wide kernel asks for at p = 2,
-constexpr int SUM_BLOCKS = 2;    // at other p (its compensated sums take more registers)
+constexpr int MMA_ROWS = 128;    // rows a block in the tensor-core body: 4 warps of 32
+constexpr int MMA_TILE = 64;     // columns a tile in the tensor-core body
+constexpr int MMA_CHUNK = 32;    // dimensions a stage in the tensor-core body
+constexpr int MMA_STRIDE = 40;   // floats between staged rows there: a chunk and 8 of padding
+constexpr int MMA_BLOCKS = 2;    // resident blocks an SM the tensor-core body asks for,
+constexpr int SUM_BLOCKS = 2;    // the wide kernel (its compensated sums take registers)
 constexpr int NARROW_BLOCKS = 4; // and the narrow one
 constexpr int COL_ALIGN = 8;     // a split's columns are a multiple of this
 constexpr int MAX_SMEM = 232448;  // shared memory a block may take
@@ -134,9 +149,9 @@ __device__ __forceinline__ float cost_term(float acc, float xk, float yk, int p)
   return acc + ((PK == P_ONE) ? a : int_pow(a, p));
 }
 
+// a pair's cost from its sum of terms at p other than 2
 template <int PK>
-__device__ __forceinline__ float cost_finish(float acc, float xx, float yy, int p) {
-  if (PK == P_TWO) return sqrt_approx(fmaxf(fmaf(-2.0f, acc, xx + yy), 0.0f));
+__device__ __forceinline__ float sum_finish(float acc, int p) {
   return (PK == P_ONE) ? acc : powf(acc, 1.0f / (float)p);
 }
 
@@ -296,8 +311,7 @@ tile_kernel(Args a) {
           float acc = PK == P_TWO ? xx[r] + cq.x : 0.0f;
 #pragma unroll
           for (int k = 0; k < D; ++k) acc = cost_term<PK>(acc, xr[r][k], yv[k], a.p);
-          c[r][q] = PK == P_TWO ? sqrt_approx(fmaxf(acc, 0.0f))
-                                : cost_finish<PK>(acc, xx[r], cq.x, a.p);
+          c[r][q] = PK == P_TWO ? sqrt_approx(fmaxf(acc, 0.0f)) : sum_finish<PK>(acc, a.p);
         }
       }
 #pragma unroll
@@ -308,22 +322,23 @@ tile_kernel(Args a) {
   store_partials<MODE, R>(a, row0, run_m, run_s);
 }
 
-// Wide rows (d > 16, or p other than 1 and 2): d in chunks of K = WIDE_CHUNK
-// dimensions, so shared memory does not grow with d. A stage is (tile,
-// chunk): x's chunk for the block's R * THREADS rows, (K / 4, rows) float4s,
-// and y's for the tile's T columns, (T, K / 4); the next stage's copies go
-// into the other buffer while this one is summed. acc[r][q] holds row r's
-// partial cost against the tile's column q across the chunks (and, at p
-// other than 2, comp[r][q] its running compensation).
+// Wide rows at p other than 2 (d > 16 at p = 1, any d at another p): d in
+// chunks of K = WIDE_CHUNK dimensions, so shared memory does not grow with
+// d. A stage is (tile, chunk): x's chunk for the block's R * THREADS rows,
+// (K / 4, rows) float4s, and y's for the tile's T columns, (T, K / 4); the
+// next stage's copies go into the other buffer while this one is summed.
+// acc[r][q] holds row r's partial cost against the tile's column q across
+// the chunks, comp[r][q] its running compensation.
 template <int MODE, int PK>
-__global__ void __launch_bounds__(THREADS, PK == P_TWO ? WIDE_BLOCKS : SUM_BLOCKS)
+__global__ void __launch_bounds__(THREADS, SUM_BLOCKS)
 stream_kernel(Args a) {
+  static_assert(PK != P_TWO, "p = 2 past d = 16 runs mma_kernel");
   constexpr int R = WIDE_ROWS, T = WIDE_TILE, K = WIDE_CHUNK, K4 = K / 4, CH = 4;
   constexpr int ROWS = R * THREADS;
   extern __shared__ float4 smem4[];
   float4* xs4 = smem4;                                        // (2, K4, ROWS)
   float4* ys4 = xs4 + 2 * K4 * ROWS;                          // (2, T, K4)
-  float2* cw = reinterpret_cast<float2*>(ys4 + 2 * T * K4);   // (T,) |y|^2, dual * s
+  float* ws = reinterpret_cast<float*>(ys4 + 2 * T * K4);     // (T,) dual * s
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * ROWS;
   const int c_begin = blockIdx.y * a.cols_per_split;
@@ -382,18 +397,16 @@ stream_kernel(Args a) {
     cp_async_commit();
   };
 
-  float xx[R], u_r[R], run_m[R], run_s[R];
+  float u_r[R], run_m[R], run_s[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r * THREADS + tid;
-    xx[r] = 0.0f;
     u_r[r] = (MODE == COST && row < a.n) ? a.u[row] * a.scale : 0.0f;
     run_m[r] = -INFINITY;
     run_s[r] = 0.0f;
   }
-  constexpr bool KAHAN = PK != P_TWO;
-  float acc[R][T], comp[R][KAHAN ? T : 1];
-  float yy = 0.0f, wv = -INFINITY;  // the tile's column tid (tid < T)
+  float acc[R][T], comp[R][T];
+  float wv = -INFINITY;  // the tile's column tid (tid < T)
 
   stage(0);
   for (int s = 0; s < n_stages; ++s) {
@@ -408,9 +421,8 @@ stream_kernel(Args a) {
 #pragma unroll
         for (int q = 0; q < T; ++q) {
           acc[r][q] = 0.0f;
-          if (KAHAN) comp[r][q] = 0.0f;
+          comp[r][q] = 0.0f;
         }
-      yy = 0.0f;
       if (tid < T) wv = t0 + tid < c_end ? a.w[t0 + tid] * a.scale : -INFINITY;
     }
     const float4* xb = xs4 + (s & 1) * K4 * ROWS;
@@ -420,29 +432,12 @@ stream_kernel(Args a) {
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int i = 0; i < K4; ++i) unpack(&xv[r][4 * i], xb[i * ROWS + r * THREADS + tid]);
-    if (PK == P_TWO) {
-      if (t0 == c_begin) {  // |x|^2 over the first tile's chunks
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int k = 0; k < K; ++k) xx[r] = fmaf(xv[r][k], xv[r][k], xx[r]);
-      }
-      if (tid < T) {  // |y|^2 of the tile's column tid
-#pragma unroll
-        for (int i = 0; i < K4; ++i) {
-          const float4 v = yb[tid * K4 + i];
-          yy = fmaf(v.x, v.x, yy); yy = fmaf(v.y, v.y, yy);
-          yy = fmaf(v.z, v.z, yy); yy = fmaf(v.w, v.w, yy);
-        }
-      }
-    }
 #pragma unroll
     for (int q = 0; q < T; ++q) {
-      // p = 2: the dot product straight into the total; else the chunk's
-      // sum first, then into the total with its compensation
+      // the chunk's sum first, then into the total with its compensation
       float part[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) part[r] = KAHAN ? 0.0f : acc[r][q];
+      for (int r = 0; r < R; ++r) part[r] = 0.0f;
 #pragma unroll
       for (int i = 0; i < K4; ++i) {
         float yv[4];
@@ -455,39 +450,342 @@ stream_kernel(Args a) {
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        if (KAHAN) {
-          const float v = part[r] - comp[r][q];
-          const float t = acc[r][q] + v;
-          comp[r][q] = (t - acc[r][q]) - v;
-          acc[r][q] = t;
-        } else {
-          acc[r][q] = part[r];
-        }
+        const float v = part[r] - comp[r][q];
+        const float t = acc[r][q] + v;
+        comp[r][q] = (t - acc[r][q]) - v;
+        acc[r][q] = t;
       }
     }
     if (kc == n_chunks - 1) {  // the tile's last chunk: its logits
-      if (tid < T) cw[tid] = make_float2(yy, wv);
+      if (tid < T) ws[tid] = wv;
       __syncthreads();
 #pragma unroll
       for (int j0 = 0; j0 < T; j0 += CH) {
-        float wq[CH], yq[CH];
+        float wq[CH];
 #pragma unroll
-        for (int q = 0; q < CH; ++q) {
-          const float2 cq = cw[j0 + q];
-          yq[q] = cq.x;
-          wq[q] = cq.y;
-        }
+        for (int q = 0; q < CH; ++q) wq[q] = ws[j0 + q];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           float c[CH];
 #pragma unroll
-          for (int q = 0; q < CH; ++q) c[q] = cost_finish<PK>(acc[r][j0 + q], xx[r], yq[q], a.p);
+          for (int q = 0; q < CH; ++q) c[q] = sum_finish<PK>(acc[r][j0 + q], a.p);
           chunk_update<MODE, CH>(c, wq, u_r[r], a.scale, run_m[r], run_s[r]);
         }
       }
     }
   }
   store_partials<MODE, R>(a, row0, run_m, run_s);
+}
+
+// tf32 rounding of v as cvt.rna.tf32.f32 does it (to nearest, ties away
+// from zero), in two integer instructions: the bits of a float whose low
+// 13 mantissa bits are zero
+__device__ __forceinline__ unsigned tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// The grid of a k-step's values whose largest magnitude is m < 2^E: its
+// step q = 2^(E - 10), returned as M = 1.5 * 2^(E + 13), for which
+// (v + M) - M is v rounded to nearest on the grid (|v| < 2^E keeps v + M in
+// the binade whose ulp is q). The rounded values are at most 2^10 steps
+// from 0, 11 significant bits, exact in TF32.
+__device__ __forceinline__ float grid_magic(float m) {
+  return __uint_as_float(((__float_as_uint(m) & 0x7f800000u) + (14u << 23)) | 0x00400000u);
+}
+
+// The largest |v| of the 8 values of a k-step's row (or column) that the 4
+// lanes of a quad hold, 2 each
+__device__ __forceinline__ float quad_max(float v0, float v1) {
+  float m = fmaxf(fabsf(v0), fabsf(v1));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  return fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+}
+
+// v = hi + lo: hi v on the k-step's grid (magic from grid_magic), lo the
+// tf32 rounding of the rest (the rest itself is exact in float32, at most
+// half a step); hi + lo is within 2^-12 steps of v
+__device__ __forceinline__ void split_grid(float v, float magic, unsigned& hi, unsigned& lo) {
+  const float h = __fsub_rn(__fadd_rn(v, magic), magic);
+  hi = __float_as_uint(h);
+  lo = tf32_rna(__fsub_rn(v, h));
+}
+
+// d (16 x 8) += a (16 x 8, row) . b (8 x 8, col) on the tensor cores, TF32
+// inputs, float32 accumulators: lane (g, t) = (lane / 4, lane % 4) holds
+// a[g][t], a[g+8][t], a[g][t+4], a[g+8][t+4]; b[t][g], b[t+4][g]; and
+// d[g][2t], d[g][2t+1], d[g+8][2t], d[g+8][2t+1]. The sum is truncated to
+// float32 (rounded toward zero), not rounded to nearest.
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a, const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Copies columns [k0, k0 + kw) of `rows` rows (those below `valid`) of a
+// row-major matrix with row length ld, starting at src, into shared rows
+// MMA_STRIDE floats apart, zeros in the chunk's columns past kw; 16 bytes
+// at a time where vec4 (ld a multiple of 4, src 16-byte aligned).
+template <int ROWS>
+__device__ __forceinline__ void stage_chunk(float* dst, const float* src, int valid, int ld,
+                                            int k0, int kw, bool vec4) {
+  constexpr int K = MMA_CHUNK, K4 = K / 4;
+  if (vec4) {
+    for (int idx = threadIdx.x; idx < ROWS * K4; idx += THREADS) {
+      const int r = idx / K4, k4 = idx % K4;
+      if (r >= valid) continue;
+      float* to = dst + r * MMA_STRIDE + 4 * k4;
+      if (4 * k4 < kw) cp_async16(to, src + (size_t)r * ld + k0 + 4 * k4);
+      else *reinterpret_cast<float4*>(to) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * K; idx += THREADS) {
+      const int r = idx / K, k = idx % K;
+      if (r >= valid) continue;
+      float* to = dst + r * MMA_STRIDE + k;
+      if (k < kw) cp_async4(to, src + (size_t)r * ld + k0 + k);
+      else *to = 0.0f;
+    }
+  }
+}
+
+// p = 2 past d = 16: S = x.y^T on the tensor cores. A block of 4 warps owns
+// BM = MMA_ROWS rows of x, a warp 32 of them as two 16-row m-tiles, and
+// walks its column range in tiles of BN = MMA_TILE columns of y, each tile
+// in stages of BK = MMA_CHUNK dimensions (x's rows and y's columns of the
+// chunk, copied by cp.async into one of two buffers while the other is
+// multiplied). Lane (g, t) of a warp keeps S for rows g and g + 8 of each
+// m-tile against columns 8j + 2t, 8j + 2t + 1 of the tile (j < 8) in 64
+// float32 registers across the stages. A k-step of 8 dimensions reads the
+// fragments as float2s: the lane's logical dimensions t and t + 4 of the
+// MMA are the chunk's 2t and 2t + 1 in both x and y, which leaves the sum
+// unchanged, and MMA_STRIDE = 40 puts a half-warp's float2s in 16 distinct
+// bank pairs. The tensor cores truncate each MMA's sum (round toward
+// zero), and every truncation shifts a cost the same way; B3 at eps 1e-3
+// moves by ~1000x a shift of the costs, so a fraction of a float32 ulp
+// matters (products truncated into S moved B3 by 1e-3 at d 784, normal
+// draws, eps 1e-2, and by 3e-2 at MNIST's d 196, eps 1e-3). So each value
+// is split on its k-step's grid: the 4 lanes of a quad hold the 8 values
+// of a row of x (or a column of y) for the k-step; their largest magnitude
+// m < 2^E sets a step q = 2^(E - 10), hi is the value rounded to a multiple
+// of q (at most 2^10 steps, so TF32-exact) and lo the TF32 rounding of the
+// rest. hi.hi for an output is then 8 multiples of qx qy below 2^20 qx qy:
+// its sum is below 2^23 steps and exact, in a fresh accumulator that one
+// FADD (rounded to nearest) adds to S. lo.hi and hi.lo, 2^-11 of it, go
+// into an accumulator of their own, added to S once a stage. S and that
+// accumulator take 128 registers a thread, so 2 blocks an SM (the 2048 x
+// 2048 grid fills 2 an SM). |x|^2 (row tid, over the first tile's
+// stages) and |y|^2 (column tid, warps 0 and 1, each stage) are float32
+// FMA sums of the staged chunks in dimension order, the same for a row as
+// for a column: the Sinkhorn's two half-steps swap x and y, and a pair's
+// cost must not depend on which side it is on (with |y|^2 summed as two
+// half chunks, the whole Sinkhorn at d 2048 moved by up to 1.1e-3).
+// After a tile's last stage:
+// c = sqrt(max(|x|^2 + |y|^2 - 2 S, 0)), base-2 logits (dual - c) s, the
+// tile's row max reduced over the 4 lanes that share a row, one rescale of
+// each lane's running sum (LSE), or each lane's running sum of 2^(...) c
+// (COST); the lanes' sums are added in a fixed order at the end.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, MMA_BLOCKS)
+mma_kernel(Args a) {
+  constexpr int BM = MMA_ROWS, BN = MMA_TILE, BK = MMA_CHUNK, S = MMA_STRIDE, NT = BN / 8;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);               // (2, BM, S)
+  float* ys = xs + 2 * BM * S;                               // (2, BN, S)
+  float2* cw = reinterpret_cast<float2*>(ys + 2 * BN * S);   // (BN,) |y|^2, dual * s
+  float* xn = reinterpret_cast<float*>(cw + BN);             // (BM,) |x|^2
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int row0 = blockIdx.x * BM;
+  const int c_begin = blockIdx.y * a.cols_per_split;
+  const int c_end = min(a.m, c_begin + a.cols_per_split);
+  const int n_chunks = (a.d + BK - 1) / BK;
+  const int n_stages = (c_end - c_begin + BN - 1) / BN * n_chunks;
+
+  // rows past n and columns past the range are never copied: they read as
+  // zeros, later as stale finite values (their rows are not stored, their
+  // columns carry a dual of -inf)
+  for (int i = tid; i < 2 * (BM + BN) * S / 4; i += THREADS)
+    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();  // the zeros are in place before any copy lands
+
+  // stage s: tile s / n_chunks, chunk s % n_chunks, into buffer s & 1
+  auto stage = [&](int s) {
+    const int t0 = c_begin + (s / n_chunks) * BN;
+    const int k0 = (s % n_chunks) * BK;
+    const int kw = min(BK, a.d - k0);
+    stage_chunk<BM>(xs + (s & 1) * BM * S, a.x + (size_t)row0 * a.d, a.n - row0, a.d, k0, kw,
+                    a.x_vec4);
+    stage_chunk<BN>(ys + (s & 1) * BN * S, a.y + (size_t)t0 * a.d, c_end - t0, a.d, k0, kw,
+                    a.y_vec4);
+    cp_async_commit();
+  };
+
+  // this lane's rows: local 32 warp + 16 mt + 8 h + g, index i = 2 mt + h
+  auto local_row = [&](int i) { return 32 * warp + 16 * (i >> 1) + 8 * (i & 1) + g; };
+  float xx[4], u_r[4], run_m[4], run_s[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + local_row(i);
+    xx[i] = 0.0f;
+    u_r[i] = (MODE == COST && row < a.n) ? a.u[row] * a.scale : 0.0f;
+    run_m[i] = -INFINITY;
+    run_s[i] = 0.0f;
+  }
+  float acc[2][NT][4];
+  // row tid's |x|^2; column tid's |y|^2 and dual * s (tid < BN)
+  float xsq = 0.0f, ysq = 0.0f, wv = -INFINITY;
+
+  stage(0);
+  for (int s = 0; s < n_stages; ++s) {
+    const int kc = s % n_chunks;
+    const int t0 = c_begin + (s / n_chunks) * BN;
+    const bool first_tile = t0 == c_begin;
+    cp_async_wait_all();
+    __syncthreads();  // stage s landed; every thread is done with the other buffer
+    if (s + 1 < n_stages) stage(s + 1);
+    if (kc == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.0f;
+      ysq = 0.0f;
+      if (tid < BN) wv = t0 + tid < c_end ? a.w[t0 + tid] * a.scale : -INFINITY;
+    }
+    const float* xb = xs + (s & 1) * BM * S;
+    const float* yb = ys + (s & 1) * BN * S;
+    if (tid < BN) {  // |y|^2 of column tid, in dimension order
+      const float4* yq = reinterpret_cast<const float4*>(yb + tid * S);
+#pragma unroll
+      for (int i = 0; i < BK / 4; ++i) {
+        const float4 v = yq[i];
+        ysq = fmaf(v.x, v.x, ysq); ysq = fmaf(v.y, v.y, ysq);
+        ysq = fmaf(v.z, v.z, ysq); ysq = fmaf(v.w, v.w, ysq);
+      }
+    }
+    if (first_tile) {
+      const float4* xq = reinterpret_cast<const float4*>(xb + tid * S);
+#pragma unroll
+      for (int i = 0; i < BK / 4; ++i) {
+        const float4 v = xq[i];
+        xsq = fmaf(v.x, v.x, xsq); xsq = fmaf(v.y, v.y, xsq);
+        xsq = fmaf(v.z, v.z, xsq); xsq = fmaf(v.w, v.w, xsq);
+      }
+    }
+    const int kw = min(BK, a.d - kc * BK);
+    float small[2][NT][4] = {};  // the stage's lo.hi and hi.lo products
+#pragma unroll
+    for (int ks = 0; ks < BK / 8; ++ks) {
+      if (8 * ks >= kw) break;  // the last chunk's k-steps past d
+      const int c = 8 * ks + 2 * t;
+      unsigned ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* xr = xb + (32 * warp + 16 * mt + g) * S + c;
+        const float2 lo_row = *reinterpret_cast<const float2*>(xr);
+        const float2 hi_row = *reinterpret_cast<const float2*>(xr + 8 * S);
+        const float m_lo = grid_magic(quad_max(lo_row.x, lo_row.y));
+        const float m_hi = grid_magic(quad_max(hi_row.x, hi_row.y));
+        split_grid(lo_row.x, m_lo, ah[mt][0], al[mt][0]);
+        split_grid(hi_row.x, m_hi, ah[mt][1], al[mt][1]);
+        split_grid(lo_row.y, m_lo, ah[mt][2], al[mt][2]);
+        split_grid(hi_row.y, m_hi, ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 v = *reinterpret_cast<const float2*>(yb + (8 * j + g) * S + c);
+        const float m_col = grid_magic(quad_max(v.x, v.y));
+        unsigned bh[2], bl[2];
+        split_grid(v.x, m_col, bh[0], bl[0]);
+        split_grid(v.y, m_col, bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_tf32(small[mt][j], al[mt], bh);
+          mma_tf32(small[mt][j], ah[mt], bl);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          float big[4] = {};  // hi.hi: exact, the 8 products on a common grid
+          mma_tf32(big, ah[mt], bh);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][j][q] += big[q];
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][j][q] += small[mt][j][q];
+    if (kc == n_chunks - 1) {  // the tile's last chunk: its logits
+      if (tid < BN) cw[tid] = make_float2(ysq, wv);
+      if (first_tile) xn[tid] = xsq;
+      __syncthreads();
+      if (first_tile) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xx[i] = xn[local_row(i)];
+      }
+      // costs, then base-2 logits in place of S (LSE) or the running sums (COST)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        // (|y|^2, dual * s) of columns 8j + 2t and 8j + 2t + 1
+        const float4 q = *reinterpret_cast<const float4*>(cw + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = acc[i >> 1][j][2 * (i & 1) + e];
+            const float yv = e ? q.z : q.x, wq = e ? q.w : q.y;
+            const float c = sqrt_approx(fmaxf(fmaf(-2.0f, v, xx[i] + yv), 0.0f));
+            if (MODE == LSE) v = fmaf(-c, a.scale, wq);
+            // a -inf dual gives 2^-inf = 0, never 0 * inf
+            else run_s[i] = fmaf(ex2(fmaf(-c, a.scale, u_r[i] + wq)), c, run_s[i]);
+          }
+      }
+      if (MODE == LSE) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float cmax = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) cmax = fmaxf(cmax, acc[i >> 1][j][2 * (i & 1) + e]);
+          cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
+          cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 2));
+          const float m_new = fmaxf(run_m[i], cmax);
+          // the TPU kernel's isfinite shift: while every logit so far is
+          // -inf, subtract 0, so 2^(-inf - 0) = 0 and never NaN
+          const float shift = m_new == -INFINITY ? 0.0f : m_new;
+          float sum = run_s[i] * ex2(run_m[i] - shift);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) sum += ex2(acc[i >> 1][j][2 * (i & 1) + e] - shift);
+          run_s[i] = sum;
+          run_m[i] = m_new;
+        }
+      }
+    }
+  }
+  // the 4 lanes of a row hold the same max and their own sums: add the
+  // sums in a fixed order, and one lane stores the row's partials
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float sum = run_s[i];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = row0 + local_row(i);
+    if (t != 0 || row >= a.n) continue;
+    const size_t at = (size_t)blockIdx.y * a.n + row;
+    if (MODE == LSE) {
+      a.part_a[at] = run_m[i];
+      a.part_b[at] = sum;
+    } else {
+      a.part_a[at] = sum;
+    }
+  }
 }
 
 // Each row's partials, merged over the splits in split order.
@@ -515,25 +813,40 @@ __global__ void merge_kernel(const float* part_a, const float* part_b, float* ou
   out[i] = (mx + log2f(s)) * LN2;
 }
 
-// The wide kernel: past d = 16, and for a general p (whose |x - y|^p loop
-// would not fit RR rows in registers)
-bool wide(int d, int p) { return d > 16 || (p != 1 && p != 2); }
+// The body that takes a reduction (the host's mirror is ops/sinkhorn_lse.py
+// `body`): NARROW at d <= 16 and p 1 or 2 (RR rows a thread in registers);
+// past d = 16 at p 2 MMA (x.y on the tensor cores); else STREAM (d walked in
+// stages on the float32 pipe, any p: its |x - y|^p loop would not fit RR
+// rows in registers). BODY_ROWS and BODY_TILE: rows a block, columns a tile.
+enum Body { NARROW = 0, MMA = 1, STREAM = 2 };
+constexpr int BODY_ROWS[] = {RR * THREADS, MMA_ROWS, WIDE_ROWS * THREADS};
+constexpr int BODY_TILE[] = {TILE, MMA_TILE, WIDE_TILE};
+Body body(int d, int p) {
+  if (d <= 16 && (p == 1 || p == 2)) return NARROW;
+  return p == 2 ? MMA : STREAM;
+}
 int padded_width(int d) { return d <= 4 ? 4 : d <= 8 ? 8 : 16; }
 
 // Shared memory of a block. Narrow: two tiles of y at the padded width, the
-// tile's (|y|^2, dual) pairs and two tiles of raw duals. Wide, at every d:
-// two stages of x's chunk for the block's rows and y's for a tile, and the
-// tile's (|y|^2, dual) pairs.
+// tile's (|y|^2, dual) pairs and two tiles of raw duals. Tensor-core body,
+// at every d: two stages of the block's rows of x and a tile's columns of y
+// at MMA_STRIDE floats a row, the tile's (|y|^2, dual) pairs and the rows'
+// |x|^2. Stream body, at every d: two stages of x's chunk for the block's
+// rows and y's for a tile, and the tile's duals.
 int smem_bytes(int d, int p, int tile) {
-  if (wide(d, p))
-    return (int)sizeof(float) *
-           (2 * WIDE_CHUNK * (WIDE_ROWS * THREADS + tile) + 2 * tile);
-  return (int)sizeof(float) * (2 * tile * padded_width(d) + 4 * tile);
+  switch (body(d, p)) {
+    case MMA:
+      return (int)sizeof(float) * (2 * (MMA_ROWS + tile) * MMA_STRIDE + 2 * tile + MMA_ROWS);
+    case STREAM:
+      return (int)sizeof(float) * (2 * WIDE_CHUNK * (BODY_ROWS[STREAM] + tile) + tile);
+    default:
+      return (int)sizeof(float) * (2 * tile * padded_width(d) + 4 * tile);
+  }
 }
 
 // The host's geometry is one these kernels take.
 bool geometry_ok(const Args& a, int splits, int smem) {
-  const int tile = wide(a.d, a.p) ? WIDE_TILE : TILE;
+  const int tile = BODY_TILE[body(a.d, a.p)];
   return a.n > 0 && a.m > 0 && a.d >= 1 && a.tile == tile &&
          smem == smem_bytes(a.d, a.p, tile) && smem <= MAX_SMEM &&
          a.cols_per_split > 0 && a.cols_per_split % COL_ALIGN == 0 && splits >= 1 &&
@@ -553,15 +866,11 @@ cudaError_t launch_grid(Kernel kernel, const Args& a, int rows, int splits, int 
 }
 
 template <int MODE, int PK>
-cudaError_t launch_width(const Args& a, int splits, int smem, cudaStream_t stream) {
-  constexpr int rows = RR * THREADS;
-  if constexpr (PK != P_GENERAL) {
-    if (a.d <= 4) return launch_grid(tile_kernel<MODE, PK, 4, RR>, a, rows, splits, smem, stream);
-    if (a.d <= 8) return launch_grid(tile_kernel<MODE, PK, 8, RR>, a, rows, splits, smem, stream);
-    if (a.d <= 16)
-      return launch_grid(tile_kernel<MODE, PK, 16, RR>, a, rows, splits, smem, stream);
-  }
-  return launch_grid(stream_kernel<MODE, PK>, a, WIDE_ROWS * THREADS, splits, smem, stream);
+cudaError_t launch_narrow(const Args& a, int splits, int smem, cudaStream_t stream) {
+  constexpr int rows = BODY_ROWS[NARROW];
+  if (a.d <= 4) return launch_grid(tile_kernel<MODE, PK, 4, RR>, a, rows, splits, smem, stream);
+  if (a.d <= 8) return launch_grid(tile_kernel<MODE, PK, 8, RR>, a, rows, splits, smem, stream);
+  return launch_grid(tile_kernel<MODE, PK, 16, RR>, a, rows, splits, smem, stream);
 }
 
 template <int MODE>
@@ -573,9 +882,20 @@ int launch(Args a, int tile, int cols_per_split, int splits, int smem, float* ou
   a.y_vec4 = a.d % 4 == 0 && reinterpret_cast<size_t>(a.y) % 16 == 0;
   if (!geometry_ok(a, splits, smem)) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  if (a.p == 2) err = launch_width<MODE, P_TWO>(a, splits, smem, stream);
-  else if (a.p == 1) err = launch_width<MODE, P_ONE>(a, splits, smem, stream);
-  else err = launch_width<MODE, P_GENERAL>(a, splits, smem, stream);
+  switch (body(a.d, a.p)) {
+    case NARROW:
+      err = a.p == 2 ? launch_narrow<MODE, P_TWO>(a, splits, smem, stream)
+                     : launch_narrow<MODE, P_ONE>(a, splits, smem, stream);
+      break;
+    case MMA:
+      err = launch_grid(mma_kernel<MODE>, a, BODY_ROWS[MMA], splits, smem, stream);
+      break;
+    default:
+      err = a.p == 1 ? launch_grid(stream_kernel<MODE, P_ONE>, a, BODY_ROWS[STREAM], splits,
+                                   smem, stream)
+                     : launch_grid(stream_kernel<MODE, P_GENERAL>, a, BODY_ROWS[STREAM],
+                                   splits, smem, stream);
+  }
   if (err != cudaSuccess) return (int)err;
   merge_kernel<MODE><<<(a.n + 255) / 256, 256, 0, stream>>>(a.part_a, a.part_b, out,
                                                             a.n, splits);

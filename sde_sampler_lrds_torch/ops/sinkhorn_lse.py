@@ -9,7 +9,8 @@ With M_ij = ‖x_i − y_j‖_p:
 On a CUDA tensor each wrapper launches the hand-written kernel
 ``csrc/sinkhorn_lse.cu`` at any d (the cost matrix never reaches device
 memory; past d 16 the kernel walks d in chunks, so its shared memory does
-not grow with d) on the geometry ``sinkhorn_geometry`` picks, and merges
+not grow with d; at p = 2 there it takes the x·y products on the tensor
+cores in 3×TF32) on the geometry ``sinkhorn_geometry`` picks, and merges
 its per-split partials in a second pass; on a CPU tensor it runs its plain
 version, which builds the cost matrix a block of rows at a time. p = 2
 uses the |x|² + |y|² − 2x·y expansion in both, as the JAX package does. A
@@ -29,14 +30,18 @@ from ._build import load_library
 
 # the kernels' geometry (csrc/sinkhorn_lse.cu): 128 threads a block; at
 # d ≤ 16 and p 1 or 2 four rows a thread in registers at a padded width of
-# 4, 8 or 16 and tiles of 128 columns, else (the wide kernel, any d) two
-# rows a thread and tiles of 32 columns, d walked 16 dimensions a stage; a
-# split's columns a multiple of 8 (the largest chunk)
+# 4, 8 or 16 and tiles of 128 columns; past d 16 at p 2 the tensor-core
+# body, 128 rows a block (4 warps of 32), tiles of 64 columns, d walked 32
+# dimensions a stage at 40 floats a staged row; else (the stream body, any
+# d) two rows a thread and tiles of 32 columns, d walked 16 dimensions a
+# stage; a split's columns a multiple of 8 (the largest chunk), of 64 (a
+# tile) in the tensor-core body
 _THREADS, _ROWS_PER_THREAD, _TILE, _COL_ALIGN = 128, 4, 128, 8
+_MMA_ROWS, _MMA_TILE, _MMA_CHUNK, _MMA_STRIDE = 128, 64, 32, 40
 _WIDE_ROWS, _WIDE_TILE, _WIDE_CHUNK = 2, 32, 16
-# resident blocks an SM the launch bounds ask for: narrow, wide at p 2, wide
-# at other p (whose compensated sums take more registers)
-_NARROW_BLOCKS, _WIDE_BLOCKS, _SUM_BLOCKS = 4, 3, 2
+# resident blocks an SM the launch bounds ask for: narrow, tensor-core body,
+# stream body (whose compensated sums take more registers)
+_NARROW_BLOCKS, _MMA_BLOCKS, _SUM_BLOCKS = 4, 2, 2
 MAX_SMEM_BYTES = 232_448        # shared memory a block may take
 _SM_SMEM_BYTES = 233_472        # an SM's, of which 1 KB is reserved a block
 # a block's fixed cost (its rows of x, the first tile's copy, the partial
@@ -48,15 +53,40 @@ _LOG2E = 1.0 / math.log(2.0)
 
 
 @dataclasses.dataclass(frozen=True)
+class _Body:
+    """One of the kernel's bodies (``body`` in the source)."""
+    rows: int       # rows a block
+    tile: int       # columns a tile
+    chunk: int      # dimensions a stage; 0: d ≤ 16 in registers at a padded width
+    align: int      # a split's columns are a multiple of this
+    blocks: int     # resident blocks an SM the launch bounds ask for
+
+
+_BODIES = {
+    "narrow": _Body(_ROWS_PER_THREAD * _THREADS, _TILE, 0, _COL_ALIGN, _NARROW_BLOCKS),
+    "mma": _Body(_MMA_ROWS, _MMA_TILE, _MMA_CHUNK, _MMA_TILE, _MMA_BLOCKS),
+    "stream": _Body(_WIDE_ROWS * _THREADS, _WIDE_TILE, _WIDE_CHUNK, _COL_ALIGN, _SUM_BLOCKS),
+}
+
+
+def body(d: int, p: int) -> str:
+    """The body that takes an (n, d) × (m, d) reduction at power p: 'narrow'
+    at d ≤ 16 and p 1 or 2; 'mma' (x·y on the tensor cores) past d 16 at p
+    2; 'stream' (d walked in stages on the float32 pipe) otherwise."""
+    if d <= 16 and p in (1, 2):
+        return "narrow"
+    return "mma" if p == 2 else "stream"
+
+
+@dataclasses.dataclass(frozen=True)
 class SinkhornGeometry:
     """A launch of the Sinkhorn kernels: ``row_blocks`` × ``splits`` blocks
-    of ``threads`` threads; block (i, k) owns rows [i·rows, (i + 1)·rows),
-    rows = rows_per_thread·threads, and columns [k·cols_per_split,
+    of ``threads`` threads; block (i, k) owns rows [i·rows_per_block,
+    (i + 1)·rows_per_block) and columns [k·cols_per_split,
     (k + 1)·cols_per_split) ∩ [0, m), staged ``tile_cols`` at a time."""
-    width: int              # padded width of a row: 4, 8, 16, or d rounded up to 16
-    wide: bool              # d walked 16 dimensions a stage, shared memory the same
-                            # at every d: past d = 16, and for p other than 1 and 2
-    rows_per_thread: int
+    body: str               # 'narrow', 'mma' or 'stream' (see ``body``)
+    width: int              # padded width of a row: 4, 8, 16, or d rounded up to a stage
+    rows_per_block: int
     threads: int
     row_blocks: int
     tile_cols: int
@@ -69,11 +99,16 @@ class SinkhornGeometry:
 def smem_bytes(d: int, p: int, tile_cols: int) -> int:
     """Shared memory of a block (mirror of ``smem_bytes`` in the source).
     Narrow: two tiles of y at the padded width, the tile's (|y|², dual)
-    pairs and two tiles of raw duals. Wide, the same at every d: two stages
-    of a 16-dimension chunk of the block's rows of x and of a tile of y, and
-    the tile's (|y|², dual) pairs."""
-    if _wide(d, p):
-        return 4 * (2 * _WIDE_CHUNK * (_WIDE_ROWS * _THREADS + tile_cols) + 2 * tile_cols)
+    pairs and two tiles of raw duals. Tensor-core body, the same at every
+    d: two stages of the block's 128 rows of x and a tile's columns of y at
+    40 floats a row, the tile's (|y|², dual) pairs and the rows' |x|².
+    Stream body, the same at every d: two stages of a 16-dimension chunk of
+    the block's rows of x and of a tile of y, and the tile's duals."""
+    kind = body(d, p)
+    if kind == "mma":
+        return 4 * (2 * (_MMA_ROWS + tile_cols) * _MMA_STRIDE + 2 * tile_cols + _MMA_ROWS)
+    if kind == "stream":
+        return 4 * (2 * _WIDE_CHUNK * (_BODIES["stream"].rows + tile_cols) + tile_cols)
     return 4 * (2 * tile_cols * _padded_width(d, p) + 4 * tile_cols)
 
 
@@ -81,13 +116,10 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _wide(d: int, p: int) -> bool:
-    return d > 16 or p not in (1, 2)
-
-
 def _padded_width(d: int, p: int) -> int:
-    if _wide(d, p):
-        return _ceil_div(d, _WIDE_CHUNK) * _WIDE_CHUNK
+    chunk = _BODIES[body(d, p)].chunk
+    if chunk:
+        return _ceil_div(d, chunk) * chunk
     return next(w for w in (4, 8, 16) if d <= w)
 
 
@@ -96,41 +128,40 @@ def sinkhorn_geometry(n: int, m: int, d: int, p: int, n_sms: int,
                       blocks_per_sm: int | None = None) -> SinkhornGeometry:
     """The kernels' geometry for an (n, d) × (m, d) reduction on a card of
     ``n_sms`` SMs. A wave is the blocks the card holds at once
-    (``blocks_per_sm`` an SM: 4, or in the wide kernel 3 at p 2 and 2 at
-    other p, fewer where shared memory binds; or the number given). Among
-    the column splits that fill w whole waves, w = 1, 2, ..., it takes the
-    one with the least waves × (columns a split + a block's fixed cost), so
-    each block walks one long range; a grid that reaches every SM comes first. At
-    8192 × 8192 × 8 on 132 SMs: 16 row blocks × 32 splits of 256 columns."""
+    (``blocks_per_sm`` an SM: the body's launch bounds, fewer where shared
+    memory binds; or the number given). Among the column splits that fill
+    w whole waves, w = 1, 2, ..., it takes the one with the least waves ×
+    (columns a split + a block's fixed cost), so each block walks one long
+    range; a grid that reaches every SM comes first. At
+    8192 × 8192 × 8 on 132 SMs: 16 row blocks × 32 splits of 256 columns;
+    at 2048 × 2048 × 196: 16 row blocks × 16 splits of 128 columns."""
     if n < 1 or m < 1 or n_sms < 1 or d < 1 or p < 1:
         raise ValueError(f"sinkhorn_geometry: n {n}, m {m}, d {d}, p {p} and n_sms {n_sms} "
                          "out of range")
-    wide = _wide(d, p)
-    rows = _WIDE_ROWS if wide else _ROWS_PER_THREAD
-    tile = _WIDE_TILE if wide else _TILE
-    smem = smem_bytes(d, p, tile)
+    kind = body(d, p)
+    spec = _BODIES[kind]
+    smem = smem_bytes(d, p, spec.tile)
     if blocks_per_sm is None:
         # the launch bounds' register budget, then shared memory
-        regs = (_WIDE_BLOCKS if p == 2 else _SUM_BLOCKS) if wide else _NARROW_BLOCKS
-        blocks_per_sm = max(1, min(regs, _SM_SMEM_BYTES // (smem + 1024)))
-    row_blocks = _ceil_div(n, rows * _THREADS)
+        blocks_per_sm = max(1, min(spec.blocks, _SM_SMEM_BYTES // (smem + 1024)))
+    row_blocks = _ceil_div(n, spec.rows)
     slots = n_sms * blocks_per_sm
-    fill = min(n_sms, row_blocks * _ceil_div(m, _COL_ALIGN))
+    fill = min(n_sms, row_blocks * _ceil_div(m, spec.align))
     best, waves, cols = None, 0, None
-    while cols != _COL_ALIGN:
+    while cols != spec.align:
         waves += 1
         max_splits = waves * slots // row_blocks
         if max_splits < 1:
             continue
-        cols = _ceil_div(_ceil_div(m, max_splits), _COL_ALIGN) * _COL_ALIGN
+        cols = _ceil_div(_ceil_div(m, max_splits), spec.align) * spec.align
         splits = _ceil_div(m, cols)
         blocks = row_blocks * splits
         key = (blocks < fill, _ceil_div(blocks, slots) * (cols + _BLOCK_OVERHEAD_COLS))
         if best is None or key < best[0]:
             best = (key, splits, cols)
     _, splits, cols = best
-    return SinkhornGeometry(_padded_width(d, p), wide, rows, _THREADS, row_blocks, tile, cols,
-                            splits, smem, blocks_per_sm)
+    return SinkhornGeometry(kind, _padded_width(d, p), spec.rows, _THREADS, row_blocks,
+                            spec.tile, cols, splits, smem, blocks_per_sm)
 
 
 def pairwise_cost(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
@@ -231,7 +262,8 @@ def lse(x: torch.Tensor, y: torch.Tensor, dual: torch.Tensor, eps: float,
         p: int = 2) -> torch.Tensor:
     """logsumexp_j[(dual_j − ‖x_i − y_j‖_p)/eps] for every row of x: (n,).
     On a CPU tensor this is ``lse_plain``; on a CUDA tensor it launches the
-    kernel (counted in ``lse.launches``) or raises."""
+    kernel (counted in ``lse.launches``, and those of the tensor-core body
+    also in ``lse.mma_launches``) or raises."""
     n, m = x.shape[0], y.shape[0]
     _check(x, y, {"dual": (dual, m)}, p, "lse")
     if x.device.type == "cpu":
@@ -254,10 +286,11 @@ def lse(x: torch.Tensor, y: torch.Tensor, dual: torch.Tensor, eps: float,
         raise RuntimeError("sinkhorn lse kernel launch failed: "
                            + lib.sinkhorn_error_string(err).decode())
     lse.launches += 1
+    lse.mma_launches += int(geom.body == "mma")
     return out
 
 
-lse.launches = 0
+lse.launches = lse.mma_launches = 0
 
 
 def transport_cost(x: torch.Tensor, y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
@@ -266,7 +299,8 @@ def transport_cost(x: torch.Tensor, y: torch.Tensor, u: torch.Tensor, v: torch.T
     tensor. The kernel writes per-row sums, summed here with ``torch.sum``
     as the JAX package sums its kernel's rows. On a CPU tensor this is
     ``transport_cost_plain``; on a CUDA tensor it launches the kernel
-    (counted in ``transport_cost.launches``) or raises."""
+    (counted in ``transport_cost.launches``, and those of the tensor-core
+    body also in ``transport_cost.mma_launches``) or raises."""
     n, m = x.shape[0], y.shape[0]
     _check(x, y, {"u": (u, n), "v": (v, m)}, p, "transport_cost")
     if x.device.type == "cpu":
@@ -286,7 +320,8 @@ def transport_cost(x: torch.Tensor, y: torch.Tensor, u: torch.Tensor, v: torch.T
         raise RuntimeError("sinkhorn transport-cost kernel launch failed: "
                            + lib.sinkhorn_error_string(err).decode())
     transport_cost.launches += 1
+    transport_cost.mma_launches += int(geom.body == "mma")
     return torch.sum(rows)
 
 
-transport_cost.launches = 0
+transport_cost.launches = transport_cost.mma_launches = 0

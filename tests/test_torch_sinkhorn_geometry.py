@@ -2,9 +2,10 @@
 (sde_sampler_lrds_torch/ops/sinkhorn_lse.py ``sinkhorn_geometry``): every
 column owned by exactly one split, every row by one row block, a grid that
 covers the card at the eval path's 8192 × 8192, shared memory within the
-card's limit and, past d 16, the same at every d (the wide kernel walks d
-in chunks, so it takes any width), the constants the CUDA source was built
-with; and the kernels'
+card's limit and, past d 16, the same at every d (the wide bodies walk d
+in chunks, so they take any width: at p 2 the tensor-core body, at other
+p the stream body), the constants the CUDA source was built with; and the
+kernels'
 fixed-order merge of per-split partials (a second pass, no thread-block
 cluster), mirrored in PyTorch from the plain versions and held against the
 JAX package's Pallas kernels in interpret mode. Pure host arithmetic: no
@@ -25,6 +26,10 @@ P_KINDS = (1, 2, 3)                    # p = 1, p = 2, a general integer p
 SHAPES = ((8192, 8192), (1000, 3000), (37, 300), (1, 1))
 SMS = 132
 WIDEST = 2048                          # the mirror loop's widths: d 1 .. WIDEST
+# the tensor-core body's shared memory at every d (csrc/sinkhorn_lse.cu
+# smem_bytes): two stages of 128 rows of x and 64 columns of y at 40 floats
+# a row, 64 (|y|², dual) pairs and 128 |x|²
+MMA_SMEM = 4 * (2 * (128 + 64) * 40 + 2 * 64 + 128)
 
 
 def _ranges(geom, m):
@@ -36,7 +41,7 @@ def _ranges(geom, m):
 @pytest.mark.parametrize("p", P_KINDS)
 def test_every_row_and_column_owned_once(p, shape):
     n, m = shape
-    wide_smem = t_ops.smem_bytes(17, 2, t_ops._WIDE_TILE)
+    wide_smem = t_ops.smem_bytes(17, 1, t_ops._WIDE_TILE)
     for d in range(1, WIDEST + 1):
         geom = t_ops.sinkhorn_geometry(n, m, d, p, SMS)
         # the splits cover every column exactly once, none of them empty
@@ -44,17 +49,35 @@ def test_every_row_and_column_owned_once(p, shape):
         np.testing.assert_array_equal(cols, np.arange(m))
         assert all(len(r) > 0 for r in _ranges(geom, m))
         assert geom.cols_per_split % 8 == 0
-        rows = geom.rows_per_thread * geom.threads
+        rows = geom.rows_per_block
         assert (geom.row_blocks - 1) * rows < n <= geom.row_blocks * rows
-        assert geom.wide == (d > 16 or p == 3) and geom.width >= d and geom.width % 4 == 0
-        assert geom.rows_per_thread == (2 if geom.wide else 4)
+        assert geom.width >= d and geom.width % 4 == 0
+        # p 2 past d 16 runs the tensor-core body (128 rows a block, 64-column
+        # tiles, whole tiles a split, d in 32-dimension stages); p 1 past d 16
+        # and p 3 at every d the stream body (256 rows, 32-column tiles, d in
+        # 16-dimension stages); else the narrow one (512 rows, 128 columns)
+        want = ("narrow" if d <= 16 and p != 3 else "mma" if p == 2 else "stream")
+        assert geom.body == want == t_ops.body(d, p)
+        assert (geom.rows_per_block, geom.tile_cols) == {
+            "narrow": (512, 128), "mma": (128, 64), "stream": (256, 32)}[geom.body]
+        if geom.body == "mma":
+            assert geom.width % 32 == 0 and geom.cols_per_split % 64 == 0
+        elif geom.body == "stream":
+            assert geom.width % 16 == 0
         assert geom.smem_bytes == t_ops.smem_bytes(d, p, geom.tile_cols)
         assert geom.smem_bytes <= t_ops.MAX_SMEM_BYTES
         # past the chunk width shared memory no longer grows with d
-        if geom.wide:
-            assert geom.smem_bytes == wide_smem
+        if geom.body != "narrow":
+            assert geom.smem_bytes == (MMA_SMEM if geom.body == "mma" else wide_smem)
         if shape == (8192, 8192):
             assert geom.row_blocks * geom.splits >= SMS
+    # the tensor-core body's geometry at the widths phase 2 and phase 7 time
+    for d in (17, 196, 784, 2048):
+        geom = t_ops.sinkhorn_geometry(n, m, d, p, SMS)
+        assert geom.body == ("mma" if p == 2 else "stream")
+        if geom.body == "mma":
+            assert (geom.rows_per_block, geom.tile_cols, geom.smem_bytes) == (128, 64, MMA_SMEM)
+            assert geom.row_blocks == -(-n // 128) and geom.blocks_per_sm == 2
 
 
 def test_main_path_geometry():
@@ -62,27 +85,37 @@ def test_main_path_geometry():
     long column ranges: 16 row blocks × 32 splits of 256 columns, 1 024
     pairs a thread (the first design: 256)."""
     geom = t_ops.sinkhorn_geometry(8192, 8192, 8, 2, SMS)
-    assert (geom.width, geom.rows_per_thread, geom.row_blocks) == (8, 4, 16)
+    assert (geom.body, geom.width, geom.rows_per_block, geom.row_blocks) == ("narrow", 8, 512, 16)
     assert (geom.cols_per_split, geom.splits, geom.blocks_per_sm) == (256, 32, 4)
     assert geom.row_blocks * geom.splits <= SMS * geom.blocks_per_sm
-    assert geom.rows_per_thread * geom.cols_per_split == 1024
+    assert geom.rows_per_block // geom.threads * geom.cols_per_split == 1024
     # the ragged shapes reach every SM too, at every width
     for d in (8, 37, 100, 224, 784, 2048):
         g = t_ops.sinkhorn_geometry(1000, 3000, d, 2, SMS)
         assert g.row_blocks * g.splits >= SMS - 4
+    # MNIST's 2048 × 2048 past d 16 (the tensor-core body): one wave of 16
+    # row blocks × 16 splits of two 64-column tiles, 2 blocks an SM on most SMs
+    for d in (196, 784, 2048):
+        g = t_ops.sinkhorn_geometry(2048, 2048, d, 2, SMS)
+        assert (g.row_blocks, g.splits, g.cols_per_split, g.blocks_per_sm) == (16, 16, 128, 2)
 
 
 def test_geometry_refuses_what_the_kernels_do_not_take():
     for args in ((0, 5, 8, 2), (5, 0, 8, 2), (5, 5, 0, 2), (5, 5, 8, 0)):
         with pytest.raises(ValueError):
             t_ops.sinkhorn_geometry(*args, SMS)
-    # no width limit: past the first design's d 224 the wide kernel takes
-    # the reduction on the same shared memory as at d 17
+    # no width limit: past the first design's d 224 the wide bodies take
+    # the reduction on the same shared memory as at d 17 (at p 2 the
+    # tensor-core body, whose splits are whole 64-column tiles)
     for d in (225, 4096):
         geom = t_ops.sinkhorn_geometry(5, 5, d, 2, SMS)
-        assert geom.wide and geom.width == -(-d // 16) * 16
-        assert (geom.row_blocks, geom.splits, geom.cols_per_split) == (1, 1, 8)
+        assert geom.body == "mma" and geom.width == -(-d // 32) * 32
+        assert (geom.row_blocks, geom.splits, geom.cols_per_split) == (1, 1, 64)
         assert geom.smem_bytes == t_ops.smem_bytes(17, 2, geom.tile_cols) <= t_ops.MAX_SMEM_BYTES
+        geom = t_ops.sinkhorn_geometry(5, 5, d, 1, SMS)
+        assert geom.body == "stream" and geom.width == -(-d // 16) * 16
+        assert (geom.row_blocks, geom.splits, geom.cols_per_split) == (1, 1, 8)
+        assert geom.smem_bytes == t_ops.smem_bytes(17, 1, geom.tile_cols) <= t_ops.MAX_SMEM_BYTES
 
 
 def test_geometry_constants_match_source():
@@ -98,17 +131,37 @@ def test_geometry_constants_match_source():
     assert const("WIDE_ROWS") == t_ops._WIDE_ROWS
     assert const("WIDE_TILE") == t_ops._WIDE_TILE
     assert const("WIDE_CHUNK") == t_ops._WIDE_CHUNK
+    assert const("MMA_ROWS") == t_ops._MMA_ROWS == 128
+    assert const("MMA_TILE") == t_ops._MMA_TILE == 64
+    assert const("MMA_CHUNK") == t_ops._MMA_CHUNK == 32
+    assert const("MMA_STRIDE") == t_ops._MMA_STRIDE == 40
     assert const("COL_ALIGN") == t_ops._COL_ALIGN
     assert const("MAX_SMEM") == t_ops.MAX_SMEM_BYTES
-    # resident blocks the launch bounds ask for: the wide kernel 3 at p 2
-    # and 2 at other p (its compensated sums), else 4
-    assert const("WIDE_BLOCKS") == t_ops._WIDE_BLOCKS == 3
+    # resident blocks the launch bounds ask for: the tensor-core body 2 (its
+    # stage accumulators beside S), the stream body 2 (its compensated
+    # sums), the narrow one 4
+    assert const("MMA_BLOCKS") == t_ops._MMA_BLOCKS == 2
     assert const("SUM_BLOCKS") == t_ops._SUM_BLOCKS == 2
     assert const("NARROW_BLOCKS") == t_ops._NARROW_BLOCKS == 4
-    assert "PK == P_TWO ? WIDE_BLOCKS : SUM_BLOCKS" in src
-    for d, p, want in ((8, 2, 4), (8, 1, 4), (8, 3, 2), (37, 2, 3), (37, 1, 2), (224, 2, 3),
-                       (2048, 2, 3), (2048, 1, 2)):
+    assert "__launch_bounds__(THREADS, MMA_BLOCKS)\nmma_kernel(Args a)" in src
+    assert "__launch_bounds__(THREADS, SUM_BLOCKS)\nstream_kernel(Args a)" in src
+    # one table of the bodies on each side, in the source's Body order
+    assert "constexpr int BODY_ROWS[] = {RR * THREADS, MMA_ROWS, WIDE_ROWS * THREADS};" in src
+    assert "constexpr int BODY_TILE[] = {TILE, MMA_TILE, WIDE_TILE};" in src
+    assert "enum Body { NARROW = 0, MMA = 1, STREAM = 2 };" in src
+    assert [(k, b.rows, b.tile) for k, b in t_ops._BODIES.items()] == [
+        ("narrow", 4 * 128, 128), ("mma", 128, 64), ("stream", 2 * 128, 32)]
+    # 4 warps of 32 rows, 2 m-tiles of 16 a warp
+    assert t_ops._MMA_ROWS == 4 * 32 == t_ops._THREADS
+    for d, p, want in ((8, 2, 4), (8, 1, 4), (8, 3, 2), (37, 2, 2), (37, 1, 2), (224, 2, 2),
+                       (2048, 2, 2), (2048, 1, 2), (17, 2, 2), (196, 2, 2), (784, 2, 2),
+                       (784, 3, 2)):
         assert t_ops.sinkhorn_geometry(64, 64, d, p, SMS).blocks_per_sm == want
+    # shared memory: the tensor-core body's at every d past 16 at p 2, and a
+    # resident-block count the SM's shared memory allows
+    for d in (17, 196, 784, 2048):
+        assert t_ops.smem_bytes(d, 2, t_ops._MMA_TILE) == MMA_SMEM == 62_464
+    assert 2 * (MMA_SMEM + 1024) <= t_ops._SM_SMEM_BYTES
 
 
 # ---------------------------------------------------------------------------
