@@ -14,7 +14,8 @@ plots and profiling):
   utils/     time grids (uniform and log-SNR), Results, masked statistics,
              device resolution, diagonal and full-covariance GMM fitting by EM,
              a reader of the JAX package's Flax msgpack files, the profiling
-             hooks (a torch.profiler trace, regions, a call's flops)
+             hooks (a torch.profiler trace, the regions of a pass and a
+             step, the count of device-to-host reads)
   parallel/  the data-parallel mesh: an ordered list of devices (a device
              may repeat), batch splits and replicas
   targets/   Target base, Gaussian / GMM (and its presets) / GMMFull /

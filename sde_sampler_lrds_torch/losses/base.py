@@ -13,6 +13,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..utils.common import Results, masked_mean, masked_var
+from ..utils.profiling import host_read
 
 
 def flat_ctrl_eval(ctrl: Callable, t_grid: torch.Tensor, xs: torch.Tensor,
@@ -42,26 +43,28 @@ def compute_results(rnd: torch.Tensor, compute_weights: bool = False,
     """Metrics from the density log-ratio: elbo = E[-rnd]; IS weights =
     softmax(-rnd); log_norm_const_is = logsumexp(-rnd) - log N. With
     ``max_rnd``, the ``_filtered`` variants also report the bound over
-    trajectories with finite rnd < max_rnd."""
+    trajectories with finite rnd < max_rnd. Each number is read through
+    ``host_read``: 7 reads with ``max_rnd`` and the weights (6 when no
+    trajectory is kept)."""
     neg = -rnd
-    metrics = {"eval/elbo": float(neg.mean())}
+    metrics = {"eval/elbo": host_read(neg.mean())}
     if max_rnd is not None:
         keep = torch.isfinite(rnd) & (rnd < max_rnd)
         n_keep = torch.clamp(keep.sum(), min=1)
         neg_safe = torch.where(keep, neg, torch.zeros_like(neg))
-        metrics["eval/elbo_filtered"] = float(
-            neg_safe.sum() / n_keep if bool(keep.any()) else math.nan)
-        metrics["eval/filtered_frac"] = float(1.0 - keep.sum() / rnd.shape[0])
-        metrics["eval/log_norm_const_is_filtered"] = float(
+        metrics["eval/elbo_filtered"] = (
+            host_read(neg_safe.sum() / n_keep) if host_read(keep.any()) else math.nan)
+        metrics["eval/filtered_frac"] = host_read(1.0 - keep.sum() / rnd.shape[0])
+        metrics["eval/log_norm_const_is_filtered"] = host_read(
             torch.logsumexp(torch.where(keep, neg, torch.full_like(neg, -math.inf)), 0)
             - torch.log(n_keep.to(neg.dtype)))
     log_norm_const_preds = {}
     weights = None
     if compute_weights:
         weights = torch.softmax(neg, dim=0)
-        log_norm_const_preds["log_norm_const_is"] = float(
+        log_norm_const_preds["log_norm_const_is"] = host_read(
             torch.logsumexp(neg, 0) - math.log(neg.shape[0]))
-        metrics["eval/lv_loss"] = float(rnd.var(correction=1))
+        metrics["eval/lv_loss"] = host_read(rnd.var(correction=1))
     return Results(samples=samples, weights=weights, rnd=rnd,
                    log_norm_const_preds=log_norm_const_preds,
                    ts=ts, xs=xs, metrics=metrics)

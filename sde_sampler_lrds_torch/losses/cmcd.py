@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
 from .base import BaseOCLoss, compute_results, flat_ctrl_eval
 from .rds import _step_noise
 
@@ -89,24 +90,25 @@ class ControlledLangevinSDELoss(BaseOCLoss):
         (the solver's graph of ``flat_states``; the fused trajectory does
         not cover the Langevin step)."""
         x, zs = self._flat_lv_setup(generator, ts, x, noise=noise)
-        with torch.no_grad():
+        with torch.no_grad(), annotate("lrds.step.simulate"):
             xs, x_t = (traj_fn(x, zs) if traj_fn is not None else self.flat_states(
                 ts, x, ctrl, zs, terminal_unnorm_log_prob, initial_log_prob))
             xs_all = torch.cat([xs, x_t[None]])
-        sde_diff = self.sde.diff_coeff
-        dt = (ts[1:] - ts[:-1])[:, None]                              # (K, 1)
-        db = torch.sqrt(dt)[..., None] * zs                           # (K, B, D)
-        u_all = self._rescale(flat_ctrl_eval(ctrl, ts, xs_all), sde_diff)
-        drift_all = self.sde.drift(ts[:, None, None], xs_all)          # (K+1, B, D)
-        u_s, u_t = u_all[:-1], u_all[1:]
-        cost = (drift_all[:-1] + drift_all[1:]) / sde_diff + u_s - u_t
-        u_bar = u_s.detach()
-        steps = (0.5 * torch.sum(cost**2, dim=-1) * dt
-                 + torch.sum(cost * (u_bar - u_s), dim=-1) * dt
-                 + torch.sum(cost * db, dim=-1))                      # (K, B)
-        rnd = (initial_log_prob(xs_all[0]) + torch.sum(steps, dim=0)
-               - terminal_unnorm_log_prob(xs_all[-1]))
-        return self.reduce(rnd, samples=xs_all[-1])
+        with annotate("lrds.step.ctrl_eval"):
+            sde_diff = self.sde.diff_coeff
+            dt = (ts[1:] - ts[:-1])[:, None]                          # (K, 1)
+            db = torch.sqrt(dt)[..., None] * zs                       # (K, B, D)
+            u_all = self._rescale(flat_ctrl_eval(ctrl, ts, xs_all), sde_diff)
+            drift_all = self.sde.drift(ts[:, None, None], xs_all)      # (K+1, B, D)
+            u_s, u_t = u_all[:-1], u_all[1:]
+            cost = (drift_all[:-1] + drift_all[1:]) / sde_diff + u_s - u_t
+            u_bar = u_s.detach()
+            steps = (0.5 * torch.sum(cost**2, dim=-1) * dt
+                     + torch.sum(cost * (u_bar - u_s), dim=-1) * dt
+                     + torch.sum(cost * db, dim=-1))                  # (K, B)
+            rnd = (initial_log_prob(xs_all[0]) + torch.sum(steps, dim=0)
+                   - terminal_unnorm_log_prob(xs_all[-1]))
+            return self.reduce(rnd, samples=xs_all[-1])
 
     @torch.no_grad()
     def eval(self, generator, ts, x, ctrl, terminal_unnorm_log_prob, initial_log_prob=None,

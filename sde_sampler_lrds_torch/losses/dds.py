@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
 from .base import BaseOCLoss, compute_results, flat_ctrl_eval
 from .rds import _step_noise
 
@@ -77,16 +78,18 @@ class ExponentialIntegratorSDELoss(BaseOCLoss):
         ``flat_states``) plus one batched control evaluation carrying the
         cost β²σ²·u·(ū − ½u) + σβ·u·ε."""
         x, zs = self._flat_lv_setup(generator, ts, x, noise=noise)
-        with torch.no_grad():
+        with torch.no_grad(), annotate("lrds.step.simulate"):
             xs, x_t = (traj_fn(x, zs) if traj_fn is not None else self.flat_states(
                 ts, x, ctrl, zs, terminal_unnorm_log_prob, reference_log_prob))
-        beta = self._beta(ts)[:, None]                                # (K, 1)
-        u = flat_ctrl_eval(ctrl, ts[:-1], xs)                         # (K, B, D)
-        u_bar = u.detach()
-        steps = (beta**2 * self.sigma**2 * torch.sum(u * (u_bar - 0.5 * u), dim=-1)
-                 + self.sigma * beta * torch.sum(u * zs, dim=-1))
-        rnd = torch.sum(steps, dim=0) + reference_log_prob(x_t) - terminal_unnorm_log_prob(x_t)
-        return self.reduce(rnd, samples=x_t)
+        with annotate("lrds.step.ctrl_eval"):
+            beta = self._beta(ts)[:, None]                            # (K, 1)
+            u = flat_ctrl_eval(ctrl, ts[:-1], xs)                     # (K, B, D)
+            u_bar = u.detach()
+            steps = (beta**2 * self.sigma**2 * torch.sum(u * (u_bar - 0.5 * u), dim=-1)
+                     + self.sigma * beta * torch.sum(u * zs, dim=-1))
+            rnd = (torch.sum(steps, dim=0) + reference_log_prob(x_t)
+                   - terminal_unnorm_log_prob(x_t))
+            return self.reduce(rnd, samples=x_t)
 
     # -- fused KL training path (see losses/rds.py kl_fused_call) ----------
     @property
@@ -107,7 +110,8 @@ class ExponentialIntegratorSDELoss(BaseOCLoss):
         x = self.repeat_traj(x)
         zs = noise if noise is not None else torch.randn(
             (ts.shape[0] - 1, *x.shape), generator=generator, device=x.device)
-        x_t, rnd = traj_rnd_fn(x, zs)
+        with annotate("lrds.step.simulate"):
+            x_t, rnd = traj_rnd_fn(x, zs)
         rnd = rnd + reference_log_prob(x_t) - terminal_unnorm_log_prob(x_t)
         return self.reduce(rnd, samples=x_t)
 

@@ -17,6 +17,7 @@ from typing import Callable
 import torch
 
 from ..utils.autograd import compute_divx
+from ..utils.profiling import annotate
 from .base import BaseOCLoss, compute_results, flat_ctrl_eval
 from .rds import _step_noise
 
@@ -84,16 +85,17 @@ class DiscreteTimeReversalLossEI(BaseOCLoss):
         ``flat_states``) plus one batched control evaluation carrying the
         cost ω·u·(ū − ½u) + √ω·u·z."""
         x, zs = self._flat_lv_setup(generator, ts, x, noise=noise)
-        with torch.no_grad():
+        with torch.no_grad(), annotate("lrds.step.simulate"):
             xs, x_t = (traj_fn(x, zs) if traj_fn is not None else self.flat_states(
                 ts, x, ctrl, zs, terminal_unnorm_log_prob, initial_log_prob))
-        omega = self.sde.omega(ts[:-1], ts[1:])[:, None]              # (K, 1)
-        u = flat_ctrl_eval(ctrl, ts[-1] - ts[:-1], xs)                # (K, B, D)
-        u_bar = u.detach()
-        steps = (omega * torch.sum(u * (u_bar - 0.5 * u), dim=-1)
-                 + torch.sqrt(omega) * torch.sum(u * zs, dim=-1))      # (K, B)
-        rnd = initial_log_prob(x) + torch.sum(steps, dim=0) - terminal_unnorm_log_prob(x_t)
-        return self.reduce(rnd, samples=x_t)
+        with annotate("lrds.step.ctrl_eval"):
+            omega = self.sde.omega(ts[:-1], ts[1:])[:, None]          # (K, 1)
+            u = flat_ctrl_eval(ctrl, ts[-1] - ts[:-1], xs)            # (K, B, D)
+            u_bar = u.detach()
+            steps = (omega * torch.sum(u * (u_bar - 0.5 * u), dim=-1)
+                     + torch.sqrt(omega) * torch.sum(u * zs, dim=-1))  # (K, B)
+            rnd = initial_log_prob(x) + torch.sum(steps, dim=0) - terminal_unnorm_log_prob(x_t)
+            return self.reduce(rnd, samples=x_t)
 
     # -- fused KL training path (see losses/rds.py kl_fused_call) ----------
     def supports_fused_kl(self, ts, call_args: frozenset) -> bool:
@@ -109,7 +111,8 @@ class DiscreteTimeReversalLossEI(BaseOCLoss):
         x = self.repeat_traj(x)
         zs = noise if noise is not None else torch.randn(
             (ts.shape[0] - 1, *x.shape), generator=generator, device=x.device)
-        x_t, rnd = traj_rnd_fn(x, zs)
+        with annotate("lrds.step.simulate"):
+            x_t, rnd = traj_rnd_fn(x, zs)
         return self.reduce(rnd - terminal_unnorm_log_prob(x_t), samples=x_t)
 
     @torch.no_grad()
@@ -242,18 +245,19 @@ class TimeReversalLoss(BaseOCLoss):
             raise ValueError("lv_flat_call does not support a learned "
                              "inference control (live divergence term)")
         x, zs = self._flat_lv_setup(generator, ts, x, noise=noise)
-        with torch.no_grad():
+        with torch.no_grad(), annotate("lrds.step.simulate"):
             xs, x_t = (traj_fn(x, zs) if traj_fn is not None else self.flat_states(
                 ts, x, ctrl, zs, terminal_unnorm_log_prob, initial_log_prob))
             xs_all = torch.cat([xs, x_t[None]])
-        dt = (ts[1:] - ts[:-1])[:, None]                              # (K, 1)
-        u = flat_ctrl_eval(ctrl, ts[:-1], xs_all[:-1])                # (K, B, D)
-        u_bar = u.detach()
-        steps = (dt * torch.sum(u * (u_bar - 0.5 * u), dim=-1)
-                 + torch.sqrt(dt) * torch.sum(u * zs, dim=-1))         # (K, B)
-        rnd = (initial_log_prob(xs_all[0]) + torch.sum(steps, dim=0)
-               - terminal_unnorm_log_prob(xs_all[-1]))
-        return self.reduce(rnd, samples=xs_all[-1])
+        with annotate("lrds.step.ctrl_eval"):
+            dt = (ts[1:] - ts[:-1])[:, None]                          # (K, 1)
+            u = flat_ctrl_eval(ctrl, ts[:-1], xs_all[:-1])            # (K, B, D)
+            u_bar = u.detach()
+            steps = (dt * torch.sum(u * (u_bar - 0.5 * u), dim=-1)
+                     + torch.sqrt(dt) * torch.sum(u * zs, dim=-1))     # (K, B)
+            rnd = (initial_log_prob(xs_all[0]) + torch.sum(steps, dim=0)
+                   - terminal_unnorm_log_prob(xs_all[-1]))
+            return self.reduce(rnd, samples=xs_all[-1])
 
     def eval(self, generator, ts, x, ctrl, terminal_unnorm_log_prob, initial_log_prob=None,
              compute_weights: bool = True, return_traj: bool = True,

@@ -18,6 +18,7 @@ from typing import Callable
 
 import torch
 
+from ..utils.profiling import annotate
 from .base import BaseOCLoss, compute_results, flat_ctrl_eval
 
 
@@ -129,16 +130,17 @@ class EMReferenceSDELoss(BaseOCLoss):
             raise ValueError("the flat LV path needs a linear SDE")
         c_cost, c_dot, u_scale = grids
         x, zs = self._flat_lv_setup(generator, ts, x, noise=noise)
-        with torch.no_grad():
+        with torch.no_grad(), annotate("lrds.step.simulate"):
             xs, x_t = (traj_fn(x, zs) if traj_fn is not None else self.flat_states(
                 ts, x, ctrl, zs, terminal_unnorm_log_prob, reference_log_prob))
-        u = flat_ctrl_eval(ctrl, ts[-1] - ts[:-1], xs) * u_scale[:, None, None]
-        u_bar = u.detach()
-        cost = torch.sum(u * (u_bar - 0.5 * u), dim=-1)               # (K, B)
-        ito = torch.sum(u * zs, dim=-1)                               # (K, B)
-        rnd = torch.sum(c_cost[:, None] * cost + c_dot[:, None] * ito, dim=0)
-        rnd = rnd + reference_log_prob(x_t) - terminal_unnorm_log_prob(x_t)
-        return self.reduce(rnd, samples=x_t)
+        with annotate("lrds.step.ctrl_eval"):
+            u = flat_ctrl_eval(ctrl, ts[-1] - ts[:-1], xs) * u_scale[:, None, None]
+            u_bar = u.detach()
+            cost = torch.sum(u * (u_bar - 0.5 * u), dim=-1)           # (K, B)
+            ito = torch.sum(u * zs, dim=-1)                           # (K, B)
+            rnd = torch.sum(c_cost[:, None] * cost + c_dot[:, None] * ito, dim=0)
+            rnd = rnd + reference_log_prob(x_t) - terminal_unnorm_log_prob(x_t)
+            return self.reduce(rnd, samples=x_t)
 
     # -- fused KL training path ---------------------------------------------
     def supports_fused_kl(self, ts, call_args: frozenset) -> bool:
@@ -161,7 +163,8 @@ class EMReferenceSDELoss(BaseOCLoss):
         x = self.repeat_traj(x)
         zs = noise if noise is not None else torch.randn(
             (ts.shape[0] - 1, *x.shape), generator=generator, device=x.device)
-        x_t, rnd = traj_rnd_fn(x, zs)
+        with annotate("lrds.step.simulate"):
+            x_t, rnd = traj_rnd_fn(x, zs)
         rnd = rnd + reference_log_prob(x_t) - terminal_unnorm_log_prob(x_t)
         return self.reduce(rnd, samples=x_t)
 

@@ -71,6 +71,7 @@ import torch
 
 from ..parallel.mesh import Mesh, replicate, shard_batch
 from ..utils.common import derive_generator
+from ..utils.profiling import host_read
 from ._build import load_library
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -752,7 +753,7 @@ def fused_traj(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
     """All K steps for every row of x0: (x_T, rnd, xs or None). On a CPU
     tensor this is ``fused_traj_plain``; on a CUDA tensor it launches the
     kernel (with its noise drawn in the kernel from a seed taken from
-    ``generator`` when ``noise`` is None) or raises."""
+    ``generator`` when ``noise`` is None, a ``host_read``) or raises."""
     if x0.device.type == "cpu":
         return fused_traj_plain(cfg, arrays, x0, noise=noise,
                                 generator=generator, return_traj=return_traj)
@@ -763,8 +764,8 @@ def fused_traj(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
         if generator is None:
             raise ValueError("fused_traj draws its noise from a seed: pass a "
                              "generator or feed noise")
-        seed = int(torch.randint(0, 2**62, (1,), generator=generator,
-                                 device=generator.device))
+        seed = host_read(torch.randint(0, 2**62, (1,), generator=generator,
+                                       device=generator.device))
     return launch(cfg, arrays, x0, noise, seed, return_traj)
 
 

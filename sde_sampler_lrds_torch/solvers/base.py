@@ -29,6 +29,7 @@ import torch
 
 from ..parallel.mesh import Mesh, get_mesh
 from ..utils.common import Results, derive_generator, resolve_device
+from ..utils.profiling import annotate, host_read
 
 CKPT_DIR = "ckpt"
 
@@ -205,41 +206,49 @@ class Trainable:
         return self.ema_module if (use_ema and self.cfg.use_ema) else self.module
 
     def _one_step(self, generator, **fed) -> dict:
+        """One optimizer step in the region ``lrds.step`` and its children
+        (``utils/profiling.py``); its host reads: the guard's, and the
+        gradient norm's where ``grad_clip`` is set and the guard passes."""
         cfg = self.cfg
         opt = self.optimizer
         opt.zero_grad(set_to_none=True)
-        loss, metrics = self.loss_fn(generator, **fed)
-        if cfg.scale_loss is not None:
-            loss = loss * cfg.scale_loss
-        loss.backward()
-        params = [p for p in self.module.parameters() if p.grad is not None]
-        gnorm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
-        # finite / magnitude guards: a failing step leaves parameters and
-        # optimizer state untouched and counts as skipped
-        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
-        if cfg.max_loss is not None:
-            ok &= torch.abs(loss) < cfg.max_loss
-        if cfg.max_grad is not None:
-            ok &= gnorm < cfg.max_grad
-        if bool(ok):
-            if cfg.grad_clip is not None and float(gnorm) >= cfg.grad_clip:
-                # optax.clip_by_global_norm: g · max_norm / ‖g‖ when ‖g‖ ≥ max_norm
-                scale = cfg.grad_clip / gnorm
-                for p in params:
-                    p.grad.mul_(scale)
-            if cfg.lr_schedule is not None:
-                # indexed by the accepted steps, as optax's schedule count,
-                # which a skipped step leaves where it was
-                accepted = self.step_count - self.n_skipped
-                for group in opt.param_groups:
-                    group["lr"] = float(cfg.lr_schedule(accepted))
-            opt.step()
+        with annotate("lrds.step.loss"):
+            loss, metrics = self.loss_fn(generator, **fed)
+            if cfg.scale_loss is not None:
+                loss = loss * cfg.scale_loss
+        with annotate("lrds.step.backward"):
+            loss.backward()
+        with annotate("lrds.step.guard"):
+            params = [p for p in self.module.parameters() if p.grad is not None]
+            gnorm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
+            # finite / magnitude guards: a failing step leaves parameters and
+            # optimizer state untouched and counts as skipped
+            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+            if cfg.max_loss is not None:
+                ok &= torch.abs(loss) < cfg.max_loss
+            if cfg.max_grad is not None:
+                ok &= gnorm < cfg.max_grad
+            ok = host_read(ok)
+        if ok:
+            with annotate("lrds.step.update"):
+                if cfg.grad_clip is not None and host_read(gnorm) >= cfg.grad_clip:
+                    # optax.clip_by_global_norm: g · max_norm / ‖g‖ when ‖g‖ ≥ max_norm
+                    scale = cfg.grad_clip / gnorm
+                    for p in params:
+                        p.grad.mul_(scale)
+                if cfg.lr_schedule is not None:
+                    # indexed by the accepted steps, as optax's schedule count,
+                    # which a skipped step leaves where it was
+                    accepted = self.step_count - self.n_skipped
+                    for group in opt.param_groups:
+                        group["lr"] = float(cfg.lr_schedule(accepted))
+                opt.step()
         else:
             self.n_skipped += 1
         if cfg.use_ema:
             d = cfg.ema_decay
-            with torch.no_grad():
+            with torch.no_grad(), annotate("lrds.step.ema"):
                 for e, p in zip(self.ema_module.parameters(), self.module.parameters()):
                     e.mul_(d).add_(p.detach(), alpha=1.0 - d)
         self.step_count += 1
@@ -250,7 +259,8 @@ class Trainable:
         ``fed`` inputs (e.g. ``x0`` and ``noise``) replace the step's draws."""
         metrics = {}
         for _ in range(max(self.cfg.steps_per_call, 1)):
-            metrics = self._one_step(generator, **fed)
+            with annotate("lrds.step"):
+                metrics = self._one_step(generator, **fed)
         return metrics
 
     def run(self, eval_fn: Callable | None = None) -> dict:

@@ -56,6 +56,7 @@ from ..targets.delta import Delta
 from ..targets.gauss import (Gauss, GaussFull, score_gauss, score_gauss_full, score_mog,
                              score_mog_full)
 from ..utils.common import Results, clip_norm
+from ..utils.profiling import annotate
 from .base import Trainable, TrainConfig
 
 _CALL_ARGS = {"terminal_unnorm_log_prob", "reference_log_prob", "initial_log_prob"}
@@ -134,10 +135,13 @@ class TrainableDiff(Trainable):
         x = constrain_batch(x, self.mesh)
         ctrl = self.train_ctrl()
         if self._flat_lv_ok():
+            with annotate("lrds.step.plan"):
+                traj_fn = self._flat_traj_fn()
             return self.loss.lv_flat_call(
                 generator, self.train_ts, x, ctrl,
-                traj_fn=self._flat_traj_fn(), noise=noise, **self.loss_call_args())
-        kl_fn = self._fused_kl_fn()
+                traj_fn=traj_fn, noise=noise, **self.loss_call_args())
+        with annotate("lrds.step.plan"):
+            kl_fn = self._fused_kl_fn()
         if kl_fn is not None:
             return self.loss.kl_fused_call(
                 generator, self.train_ts, x, ctrl,
@@ -267,20 +271,28 @@ class TrainableDiff(Trainable):
         """Evaluation pass over ``eval_batch_size`` prior draws. Without
         trajectories and in the kernel's scope it runs the fused trajectory
         (kernel noise on the card; once a shard on a mesh of several
-        devices); otherwise the loss's own loop."""
-        plan = None if return_traj else self._fused_eval_plan(use_ema, ito=compute_weights)
-        x = constrain_batch(self.prior.sample(generator, (self.cfg.eval_batch_size,)),
-                            self.mesh)
-        if plan is not None:
-            cfg, arrays = plan
-            samples, rnd = self._fused_simulate(cfg, arrays, generator, x,
-                                                **self.loss_call_args(use_ema))
-            return compute_results(rnd, compute_weights=compute_weights,
-                                   ts=self.eval_ts, max_rnd=self.loss.max_rnd,
-                                   samples=samples)
-        return self.loss.eval(generator, self.eval_ts, x, self.eval_ctrl(use_ema),
-                              compute_weights=compute_weights, return_traj=return_traj,
-                              **self.loss_call_args(use_ema), **self._eval_kwargs(use_ema))
+        devices); otherwise the loss's own loop. The pass is the region
+        ``lrds.eval`` with its children (``utils/profiling.py``)."""
+        with annotate("lrds.eval"):
+            with annotate("lrds.eval.plan"):
+                plan = None if return_traj else self._fused_eval_plan(use_ema,
+                                                                      ito=compute_weights)
+            with annotate("lrds.eval.prior"):
+                x = constrain_batch(self.prior.sample(generator, (self.cfg.eval_batch_size,)),
+                                    self.mesh)
+            with annotate("lrds.eval.simulate"):
+                if plan is None:
+                    return self.loss.eval(
+                        generator, self.eval_ts, x, self.eval_ctrl(use_ema),
+                        compute_weights=compute_weights, return_traj=return_traj,
+                        **self.loss_call_args(use_ema), **self._eval_kwargs(use_ema))
+                cfg, arrays = plan
+                samples, rnd = self._fused_simulate(cfg, arrays, generator, x,
+                                                    **self.loss_call_args(use_ema))
+            with annotate("lrds.eval.results"):
+                return compute_results(rnd, compute_weights=compute_weights,
+                                       ts=self.eval_ts, max_rnd=self.loss.max_rnd,
+                                       samples=samples)
 
     def _fused_simulate(self, cfg, arrays, generator, x, **args):
         """``fused_simulate``, once a shard on a mesh of several devices."""
@@ -355,20 +367,26 @@ class GraphedCall:
     parameters, the time grid) are read by address at every replay. A score
     that ``fn`` takes by autograd inside is captured with its backward pass
     (bitwise equal to the eager call with cuDNN off; cuDNN's convolution
-    backward is not bitwise repeatable, in eager calls either)."""
+    backward is not bitwise repeatable, in eager calls either). Each
+    capture, in the region ``lrds.graph.capture``, counts in
+    ``GraphedCall.captures``."""
+
+    captures = 0
 
     def __init__(self, fn, x0: torch.Tensor, zs: torch.Tensor):
+        GraphedCall.captures += 1
         self.x0, self.zs = x0.detach().clone(), zs.detach().clone()
-        stream = torch.cuda.current_stream(x0.device)
-        side = torch.cuda.Stream(x0.device)
-        side.wait_stream(stream)
-        with torch.no_grad(), torch.cuda.stream(side):
-            for _ in range(2):
-                fn(self.x0, self.zs)
-        stream.wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(self.graph):
-            self.out = fn(self.x0, self.zs)
+        with annotate("lrds.graph.capture"):
+            stream = torch.cuda.current_stream(x0.device)
+            side = torch.cuda.Stream(x0.device)
+            side.wait_stream(stream)
+            with torch.no_grad(), torch.cuda.stream(side):
+                for _ in range(2):
+                    fn(self.x0, self.zs)
+            stream.wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.no_grad(), torch.cuda.graph(self.graph):
+                self.out = fn(self.x0, self.zs)
 
     def __call__(self, x0: torch.Tensor, zs: torch.Tensor):
         self.x0.copy_(x0)

@@ -1,12 +1,36 @@
 """Profiling and tracing hooks (counterpart of
 sde_sampler_lrds_tpu/utils/profiling.py): a ``torch.profiler`` trace of the
-host and the card around any block, named regions in it, the cost of one
-call of a function, and the wall-clock step timer of the training loop.
+host and the card around any block, named regions in it, and the counter of
+the device-to-host reads of an evaluation pass and a training step.
+
+The port's own regions (``annotate``), nested on the host, one pass or step
+at a time:
+
+  lrds.eval            TrainableDiff.evaluate, the whole pass
+    lrds.eval.plan       the fused trajectory's plan (build_plan)
+    lrds.eval.prior      the prior draw
+    lrds.eval.simulate   the fused trajectory with its seed read and the
+                         boundary log-densities, or the loss's eval
+    lrds.eval.results    compute_results
+  lrds.step            Trainable._one_step
+    lrds.step.loss       loss_fn
+      lrds.step.plan       the fused trajectory's plan of the flat LV or
+                           fused KL path
+      lrds.step.simulate   the flat LV path's gradient-free simulation (the
+                           fused trajectory or the CUDA graph's replay), or
+                           the fused KL trajectory
+      lrds.step.ctrl_eval  flat_ctrl_eval, the cost and the reduction
+    lrds.step.backward   loss.backward()
+    lrds.step.guard      the finite and magnitude guard and its host read
+    lrds.step.update     the clip, the learning rate and the optimizer step
+    lrds.step.ema        the EMA update
+  lrds.graph.capture   GraphedCall capturing the simulation
+
+A region costs a check of whether a profiler records when none does.
 """
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
 
 import torch
@@ -34,46 +58,21 @@ def trace(log_dir: str | Path, enabled: bool = True):
 
 @contextlib.contextmanager
 def annotate(name: str):
-    """A named region in the trace (``record_function``)."""
+    """A named region in the trace (``record_function``, category
+    ``user_annotation``), entered only while a profiler records."""
+    if not torch.autograd._profiler_enabled():
+        yield
+        return
     with torch.profiler.record_function(name):
         yield
 
 
-def compiled_cost(fn, *args, **kwargs) -> dict:
-    """The cost of one call ``fn(*args, **kwargs)``, under the JAX package's
-    keys: ``flops`` counted by ``torch.utils.flop_counter.FlopCounterMode``
-    (the operators it knows: matrix products, convolutions, attention),
-    ``bytes_accessed`` NaN (no counter of it), and ``memory_mb`` the peak
-    device memory the call allocated beyond what was allocated before it,
-    in MiB (NaN when no argument is on a card). The hand-written kernels
-    (``ops/``) count no flops, as a ``pallas_call`` without a cost estimate
-    counts none in XLA's analysis."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    tensors = [a for a in (*args, *kwargs.values()) if isinstance(a, torch.Tensor)]
-    device = next((t.device for t in tensors if t.device.type == "cuda"), None)
-    if device is not None:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
-        before = torch.cuda.memory_allocated(device)
-    with FlopCounterMode(display=False) as counter:
-        fn(*args, **kwargs)
-    memory_mb = float("nan")
-    if device is not None:
-        torch.cuda.synchronize(device)
-        memory_mb = (torch.cuda.max_memory_allocated(device) - before) / 2**20
-    return {"flops": float(counter.get_total_flops()), "bytes_accessed": float("nan"),
-            "memory_mb": float(memory_mb)}
+def host_read(t: torch.Tensor):
+    """The Python number of the one-element tensor ``t`` (a bool, int or
+    float by its dtype), counted in ``host_read.count``: on the card each
+    call waits for the work queued before it."""
+    host_read.count += 1
+    return t.item()
 
 
-class StepTimer:
-    """Rolling wall-clock timer matching the training loop's
-    ``train/time_per_step`` bookkeeping."""
-
-    def __init__(self):
-        self.start = time.time()
-        self.count = 0
-
-    def tick(self) -> float:
-        self.count += 1
-        return (time.time() - self.start) / self.count
+host_read.count = 0
