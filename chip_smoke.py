@@ -27,8 +27,13 @@ Phases:
   2. fused_traj kernel vs its plain version at the main path's shapes
      (fed noise, pre-step states; the diagonal kernel at batches 1, 33, 1000,
      1024, 4001, 8192 and 8193, which give every trajectories-per-warp the
-     host picks, ragged warps and blocks, and its own noise at 8192; two
-     launches bitwise equal at each), and at the φ⁴ shapes (D = 100, H = 64,
+     host picks, ragged warps and blocks, and its own noise at 8192, and
+     at the sampling cell's 131 072 (the deep tile, 8 trajectories a warp;
+     gated against the float64 steps, DRIVER_F64_RATIO); two launches
+     bitwise equal at each; the deep tile bitwise equal to 4 a warp
+     on the same inputs at 131 072, 8449, 1000 and 33, its launch counter 1
+     a launch at 131 072 and 0 at 1024 and 8192, and the C side refusing it
+     past its shape), and at the φ⁴ shapes (D = 100, H = 64,
      K = 100): the diagonal mode (also at the largest D check_limits admits,
      364), and the full-covariance mode with a random eigen-factored
      2-component reference
@@ -80,7 +85,8 @@ Phases:
      metrics on the first 8192 pooled samples
   7. one JSON line per kernel and mode: launches, error, time, bound; the
      diagonal kernel's and the Sinkhorn kernels' times beside the geometry
-     the host picked, and at the toys' shapes (D = 2, 8 components; d = 2); the resampling lookup beside the graph replay of a
+     the host picked (B1 at D 8 also at the sampling cell's 131 072 with its
+     own noise, on the deep tile), and at the toys' shapes (D = 2, 8 components; d = 2); the resampling lookup beside the graph replay of a
      kernel that does nothing (the card's launch floor); B1's cluster
      kernel at MNIST's D 196, C 2 full covariance (train 256, eval 2048)
      beside its geometry (cluster size, tile, clusters, the clusters the
@@ -1086,6 +1092,14 @@ def compare_kernel(dev, cfg, arrays, label: str, cases, tol, f64_ratio=None,
 _DIAG_MORE = [(1, "fed"), (33, "fed"), (4001, "fed"), (8193, "fed")]
 DIAG_CASES = ([(TRAIN_BATCH, "fed"), (EVAL_BATCH, "fed"), (1000, "fed")] + _DIAG_MORE
               + [(EVAL_BATCH, "kernel")])
+# the sampling cell's eval batch, past one wave of 4 a warp: the deep tile.
+# There a few of the 131 072 trajectories leave KERNEL_TOL of the plain
+# version on every kernel (4 a warp, before the deep tile: max |diff| x_T
+# 8.4e-3, 7.2 x what KERNEL_TOL allows, on 2 trajectories; kernel 4.8e-3 and
+# plain 3.6e-3 from the float64 steps; H100, own noise), so it is gated
+# against the float64 steps (DRIVER_F64_RATIO), as the drivers' 64-component
+# plan is, and against 4 a warp bit for bit (phase_deep_tile)
+DEEP_BATCH = 131_072
 BF16_CASES = [(TRAIN_BATCH, "fed"), (1000, "fed"), (EVAL_BATCH, "kernel")] + _DIAG_MORE
 
 
@@ -1109,19 +1123,98 @@ def diag_geometry_for(cfg, batch: int):
     from sde_sampler_lrds_torch.ops.fused_traj import diag_geometry
 
     return diag_geometry(batch, cfg.dim, cfg.channels, cfg.n_hidden,
-                         torch.cuda.get_device_properties(0).multi_processor_count)
+                         torch.cuda.get_device_properties(0).multi_processor_count, cfg.bf16)
 
 
 def check_geometries(cfg, cases) -> None:
-    """The diagonal cases give every trajectories-per-warp the host picks."""
+    """The diagonal cases give every trajectories-per-warp the host picks
+    for the plan (the deep tile's 8 for an f32 control)."""
     picked = {diag_geometry_for(cfg, b).traj_per_warp for b, _ in cases}
-    check(picked == {1, 2, 4}, f"the diagonal cases pick trajectories per warp {picked}")
+    want = {1, 2, 4} if cfg.bf16 else {1, 2, 4, 8}
+    check(picked == want, f"the diagonal cases pick trajectories per warp {picked}")
+
+
+@contextlib.contextmanager
+def diag_forced(tw: int, warps: int):
+    """The diagonal kernel runs tw trajectories a warp, warps a block, while
+    this lasts (diag_geometry replaced, as fused_traj_bench.py's sweep does)."""
+    from sde_sampler_lrds_torch.ops import fused_traj as ft
+
+    picked = ft.diag_geometry
+    ft.diag_geometry = lambda b, *_, **__: ft.DiagGeometry(tw, warps, -(-b // (tw * warps)))
+    try:
+        yield
+    finally:
+        ft.diag_geometry = picked
+
+
+def phase_deep_tile(dev, cfg, arrays, rec) -> None:
+    """The deep tile (8 trajectories a warp) against 4 a warp on the same
+    inputs, bitwise: at the sampling cell's 131 072 with its own noise (the
+    geometry the host picks), at 8449 (one past a wave of 4 a warp) and, on
+    a forced geometry of 4 warps, at 1000 and 33 with fed noise and states
+    (ragged warps and blocks). Then its launch counter at 131 072, 1024 and
+    8192, and the C side refusing the deep tile past its shape (D 9, H 96,
+    the bf16 control) before it launches."""
+    import ctypes
+
+    from sde_sampler_lrds_torch.ops import fused_traj as ft
+
+    g = torch.Generator(dev).manual_seed(24)
+    out = {}
+    for b, fed, warps in ((DEEP_BATCH, False, None), (8449, True, None), (1000, True, 4),
+                          (33, True, 4)):
+        x0 = torch.randn(b, cfg.dim, generator=g, device=dev)
+        noise = torch.randn(cfg.k_steps, b, cfg.dim, generator=g, device=dev) if fed else None
+        if warps is None:
+            check(diag_geometry_for(cfg, b).traj_per_warp == 8, f"B={b} not on the deep tile")
+            deep = ft.launch(cfg, arrays, x0, noise, 31, fed)
+        else:
+            with diag_forced(8, warps):
+                deep = ft.launch(cfg, arrays, x0, noise, 31, fed)
+        with diag_forced(4, 8):
+            four = ft.launch(cfg, arrays, x0, noise, 31, fed)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b_) for a, b_ in zip(deep, four) if a is not None)
+        diff = max(float((a - b_).abs().max()) for a, b_ in zip(deep, four) if a is not None)
+        what = f"B={b} ({'fed noise + states' if fed else 'kernel noise'})"
+        out[what] = {"bitwise_equal": same, "max_abs_diff": diff}
+        say(f"[phase 2] fused_traj deep tile {what}: against 4 a warp bitwise equal {same}, "
+            f"max |diff| {diff:.3e}")
+        check(same, f"the deep tile differs from 4 a warp at {what} (max |diff| {diff:.3e})")
+    launched = {}
+    for b in (DEEP_BATCH, TRAIN_BATCH, EVAL_BATCH):
+        x0 = torch.randn(b, cfg.dim, generator=g, device=dev)
+        before = (ft.fused_traj.diag_deep_launches, ft.fused_traj.launches)
+        ft.launch(cfg, arrays, x0, None, 37, False)
+        launched[b] = (ft.fused_traj.diag_deep_launches - before[0],
+                       ft.fused_traj.launches - before[1])
+    torch.cuda.synchronize()
+    say(f"[phase 2] fused_traj.diag_deep_launches, fused_traj.launches a launch: "
+        + json.dumps({str(b): v for b, v in launched.items()}))
+    check(launched == {DEEP_BATCH: (1, 1), TRAIN_BATCH: (0, 1), EVAL_BATCH: (0, 1)},
+          f"the deep tile's launch counter: {launched}")
+    lib, refused = ft._library(), {}
+    for label, d, h, bf16 in (("D 9", 9, 64, 0), ("H 96", 8, 96, 0), ("bf16", 8, 64, 1)):
+        null = [None] * 15
+        err = lib.fused_traj_launch(*null, 0, None, None, None, 1024, cfg.k_steps, d, h,
+                                    cfg.n_hidden, cfg.n_comp, bf16, 0, ctypes.c_float(0.0),
+                                    8, 8, 16, 0, 0, None)
+        refused[label] = lib.fused_traj_error_string(err).decode() if err else "taken"
+    say(f"[phase 2] the C side on the deep tile past its shape: " + json.dumps(refused))
+    check(all(v != "taken" for v in refused.values()), f"the C side took {refused}")
+    rec["deep_tile"] = {"vs_4_a_warp": out, "launches": {str(b): v for b, v in launched.items()},
+                        "c_side_refuses": refused}
 
 
 def phase_kernel_vs_plain(dev, cfg, arrays, rec):
-    check_geometries(cfg, DIAG_CASES)
+    deep = [(DEEP_BATCH, "kernel")]
+    check_geometries(cfg, DIAG_CASES + deep)
     rec["max_abs_err"] = compare_kernel(dev, cfg, arrays, "fused_traj", DIAG_CASES, KERNEL_TOL)
-    check_repeatable(dev, cfg, arrays, "fused_traj", DIAG_CASES)
+    rec["max_abs_err_131072"] = compare_kernel(dev, cfg, arrays, "fused_traj", deep, KERNEL_TOL,
+                                               f64_ratio=DRIVER_F64_RATIO)
+    check_repeatable(dev, cfg, arrays, "fused_traj", DIAG_CASES + deep)
+    phase_deep_tile(dev, cfg, arrays, rec)
 
 
 def largest_dim(full_cov: bool) -> int:
@@ -1183,7 +1276,7 @@ def phase_kernel_vs_plain_d100(dev, rec_diag, rec_full):
     largest, largest_diag = largest_dim(True), largest_dim(False)
     for d in (DIM, 37, PHI_DIM, largest, largest_diag):
         for full, warps, tw in ((True, 0, 0), (False, 1, 1), (False, 8, 1), (False, 8, 2),
-                                (False, 8, 4)):
+                                (False, 8, 4), (False, 8, 8)):
             if full and d > largest:
                 continue
             c_bytes = _library().fused_traj_smem_bytes(d, CHANNELS, N_LAYERS - 2, int(full),
@@ -5586,6 +5679,9 @@ def main(argv=None) -> int:
     nice = phase_nice(dev, path_counts)
     laps("17 NICE pre-training")
     phase_timing(dev, cfg, arrays, recs["fused_traj"], peaks, sfu_rate)
+    recs["fused_traj"]["eval_131072"] = {}
+    phase_timing(dev, cfg, arrays, recs["fused_traj"]["eval_131072"], peaks, sfu_rate,
+                 label=f"fused_traj B={DEEP_BATCH}", batches=(DEEP_BATCH, TRAIN_BATCH))
     for plan_name, (vi_cfg, vi_arrays, _) in vi_plan_set.items():
         phase_timing(dev, vi_cfg, vi_arrays, recs["fused_traj"]["vi_plans"][plan_name], peaks,
                      sfu_rate, label=f"fused_traj {plan_name}")

@@ -34,11 +34,12 @@
 // whole run. Everything is f32 on the CUDA cores (no tensor cores: TF32
 // keeps about three digits, too few for the φ⁴ logits' 100-term sums).
 //
-// The diagonal mode (traj_kernel_diag): a warp owns TW ∈ {1, 2, 4}
+// The diagonal mode (traj_kernel_diag): a warp owns TW ∈ {1, 2, 4, 8}
 // trajectories for all K steps, and the host (ops/fused_traj.py
 // diag_geometry) picks TW and the warps of a block (≤ 8) so that the grid
 // covers the SMs: 128 blocks of 8 warps of one trajectory at B = 1024, 256
-// blocks of 8 warps of four at B = 8192. A lane holds up to E dimensions of
+// blocks of 8 warps of four at B = 8192, and past one wave of four a warp
+// (B > 8448 on 132 SMs) the deep tile below. A lane holds up to E dimensions of
 // its trajectory (E = 1 where D ≤ 32 / TW, else 8 or 16: D ≤ 512) in registers:
 // state, reference score, fed noise, the reference rows (loaded a component
 // ahead) and its own outputs of the control, whose sums Σ_i h_i·W_out[i][d]
@@ -53,13 +54,49 @@
 // inside a step only __syncwarp orders a warp's input and hidden rows.
 // What bounds it now: the latency of each warp's chain of dependent steps
 // at 2 warps per scheduler (B 1024; 8.3 k cycles a step, 39 % of it the
-// hidden layers, 23 % the score), and the shared-memory bandwidth of the
-// weight reads at the eval batch (16 warps per SM, each reading all 9 216
-// weights of the D = 8 control every step). Measured
+// hidden layers, 23 % the score); at the eval batch it was thought to be the
+// shared-memory bandwidth of the weight reads (16 warps per SM, each reading
+// all 9 216 weights of the D = 8 control every step), which the deep tile's
+// profile below does not bear out. Measured
 // (sde_sampler_lrds_torch/tools/fused_traj_bench.py, NVIDIA H100 80GB HBM3,
 // 700 W): f32 D = 8 0.430 ms at B 1024 with fed noise and states, 0.955 ms
 // at B 8192 with its own noise (the first design: 1.63 / 1.91 ms); bf16
 // 0.527 / 1.009 ms (1.68 / 1.95); f32 D = 100 0.981 / 3.41 ms (3.24 / 5.60).
+//
+// The deep tile (TW = DEEP_TW = 8, f32, D ≤ 8, H a multiple of 64), where
+// four a warp overfill a wave: at TW 4 each group of 4 inputs of a hidden
+// layer costs a lane two float4s of its own weight rows (4 wavefronts each)
+// and a broadcast float4 per trajectory (1 each), 12 wavefronts for 32 FMAs
+// a lane, and the SM's shared memory serves one wavefront a clock against
+// four warp-instructions issued: about 110 wavefronts a trajectory-step at
+// D 8, H 64, 2 hidden layers (first layer 6, hidden 96, output 8). The
+// deep tile holds W0 and Wh as they are (row i the weights of input i) and
+// gives lane 8·g + q trajectories 2g, 2g + 1 and units 4q..4q+3 and
+// 32 + 4q..32 + 4q + 3 (warp_layer_deep): per 4 inputs, 8 float4s of
+// weights that the four g share (1 wavefront each) and 2 float4s of inputs
+// (1 each), 10 wavefronts for 64 FMAs a lane; with the output layer's 3
+// per 4 inputs (its 8 trajectories' rows, and each lane's 2 dimensions'
+// rows of W_outᵀ) about 49 a trajectory-step (first layer 3 — its input
+// rows at stride 8 cost 2 wavefronts each —, hidden 40, output 6), and as
+// before about 6 of stores. A lane holds dimensions sub and sub + 4 of its
+// trajectory (L = 4, E = 2) and adds its two terms of each sum (the
+// quadratic forms, ‖u‖², u·z) before group_sum over 4 lanes, as the first
+// step of group_sum over 8 lanes at TW 4 added them: the MLP's sums keep
+// their order, the embed entries reach a lane by shuffle, the state update
+// writes out with fmaf the contraction the compiler chose at TW 4, and the
+// outputs equal those of TW 4 bit for bit. Its block (8 warps of 8, 77 728 bytes at
+// D 8, H 64) leaves room for two an SM; diag_geometry takes it only where
+// it does. Measured (fused_traj_bench.py, NVIDIA H100 80GB HBM3, 700 W, B
+// 131 072 with its own noise): 12.22 ms against 14.63 ms at TW 4 (127
+// registers, no spill). Its clock64 segments (--profile) show what paced
+// TW 4 there: not the weight reads. The hidden layers take as long per
+// trajectory on the deep tile as at TW 4 (1 764 cycles of a warp-step a
+// trajectory on both, with half the wavefronts); the gain is the latency
+// of the score, the first and output layers and the update, shared by 8
+// trajectories in place of 4 (2 560 → 1 850 cycles a trajectory). What
+// bounds the hidden layers now is not measured (no ncu on the card): their
+// FMAs issue at about 58 % of the pipe's rate on both, beside 16 accurate
+// tanhf a lane a layer.
 //
 // The full-covariance mode is its own kernel (traj_kernel_full), the first
 // design's block of TB = 32 trajectories for all K steps (weights, state,
@@ -159,7 +196,8 @@
 //     + warps·TW·(2·r(H) + D)              per trajectory two hidden rows
 //                                          and the MLP's input row
 //   = 41 440 bytes at D = 8 with one warp of one trajectory (59 296 with 8
-//   warps of 4), 90 752 at D = 100, and shared memory caps D at 364 for
+//   warps of 4, 77 728 with 8 of 8; the deep tile keeps W0 and Wh untransposed
+//   in D and H rows of stride r(H), inside the same regions), 90 752 at D = 100, and shared memory caps D at 364 for
 //   H = 64, n_h = 2; the lanes' registers cap it at 512;
 //   wide kernel (traj_kernel_wide), tb trajectories:
 //     4·tb·D + 2·tb·H                      state, control, noise, score;
@@ -289,6 +327,13 @@ static_assert(TB / R == NW, "a rotation's trajectory groups are the warps");
 constexpr int DIAG_MAX_WARPS = 8;
 constexpr int DIAG_ELEMS = 16;
 constexpr int DIAG_UNITS = 8;
+// the deep tile (traj_kernel_diag<false, DEEP_TW, DEEP_ELEMS>): DEEP_TW
+// trajectories a warp, f32, D ≤ DEEP_MAX_D (DEEP_ELEMS dimensions a lane),
+// hidden widths a multiple of DEEP_UNITS (the units of a warp's pass)
+constexpr int DEEP_TW = 8;
+constexpr int DEEP_ELEMS = 2;
+constexpr int DEEP_MAX_D = DEEP_ELEMS * 32 / DEEP_TW;
+constexpr int DEEP_UNITS = 64;
 
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -432,6 +477,15 @@ __device__ inline void tables_to_smem_t(float* dst, const void* src, int n, int 
   for (int e = threadIdx.x; e < n * n_in * n_out; e += blockDim.x) {
     const int l = e / (n_in * n_out), ij = e % (n_in * n_out);
     dst[(l * n_out + ij % n_out) * ld + ij / n_out] = load_table<BF16>(src, e);
+  }
+}
+
+// n f32 tables of n_in × n_out (row-major) into shared memory as they are,
+// in rows of stride ld: entry (i, j) of table l at dst[(l·n_in + i)·ld + j].
+__device__ inline void tables_to_smem_rows(float* dst, const float* src, int n, int n_in,
+                                           int n_out, int ld) {
+  for (int e = threadIdx.x; e < n * n_in * n_out; e += blockDim.x) {
+    dst[(e / n_out) * ld + e % n_out] = __ldg(src + e);
   }
 }
 
@@ -952,6 +1006,15 @@ __device__ __forceinline__ float group_sum(float v, int width) {
   return v;
 }
 
+// A lane's share of a trajectory's sum on the deep tile, from its terms t[e]
+// of dimensions sub + 4·e (zero past D). At 4 trajectories a warp those
+// dimensions sat on lanes sub and sub + 4, and the first step of group_sum
+// over 8 lanes added them (where D > 4): the same addition here, then
+// group_sum over the 4 lanes, gives every sum group_sum's bits there.
+__device__ __forceinline__ float deep_lane_sum(const float (&t)[DEEP_ELEMS], int D) {
+  return D > DEEP_MAX_D / 2 ? t[0] + t[1] : t[0];
+}
+
 // A gelu layer for a warp's TW trajectories: out[t][j] = gelu(Σ_i
 // in[t][i]·W[i][j] + bias[j] (+ e_j)), lane l owning units j = l + 32·m, two
 // at a time. Each sum runs over i in ascending order by fmaf, with the
@@ -1028,8 +1091,85 @@ __device__ __forceinline__ void warp_layer(const float* __restrict__ in, int ldi
   }
 }
 
+// Row i of the deep tile's product: units j..j+3 and j+32..j+35 of W's row
+// (one float4 each) times input i of the lane's two trajectories (a0, a1).
+__device__ __forceinline__ void deep_fma(float (&acc)[2][8], float a0, float a1,
+                                         const float* __restrict__ w) {
+  const float4 p = *reinterpret_cast<const float4*>(w);
+  const float4 q = *reinterpret_cast<const float4*>(w + 32);
+  const float wv[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    acc[0][v] = fmaf(a0, wv[v], acc[0][v]);
+    acc[1][v] = fmaf(a1, wv[v], acc[1][v]);
+  }
+}
+
+// warp_layer on the deep tile (f32, DEEP_TW = 8 trajectories a warp, n_out
+// a multiple of DEEP_UNITS): lane 8·g + q owns trajectories 2g and 2g + 1
+// and units 32·m + 4·q + v and 32·(m + 1) + 4·q + v, v < 4, for each pass m
+// (even) over the layer's units. W is held as it is (row i: the weights of
+// input i, stride ldw), so a pass reads, per input i, the two float4s of
+// its units (the 8 lanes of a g read 128 contiguous bytes, and the four g
+// the same ones) and, per 4 inputs, one float4 of each of its trajectories'
+// input rows (stride ldi): 10 wavefronts for 64 FMAs a lane, against
+// warp_layer's 12 for 32 at TW 4. Each sum runs over i in ascending order by
+// fmaf with warp_layer's f32 epilogue, so the outputs are warp_layer's, bit
+// for bit; the lane's embed entries come from the lanes that loaded them
+// (e[m] holds unit lane + 32·m).
+template <bool EMBED>
+__device__ __forceinline__ void warp_layer_deep(const float* __restrict__ in, int ldi, int n_in,
+                                                const float* __restrict__ W, int ldw,
+                                                const float* __restrict__ bias,
+                                                const float (&e)[DIAG_UNITS], int n_out, int ldo,
+                                                float* __restrict__ out, int lane) {
+  const int q = lane & 7, g = lane >> 3;
+  const float* __restrict__ in0 = in + 2 * g * ldi;
+  const float* __restrict__ in1 = in0 + ldi;
+#pragma unroll
+  for (int m = 0; m < DIAG_UNITS; m += 2) {
+    if (32 * m >= n_out) break;
+    const int j = 32 * m + 4 * q;
+    float acc[2][8];
+#pragma unroll
+    for (int v = 0; v < 8; ++v) acc[0][v] = acc[1][v] = 0.0f;
+    if ((n_in & 3) == 0) {
+      for (int i = 0; i < n_in; i += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(in0 + i);
+        const float4 b = *reinterpret_cast<const float4*>(in1 + i);
+        const float* __restrict__ w = W + i * ldw + j;
+        deep_fma(acc, a.x, b.x, w);
+        deep_fma(acc, a.y, b.y, w + ldw);
+        deep_fma(acc, a.z, b.z, w + 2 * ldw);
+        deep_fma(acc, a.w, b.w, w + 3 * ldw);
+      }
+    } else {
+      for (int i = 0; i < n_in; ++i) deep_fma(acc, in0[i], in1[i], W + i * ldw + j);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 b4 = *reinterpret_cast<const float4*>(bias + j + 32 * h);
+      float bj[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        bj[v] += EMBED ? __shfl_sync(0xffffffffu, e[m + h], 4 * q + v) : 0.0f;
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        float4 o;
+        o.x = gelu_tanh(acc[t][4 * h + 0] + bj[0]);
+        o.y = gelu_tanh(acc[t][4 * h + 1] + bj[1]);
+        o.z = gelu_tanh(acc[t][4 * h + 2] + bj[2]);
+        o.w = gelu_tanh(acc[t][4 * h + 3] + bj[3]);
+        *reinterpret_cast<float4*>(out + (2 * g + t) * ldo + j + 32 * h) = o;
+      }
+    }
+  }
+}
+
 // The diagonal mode's kernel. Warp w of block b owns trajectories
-// (b·warps + w)·TW + slot, slot < TW, for all K steps; the lanes of slot
+// (b·warps + w)·TW + slot, slot < TW, for all K steps (TW = DEEP_TW: the
+// deep tile, whose layers run on warp_layer_deep); the lanes of slot
 // are lanes slot·L .. slot·L + L − 1 (L = 32 / TW), and lane sub of them
 // holds dimensions d = sub + e·L, e < E, of the state, the score, the fed
 // noise, the reference rows and the control in registers (E = 1 where
@@ -1044,6 +1184,10 @@ __device__ __forceinline__ void warp_layer(const float* __restrict__ in, int ldi
 template <bool BF16, int TW, int E>
 __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const Params p) {
   constexpr int L = 32 / TW;
+  // the deep tile: its hidden layers on warp_layer_deep, W0 and Wh held as
+  // they are (D and H rows of stride HS, within the regions of W0ᵀ and Whᵀ)
+  constexpr bool DEEP = TW == DEEP_TW;
+  static_assert(!DEEP || (!BF16 && E == DEEP_ELEMS), "the deep tile is f32 at D <= 8");
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
   const int D = p.D, H = p.H, nh = p.n_hidden, C = p.C, B = p.B, K = p.K;
@@ -1054,9 +1198,14 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
   float* bh = s;                  s += round4(nh * H);
   float* wo = s;                  s += D * HS;        // W_outᵀ
   float* bo = s;                  s += round4(D);
-  tables_to_smem_t<BF16>(w0, p.w0, 1, D, H, LD0);
+  if constexpr (DEEP) {
+    tables_to_smem_rows(w0, static_cast<const float*>(p.w0), 1, D, H, HS);
+    tables_to_smem_rows(wh, static_cast<const float*>(p.wh), nh, H, H, HS);
+  } else {
+    tables_to_smem_t<BF16>(w0, p.w0, 1, D, H, LD0);
+    tables_to_smem_t<BF16>(wh, p.wh, nh, H, H, HS);
+  }
   table_to_smem<BF16>(b0, p.b0, H);
-  tables_to_smem_t<BF16>(wh, p.wh, nh, H, H, HS);
   table_to_smem<BF16>(bh, p.bh, nh * H);
   tables_to_smem_t<BF16>(wo, p.w_out, 1, H, D, HS);
   table_to_smem<BF16>(bo, p.b_out, D);
@@ -1149,11 +1298,23 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
         load_ref(k + 1, 0);
       }
       float q = 0.0f;
+      if constexpr (DEEP) {
+        float qe[E];
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        if (sub + e * L >= D) break;
-        const float y = x[e] - mc[e], sv = y * ivc[e];
-        q = fmaf(y, sv, q);
+        for (int e = 0; e < E; ++e) {
+          qe[e] = 0.0f;
+          if (sub + e * L >= D) continue;
+          const float y = x[e] - mc[e], sv = y * ivc[e];
+          qe[e] = fmaf(y, sv, 0.0f);
+        }
+        q = deep_lane_sum(qe, D);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if (sub + e * L >= D) break;
+          const float y = x[e] - mc[e], sv = y * ivc[e];
+          q = fmaf(y, sv, q);
+        }
       }
       const float logit = cc - 0.5f * group_sum(q, width);
       float scale = 0.0f, wgt = 1.0f;
@@ -1178,13 +1339,22 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
       }
     }
     // -- control u = clip(FourierMLP(t_k, x)) ------------------------------
-    warp_layer<TW, BF16, true>(xin, DS, D, w0, LD0, b0, emb, H, HS, hA, lane);
+    if constexpr (DEEP) {
+      warp_layer_deep<true>(xin, DS, D, w0, HS, b0, emb, H, HS, hA, lane);
+    } else {
+      warp_layer<TW, BF16, true>(xin, DS, D, w0, LD0, b0, emb, H, HS, hA, lane);
+    }
     __syncwarp();
     float* hin = hA;
     float* hout = hB;
     for (int l = 0; l < nh; ++l) {
-      warp_layer<TW, BF16, false>(hin, HS, H, wh + (size_t)l * H * HS, HS, bh + l * H, emb, H,
-                                  HS, hout, lane);
+      if constexpr (DEEP) {
+        warp_layer_deep<false>(hin, HS, H, wh + (size_t)l * H * HS, HS, bh + l * H, emb, H, HS,
+                               hout, lane);
+      } else {
+        warp_layer<TW, BF16, false>(hin, HS, H, wh + (size_t)l * H * HS, HS, bh + l * H, emb,
+                                    H, HS, hout, lane);
+      }
       __syncwarp();
       float* tmp = hin;
       hin = hout;
@@ -1221,18 +1391,34 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
       }
     }
     // -- update and RND increment ------------------------------------------
-    float uu = 0.0f, uz = 0.0f;
+    float uu = 0.0f, uz = 0.0f, uue[E], uze[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int d = sub + e * L;
+      uue[e] = uze[e] = 0.0f;
       if (d >= D) break;
       float ue = BF16 ? round_bf16(round_bf16(u[e]) + bo[d]) : u[e] + bo[d];
       if (p.has_clip) ue = fminf(fmaxf(ue, -p.clip), p.clip);
       const float zz = p.noise != nullptr ? z[e] : philox_normal(p.seed, k, traj, d);
-      uu = fmaf(ue, ue, uu);
-      uz = fmaf(ue, zz, uz);
-      x[e] = a_x * x[e] + a_ref * r[e] + a_u * ue + a_z * zz;
+      if constexpr (DEEP) {
+        uue[e] = fmaf(ue, ue, 0.0f);
+        uze[e] = fmaf(ue, zz, 0.0f);
+      } else {
+        uu = fmaf(ue, ue, uu);
+        uz = fmaf(ue, zz, uz);
+      }
+      if constexpr (DEEP) {
+        // the contraction the compiler chose at TW 4, written out: left to
+        // it, the deep tile's could fuse a_x·x in place of a_ref·r
+        x[e] = fmaf(a_z, zz, fmaf(a_u, ue, fmaf(a_ref, r[e], a_x * x[e])));
+      } else {
+        x[e] = a_x * x[e] + a_ref * r[e] + a_u * ue + a_z * zz;
+      }
       xrow[d] = BF16 ? round_bf16(x[e]) : x[e];
+    }
+    if constexpr (DEEP) {
+      uu = deep_lane_sum(uue, D);
+      uz = deep_lane_sum(uze, D);
     }
     rnd = rnd + c_cost * 0.5f * group_sum(uu, width) + c_dot * group_sum(uz, width);
     __syncwarp();  // the next step's first layer reads the new input rows, and
@@ -1250,13 +1436,16 @@ __global__ void __launch_bounds__(32 * DIAG_MAX_WARPS, 2) traj_kernel_diag(const
 }
 
 // Whether (TW, warps, blocks) is a geometry the diagonal kernel takes for
-// B trajectories of width D and a control of width H: TW ∈ {1, 2, 4}, 1 to
+// B trajectories of width D and a control of width H (bf16 non-zero: the
+// bf16 control): TW ∈ {1, 2, 4}, or the deep tile's DEEP_TW for an f32
+// control at D ≤ DEEP_MAX_D and H a multiple of DEEP_UNITS; 1 to
 // DIAG_MAX_WARPS warps a block, at most DIAG_ELEMS dimensions a lane, at
 // most DIAG_UNITS units of a hidden layer a lane, and exactly the blocks
 // that cover B.
 __host__ __device__ inline bool diag_geometry_ok(int B, int D, int H, int tw, int warps,
-                                                 int blocks) {
-  if (tw != 1 && tw != 2 && tw != 4) return false;
+                                                 int blocks, int bf16) {
+  const bool deep = tw == DEEP_TW && !bf16 && D <= DEEP_MAX_D && H % DEEP_UNITS == 0;
+  if (tw != 1 && tw != 2 && tw != 4 && !deep) return false;
   if (warps < 1 || warps > DIAG_MAX_WARPS || B < 1 || D < 1 || H < 1) return false;
   if (D > DIAG_ELEMS * (32 / tw) || H > 32 * DIAG_UNITS) return false;
   const long long per_block = (long long)warps * tw;
@@ -1273,8 +1462,12 @@ void (*diag_kernel_e(int elems))(Params) {
          : elems <= DIAG_ELEMS / 2 ? traj_kernel_diag<BF16, TW, DIAG_ELEMS / 2>
                                    : traj_kernel_diag<BF16, TW, DIAG_ELEMS>;
 }
+// The deep tile is built for its one width, f32 only.
 template <bool BF16>
 void (*diag_kernel(int tw, int elems))(Params) {
+  if constexpr (!BF16) {
+    if (tw == DEEP_TW) return traj_kernel_diag<false, DEEP_TW, DEEP_ELEMS>;
+  }
   return tw == 1   ? diag_kernel_e<BF16, 1>(elems)
          : tw == 2 ? diag_kernel_e<BF16, 2>(elems)
                    : diag_kernel_e<BF16, 4>(elems);
@@ -2398,7 +2591,7 @@ int fused_traj_launch(const float* x0, const float* coefs, const void* embed,
     if (D > MAX_FULL_D || tw != 0 || warps != 0 || blocks != 0) return (int)cudaErrorInvalidValue;
     return ftd::launch_full(p, bf16, s);
   }
-  if (!diag_geometry_ok(B, D, H, tw, warps, blocks)) return (int)cudaErrorInvalidValue;
+  if (!diag_geometry_ok(B, D, H, tw, warps, blocks, bf16)) return (int)cudaErrorInvalidValue;
   return ftd::launch_diag(p, bf16, tw, warps, blocks, s);
 }
 #endif

@@ -109,9 +109,14 @@ _RING_STAGES, _RING_MAX_ROWS = 2, 48
 # _DIAG_ELEMS dimensions of its trajectory (and 8 units of a hidden layer,
 # MAX_CHANNELS = 256), and the geometry keeps it to half that up to D = 256,
 # whose kernels keep them in registers without spilling; a warp owns 1, 2
-# or 4 trajectories
+# or 4 trajectories, or on the deep tile _DEEP_TW: an f32 control at D ≤
+# _DEEP_MAX_DIM with hidden widths a multiple of _DEEP_UNITS, taken where
+# its block of _DIAG_MAX_WARPS warps leaves room for two an SM in the SM's
+# _SM_SMEM_BYTES (each block reserving _BLOCK_RESERVED_SMEM of it)
 _DIAG_MAX_WARPS, _DIAG_RESIDENT_WARPS, _DIAG_ELEMS = 8, 16, 16
 _DIAG_TRAJ_PER_WARP = (1, 2, 4)
+_DEEP_TW, _DEEP_MAX_DIM, _DEEP_UNITS = 8, 8, 64
+_SM_SMEM_BYTES, _BLOCK_RESERVED_SMEM = 233_472, 1024
 MAX_DIAG_DIM = _DIAG_ELEMS * 32
 # the cluster kernel (traj_kernel_cluster): portable cluster sizes, the
 # largest tile, and the threads of a CTA
@@ -264,6 +269,20 @@ def cluster_geometry(batch: int, cfg: FusedTrajCfg, n_sms: int,
     return ClusterGeometry(cl, tb, min(n, _ceil(batch, tb)))
 
 
+def deep_shape_ok(dim: int, channels: int, bf16: bool = False) -> bool:
+    """Whether the deep tile (``_DEEP_TW`` trajectories a warp) takes the
+    plan's shape: the C side's ``diag_geometry_ok`` for it."""
+    return not bf16 and dim <= _DEEP_MAX_DIM and channels % _DEEP_UNITS == 0
+
+
+def deep_fits(dim: int, channels: int, n_hidden: int, bf16: bool = False) -> bool:
+    """Whether ``diag_geometry`` may pick the deep tile: its shape, and two
+    of its blocks of ``_DIAG_MAX_WARPS`` warps in an SM's shared memory."""
+    return deep_shape_ok(dim, channels, bf16) and 2 * (
+        smem_bytes(dim, channels, n_hidden, False, _DIAG_MAX_WARPS, _DEEP_TW)
+        + _BLOCK_RESERVED_SMEM) <= _SM_SMEM_BYTES
+
+
 @dataclasses.dataclass(frozen=True)
 class DiagGeometry:
     """The diagonal kernel's launch: warp w of block b owns trajectories
@@ -274,18 +293,23 @@ class DiagGeometry:
 
 
 def diag_geometry(batch: int, dim: int, channels: int, n_hidden: int,
-                  n_sms: int) -> DiagGeometry:
+                  n_sms: int, bf16: bool = False) -> DiagGeometry:
     """The diagonal kernel's geometry for ``batch`` trajectories on a card
-    of ``n_sms`` SMs: the fewest trajectories per warp (1, 2 or 4; at most
-    8 dimensions a lane, or one trajectory a warp past D = 256) whose warps
-    fit the card's resident warps in one wave, else the most; as many warps a block (a power of two up to 8) as
-    spread those warps over all SMs, halved while the block's shared memory
-    exceeds the card's limit. At B 1024 on 132 SMs: one trajectory a warp,
-    8 warps a block, 128 blocks; at B 8192 and D 8: 4, 8, 256."""
+    of ``n_sms`` SMs (``bf16``: the bf16 control): the fewest trajectories
+    per warp (1, 2 or 4; at most 8 dimensions a lane, or one trajectory a
+    warp past D = 256; then the deep tile's 8 where ``deep_fits``) whose
+    warps fit the card's resident warps in one wave, else the most; as many
+    warps a block (a power of two up to 8) as spread those warps over all
+    SMs, halved while the block's shared memory exceeds the card's limit.
+    At B 1024 on 132 SMs: one trajectory a warp, 8 warps a block, 128
+    blocks; at B 8192 and D 8: 4, 8, 256; past B 8448 at D 8 (4 a warp
+    overfill the wave), the deep tile: 8, 8, at B 131 072 2048."""
     if batch < 1 or n_sms < 1:
         raise ValueError(f"diag_geometry: batch {batch} and n_sms {n_sms} must be positive")
     allowed = ([tw for tw in _DIAG_TRAJ_PER_WARP if dim <= _DIAG_ELEMS // 2 * (32 // tw)]
                or ([1] if dim <= MAX_DIAG_DIM else []))
+    if allowed and deep_fits(dim, channels, n_hidden, bf16):
+        allowed.append(_DEEP_TW)
     if not allowed:
         raise ValueError(f"fused_traj kernel: dim {dim} in the diagonal mode, at most "
                          f"{MAX_DIAG_DIM}")
@@ -310,8 +334,11 @@ def check_geometry(cfg: FusedTrajCfg, batch: int, geom: DiagGeometry) -> None:
     diag_geometry_ok and the card's shared memory per block)."""
     tw, warps, blocks = geom.traj_per_warp, geom.warps_per_block, geom.blocks
     why = None
-    if tw not in _DIAG_TRAJ_PER_WARP:
-        why = f"{tw} trajectories a warp, not one of {_DIAG_TRAJ_PER_WARP}"
+    if tw == _DEEP_TW and not deep_shape_ok(cfg.dim, cfg.channels, cfg.bf16):
+        why = (f"{tw} trajectories a warp (the deep tile) need an f32 control, dim at most "
+               f"{_DEEP_MAX_DIM} and channels a multiple of {_DEEP_UNITS}")
+    elif tw not in _DIAG_TRAJ_PER_WARP + (_DEEP_TW,):
+        why = f"{tw} trajectories a warp, not one of {_DIAG_TRAJ_PER_WARP + (_DEEP_TW,)}"
     elif not 1 <= warps <= _DIAG_MAX_WARPS:
         why = f"{warps} warps a block, not in [1, {_DIAG_MAX_WARPS}]"
     elif cfg.dim > _DIAG_ELEMS * (32 // tw):
@@ -777,7 +804,9 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
     the cluster kernel in ``fused_traj.cluster_launches``, of the wide
     kernel in ``fused_traj.wide_launches``, of the narrow full-covariance
     one in ``fused_traj.full_cov_launches`` and each narrow bf16 one in
-    ``fused_traj.bf16_launches``. A launch the card refuses raises."""
+    ``fused_traj.bf16_launches``; apart from those five, each diagonal
+    launch on the deep tile in ``fused_traj.diag_deep_launches``. A launch
+    the card refuses raises."""
     if x0.device.type != "cuda":
         raise ValueError(f"the fused_traj kernel runs on cuda, got {x0.device}")
     lib = _library()
@@ -818,7 +847,7 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
           if return_traj else None)
     if b == 0:
         return x_out, rnd, xs
-    geometry = (0, 0, 0, 0, 0)
+    geometry, deep = (0, 0, 0, 0, 0), False
     if cluster:
         active = _cluster_active(x0.device.index if x0.device.index is not None
                                  else torch.cuda.current_device(), d, h, cfg.n_hidden, c,
@@ -829,8 +858,9 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
         tb = wide_rows(b, d, h, _sm_count(x0.device))
         geometry = (0, 0, -(-b // tb), tb, 0)
     elif not cfg.full_cov:
-        geom = diag_geometry(b, d, h, cfg.n_hidden, _sm_count(x0.device))
+        geom = diag_geometry(b, d, h, cfg.n_hidden, _sm_count(x0.device), cfg.bf16)
         check_geometry(cfg, b, geom)
+        deep = geom.traj_per_warp == _DEEP_TW
         geometry = (geom.traj_per_warp, geom.warps_per_block, geom.blocks, 0, 0)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(x0.device).cuda_stream
@@ -848,6 +878,7 @@ def launch(cfg: FusedTrajCfg, arrays: dict, x0: torch.Tensor,
     fused_traj.wide_launches += int(wide and not cluster)
     fused_traj.full_cov_launches += int(cfg.full_cov and not wide)
     fused_traj.bf16_launches += int(cfg.bf16 and not wide)
+    fused_traj.diag_deep_launches += int(deep)
     return x_out, rnd, xs
 
 
@@ -856,6 +887,7 @@ fused_traj.cluster_launches = 0
 fused_traj.wide_launches = 0
 fused_traj.full_cov_launches = 0
 fused_traj.bf16_launches = 0
+fused_traj.diag_deep_launches = 0
 
 
 def fused_simulate(cfg: FusedTrajCfg, arrays: dict, generator, x0,

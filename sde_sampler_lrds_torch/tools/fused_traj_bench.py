@@ -11,21 +11,26 @@ at D = 8, both modes at the φ⁴ shapes; skipped with --time-only) and its
 phase-7 timings at the train shape (B 1024, fed noise and states) and the
 eval shape (B 8192, its own noise): the full-covariance mode at D = 100,
 the diagonal kernel in f32 and bf16 at D = 8 and in f32 at D = 100, each
-beside the geometry the host picked. To compare two commits
+beside the geometry the host picked; then the f32 diagonal kernel at D = 8
+at the sampling cell's B 131 072 with its own noise (the deep tile, 8
+trajectories a warp, where the checkout has it) beside its bound, with
+the launches it counted on the deep tile (``diag_deep_launches``). To compare two commits
 in one call, unpack the other with ``git archive`` into a gitignored
 directory and pass it as --root, in turns with this one.
 
 --outputs FILE launches the kernel of --root on fixed inputs (f32 and bf16
-at D = 8, f32 at D = 100, at the train and eval shapes) and saves what it
+at D = 8, f32 at D = 100, at the train and eval shapes, and f32 at D = 8 at
+B 131 072 with its own noise) and saves what it
 returns to FILE; when FILE exists already, it compares instead and prints
 the max |diff| of x_T and rnd and whether the two kernels agree bit for bit
 (x_T, rnd and, through a digest, the states). Run it on
 the parent's checkout first, then on this one, to show that a redesign
 keeps the old arithmetic.
 
---sweep times the diagonal kernel (f32, D = 8) at both shapes on every
-geometry it takes (1, 2 or 4 trajectories a warp, 1 to 8 warps a block),
-beside the one diag_geometry picks.
+--sweep times the diagonal kernel (f32, D = 8) at both shapes and at B
+131 072 on every geometry it takes (1, 2, 4 or, on the deep tile, 8
+trajectories a warp, 1 to 8 warps a block), beside the one diag_geometry
+picks.
 
 --mnist times, instead of the rest, B1 at MNIST's D 196 with a
 2-component full covariance (sample_mnist_unet --model_type base_zero_init
@@ -46,7 +51,7 @@ kernel (a block-step; at D = 100) and of the diagonal kernel (a warp-step,
 f32 at D = 8): a copy of the source with clock64() marks (block 0, thread
 0, after each segment) is built under build/profile/ and launched through
 the port's wrapper at the train shape (B 1024, fed noise and states) and
-the eval shape (B 8192, its own noise). The marks cost a few percent of the
+the eval shapes (B 8192 and 131 072, their own noise). The marks cost a few percent of the
 kernel time. Needs a CUDA card; imports no JAX.
 """
 from __future__ import annotations
@@ -84,14 +89,18 @@ MARKS = (
     ("__syncthreads();  // the next step's reference score overwrites ut, zt\n"
      "  }\n  cp_async_wait<0>();  // the copies ahead", 10, "after the first line"),
 )
+# the sampling cell's eval batch (many_modes_d8.sample): the deep tile
+DEEP_BATCH = 131_072
 # the diagonal kernel's segments and marks (counters 16 and up)
 DIAG_SEGMENTS = ("step loads + pre-step states", "reference score (C components)",
                  "MLP first layer", "MLP hidden layers", "MLP output layer", "update + RND")
 DIAG_MARKS = (
     ("    // -- the noised MoG's score in registers", 16, "before"),
     ("    // -- control u = clip(FourierMLP(t_k, x))", 17, "before"),
-    ("warp_layer<TW, BF16, true>(xin, DS, D, w0, LD0, b0, emb, H, HS, hA, lane);\n"
-     "    __syncwarp();\n", 18, "after"),
+    (("warp_layer<TW, BF16, true>(xin, DS, D, w0, LD0, b0, emb, H, HS, hA, lane);\n"
+      "    }\n    __syncwarp();\n",
+      "warp_layer<TW, BF16, true>(xin, DS, D, w0, LD0, b0, emb, H, HS, hA, lane);\n"
+      "    __syncwarp();\n"), 18, "after"),
     ("    // the output layer, each lane its own dimensions", 19, "before"),
     ("    // -- update and RND increment", 20, "before"),
     ("    __syncwarp();  // the next step's first layer reads the new input rows", 21, "before"),
@@ -107,6 +116,8 @@ def profiled_library(csrc, nvcc_flags, nvcc):
     with fused_traj_prof(out, reset) reading (or zeroing) the counters."""
     src = (csrc / "fused_traj.cu").read_text()
     for anchor, i, where in MARKS + DIAG_MARKS:
+        if isinstance(anchor, tuple):  # the source's forms, newest first
+            anchor = next((a for a in anchor if src.count(a) == 1), anchor[0])
         if src.count(anchor) != 1:
             raise RuntimeError(f"profile mark {i}: anchor not found once in fused_traj.cu")
         mark = MARK.format(i=i)
@@ -162,7 +173,8 @@ def profile(cs, torch, dev) -> None:
             for mode, plan, segments, first in (
                 ("full_cov D=100", cs.phi_four_plan(dev, True), SEGMENTS, 0),
                 ("diagonal D=8", cs.comparison_plan(dev), DIAG_SEGMENTS, 16))
-            for b, fed in ((cs.TRAIN_BATCH, True), (cs.EVAL_BATCH, False))]
+            for b, fed in ((cs.TRAIN_BATCH, True), (cs.EVAL_BATCH, False))
+            + (((DEEP_BATCH, False),) if first == 16 else ())]
     for mode, (cfg, arrays), segments, first, b, fed in runs:
         x0 = torch.randn(b, cfg.dim, generator=g, device=dev)
         noise = torch.randn(cfg.k_steps, b, cfg.dim, generator=g, device=dev) if fed else None
@@ -191,7 +203,8 @@ def outputs(cs, torch, dev, path: str) -> None:
              "f32 D=100": cs.phi_four_plan(dev, False)}
     got = {}
     for label, (cfg, arrays) in plans.items():
-        for b, fed in ((cs.TRAIN_BATCH, True), (cs.EVAL_BATCH, True), (cs.EVAL_BATCH, False)):
+        cases = ((cs.TRAIN_BATCH, True), (cs.EVAL_BATCH, True), (cs.EVAL_BATCH, False))
+        for b, fed in cases + (((DEEP_BATCH, False),) if label == "f32 D=8" else ()):
             g = torch.Generator().manual_seed(b + 7 * fed)
             x0 = torch.randn(b, cfg.dim, generator=g).to(dev)
             noise = torch.randn(cfg.k_steps, b, cfg.dim, generator=g).to(dev) if fed else None
@@ -224,13 +237,18 @@ def sweep(cs, dev, peaks, sfu_rate) -> None:
 
     picked = ft.diag_geometry
     cfg, arrays = cs.comparison_plan(dev)
+    tws = (1, 2, 4) + ((8,) if hasattr(ft, "deep_fits") else ())
     try:
-        for tw in (1, 2, 4):
+        for tw in tws:
             for warps in (1, 2, 4, 8):
-                ft.diag_geometry = lambda b, *_, tw=tw, w=warps: ft.DiagGeometry(
+                ft.diag_geometry = lambda b, *_, tw=tw, w=warps, **__: ft.DiagGeometry(
                     tw, w, -(-b // (tw * w)))
                 cs.phase_timing(dev, cfg, arrays, {}, peaks, sfu_rate,
                                 label=f"sweep tw={tw} warps={warps}")
+                if tw >= 4:
+                    cs.phase_timing(dev, cfg, arrays, {}, peaks, sfu_rate,
+                                    label=f"sweep tw={tw} warps={warps}",
+                                    batches=(DEEP_BATCH, cs.TRAIN_BATCH))
     finally:
         ft.diag_geometry = picked
 
@@ -362,6 +380,16 @@ def main() -> int:
                                  ("fused_traj_bf16", cs.comparison_plan(dev, torch.bfloat16)),
                                  ("fused_traj D=100", cs.phi_four_plan(dev, False))):
         cs.phase_timing(dev, cfg, arrays, {}, peaks, sfu_rate, label=label)
+    import sde_sampler_lrds_torch.ops.fused_traj as ft
+
+    before = getattr(ft.fused_traj, "diag_deep_launches", None), ft.fused_traj.launches
+    cfg, arrays = cs.comparison_plan(dev)
+    cs.phase_timing(dev, cfg, arrays, {}, peaks, sfu_rate, label=f"fused_traj B={DEEP_BATCH}",
+                    batches=(DEEP_BATCH, cs.TRAIN_BATCH))
+    if before[0] is not None:
+        print("[deep] " + json.dumps({
+            "launches": ft.fused_traj.launches - before[1],
+            "diag_deep_launches": ft.fused_traj.diag_deep_launches - before[0]}), flush=True)
     if args.sweep:
         sweep(cs, dev, peaks, sfu_rate)
     if args.profile:

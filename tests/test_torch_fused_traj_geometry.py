@@ -3,7 +3,12 @@
 trajectory owned by exactly one (block, warp, slot), a grid that covers the
 card, shared memory within the card's limit, and ``check_geometry``
 refusing what the C side (``diag_geometry_ok`` in csrc/fused_traj.cu)
-refuses. Pure host arithmetic: no card needed."""
+refuses. The deep tile (8 trajectories a warp) engages only where 4 a warp
+overfill one wave of the card, and every smaller batch keeps the geometry
+of the kernel without it. Pure host arithmetic: no card needed."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -47,7 +52,7 @@ def _owners(geom, batch):
 def test_every_trajectory_owned_once(batch, dim, n_sms):
     geom = ft.diag_geometry(batch, dim, H, NH, n_sms)
     ft.check_geometry(_cfg(dim), batch, geom)
-    assert geom.traj_per_warp in (1, 2, 4)
+    assert geom.traj_per_warp in (1, 2, 4, 8)
     assert 1 <= geom.warps_per_block <= 8
     # warp w of block b owns (b·warps + w)·tw + slot: the decomposition of
     # each owner index is unique, and the owners are exactly 0..B-1
@@ -56,9 +61,10 @@ def test_every_trajectory_owned_once(batch, dim, n_sms):
     per_block = geom.warps_per_block * geom.traj_per_warp
     assert (geom.blocks - 1) * per_block < batch <= geom.blocks * per_block
     # a lane holds at most 8 dimensions of its trajectory, or at one
-    # trajectory a warp 16 past D = 256
+    # trajectory a warp 16 past D = 256; on the deep tile 2
     lanes = 32 // geom.traj_per_warp
     assert dim <= 8 * lanes or (geom.traj_per_warp == 1 and dim <= 16 * lanes)
+    assert geom.traj_per_warp < 8 or dim <= 2 * lanes
     assert ft.smem_bytes(dim, H, NH, False, geom.warps_per_block,
                          geom.traj_per_warp) <= ft.MAX_SMEM_BYTES
 
@@ -73,7 +79,8 @@ def test_train_batch_fills_the_card(n_sms):
     if n_sms == 132:
         assert geom.blocks == 128
     geom = ft.diag_geometry(8192, 8, H, NH, n_sms)
-    assert geom.traj_per_warp == 4 and geom.blocks >= n_sms
+    # on 114 SMs 4 a warp overfill one wave (7296 < 8192): the deep tile
+    assert geom.traj_per_warp == (4 if n_sms == 132 else 8) and geom.blocks >= n_sms
 
 
 def test_every_trajectories_per_warp_is_picked():
@@ -160,3 +167,145 @@ def test_check_limits_still_takes_every_old_diagonal_dim(channels):
             assert _admitted(d, channels, n_hidden), (d, channels, n_hidden)
         if old:
             ft.diag_geometry(8192, old[-1], channels, n_hidden, 132)
+
+
+def _parent_geometry(batch, dim, channels, n_hidden, n_sms):
+    """diag_geometry as it was before the deep tile: 1, 2 or 4 trajectories
+    a warp."""
+    allowed = ([tw for tw in (1, 2, 4) if dim <= 8 * (32 // tw)]
+               or ([1] if dim <= ft.MAX_DIAG_DIM else []))
+    tw = next((t for t in allowed if -(-batch // t) <= n_sms * 16), allowed[-1])
+    warps = min(8, 1 << (-(-(-(-batch // tw)) // n_sms) - 1).bit_length())
+    while ft.smem_bytes(dim, channels, n_hidden, False, warps, tw) > ft.MAX_SMEM_BYTES:
+        if warps > 1:
+            warps //= 2
+        else:
+            tw //= 2
+    return ft.DiagGeometry(tw, warps, -(-batch // (warps * tw)))
+
+
+@pytest.mark.parametrize("batch", [131_072, 8449, 100_000, 16_384])
+def test_deep_tile_past_one_wave_at_d8(batch):
+    """Past 4 × 132 × 16 = 8448 trajectories at D 8, 4 a warp overfill one
+    wave of the H100's 132 SMs: the deep tile takes them, 8 warps a block."""
+    geom = ft.diag_geometry(batch, 8, H, NH, 132)
+    assert geom == ft.DiagGeometry(8, 8, -(-batch // 64))
+    ft.check_geometry(_cfg(8), batch, geom)
+    assert ft.diag_geometry(131_072, 8, H, NH, 132).blocks == 2048
+
+
+@pytest.mark.parametrize("batch, dim, want", [
+    (256, 8, (1, 2, 128)), (1024, 8, (1, 8, 128)), (8192, 8, (4, 8, 256)),
+    (8448, 8, (4, 8, 264)), (100_000, 100, (2, 8, 6250)), (100_000, 196, (1, 8, 12500))])
+def test_geometry_unchanged_up_to_one_wave(batch, dim, want):
+    """The training batches, the evals of 8192, the largest batch 4 a warp
+    hold in one wave, and the widths past the deep tile's keep their
+    geometry."""
+    geom = ft.diag_geometry(batch, dim, H, NH, 132)
+    assert (geom.traj_per_warp, geom.warps_per_block, geom.blocks) == want
+    assert geom == _parent_geometry(batch, dim, H, NH, 132)
+
+
+@pytest.mark.parametrize("dim", [1, 2, 5, 8, 9, 16, 37, 100, 196])
+@pytest.mark.parametrize("n_sms", SMS)
+def test_geometry_of_the_parent_where_4_a_warp_fit(dim, n_sms):
+    """Wherever 4 trajectories a warp fit one wave, or the deep tile does
+    not take the plan, the geometry is the one before it."""
+    for batch in (1, 33, 255, 1024, 4001, 8192, 4 * n_sms * 16, 50_000, 131_072):
+        geom = ft.diag_geometry(batch, dim, H, NH, n_sms)
+        if dim > 8 or batch <= 4 * n_sms * 16:
+            assert geom == _parent_geometry(batch, dim, H, NH, n_sms), batch
+        else:
+            assert geom.traj_per_warp == 8, batch
+
+
+@pytest.mark.parametrize("channels, n_hidden, bf16, deep", [
+    (64, 2, False, True), (64, 0, False, True), (64, 4, False, True),
+    (64, 2, True, False),        # the bf16 control keeps to 4 a warp
+    (32, 2, False, False), (96, 2, False, False), (100, 2, False, False),
+    # the 8-warp block leaves no room for two an SM
+    (64, 5, False, False), (128, 1, False, False), (128, 2, False, False),
+])
+def test_deep_tile_only_where_it_holds_the_plan(channels, n_hidden, bf16, deep):
+    geom = ft.diag_geometry(131_072, 8, channels, n_hidden, 132, bf16)
+    assert (geom.traj_per_warp == 8) == deep
+    assert ft.deep_fits(8, channels, n_hidden, bf16) == deep
+    if deep:
+        # two blocks of 8 warps an SM, each with its reserved kilobyte
+        assert 2 * (ft.smem_bytes(8, channels, n_hidden, False, 8, 8) + 1024) <= 233_472
+    else:
+        assert geom.traj_per_warp == 4
+
+
+def test_deep_tile_shared_memory():
+    """The deep tile's block at D 8, H 64, 2 hidden layers: the weights as
+    before and 8 warps of 8 trajectories' rows, 77 728 bytes, two a block
+    in the SM's 228 KB."""
+    row = lambda n: (n + 3) // 4 * 4 + 4
+    weights = 64 * row(8) + 64 + 2 * 64 * row(64) + 128 + 8 * row(64) + 8
+    assert ft.smem_bytes(8, 64, 2, False, 8, 8) == 4 * (weights + 64 * (2 * 68 + 8)) == 77_728
+    assert 2 * (77_728 + 1024) <= 233_472
+
+
+def _c_constants():
+    """The deep tile's constants in csrc/fused_traj.cu."""
+    src = (Path(ft.__file__).parent.parent / "csrc" / "fused_traj.cu").read_text()
+    got = dict(re.findall(r"constexpr int (DEEP_\w+|DIAG_\w+) = ([^;]+);", src))
+    tw, elems, units = int(got["DEEP_TW"]), int(got["DEEP_ELEMS"]), int(got["DEEP_UNITS"])
+    assert got["DEEP_MAX_D"] == "DEEP_ELEMS * 32 / DEEP_TW"
+    return dict(tw=tw, max_d=elems * 32 // tw, units=units, warps=int(got["DIAG_MAX_WARPS"]),
+                elems=int(got["DIAG_ELEMS"]), diag_units=int(got["DIAG_UNITS"]))
+
+
+def _c_side_ok(batch, dim, channels, tw, warps, blocks, bf16):
+    """diag_geometry_ok of csrc/fused_traj.cu, transcribed."""
+    c = _c_constants()
+    deep = tw == c["tw"] and not bf16 and dim <= c["max_d"] and channels % c["units"] == 0
+    if tw not in (1, 2, 4) and not deep:
+        return False
+    if not 1 <= warps <= c["warps"] or batch < 1 or dim < 1 or channels < 1:
+        return False
+    if dim > c["elems"] * (32 // tw) or channels > 32 * c["diag_units"]:
+        return False
+    return blocks == -(-batch // (warps * tw))
+
+
+def test_c_constants_match_the_host():
+    c = _c_constants()
+    assert (c["tw"], c["max_d"], c["units"]) == (ft._DEEP_TW, ft._DEEP_MAX_DIM, ft._DEEP_UNITS)
+    assert (c["warps"], c["elems"]) == (ft._DIAG_MAX_WARPS, ft._DIAG_ELEMS)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("channels", [32, 64, 96, 128])
+@pytest.mark.parametrize("dim", [1, 4, 5, 8, 9, 16, 65])
+def test_check_geometry_takes_what_the_c_side_takes(dim, channels, bf16):
+    """check_geometry accepts and refuses, at every trajectories-a-warp up
+    to 8 and 1 to 8 warps, what diag_geometry_ok does (where the block's
+    shared memory fits, which the C side does not check)."""
+    cfg = ft.FusedTrajCfg(k_steps=100, dim=dim, channels=channels, n_hidden=NH, n_comp=4,
+                          clip=1e4, bf16=bf16)
+    for tw in (1, 2, 3, 4, 8, 16):
+        for warps in (1, 4, 8):
+            for batch, extra in ((131_072, 0), (1000, 0), (1000, 1)):
+                geom = ft.DiagGeometry(tw, warps, -(-batch // (warps * tw)) + extra)
+                want = _c_side_ok(batch, dim, channels, tw, warps, geom.blocks, bf16)
+                try:
+                    ft.check_geometry(cfg, batch, geom)
+                    took = True
+                except ValueError as err:
+                    took = False
+                    assert "shared memory" not in str(err) or want
+                    if "shared memory" in str(err):
+                        continue
+                assert took == want, (geom, batch)
+
+
+@pytest.mark.parametrize("cfg_kw, why", [
+    (dict(dim=9), "deep tile"), (dict(dim=8, channels=96), "deep tile"),
+    (dict(dim=8, bf16=True), "deep tile")])
+def test_check_geometry_refuses_the_deep_tile_beyond_its_shape(cfg_kw, why):
+    cfg = ft.FusedTrajCfg(**{**dict(k_steps=100, dim=8, channels=H, n_hidden=NH, n_comp=4,
+                                    clip=1e4), **cfg_kw})
+    with pytest.raises(ValueError, match=why):
+        ft.check_geometry(cfg, 131_072, ft.DiagGeometry(8, 8, 2048))
